@@ -1,0 +1,82 @@
+"""Configuration: the keys the ported query path reads.
+
+Counterpart of spark_rapids_tpu/conf.py, cut to the keys q6/q1 read,
+with the same names and defaults. Two TPU-only keys are not carried:
+``srt.sql.pallas.tileRows`` (the Pallas grid tile) and
+``srt.exec.pallas.groupAgg.maxCapacity`` (a float32 count ceiling; the
+port counts in float64).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional
+
+
+class ConfEntry:
+    """One registered configuration key."""
+
+    def __init__(self, key: str, conv: Callable[[Any], Any], default: Any,
+                 doc: str):
+        self.key = key
+        self.conv = conv
+        self.default = default
+        self.doc = doc
+
+    def get(self, settings: Dict[str, Any]) -> Any:
+        raw = settings.get(self.key)
+        return self.default if raw is None else self.conv(raw)
+
+
+def _bool(v) -> bool:
+    if isinstance(v, str):
+        return v.strip().lower() == "true"
+    return bool(v)
+
+
+def _positive_int(v) -> int:
+    n = int(v)
+    if n <= 0:
+        raise ValueError(f"expected a positive integer, got {v!r}")
+    return n
+
+
+_REGISTRY: Dict[str, ConfEntry] = {}
+
+
+def _register(entry: ConfEntry) -> ConfEntry:
+    _REGISTRY[entry.key] = entry
+    return entry
+
+
+BATCH_SIZE_ROWS = _register(ConfEntry(
+    "srt.sql.batchSizeRows", _positive_int, 1 << 20,
+    "Target rows per columnar batch."))
+
+PALLAS_ENABLED = _register(ConfEntry(
+    "srt.sql.pallas.enabled", _bool, True,
+    "Run eligible global filter+aggregate pipelines as one fused "
+    "reduction kernel per batch (tile_reduce)."))
+
+PALLAS_GROUPED_ENABLED = _register(ConfEntry(
+    "srt.sql.pallas.groupedAgg.enabled", _bool, True,
+    "Run eligible grouped sum/avg/count updates through the grouped "
+    "reduction kernel (tile_group_reduce) for batches of <= 1024 groups."))
+
+
+class SrtConf:
+    """Immutable snapshot of settings, one per session."""
+
+    def __init__(self, settings: Optional[Dict[str, Any]] = None):
+        self._settings = dict(settings or {})
+        for k, v in self._settings.items():
+            if k not in _REGISTRY:
+                raise KeyError(f"unknown config {k!r}; registered: "
+                               f"{sorted(_REGISTRY)}")
+            _REGISTRY[k].conv(v)  # fail at set time, not mid-query
+
+    def get(self, entry: ConfEntry):
+        return entry.get(self._settings)
+
+    @property
+    def batch_size_rows(self) -> int:
+        return self.get(BATCH_SIZE_ROWS)
