@@ -9,17 +9,27 @@ Needs one NVIDIA GPU (built for an H100: sm_90a), nvcc and triton. It
 2. builds the port's kernels from the sources in this checkout into
    spark_rapids_tpu_torch/build/ (nvcc for tile_group_reduce; Triton
    compiles each tile_reduce program at its first launch);
-3. holds each kernel against its plain PyTorch version on the card at the
-   shapes TPC-H q6 / q1 give it (tile_reduce at q6 and once more with a
-   min/max/NaN program, tile_group_reduce at q1: 1,048,576 rows, 15
-   lanes, 1024 buckets), and times kernel, plain version, bound and, for
-   tile_group_reduce, one ``index_add_`` call as the library yardstick;
-4. generates a 60,000,000-row TPC-H lineitem (SF10 size) in 1,048,576-row
-   chunks, moves each chunk to the card once, and runs q6 and q1 through
-   TpuSession: a checked run with the launch counts set to 0 just before
-   and read just after, then three timed runs; each result is held
-   against an independent numpy computation over the same host data;
-5. prints one JSON line of kernel numbers, then
+3. generates TPC-H lineitem at 60,000,000 rows (SF10 size), orders at
+   15,000,000 and customer at 1,500,000 (the JAX package's tpch_tables
+   ratios) in 1,048,576-row chunks and moves each chunk to the card once;
+4. holds each kernel against its plain PyTorch version on the card at the
+   shapes the main path gives it: tile_reduce (B1) at q6 and with a
+   min/max/NaN program, its string lane (B2) at the two string-filtered
+   aggregates' programs on a lineitem and an orders batch, and
+   tile_group_reduce (B3) at q1 (1,048,576 rows, 15 lanes, 1024
+   buckets) and, after q3 has run, on every q3 join output batch that
+   its partial aggregate hands the kernel; it times kernel, plain
+   version, bound and, for B3 at q1, one ``index_add_`` call as the
+   library yardstick; and it checks that murmur3 and the hash-claim
+   grouping give the card the CPU's bits;
+5. runs q6, q1, two string-filtered global aggregates (lineitem and
+   orders) and q3 through TpuSession: per query a checked run with the
+   launch counts set to 0 just before and read just after, then three
+   timed runs; each result is held against an independent numpy
+   computation over the same host data; for q3 it also logs each
+   operator's self time and, from one run under torch.profiler, the
+   device time by kernel and the device's idle share;
+6. prints one JSON line of kernel numbers, then
    {"ok": true, "device": {...}} as its last line.
 
 Any mismatch or error exits non-zero before the last line is printed.
@@ -83,6 +93,38 @@ def count_nodes(expr):
     return 1 + sum(count_nodes(c) for c in expr.children)
 
 
+def days(y, m, d):
+    return (datetime.date(y, m, d) - datetime.date(1970, 1, 1)).days
+
+
+def operator_self_ms(node, metrics, out):
+    """{operator: self time in ms} from the host-clock opTime metrics,
+    which include the time a node spends pulling its children."""
+    def incl(n):
+        m = metrics.get(n.exec_id, {}).get("opTime")
+        return m.value if m is not None else 0
+    name = node.node_description().split("[")[0]
+    key, k = name, 2
+    while key in out:
+        key, k = f"{name}#{k}", k + 1
+    out[key] = (incl(node) - sum(incl(c) for c in node.children)) / 1e6
+    for c in node.children:
+        operator_self_ms(c, metrics, out)
+    return out
+
+
+def host_match(np, hs, lit, prefix=False):
+    """numpy: rows of a host string lane equal to (or starting with)
+    the bytes ``lit``."""
+    lens = np.diff(hs.offsets)
+    hit = lens >= len(lit) if prefix else lens == len(lit)
+    last = max(hs.chars.shape[0] - 1, 0)
+    for j, byte in enumerate(lit):
+        pos = np.minimum(hs.offsets[:-1] + j, last)
+        hit &= hs.chars[pos] == byte
+    return hit
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -91,10 +133,16 @@ def main():
     import numpy as np
 
     from spark_rapids_tpu_torch.conf import SrtConf
-    from spark_rapids_tpu_torch.datagen import generate_chunk, lineitem_spec
+    from spark_rapids_tpu_torch.datagen import generate_chunk
     from spark_rapids_tpu_torch.exec import pallas_agg
+    from spark_rapids_tpu_torch.exec.aggregate import (PARTIAL,
+                                                       HashAggregateExec)
+    from spark_rapids_tpu_torch.exec.base import ExecContext
     from spark_rapids_tpu_torch.expr import aggregates as Agg
-    from spark_rapids_tpu_torch.expr.core import col
+    from spark_rapids_tpu_torch.expr import hashing as H
+    from spark_rapids_tpu_torch.expr.core import Alias, col, lit
+    from spark_rapids_tpu_torch.expr.predicates import InSet, IsNotNull
+    from spark_rapids_tpu_torch.expr.strings import StartsWith
     from spark_rapids_tpu_torch.models import tpch
     from spark_rapids_tpu_torch.ops import device_kernels as DK
     from spark_rapids_tpu_torch.ops import kernels as K
@@ -115,49 +163,76 @@ def main():
     log(f"build: nvcc tile_group_reduce {time.perf_counter() - t0:.1f} s -> "
         f"{os.path.relpath(DK.group_library_path())}")
 
-    # --- data: 60M rows, chunk by chunk onto the card ------------------------
+    # --- data: three tables, chunk by chunk onto the card --------------------
     t0 = time.perf_counter()
-    spec = lineitem_spec(ROWS)
-    n_chunks = -(-ROWS // BATCH_ROWS)
-    host = {k: [] for k in ("qty", "price", "disc", "tax", "ship", "rf",
-                            "ls")}
-    batches = []
-    for c in range(n_chunks):
-        chunk = generate_chunk(spec, c, BATCH_ROWS)
-        for key, name in (("qty", "l_quantity"), ("price", "l_extendedprice"),
-                          ("disc", "l_discount"), ("tax", "l_tax"),
-                          ("ship", "l_shipdate")):
-            host[key].append(chunk.column(name).values)
-        for key, name in (("rf", "l_returnflag"), ("ls", "l_linestatus")):
-            hs = chunk.column(name).values
-            check(bool(np.all(hs.lengths() == 1)), f"{name} is one byte")
-            host[key].append(hs.chars[hs.offsets[:-1]])
-        batches.append(table_to_batch(chunk, device=dev))
-    host = {k: np.concatenate(v) for k, v in host.items()}
+    host = {}
+    host_cols = {
+        "lineitem": {"qty": "l_quantity", "price": "l_extendedprice",
+                     "disc": "l_discount", "tax": "l_tax",
+                     "ship": "l_shipdate", "okey": "l_orderkey"},
+        "orders": {"okey": "o_orderkey", "ckey": "o_custkey",
+                   "total": "o_totalprice", "odate": "o_orderdate"},
+        "customer": {"ckey": "c_custkey"}}
+    host_strs = {"lineitem": {"rf": "l_returnflag", "ls": "l_linestatus"},
+                 "orders": {"prio": "o_orderpriority"},
+                 "customer": {"seg": "c_mktsegment"}}
+    batches = {}
+    for spec in tpch.tpch_table_specs(ROWS):
+        name = spec.name
+        lanes = {k: [] for k in list(host_cols[name]) + list(host_strs[name])}
+        batches[name] = []
+        for c in range(-(-spec.num_rows // BATCH_ROWS)):
+            chunk = generate_chunk(spec, c, BATCH_ROWS)
+            for key, cname in host_cols[name].items():
+                lanes[key].append(chunk.column(cname).values)
+            for key, cname in host_strs[name].items():
+                lanes[key].append(chunk.column(cname).values)
+            batches[name].append(table_to_batch(chunk, device=dev))
+        host[name] = {k: (np.concatenate(v) if k in host_cols[name]
+                          else type(v[0]).concat(v))
+                      for k, v in lanes.items()}
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     resident = torch.cuda.memory_allocated(dev)
-    log(f"data: {ROWS} rows in {len(batches)} batches on {dev}, "
-        f"{resident / 1e9:.3f} GB resident, generated+moved in {gen_s:.1f} s")
+    log(f"data: lineitem {ROWS}, orders {ROWS // 4}, customer {ROWS // 40} "
+        f"rows in {[len(b) for b in batches.values()]} batches on {dev}, "
+        f"{resident / 1e9:.3f} GB resident, generated+moved in "
+        f"{gen_s:.1f} s")
+    li, od, cu = host["lineitem"], host["orders"], host["customer"]
+    for key in ("rf", "ls"):
+        hs = li[key]
+        check(bool(np.all(hs.lengths() == 1)), f"l_{key} is one byte")
 
     conf = SrtConf({"srt.sql.batchSizeRows": BATCH_ROWS})
     session = TpuSession(conf, device=dev)
-    df = session.from_batches(batches)
+    dfs = {n: session.from_batches(b) for n, b in batches.items()}
+    df = dfs["lineitem"]
+    b0 = batches["lineitem"][0]
 
-    # --- kernel phase: B1 tile_reduce at q6's shapes ------------------------
-    b0 = batches[0]
-    q6_plan = tpch.q6(df).plan             # Aggregate <- Filter <- relation
-    filt = q6_plan.children[0]
+    # --- the string-filtered global aggregates (B2's main path) --------------
+    def li_str(lineitem):
+        return (lineitem
+                .filter(InSet(col("l_returnflag"), ["A", "R"])
+                        & (col("l_linestatus") == "F")
+                        & (col("l_shipdate") >= lit(datetime.date(1994, 1, 1)))
+                        & (col("l_shipdate") < lit(datetime.date(1995, 1, 1))))
+                .agg(Alias(Agg.Sum(col("l_extendedprice")
+                                   * col("l_discount")), "revenue"),
+                     Alias(Agg.CountStar(), "n")))
 
-    def b1_inputs(plan, batch):
-        arrays = []
-        for n in plan.ref_names:
-            c = batch.column(n)
-            arrays += [c.data, c.validity.view(torch.uint8)]
-        return arrays + [batch.live_mask().view(torch.uint8)]
+    def ord_str(orders):
+        return (orders
+                .filter((StartsWith(col("o_orderpriority"), "1-")
+                         | (col("o_orderpriority") == "2-HIGH"))
+                        & IsNotNull(col("o_orderpriority"))
+                        & (col("o_orderdate")
+                           < lit(datetime.date(1995, 3, 15))))
+                .agg(Alias(Agg.Sum(col("o_totalprice")), "total"),
+                     Alias(Agg.CountStar(), "n")))
 
+    # --- kernel phase: B1 tile_reduce and its string lane B2 -----------------
     def hold_b1(label, plan, batch):
-        arrays = b1_inputs(plan, batch)
+        arrays = plan.kernel_inputs(batch)
         t = time.perf_counter()
         got = DK.tile_reduce(arrays, plan.program, plan.kinds)
         torch.cuda.synchronize()
@@ -175,20 +250,46 @@ def main():
                                                      plan.kinds))
         plain = device_ms(torch, lambda: DK.tile_reduce_plain(
             arrays, plan.program, plan.kinds))
-        nbytes = sum(a.numel() * a.element_size() for a in arrays) \
-            + 8 * len(plan.kinds)
+        n = batch.capacity
+        # each scalar lane and the live mask read once, the partials
+        # written once; per string column its offsets and validity read
+        # once (offsets[i + 1] is row i + 1's offsets[i]) and per row at
+        # most the longest literal's bytes of chars
+        k = 2 * len(plan.ref_names)
+        nbytes = sum(a.numel() * a.element_size() for a in arrays[:k]) \
+            + n + 8 * len(plan.kinds)
+        for j, name in enumerate(plan.str_names):
+            offsets, _chars, validity = arrays[k + 3 * j:k + 3 * j + 3]
+            m = max(len(c) for p in str_preds(plan.pred) if p.name == name
+                    for c in p.choices)
+            lens = batch.column(name).lengths()
+            nbytes += offsets.numel() * offsets.element_size() \
+                + validity.numel() * validity.element_size() \
+                + int(torch.clamp(lens, max=m).sum())
         nodes = (count_nodes(plan.pred) if plan.pred is not None else 0) + \
             sum(count_nodes(b[1]) for b in plan.program.builders
                 if b[1] is not None) + len(plan.kinds)
-        bms, by = bound_ms(nbytes, batch.capacity * nodes)
+        bms, by = bound_ms(nbytes, n * nodes)
         log(f"tile_reduce[{label}]: matches plain (max_abs_err {max_err:.3e}),"
             f" first call {compile_s:.2f} s, kernel_ms {ms:.4f}, plain_ms "
             f"{plain:.4f}, bound_ms {bms:.4f} ({by}, {nbytes} B)")
         return max_err, ms, plain, bms, by
 
-    q6_fused = pallas_agg.PallasAggPlan(q6_plan.agg_exprs, filt.schema,
+    def str_preds(e):
+        if isinstance(e, DK.StrPred):
+            yield e
+        for c in e.children:
+            yield from str_preds(c)
+
+    def fused_plan(query, frame):
+        plan = query(frame).plan          # Aggregate <- Filter <- relation
+        filt = plan.children[0]
+        check(pallas_agg.pred_safe(filt.condition, filt.schema),
+              "predicate fuses into tile_reduce")
+        return pallas_agg.PallasAggPlan(plan.agg_exprs, filt.schema,
                                         filt.condition)
-    b1 = hold_b1("q6", q6_fused, b0)
+
+    b1 = hold_b1("q6", fused_plan(tpch.q6, df), b0)
     nan_batch = b0.select(b0.names)
     qty = nan_batch.column("l_quantity")
     qdata = qty.data.clone()
@@ -200,8 +301,16 @@ def main():
          (Agg.Max(col("l_quantity")), "mx"),
          (Agg.Min(col("l_shipdate")), "first_ship"),
          (Agg.Count(col("l_tax") / (col("l_discount") - 0.05)), "n")],
-        filt.schema, (col("l_tax") > 0.02) | (col("l_quantity") < 10.0))
+        b0.schema(), (col("l_tax") > 0.02) | (col("l_quantity") < 10.0))
     hold_b1("minmax_nan", mm_plan, nan_batch)
+    li_plan = fused_plan(li_str, df)
+    check(li_plan.str_names == ["l_linestatus", "l_returnflag"],
+          f"lineitem string lanes {li_plan.str_names}")
+    b2 = hold_b1("strings_lineitem", li_plan, b0)
+    od_plan = fused_plan(ord_str, dfs["orders"])
+    check(od_plan.str_names == ["o_orderpriority"],
+          f"orders string lanes {od_plan.str_names}")
+    hold_b1("strings_orders", od_plan, batches["orders"][0])
 
     # --- kernel phase: B3 tile_group_reduce at q1's shapes -------------------
     q1_plan = tpch.q1(df).plan             # Sort <- Aggregate <- Filter <- rel
@@ -212,8 +321,10 @@ def main():
     agg_in = [fn.children[0].eval(kept) if fn.children else None
               for fn, _ in q1_agg.agg_exprs]
     fns = [fn for fn, _ in q1_agg.agg_exprs]
-    perm, _live_s, gid_s, n_groups, _kb = K._prelude_exact(kept, key_cols)
-    gid, lanes = K.grouped_kernel_inputs(kept, perm, gid_s, agg_in, fns,
+    claimed, prelude = K._prelude_fast(kept, key_cols)
+    check(claimed, "hash-claim grouping resolves q1's keys")
+    n_groups = prelude[3]
+    gid, lanes = K.grouped_kernel_inputs(kept, prelude[2], agg_in, fns,
                                          DK.GROUP_BUCKETS)
     check(len(lanes) == 15 and gid.shape[0] == BATCH_ROWS,
           f"q1 gives {len(lanes)} lanes of {gid.shape[0]} rows")
@@ -237,24 +348,48 @@ def main():
         f"(max_abs_err {b3_err:.3e}), kernel_ms {b3_ms:.4f}, plain_ms "
         f"{b3_plain:.4f}, library_ms {b3_lib:.4f} (index_add_), bound_ms "
         f"{b3_bound:.4f} ({b3_by}, {nbytes} B)")
-    del stacked, gid64, kept, key_cols, agg_in, lanes, got, ref
+    del stacked, gid64, kept, key_cols, agg_in, lanes, got, ref, prelude
 
-    # --- q6 and q1 through TpuSession ----------------------------------------
-    def days(y, m, d):
-        return (datetime.date(y, m, d) - datetime.date(1970, 1, 1)).days
+    # --- hashing on the card gives the CPU's bits ----------------------------
+    ob0 = batches["orders"][0]
+    hash_cols = [b0.column(n) for n in ("l_orderkey", "l_returnflag",
+                                        "l_extendedprice", "l_shipdate")]
+    cpu_b0 = [table_to_batch(generate_chunk(tpch.tpch_table_specs(ROWS)[0],
+                                            0, BATCH_ROWS), device="cpu")]
+    cpu_cols = [cpu_b0[0].column(n) for n in ("l_orderkey", "l_returnflag",
+                                              "l_extendedprice",
+                                              "l_shipdate")]
+    check(torch.equal(H.murmur3_row_hash(hash_cols).cpu(),
+                      H.murmur3_row_hash(cpu_cols)),
+          "murmur3 on the card differs from the CPU")
+    okeys = [ob0.column("o_orderkey"), ob0.column("o_orderdate")]
+    cpu_ob0 = table_to_batch(generate_chunk(tpch.tpch_table_specs(ROWS)[1],
+                                            0, BATCH_ROWS), device="cpu")
+    ok_gpu, pre_gpu = K._prelude_fast(ob0, okeys)
+    ok_cpu, pre_cpu = K._prelude_fast(
+        cpu_ob0, [cpu_ob0.column("o_orderkey"), cpu_ob0.column("o_orderdate")])
+    check(ok_gpu == ok_cpu and pre_gpu[3] == pre_cpu[3]
+          and torch.equal(pre_gpu[2].cpu(), pre_cpu[2]),
+          "hash-claim grouping on the card differs from the CPU")
+    log(f"hashing: murmur3 row hash and hash-claim gids ({pre_gpu[3]} groups,"
+        f" resolved {ok_gpu}) on the card equal the CPU's")
+    del cpu_b0, cpu_cols, cpu_ob0, pre_gpu, pre_cpu
 
+    # --- numpy references ----------------------------------------------------
     def numpy_q6():
-        m = ((host["ship"] >= days(1994, 1, 1))
-             & (host["ship"] < days(1995, 1, 1)) & (host["disc"] >= 0.05)
-             & (host["disc"] <= 0.07) & (host["qty"] < 24.0))
-        return [{"revenue": float(np.sum(host["price"][m] * host["disc"][m]))}]
+        m = ((li["ship"] >= days(1994, 1, 1)) & (li["ship"] < days(1995, 1, 1))
+             & (li["disc"] >= 0.05) & (li["disc"] <= 0.07)
+             & (li["qty"] < 24.0))
+        return [{"revenue": float(np.sum(li["price"][m] * li["disc"][m]))}]
 
     def numpy_q1():
-        m = host["ship"] <= days(1998, 9, 2)
-        code = host["rf"][m].astype(np.int64) * 256 + host["ls"][m]
+        m = li["ship"] <= days(1998, 9, 2)
+        rf = li["rf"].chars[li["rf"].offsets[:-1]]
+        ls = li["ls"].chars[li["ls"].offsets[:-1]]
+        code = rf[m].astype(np.int64) * 256 + ls[m]
         keys, g = np.unique(code, return_inverse=True)
-        price, disc = host["price"][m], host["disc"][m]
-        qty, tax = host["qty"][m], host["tax"][m]
+        price, disc = li["price"][m], li["disc"][m]
+        qty, tax = li["qty"][m], li["tax"][m]
         disc_price = price * (1.0 - disc)
 
         def s(w):
@@ -274,6 +409,44 @@ def main():
             rows.append(r)
         return rows
 
+    def numpy_li_str():
+        m = ((host_match(np, li["rf"], b"A") | host_match(np, li["rf"], b"R"))
+             & host_match(np, li["ls"], b"F")
+             & (li["ship"] >= days(1994, 1, 1))
+             & (li["ship"] < days(1995, 1, 1)))
+        return [{"revenue": float(np.sum(li["price"][m] * li["disc"][m])),
+                 "n": int(m.sum())}]
+
+    def numpy_ord_str():
+        m = ((host_match(np, od["prio"], b"1-", prefix=True)
+              | host_match(np, od["prio"], b"2-HIGH"))
+             & (od["odate"] < days(1995, 3, 15)))
+        return [{"total": float(np.sum(od["total"][m])), "n": int(m.sum())}]
+
+    def numpy_q3():
+        cutoff = days(1995, 3, 15)
+        ckeys = np.sort(cu["ckey"][host_match(np, cu["seg"], b"BUILDING")])
+        om = od["odate"] < cutoff
+        okey, ockey, odate = od["okey"][om], od["ckey"][om], od["odate"][om]
+        at = np.minimum(np.searchsorted(ckeys, ockey), max(len(ckeys) - 1, 0))
+        hit = ckeys[at] == ockey          # c_custkey is unique
+        okey, odate = okey[hit], odate[hit]
+        order = np.argsort(okey, kind="stable")
+        okey, odate = okey[order], odate[order]
+        lm = li["ship"] > cutoff
+        lkey = li["okey"][lm]
+        rev = li["price"][lm] * (1.0 - li["disc"][lm])
+        at = np.minimum(np.searchsorted(okey, lkey), max(len(okey) - 1, 0))
+        hit = okey[at] == lkey            # o_orderkey is unique
+        groups, g = np.unique(lkey[hit], return_inverse=True)
+        sums = np.bincount(g, weights=rev[hit], minlength=len(groups))
+        gdate = odate[np.searchsorted(okey, groups)]
+        top = np.argsort(-sums, kind="stable")[:10]
+        epoch = datetime.date(1970, 1, 1)
+        return [{"o_orderkey": int(groups[i]),
+                 "o_orderdate": epoch + datetime.timedelta(days=int(gdate[i])),
+                 "revenue": float(sums[i])} for i in top], int(hit.sum())
+
     def same_rows(got, ref):
         if len(got) != len(ref):
             return False
@@ -288,58 +461,193 @@ def main():
                     return False
         return True
 
+    t = time.perf_counter()
+    ref6, ref1 = numpy_q6(), numpy_q1()
+    ref_li, ref_od = numpy_li_str(), numpy_ord_str()
+    ref3, q3_pairs = numpy_q3()
+    log(f"numpy reference: {time.perf_counter() - t:.1f} s; q1 groups "
+        f"{[(r['l_returnflag'], r['l_linestatus']) for r in ref1]}; q3 "
+        f"joins {q3_pairs} lineitem rows; q3 top order keys "
+        f"{[r['o_orderkey'] for r in ref3]}")
+
+    def read_counts():
+        return {"tile_reduce": DK.tile_reduce.launches,
+                "tile_reduce_str": DK.tile_reduce.str_launches,
+                "tile_group_reduce": DK.tile_group_reduce.launches}
+
     launches = {}
 
-    def run_query(name, query, ref, kernel_fn):
+    def run_query(name, make, ref, rows_in, expect, at_least=None):
+        """A checked run (counts reset just before, read just after),
+        then three timed runs; ``expect`` maps launch counters to the
+        counts each run must give, ``at_least`` to a least count."""
+        at_least = at_least or {}
         DK.reset_counts()
         torch.cuda.synchronize()
-        rows = query(df).collect()
-        counts = (DK.tile_reduce.launches, DK.tile_group_reduce.launches)
+        rows = make().collect()
+        counts = read_counts()
+        metrics = session._last_execution[1].metric_totals()
         check(same_rows(rows, ref), f"{name}: {rows} != numpy {ref}")
-        check(kernel_fn.launches == len(batches),
-              f"{name}: {kernel_fn.__name__} launched {kernel_fn.launches} "
-              f"times for {len(batches)} batches")
-        launches[kernel_fn.__name__] = kernel_fn.launches
+        for key, n in expect.items():
+            check(counts[key] == n, f"{name}: {key} launched {counts[key]} "
+                  f"times, expected {n}")
+        for key, n in at_least.items():
+            check(counts[key] >= n, f"{name}: {key} launched {counts[key]} "
+                  f"times, expected at least {n}")
+        launches[name] = counts
         torch.cuda.reset_peak_memory_stats(dev)
         walls = []
         for _ in range(3):
             DK.reset_counts()
             torch.cuda.synchronize()
             t = time.perf_counter()
-            rows = query(df).collect()
+            rows = make().collect()
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t)
             check(same_rows(rows, ref), f"{name}: timed run disagrees")
-            check(kernel_fn.launches == len(batches),
-                  f"{name}: timed run launched {kernel_fn.launches}")
+            now = read_counts()
+            check(all(now[k] == n for k, n in expect.items())
+                  and all(now[k] >= n for k, n in at_least.items()),
+                  f"{name}: timed run launched {now}")
         wall = statistics.median(walls)
-        log(f"{name}: matches numpy over {ROWS} rows; launches "
-            f"(tile_reduce, tile_group_reduce) = {counts}; wall s median "
-            f"{wall:.4f} of {[round(w, 4) for w in walls]}; rows/s "
-            f"{ROWS / wall:.4e}; max_memory_allocated "
+        log(f"{name}: matches numpy over {rows_in} rows; launches {counts}; "
+            f"wall s median {wall:.4f} of {[round(w, 4) for w in walls]}; "
+            f"rows/s {rows_in / wall:.4e}; max_memory_allocated "
             f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB")
-        return rows
+        return metrics
 
-    t = time.perf_counter()
-    ref6, ref1 = numpy_q6(), numpy_q1()
-    log(f"numpy reference: {time.perf_counter() - t:.1f} s; q1 groups "
-        f"{[(r['l_returnflag'], r['l_linestatus']) for r in ref1]}")
-    run_query("q6", tpch.q6, ref6, DK.tile_reduce)
-    run_query("q1", tpch.q1, ref1, DK.tile_group_reduce)
+    n_li, n_od = len(batches["lineitem"]), len(batches["orders"])
+    run_query("q6", lambda: tpch.q6(df), ref6, ROWS,
+              {"tile_reduce": n_li, "tile_reduce_str": 0})
+    run_query("q1", lambda: tpch.q1(df), ref1, ROWS,
+              {"tile_group_reduce": n_li})
+    run_query("strings_lineitem", lambda: li_str(df), ref_li, ROWS,
+              {"tile_reduce_str": n_li})
+    run_query("strings_orders", lambda: ord_str(dfs["orders"]), ref_od,
+              ROWS // 4, {"tile_reduce_str": n_od})
+    # q3's partial aggregate takes B3 for join output batches of at most
+    # 1024 groups (the hot keys' chunks), the hash path for the rest
+    q3_metrics = run_query(
+        "q3", lambda: tpch.q3(dfs["customer"], dfs["orders"], df), ref3,
+        ROWS, {"tile_reduce": 0}, at_least={"tile_group_reduce": 1})
+    log("q3 operators: " + ", ".join(
+        f"{k}={q3_metrics.get(k, 0)}" for k in (
+            "joinOverflowRetries", "joinSubPartitions",
+            "joinSubPartitionSkew", "bloomFilteredRows", "claimResolved",
+            "claimFallbacks", "pallasBatches")))
 
+    # --- kernel phase: B3 tile_group_reduce at q3's shapes -------------------
+    # q3's partial aggregate hands the kernel the join output batches that
+    # the hash-claim prelude resolves to at most 1024 groups: run its join
+    # subtree again, take each batch the grouped lane would take and hold
+    # the kernel against its plain version on it
+    def partial_agg(node):
+        if isinstance(node, HashAggregateExec) and node.mode == PARTIAL:
+            return node
+        return next(filter(None, map(partial_agg, node.children)), None)
+
+    q3_agg = partial_agg(session._last_execution[0])
+    check(q3_agg is not None, "q3 has a partial aggregate")
+    fns3 = [fn for fn, _ in q3_agg.agg_exprs]
+    b3_q3 = {"batches": 0, "rows": [], "groups": [], "err": 0.0}
+    widest = None
+    for batch in q3_agg.children[0].execute(ExecContext(conf, dev)):
+        if batch.num_rows == 0:
+            continue
+        key_cols, agg_in = q3_agg._eval_update_inputs(batch)
+        prelude, _, kernel_in = K.grouped_lane_inputs(batch, key_cols, agg_in,
+                                                      fns3)
+        if kernel_in is None:
+            continue
+        gid, lanes = kernel_in
+        got = torch.stack(DK.tile_group_reduce(gid, lanes))
+        ref = torch.stack(DK.tile_group_reduce_plain(gid, lanes))
+        check(torch.allclose(got, ref, rtol=RTOL, atol=0.0),
+              f"tile_group_reduce disagrees with its plain version on q3 "
+              f"batch {b3_q3['batches']} ({batch.num_rows} rows)")
+        b3_q3["err"] = max(b3_q3["err"], float((got - ref).abs().max()))
+        b3_q3["batches"] += 1
+        b3_q3["rows"].append(batch.num_rows)
+        b3_q3["groups"].append(prelude[3])
+        if widest is None or batch.num_rows > widest[0]:
+            widest = (batch.num_rows, prelude[3], gid, lanes)
+    check(b3_q3["batches"] == launches["q3"]["tile_group_reduce"],
+          f"{b3_q3['batches']} q3 batches take the grouped lane, the main "
+          f"path launched {launches['q3']['tile_group_reduce']}")
+    rows3, groups3, gid, lanes = widest
+    b3_q3_ms = device_ms(torch, lambda: DK.tile_group_reduce(gid, lanes))
+    b3_q3_plain = device_ms(torch,
+                            lambda: DK.tile_group_reduce_plain(gid, lanes))
+    nbytes = gid.numel() * 4 + sum(v.numel() * 8 for v in lanes) \
+        + len(lanes) * DK.GROUP_BUCKETS * 8
+    b3_q3_bound, b3_q3_by = bound_ms(nbytes, gid.numel() * len(lanes))
+    log(f"tile_group_reduce[q3]: {b3_q3['batches']} batches ({len(lanes)} "
+        f"lanes, {min(b3_q3['rows'])}-{max(b3_q3['rows'])} rows, "
+        f"{min(b3_q3['groups'])}-{max(b3_q3['groups'])} groups) match plain "
+        f"(max_abs_err {b3_q3['err']:.3e}); on the widest ({rows3} rows of "
+        f"capacity {gid.numel()}, {groups3} groups) kernel_ms "
+        f"{b3_q3_ms:.4f}, plain_ms {b3_q3_plain:.4f}, bound_ms "
+        f"{b3_q3_bound:.4f} ({b3_q3_by}, {nbytes} B); launches q1 "
+        f"{launches['q1']['tile_group_reduce']}, q3 "
+        f"{launches['q3']['tile_group_reduce']}")
+    del widest, gid, lanes, got, ref, kernel_in, prelude, key_cols, agg_in
+
+    # --- where q3's time goes ------------------------------------------------
+    physical, ctx = session._last_execution  # the last timed q3 run
+    self_ms = operator_self_ms(physical, ctx.metrics, {})
+    log("q3 operator self time (host clock, ms, last timed run): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in sorted(self_ms.items(),
+                                          key=lambda kv: -kv[1])))
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        rows = tpch.q3(dfs["customer"], dfs["orders"], df).collect()
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t
+    check(same_rows(rows, ref3), "q3: profiled run disagrees")
+    kernel_us = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            kernel_us[e.key] = kernel_us.get(e.key, 0.0) + us
+    busy = sum(kernel_us.values()) / 1e6
+    if busy > 0:
+        log(f"q3 profiled run: wall {prof_wall:.4f} s (profiler on), device "
+            f"kernels {busy:.4f} s over {len(kernel_us)} kernel names, idle "
+            f"share {1 - busy / prof_wall:.3f}")
+        for name, us in sorted(kernel_us.items(), key=lambda kv: -kv[1])[:12]:
+            log(f"  q3 kernel {us / 1e3:9.3f} ms {us / 1e4 / busy:5.1f}%  "
+                f"{name[:110]}")
+    else:
+        log("q3 profiled run: the profiler recorded no device time")
+
+    b2_launches = launches["strings_lineitem"]["tile_reduce_str"] + \
+        launches["strings_orders"]["tile_reduce_str"]
     kernels = [
         {"name": "tile_reduce", "route": "triton",
          "source": "spark_rapids_tpu_torch/ops/device_kernels.py",
          "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:78",
-         "launches": launches["tile_reduce"], "max_abs_err": b1[0],
+         "launches": launches["q6"]["tile_reduce"], "max_abs_err": b1[0],
          "ms": b1[1], "plain_ms": b1[2], "bound_ms": b1[3],
          "bound_by": b1[4], "library_ms": None},
+        {"name": "tile_reduce_string_lane", "route": "triton",
+         "source": "spark_rapids_tpu_torch/ops/device_kernels.py",
+         "replaces": "spark_rapids_tpu/exec/pallas_agg.py:60",
+         "launches": b2_launches, "max_abs_err": b2[0],
+         "ms": b2[1], "plain_ms": b2[2], "bound_ms": b2[3],
+         "bound_by": b2[4], "library_ms": None},
         {"name": "tile_group_reduce", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/tile_group_reduce.cu",
          "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:152",
-         "launches": launches["tile_group_reduce"], "max_abs_err": b3_err,
-         "ms": b3_ms, "plain_ms": b3_plain, "bound_ms": b3_bound,
-         "bound_by": b3_by, "library_ms": b3_lib},
+         "launches": launches["q1"]["tile_group_reduce"]
+         + launches["q3"]["tile_group_reduce"],
+         "max_abs_err": max(b3_err, b3_q3["err"]), "ms": b3_ms,
+         "plain_ms": b3_plain,
+         "bound_ms": b3_bound, "bound_by": b3_by, "library_ms": b3_lib},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

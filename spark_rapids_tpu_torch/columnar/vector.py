@@ -31,14 +31,43 @@ def live_mask(capacity: int, num_rows: int, device) -> torch.Tensor:
     return torch.arange(capacity, device=device) < num_rows
 
 
-def compaction_indices(keep: torch.Tensor) -> Tuple[torch.Tensor, int]:
-    """Stable-compaction gather map and the kept count: entry j (for
-    j < count) is the position of the j-th kept row; tail entries are 0
-    (callers mask dead output rows)."""
+def compaction_indices(keep: torch.Tensor, out_size: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, int]:
+    """Stable-compaction gather map of ``out_size`` entries (default:
+    ``keep``'s length) and the kept count: entry j (for j < count) is
+    the position of the j-th kept row; tail entries are 0 (callers mask
+    dead output rows)."""
     pos = torch.nonzero(keep).flatten()
-    idx = torch.zeros(keep.shape[0], dtype=torch.int64, device=keep.device)
+    size = keep.shape[0] if out_size is None else out_size
+    if pos.numel() > size:
+        raise ValueError(f"{pos.numel()} kept rows exceed {size} slots")
+    idx = torch.zeros(size, dtype=torch.int64, device=keep.device)
     idx[:pos.numel()] = pos
     return idx, pos.numel()
+
+
+def rows_from_offsets(starts: torch.Tensor, lens: torch.Tensor,
+                      out_size: int) -> torch.Tensor:
+    """Owning row per flat element position (copied from the JAX
+    package's columnar/vector.py). Row r owns positions
+    [starts[r], starts[r] + lens[r]); spans are contiguous and
+    ascending. Returns int64[out_size]; positions past the last span map
+    to the last row (callers mask with a total-length check). One
+    scatter-max of each non-empty row's index at its start, then a
+    running max."""
+    n = starts.shape[0]
+    dev = starts.device
+    if n == 0:
+        return torch.zeros(out_size, dtype=torch.int64, device=dev)
+    # a slot past the end takes the empty rows' (dropped) marks
+    where = torch.where(lens > 0, starts.to(torch.int64),
+                        torch.full((), out_size, dtype=torch.int64,
+                                   device=dev)).clamp(max=out_size)
+    mark = torch.full((out_size + 1,), -1, dtype=torch.int64, device=dev)
+    mark.scatter_reduce_(0, where, torch.arange(n, device=dev), "amax")
+    row = torch.cummax(mark[:out_size], 0).values if out_size else \
+        mark[:0]
+    return row.clamp(0, n - 1)
 
 
 def _round_up(n: int, multiple: int) -> int:

@@ -1,7 +1,7 @@
 """Configuration: the keys the ported query path reads.
 
-Counterpart of spark_rapids_tpu/conf.py, cut to the keys q6/q1 read,
-with the same names and defaults. Two TPU-only keys are not carried:
+Counterpart of spark_rapids_tpu/conf.py, cut to the keys q6/q1/q3
+read, with the same names and defaults. Two TPU-only keys are not carried:
 ``srt.sql.pallas.tileRows`` (the Pallas grid tile) and
 ``srt.exec.pallas.groupAgg.maxCapacity`` (a float32 count ceiling; the
 port counts in float64).
@@ -61,6 +61,37 @@ PALLAS_GROUPED_ENABLED = _register(ConfEntry(
     "srt.sql.pallas.groupedAgg.enabled", _bool, True,
     "Run eligible grouped sum/avg/count updates through the grouped "
     "reduction kernel (tile_group_reduce) for batches of <= 1024 groups."))
+
+
+BROADCAST_THRESHOLD_ROWS = _register(ConfEntry(
+    "srt.sql.broadcastRowThreshold", _positive_int, 100_000,
+    "Estimated build-side row count at or below which a join uses a "
+    "broadcast hash join instead of a shuffled one."))
+
+JOIN_SUB_PARTITION_ROWS = _register(ConfEntry(
+    "srt.sql.join.subPartitionRows", _positive_int, 1 << 22,
+    "Join build sides above this many rows are hash-split into "
+    "sub-partitions and joined pair-wise, so the build working set "
+    "stays bounded."))
+
+JOIN_GROWTH_STEPS = _register(ConfEntry(
+    "srt.sql.join.outputGrowthSteps", _positive_int, 4,
+    "Max output-capacity regrowths for a join whose true match count "
+    "overflows the estimate."))
+
+JOIN_BLOOM_ENABLED = _register(ConfEntry(
+    "srt.sql.join.bloomFilter.enabled", _bool, True,
+    "Build a bloom filter over the materialized build side of inner "
+    "hash joins and pre-filter probe batches with it."))
+
+JOIN_BLOOM_MIN_PROBE_ROWS = _register(ConfEntry(
+    "srt.sql.join.bloomFilter.minProbeRows", _positive_int, 4096,
+    "Skip the bloom pre-filter for probe batches smaller than this."))
+
+JOIN_BLOOM_BITS_PER_KEY = _register(ConfEntry(
+    "srt.sql.join.bloomFilter.bitsPerKey", _positive_int, 10,
+    "Bloom filter sizing: bits per build-side key (rounded up to a power "
+    "of two, clamped to [2^10, 2^24] bits)."))
 
 
 class SrtConf:

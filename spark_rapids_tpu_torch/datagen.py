@@ -1,4 +1,4 @@
-"""Scale-test data generation (TPC-H lineitem shape).
+"""Scale-test data generation (TPC-H lineitem and orders shapes).
 
 Counterpart of spark_rapids_tpu/datagen.py: declarative table specs with
 per-(table, column, chunk) seeding, so any chunk regenerates on its own
@@ -131,4 +131,19 @@ def lineitem_spec(scale_rows: int) -> TableSpec:
         ColumnSpec("l_linestatus", dt.STRING, "choice",
                    choices=["O", "F"]),
         ColumnSpec("l_shipdate", dt.DATE, "uniform", lo=8036, hi=10561),
+    ], scale_rows)
+
+
+def orders_spec(scale_rows: int) -> TableSpec:
+    """TPC-H orders as the JAX package generates it (a q3 table)."""
+    return TableSpec("orders", [
+        ColumnSpec("o_orderkey", dt.INT64, "seq"),
+        ColumnSpec("o_custkey", dt.INT64, "zipf", cardinality=150_000),
+        ColumnSpec("o_totalprice", dt.FLOAT64, "uniform", lo=800,
+                   hi=600_000),
+        ColumnSpec("o_orderdate", dt.DATE, "uniform", lo=8036, hi=10561),
+        ColumnSpec("o_orderpriority", dt.STRING, "choice",
+                   choices=["1-URGENT", "2-HIGH", "3-MEDIUM",
+                            "4-NOT SPECIFIED", "5-LOW"]),
+        ColumnSpec("o_shippriority", dt.INT32, "choice", choices=[0]),
     ], scale_rows)

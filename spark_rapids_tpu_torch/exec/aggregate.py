@@ -86,19 +86,21 @@ class HashAggregateExec(TpuExec):
                   for fn, _ in self.agg_exprs]
         return key_cols, agg_in
 
-    def _update(self, batch: ColumnarBatch) -> ColumnarBatch:
+    def _update(self, batch: ColumnarBatch, stats: dict) -> ColumnarBatch:
         key_cols, agg_in = self._eval_update_inputs(batch)
         key_batch, states = K.group_aggregate(
-            batch, key_cols, agg_in, [fn for fn, _ in self.agg_exprs])
+            batch, key_cols, agg_in, [fn for fn, _ in self.agg_exprs],
+            stats=stats)
         return self._pack(key_batch, states)
 
-    def _update_pallas(self, batch: ColumnarBatch
+    def _update_pallas(self, batch: ColumnarBatch, stats: dict
                        ) -> Tuple[ColumnarBatch, bool]:
         """_update through the grouped kernel lane; returns (packed,
         whether the kernel ran)."""
         key_cols, agg_in = self._eval_update_inputs(batch)
         key_batch, states, used = K.group_aggregate_pallas(
-            batch, key_cols, agg_in, [fn for fn, _ in self.agg_exprs])
+            batch, key_cols, agg_in, [fn for fn, _ in self.agg_exprs],
+            stats=stats)
         return self._pack(key_batch, states), used
 
     def _pack(self, key_batch: ColumnarBatch,
@@ -130,10 +132,12 @@ class HashAggregateExec(TpuExec):
         return key_cols, states
 
     # --- phase 2: merge partials + finalize ---
-    def _merge_finalize(self, batch: ColumnarBatch) -> ColumnarBatch:
+    def _merge_finalize(self, batch: ColumnarBatch,
+                        stats: dict) -> ColumnarBatch:
         key_cols, states = self._unpack(batch)
         key_batch, merged, num_groups = K.group_merge(
-            batch, key_cols, states, [fn for fn, _ in self.agg_exprs])
+            batch, key_cols, states, [fn for fn, _ in self.agg_exprs],
+            stats=stats)
         if not self.group_exprs:
             # a global aggregate has exactly one output row, even on
             # empty input (count() = 0, sum() = null)
@@ -153,17 +157,27 @@ class HashAggregateExec(TpuExec):
         return self._pallas_grouped_gate and ctx.conf.get(PALLAS_ENABLED) \
             and ctx.conf.get(PALLAS_GROUPED_ENABLED)
 
+    def _record_claims(self, ctx: ExecContext, stats: dict) -> None:
+        """Hash-claim grouping outcomes (claimResolved: the claim
+        prelude grouped the batch; claimFallbacks: it met a collision
+        or an unclaimed row and the sort path ran)."""
+        for name, n in stats.items():
+            ctx.metric(self.exec_id, name, Metric.DEBUG).add(n)
+        stats.clear()
+
     def _partial_stream(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
         grouped = self._grouped_lane_on(ctx)
         pb = ctx.metric(self.exec_id, "pallasBatches", Metric.DEBUG)
+        stats: dict = {}
         for batch in self.children[0].execute(ctx):
             if batch.num_rows == 0:
                 continue
             if grouped:
-                partial, used = self._update_pallas(batch)
+                partial, used = self._update_pallas(batch, stats)
                 pb.add(int(used))
             else:
-                partial = self._update(batch)
+                partial = self._update(batch, stats)
+            self._record_claims(ctx, stats)
             yield partial
 
     def _merge_partials(self, ctx: ExecContext,
@@ -176,7 +190,10 @@ class HashAggregateExec(TpuExec):
         cap = choose_capacity(sum(p.num_rows for p in held))
         merged_in = held[0] if len(held) == 1 else \
             K.concat_batches(held, cap)
-        yield self._merge_finalize(merged_in)
+        stats: dict = {}
+        out = self._merge_finalize(merged_in, stats)
+        self._record_claims(ctx, stats)
+        yield out
 
     def do_execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
         if self.mode == FINAL:

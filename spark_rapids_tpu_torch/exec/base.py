@@ -40,17 +40,31 @@ class Metric:
 
 class ExecContext:
     """Per-query execution context: conf, the session's device and the
-    metrics sink."""
+    metrics sink. The device is ``cuda`` unless the caller asks for the
+    CPU, as for TpuSession; a context asked for CUDA where there is none
+    raises."""
 
-    def __init__(self, conf: Optional[SrtConf] = None, device="cpu"):
+    def __init__(self, conf: Optional[SrtConf] = None, device="cuda"):
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("ExecContext: CUDA is not available here; "
+                               "pass device='cpu' to run on the CPU")
         self.conf = conf or SrtConf()
-        self.device = torch.device(device)
+        self.device = device
         self.metrics: Dict[str, Dict[str, Metric]] = {}
 
     def metric(self, exec_id: str, name: str, level: str = Metric.MODERATE,
                unit: str = "") -> Metric:
         return self.metrics.setdefault(exec_id, {}).setdefault(
             name, Metric(name, level, unit))
+
+    def metric_totals(self) -> Dict[str, int]:
+        """Each metric name summed over the query's operators."""
+        totals: Dict[str, int] = {}
+        for per_exec in self.metrics.values():
+            for name, m in per_exec.items():
+                totals[name] = totals.get(name, 0) + m.value
+        return totals
 
 
 class TpuExec:

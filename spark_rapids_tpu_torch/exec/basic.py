@@ -1,7 +1,7 @@
 """Basic physical operators: scan over device batches, project, filter.
 
 Counterpart of spark_rapids_tpu/exec/basic.py (BatchScanExec,
-ProjectExec, FilterExec).
+ProjectExec, FilterExec, LocalLimitExec).
 """
 
 from __future__ import annotations
@@ -72,3 +72,27 @@ class FilterExec(TpuExec):
 
     def node_description(self) -> str:
         return f"Filter[{self.condition!r}]"
+
+
+class LocalLimitExec(TpuExec):
+    """LIMIT n within the stream."""
+
+    def __init__(self, child: TpuExec, limit: int):
+        super().__init__(child)
+        self.limit = limit
+
+    @property
+    def output_schema(self) -> Schema:
+        return self.children[0].output_schema
+
+    def do_execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
+        remaining = self.limit
+        for batch in self.children[0].execute(ctx):
+            if remaining <= 0:
+                return
+            out = K.local_limit(batch, remaining)
+            remaining -= out.num_rows
+            yield out
+
+    def node_description(self) -> str:
+        return f"LocalLimit[{self.limit}]"

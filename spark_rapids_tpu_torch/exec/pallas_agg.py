@@ -9,13 +9,18 @@ each input column is read once and no filtered batch is materialized.
 
 All lanes stay float64, so nothing here demotes types (the JAX
 package's ``_demote_f64`` / ``no_f64`` exist for the TPU's float32
-tiles). String predicates (the JAX package's padded-byte lane,
-pallas_agg.py:60-172) are not ported yet: ``pred_safe`` rejects them and
-the aggregate then runs over the FilterExec output.
+tiles). String predicates on a string column (``col = 'lit'``,
+``col IN ('a', ...)``, ``startswith``, ``IS [NOT] NULL``) are rewritten
+into kernel-lane nodes (``ops.device_kernels.StrPred`` / ``StrNull``,
+the counterparts of the JAX package's ``_PaddedStrPred`` /
+``_PaddedStrNull``): the column then rides into the kernel as its Arrow
+offsets, chars and validity, and is compared there byte by byte (B2,
+the string-predicate lane), with no padded copy.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -27,6 +32,7 @@ from ..expr import aggregates as Agg
 from ..expr import arithmetic as A
 from ..expr import core as E
 from ..expr import predicates as Pr
+from ..expr import strings as S
 from ..ops import device_kernels as DK
 
 _SAFE_NODES = (
@@ -42,8 +48,56 @@ _FLOATY = (dt.FLOAT32, dt.FLOAT64)
 _MINMAX_DTYPES = (dt.FLOAT32, dt.FLOAT64, dt.DATE, dt.INT8, dt.INT16)
 
 
+def _rewrite_string_preds(pred: E.Expression, schema):
+    """Replace eligible string predicate subtrees (col = 'lit',
+    col IN ('a', 'b'), startswith, IS [NOT] NULL) with kernel-lane
+    nodes; returns (rewritten, {string column names}), or (pred, set())
+    unchanged when nothing matched."""
+    schema_d = dict(schema)
+    found: set = set()
+
+    def is_str_ref(e):
+        return isinstance(e, E.ColumnRef) and \
+            schema_d.get(e.name) == dt.STRING
+
+    def rw(e: E.Expression):
+        if isinstance(e, Pr.EqualTo):
+            l, r = e.children
+            if is_str_ref(l) and isinstance(r, E.Literal) and \
+                    isinstance(r.value, str):
+                found.add(l.name)
+                return DK.StrPred(l.name, [S.utf8(r.value)])
+            if is_str_ref(r) and isinstance(l, E.Literal) and \
+                    isinstance(l.value, str):
+                found.add(r.name)
+                return DK.StrPred(r.name, [S.utf8(l.value)])
+        if isinstance(e, Pr.InSet) and is_str_ref(e.children[0]) and \
+                all(isinstance(v, str) for v in e.values):
+            found.add(e.children[0].name)
+            return DK.StrPred(e.children[0].name,
+                              [S.utf8(v) for v in e.values])
+        if isinstance(e, S.StartsWith) and is_str_ref(e.children[0]):
+            found.add(e.children[0].name)
+            return DK.StrPred(e.children[0].name, [S.utf8(e.prefix)],
+                              prefix=True)
+        if isinstance(e, (Pr.IsNull, Pr.IsNotNull)) and \
+                is_str_ref(e.children[0]):
+            found.add(e.children[0].name)
+            return DK.StrNull(e.children[0].name,
+                              isinstance(e, Pr.IsNotNull))
+        if not e.children:
+            return e
+        out = copy.copy(e)
+        out.children = [rw(c) for c in e.children]
+        return out
+
+    return rw(pred), found
+
+
 def _expr_safe(expr: E.Expression, schema) -> bool:
     """True when ``expr`` is inside the subset tile_reduce lowers."""
+    if isinstance(expr, (DK.StrPred, DK.StrNull)):
+        return True  # byte compares over the string lanes, exact
     if not isinstance(expr, _SAFE_NODES):
         return False
     if isinstance(expr, E.Literal) and expr.value is None:
@@ -69,6 +123,10 @@ class PallasAggPlan:
     def __init__(self, agg_exprs, input_schema, pred: Optional[E.Expression]):
         self.input_schema = list(input_schema)
         schema = self.input_schema
+        self.str_names: List[str] = []
+        if pred is not None:
+            pred, snames = _rewrite_string_preds(pred, schema)
+            self.str_names = sorted(snames)
         self.pred = pred
         self.kinds: List[str] = []
         #: per aggregate: [(state_name, slot_index, state_dtype)]
@@ -108,7 +166,7 @@ class PallasAggPlan:
         schema_d = dict(schema)
         self.program = DK.RowProgram(
             self.ref_names, [schema_d[n] for n in self.ref_names], pred,
-            builders)
+            builders, self.str_names)
 
     def _slot(self, kind: str) -> int:
         self.kinds.append(kind)
@@ -116,17 +174,25 @@ class PallasAggPlan:
 
     def batch_fn(self):
         """The fused per-batch function: batch -> float64[n_slots]."""
-        names, program, kinds = self.ref_names, self.program, self.kinds
+        program, kinds = self.program, self.kinds
 
         def run(batch: ColumnarBatch) -> torch.Tensor:
-            arrays = []
-            for n in names:
-                c = batch.column(n)
-                arrays.append(c.data)
-                arrays.append(c.validity.view(torch.uint8))
-            arrays.append(batch.live_mask().view(torch.uint8))
-            return DK.tile_reduce(arrays, program, kinds)
+            return DK.tile_reduce(self.kernel_inputs(batch), program, kinds)
         return run
+
+    def kernel_inputs(self, batch: ColumnarBatch) -> List[torch.Tensor]:
+        """tile_reduce's inputs for one batch, in RowProgram's layout:
+        (data, validity) per scalar column, (offsets, chars, validity)
+        per string column, then the live mask."""
+        arrays = []
+        for n in self.ref_names:
+            c = batch.column(n)
+            arrays += [c.data, c.validity.view(torch.uint8)]
+        for n in self.str_names:
+            c = batch.column(n)
+            arrays += [c.offsets, c.chars, c.validity.view(torch.uint8)]
+        arrays.append(batch.live_mask().view(torch.uint8))
+        return arrays
 
     # --- host-side accumulation -> packed aggregate states ---
     def init_totals(self) -> List[float]:
@@ -219,5 +285,7 @@ def build_plan(agg_exec, pred: Optional[E.Expression]) -> PallasAggPlan:
 
 def pred_safe(pred: E.Expression, input_schema) -> bool:
     """A filter predicate fuses into the kernel when tile_reduce can
-    lower all of it (string predicates cannot yet)."""
-    return _expr_safe(pred, list(input_schema))
+    lower all of it; string predicate subtrees are judged after their
+    rewrite into string-lane nodes, as in the JAX gate."""
+    rewritten, _ = _rewrite_string_preds(pred, list(input_schema))
+    return _expr_safe(rewritten, list(input_schema))

@@ -15,7 +15,8 @@ from typing import List, Optional, Sequence
 import torch
 
 from ..columnar import dtypes as dt
-from ..columnar.vector import Column, ColumnVector, ColumnarBatch
+from ..columnar.vector import (Column, ColumnVector, ColumnarBatch,
+                               StringColumn, round_pow2)
 
 Schema = Sequence  # [(name, DType), ...]
 
@@ -166,6 +167,8 @@ def _infer_literal_dtype(value) -> dt.DType:
             return dt.INT64
     if isinstance(value, float):
         return dt.FLOAT64
+    if isinstance(value, str):
+        return dt.STRING
     if isinstance(value, datetime.date) and \
             not isinstance(value, datetime.datetime):
         return dt.DATE
@@ -200,6 +203,8 @@ class Literal(Expression):
                                             device=batch.device),
                                 torch.zeros(cap, dtype=torch.bool,
                                             device=batch.device), t)
+        if self.dtype == dt.STRING:
+            return _string_literal_column(self.value.encode("utf-8"), live)
         phys = self.dtype.physical
         data = torch.full((cap,), literal_physical(self.value, self.dtype),
                           dtype=phys, device=batch.device)
@@ -208,6 +213,21 @@ class Literal(Expression):
 
     def __repr__(self):
         return f"lit({self.value!r})"
+
+
+def _string_literal_column(raw: bytes, live: torch.Tensor) -> StringColumn:
+    """The literal's bytes on every live row (dead rows empty)."""
+    dev = live.device
+    lens = live.to(torch.int64) * len(raw)
+    offsets = torch.zeros(live.shape[0] + 1, dtype=torch.int32, device=dev)
+    offsets[1:] = torch.cumsum(lens, 0).to(torch.int32)
+    n_live = int(live.sum())
+    pattern = torch.tensor(list(raw), dtype=torch.uint8, device=dev)
+    chars = torch.zeros(max(-(-n_live * len(raw) // 128) * 128, 128),
+                        dtype=torch.uint8, device=dev)
+    chars[:n_live * len(raw)] = pattern.repeat(n_live)
+    return StringColumn(offsets, chars, live.clone(),
+                        pad_bucket=round_pow2(len(raw)))
 
 
 def lit(value, dtype: Optional[dt.DType] = None) -> Literal:

@@ -1,8 +1,10 @@
 """Predicates and comparisons.
 
-Counterpart of spark_rapids_tpu/expr/predicates.py for non-string,
-non-decimal operands: NaN compares greater than everything and equal to
-itself (Spark ordering); And/Or use Kleene three-valued logic.
+Counterpart of spark_rapids_tpu/expr/predicates.py for non-decimal
+operands: NaN compares greater than everything and equal to itself
+(Spark ordering); And/Or use Kleene three-valued logic. Strings support
+``=`` and ``IN`` (byte equality over offsets/chars, expr/strings.py);
+string ordering comparisons are not ported yet.
 """
 
 from __future__ import annotations
@@ -13,8 +15,9 @@ import torch
 
 from ..columnar import dtypes as dt
 from ..columnar.vector import ColumnVector, ColumnarBatch, StringColumn
-from .core import Expression, Schema, literal_physical, make_result, \
-    merged_validity
+from . import strings as S
+from .core import (Expression, Literal, Schema, literal_physical,
+                   make_result, merged_validity)
 
 
 def _aligned(left: ColumnVector, right: ColumnVector):
@@ -46,13 +49,37 @@ class BinaryComparison(Expression):
         return dt.BOOL
 
     def eval(self, batch: ColumnarBatch) -> ColumnVector:
+        string_lit = self._string_literal_side()
+        if string_lit is not None:
+            # col = 'lit': compare bytes in place, no literal column
+            c = self.children[1 - string_lit].eval(batch)
+            raw = S.utf8(self.children[string_lit].value)
+            return make_result(S.match_literal(c, raw), c.validity, dt.BOOL)
         left = self.children[0].eval(batch)
         right = self.children[1].eval(batch)
         if isinstance(left, StringColumn) or isinstance(right, StringColumn):
-            raise TypeError("string comparison is not in this port yet")
+            if not (isinstance(self, EqualTo)
+                    and isinstance(left, StringColumn)
+                    and isinstance(right, StringColumn)):
+                raise TypeError(f"string {type(self).__name__} is not in "
+                                "this port yet")
+            return make_result(S.string_eq(left, right),
+                               merged_validity(left, right), dt.BOOL)
         a, b = _aligned(left, right)
         return make_result(self._compare(a, b), merged_validity(left, right),
                            dt.BOOL)
+
+    def _string_literal_side(self):
+        """Index of a non-null string literal child of an EqualTo whose
+        other child is not a literal, else None."""
+        if not isinstance(self, EqualTo):
+            return None
+        for i, e in enumerate(self.children):
+            other = self.children[1 - i]
+            if isinstance(e, Literal) and isinstance(e.value, str) and \
+                    not isinstance(other, Literal):
+                return i
+        return None
 
     def _compare(self, a, b):
         raise NotImplementedError
@@ -167,7 +194,7 @@ class IsNaN(Expression):
 
 
 class InSet(Expression):
-    """expr IN (literal set) over a numeric column."""
+    """expr IN (literal set); null entries of the set match nothing."""
 
     def __init__(self, child: Expression, values: List):
         super().__init__(child)
@@ -178,10 +205,13 @@ class InSet(Expression):
 
     def eval(self, batch: ColumnarBatch) -> ColumnVector:
         c = self.children[0].eval(batch)
-        if isinstance(c, StringColumn):
-            raise TypeError("string IN is not in this port yet")
         hit = torch.zeros(batch.capacity, dtype=torch.bool,
                           device=batch.device)
+        if isinstance(c, StringColumn):
+            for v in self.values:
+                if v is not None:
+                    hit = hit | S.match_literal(c, S.utf8(v))
+            return make_result(hit, c.validity, dt.BOOL)
         for v in self.values:
             if v is not None:
                 hit = hit | (c.data == torch.tensor(

@@ -7,7 +7,17 @@ The JAX package has exactly two functions that reach ``pl.pallas_call``
 ``tile_reduce`` (replaces pallas_kernels.py:78, kernel body :54) — a
 fused masked reduction: per row block, a per-query program evaluates the
 filter predicate and the aggregate inputs in registers and reduces each
-output lane (SUM / MIN / MAX) to one partial per block. Route: Triton,
+output lane (SUM / MIN / MAX) to one partial per block. Its string lane
+(B2, replaces the padded-byte lane of spark_rapids_tpu/exec/pallas_agg.py:60-171)
+evaluates ``=``, ``IN``, ``startswith`` and ``IS [NOT] NULL`` on string
+columns inside the same pass: each string column enters as its int32
+offsets, uint8 chars and uint8 validity, and each literal of m bytes is
+an unrolled compare of the row length against m and of the m bytes at
+``chars[offsets[i] + j]`` (loads masked by ``j < len``) with the
+literal's bytes, which are written into the source. Bound: bytes — per
+string column 4 B of offsets (``offsets[i + 1]`` is the next row's
+``offsets[i]``), at most m chars and 1 B of validity per row; a separate string kernel would write a mask to HBM and read it
+back, which the fused lane avoids. Route: Triton,
 generated per plan from the expression tree (RowProgram.triton_source),
 written to a ``.py`` file in the build directory (``triton.jit`` reads
 source through ``inspect``) and cached by the source's hash. Bound on
@@ -41,11 +51,12 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import torch
 
 from ..columnar import dtypes as dt
-from ..columnar.vector import ColumnVector, ColumnarBatch
+from ..columnar.vector import ColumnVector, ColumnarBatch, StringColumn
 from ..expr import arithmetic as A
 from ..expr import core as E
 from ..expr import predicates as Pr
 from ..expr.core import literal_physical
+from ..expr.strings import match_literal
 
 SUM = "sum"
 MIN = "min"
@@ -87,11 +98,73 @@ def reset_counts() -> None:
     for fn in (tile_reduce, tile_group_reduce):
         fn.launches = 0
         fn.plain_calls = 0
+    # tile_reduce calls whose program carries string lanes (B2), also
+    # counted in launches / plain_calls
+    tile_reduce.str_launches = 0
+    tile_reduce.str_plain_calls = 0
 
 
 # ---------------------------------------------------------------------------
 # tile_reduce: the per-query row program and its Triton generator
 # ---------------------------------------------------------------------------
+
+
+class StrPred(E.Expression):
+    """String-lane predicate (B2): the row equals one of ``choices`` (or
+    starts with one, when ``prefix``). ``eval`` is the plain version,
+    over the column's Arrow offsets/chars/validity, which ride the
+    kernel batch's ``str_lanes``; the generator lowers the same node to
+    byte compares. Null rows are null."""
+
+    def __init__(self, name: str, choices: Sequence[bytes],
+                 prefix: bool = False):
+        super().__init__()
+        self.name = name
+        self.choices = [bytes(c) for c in choices]
+        self.prefix = prefix
+
+    def data_type(self, schema) -> dt.DType:
+        return dt.BOOL
+
+    def references(self) -> set:
+        return {self.name}
+
+    def eval(self, batch) -> ColumnVector:
+        offsets, chars, valid = batch.str_lanes[self.name]
+        col = StringColumn(offsets, chars, valid)
+        hit = torch.zeros(valid.shape[0], dtype=torch.bool,
+                          device=valid.device)
+        for lit in self.choices:
+            hit = hit | match_literal(col, lit, self.prefix)
+        return ColumnVector(hit & valid, valid, dt.BOOL)
+
+    def __repr__(self):
+        op = "startswith" if self.prefix else "in"
+        return f"{self.name} {op} {self.choices!r}"
+
+
+class StrNull(E.Expression):
+    """IS [NOT] NULL over a string-lane column (validity only)."""
+
+    def __init__(self, name: str, negated: bool):
+        super().__init__()
+        self.name = name
+        self.negated = negated
+
+    def data_type(self, schema) -> dt.DType:
+        return dt.BOOL
+
+    def references(self) -> set:
+        return {self.name}
+
+    def eval(self, batch) -> ColumnVector:
+        _, _, valid = batch.str_lanes[self.name]
+        live = batch.live_mask()
+        data = valid if self.negated else ~valid
+        return ColumnVector(data & live, live, dt.BOOL)
+
+    def __repr__(self):
+        return f"{self.name} IS {'NOT ' if self.negated else ''}NULL"
 
 
 class _KernelBatch(ColumnarBatch):
@@ -110,8 +183,11 @@ class RowProgram:
     """What tile_reduce evaluates per row: an optional filter predicate
     and value builders over referenced columns.
 
-    Inputs are laid out as [data_0, valid_0, data_1, valid_1, ..., live]
-    (validity and live as uint8). ``builders`` entries are
+    Inputs are laid out as [data_0, valid_0, data_1, valid_1, ...,
+    offsets_0, chars_0, svalid_0, ..., live]: (data, validity) per
+    scalar column in ``names``, then (int32 offsets, uint8 chars, uint8
+    validity) per string column in ``str_names``, then the uint8 live
+    mask. ``builders`` entries are
     ``("sum", expr)`` -> [masked value, mask], ``("count_star", None)``
     -> [mask], ``("count", expr)`` -> [mask & valid] and
     ``(MIN|MAX, expr, with_nan)`` -> [masked value, mask (, NaN mask)].
@@ -120,13 +196,20 @@ class RowProgram:
     """
 
     def __init__(self, names: Sequence[str], col_dtypes: Sequence[dt.DType],
-                 pred: Optional[E.Expression], builders: Sequence[tuple]):
+                 pred: Optional[E.Expression], builders: Sequence[tuple],
+                 str_names: Sequence[str] = ()):
         self.names = list(names)
         self.col_dtypes = list(col_dtypes)
         self.pred = pred
         self.builders = list(builders)
+        self.str_names = list(str_names)
         self._source: Optional[Tuple[str, List[float]]] = None
         self._lits = {}
+
+    def lane_lengths(self, n: int) -> List[Optional[int]]:
+        """Expected length of each input for ``n`` rows (None: any)."""
+        return [n] * (2 * len(self.names)) + \
+            [n + 1, None, n] * len(self.str_names) + [n]
 
     # --- the plain row function ---
     def __call__(self, blocks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
@@ -134,6 +217,11 @@ class RowProgram:
         cols = [ColumnVector(blocks[2 * i], blocks[2 * i + 1] != 0, t)
                 for i, t in enumerate(self.col_dtypes)]
         kb = _KernelBatch(cols, self.names, live.shape[0], live.device, live)
+        base = 2 * len(self.names)
+        kb.str_lanes = {
+            name: (blocks[base + 3 * k], blocks[base + 3 * k + 1],
+                   blocks[base + 3 * k + 2] != 0)
+            for k, name in enumerate(self.str_names)}
         mask = live
         if self.pred is not None:
             pc = self.pred.eval(kb)
@@ -278,6 +366,13 @@ class _TritonGen:
             self.emit(f"{r} = ({a} != {a}) & {av}" if t.is_floating
                       else f"{r} = inb & (offs < 0)")
             return r, av, dt.BOOL
+        if isinstance(e, StrPred):
+            return self._str_pred(e)
+        if isinstance(e, StrNull):
+            k = self._str_lane(e.name)
+            r = self.tmp()
+            self.emit(f"{r} = {'' if e.negated else '~'}sv{k} & live")
+            return r, "live", dt.BOOL
         if isinstance(e, Pr.InSet):
             a, av, t = self.lower(e.children[0])
             r = self.tmp()
@@ -293,6 +388,30 @@ class _TritonGen:
             return r, av, dt.BOOL
         raise NotImplementedError(
             f"{type(e).__name__} has no tile_reduce lowering")
+
+    def _str_lane(self, name: str) -> int:
+        return self.p.str_names.index(name)
+
+    def _str_pred(self, e):
+        """Row equals (or starts with) one of the literals: per literal
+        a length test, then its bytes unrolled, each load of
+        chars[start + j] masked by j < len. The bytes are source text,
+        so each literal set compiles to its own kernel."""
+        k = self._str_lane(e.name)
+        chars = f"p{2 * len(self.p.names) + 3 * k + 1}"
+        r = self.tmp()
+        self.emit(f"{r} = inb & (offs < 0)")
+        for lit in e.choices:
+            h = self.tmp()
+            op = ">=" if e.prefix else "=="
+            self.emit(f"{h} = sl{k} {op} {len(lit)}")
+            for j, byte in enumerate(lit):
+                self.emit(f"{h} = {h} & (tl.load({chars} + so{k} + {j}, "
+                          f"mask=inb & (sl{k} > {j}), other=0)"
+                          f".to(tl.int32) == {byte})")
+            self.emit(f"{r} = {r} | {h}")
+        self.emit(f"{r} = {r} & sv{k}")
+        return r, f"sv{k}", dt.BOOL
 
     def _literal(self, e: E.Literal):
         if e.value is None:
@@ -375,17 +494,26 @@ class _TritonGen:
     def generate(self) -> Tuple[str, List[float]]:
         p = self.p
         ncols = len(p.col_dtypes)
-        params = [f"p{i}" for i in range(2 * ncols + 1)]
+        nlanes = 2 * ncols + 3 * len(p.str_names)
+        params = [f"p{i}" for i in range(nlanes + 1)]
         self.emit("pid = tl.program_id(0)")
         self.emit("offs = pid.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)")
         self.emit("inb = offs < n")
-        self.emit(f"live = tl.load(p{2 * ncols} + offs, mask=inb, other=0)"
+        self.emit(f"live = tl.load(p{nlanes} + offs, mask=inb, other=0)"
                   " != 0")
         for i, t in enumerate(p.col_dtypes):
             load = f"tl.load(p{2 * i} + offs, mask=inb, other=0)"
             self.emit(f"c{i} = {load} != 0" if t == dt.BOOL
                       else f"c{i} = {load}")
             self.emit(f"v{i} = tl.load(p{2 * i + 1} + offs, mask=inb, "
+                      "other=0) != 0")
+        for k in range(len(p.str_names)):
+            o = 2 * ncols + 3 * k
+            # start and length from offsets[i], offsets[i + 1]
+            self.emit(f"so{k} = tl.load(p{o} + offs, mask=inb, other=0)")
+            self.emit(f"sl{k} = tl.load(p{o} + offs + 1, mask=inb, "
+                      f"other=0) - so{k}")
+            self.emit(f"sv{k} = tl.load(p{o + 2} + offs, mask=inb, "
                       "other=0) != 0")
         mask = "live"
         if p.pred is not None:
@@ -470,6 +598,8 @@ def tile_reduce_plain(inputs: Sequence[torch.Tensor], row_fn: Callable,
     """The plain PyTorch version: evaluate ``row_fn`` over all rows and
     reduce each output lane. Returns float64[len(kinds)]."""
     tile_reduce.plain_calls += 1
+    if getattr(row_fn, "str_names", None):
+        tile_reduce.str_plain_calls += 1
     vals = row_fn(list(inputs))
     if len(vals) != len(kinds):
         raise ValueError(f"row_fn gave {len(vals)} lanes for {len(kinds)}")
@@ -490,8 +620,9 @@ def tile_reduce(inputs: Sequence[torch.Tensor], row_fn: Callable,
                 kinds: Sequence[str]) -> torch.Tensor:
     """Fused masked reduction over rows.
 
-    ``inputs``: same-length 1-D tensors (column data / validity / live
-    mask, uint8 for the masks). ``row_fn(inputs)`` maps them to
+    ``inputs``: 1-D tensors (column data / validity / live mask, uint8
+    for the masks; a RowProgram's string lanes add offsets of one more
+    entry and chars of any length). ``row_fn(inputs)`` maps them to
     ``len(kinds)`` pre-masked value lanes: excluded rows carry the
     kind's identity (0 for sum, +/-inf or the integer extreme for
     min/max). Returns float64[len(kinds)], one reduced value per lane.
@@ -504,11 +635,16 @@ def tile_reduce(inputs: Sequence[torch.Tensor], row_fn: Callable,
     if not isinstance(row_fn, RowProgram):
         raise TypeError("tile_reduce on CUDA compiles a RowProgram; got "
                         f"{type(row_fn).__name__}")
-    n = inputs[0].shape[0]
-    for t in inputs:
-        if t.dim() != 1 or t.shape[0] != n or not t.is_contiguous():
+    n = inputs[-1].shape[0]
+    expected = row_fn.lane_lengths(n)
+    if len(expected) != len(inputs):
+        raise ValueError(f"tile_reduce: {len(inputs)} inputs for a program "
+                         f"of {len(expected)}")
+    for t, length in zip(inputs, expected):
+        if t.dim() != 1 or not t.is_contiguous() or \
+                (length is not None and t.shape[0] != length):
             raise ValueError("tile_reduce inputs must be contiguous 1-D "
-                             "tensors of one length")
+                             "tensors in the program's layout")
     kernel = load_tile_reduce_kernel(row_fn)
     args = [t.view(torch.uint8) if t.dtype == torch.bool else t
             for t in inputs]
@@ -520,6 +656,8 @@ def tile_reduce(inputs: Sequence[torch.Tensor], row_fn: Callable,
                         BLOCK=BLOCK_ROWS, num_warps=4,
                         enable_fp_fusion=False)
     tile_reduce.launches += 1
+    if row_fn.str_names:
+        tile_reduce.str_launches += 1
     is_sum, is_min = _kind_masks(tuple(kinds), dev)
     return torch.where(is_sum, partial.sum(0), torch.where(
         is_min, partial.amin(0), partial.amax(0)))

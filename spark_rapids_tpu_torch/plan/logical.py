@@ -1,6 +1,6 @@
 """Logical plan nodes.
 
-Counterpart of spark_rapids_tpu/plan/logical.py for the nodes q6/q1
+Counterpart of spark_rapids_tpu/plan/logical.py for the nodes q6/q1/q3
 build, plus ``DeviceRelation``: a leaf over batches already on the
 device (the JAX package reaches the same leaf through CachedRelation).
 """
@@ -130,3 +130,40 @@ class Sort(LogicalPlan):
 
     def node_description(self) -> str:
         return f"Sort[{', '.join(repr(o) for o in self.order)}]"
+
+
+class Join(LogicalPlan):
+    """Equi-join on key expression pairs."""
+
+    def __init__(self, left: LogicalPlan, right: LogicalPlan,
+                 left_keys: Sequence[Expression],
+                 right_keys: Sequence[Expression],
+                 join_type: str = "inner"):
+        super().__init__(left, right)
+        self.left_keys = list(left_keys)
+        self.right_keys = list(right_keys)
+        self.join_type = join_type
+        if len(self.left_keys) != len(self.right_keys):
+            raise ValueError("left/right key counts differ")
+
+    @property
+    def schema(self) -> Schema:
+        return self.children[0].schema + self.children[1].schema
+
+    def node_description(self) -> str:
+        keys = ", ".join(f"{l!r}={r!r}" for l, r in
+                         zip(self.left_keys, self.right_keys))
+        return f"Join[{self.join_type}, {keys}]"
+
+
+class Limit(LogicalPlan):
+    def __init__(self, child: LogicalPlan, n: int):
+        super().__init__(child)
+        self.n = n
+
+    @property
+    def schema(self) -> Schema:
+        return self.children[0].schema
+
+    def node_description(self) -> str:
+        return f"Limit[{self.n}]"

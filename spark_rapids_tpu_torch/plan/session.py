@@ -1,7 +1,8 @@
 """Session and DataFrame API.
 
 Counterpart of spark_rapids_tpu/plan/session.py (TpuSession, DataFrame,
-GroupedData) for filter / select / group_by / agg / sort / collect. The
+GroupedData) for filter / select / group_by / agg / join / sort / limit
+/ collect. The
 session runs on one torch device, ``cuda`` unless the caller asks for
 the CPU; a session asked for CUDA where there is none raises.
 """
@@ -36,6 +37,9 @@ class TpuSession:
                                "pass device='cpu' to run on the CPU")
         self.conf = conf or SrtConf()
         self.device = device
+        #: (physical plan, ExecContext) of the most recent execute: its
+        #: metrics (ctx.metric_totals()) outlive the query
+        self._last_execution = None
 
     def from_batches(self, batches, schema=None) -> "DataFrame":
         """A DataFrame over batches already on this session's device."""
@@ -61,6 +65,7 @@ class TpuSession:
         """Run a logical plan to a host table."""
         physical = apply_overrides(plan, self.conf)
         ctx = ExecContext(self.conf, self.device)
+        self._last_execution = (physical, ctx)
         tables = [batch_to_table(b) for b in physical.execute(ctx)
                   if b.num_rows]
         return concat_tables(tables) if tables else empty_table(plan.schema)
@@ -86,6 +91,38 @@ class DataFrame:
 
     def agg(self, *aggs) -> "DataFrame":
         return GroupedData(self, []).agg(*aggs)
+
+    def join(self, other: "DataFrame", on, how: str = "inner"
+             ) -> "DataFrame":
+        """Equi-join. ``on`` is a column name, a list of names (USING:
+        the key is kept once, from the left) or a pair (left key
+        expressions, right key expressions). Only ``how="inner"`` is in
+        this port yet."""
+        if how != "inner":
+            raise NotImplementedError(f"{how!r} join is not in this port "
+                                      "yet")
+        if isinstance(on, str):
+            on = [on]
+        using: List[str] = []
+        if isinstance(on, (list, tuple)) and on and isinstance(on[0], str):
+            using = list(on)
+            lk = [col(n) for n in on]
+            rk = [col(n) for n in on]
+        elif isinstance(on, tuple) and len(on) == 2:
+            lk = [_to_expr(e) for e in on[0]]
+            rk = [_to_expr(e) for e in on[1]]
+        else:
+            raise TypeError("join `on`: column name(s) or (left_exprs, "
+                            "right_exprs)")
+        joined: L.LogicalPlan = L.Join(self.plan, other.plan, lk, rk, how)
+        if using:
+            keep = [col(n) for n in self.columns] + \
+                [col(n) for n in other.columns if n not in using]
+            joined = L.Project(joined, keep)
+        return DataFrame(self.session, joined)
+
+    def limit(self, n: int) -> "DataFrame":
+        return DataFrame(self.session, L.Limit(self.plan, n))
 
     def sort(self, *cols, ascending: Union[bool, Sequence[bool]] = True
              ) -> "DataFrame":

@@ -21,6 +21,7 @@ from spark_rapids_tpu_torch.expr import aggregates as Agg
 from spark_rapids_tpu_torch.expr import arithmetic as A
 from spark_rapids_tpu_torch.expr import core as E
 from spark_rapids_tpu_torch.expr import predicates as P
+from spark_rapids_tpu_torch.expr import strings as S
 from spark_rapids_tpu_torch.ops import device_kernels as DK
 from spark_rapids_tpu_torch.ops import kernels as K
 from spark_rapids_tpu_torch.plan import host_table
@@ -33,7 +34,7 @@ def _jax_cache_miss():
     from jax._src import compiler
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(compiler, "_cache_read", lambda *a, **k: (None, None))
-        global PK, jpallas_agg, jAgg, jA, jE, jP, jhost
+        global PK, jpallas_agg, jAgg, jA, jE, jP, jhost, jS
         import spark_rapids_tpu  # noqa: F401  (x64 and jax config)
         from spark_rapids_tpu.exec import pallas_agg as jpallas_agg
         from spark_rapids_tpu.expr import aggregates as jAgg
@@ -41,6 +42,7 @@ def _jax_cache_miss():
         from spark_rapids_tpu.expr import core as jE
         from spark_rapids_tpu.expr import predicates as jP
         from spark_rapids_tpu.ops import pallas_kernels as PK
+        from spark_rapids_tpu.expr import strings as jS
         from spark_rapids_tpu.plan import host_table as jhost
         yield
 
@@ -217,6 +219,103 @@ def test_generator_rejects_unported_nodes():
         program.triton_source()
     assert not pallas_agg._expr_safe(Mystery(E.col("x")),
                                      [("x", pallas_agg.dt.FLOAT64)])
+
+
+# --- B2 the string lane of tile_reduce vs the JAX padded-byte lane ----------
+
+STR_RTOL = 1e-12  # as tests/test_pallas.py holds the JAX string lane
+
+
+def _string_cases(E, P, S):
+    c, lit = E.col, E.lit
+    return {
+        "eq": c("s") == lit("alpha"),
+        "eq_reversed": lit("héllo") == c("s"),
+        "in": P.InSet(c("s"), ["beta", "gamma", "nope", ""]),
+        "startswith": S.StartsWith(c("s"), "al"),
+        "is_null": P.IsNull(c("s")) | (c("v") > lit(90.0)),
+        "is_not_null": P.IsNotNull(c("s")) & (c("v") > lit(50.0)),
+        "longer_than_every_value": (c("s") == lit("alphabet soup" * 4))
+        | S.StartsWith(c("t"), "x" * 70),
+        "two_columns": ~(c("t") == lit("F")) & P.InSet(c("s"), ["al", "beta"]),
+    }
+
+
+def _string_lanes(n=20_000, seed=11):
+    rng = np.random.default_rng(seed)
+    cats = np.array(["alpha", "beta", "gamma", "al", "", "héllo",
+                     "alphabet"], dtype=object)
+    flags = np.array(["F", "O", "FF"], dtype=object)
+    return {"s": (cats[rng.integers(0, len(cats), n)], rng.random(n) > 0.1,
+                  "string"),
+            "t": (flags[rng.integers(0, 3, n)], rng.random(n) > 0.05,
+                  "string"),
+            "v": (rng.uniform(0, 100, n), rng.random(n) > 0.05, "double")}
+
+
+@pytest.mark.parametrize("case", ["eq", "eq_reversed", "in", "startswith",
+                                  "is_null", "is_not_null",
+                                  "longer_than_every_value", "two_columns"])
+def test_string_lane_matches_jax(case, monkeypatch):
+    from spark_rapids_tpu.columnar import dtypes as jdt
+    lanes = _string_lanes()
+    batch = host_table.table_to_batch(carry.host_table_from_lanes(lanes),
+                                      capacity=32768)
+    jt = {"string": jdt.STRING, "double": jdt.FLOAT64}
+    jbatch = jhost.table_to_batch(jhost.HostTable(
+        [jhost.HostColumn(v, m, jt[t]) for v, m, t in lanes.values()],
+        list(lanes)), 32768)
+    pred = _string_cases(E, P, S)[case]
+    jpred = _string_cases(jE, jP, jS)[case]
+    aggs = [(Agg.Sum(E.col("v")), "s"), (Agg.CountStar(), "n")]
+    jaggs = [(jAgg.Sum(jE.col("v")), "s"), (jAgg.CountStar(), "n")]
+    assert pallas_agg.pred_safe(pred, batch.schema())
+    assert jpallas_agg.pred_safe(jpred, jbatch.schema())
+    plan = pallas_agg.PallasAggPlan(aggs, batch.schema(), pred)
+    jplan = jpallas_agg.PallasAggPlan(jaggs, jbatch.schema(), jpred)
+    assert plan.str_names == jplan.str_names and plan.str_names
+    assert plan.kinds == jplan.kinds
+    calls = []
+    orig = PK.tile_reduce
+    monkeypatch.setattr(PK, "tile_reduce",
+                        lambda *a, **k: calls.append(1) or orig(*a, **k))
+    ref = np.array([float(r) for r in jplan.batch_fn()(jbatch)])
+    assert calls == [1]  # the JAX string lane ran inside its kernel
+    DK.reset_counts()
+    got = plan.batch_fn()(batch).numpy()
+    assert (DK.tile_reduce.plain_calls, DK.tile_reduce.str_plain_calls) \
+        == (1, 1)
+    np.testing.assert_array_equal(got[1:], ref[1:])  # counts: exact
+    np.testing.assert_allclose(got[0], ref[0], rtol=STR_RTOL)
+    # and the stock path (FilterExec, then the aggregate) agrees
+    kept = K.filter_batch(batch, pred.eval(batch))
+    assert float(kept.num_rows) == got[2]
+    src, _ = plan.program.triton_source()
+    ast.parse(src)
+    for name in plan.str_names:
+        k = plan.str_names.index(name)
+        assert f"so{k} = tl.load(" in src and f"sv{k} = tl.load(" in src
+
+
+def test_string_literals_are_in_the_kernel_source():
+    schema = [("s", pallas_agg.dt.STRING)]
+    srcs = set()
+    for word in ("alpha", "alphb"):
+        plan = pallas_agg.PallasAggPlan([(Agg.CountStar(), "n")], schema,
+                                        E.col("s") == E.lit(word))
+        srcs.add(plan.program.triton_source()[0])
+    assert len(srcs) == 2  # each literal set is its own kernel
+    assert any("== 98)" in s for s in srcs)  # 'b' of "alphb"
+
+
+def test_string_gate_refuses_what_the_jax_gate_refuses():
+    schema = [("s", pallas_agg.dt.STRING), ("v", pallas_agg.dt.FLOAT64)]
+    c, lit = E.col, E.lit
+    for pred in (c("s") < lit("b"), P.EqualTo(c("s"), c("s")),
+                 P.InSet(c("s"), ["a", None])):
+        assert not pallas_agg.pred_safe(pred, schema)
+    assert pallas_agg.pred_safe(P.InSet(c("s"), ["a"]) & (c("v") > lit(1.0)),
+                                schema)
 
 
 # --- B3 tile_group_reduce: plain version vs the JAX kernel -------------------
