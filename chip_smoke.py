@@ -16,12 +16,18 @@ Needs one NVIDIA GPU (built for an H100: sm_90a), nvcc and triton. It
    shapes the main path gives it: tile_reduce (B1) at q6 and with a
    min/max/NaN program, its string lane (B2) at the two string-filtered
    aggregates' programs on a lineitem and an orders batch, and
-   tile_group_reduce (B3) at q1 (1,048,576 rows, 15 lanes, 1024
-   buckets) and, after q3 has run, on every q3 join output batch that
-   its partial aggregate hands the kernel; it times kernel, plain
-   version, bound and, for B3 at q1, one ``index_add_`` call as the
-   library yardstick; and it checks that murmur3 and the hash-claim
-   grouping give the card the CPU's bits;
+   tile_group_reduce (B3), told the batch's group count, at q1
+   (1,048,576 rows, 15 lanes, 6 groups), at six stress shapes (one
+   group; 1024 uniform groups; sorted zipf runs with dead rows; one lane;
+   17 lanes x 1024 groups; 40 lanes x 6 groups) and, after q3 has run,
+   on every q3 join output batch that its partial aggregate hands the
+   kernel; per shape it checks that two runs give the same bits and
+   times the kernel warm (``device_ms``) and with a cold L2
+   (``cold_device_ms``), beside the plain version, the bound and, for B3
+   at q1 and at q3's widest batch, one ``index_add_`` call as the
+   library yardstick; it also logs the read rate a cold torch.sum
+   reaches, counts B3's atomics and shuffles in the SASS, and checks that murmur3 and the hash-claim grouping give the
+   card the CPU's bits;
 5. runs q6, q1, two string-filtered global aggregates (lineitem and
    orders) and q3 through TpuSession: per query a checked run with the
    launch counts set to 0 just before and read just after, then three
@@ -29,7 +35,10 @@ Needs one NVIDIA GPU (built for an H100: sm_90a), nvcc and triton. It
    computation over the same host data; for q3 it also logs each
    operator's self time and, from one run under torch.profiler, the
    device time by kernel and the device's idle share;
-6. prints one JSON line of kernel numbers, then
+6. logs the device kernels that one call of each kernel launches
+   (torch.profiler; last, because every profiler session slows the
+   host's later launches);
+7. prints one JSON line of kernel numbers, then
    {"ok": true, "device": {...}} as its last line.
 
 Any mismatch or error exits non-zero before the last line is printed.
@@ -38,6 +47,7 @@ Any mismatch or error exits non-zero before the last line is printed.
 import datetime
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -51,6 +61,7 @@ RTOL = 1e-9  # float64 on both sides; only the summation order differs
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP64_PER_S = 34e12
 TIMED_RUNS = 10
+FLUSH_BYTES = 128 << 20  # over twice the H100's 50 MB L2
 
 
 def check(cond, msg):
@@ -82,11 +93,67 @@ def device_ms(torch, fn, runs=TIMED_RUNS, per_run=20):
     return statistics.median(times)
 
 
+def cold_device_ms(torch, fn, calls=2 * TIMED_RUNS):
+    """Median device time of one ``fn()`` call that finds the L2 cache
+    cold, as the main path does (it reads each batch once): before each
+    call, outside its events, a 128 MB buffer is read through."""
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(calls)]
+    torch.cuda._sleep(100_000_000)
+    for start, end in events:
+        flush.sum()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def kernel_profile(torch, fn, calls=20):
+    """What one ``fn()`` call runs on the device, from torch.profiler
+    over ``calls`` calls: {kernel name: (launches per call, device us per
+    call)}."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            n, t = out.get(e.key, (0.0, 0.0))
+            out[e.key] = (n + e.count / calls, t + us / calls)
+    return out
+
+
+def log_profile(label, prof):
+    """Logs a kernel_profile and returns the CUDA launches per call: each
+    kernel's count rounded, as the profiler can drop a few events at the
+    edges of its window (0.9 per call where the wrapper launches one)."""
+    log(f"  profile {label}: " + "; ".join(
+        f"{n:.2f} x {name[:60]} {us:.2f} us"
+        for name, (n, us) in sorted(prof.items(), key=lambda kv: -kv[1][1])))
+    return sum(round(n) for n, _ in prof.values())
+
+
 def bound_ms(nbytes, flops):
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = flops / PEAK_FP64_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def untimed(ms):
+    return "not timed" if ms is None else f"{ms:.4f}"
 
 
 def count_nodes(expr):
@@ -162,6 +229,22 @@ def main():
     DK.build_group_kernel()
     log(f"build: nvcc tile_group_reduce {time.perf_counter() - t0:.1f} s -> "
         f"{os.path.relpath(DK.group_library_path())}")
+    from torch.utils.cpp_extension import CUDA_HOME
+    cuobjdump = os.path.join(CUDA_HOME or "", "bin", "cuobjdump")
+    if CUDA_HOME and os.path.exists(cuobjdump):
+        so = DK.group_library_path()
+        sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True,
+                              text=True).stdout
+        ops = {}
+        for op in re.findall(r"\b(ATOMS\.[A-Z0-9.]+|ATOM\.[A-Z0-9.]+|"
+                             r"RED\.[A-Z0-9.]+|SHFL\.[A-Z]+|MATCH\.[A-Z.]+)",
+                             sass):
+            ops[op] = ops.get(op, 0) + 1
+        res = subprocess.run([cuobjdump, "-res-usage", so],
+                             capture_output=True, text=True).stdout
+        log(f"build: tile_group_reduce SASS atomics/shuffles {ops}; "
+            + " | ".join(" ".join(line.split()) for line in res.splitlines()
+                         if "REG" in line or "Function" in line))
 
     # --- data: three tables, chunk by chunk onto the card --------------------
     t0 = time.perf_counter()
@@ -231,6 +314,14 @@ def main():
                      Alias(Agg.CountStar(), "n")))
 
     # --- kernel phase: B1 tile_reduce and its string lane B2 -----------------
+    # the read rate one torch reduction reaches with a cold L2: what a
+    # kernel near its byte bound can hope for on this card
+    big = torch.rand(1 << 25, dtype=torch.float64, device=dev)
+    t = cold_device_ms(torch, big.sum)
+    log(f"read rate: torch.sum over {big.numel() * 8} B, cold {t:.4f} ms = "
+        f"{big.numel() * 8 / t / 1e9:.3f} TB/s")
+    del big
+
     def hold_b1(label, plan, batch):
         arrays = plan.kernel_inputs(batch)
         t = time.perf_counter()
@@ -273,7 +364,15 @@ def main():
         log(f"tile_reduce[{label}]: matches plain (max_abs_err {max_err:.3e}),"
             f" first call {compile_s:.2f} s, kernel_ms {ms:.4f}, plain_ms "
             f"{plain:.4f}, bound_ms {bms:.4f} ({by}, {nbytes} B)")
-        return max_err, ms, plain, bms, by
+        cold = cold_device_ms(torch, lambda: DK.tile_reduce(
+            arrays, plan.program, plan.kinds))
+        again = DK.tile_reduce(arrays, plan.program, plan.kinds)
+        log(f"  tile_reduce[{label}]: cold_ms {cold:.4f}, two runs bit-equal "
+            f"{torch.equal(got, again)}")
+        check(torch.equal(got, again), f"tile_reduce {label}: two runs differ")
+        return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain,
+                "bound_ms": bms, "bound_by": by, "cold_ms": cold,
+                "bit_equal": torch.equal(got, again)}
 
     def str_preds(e):
         if isinstance(e, DK.StrPred):
@@ -289,7 +388,8 @@ def main():
         return pallas_agg.PallasAggPlan(plan.agg_exprs, filt.schema,
                                         filt.condition)
 
-    b1 = hold_b1("q6", fused_plan(tpch.q6, df), b0)
+    q6_plan = fused_plan(tpch.q6, df)
+    b1 = hold_b1("q6", q6_plan, b0)
     nan_batch = b0.select(b0.names)
     qty = nan_batch.column("l_quantity")
     qdata = qty.data.clone()
@@ -302,7 +402,7 @@ def main():
          (Agg.Min(col("l_shipdate")), "first_ship"),
          (Agg.Count(col("l_tax") / (col("l_discount") - 0.05)), "n")],
         b0.schema(), (col("l_tax") > 0.02) | (col("l_quantity") < 10.0))
-    hold_b1("minmax_nan", mm_plan, nan_batch)
+    b1_mm = hold_b1("minmax_nan", mm_plan, nan_batch)
     li_plan = fused_plan(li_str, df)
     check(li_plan.str_names == ["l_linestatus", "l_returnflag"],
           f"lineitem string lanes {li_plan.str_names}")
@@ -310,45 +410,104 @@ def main():
     od_plan = fused_plan(ord_str, dfs["orders"])
     check(od_plan.str_names == ["o_orderpriority"],
           f"orders string lanes {od_plan.str_names}")
-    hold_b1("strings_orders", od_plan, batches["orders"][0])
+    b2_od = hold_b1("strings_orders", od_plan, batches["orders"][0])
+
+    def hold_b3(label, gid, lanes, groups, plain=True, library=False):
+        """tile_group_reduce (told the group count) against its plain
+        version on one shape, two runs compared bit for bit, then timed;
+        the bound counts every id and the values of rows below
+        ``groups`` (the rows the function needs)."""
+        def kernel():
+            return DK.tile_group_reduce(gid, lanes, num_groups=groups)
+        got = torch.stack(kernel())
+        again = torch.stack(kernel())
+        ref = torch.stack(DK.tile_group_reduce_plain(gid, lanes))
+        check(torch.allclose(got, ref, rtol=RTOL, atol=0.0),
+              f"tile_group_reduce[{label}] disagrees with its plain version")
+        live = int((gid < groups).sum())
+        nbytes = gid.numel() * 4 + live * 8 * len(lanes) \
+            + len(lanes) * DK.GROUP_BUCKETS * 8
+        r = {"rows": gid.numel(), "lanes": len(lanes), "groups": groups,
+             "max_abs_err": float((got - ref).abs().max()),
+             "bit_equal": torch.equal(got, again),
+             "ms": device_ms(torch, kernel),
+             "cold_ms": cold_device_ms(torch, kernel),
+             "plain_ms": device_ms(torch, lambda: DK.tile_group_reduce_plain(
+                 gid, lanes)) if plain else None,
+             "library_ms": None}
+        r["bound_ms"], r["bound_by"] = bound_ms(nbytes, live * len(lanes))
+        if library:
+            stacked = torch.stack(lanes, dim=1)
+            gid64 = gid.to(torch.int64)
+            r["library_ms"] = device_ms(torch, lambda: torch.zeros(
+                DK.GROUP_BUCKETS, len(lanes), dtype=torch.float64,
+                device=dev).index_add_(0, gid64, stacked))
+            del stacked, gid64
+        log(f"tile_group_reduce[{label}]: {len(lanes)} lanes, {groups} "
+            f"groups, {live} of {gid.numel()} rows live; matches plain "
+            f"(max_abs_err {r['max_abs_err']:.3e}), two runs bit-equal "
+            f"{r['bit_equal']}; kernel_ms {r['ms']:.4f}, cold_ms "
+            f"{r['cold_ms']:.4f}, plain_ms {untimed(r['plain_ms'])}, "
+            f"library_ms {untimed(r['library_ms'])} (index_add_), "
+            f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}, {nbytes} B)")
+        check(r["bit_equal"], f"tile_group_reduce[{label}]: two runs differ")
+        return r
 
     # --- kernel phase: B3 tile_group_reduce at q1's shapes -------------------
-    q1_plan = tpch.q1(df).plan             # Sort <- Aggregate <- Filter <- rel
-    q1_agg = q1_plan.children[0]
-    q1_filter = q1_agg.children[0]
-    kept = K.filter_batch(b0, q1_filter.condition.eval(b0))
-    key_cols = [e.eval(kept) for e in q1_agg.group_exprs]
-    agg_in = [fn.children[0].eval(kept) if fn.children else None
-              for fn, _ in q1_agg.agg_exprs]
-    fns = [fn for fn, _ in q1_agg.agg_exprs]
-    claimed, prelude = K._prelude_fast(kept, key_cols)
-    check(claimed, "hash-claim grouping resolves q1's keys")
-    n_groups = prelude[3]
-    gid, lanes = K.grouped_kernel_inputs(kept, prelude[2], agg_in, fns,
-                                         DK.GROUP_BUCKETS)
-    check(len(lanes) == 15 and gid.shape[0] == BATCH_ROWS,
-          f"q1 gives {len(lanes)} lanes of {gid.shape[0]} rows")
-    got = torch.stack(DK.tile_group_reduce(gid, lanes))
-    torch.cuda.synchronize()
-    ref = torch.stack(DK.tile_group_reduce_plain(gid, lanes))
-    check(torch.allclose(got, ref, rtol=RTOL, atol=0.0),
-          "tile_group_reduce disagrees with its plain version")
-    b3_err = float((got - ref).abs().max())
-    b3_ms = device_ms(torch, lambda: DK.tile_group_reduce(gid, lanes))
-    b3_plain = device_ms(torch, lambda: DK.tile_group_reduce_plain(gid, lanes))
-    stacked = torch.stack(lanes, dim=1)
-    gid64 = gid.to(torch.int64)
-    b3_lib = device_ms(torch, lambda: torch.zeros(
-        DK.GROUP_BUCKETS, len(lanes), dtype=torch.float64,
-        device=dev).index_add_(0, gid64, stacked))
-    nbytes = gid.numel() * 4 + sum(v.numel() * 8 for v in lanes) \
-        + len(lanes) * DK.GROUP_BUCKETS * 8
-    b3_bound, b3_by = bound_ms(nbytes, gid.numel() * len(lanes))
-    log(f"tile_group_reduce[q1]: {n_groups} groups, matches plain "
-        f"(max_abs_err {b3_err:.3e}), kernel_ms {b3_ms:.4f}, plain_ms "
-        f"{b3_plain:.4f}, library_ms {b3_lib:.4f} (index_add_), bound_ms "
-        f"{b3_bound:.4f} ({b3_by}, {nbytes} B)")
-    del stacked, gid64, kept, key_cols, agg_in, lanes, got, ref, prelude
+    def q1_inputs():
+        """B3's inputs for q1's first batch: (gid, lanes, groups)."""
+        q1_agg = tpch.q1(df).plan.children[0]  # Sort <- Aggregate <- Filter
+        q1_filter = q1_agg.children[0]
+        kept = K.filter_batch(b0, q1_filter.condition.eval(b0))
+        key_cols = [e.eval(kept) for e in q1_agg.group_exprs]
+        agg_in = [fn.children[0].eval(kept) if fn.children else None
+                  for fn, _ in q1_agg.agg_exprs]
+        fns = [fn for fn, _ in q1_agg.agg_exprs]
+        claimed, prelude = K._prelude_fast(kept, key_cols)
+        check(claimed, "hash-claim grouping resolves q1's keys")
+        gid, lanes = K.grouped_kernel_inputs(kept, prelude[2], agg_in, fns,
+                                             DK.GROUP_BUCKETS)
+        check(len(lanes) == 15 and gid.shape[0] == BATCH_ROWS,
+              f"q1 gives {len(lanes)} lanes of {gid.shape[0]} rows")
+        return gid, lanes, prelude[3]
+
+    gid, lanes, n_groups = q1_inputs()
+    b3 = hold_b3("q1", gid, lanes, n_groups, library=True)
+
+    # --- kernel phase: B3 at shapes that stress its design -------------------
+    rng = np.random.default_rng(3)
+
+    def lanes_of(k, n=BATCH_ROWS):
+        """k value lanes: prices and 0/1 counts, as the grouped lane has"""
+        return [torch.from_numpy(rng.uniform(0, 1e5, n) if j % 2 == 0 else
+                                 (rng.random(n) > 0.3).astype(np.float64)
+                                 ).to(dev) for j in range(k)]
+
+    def ids_of(a):
+        return torch.from_numpy(a.astype(np.int32)).to(dev)
+
+    n = BATCH_ROWS
+    runs = np.sort((rng.zipf(1.3, n) - 1) % 600)
+    runs[-n // 7:] = 600                  # dead rows on the scratch id
+    stress = {
+        "one_group": (ids_of(np.zeros(n)), lanes_of(15), 1),
+        "uniform_1024": (ids_of(rng.integers(0, 1024, n)), lanes_of(2),
+                         1024),
+        "sorted_runs": (ids_of(runs), lanes_of(2), 600),
+        "one_lane": (ids_of(rng.integers(0, 6, n)), lanes_of(1), 6),
+        "lanes_17": (ids_of(rng.integers(0, 1024, n)), lanes_of(17), 1024),
+        "lanes_40": (ids_of(rng.integers(0, 6, n)), lanes_of(40), 6),
+    }
+    dead = stress["sorted_runs"][0] == 600
+    for v in stress["sorted_runs"][1]:
+        v[dead] = 0.0                     # dead rows carry zeros
+    b3_stress = {}
+    for label, (sgid, slanes, groups) in stress.items():
+        b3_stress[label] = hold_b3(label, sgid, slanes, groups, plain=False)
+    b1_programs = {"q6": (q6_plan, b0), "minmax_nan": (mm_plan, nan_batch),
+                   "strings_lineitem": (li_plan, b0),
+                   "strings_orders": (od_plan, batches["orders"][0])}
+    del stress, dead, gid, lanes, sgid, slanes
 
     # --- hashing on the card gives the CPU's bits ----------------------------
     ob0 = batches["orders"][0]
@@ -560,7 +719,8 @@ def main():
         if kernel_in is None:
             continue
         gid, lanes = kernel_in
-        got = torch.stack(DK.tile_group_reduce(gid, lanes))
+        groups = max(prelude[3], 1)
+        got = torch.stack(DK.tile_group_reduce(gid, lanes, num_groups=groups))
         ref = torch.stack(DK.tile_group_reduce_plain(gid, lanes))
         check(torch.allclose(got, ref, rtol=RTOL, atol=0.0),
               f"tile_group_reduce disagrees with its plain version on q3 "
@@ -570,26 +730,19 @@ def main():
         b3_q3["rows"].append(batch.num_rows)
         b3_q3["groups"].append(prelude[3])
         if widest is None or batch.num_rows > widest[0]:
-            widest = (batch.num_rows, prelude[3], gid, lanes)
+            widest = (batch.num_rows, groups, gid, lanes)
     check(b3_q3["batches"] == launches["q3"]["tile_group_reduce"],
           f"{b3_q3['batches']} q3 batches take the grouped lane, the main "
           f"path launched {launches['q3']['tile_group_reduce']}")
-    rows3, groups3, gid, lanes = widest
-    b3_q3_ms = device_ms(torch, lambda: DK.tile_group_reduce(gid, lanes))
-    b3_q3_plain = device_ms(torch,
-                            lambda: DK.tile_group_reduce_plain(gid, lanes))
-    nbytes = gid.numel() * 4 + sum(v.numel() * 8 for v in lanes) \
-        + len(lanes) * DK.GROUP_BUCKETS * 8
-    b3_q3_bound, b3_q3_by = bound_ms(nbytes, gid.numel() * len(lanes))
     log(f"tile_group_reduce[q3]: {b3_q3['batches']} batches ({len(lanes)} "
         f"lanes, {min(b3_q3['rows'])}-{max(b3_q3['rows'])} rows, "
         f"{min(b3_q3['groups'])}-{max(b3_q3['groups'])} groups) match plain "
-        f"(max_abs_err {b3_q3['err']:.3e}); on the widest ({rows3} rows of "
-        f"capacity {gid.numel()}, {groups3} groups) kernel_ms "
-        f"{b3_q3_ms:.4f}, plain_ms {b3_q3_plain:.4f}, bound_ms "
-        f"{b3_q3_bound:.4f} ({b3_q3_by}, {nbytes} B); launches q1 "
+        f"(max_abs_err {b3_q3['err']:.3e}); launches q1 "
         f"{launches['q1']['tile_group_reduce']}, q3 "
         f"{launches['q3']['tile_group_reduce']}")
+    rows3, groups3, gid3, lanes3 = widest
+    b3_widest = hold_b3(f"q3 widest, {rows3} rows", gid3, lanes3, groups3,
+                        library=True)
     del widest, gid, lanes, got, ref, kernel_in, prelude, key_cols, agg_in
 
     # --- where q3's time goes ------------------------------------------------
@@ -625,29 +778,63 @@ def main():
     else:
         log("q3 profiled run: the profiler recorded no device time")
 
+    # --- what one kernel call launches ---------------------------------------
+    # last: each torch.profiler session leaves the host's launches slower
+    # for the rest of the process, which would skew the query walls
+    per_call = {}
+    for label, (plan, batch) in b1_programs.items():
+        arrays = plan.kernel_inputs(batch)
+        per_call[label] = log_profile(f"tile_reduce[{label}]", kernel_profile(
+            torch, lambda: DK.tile_reduce(arrays, plan.program, plan.kinds)))
+    for label, (gid, lanes, groups) in (("q1", q1_inputs()),
+                                        ("q3 widest", (gid3, lanes3,
+                                                       groups3))):
+        per_call[label] = log_profile(
+            f"tile_group_reduce[{label}]", kernel_profile(
+                torch, lambda: DK.tile_group_reduce(gid, lanes,
+                                                    num_groups=groups)))
+    b1["cuda_launches_per_call"] = per_call["q6"]
+    b2["cuda_launches_per_call"] = per_call["strings_lineitem"]
+    b3["cuda_launches_per_call"] = per_call["q1"]
+
     b2_launches = launches["strings_lineitem"]["tile_reduce_str"] + \
         launches["strings_orders"]["tile_reduce_str"]
+    def b3_extra(r):
+        return {k: r[k] for k in ("rows", "lanes", "groups", "ms", "cold_ms",
+                                  "bound_ms", "plain_ms", "library_ms",
+                                  "bit_equal")}
     kernels = [
         {"name": "tile_reduce", "route": "triton",
          "source": "spark_rapids_tpu_torch/ops/device_kernels.py",
          "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:78",
-         "launches": launches["q6"]["tile_reduce"], "max_abs_err": b1[0],
-         "ms": b1[1], "plain_ms": b1[2], "bound_ms": b1[3],
-         "bound_by": b1[4], "library_ms": None},
+         "launches": launches["q6"]["tile_reduce"],
+         **{k: b1[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "cold_ms", "bit_equal",
+                               "cuda_launches_per_call")},
+         "library_ms": None,
+         "minmax_nan": {k: b1_mm[k] for k in ("ms", "cold_ms", "bound_ms",
+                                              "bit_equal")}},
         {"name": "tile_reduce_string_lane", "route": "triton",
          "source": "spark_rapids_tpu_torch/ops/device_kernels.py",
          "replaces": "spark_rapids_tpu/exec/pallas_agg.py:60",
-         "launches": b2_launches, "max_abs_err": b2[0],
-         "ms": b2[1], "plain_ms": b2[2], "bound_ms": b2[3],
-         "bound_by": b2[4], "library_ms": None},
+         "launches": b2_launches,
+         **{k: b2[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "cold_ms", "bit_equal",
+                               "cuda_launches_per_call")},
+         "library_ms": None,
+         "orders": {k: b2_od[k] for k in ("ms", "cold_ms", "plain_ms",
+                                          "bound_ms", "bit_equal")}},
         {"name": "tile_group_reduce", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/tile_group_reduce.cu",
          "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:152",
          "launches": launches["q1"]["tile_group_reduce"]
          + launches["q3"]["tile_group_reduce"],
-         "max_abs_err": max(b3_err, b3_q3["err"]), "ms": b3_ms,
-         "plain_ms": b3_plain,
-         "bound_ms": b3_bound, "bound_by": b3_by, "library_ms": b3_lib},
+         "max_abs_err": max(b3["max_abs_err"], b3_q3["err"]),
+         **{k: b3[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "cold_ms", "bit_equal",
+                               "cuda_launches_per_call")},
+         "q3_widest": b3_extra(b3_widest),
+         "stress": {k: b3_extra(r) for k, r in b3_stress.items()}},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

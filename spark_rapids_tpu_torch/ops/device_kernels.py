@@ -5,33 +5,40 @@ The JAX package has exactly two functions that reach ``pl.pallas_call``
 (spark_rapids_tpu/ops/pallas_kernels.py). Both are rewritten here:
 
 ``tile_reduce`` (replaces pallas_kernels.py:78, kernel body :54) — a
-fused masked reduction: per row block, a per-query program evaluates the
-filter predicate and the aggregate inputs in registers and reduces each
-output lane (SUM / MIN / MAX) to one partial per block. Its string lane
-(B2, replaces the padded-byte lane of spark_rapids_tpu/exec/pallas_agg.py:60-171)
-evaluates ``=``, ``IN``, ``startswith`` and ``IS [NOT] NULL`` on string
-columns inside the same pass: each string column enters as its int32
-offsets, uint8 chars and uint8 validity, and each literal of m bytes is
-an unrolled compare of the row length against m and of the m bytes at
+fused masked reduction: a per-query program evaluates the filter
+predicate and the aggregate inputs in registers and reduces each output
+lane (SUM / MIN / MAX). Its string lane (B2, replaces the padded-byte
+lane of spark_rapids_tpu/exec/pallas_agg.py:60-171) evaluates ``=``,
+``IN``, ``startswith`` and ``IS [NOT] NULL`` on string columns inside
+the same pass: each string column enters as its int32 offsets, uint8
+chars and uint8 validity, and each literal of m bytes is an unrolled
+compare of the row length against m and of the m bytes at
 ``chars[offsets[i] + j]`` (loads masked by ``j < len``) with the
-literal's bytes, which are written into the source. Bound: bytes — per
+literal's bytes, which are written into the source; a separate string
+kernel would write a mask to HBM and read it back, which the fused lane
+avoids. Route: Triton, generated per plan from the expression tree
+(RowProgram.triton_source), written to a ``.py`` file in the build
+directory (``triton.jit`` reads source through ``inspect``) and cached by
+the source's hash. Bound on the H100: bytes — each input column,
+validity byte and the live mask is read once (33 B/row at TPC-H q6); per
 string column 4 B of offsets (``offsets[i + 1]`` is the next row's
-``offsets[i]``), at most m chars and 1 B of validity per row; a separate string kernel would write a mask to HBM and read it
-back, which the fused lane avoids. Route: Triton,
-generated per plan from the expression tree (RowProgram.triton_source),
-written to a ``.py`` file in the build directory (``triton.jit`` reads
-source through ``inspect``) and cached by the source's hash. Bound on
-the H100: bytes — each input column, validity byte and the live mask is
-read once (33 B/row at TPC-H q6); the design writes only a
-[programs, n_slots] float64 partial buffer, which torch then reduces in
-a fixed order, so results do not depend on block scheduling.
+``offsets[i]``), at most m chars and 1 B of validity per row. Design: a
+persistent grid of a few programs per SM, each walking row blocks with
+one register accumulator per output slot (float64 for sums) and storing
+one partial per slot; a second, single-program kernel reduces each
+slot's partials by its kind, which the generator writes into its
+source, with one ``tl.sum`` / ``tl.min`` / ``tl.max`` over the
+[P]-vector of partials: a tree whose shape is fixed by P and the
+program count. Two launches per call, and the same input on the same
+card (same grid) gives the same bits.
 
 ``tile_group_reduce`` (replaces pallas_kernels.py:152) — grouped SUM of
 float64 lanes over bucket ids in [0, num_buckets). Route: CUDA C++ for
 sm_90a (csrc/tile_group_reduce.cu) built with nvcc into a shared library
 with a C interface and loaded through ctypes. Bound on the H100: bytes
-(4 B of bucket id + 8 B per lane and row); the design keeps the
-accumulators in shared memory (see the .cu header).
+(4 B of bucket id + 8 B per lane and row); the design pre-aggregates
+equal ids within a warp and sums into per-warp shared-memory copies
+sized to the batch's groups, without atomics (see the .cu header).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors
 it launches the kernel or raises. Launch counters count kernel launches
@@ -62,11 +69,15 @@ SUM = "sum"
 MIN = "min"
 MAX = "max"
 
-#: rows per Triton program of tile_reduce
-BLOCK_ROWS = 1024
+#: tile_reduce's persistent grid: (rows per block, num_warps, programs
+#: per SM), tuned on the H100 (PERF.md)
+TILE_REDUCE_CONFIG = (512, 8, 4)
 GROUP_BUCKETS = 1024
 #: lane pointers the CUDA launcher passes by value (TGR_MAX_LANES)
 GROUP_MAX_LANES = 128
+#: the shared memory the CUDA kernel's per-warp copies may take in one
+#: block, tuned on the H100 (PERF.md)
+GROUP_SMEM_TARGET = 110 * 1024
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
@@ -205,6 +216,19 @@ class RowProgram:
         self.str_names = list(str_names)
         self._source: Optional[Tuple[str, List[float]]] = None
         self._lits = {}
+
+    def slot_kinds(self) -> List[str]:
+        """The reduction kind of each output slot, in order: what the
+        generated combine kernel reduces each slot by."""
+        kinds: List[str] = []
+        for b in self.builders:
+            if b[0] == "sum":
+                kinds += [SUM, SUM]
+            elif b[0] in ("count_star", "count"):
+                kinds.append(SUM)
+            else:
+                kinds += [b[0], SUM] + ([SUM] if b[2] else [])
+        return kinds
 
     def lane_lengths(self, n: int) -> List[Optional[int]]:
         """Expected length of each input for ``n`` rows (None: any)."""
@@ -492,12 +516,18 @@ class _TritonGen:
         return r, v, dt.BOOL
 
     def generate(self) -> Tuple[str, List[float]]:
+        """Two kernels: ``tile_reduce_kernel``, a persistent grid whose
+        programs walk row blocks ``pid, pid + nprog, ...`` and keep one
+        register accumulator per output slot, then store one partial per
+        program and slot; and ``tile_reduce_combine``, one program that
+        reduces the partials of each slot by the slot's kind, which is
+        written into its source, with one tree reduction over the
+        [P]-vector of partials (a fixed order for a fixed grid)."""
         p = self.p
         ncols = len(p.col_dtypes)
         nlanes = 2 * ncols + 3 * len(p.str_names)
         params = [f"p{i}" for i in range(nlanes + 1)]
-        self.emit("pid = tl.program_id(0)")
-        self.emit("offs = pid.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)")
+        self.emit("offs = blk.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)")
         self.emit("inb = offs < n")
         self.emit(f"live = tl.load(p{nlanes} + offs, mask=inb, other=0)"
                   " != 0")
@@ -520,19 +550,21 @@ class _TritonGen:
             d, v, _ = self.lower(p.pred)
             mask = self.tmp()
             self.emit(f"{mask} = live & {d} & {v}")
-        outs: List[Tuple[str, str]] = []  # (expression, reduction kind)
+        # (expression, reduction kind, accumulator type, its identity)
+        outs: List[Tuple[str, str, str, object]] = []
+        f64 = "tl.float64"
         for b in p.builders:
             if b[0] == "count_star":
-                outs.append((f"{mask}.to(tl.float64)", SUM))
+                outs.append((f"{mask}.to(tl.float64)", SUM, f64, 0))
                 continue
             c, cv, t = self.lower(b[1])
             m = self.tmp()
             self.emit(f"{m} = {mask} & {cv}")
             if b[0] == "sum":
-                outs += [(f"tl.where({m}, {c}, {self.zero(t)})", SUM),
-                         (f"{m}.to(tl.float64)", SUM)]
+                outs += [(f"tl.where({m}, {c}, {self.zero(t)})", SUM, f64, 0),
+                         (f"{m}.to(tl.float64)", SUM, f64, 0)]
             elif b[0] == "count":
-                outs.append((f"{m}.to(tl.float64)", SUM))
+                outs.append((f"{m}.to(tl.float64)", SUM, f64, 0))
             else:
                 kind, with_nan = b[0], b[2]
                 ident = reduce_identity(kind, t.physical)
@@ -541,25 +573,54 @@ class _TritonGen:
                 if with_nan:
                     nan = self.tmp()
                     self.emit(f"{nan} = {c} != {c}")
-                    outs += [(f"tl.where({m} & ~{nan}, {c}, {fill})", kind),
-                             (f"{m}.to(tl.float64)", SUM),
-                             (f"({m} & {nan}).to(tl.float64)", SUM)]
+                    outs += [(f"tl.where({m} & ~{nan}, {c}, {fill})", kind,
+                              _TT[t], ident),
+                             (f"{m}.to(tl.float64)", SUM, f64, 0),
+                             (f"({m} & {nan}).to(tl.float64)", SUM, f64, 0)]
                 else:
-                    outs += [(f"tl.where({m}, {c}, {fill})", kind),
-                             (f"{m}.to(tl.float64)", SUM)]
+                    outs += [(f"tl.where({m}, {c}, {fill})", kind, _TT[t],
+                              ident),
+                             (f"{m}.to(tl.float64)", SUM, f64, 0)]
         ns = len(outs)
-        for j, (x, kind) in enumerate(outs):
+        head = ["pid = tl.program_id(0)", "nprog = tl.num_programs(0)"]
+        tail = []
+        for j, (x, kind, tt, ident) in enumerate(outs):
             if kind == SUM:
-                red = f"tl.sum(({x}).to(tl.float64), axis=0)"
+                head.append(f"acc{j} = tl.zeros([BLOCK], tl.float64)")
+                self.emit(f"acc{j} += ({x}).to(tl.float64)")
+                red = f"tl.sum(acc{j}, axis=0)"
             else:
-                fn = "tl.min" if kind == MIN else "tl.max"
-                red = f"{fn}({x}, axis=0).to(tl.float64)"
-            self.emit(f"tl.store(out + pid * {ns} + {j}, {red})")
-        head = ["import triton", "import triton.language as tl", "", "",
-                "@triton.jit",
-                "def tile_reduce_kernel(" + ", ".join(params)
-                + ", lits, out, n, BLOCK: tl.constexpr):"]
-        return "\n".join(head + self.lines) + "\n", self.lits
+                fn = "minimum" if kind == MIN else "maximum"
+                init = (f"tl.zeros([BLOCK], {tt}) "
+                        f"{'+' if kind == MIN else '-'} float(\"inf\")"
+                        if isinstance(ident, float)
+                        else f"tl.full([BLOCK], {ident}, {tt})")
+                head.append(f"acc{j} = {init}")
+                self.emit(f"acc{j} = tl.{fn}(acc{j}, ({x}).to({tt}))")
+                red = f"tl.{kind}(acc{j}, axis=0).to(tl.float64)"
+            tail.append(f"tl.store(partial + pid * {ns} + {j}, {red})")
+        lines = ["import triton", "import triton.language as tl", "", "",
+                 "@triton.jit",
+                 "def tile_reduce_kernel(" + ", ".join(params)
+                 + ", lits, partial, n, BLOCK: tl.constexpr):"]
+        lines += ["    " + h for h in head]
+        lines.append("    for blk in range(pid, tl.cdiv(n, BLOCK), nprog):")
+        lines += ["    " + b for b in self.lines]
+        lines += ["    " + t for t in tail]
+        lines += ["", "", "@triton.jit",
+                  "def tile_reduce_combine(partial, out, nprog, "
+                  "P: tl.constexpr):",
+                  "    r = tl.arange(0, P)",
+                  "    m = r < nprog"]
+        # every load first, so that the slots' loads are in flight at once
+        for j, (_, kind, _, _) in enumerate(outs):
+            other = {SUM: "0.0", MIN: 'float("inf")',
+                     MAX: '-float("inf")'}[kind]
+            lines.append(f"    x{j} = tl.load(partial + r * {ns} + {j}, "
+                         f"mask=m, other={other})")
+        for j, (_, kind, _, _) in enumerate(outs):
+            lines.append(f"    tl.store(out + {j}, tl.{kind}(x{j}, axis=0))")
+        return "\n".join(lines) + "\n", self.lits
 
 
 _TRITON_KERNELS: dict = {}
@@ -575,8 +636,9 @@ def _write_atomic(path: str, data: bytes) -> None:
 
 
 def load_tile_reduce_kernel(program: RowProgram):
-    """Build loader: the Triton kernel for ``program``, generated into
-    the build directory and imported from there, cached by source."""
+    """Build loader: the Triton kernels (partials, combine) for
+    ``program``, generated into the build directory and imported from
+    there, cached by source."""
     source, _ = program.triton_source()
     key = hashlib.sha256(source.encode()).hexdigest()[:16]
     with _BUILD_LOCK:
@@ -589,7 +651,8 @@ def load_tile_reduce_kernel(program: RowProgram):
                 f"srt_tile_reduce_{key}", path)
             mod = importlib.util.module_from_spec(spec)
             spec.loader.exec_module(mod)
-            fn = _TRITON_KERNELS[key] = mod.tile_reduce_kernel
+            fn = _TRITON_KERNELS[key] = (mod.tile_reduce_kernel,
+                                         mod.tile_reduce_combine)
     return fn
 
 
@@ -626,10 +689,16 @@ def tile_reduce(inputs: Sequence[torch.Tensor], row_fn: Callable,
     ``len(kinds)`` pre-masked value lanes: excluded rows carry the
     kind's identity (0 for sum, +/-inf or the integer extreme for
     min/max). Returns float64[len(kinds)], one reduced value per lane.
-    On CUDA ``row_fn`` must be a RowProgram, which is compiled.
+    On CUDA ``row_fn`` must be a RowProgram, which is compiled; a
+    RowProgram's ``kinds`` must be its ``slot_kinds()``, as the kernel
+    reduces each slot by the kind written into its source.
     """
     inputs = list(inputs)
     dev = _check_device(inputs)
+    if isinstance(row_fn, RowProgram) and \
+            list(kinds) != row_fn.slot_kinds():
+        raise ValueError(f"tile_reduce: kinds {list(kinds)} differ from "
+                         f"the program's {row_fn.slot_kinds()}")
     if dev.type == "cpu":
         return tile_reduce_plain(inputs, row_fn, kinds)
     if not isinstance(row_fn, RowProgram):
@@ -645,37 +714,66 @@ def tile_reduce(inputs: Sequence[torch.Tensor], row_fn: Callable,
                 (length is not None and t.shape[0] != length):
             raise ValueError("tile_reduce inputs must be contiguous 1-D "
                              "tensors in the program's layout")
-    kernel = load_tile_reduce_kernel(row_fn)
+    kernel, combine = load_tile_reduce_kernel(row_fn)
     args = [t.view(torch.uint8) if t.dtype == torch.bool else t
             for t in inputs]
-    grid = max(1, -(-n // BLOCK_ROWS))
-    partial = torch.empty((grid, len(kinds)), dtype=torch.float64,
-                          device=dev)
-    with torch.cuda.device(dev):
-        kernel[(grid,)](*args, row_fn.literals(dev), partial, n,
-                        BLOCK=BLOCK_ROWS, num_warps=4,
-                        enable_fp_fusion=False)
+    block, _, per_sm = TILE_REDUCE_CONFIG
+    most = _sm_count(dev) * per_sm
+    nprog = max(1, min(-(-n // block), most))
+    ns = len(kinds)
+    out = torch.empty(ns, dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev), _LAUNCH_LOCK:
+        partial = _scratch("tile_reduce", dev, nprog * ns)
+        _launch_tile_reduce(kernel, combine, args, row_fn.literals(dev),
+                            partial, out, n, nprog, most)
     tile_reduce.launches += 1
     if row_fn.str_names:
         tile_reduce.str_launches += 1
-    is_sum, is_min = _kind_masks(tuple(kinds), dev)
-    return torch.where(is_sum, partial.sum(0), torch.where(
-        is_min, partial.amin(0), partial.amax(0)))
+    return out
 
 
-_KIND_MASKS: dict = {}
+def _launch_tile_reduce(kernel, combine, args, lits, partial, out, n: int,
+                        nprog: int, most: int) -> None:
+    """The two launches of one tile_reduce call: ``nprog`` persistent
+    programs write [nprog, slots] partials, then one program combines
+    them; its vector width P covers ``most``, the grid's largest
+    program count, so that P does not change with the batch."""
+    block, warps, _ = TILE_REDUCE_CONFIG
+    kernel[(nprog,)](*args, lits, partial, n, BLOCK=block, num_warps=warps,
+                     enable_fp_fusion=False)
+    combine[(1,)](partial, out, nprog, P=_next_power_of_2(most),
+                  num_warps=4)
 
 
-def _kind_masks(kinds: Tuple[str, ...], dev: torch.device):
-    """Device masks of the SUM and MIN lanes, cached so that combining
-    the partials copies nothing from the host."""
-    key = (kinds, dev)
-    masks = _KIND_MASKS.get(key)
-    if masks is None:
-        masks = _KIND_MASKS[key] = (
-            torch.tensor([k == SUM for k in kinds], device=dev),
-            torch.tensor([k == MIN for k in kinds], device=dev))
-    return masks
+def _next_power_of_2(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+_SM_COUNT: dict = {}
+_SCRATCH: dict = {}
+#: held while a wrapper enqueues its kernels, so that two threads on one
+#: stream cannot interleave their use of the same scratch buffer
+_LAUNCH_LOCK = threading.Lock()
+
+
+def _sm_count(dev: torch.device) -> int:
+    sms = _SM_COUNT.get(dev.index)
+    if sms is None:
+        sms = _SM_COUNT[dev.index] = \
+            torch.cuda.get_device_properties(dev).multi_processor_count
+    return sms
+
+
+def _scratch(tag: str, dev: torch.device, numel: int) -> torch.Tensor:
+    """float64 scratch of at least ``numel`` entries, kept per wrapper,
+    device and stream: kernels on one stream run in order, so the next
+    call's kernels find the buffer free."""
+    key = (tag, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < numel:
+        buf = _SCRATCH[key] = torch.empty(max(numel, 1), dtype=torch.float64,
+                                          device=dev)
+    return buf
 
 
 # ---------------------------------------------------------------------------
@@ -713,24 +811,61 @@ def build_group_kernel() -> None:
 
 
 def _group_lib():
-    so = group_library_path()
-    lib = _GROUP_LIB.get(so)
-    if lib is None:
+    """The library, built and loaded at the first call (the source is
+    hashed once, not per launch)."""
+    lib = _GROUP_LIB.get("lib")
+    if lib is not None:
+        return lib
+    with _BUILD_LOCK:
+        lib = _GROUP_LIB.get("lib")
+        if lib is not None:
+            return lib
         build_group_kernel()
-        lib = ctypes.CDLL(so)
+        lib = ctypes.CDLL(group_library_path())
         fn = lib.tile_group_reduce_f64
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-        _GROUP_LIB[so] = lib
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p]
+        shape = lib.tile_group_reduce_shape
+        shape.restype = ctypes.c_int
+        shape.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                          ctypes.POINTER(ctypes.c_int),
+                          ctypes.POINTER(ctypes.c_int)]
+        _GROUP_LIB["lib"] = lib
     return lib
 
 
+_GROUP_SHAPES: dict = {}
+
+
+def _group_shape(lib, dev: torch.device, num_lanes: int,
+                 num_groups: int) -> Tuple[int, int]:
+    """(lanes per block, blocks that fill the card once) for this many
+    lanes and groups, from the library's occupancy query, cached."""
+    key = (dev.index, num_lanes, num_groups)
+    shape = _GROUP_SHAPES.get(key)
+    if shape is None:
+        chunk, resident = ctypes.c_int(), ctypes.c_int()
+        rc = lib.tile_group_reduce_shape(num_lanes, num_groups,
+                                         GROUP_SMEM_TARGET,
+                                         ctypes.byref(chunk),
+                                         ctypes.byref(resident))
+        if rc != 0:
+            raise RuntimeError(f"tile_group_reduce shape failed: cudaError "
+                               f"{rc}")
+        shape = _GROUP_SHAPES[key] = (chunk.value, resident.value)
+    return shape
+
+
 def tile_group_reduce_plain(gid: torch.Tensor, values: Sequence[torch.Tensor],
-                            num_buckets: int = GROUP_BUCKETS
+                            num_buckets: int = GROUP_BUCKETS,
+                            num_groups: Optional[int] = None
                             ) -> List[torch.Tensor]:
-    """The plain PyTorch version: per-lane scatter-add into buckets."""
+    """The plain PyTorch version: per-lane scatter-add into buckets.
+    ``num_groups`` is the kernel's hint and changes nothing here: rows at
+    or above it carry zeros."""
     tile_group_reduce.plain_calls += 1
     idx = gid.to(torch.int64)
     return [torch.zeros(num_buckets, dtype=torch.float64,
@@ -739,15 +874,21 @@ def tile_group_reduce_plain(gid: torch.Tensor, values: Sequence[torch.Tensor],
 
 
 def tile_group_reduce(gid: torch.Tensor, values: Sequence[torch.Tensor],
-                      num_buckets: int = GROUP_BUCKETS) -> List[torch.Tensor]:
+                      num_buckets: int = GROUP_BUCKETS,
+                      num_groups: Optional[int] = None) -> List[torch.Tensor]:
     """Grouped SUM: for each float64 lane in ``values``, the sum of its
     entries per bucket id of ``gid`` (int32, every id in
-    [0, num_buckets)); excluded rows must carry 0. Returns one
-    float64[num_buckets] tensor per lane."""
+    [0, num_buckets)); excluded rows must carry 0. ``num_groups``, when
+    given, says that only ids below it carry values (rows at or above it
+    carry 0), so the kernel accumulates that many buckets and skips the
+    rest. Returns one float64[num_buckets] tensor per lane."""
     values = list(values)
     if num_buckets % 8 != 0 or num_buckets <= 0:
         raise ValueError(f"num_buckets must be a positive multiple of 8, "
                          f"got {num_buckets}")
+    if num_groups is not None and not 1 <= num_groups <= num_buckets:
+        raise ValueError(f"num_groups must be in 1..{num_buckets}, got "
+                         f"{num_groups}")
     if not 1 <= len(values) <= GROUP_MAX_LANES:
         raise ValueError(f"1..{GROUP_MAX_LANES} value lanes, got "
                          f"{len(values)}")
@@ -760,22 +901,22 @@ def tile_group_reduce(gid: torch.Tensor, values: Sequence[torch.Tensor],
                              "length")
     dev = _check_device([gid] + values)
     if dev.type == "cpu":
-        return tile_group_reduce_plain(gid, values, num_buckets)
+        return tile_group_reduce_plain(gid, values, num_buckets, num_groups)
     if not gid.is_contiguous() or not all(v.is_contiguous() for v in values):
         raise ValueError("tile_group_reduce inputs must be contiguous")
     lib = _group_lib()
     nv = len(values)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = max(1, min(sms, -(-n // 512)))
-    partial = torch.empty(blocks * nv * num_buckets, dtype=torch.float64,
-                          device=dev)
+    ng = num_buckets if num_groups is None else num_groups
+    ptrs = [v.data_ptr() for v in values]
+    vec = int(all(p % 16 == 0 for p in ptrs + [gid.data_ptr()]))
     out = torch.empty((nv, num_buckets), dtype=torch.float64, device=dev)
-    ptrs = (ctypes.c_uint64 * nv)(*[v.data_ptr() for v in values])
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _LAUNCH_LOCK:
+        chunk, resident = _group_shape(lib, dev, nv, ng)
+        partial = _scratch("tile_group_reduce", dev, resident * nv * ng)
         rc = lib.tile_group_reduce_f64(
-            gid.data_ptr(), ptrs, n, nv, num_buckets, blocks,
-            partial.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            gid.data_ptr(), (ctypes.c_uint64 * nv)(*ptrs), n, nv,
+            num_buckets, ng, chunk, resident, vec, partial.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"tile_group_reduce launch failed: cudaError {rc}")
     tile_group_reduce.launches += 1

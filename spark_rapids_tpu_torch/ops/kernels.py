@@ -479,7 +479,9 @@ def group_aggregate_pallas(batch: ColumnarBatch, key_cols: Sequence[Column],
     if kernel_in is None:
         return key_batch, _update_states(prelude, agg_inputs, agg_fns,
                                          fast), False
-    outs = DK.tile_group_reduce(*kernel_in, num_buckets=num_buckets)
+    # dead rows sit on the scratch id prelude[3]: the kernel skips them
+    outs = DK.tile_group_reduce(*kernel_in, num_buckets=num_buckets,
+                                num_groups=max(prelude[3], 1))
     cap = key_batch.capacity
 
     def to_cap(arr, dtype):

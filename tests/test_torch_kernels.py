@@ -9,6 +9,8 @@ and the JAX package is imported under that patch.
 """
 
 import ast
+import sys
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -297,6 +299,305 @@ def test_string_lane_matches_jax(case, monkeypatch):
         assert f"so{k} = tl.load(" in src and f"sv{k} = tl.load(" in src
 
 
+def _smoke_exprs(E, P, S, Agg):
+    """The programs chip_smoke.py times, as (table, predicate,
+    aggregates) in either package: q6, a min/max/NaN program and the two
+    string-filtered aggregates' programs."""
+    c, lit = E.col, E.lit
+    li, od = "lineitem", "orders"
+    return {
+        "q6": (li, (c("l_shipdate") >= lit(8766))
+               & (c("l_shipdate") < lit(9131))
+               & (c("l_discount") >= lit(0.05))
+               & (c("l_discount") <= lit(0.07))
+               & (c("l_quantity") < lit(24.0)),
+               [(Agg.Sum(c("l_extendedprice") * c("l_discount")),
+                 "revenue")]),
+        "minmax_nan": (li, (c("l_tax") > lit(0.02))
+                       | (c("l_quantity") < lit(10.0)),
+                       [(Agg.Min(c("l_quantity")), "mn"),
+                        (Agg.Max(c("l_quantity")), "mx"),
+                        (Agg.Min(c("l_shipdate")), "first_ship"),
+                        (Agg.Count(c("l_tax") / (c("l_discount")
+                                                 - lit(0.05))), "n")]),
+        "strings_lineitem": (li, P.InSet(c("l_returnflag"), ["A", "R"])
+                             & (c("l_linestatus") == lit("F"))
+                             & (c("l_shipdate") >= lit(8766)),
+                             [(Agg.Sum(c("l_extendedprice")
+                                       * c("l_discount")), "revenue"),
+                              (Agg.CountStar(), "n")]),
+        "strings_orders": (od, (S.StartsWith(c("o_orderpriority"), "1-")
+                                | (c("o_orderpriority") == lit("2-HIGH")))
+                           & P.IsNotNull(c("o_orderpriority"))
+                           & (c("o_orderdate") < lit(9204)),
+                           [(Agg.Sum(c("o_totalprice")), "total"),
+                            (Agg.CountStar(), "n")]),
+    }
+
+
+def _smoke_programs():
+    """{name: (schema, predicate, aggregates)} of _smoke_exprs."""
+    d = pallas_agg.dt
+    schemas = {
+        "lineitem": [("l_quantity", d.FLOAT64), ("l_extendedprice", d.FLOAT64),
+                     ("l_discount", d.FLOAT64), ("l_tax", d.FLOAT64),
+                     ("l_shipdate", d.DATE), ("l_returnflag", d.STRING),
+                     ("l_linestatus", d.STRING)],
+        "orders": [("o_totalprice", d.FLOAT64), ("o_orderdate", d.DATE),
+                   ("o_orderpriority", d.STRING)]}
+    return {name: (schemas[table], pred, aggs)
+            for name, (table, pred, aggs) in _smoke_exprs(E, P, S,
+                                                          Agg).items()}
+
+
+@pytest.mark.parametrize("name", ["q6", "minmax_nan", "strings_lineitem",
+                                  "strings_orders"])
+def test_generated_source_has_partial_and_combine_kernels(name):
+    """The generated module compiles as Python (no triton import
+    needed), defines the persistent partial kernel and the combine
+    kernel, and the combine reduces each slot by its kind."""
+    import re
+    schema, pred, aggs = _smoke_programs()[name]
+    plan = pallas_agg.PallasAggPlan(aggs, schema, pred)
+    assert pallas_agg.pred_safe(pred, schema)
+    src, _ = plan.program.triton_source()
+    compile(src, f"tile_reduce_{name}", "exec")
+    fns = {f.name: f for f in ast.parse(src).body
+           if isinstance(f, ast.FunctionDef)}
+    assert set(fns) == {"tile_reduce_kernel", "tile_reduce_combine"}
+    assert [a.arg for a in fns["tile_reduce_combine"].args.args] == \
+        ["partial", "out", "nprog", "P"]
+    body = ast.get_source_segment(src, fns["tile_reduce_kernel"])
+    assert "for blk in range(pid, tl.cdiv(n, BLOCK), nprog):" in body
+    assert len(re.findall(r"tl\.store\(partial \+ pid \* ", body)) == \
+        len(plan.kinds)
+    combine = ast.get_source_segment(src, fns["tile_reduce_combine"])
+    kinds = re.findall(r"tl\.store\(out \+ (\d+), tl\.(sum|min|max)\(x\1,",
+                       combine)
+    assert [int(j) for j, _ in kinds] == list(range(len(plan.kinds)))
+    assert [k for _, k in kinds] == list(plan.kinds)
+    if name.startswith("strings"):
+        assert plan.str_names
+    if name == "minmax_nan":
+        assert {DK.MIN, DK.MAX} <= set(plan.kinds)
+
+
+# --- B1/B2 generated kernels run under a numpy stand-in for Triton ----------
+
+class _V:
+    """A block (or scalar) value of the numpy stand-in for
+    ``triton.language``: numpy arithmetic with Triton's ``.to``."""
+    __slots__ = ("a",)
+    __hash__ = None
+
+    def __init__(self, a):
+        self.a = np.asarray(a)
+
+    def to(self, dtype):
+        return _V(self.a.astype(dtype))
+
+
+def _np(x):
+    return x.a if isinstance(x, _V) else x
+
+
+for _name, _f in {"add": np.add, "sub": np.subtract, "mul": np.multiply,
+                  "truediv": np.true_divide, "and": np.bitwise_and,
+                  "or": np.bitwise_or}.items():
+    setattr(_V, f"__{_name}__", lambda s, o, f=_f: _V(f(s.a, _np(o))))
+    setattr(_V, f"__r{_name}__", lambda s, o, f=_f: _V(f(_np(o), s.a)))
+for _name, _f in {"eq": np.equal, "ne": np.not_equal, "lt": np.less,
+                  "le": np.less_equal, "gt": np.greater,
+                  "ge": np.greater_equal}.items():
+    setattr(_V, f"__{_name}__", lambda s, o, f=_f: _V(f(s.a, _np(o))))
+_V.__neg__ = lambda s: _V(-s.a)
+_V.__invert__ = lambda s: _V(~s.a)
+
+
+class _Ptr:
+    """A pointer (a flat array and element offsets) of the stand-in;
+    every access it makes, masked-off lanes aside, must lie inside the
+    array, as on the card."""
+    __slots__ = ("arr", "idx")
+
+    def __init__(self, arr, idx=0):
+        self.arr, self.idx = arr, idx
+
+    def __add__(self, o):
+        return _Ptr(self.arr, self.idx + _np(o))
+
+    def at(self, mask=None):
+        idx = np.asarray(self.idx)
+        keep = np.ones(idx.shape, bool) if mask is None else \
+            np.broadcast_to(_np(mask), idx.shape)
+        safe = np.where(keep, idx, 0)
+        assert ((safe >= 0) & (safe < max(self.arr.size, 1)) | ~keep).all(), \
+            "access outside the array"
+        return keep, safe
+
+
+class _Kernel:
+    """``triton.jit`` of the stand-in: ``kernel[grid](...)`` runs the
+    function once per program, in program order; tensors become
+    pointers into their (shared) numpy memory."""
+    state = [0, 1]
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __getitem__(self, grid):
+        def launch(*args, num_warps=None, enable_fp_fusion=None, **consts):
+            ptrs = [_Ptr(a.numpy()) if isinstance(a, torch.Tensor) else a
+                    for a in args]
+            for pid in range(grid[0]):
+                _Kernel.state[:] = [pid, grid[0]]
+                self.fn(*ptrs, **consts)
+        return launch
+
+
+def _tl_load(ptr, mask=None, other=0):
+    keep, safe = ptr.at(mask)
+    got = ptr.arr[safe] if ptr.arr.size else np.zeros(safe.shape,
+                                                       ptr.arr.dtype)
+    return _V(np.where(keep, got, np.asarray(other).astype(ptr.arr.dtype)))
+
+
+def _tl_store(ptr, value):
+    _, safe = ptr.at()
+    ptr.arr[safe] = _np(value)
+
+
+def _triton_stand_in():
+    tl = types.ModuleType("triton.language")
+    tl.constexpr = object
+    for name, d in {"int1": np.bool_, "int8": np.int8, "int16": np.int16,
+                    "int32": np.int32, "int64": np.int64, "uint8": np.uint8,
+                    "float32": np.float32, "float64": np.float64}.items():
+        setattr(tl, name, d)
+    tl.program_id = lambda axis: _Kernel.state[0]
+    tl.num_programs = lambda axis: _Kernel.state[1]
+    tl.cdiv = lambda a, b: -(-a // b)
+    tl.arange = lambda lo, hi: _V(np.arange(lo, hi, dtype=np.int32))
+    tl.zeros = lambda shape, d: _V(np.zeros(shape, d))
+    tl.full = lambda shape, v, d: _V(np.full(shape, v, d))
+    tl.where = lambda c, x, y: _V(np.where(_np(c), _np(x), _np(y)))
+    # min.f64 / max.f64 on the card return the operand that is not NaN
+    tl.minimum = lambda x, y: _V(np.fmin(_np(x), _np(y)))
+    tl.maximum = lambda x, y: _V(np.fmax(_np(x), _np(y)))
+    tl.sum = lambda x, axis: _V(np.sum(x.a, axis=axis))
+    tl.min = lambda x, axis: _V(np.fmin.reduce(x.a, axis=axis))
+    tl.max = lambda x, axis: _V(np.fmax.reduce(x.a, axis=axis))
+    tl.load, tl.store = _tl_load, _tl_store
+    triton = types.ModuleType("triton")
+    triton.jit, triton.language, triton.cdiv = _Kernel, tl, tl.cdiv
+    return triton, tl
+
+
+def _run_generated(plan, batch, nprog, most, monkeypatch):
+    """One tile_reduce call of ``plan`` on ``batch`` through the
+    wrapper's own launch code, with the generated module executed under
+    the stand-in and a grid of ``nprog`` programs out of ``most``."""
+    triton, tl = _triton_stand_in()
+    monkeypatch.setitem(sys.modules, "triton", triton)
+    monkeypatch.setitem(sys.modules, "triton.language", tl)
+    src, _ = plan.program.triton_source()
+    # range over a block yields tensor scalars, which have ``.to``
+    mod = {"__name__": "tile_reduce_stand_in",
+           "range": lambda *a: (_V(np.int32(i)) for i in range(*a))}
+    exec(compile(src, "tile_reduce_stand_in", "exec"), mod)
+    args = [t.view(torch.uint8) if t.dtype == torch.bool else t
+            for t in plan.kernel_inputs(batch)]
+    ns = len(plan.kinds)
+    partial = torch.full((nprog * ns,), float("nan"), dtype=torch.float64)
+    out = torch.full((ns,), float("nan"), dtype=torch.float64)
+    with np.errstate(all="ignore"):
+        DK._launch_tile_reduce(mod["tile_reduce_kernel"],
+                               mod["tile_reduce_combine"], args,
+                               plan.program.literals(torch.device("cpu")),
+                               partial, out, args[-1].shape[0], nprog, most)
+    return out.numpy()
+
+
+def _smoke_lanes(table, n=5000, seed=21):
+    """Rows of the smoke programs' columns with nulls, NaN and the
+    literals' near misses."""
+    rng = np.random.default_rng(seed)
+    valid = lambda p: rng.random(n) > p  # noqa: E731
+    pick = lambda words: np.array(words, dtype=object)[  # noqa: E731
+        rng.integers(0, len(words), n)]
+    if table == "orders":
+        return {
+            "o_totalprice": (rng.uniform(1e3, 5e5, n), valid(0.05), "double"),
+            "o_orderdate": (rng.integers(8700, 9500, n), valid(0.05),
+                            "date"),
+            "o_orderpriority": (pick(["1-URGENT", "2-HIGH", "3-MEDIUM",
+                                      "4-NOT SPECIFIED", "5-LOW", "1-",
+                                      "1", "2-HIG", "2-HIGHER", ""]),
+                                valid(0.1), "string")}
+    qty = rng.uniform(1, 50, n)
+    qty[rng.integers(0, n, n // 40)] = np.nan
+    return {
+        "l_quantity": (qty, valid(0.05), "double"),
+        "l_extendedprice": (rng.uniform(900, 1e5, n), valid(0.05), "double"),
+        "l_discount": (rng.choice([0.0, 0.04, 0.05, 0.06, 0.07, 0.1], n),
+                       valid(0.05), "double"),
+        "l_tax": (rng.choice([0.0, 0.02, 0.03, 0.08], n), valid(0.05),
+                  "double"),
+        "l_shipdate": (rng.integers(8600, 9300, n), valid(0.05), "date"),
+        "l_returnflag": (pick(["A", "R", "N", "AR", ""]), valid(0.05),
+                         "string"),
+        "l_linestatus": (pick(["F", "O", "FF"]), valid(0.05), "string")}
+
+
+@pytest.mark.parametrize("name", ["q6", "minmax_nan", "strings_lineitem",
+                                  "strings_orders"])
+def test_generated_kernels_match_jax_under_numpy_triton(name, monkeypatch):
+    """The generated partial and combine kernels, executed under a numpy
+    stand-in for ``triton.language`` through the wrapper's launch code,
+    equal the JAX kernel in interpret mode and the plain version on the
+    same batch, for a grid that fills P and one that does not."""
+    from spark_rapids_tpu.columnar import dtypes as jdt
+    table, pred, aggs = _smoke_exprs(E, P, S, Agg)[name]
+    _, jpred, jaggs = _smoke_exprs(jE, jP, jS, jAgg)[name]
+    lanes = _smoke_lanes(table)
+    batch = host_table.table_to_batch(carry.host_table_from_lanes(lanes),
+                                      capacity=8192)
+    jt = {"string": jdt.STRING, "double": jdt.FLOAT64, "date": jdt.DATE}
+    jbatch = jhost.table_to_batch(jhost.HostTable(
+        [jhost.HostColumn(v, m, jt[t]) for v, m, t in lanes.values()],
+        list(lanes)), 8192)
+    plan = pallas_agg.PallasAggPlan(aggs, batch.schema(), pred)
+    jplan = jpallas_agg.PallasAggPlan(jaggs, jbatch.schema(), jpred)
+    assert plan.kinds == jplan.kinds == plan.program.slot_kinds()
+    calls = []
+    orig = PK.tile_reduce
+    monkeypatch.setattr(PK, "tile_reduce",
+                        lambda *a, **k: calls.append(1) or orig(*a, **k))
+    ref = np.array([float(r) for r in jplan.batch_fn()(jbatch)])
+    assert calls == [1]  # the JAX Pallas kernel ran
+    plain = plan.batch_fn()(batch).numpy()
+    exact = np.array([k != DK.SUM for k in plan.kinds])
+    for nprog, most in ((5, 8), (4, 4), (1, 1)):
+        got = _run_generated(plan, batch, nprog, most, monkeypatch)
+        np.testing.assert_allclose(got, ref, rtol=RTOL)
+        np.testing.assert_allclose(got, plain, rtol=RTOL)
+        np.testing.assert_array_equal(got[exact], ref[exact])
+    assert ref[1] > 0  # the predicate keeps some rows
+
+
+def test_tile_reduce_rejects_kinds_that_differ_from_the_program():
+    """The kernel reduces each slot by the kind written into its source,
+    so a caller's kinds must be the program's."""
+    schema, pred, aggs = _smoke_programs()["minmax_nan"]
+    plan = pallas_agg.PallasAggPlan(aggs, schema, pred)
+    batch = host_table.table_to_batch(carry.host_table_from_lanes(
+        _smoke_lanes("lineitem", n=100)), capacity=128)
+    wrong = [DK.SUM] * len(plan.kinds)
+    with pytest.raises(ValueError, match="differ from the program"):
+        DK.tile_reduce(plan.kernel_inputs(batch), plan.program, wrong)
+    DK.tile_reduce(plan.kernel_inputs(batch), plan.program, plan.kinds)
+
+
 def test_string_literals_are_in_the_kernel_source():
     schema = [("s", pallas_agg.dt.STRING)]
     srcs = set()
@@ -341,13 +642,51 @@ def test_tile_group_reduce_plain_matches_jax(n, buckets, tile):
     assert all(float(g[3]) == 0.0 for g in got)
 
 
-@pytest.mark.parametrize("bad", ["buckets", "gid_dtype", "lanes", "length"])
+@pytest.mark.parametrize("n,buckets,groups,tile", [
+    (500, 64, 20, 32),     # dead rows on the scratch id 20
+    (2000, 1024, 600, 256),
+    (64, 16, 16, 16),      # every bucket live: the scratch id clamps in
+])
+def test_tile_group_reduce_group_count_matches_jax(n, buckets, groups, tile):
+    """The group count is a hint: rows at or above it carry zeros (dead
+    rows on the scratch id ``groups``, and ids above it), and the result
+    with it equals the result without it and the JAX kernel's."""
+    rng = np.random.default_rng(groups)
+    gid = rng.integers(0, groups, n).astype(np.int32)
+    dead = rng.random(n) < 0.2
+    gid[dead] = min(groups, buckets - 1)
+    above = ~dead & (rng.random(n) < 0.05) & (groups < buckets)
+    gid[above] = rng.integers(groups, buckets, int(above.sum()))
+    zero = dead | above
+    vals = [np.where(zero, 0.0, rng.uniform(0, 1e5, n)),
+            np.where(zero, 0.0, (rng.random(n) > 0.3).astype(np.float64))]
+    tg = torch.from_numpy(gid)
+    tv = [torch.from_numpy(v) for v in vals]
+    got = DK.tile_group_reduce(tg, tv, buckets, num_groups=groups)
+    plain = DK.tile_group_reduce_plain(tg, tv, buckets)
+    ref = PK.tile_group_reduce(jnp.asarray(gid),
+                               [jnp.asarray(v) for v in vals],
+                               num_buckets=buckets, tile_rows=tile,
+                               interpret=True)
+    for g, p, r in zip(got, plain, ref):
+        assert g.shape == (buckets,) and torch.equal(g, p)
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=RTOL,
+                                   atol=1e-12)
+        assert not g[groups:].any()
+
+
+@pytest.mark.parametrize("bad", ["buckets", "gid_dtype", "lanes", "length",
+                                 "groups_above_buckets", "groups_zero"])
 def test_tile_group_reduce_checks_inputs(bad):
     gid = torch.zeros(8, dtype=torch.int32)
     vals = [torch.ones(8, dtype=torch.float64)]
     kw = {"num_buckets": 16}
     if bad == "buckets":
         kw["num_buckets"] = 12
+    elif bad == "groups_above_buckets":
+        kw["num_groups"] = 17
+    elif bad == "groups_zero":
+        kw["num_groups"] = 0
     elif bad == "gid_dtype":
         gid = gid.to(torch.int64)
     elif bad == "lanes":
