@@ -35,16 +35,28 @@ Needs one NVIDIA GPU (built for an H100: sm_90a), nvcc and triton. It
    computation over the same host data; for q3 it also logs each
    operator's self time and, from one run under torch.profiler, the
    device time by kernel and the device's idle share;
-6. logs the device kernels that one call of each kernel launches
-   (torch.profiler; last, because every profiler session slows the
-   host's later launches);
-7. prints one JSON line of kernel numbers, then
+6. runs the NDS slice (``NDS_SLICE``, 20 star-join queries) as SQL
+   text through ``session.sql`` over NDS tables generated in memory at
+   ``scale_rows`` 28,800,000 (TPC-DS SF10's store_sales; q82 at
+   2,880,000, SF1, because its join grows with the square of the scale)
+   and moved to the card: per query one first run and three warm runs,
+   each held against a numpy reference written from the query text
+   (``NdsNumpy``) and checked to be in ORDER BY order; it logs wall
+   times, fact rows/s, result rows, launches and ``pallasBatches`` per
+   kernel and peak device memory, and checks that B3 carried q3, q42,
+   q43, q52 and q55;
+7. profiles one TPC-H q3 and one NDS q3 run (torch.profiler: device
+   time by kernel and the device's idle share), then logs the device
+   kernels that one call of each kernel launches (profiles last,
+   because every profiler session slows the host's later launches);
+8. prints one JSON line of kernel numbers, then
    {"ok": true, "device": {...}} as its last line.
 
 Any mismatch or error exits non-zero before the last line is printed.
 """
 
 import datetime
+import gc
 import json
 import os
 import re
@@ -62,6 +74,15 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP64_PER_S = 34e12
 TIMED_RUNS = 10
 FLUSH_BYTES = 128 << 20  # over twice the H100's 50 MB L2
+#: NDS scale: TPC-DS SF10's store_sales has 28,800,991 rows
+NDS_ROWS = 28_800_000
+#: q82 joins inventory to store_sales on the item alone, so its join
+#: output grows with the square of the scale: it runs at SF1
+NDS_Q82_ROWS = 2_880_000
+#: the B3 queries at any scale (few hundred groups at most per batch)
+NDS_B3_QUERIES = ("q3", "q42", "q43", "q52", "q55")
+NDS_FACTS = ("store_sales", "store_returns", "catalog_sales", "web_sales",
+             "inventory")
 
 
 def check(cond, msg):
@@ -190,6 +211,804 @@ def host_match(np, hs, lit, prefix=False):
         pos = np.minimum(hs.offsets[:-1] + j, last)
         hit &= hs.chars[pos] == byte
     return hit
+
+
+class NdsNumpy:
+    """numpy references for the NDS slice, written from the query texts
+    (spark_rapids_tpu_torch/models/nds.py) over the generated host
+    tables and independent of the port's code: filters are masks,
+    equi-joins go by sort and searchsorted, grouping by np.unique with
+    return_inverse and np.bincount, ordering by np.lexsort. SQL null
+    rules: a null key joins nothing, a predicate on a null is not true,
+    SUM and AVG skip nulls and are null over no value, and a CASE whose
+    condition is not true takes its ELSE."""
+
+    def __init__(self, np, tables):
+        self.np = np
+        self.tables = tables
+        self._cols = {}
+        self._full_lookups = {}
+
+    def col(self, table, name):
+        """(values, valid) of one column; strings as an object array."""
+        key = (table, name)
+        if key not in self._cols:
+            c = self.tables[table].column(name)
+            values = c.values.to_objects() if hasattr(c.values, "to_objects") \
+                else c.values
+            self._cols[key] = (values, c.mask)
+        return self._cols[key]
+
+    def rows(self, table):
+        return self.tables[table].num_rows
+
+    # --- relational pieces ------------------------------------------------
+    def lookup(self, dim, dim_key, fact_key, fact_ok):
+        """Row of ``dim`` whose (unique, non-null) key equals each fact
+        key, and whether there is one."""
+        np = self.np
+        keys, _ = self.col(dim, dim_key)
+        order = np.argsort(keys, kind="stable")
+        sk = keys[order]
+        pos = np.searchsorted(sk, fact_key).clip(0, len(sk) - 1)
+        return order[pos], fact_ok & (sk[pos] == fact_key)
+
+    def pairs(self, lkey, lok, rkey, rok):
+        """Every (left row, right row) with equal non-null int keys."""
+        np = self.np
+        r = np.nonzero(rok)[0]
+        r = r[np.argsort(rkey[r], kind="stable")]
+        sk = rkey[r]
+        left = np.nonzero(lok)[0]
+        lo = np.searchsorted(sk, lkey[left], "left")
+        cnt = np.searchsorted(sk, lkey[left], "right") - lo
+        li = np.repeat(left, cnt)
+        within = np.arange(int(cnt.sum())) - np.repeat(np.cumsum(cnt) - cnt,
+                                                       cnt)
+        return li, r[np.repeat(lo, cnt) + within]
+
+    def group(self, keys):
+        """Group ids over (values, valid) key columns (a null key is a
+        group of its own), their count and each group's first row."""
+        np = self.np
+        combined = np.zeros(len(keys[0][0]), np.int64)
+        for values, ok in keys:
+            if values.dtype == object:
+                # strings: one dict pass (np.unique would sort Python
+                # objects)
+                index = {}
+                inv = np.fromiter((index.setdefault(v, len(index))
+                                   for v in values), np.int64, len(values))
+                n = len(index)
+            else:
+                uniq, inv = np.unique(values, return_inverse=True)
+                n = len(uniq)
+            combined = combined * (n + 1) + np.where(ok, inv.reshape(-1) + 1,
+                                                     0)
+        _, first, gid = np.unique(combined, return_index=True,
+                                  return_inverse=True)
+        return gid.reshape(-1), len(first), first
+
+    def gsum(self, gid, n, values, ok, integral=False):
+        """SUM per group: (sums, valid); null where a group has no
+        value."""
+        np = self.np
+        s = np.bincount(gid, weights=np.where(ok, values, 0).astype(
+            np.float64), minlength=n)
+        cnt = np.bincount(gid, weights=ok.astype(np.float64), minlength=n)
+        return (s.astype(np.int64) if integral else s), cnt > 0
+
+    def gavg(self, gid, n, values, ok):
+        np = self.np
+        s, valid = self.gsum(gid, n, values, ok)
+        cnt = np.bincount(gid, weights=ok.astype(np.float64), minlength=n)
+        return s / np.where(valid, cnt, 1.0), valid
+
+    def result(self, cols, order, limit=None):
+        """Rows of ``cols`` ({name: (values, valid)} in SELECT order),
+        sorted by ``order`` ([(name, ascending)], Spark's null order)
+        through np.lexsort and cut to ``limit``."""
+        np = self.np
+        names = list(cols)
+        n = len(cols[names[0]][0])
+        lex = []
+        for name, asc in order:
+            values, ok = cols[name]
+            if values.dtype == object:
+                filled = np.where(ok, values, "")
+                values = np.unique(filled, return_inverse=True)[1].reshape(-1)
+            key = np.where(ok, values, 0)
+            lex.append(np.where(ok, 1, 0) if asc else np.where(ok, 0, 1))
+            lex.append(key if asc else -key)
+        idx = np.lexsort(lex[::-1]) if lex else np.arange(n)
+        idx = idx[:limit] if limit is not None else idx
+        out = []
+        for i in idx:
+            row = {}
+            for name in names:
+                values, ok = cols[name]
+                v = values[i]
+                row[name] = None if not ok[i] else (
+                    v if isinstance(v, str) else v.item())
+            out.append(row)
+        return out
+
+    def keys_of(self, keys, first, names):
+        """Each group's key values from its first row."""
+        return {name: (values[first], ok[first])
+                for name, (values, ok) in zip(names, keys)}
+
+    # --- shared shapes ------------------------------------------------------
+    def fact_dims(self, fact, fk_dims, where=None):
+        """Fact rows (``where``: a bool mask, or all) joined to
+        dimensions by unique keys, in the order given (the most selective
+        first keeps the later lookups short): ``fk_dims`` is [(fact key,
+        dim, dim key, dim filter or None)]; returns (kept fact rows,
+        {dim: dim row per kept fact row})."""
+        np = self.np
+        idx = None if where is None else np.nonzero(where)[0]
+        rows = {}
+        for fk, dim, dk, dim_keep in fk_dims:
+            v, ok = self.col(fact, fk)
+            if idx is None:
+                # a whole fact column against a dimension: several
+                # queries share it
+                key = (fact, fk, dim, dk)
+                if key not in self._full_lookups:
+                    self._full_lookups[key] = self.lookup(dim, dk, v, ok)
+                pos, hit = self._full_lookups[key]
+                hit = hit.copy()
+                idx = np.arange(len(v))
+            else:
+                pos, hit = self.lookup(dim, dk, v[idx], ok[idx])
+            if dim_keep is not None:
+                hit &= dim_keep[pos]
+            idx = idx[hit]
+            rows = {d: p[hit] for d, p in rows.items()}
+            rows[dim] = pos[hit]
+        return idx, rows
+
+    def take(self, table, name, rows):
+        values, ok = self.col(table, name)
+        return values[rows], ok[rows]
+
+    def eq(self, table, name, value):
+        values, ok = self.col(table, name)
+        return ok & (values == value)
+
+    def between(self, table, name, lo, hi):
+        values, ok = self.col(table, name)
+        return ok & (values >= lo) & (values <= hi)
+
+    def isin(self, table, name, choices):
+        values, ok = self.col(table, name)
+        return ok & self.np.isin(values, list(choices))
+
+    def dates(self, **eqs):
+        keep = self.np.ones(self.rows("date_dim"), bool)
+        for name, value in eqs.items():
+            keep &= self.eq("date_dim", name, value)
+        return keep
+
+    def star_sum(self, fact, fk_dims, key_cols, sums, order, limit=100,
+                 where=None):
+        """Fact x dimensions -> GROUP BY dimension columns -> SUMs of
+        fact columns: ``key_cols`` [(output name, dim, column)], ``sums``
+        [(output name, fact column)]."""
+        idx, dims = self.fact_dims(fact, fk_dims, where)
+        keys = [self.take(dim, c, dims[dim]) for _, dim, c in key_cols]
+        gid, n, first = self.group(keys)
+        cols = self.keys_of(keys, first, [k for k, _, _ in key_cols])
+        for name, c in sums:
+            cols[name] = self.gsum(gid, n, *self.take(fact, c, idx))
+        return self.result(cols, order, limit)
+
+    # --- the queries ----------------------------------------------------------
+    def q3(self):
+        return self.star_sum(
+            "store_sales",
+            [("ss_sold_date_sk", "date_dim", "d_date_sk",
+              self.dates(d_moy=11)),
+             ("ss_item_sk", "item", "i_item_sk",
+              self.eq("item", "i_manufact_id", 7))],
+            [("d_year", "date_dim", "d_year"),
+             ("brand_id", "item", "i_brand_id"),
+             ("brand", "item", "i_brand")],
+            [("sum_agg", "ss_ext_sales_price")],
+            [("d_year", True), ("sum_agg", False), ("brand_id", True)])
+
+    def _demo_avgs(self, fact, p, demo_fk, gender, marital, education,
+                   promo, aggs):
+        cd = (self.eq("customer_demographics", "cd_gender", gender)
+              & self.eq("customer_demographics", "cd_marital_status",
+                        marital)
+              & self.eq("customer_demographics", "cd_education_status",
+                        education))
+        fk = [(demo_fk, "customer_demographics", "cd_demo_sk", cd),
+              (f"{p}_sold_date_sk", "date_dim", "d_date_sk",
+               self.dates(d_year=1998)),
+              (f"{p}_item_sk", "item", "i_item_sk", None)]
+        if promo:
+            fk.append((f"{p}_promo_sk", "promotion", "p_promo_sk",
+                       self.eq("promotion", "p_channel_email", "N")
+                       | self.eq("promotion", "p_channel_event", "N")))
+        idx, dims = self.fact_dims(fact, fk)
+        keys = [self.take("item", "i_item_id", dims["item"])]
+        gid, n, first = self.group(keys)
+        cols = self.keys_of(keys, first, ["i_item_id"])
+        for name, c in aggs:
+            cols[name] = self.gavg(gid, n, *self.take(fact, c, idx))
+        return self.result(cols, [("i_item_id", True)], 100)
+
+    def q7(self):
+        return self._demo_avgs(
+            "store_sales", "ss", "ss_cdemo_sk", "M", "S", "College", True,
+            [("agg1", "ss_quantity"), ("agg2", "ss_list_price"),
+             ("agg3", "ss_coupon_amt"), ("agg4", "ss_sales_price")])
+
+    def q26(self):
+        return self._demo_avgs(
+            "catalog_sales", "cs", "cs_bill_customer_sk", "F", "W",
+            "Primary", False,
+            [("agg1", "cs_quantity"), ("agg2", "cs_list_price"),
+             ("agg4", "cs_sales_price")])
+
+    def q15(self):
+        idx, dims = self.fact_dims("catalog_sales", [
+            ("cs_sold_date_sk", "date_dim", "d_date_sk",
+             self.dates(d_qoy=1, d_year=1999)),
+            ("cs_bill_customer_sk", "customer", "c_customer_sk", None)])
+        addr, hit = self.lookup("customer_address", "ca_address_sk",
+                                *self.take("customer", "c_current_addr_sk",
+                                           dims["customer"]))
+        state = self.isin("customer_address", "ca_state",
+                          ("CA", "WA", "GA"))[addr]
+        price, pok = self.take("catalog_sales", "cs_sales_price", idx)
+        keep = hit & (state | (pok & (price > 250.0)))
+        idx, addr = idx[keep], addr[keep]
+        keys = [self.take("customer_address", "ca_zip", addr)]
+        gid, n, first = self.group(keys)
+        cols = self.keys_of(keys, first, ["ca_zip"])
+        cols["sum_sales"] = self.gsum(
+            gid, n, *self.take("catalog_sales", "cs_sales_price", idx))
+        return self.result(cols, [("ca_zip", True)], 100)
+
+    def q19(self):
+        idx, dims = self.fact_dims("store_sales", [
+            ("ss_sold_date_sk", "date_dim", "d_date_sk",
+             self.dates(d_moy=11, d_year=1998)),
+            ("ss_item_sk", "item", "i_item_sk",
+             self.eq("item", "i_manager_id", 8)),
+            ("ss_customer_sk", "customer", "c_customer_sk", None),
+            ("ss_store_sk", "store", "s_store_sk", None)])
+        addr, hit = self.lookup("customer_address", "ca_address_sk",
+                                *self.take("customer", "c_current_addr_sk",
+                                           dims["customer"]))
+        ca_state, ca_ok = self.take("customer_address", "ca_state", addr)
+        s_state, s_ok = self.take("store", "s_state", dims["store"])
+        keep = hit & ca_ok & s_ok & (ca_state != s_state)
+        idx, item = idx[keep], dims["item"][keep]
+        names = [("brand_id", "i_brand_id"), ("brand", "i_brand"),
+                 ("i_manufact_id", "i_manufact_id"),
+                 ("i_manufact", "i_manufact")]
+        keys = [self.take("item", c, item) for _, c in names]
+        gid, n, first = self.group(keys)
+        cols = self.keys_of(keys, first, [k for k, _ in names])
+        cols["ext_price"] = self.gsum(
+            gid, n, *self.take("store_sales", "ss_ext_sales_price", idx))
+        return self.result(cols, [("ext_price", False), ("brand_id", True),
+                                  ("i_manufact_id", True)], 100)
+
+    def q21(self):
+        np = self.np
+        idx, dims = self.fact_dims("inventory", [
+            ("inv_date_sk", "date_dim", "d_date_sk",
+             self.dates(d_year=1999)),
+            ("inv_item_sk", "item", "i_item_sk",
+             self.between("item", "i_current_price", 0.99, 50.49)),
+            ("inv_warehouse_sk", "warehouse", "w_warehouse_sk", None)])
+        keys = [self.take("warehouse", "w_warehouse_name",
+                          dims["warehouse"]),
+                self.take("item", "i_item_id", dims["item"])]
+        gid, n, first = self.group(keys)
+        cols = self.keys_of(keys, first, ["w_warehouse_name", "i_item_id"])
+        qoh, qok = self.take("inventory", "inv_quantity_on_hand", idx)
+        moy = self.take("date_dim", "d_moy", dims["date_dim"])[0]
+        for name, when in (("inv_before", moy < 6), ("inv_after", moy >= 6)):
+            # CASE WHEN .. THEN qoh ELSE 0: null only where qoh is taken
+            cols[name] = self.gsum(gid, n, np.where(when, qoh, 0),
+                                   np.where(when, qok, True), integral=True)
+        after, aok = cols["inv_after"]
+        having = aok & (after > 0)
+        cols = {k: (v[having], ok[having]) for k, (v, ok) in cols.items()}
+        return self.result(cols, [("w_warehouse_name", True),
+                                  ("i_item_id", True)], 100)
+
+    def q25(self):
+        np = self.np
+        idx, dims = self.fact_dims("store_sales", [
+            ("ss_sold_date_sk", "date_dim", "d_date_sk",
+             self.dates(d_moy=4, d_year=1999)),
+            ("ss_store_sk", "store", "s_store_sk", None),
+            ("ss_item_sk", "item", "i_item_sk", None)])
+        # (ticket, item) as one int64: tickets < 2^40, items < 2^20
+        t, _ = self.take("store_sales", "ss_ticket_number", idx)
+        it, _ = self.take("store_sales", "ss_item_sk", idx)
+        rt, rtok = self.col("store_returns", "sr_ticket_number")
+        ri, riok = self.col("store_returns", "sr_item_sk")
+        li, rr = self.pairs(t * (1 << 20) + it, np.ones(len(idx), bool),
+                            rt * (1 << 20) + ri, rtok & riok)
+        names = [("i_item_id", "item", "i_item_id"),
+                 ("i_item_desc", "item", "i_item_desc"),
+                 ("s_store_id", "store", "s_store_id"),
+                 ("s_store_name", "store", "s_store_name")]
+        keys = [self.take(dim, c, dims[dim][li]) for _, dim, c in names]
+        gid, n, first = self.group(keys)
+        cols = self.keys_of(keys, first, [k for k, _, _ in names])
+        cols["store_sales_profit"] = self.gsum(
+            gid, n, *self.take("store_sales", "ss_net_profit", idx[li]))
+        cols["store_returns_loss"] = self.gsum(
+            gid, n, *self.take("store_returns", "sr_net_loss", rr))
+        return self.result(cols, [(k, True) for k, _, _ in names], 100)
+
+    def _inventory_items(self, lo, hi, manufact, with_sales):
+        """q37 / q82: the items in a price band and manufacturer set with
+        an inventory row of 100-500 on hand (a date row for it; in 1999
+        for q37), and for q82 a store sale: the GROUP BY with no
+        aggregate keeps one row per item."""
+        np = self.np
+        items = (self.between("item", "i_current_price", lo, hi)
+                 & self.isin("item", "i_manufact_id", manufact))
+        where = self.between("inventory", "inv_quantity_on_hand", 100, 500)
+        dates = None if with_sales else self.dates(d_year=1999)
+        _, dims = self.fact_dims("inventory", [
+            ("inv_item_sk", "item", "i_item_sk", items),
+            ("inv_date_sk", "date_dim", "d_date_sk", dates)], where)
+        keep = np.zeros(self.rows("item"), bool)
+        keep[dims["item"]] = True
+        if with_sales:
+            _, sold = self.fact_dims("store_sales", [
+                ("ss_item_sk", "item", "i_item_sk", keep)])
+            keep = np.zeros(self.rows("item"), bool)
+            keep[sold["item"]] = True
+        rows = np.nonzero(keep)[0]
+        names = ["i_item_id", "i_item_desc", "i_current_price"]
+        keys = [self.take("item", c, rows) for c in names]
+        gid, n, first = self.group(keys)
+        return self.result(self.keys_of(keys, first, names),
+                           [("i_item_id", True)], 100)
+
+    def q37(self):
+        return self._inventory_items(20.0, 50.0, (3, 8, 17, 19), False)
+
+    def q82_join_rows(self):
+        """The rows q82's joins produce before its GROUP BY: qualifying
+        inventory rows times store sales, item by item."""
+        np = self.np
+        items = (self.between("item", "i_current_price", 30.0, 60.0)
+                 & self.isin("item", "i_manufact_id", (2, 6, 12, 17)))
+        _, inv = self.fact_dims("inventory", [
+            ("inv_item_sk", "item", "i_item_sk", items),
+            ("inv_date_sk", "date_dim", "d_date_sk", None)],
+            self.between("inventory", "inv_quantity_on_hand", 100, 500))
+        _, sold = self.fact_dims("store_sales", [
+            ("ss_item_sk", "item", "i_item_sk", items)])
+        n = self.rows("item")
+        per_inv = np.bincount(inv["item"], minlength=n)
+        per_ss = np.bincount(sold["item"], minlength=n)
+        return int(items.sum()), int((per_inv * per_ss).sum())
+
+    def q82(self):
+        return self._inventory_items(30.0, 60.0, (2, 6, 12, 17), True)
+
+    def q40(self):
+        np = self.np
+        idx, dims = self.fact_dims("catalog_sales", [
+            ("cs_warehouse_sk", "warehouse", "w_warehouse_sk", None),
+            ("cs_item_sk", "item", "i_item_sk", None),
+            ("cs_sold_date_sk", "date_dim", "d_date_sk", None)])
+        price = self.between("item", "i_current_price", 0.99,
+                             1.49)[dims["item"]]
+        year = self.eq("date_dim", "d_year", 1999)[dims["date_dim"]]
+        keep = price | year
+        idx = idx[keep]
+        dims = {d: p[keep] for d, p in dims.items()}
+        keys = [self.take("warehouse", "w_state", dims["warehouse"]),
+                self.take("item", "i_item_id", dims["item"])]
+        gid, n, first = self.group(keys)
+        cols = self.keys_of(keys, first, ["w_state", "i_item_id"])
+        sp, sok = self.take("catalog_sales", "cs_sales_price", idx)
+        moy = self.take("date_dim", "d_moy", dims["date_dim"])[0]
+        for name, when in (("sales_before", moy < 6),
+                           ("sales_after", moy >= 6)):
+            cols[name] = self.gsum(gid, n, np.where(when, sp, 0.0),
+                                   np.where(when, sok, True))
+        return self.result(cols, [("w_state", True), ("i_item_id", True)],
+                           100)
+
+    def q42(self):
+        return self.star_sum(
+            "store_sales",
+            [("ss_sold_date_sk", "date_dim", "d_date_sk",
+              self.dates(d_moy=12, d_year=1998)),
+             ("ss_item_sk", "item", "i_item_sk", None)],
+            [("d_year", "date_dim", "d_year"),
+             ("i_category_id", "item", "i_category_id"),
+             ("i_category", "item", "i_category")],
+            [("total_sales", "ss_ext_sales_price")],
+            [("total_sales", False), ("d_year", True),
+             ("i_category_id", True), ("i_category", True)])
+
+    def q43(self):
+        np = self.np
+        idx, dims = self.fact_dims("store_sales", [
+            ("ss_sold_date_sk", "date_dim", "d_date_sk",
+             self.dates(d_year=1998)),
+            ("ss_store_sk", "store", "s_store_sk",
+             self.eq("store", "s_gmt_offset", -5.0))])
+        keys = [self.take("store", "s_store_name", dims["store"]),
+                self.take("store", "s_store_id", dims["store"])]
+        gid, n, first = self.group(keys)
+        cols = self.keys_of(keys, first, ["s_store_name", "s_store_id"])
+        sp, sok = self.take("store_sales", "ss_sales_price", idx)
+        for name, d in (("sun_sales", "Sunday"), ("mon_sales", "Monday"),
+                        ("fri_sales", "Friday"), ("sat_sales", "Saturday")):
+            when = self.eq("date_dim", "d_day_name", d)[dims["date_dim"]]
+            cols[name] = self.gsum(gid, n, np.where(when, sp, 0.0),
+                                   np.where(when, sok, True))
+        return self.result(cols, [("s_store_name", True),
+                                  ("s_store_id", True)], 100)
+
+    def q48(self):
+        np = self.np
+        idx, dims = self.fact_dims("store_sales", [
+            ("ss_sold_date_sk", "date_dim", "d_date_sk",
+             self.dates(d_year=1999)),
+            ("ss_store_sk", "store", "s_store_sk", None),
+            ("ss_cdemo_sk", "customer_demographics", "cd_demo_sk", None),
+            ("ss_addr_sk", "customer_address", "ca_address_sk", None)])
+        cd = dims["customer_demographics"]
+        price, pok = self.take("store_sales", "ss_sales_price", idx)
+        keep = np.zeros(len(idx), bool)
+        for m, e, lo, hi in (("M", "4 yr Degree", 100.0, 150.0),
+                             ("D", "2 yr Degree", 50.0, 100.0),
+                             ("S", "College", 150.0, 200.0)):
+            demo = (self.eq("customer_demographics", "cd_marital_status", m)
+                    & self.eq("customer_demographics",
+                              "cd_education_status", e))
+            keep |= demo[cd] & pok & (price >= lo) & (price <= hi)
+        q, qok = self.take("store_sales", "ss_quantity", idx[keep])
+        total = int(q[qok].sum()) if qok.any() else None
+        return [{"total_quantity": total}]
+
+    def _brand_month(self, manager, year, with_year):
+        keys = [("brand_id", "item", "i_brand_id"),
+                ("brand", "item", "i_brand")]
+        order = [("ext_price", False), ("brand_id", True)]
+        if with_year:
+            keys.insert(0, ("d_year", "date_dim", "d_year"))
+            order.insert(0, ("d_year", True))
+        return self.star_sum(
+            "store_sales",
+            [("ss_sold_date_sk", "date_dim", "d_date_sk",
+              self.dates(d_moy=11, d_year=year)),
+             ("ss_item_sk", "item", "i_item_sk",
+              self.eq("item", "i_manager_id", manager))],
+            keys, [("ext_price", "ss_ext_sales_price")], order)
+
+    def q52(self):
+        return self._brand_month(1, 1999, True)
+
+    def q55(self):
+        return self._brand_month(4, 1999, False)
+
+    def q62(self):
+        np = self.np
+        idx, dims = self.fact_dims("catalog_sales", [
+            ("cs_ship_date_sk", "date_dim", "d_date_sk",
+             self.dates(d_year=1999)),
+            ("cs_warehouse_sk", "warehouse", "w_warehouse_sk", None)])
+        keys = [self.take("warehouse", "w_warehouse_name",
+                          dims["warehouse"])]
+        gid, n, first = self.group(keys)
+        cols = self.keys_of(keys, first, ["w_warehouse_name"])
+        ship, _ = self.take("catalog_sales", "cs_ship_date_sk", idx)
+        sold, sok = self.take("catalog_sales", "cs_sold_date_sk", idx)
+        lag = ship - sold
+        for name, when in (("d30", lag <= 30),
+                           ("d60", (lag > 30) & (lag <= 60)),
+                           ("dmore", lag > 60)):
+            cols[name] = self.gsum(gid, n, (sok & when).astype(np.int64),
+                                   np.ones(len(idx), bool), integral=True)
+        return self.result(cols, [("w_warehouse_name", True)], 100)
+
+    def _ticket_rollup(self, fk_dims, city_col, sums):
+        """q68 / q79's derived table: store sales grouped by (ticket,
+        customer, a city); returns its columns."""
+        idx, dims = self.fact_dims("store_sales", fk_dims)
+        dim, c, out = city_col
+        keys = [self.take("store_sales", "ss_ticket_number", idx),
+                self.take("store_sales", "ss_customer_sk", idx),
+                self.take(dim, c, dims[dim])]
+        gid, n, first = self.group(keys)
+        cols = self.keys_of(keys, first,
+                            ["ss_ticket_number", "ss_customer_sk", out])
+        for name, c in sums:
+            cols[name] = self.gsum(gid, n,
+                                   *self.take("store_sales", c, idx))
+        return cols
+
+    def q68(self):
+        np = self.np
+        hd = (self.eq("household_demographics", "hd_dep_count", 4)
+              | self.eq("household_demographics", "hd_vehicle_count", 3))
+        dates = self.between("date_dim", "d_dom", 1, 2) & \
+            self.eq("date_dim", "d_year", 1999)
+        dn = self._ticket_rollup(
+            [("ss_sold_date_sk", "date_dim", "d_date_sk", dates),
+             ("ss_store_sk", "store", "s_store_sk",
+              self.isin("store", "s_city", ("city1", "city2"))),
+             ("ss_hdemo_sk", "household_demographics", "hd_demo_sk", hd),
+             ("ss_addr_sk", "customer_address", "ca_address_sk", None)],
+            ("customer_address", "ca_city", "bought_city"),
+            [("extended_price", "ss_ext_sales_price"),
+             ("list_price", "ss_ext_list_price"),
+             ("extended_tax", "ss_ext_tax")])
+        cust, hit = self.lookup("customer", "c_customer_sk",
+                                *dn["ss_customer_sk"])
+        addr, ahit = self.lookup("customer_address", "ca_address_sk",
+                                 *self.take("customer", "c_current_addr_sk",
+                                            cust))
+        city, cok = self.take("customer_address", "ca_city", addr)
+        bought, bok = dn["bought_city"]
+        keep = np.nonzero(hit & ahit & cok & bok & (city != bought))[0]
+        cols = {"c_last_name": self.take("customer", "c_last_name",
+                                         cust[keep]),
+                "c_first_name": self.take("customer", "c_first_name",
+                                          cust[keep]),
+                "ca_city": (city[keep], cok[keep])}
+        for name in ("bought_city", "ss_ticket_number", "extended_price",
+                     "extended_tax", "list_price"):
+            v, ok = dn[name]
+            cols[name] = (v[keep], ok[keep])
+        return self.result(cols, [("c_last_name", True),
+                                  ("ss_ticket_number", True)], 100)
+
+    def q79(self):
+        np = self.np
+        hd = (self.eq("household_demographics", "hd_dep_count", 6)
+              | (self.col("household_demographics", "hd_vehicle_count")[1]
+                 & (self.col("household_demographics",
+                             "hd_vehicle_count")[0] > 2)))
+        ms = self._ticket_rollup(
+            [("ss_sold_date_sk", "date_dim", "d_date_sk",
+              self.dates(d_dow=1, d_year=1998)),
+             ("ss_store_sk", "store", "s_store_sk",
+              self.between("store", "s_number_employees", 200, 295)),
+             ("ss_hdemo_sk", "household_demographics", "hd_demo_sk", hd)],
+            ("store", "s_city", "s_city"),
+            [("amt", "ss_coupon_amt"), ("profit", "ss_net_profit")])
+        cust, hit = self.lookup("customer", "c_customer_sk",
+                                *ms["ss_customer_sk"])
+        keep = np.nonzero(hit)[0]
+        city, cok = ms["s_city"]
+        cols = {"c_last_name": self.take("customer", "c_last_name",
+                                         cust[keep]),
+                "c_first_name": self.take("customer", "c_first_name",
+                                          cust[keep]),
+                "city_part": (np.array([s[:30] for s in city[keep]],
+                                       dtype=object), cok[keep])}
+        for name in ("ss_ticket_number", "amt", "profit"):
+            v, ok = ms[name]
+            cols[name] = (v[keep], ok[keep])
+        return self.result(cols, [("c_last_name", True),
+                                  ("c_first_name", True),
+                                  ("city_part", True), ("profit", True)],
+                           100)
+
+    def q96(self):
+        idx, _ = self.fact_dims("store_sales", [
+            ("ss_hdemo_sk", "household_demographics", "hd_demo_sk",
+             self.eq("household_demographics", "hd_dep_count", 3)),
+            ("ss_store_sk", "store", "s_store_sk",
+             self.eq("store", "s_store_name", "store7"))])
+        return [{"cnt": len(idx)}]
+
+    def q99(self):
+        np = self.np
+        idx, dims = self.fact_dims("web_sales", [
+            ("ws_sold_date_sk", "date_dim", "d_date_sk",
+             self.dates(d_year=1999))])
+        keys = [self.take("date_dim", "d_moy", dims["date_dim"])]
+        gid, n, first = self.group(keys)
+        cols = self.keys_of(keys, first, ["d_moy"])
+        q, qok = self.take("web_sales", "ws_quantity", idx)
+        for name, when in (("small_q", q < 40),
+                           ("mid_q", (q >= 40) & (q <= 70)),
+                           ("big_q", q > 70)):
+            cols[name] = self.gsum(gid, n, (qok & when).astype(np.int64),
+                                   np.ones(len(idx), bool), integral=True)
+        return self.result(cols, [("d_moy", True)])
+
+
+def b3_on_batches(torch, physical, conf, dev, label, launched):
+    """Holds B3 against its plain version on every batch that the plan's
+    partial aggregate hands the grouped lane: its child subtree runs
+    again and each batch the hash-claim prelude resolves to at most 1024
+    groups goes through both. Checks that as many batches take the lane
+    as the main path launched; returns their rows, groups and lanes, the
+    largest error and the widest batch (rows, groups, gid, lanes)."""
+    from spark_rapids_tpu_torch.exec.aggregate import (PARTIAL,
+                                                       HashAggregateExec)
+    from spark_rapids_tpu_torch.exec.base import ExecContext
+    from spark_rapids_tpu_torch.ops import device_kernels as DK
+    from spark_rapids_tpu_torch.ops import kernels as K
+
+    def partial_agg(node):
+        if isinstance(node, HashAggregateExec) and node.mode == PARTIAL:
+            return node
+        return next(filter(None, map(partial_agg, node.children)), None)
+
+    agg = partial_agg(physical)
+    check(agg is not None, f"{label} has a partial aggregate")
+    fns = [fn for fn, _ in agg.agg_exprs]
+    out = {"batches": 0, "rows": [], "groups": [], "lanes": 0, "err": 0.0,
+           "widest": None}
+    for batch in agg.children[0].execute(ExecContext(conf, dev)):
+        if batch.num_rows == 0:
+            continue
+        key_cols, agg_in = agg._eval_update_inputs(batch)
+        prelude, _, kernel_in = K.grouped_lane_inputs(batch, key_cols, agg_in,
+                                                      fns)
+        if kernel_in is None:
+            continue
+        gid, lanes = kernel_in
+        groups = max(prelude[3], 1)
+        got = torch.stack(DK.tile_group_reduce(gid, lanes, num_groups=groups))
+        ref = torch.stack(DK.tile_group_reduce_plain(gid, lanes))
+        check(torch.allclose(got, ref, rtol=RTOL, atol=0.0),
+              f"tile_group_reduce disagrees with its plain version on "
+              f"{label} batch {out['batches']} ({batch.num_rows} rows)")
+        out["err"] = max(out["err"], float((got - ref).abs().max()))
+        out["batches"] += 1
+        out["rows"].append(batch.num_rows)
+        out["groups"].append(prelude[3])
+        out["lanes"] = len(lanes)
+        if out["widest"] is None or batch.num_rows > out["widest"][0]:
+            out["widest"] = (batch.num_rows, groups, gid, lanes)
+    check(out["batches"] == launched,
+          f"{out['batches']} {label} batches take the grouped lane, the "
+          f"main path launched {launched}")
+    log(f"tile_group_reduce[{label}]: {out['batches']} batches "
+        f"({out['lanes']} lanes, {min(out['rows'])}-{max(out['rows'])} "
+        f"rows, {min(out['groups'])}-{max(out['groups'])} groups) match "
+        f"plain (max_abs_err {out['err']:.3e})")
+    return out
+
+
+def nds_phase(torch, np, dev, read_counts):
+    """The NDS slice through ``session.sql`` on the card, each run held
+    against NdsNumpy; returns ({query: numbers}, the SF10 session, its
+    reference)."""
+    from spark_rapids_tpu_torch.conf import SrtConf
+    from spark_rapids_tpu_torch.models.nds import (NDS_QUERIES, NDS_SLICE,
+                                                   register_nds)
+    from spark_rapids_tpu_torch.ops import device_kernels as DK
+    from spark_rapids_tpu_torch.testing import compare_rows, order_keys
+    from spark_rapids_tpu_torch.plan.session import TpuSession
+
+    def load(scale):
+        session = TpuSession(SrtConf({"srt.sql.batchSizeRows": BATCH_ROWS}),
+                             device=dev)
+        host = {}
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        t = time.perf_counter()
+        register_nds(session, scale, host_tables=host)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        nbytes = torch.cuda.memory_allocated(dev) - before
+        log(f"nds data, scale_rows {scale}: " + ", ".join(
+            f"{n} {t.num_rows}" for n, t in host.items()
+            if n in NDS_FACTS) + f"; {sum(t.num_rows for t in host.values())}"
+            f" rows in {len(host)} tables, {nbytes / 1e9:.3f} GB on the "
+            f"card, generated and moved in {secs:.1f} s")
+        return session, NdsNumpy(np, host)
+
+    def run(q, session, ref):
+        text = NDS_QUERIES[q]
+        t = time.perf_counter()
+        want = getattr(ref, q)()
+        ref_s = time.perf_counter() - t
+        facts = sum(ref.rows(f) for f in NDS_FACTS
+                    if re.search(rf"\b{f}\b", text))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        DK.reset_counts()
+        t = time.perf_counter()
+        df = session.sql(text)
+        rows = df.collect()
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t
+        counts = read_counts()
+        pb = session._last_execution[1].metric_totals().get(
+            "pallasBatches", 0)
+        keys, limit = order_keys(text, df.columns)
+        diff = compare_rows(rows, want, keys, limit, RTOL)
+        check(diff is None, f"nds {q}: {diff} (numpy reference)")
+        walls = []
+        for _ in range(3):
+            DK.reset_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            rows = session.sql(text).collect()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            check(compare_rows(rows, want, keys, limit, RTOL) is None,
+                  f"nds {q}: a warm run disagrees")
+            check(read_counts() == counts,
+                  f"nds {q}: a warm run launched {read_counts()}, the "
+                  f"first {counts}")
+        wall = statistics.median(walls)
+        physical, ctx = session._last_execution
+        self_ms = sorted(operator_self_ms(physical, ctx.metrics, {}).items(),
+                         key=lambda kv: -kv[1])
+        b3_err = 0.0
+        if counts["tile_group_reduce"]:
+            b3 = b3_on_batches(torch, session._last_execution[0],
+                               session.conf, dev, f"nds {q}",
+                               counts["tile_group_reduce"])
+            b3_err = b3["err"]
+            if widest[0] is None or b3["widest"][0] > widest[0][0]:
+                widest[0] = b3["widest"] + (q,)
+            del b3
+        out = {"first_s": first, "warm_s": wall, "b3_max_abs_err": b3_err,
+               "warm_runs_s": walls, "fact_rows": facts,
+               "fact_rows_per_s": facts / wall, "result_rows": len(rows),
+               "launches": counts, "pallas_batches": pb,
+               "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+               "reference_s": ref_s}
+        log(f"nds {q}: matches numpy ({len(rows)} rows); first "
+            f"{first:.4f} s, warm median {wall:.4f} of "
+            f"{[round(w, 4) for w in walls]} s; {facts} fact rows, "
+            f"{facts / wall:.4e} rows/s; launches {counts}, pallasBatches "
+            f"{pb}; max_memory_allocated {out['peak_gb']:.3f} GB; numpy "
+            f"{ref_s:.1f} s")
+        log(f"nds {q} operator self time (host clock, ms, last warm run): "
+            + ", ".join(f"{k} {v:.1f}" for k, v in self_ms[:5]))
+        return out
+
+    # q82 first, alone on the card with its SF1 tables: its join output
+    # and grouping take more than the SF10 tables leave free
+    report = {}
+    widest = [None]  # the widest batch B3 took: (rows, groups, gid, lanes, q)
+    small, small_ref = load(NDS_Q82_ROWS)
+    q82 = run("q82", small, small_ref)
+    q82["join_rows"] = small_ref.q82_join_rows()[1]
+    log(f"nds q82 at scale_rows {NDS_Q82_ROWS} joins {q82['join_rows']} "
+        "rows before its GROUP BY")
+    # the session's plans hold reference cycles: collect them now, so
+    # the SF1 tables are gone before the SF10 tables are measured
+    del small, small_ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    session, ref = load(NDS_ROWS)
+    items, big = ref.q82_join_rows()
+    log(f"nds q82 at scale_rows {NDS_ROWS} would join {big} rows ({items} "
+        f"items kept) before its GROUP BY: it runs at {NDS_Q82_ROWS}")
+    for q in NDS_SLICE:
+        report[q] = q82 if q == "q82" else run(q, session, ref)
+    for q in NDS_B3_QUERIES:
+        check(report[q]["launches"]["tile_group_reduce"] > 0
+              and report[q]["pallas_batches"] > 0,
+              f"nds {q}: the grouped kernel (B3) did not run")
+    log("nds summary " + json.dumps({q: {
+        k: r[k] for k in ("first_s", "warm_s", "fact_rows_per_s",
+                          "result_rows", "pallas_batches", "peak_gb")}
+        | {"b3": r["launches"]["tile_group_reduce"],
+           "b1": r["launches"]["tile_reduce"]}
+        for q, r in report.items()}))
+    return report, session, ref, widest[0]
 
 
 def main():
@@ -697,53 +1516,23 @@ def main():
 
     # --- kernel phase: B3 tile_group_reduce at q3's shapes -------------------
     # q3's partial aggregate hands the kernel the join output batches that
-    # the hash-claim prelude resolves to at most 1024 groups: run its join
-    # subtree again, take each batch the grouped lane would take and hold
-    # the kernel against its plain version on it
-    def partial_agg(node):
-        if isinstance(node, HashAggregateExec) and node.mode == PARTIAL:
-            return node
-        return next(filter(None, map(partial_agg, node.children)), None)
-
-    q3_agg = partial_agg(session._last_execution[0])
-    check(q3_agg is not None, "q3 has a partial aggregate")
-    fns3 = [fn for fn, _ in q3_agg.agg_exprs]
-    b3_q3 = {"batches": 0, "rows": [], "groups": [], "err": 0.0}
-    widest = None
-    for batch in q3_agg.children[0].execute(ExecContext(conf, dev)):
-        if batch.num_rows == 0:
-            continue
-        key_cols, agg_in = q3_agg._eval_update_inputs(batch)
-        prelude, _, kernel_in = K.grouped_lane_inputs(batch, key_cols, agg_in,
-                                                      fns3)
-        if kernel_in is None:
-            continue
-        gid, lanes = kernel_in
-        groups = max(prelude[3], 1)
-        got = torch.stack(DK.tile_group_reduce(gid, lanes, num_groups=groups))
-        ref = torch.stack(DK.tile_group_reduce_plain(gid, lanes))
-        check(torch.allclose(got, ref, rtol=RTOL, atol=0.0),
-              f"tile_group_reduce disagrees with its plain version on q3 "
-              f"batch {b3_q3['batches']} ({batch.num_rows} rows)")
-        b3_q3["err"] = max(b3_q3["err"], float((got - ref).abs().max()))
-        b3_q3["batches"] += 1
-        b3_q3["rows"].append(batch.num_rows)
-        b3_q3["groups"].append(prelude[3])
-        if widest is None or batch.num_rows > widest[0]:
-            widest = (batch.num_rows, groups, gid, lanes)
-    check(b3_q3["batches"] == launches["q3"]["tile_group_reduce"],
-          f"{b3_q3['batches']} q3 batches take the grouped lane, the main "
-          f"path launched {launches['q3']['tile_group_reduce']}")
-    log(f"tile_group_reduce[q3]: {b3_q3['batches']} batches ({len(lanes)} "
-        f"lanes, {min(b3_q3['rows'])}-{max(b3_q3['rows'])} rows, "
-        f"{min(b3_q3['groups'])}-{max(b3_q3['groups'])} groups) match plain "
-        f"(max_abs_err {b3_q3['err']:.3e}); launches q1 "
-        f"{launches['q1']['tile_group_reduce']}, q3 "
-        f"{launches['q3']['tile_group_reduce']}")
+    # the hash-claim prelude resolves to at most 1024 groups
+    b3_q3 = b3_on_batches(torch, session._last_execution[0], conf, dev,
+                          "q3", launches["q3"]["tile_group_reduce"])
+    widest = b3_q3["widest"]
     rows3, groups3, gid3, lanes3 = widest
     b3_widest = hold_b3(f"q3 widest, {rows3} rows", gid3, lanes3, groups3,
                         library=True)
-    del widest, gid, lanes, got, ref, kernel_in, prelude, key_cols, agg_in
+    del widest, b3_q3["widest"]
+
+    # --- NDS: the star-join slice through session.sql -------------------------
+    nds, nds_session, nds_ref, nds_widest = nds_phase(torch, np, dev,
+                                                      read_counts)
+    rows_n, groups_n, gid_n, lanes_n, q_n = nds_widest
+    b3_nds = hold_b3(f"nds {q_n} widest, {rows_n} rows", gid_n, lanes_n,
+                     groups_n, library=True)
+    b3_nds["query"] = q_n
+    del nds_widest, gid_n, lanes_n
 
     # --- where q3's time goes ------------------------------------------------
     physical, ctx = session._last_execution  # the last timed q3 run
@@ -751,32 +1540,49 @@ def main():
     log("q3 operator self time (host clock, ms, last timed run): " + ", ".join(
         f"{k} {v:.1f}" for k, v in sorted(self_ms.items(),
                                           key=lambda kv: -kv[1])))
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        rows = tpch.q3(dfs["customer"], dfs["orders"], df).collect()
+    def profiled(label, run):
+        """One run under torch.profiler: its device time by kernel and
+        the device's idle share; returns the run's rows."""
+        from torch.profiler import ProfilerActivity, profile
         torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            rows = run()
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t
+        kernel_us = {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                us = getattr(e, "self_device_time_total", None)
+                if us is None:
+                    us = e.self_cuda_time_total
+                kernel_us[e.key] = kernel_us.get(e.key, 0.0) + us
+        busy = sum(kernel_us.values()) / 1e6
+        if busy > 0:
+            log(f"{label} profiled run: wall {prof_wall:.4f} s (profiler "
+                f"on), device kernels {busy:.4f} s over {len(kernel_us)} "
+                f"kernel names, idle share {1 - busy / prof_wall:.3f}")
+            for name, us in sorted(kernel_us.items(),
+                                   key=lambda kv: -kv[1])[:12]:
+                log(f"  {label} kernel {us / 1e3:9.3f} ms "
+                    f"{us / 1e4 / busy:5.1f}%  {name[:110]}")
+        else:
+            log(f"{label} profiled run: the profiler recorded no device "
+                "time")
+        return rows
+
+    rows = profiled("q3", lambda: tpch.q3(dfs["customer"], dfs["orders"],
+                                          df).collect())
     check(same_rows(rows, ref3), "q3: profiled run disagrees")
-    kernel_us = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = e.self_cuda_time_total
-            kernel_us[e.key] = kernel_us.get(e.key, 0.0) + us
-    busy = sum(kernel_us.values()) / 1e6
-    if busy > 0:
-        log(f"q3 profiled run: wall {prof_wall:.4f} s (profiler on), device "
-            f"kernels {busy:.4f} s over {len(kernel_us)} kernel names, idle "
-            f"share {1 - busy / prof_wall:.3f}")
-        for name, us in sorted(kernel_us.items(), key=lambda kv: -kv[1])[:12]:
-            log(f"  q3 kernel {us / 1e3:9.3f} ms {us / 1e4 / busy:5.1f}%  "
-                f"{name[:110]}")
-    else:
-        log("q3 profiled run: the profiler recorded no device time")
+    from spark_rapids_tpu_torch.models.nds import NDS_QUERIES
+    from spark_rapids_tpu_torch.testing import compare_rows, order_keys
+    nds_q3 = nds_session.sql(NDS_QUERIES["q3"])
+    rows = profiled("nds q3", nds_q3.collect)
+    check(compare_rows(rows, nds_ref.q3(), *order_keys(
+        NDS_QUERIES["q3"], nds_q3.columns), RTOL) is None,
+        "nds q3: profiled run disagrees")
+    del nds_session, nds_ref, nds_q3
 
     # --- what one kernel call launches ---------------------------------------
     # last: each torch.profiler session leaves the host's launches slower
@@ -807,7 +1613,8 @@ def main():
         {"name": "tile_reduce", "route": "triton",
          "source": "spark_rapids_tpu_torch/ops/device_kernels.py",
          "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:78",
-         "launches": launches["q6"]["tile_reduce"],
+         "launches": launches["q6"]["tile_reduce"]
+         + sum(r["launches"]["tile_reduce"] for r in nds.values()),
          **{k: b1[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                "bound_by", "cold_ms", "bit_equal",
                                "cuda_launches_per_call")},
@@ -828,12 +1635,18 @@ def main():
          "source": "spark_rapids_tpu_torch/csrc/tile_group_reduce.cu",
          "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:152",
          "launches": launches["q1"]["tile_group_reduce"]
-         + launches["q3"]["tile_group_reduce"],
-         "max_abs_err": max(b3["max_abs_err"], b3_q3["err"]),
+         + launches["q3"]["tile_group_reduce"]
+         + sum(r["launches"]["tile_group_reduce"] for r in nds.values()),
+         "nds_launches": {q: r["launches"]["tile_group_reduce"]
+                          for q, r in nds.items()
+                          if r["launches"]["tile_group_reduce"]},
+         "max_abs_err": max(b3["max_abs_err"], b3_q3["err"],
+                            *(r["b3_max_abs_err"] for r in nds.values())),
          **{k: b3[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms", "cold_ms", "bit_equal",
                                "cuda_launches_per_call")},
          "q3_widest": b3_extra(b3_widest),
+         "nds_widest": {"query": b3_nds["query"], **b3_extra(b3_nds)},
          "stress": {k: b3_extra(r) for k, r in b3_stress.items()}},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -335,10 +335,11 @@ class ColumnarBatch:
 
 
 def column_from_numpy(values, capacity: int, dtype: Optional[dt.DType] = None,
-                      mask: Optional[np.ndarray] = None,
-                      device="cpu") -> Column:
-    """Build a device column from a host lane (+ optional null mask).
-    String lanes may be HostStrings or an object array of str."""
+                      mask: Optional[np.ndarray] = None, *,
+                      device) -> Column:
+    """Build a column on ``device`` (required: the caller names the
+    card or the CPU) from a host lane (+ optional null mask). String
+    lanes may be HostStrings or an object array of str."""
     n = len(values)
     if capacity < n:
         raise ValueError(f"capacity {capacity} < {n} rows")

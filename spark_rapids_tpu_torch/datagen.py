@@ -1,4 +1,4 @@
-"""Scale-test data generation (TPC-H lineitem and orders shapes).
+"""Scale-test data generation (TPC-H and NDS table shapes).
 
 Counterpart of spark_rapids_tpu/datagen.py: declarative table specs with
 per-(table, column, chunk) seeding, so any chunk regenerates on its own
@@ -6,7 +6,10 @@ and equals the JAX package's chunk value for value (same crc32 seed,
 same numpy ``default_rng`` draws in the same order). ``choice`` string
 columns are built vectorised, offsets and bytes taken straight from the
 drawn indices, so a 60M-row table generates without a Python object per
-row. No parquet writer: the generated chunks go straight to the device.
+row; a string column of any other distribution formats each drawn value
+through ``fmt`` as the JAX package does (floats too: a ``uniform``
+string column draws floats). No parquet writer: the generated chunks go
+straight to the device.
 """
 
 from __future__ import annotations
@@ -93,9 +96,14 @@ def _gen_column(spec: ColumnSpec, table: str, chunk: int, start_row: int,
 
     t = spec.dtype
     if t == dt.STRING:
-        if idx is None:
-            raise ValueError("string columns are generated from 'choice'")
-        return HostColumn(_choice_strings(spec, idx), mask, t)
+        if idx is not None:
+            return HostColumn(_choice_strings(spec, idx), mask, t)
+        # any other distribution: the drawn values (floats included)
+        # through ``fmt``, one Python string per row; only dimension
+        # tables hold such columns
+        fmt = spec.fmt or "{}"
+        return HostColumn(HostStrings.from_objects(
+            [fmt.format(v) for v in vals]), mask, t)
     phys = t.np_physical
     if idx is not None:
         vals = np.asarray(spec.choices)[idx]

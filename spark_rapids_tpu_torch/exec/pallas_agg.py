@@ -245,8 +245,12 @@ class PallasAggPlan:
 def grouped_eligible(agg_exec) -> bool:
     """Static gate for the grouped kernel lane: grouping keys present
     and every aggregate sum-decomposable (Sum/Average over floats,
-    Count, CountStar). The <= 1024-group bound is checked per batch."""
-    if not agg_exec.group_exprs or agg_exec.mode == "final":
+    Count, CountStar). The <= 1024-group bound is checked per batch. A
+    grouping with no aggregate (GROUP BY alone, DISTINCT) has nothing
+    for the kernel to sum and stays out (the JAX package's gate lets it
+    in, and its kernel then fails on zero lanes)."""
+    if not agg_exec.group_exprs or not agg_exec.agg_exprs or \
+            agg_exec.mode == "final":
         return False
     schema = list(agg_exec.input_schema)
     for fn, _name in agg_exec.agg_exprs:

@@ -385,7 +385,10 @@ def group_aggregate(batch: ColumnarBatch, key_cols: Sequence[Column],
 def pallas_group_fns_ok(agg_inputs: Sequence[Optional[Column]],
                         agg_fns: Sequence) -> bool:
     """Gate for the grouped kernel lane: sum-decomposable aggregates only
-    (Sum/Average over floats, Count, CountStar), at most 128 lanes."""
+    (Sum/Average over floats, Count, CountStar), 1 to 128 lanes. A
+    grouping with no aggregate has no lane to sum and takes the stock
+    path (the JAX package's gate admits it and then fails to stack zero
+    lanes)."""
     from ..expr import aggregates as Agg
     lanes = 0
     for inp, fn in zip(agg_inputs, agg_fns):
@@ -400,7 +403,7 @@ def pallas_group_fns_ok(agg_inputs: Sequence[Optional[Column]],
             lanes += 1
         else:
             return False
-    return lanes <= DK.GROUP_MAX_LANES
+    return 0 < lanes <= DK.GROUP_MAX_LANES
 
 
 def grouped_value_lanes(agg_inputs: Sequence[Optional[Column]],

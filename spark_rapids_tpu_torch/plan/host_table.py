@@ -95,9 +95,10 @@ def to_pydict(table: HostTable) -> dict:
     return out
 
 
-def table_to_batch(table: HostTable, capacity: Optional[int] = None,
-                   device="cpu") -> ColumnarBatch:
-    """Move a host table to ``device`` as one batch."""
+def table_to_batch(table: HostTable, capacity: Optional[int] = None, *,
+                   device) -> ColumnarBatch:
+    """Move a host table to ``device`` (required: the caller names the
+    card or the CPU) as one batch."""
     n = table.num_rows
     cap = capacity or choose_capacity(n)
     cols = [column_from_numpy(c.values, cap, dtype=c.dtype, mask=c.mask,

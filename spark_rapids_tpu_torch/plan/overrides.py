@@ -23,6 +23,8 @@ from ..exec.basic import (BatchScanExec, FilterExec, LocalLimitExec,
                           ProjectExec)
 from ..exec.join import BroadcastHashJoinExec, ShuffledHashJoinExec
 from ..exec.sort import SortExec, SortOrder, TopNExec
+from ..expr.cast import Cast
+from ..expr.conditional import _common_type
 from .cost import estimate_rows
 from .logical import (Aggregate, DeviceRelation, Filter, Join, Limit,
                       LogicalPlan, Project, Sort)
@@ -35,16 +37,21 @@ def _sort_orders(sort: Sort):
 
 def _coerce_join_keys(plan: Join):
     """Join keys must share a type across sides: murmur3 is
-    width-sensitive. The JAX planner inserts a Cast where they differ;
-    Cast is not in this port yet, so differing keys are refused."""
+    width-sensitive. Where they differ, both meet at their common type
+    (expr/conditional.py ``_common_type``) through a Cast, as in the JAX
+    planner."""
     ls, rs = plan.children[0].schema, plan.children[1].schema
+    lk, rk = [], []
     for l, r in zip(plan.left_keys, plan.right_keys):
         lt, rt = l.data_type(ls), r.data_type(rs)
-        if lt != rt:
-            raise NotImplementedError(
-                f"join keys {l!r}: {lt} and {r!r}: {rt} need a Cast, "
-                "which is not in this port yet")
-    return plan.left_keys, plan.right_keys
+        if lt == rt:
+            lk.append(l)
+            rk.append(r)
+            continue
+        ct = _common_type([lt, rt])
+        lk.append(l if lt == ct else Cast(l, ct))
+        rk.append(r if rt == ct else Cast(r, ct))
+    return lk, rk
 
 
 def _join_cls(plan: Join, build: str, conf: SrtConf):

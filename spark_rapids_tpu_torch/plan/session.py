@@ -1,29 +1,60 @@
 """Session and DataFrame API.
 
 Counterpart of spark_rapids_tpu/plan/session.py (TpuSession, DataFrame,
-GroupedData) for filter / select / group_by / agg / join / sort / limit
-/ collect. The
-session runs on one torch device, ``cuda`` unless the caller asks for
-the CPU; a session asked for CUDA where there is none raises.
+GroupedData) for filter / select / with_column / group_by / agg /
+distinct / join / sort / limit / collect, the temp-view catalog and
+``sql``. The session runs on one torch device, ``cuda`` unless the
+caller asks for the CPU; a session asked for CUDA where there is none
+raises. Joins other than inner equi-joins raise NotImplementedError.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from ..conf import SrtConf
 from ..exec.base import ExecContext
 from ..expr.core import Alias, Expression, col, output_name
 from . import logical as L
-from .host_table import (HostTable, batch_to_table, concat_tables,
-                         empty_table, table_to_batch, to_pydict)
+from .host_table import (HostColumn, HostTable, batch_to_table,
+                         concat_tables, empty_table, table_to_batch,
+                         to_pydict)
 from .overrides import apply_overrides
 
 
 def _to_expr(c) -> Expression:
     return col(c) if isinstance(c, str) else c
+
+
+#: DataFrame.join's ``how`` names, as the JAX package spells them
+_JOIN_TYPES = {"inner": "inner", "left": "left_outer",
+               "left_outer": "left_outer", "right": "right_outer",
+               "right_outer": "right_outer", "full": "full_outer",
+               "full_outer": "full_outer", "outer": "full_outer",
+               "semi": "left_semi", "left_semi": "left_semi",
+               "anti": "left_anti", "left_anti": "left_anti",
+               "cross": "cross"}
+
+
+def _host_table_from_pydict(data: Dict[str, list], schema) -> HostTable:
+    """{name: [python values, None for null]} with a [(name, DType)]
+    schema -> HostTable."""
+    from ..columnar.vector import HostStrings
+    from ..expr.core import literal_physical
+    cols = []
+    for name, t in schema:
+        vals = data[name]
+        mask = np.array([v is not None for v in vals], bool)
+        if t.np_physical is None:  # strings
+            lane = HostStrings.from_objects(vals)
+        else:
+            lane = np.array([0 if v is None else literal_physical(v, t)
+                             for v in vals], t.np_physical)
+        cols.append(HostColumn(lane, mask, t))
+    return HostTable(cols, [n for n, _ in schema])
 
 
 class TpuSession:
@@ -37,6 +68,7 @@ class TpuSession:
                                "pass device='cpu' to run on the CPU")
         self.conf = conf or SrtConf()
         self.device = device
+        self._catalog: Dict[str, "DataFrame"] = {}
         #: (physical plan, ExecContext) of the most recent execute: its
         #: metrics (ctx.metric_totals()) outlive the query
         self._last_execution = None
@@ -52,14 +84,34 @@ class TpuSession:
             schema = batches[0].schema()
         return DataFrame(self, L.DeviceRelation(batches, schema))
 
-    def create_dataframe(self, table: HostTable) -> "DataFrame":
-        """Move a host table to the device in batches of
+    def create_dataframe(self, table, schema=None) -> "DataFrame":
+        """Move a host table (or a {name: [values]} dict with its
+        [(name, DType)] schema) to the device in batches of
         ``srt.sql.batchSizeRows`` rows."""
+        if not isinstance(table, HostTable):
+            table = _host_table_from_pydict(table, schema)
         per = self.conf.batch_size_rows
         batches = [table_to_batch(table.slice(s, s + per),
                                   device=self.device)
                    for s in range(0, table.num_rows, per)]
         return self.from_batches(batches, table.schema())
+
+    # --- SQL frontend (sql/parser.py) ---
+    def create_or_replace_temp_view(self, name: str, df: "DataFrame"
+                                    ) -> None:
+        self._catalog[name.lower()] = df
+
+    def table(self, name: str) -> "DataFrame":
+        try:
+            return self._catalog[name.lower()]
+        except KeyError:
+            raise KeyError(f"table or view {name!r} not found; register "
+                           "with create_or_replace_temp_view") from None
+
+    def sql(self, text: str) -> "DataFrame":
+        """A SQL SELECT over the registered temp views."""
+        from ..sql import parse_sql
+        return parse_sql(self, text)
 
     def execute(self, plan: L.LogicalPlan) -> HostTable:
         """Run a logical plan to a host table."""
@@ -82,6 +134,10 @@ class DataFrame:
         return DataFrame(self.session,
                          L.Project(self.plan, [_to_expr(c) for c in cols]))
 
+    def with_column(self, name: str, expr) -> "DataFrame":
+        existing = [col(n) for n, _ in self.plan.schema if n != name]
+        return self.select(*existing, Alias(_to_expr(expr), name))
+
     def filter(self, condition) -> "DataFrame":
         return DataFrame(self.session,
                          L.Filter(self.plan, _to_expr(condition)))
@@ -96,11 +152,11 @@ class DataFrame:
              ) -> "DataFrame":
         """Equi-join. ``on`` is a column name, a list of names (USING:
         the key is kept once, from the left) or a pair (left key
-        expressions, right key expressions). Only ``how="inner"`` is in
-        this port yet."""
-        if how != "inner":
-            raise NotImplementedError(f"{how!r} join is not in this port "
-                                      "yet")
+        expressions, right key expressions). ``how`` takes the JAX
+        package's names; only inner joins are in this port yet."""
+        if _JOIN_TYPES[how] != "inner":
+            raise NotImplementedError(f"{_JOIN_TYPES[how]} join is not in "
+                                      "this port yet")
         if isinstance(on, str):
             on = [on]
         using: List[str] = []
@@ -121,8 +177,18 @@ class DataFrame:
             joined = L.Project(joined, keep)
         return DataFrame(self.session, joined)
 
+    def cross_join(self, other: "DataFrame",
+                   condition: Optional[Expression] = None) -> "DataFrame":
+        raise NotImplementedError("a cross or nested-loop join is not in "
+                                  "this port yet")
+
     def limit(self, n: int) -> "DataFrame":
         return DataFrame(self.session, L.Limit(self.plan, n))
+
+    def distinct(self) -> "DataFrame":
+        """Distinct rows: a grouping on every column with no aggregate
+        (Spark's rewrite of Distinct)."""
+        return GroupedData(self, [col(n) for n in self.columns]).agg()
 
     def sort(self, *cols, ascending: Union[bool, Sequence[bool]] = True
              ) -> "DataFrame":

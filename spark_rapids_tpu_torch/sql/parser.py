@@ -1,0 +1,1663 @@
+"""SQL parser + analyzer: SELECT text -> logical plan (via DataFrame).
+
+Counterpart of spark_rapids_tpu/sql/parser.py, copied with its imports
+re-pointed at this port. The parser (text -> neutral AST) is the JAX
+package's unchanged. The analyzer is too, for what this port has: it
+resolves names against the session catalog / FROM scope, plans
+comma-joins from WHERE equi-conjuncts (left-deep, single-table filters
+pushed below the joins), splits aggregates out of SELECT/HAVING/ORDER
+BY, and lowers everything onto the Expression / LogicalPlan layer.
+
+Its function tables hold the functions this port has. A function,
+clause or type the JAX package's analyzer lowers but this port does not
+have yet (window functions, subquery predicates, set operations,
+GROUPING SETS / ROLLUP / CUBE, LIKE, INTERVAL arithmetic, timestamp and
+decimal types, and the functions in ``_NOT_PORTED``) raises
+``SqlError`` saying so, before any plan is built.
+"""
+
+from __future__ import annotations
+
+import datetime
+from typing import List, Optional, Sequence, Tuple
+
+from ..columnar import dtypes as dt
+from ..expr import aggregates as Agg
+from ..expr import arithmetic as A
+from ..expr import conditional as Cond
+from ..expr import predicates as P
+from ..expr import strings as S
+from ..expr.cast import Cast
+from ..expr.core import Alias, ColumnRef, Expression, Literal, col, lit, \
+    output_name
+from .lexer import Token, tokenize
+
+
+
+class SqlError(ValueError):
+    pass
+
+
+def _not_ported(what: str) -> SqlError:
+    return SqlError(f"{what} is not in this port yet")
+
+
+# ---------------------------------------------------------------------------
+# AST
+# ---------------------------------------------------------------------------
+
+class Ast:
+    pass
+
+
+def _ast_repr(a) -> str:
+    """Canonical structural repr for AST equality (GROUP BY dedupe,
+    correlated-conjunct matching)."""
+    if isinstance(a, Ast) or type(a).__name__ in (
+            "TableRefA", "SubqueryA", "JoinA", "SelectA", "UnionA",
+            "SetOpA"):
+        items = sorted(vars(a).items())
+        body = ", ".join(f"{k}={_ast_repr(v)}" for k, v in items)
+        return f"{type(a).__name__}({body})"
+    if isinstance(a, (list, tuple)):
+        return "[" + ", ".join(_ast_repr(x) for x in a) + "]"
+    return repr(a)
+
+
+class ColA(Ast):
+    def __init__(self, name, qualifier=None):
+        self.name = name
+        self.qualifier = qualifier
+
+
+class StarA(Ast):
+    def __init__(self, qualifier=None):
+        self.qualifier = qualifier
+
+
+class LitA(Ast):
+    def __init__(self, value):
+        self.value = value
+
+
+class IntervalA(Ast):
+    def __init__(self, n, unit):
+        self.n = n
+        self.unit = unit
+
+
+class FnA(Ast):
+    def __init__(self, name, args, star=False, distinct=False):
+        self.name = name
+        self.args = args
+        self.star = star
+        self.distinct = distinct
+
+
+class BinA(Ast):
+    def __init__(self, op, l, r):
+        self.op = op
+        self.l = l
+        self.r = r
+
+
+class UnA(Ast):
+    def __init__(self, op, e):
+        self.op = op
+        self.e = e
+
+
+class BetweenA(Ast):
+    def __init__(self, e, lo, hi, neg):
+        self.e, self.lo, self.hi, self.neg = e, lo, hi, neg
+
+
+class InA(Ast):
+    def __init__(self, e, items, neg):
+        self.e, self.items, self.neg = e, items, neg
+
+
+class LikeA(Ast):
+    def __init__(self, e, pattern, neg):
+        self.e, self.pattern, self.neg = e, pattern, neg
+
+
+class IsNullA(Ast):
+    def __init__(self, e, neg):
+        self.e, self.neg = e, neg
+
+
+class CaseA(Ast):
+    def __init__(self, branches, els):
+        self.branches, self.els = branches, els
+
+
+class CastA(Ast):
+    def __init__(self, e, to):
+        self.e, self.to = e, to
+
+
+class OverA(Ast):
+    """fn OVER (PARTITION BY ... ORDER BY ... [ROWS|RANGE BETWEEN ...])"""
+
+    def __init__(self, fn, partition, order, frame):
+        self.fn = fn
+        self.partition = partition    # [Ast]
+        self.order = order            # [(Ast, asc, nulls_first)]
+        self.frame = frame            # (row_based, lo, hi) | None
+
+
+class ScalarSubqueryA(Ast):
+    def __init__(self, stmt):
+        self.stmt = stmt
+
+
+class _PreLowered(Ast):
+    """AST leaf carrying an already-lowered Expression (injected by the
+    subquery rewrites); ``lower`` unwraps it."""
+
+    def __init__(self, expr):
+        self.expr = expr
+
+
+def _and_all(conjs):
+    out = None
+    for c in conjs:
+        out = c if out is None else BinA("and", out, c)
+    return out
+
+
+class _GroupingMarker(Expression):
+    """GROUPING(key) placeholder; the aggregate-lowering replace() pass
+    resolves it to a bit of __grouping_id (0 for plain GROUP BY)."""
+
+    def __init__(self, child: Expression):
+        super().__init__(child)
+
+    def data_type(self, schema) -> dt.DType:
+        return dt.INT64
+
+
+class ExistsA(Ast):
+    """EXISTS (subquery) — possibly correlated."""
+
+    def __init__(self, stmt):
+        self.stmt = stmt
+
+
+class InSubqueryA(Ast):
+    """expr IN (subquery) — possibly correlated."""
+
+    def __init__(self, e, stmt, neg):
+        self.e = e
+        self.stmt = stmt
+        self.neg = neg
+
+
+class TableRefA:
+    def __init__(self, name, alias):
+        self.name = name
+        self.alias = alias or name
+
+
+class SubqueryA:
+    def __init__(self, stmt, alias):
+        self.stmt = stmt
+        self.alias = alias
+
+
+class JoinA:
+    def __init__(self, ref, how, on):
+        self.ref = ref      # TableRefA | SubqueryA
+        self.how = how      # None (comma) | inner|left|right|full|cross
+        self.on = on
+
+
+class SelectA:
+    def __init__(self):
+        self.distinct = False
+        self.items: List[Tuple[Ast, Optional[str]]] = []
+        self.from_: List[JoinA] = []
+        self.where: Optional[Ast] = None
+        self.group_by: List[Ast] = []
+        #: GROUPING SETS / ROLLUP / CUBE: list of grouping sets, each a
+        #: list of indexes into group_by; None = plain GROUP BY
+        self.group_sets: Optional[List[List[int]]] = None
+        self.having: Optional[Ast] = None
+        self.order_by: List[Tuple[Ast, bool, Optional[bool]]] = []
+        self.limit: Optional[int] = None
+        #: WITH name AS (...) bindings visible to this statement
+        self.ctes: List[Tuple[str, "Ast"]] = []
+
+
+class UnionA:
+    def __init__(self, left, right, all_):
+        self.left, self.right, self.all = left, right, all_
+        self.order_by: List = []
+        self.limit = None
+        self.ctes: List = []
+
+
+class SetOpA:
+    """INTERSECT / EXCEPT (set semantics follow ``all``)."""
+
+    def __init__(self, op, left, right, all_):
+        self.op = op            # "intersect" | "except"
+        self.left, self.right, self.all = left, right, all_
+        self.order_by: List = []
+        self.limit = None
+        self.ctes: List = []
+
+
+# ---------------------------------------------------------------------------
+# Parser
+# ---------------------------------------------------------------------------
+
+_JOIN_KINDS = {"inner": "inner", "left": "left", "right": "right",
+               "full": "full", "cross": "cross"}
+
+
+class Parser:
+    def __init__(self, text: str):
+        self.toks = tokenize(text)
+        self.i = 0
+
+    # --- token helpers ---
+    def peek(self) -> Token:
+        return self.toks[self.i]
+
+    def next(self) -> Token:
+        t = self.toks[self.i]
+        self.i += 1
+        return t
+
+    def at_kw(self, *kws: str) -> bool:
+        t = self.peek()
+        return t.kind == "IDENT" and t.value.lower() in kws
+
+    def accept_kw(self, *kws: str) -> Optional[str]:
+        if self.at_kw(*kws):
+            return self.next().value.lower()
+        return None
+
+    def expect_kw(self, kw: str) -> None:
+        if not self.accept_kw(kw):
+            raise SqlError(f"expected {kw.upper()} near "
+                           f"{self.peek().value!r} @{self.peek().pos}")
+
+    def at_op(self, *ops: str) -> bool:
+        t = self.peek()
+        return t.kind == "OP" and t.value in ops
+
+    def accept_op(self, *ops: str) -> Optional[str]:
+        if self.at_op(*ops):
+            return self.next().value
+        return None
+
+    def expect_op(self, op: str) -> None:
+        if not self.accept_op(op):
+            raise SqlError(f"expected {op!r} near {self.peek().value!r} "
+                           f"@{self.peek().pos}")
+
+    # --- statements ---
+    def parse_statement(self):
+        stmt = self.parse_set_expr()
+        self.accept_op(";")
+        if self.peek().kind != "EOF":
+            raise SqlError(f"unexpected trailing input "
+                           f"{self.peek().value!r} @{self.peek().pos}")
+        return stmt
+
+    def parse_set_expr(self):
+        """[WITH ...] select-term {UNION|EXCEPT [ALL] select-term}
+        with INTERSECT binding tighter (SQL precedence), then trailing
+        ORDER BY / LIMIT on the whole set expression."""
+        ctes = []
+        if self.accept_kw("with"):
+            while True:
+                name = self.next().value
+                self.expect_kw("as")
+                self.expect_op("(")
+                sub = self.parse_set_expr()
+                self.expect_op(")")
+                ctes.append((name, sub))
+                if not self.accept_op(","):
+                    break
+        stmt = self.parse_intersect_term()
+        while self.at_kw("union", "except", "minus"):
+            op = self.next().value.lower()
+            all_ = bool(self.accept_kw("all"))
+            self.accept_kw("distinct")
+            right = self.parse_intersect_term()
+            if op == "union":
+                u = UnionA(stmt, right, all_)
+            else:
+                u = SetOpA("except", stmt, right, all_)
+            self._hoist_order_limit(u, right)
+            stmt = u
+        # trailing ORDER BY / LIMIT apply to the whole set expression
+        if self.at_kw("order"):
+            stmt.order_by = self.parse_order_by()
+        if self.accept_kw("limit"):
+            stmt.limit = int(self.next().value)
+        stmt.ctes = ctes + getattr(stmt, "ctes", [])
+        return stmt
+
+    # select-terms that came from "( ... )": their ORDER BY/LIMIT are
+    # legitimately inner and must NOT hoist to the set expression
+    _parenthesized: set = None
+
+    def _hoist_order_limit(self, u, right) -> None:
+        """A trailing ORDER BY/LIMIT greedily parsed into the LAST
+        unparenthesized branch binds to the whole set expression."""
+        if id(right) in (self._parenthesized or ()):
+            return
+        if isinstance(right, (SelectA, UnionA, SetOpA)):
+            u.order_by, right.order_by = right.order_by, []
+            u.limit, right.limit = right.limit, None
+
+    def parse_intersect_term(self):
+        stmt = self.parse_select_term()
+        while self.at_kw("intersect"):
+            self.next()
+            all_ = bool(self.accept_kw("all"))
+            self.accept_kw("distinct")
+            right = self.parse_select_term()
+            u = SetOpA("intersect", stmt, right, all_)
+            self._hoist_order_limit(u, right)
+            stmt = u
+        return stmt
+
+    def parse_select_term(self):
+        if self.at_op("("):
+            self.next()
+            inner = self.parse_set_expr()
+            self.expect_op(")")
+            if self._parenthesized is None:
+                self._parenthesized = set()
+            self._parenthesized.add(id(inner))
+            return inner
+        return self.parse_select_core()
+
+    def parse_select_core(self) -> SelectA:
+        self.expect_kw("select")
+        s = SelectA()
+        if self.accept_kw("distinct"):
+            s.distinct = True
+        else:
+            self.accept_kw("all")
+        # select list
+        while True:
+            item = self.parse_expr()
+            alias = None
+            if self.accept_kw("as"):
+                alias = self.next().value
+            elif self.peek().kind == "IDENT" and not self.at_kw(
+                    "from", "where", "group", "having", "order", "limit",
+                    "union", "except", "minus", "intersect",
+                    "inner", "left", "right", "full", "cross",
+                    "join", "on"):
+                alias = self.next().value
+            s.items.append((item, alias))
+            if not self.accept_op(","):
+                break
+        if self.accept_kw("from"):
+            s.from_.append(JoinA(self.parse_table_ref(), None, None))
+            while True:
+                if self.accept_op(","):
+                    s.from_.append(JoinA(self.parse_table_ref(), None, None))
+                    continue
+                how = None
+                for kw, mapped in _JOIN_KINDS.items():
+                    if self.at_kw(kw):
+                        self.next()
+                        how = mapped
+                        break
+                if how in ("left", "right", "full"):
+                    self.accept_kw("outer")
+                if how is not None:
+                    self.expect_kw("join")
+                elif self.at_kw("join"):
+                    self.next()
+                    how = "inner"
+                else:
+                    break
+                ref = self.parse_table_ref()
+                on = None
+                if how != "cross" and self.accept_kw("on"):
+                    on = self.parse_expr()
+                s.from_.append(JoinA(ref, how, on))
+        if self.accept_kw("where"):
+            s.where = self.parse_expr()
+        if self.at_kw("group"):
+            self.next()
+            self.expect_kw("by")
+            self._parse_group_by(s)
+        if self.accept_kw("having"):
+            s.having = self.parse_expr()
+        if self.at_kw("order") and self._lookahead_is_order_by():
+            s.order_by = self.parse_order_by()
+        if self.accept_kw("limit"):
+            s.limit = int(self.next().value)
+        return s
+
+    def _parse_group_by(self, s: SelectA) -> None:
+        """Plain exprs, optionally mixed with ONE of ROLLUP(...),
+        CUBE(...), GROUPING SETS((...),...). ``s.group_by`` collects the
+        distinct key exprs in order; ``s.group_sets`` (when non-plain)
+        holds index lists into group_by per output grouping set, with
+        plain exprs present in every set."""
+        base: List[Ast] = []
+        construct = None  # (kind, [expr or [exprs]])
+        while True:
+            if self.at_kw("rollup", "cube"):
+                if construct is not None:
+                    raise SqlError("multiple ROLLUP/CUBE/GROUPING SETS "
+                                   "constructs in one GROUP BY are not "
+                                   "supported")
+                kind = self.next().value.lower()
+                self.expect_op("(")
+                exprs = [self.parse_expr()]
+                while self.accept_op(","):
+                    exprs.append(self.parse_expr())
+                self.expect_op(")")
+                construct = (kind, exprs)
+            elif self.at_kw("grouping"):
+                if construct is not None:
+                    raise SqlError("multiple ROLLUP/CUBE/GROUPING SETS "
+                                   "constructs in one GROUP BY are not "
+                                   "supported")
+                self.next()
+                self.expect_kw("sets")
+                self.expect_op("(")
+                sets = []
+                while True:
+                    if self.accept_op("("):
+                        grp = []
+                        if not self.at_op(")"):
+                            grp.append(self.parse_expr())
+                            while self.accept_op(","):
+                                grp.append(self.parse_expr())
+                        self.expect_op(")")
+                        sets.append(grp)
+                    else:
+                        sets.append([self.parse_expr()])
+                    if not self.accept_op(","):
+                        break
+                self.expect_op(")")
+                construct = ("sets", sets)
+            else:
+                base.append(self.parse_expr())
+            if not self.accept_op(","):
+                break
+        if construct is None:
+            s.group_by = base
+            return
+        kind, payload = construct
+        if kind == "rollup":
+            variable = [payload[:i] for i in range(len(payload), -1, -1)]
+        elif kind == "cube":
+            variable = []
+            n = len(payload)
+            for m in range((1 << n) - 1, -1, -1):
+                variable.append([payload[i] for i in range(n)
+                                 if m & (1 << (n - 1 - i))])
+        else:
+            variable = payload
+        # distinct keys in first-appearance order; sets as index lists
+        keys: List[Ast] = list(base)
+
+        def key_idx(e: Ast) -> int:
+            for i, k in enumerate(keys):
+                if _ast_repr(k) == _ast_repr(e):
+                    return i
+            keys.append(e)
+            return len(keys) - 1
+        base_idx = [key_idx(e) for e in base]
+        sets_idx = []
+        for grp in variable:
+            sets_idx.append(base_idx + [key_idx(e) for e in grp])
+        s.group_by = keys
+        s.group_sets = sets_idx
+
+    def _lookahead_is_order_by(self) -> bool:
+        t = self.toks[self.i + 1]
+        return t.kind == "IDENT" and t.value.lower() == "by"
+
+    def parse_order_by(self):
+        self.expect_kw("order")
+        self.expect_kw("by")
+        out = []
+        while True:
+            e = self.parse_expr()
+            asc = True
+            if self.accept_kw("desc"):
+                asc = False
+            else:
+                self.accept_kw("asc")
+            nulls_first = None
+            if self.accept_kw("nulls"):
+                which = self.next().value.lower()
+                nulls_first = which == "first"
+            out.append((e, asc, nulls_first))
+            if not self.accept_op(","):
+                break
+        return out
+
+    def _maybe_over(self, fn: FnA) -> Ast:
+        if not self.at_kw("over"):
+            return fn
+        self.next()
+        self.expect_op("(")
+        partition = []
+        order = []
+        frame = None
+        if self.accept_kw("partition"):
+            self.expect_kw("by")
+            partition.append(self.parse_expr())
+            while self.accept_op(","):
+                partition.append(self.parse_expr())
+        if self.at_kw("order"):
+            order = self.parse_order_by()
+        kind = self.accept_kw("rows", "range")
+        if kind:
+            self.expect_kw("between")
+            lo = self._parse_frame_bound()
+            self.expect_kw("and")
+            hi = self._parse_frame_bound()
+            frame = (kind == "rows", lo, hi)
+        self.expect_op(")")
+        return OverA(fn, partition, order, frame)
+
+    def _parse_frame_bound(self):
+        """UNBOUNDED PRECEDING/FOLLOWING | CURRENT ROW | n PRECEDING |
+        n FOLLOWING -> None or signed int offset."""
+        if self.accept_kw("unbounded"):
+            self.next()  # preceding / following
+            return None
+        if self.accept_kw("current"):
+            self.expect_kw("row")
+            return 0
+        t = self.next()
+        if t.kind != "NUMBER":
+            raise SqlError(f"bad frame bound {t.value!r}")
+        n = int(t.value)
+        which = self.next().value.lower()
+        return -n if which == "preceding" else n
+
+    def parse_table_ref(self):
+        if self.accept_op("("):
+            stmt = self.parse_set_expr()
+            self.expect_op(")")
+            if self.accept_kw("as"):
+                alias = self.next().value
+            elif self.peek().kind == "IDENT" and not self.at_kw(
+                    "where", "group", "having", "order", "limit", "union",
+                    "except", "minus", "intersect",
+                    "inner", "left", "right", "full", "cross", "join",
+                    "on"):
+                alias = self.next().value
+            else:
+                alias = f"__subq{self.i}"
+            return SubqueryA(stmt, alias)
+        name = self.next().value
+        alias = None
+        if self.accept_kw("as"):
+            alias = self.next().value
+        elif self.peek().kind == "IDENT" and not self.at_kw(
+                "where", "group", "having", "order", "limit", "union",
+                "except", "minus", "intersect",
+                "inner", "left", "right", "full", "cross", "join", "on"):
+            alias = self.next().value
+        return TableRefA(name, alias)
+
+    # --- expressions (precedence climbing) ---
+    def parse_expr(self) -> Ast:
+        return self.parse_or()
+
+    def parse_or(self) -> Ast:
+        e = self.parse_and()
+        while self.accept_kw("or"):
+            e = BinA("or", e, self.parse_and())
+        return e
+
+    def parse_and(self) -> Ast:
+        e = self.parse_not()
+        while self.accept_kw("and"):
+            e = BinA("and", e, self.parse_not())
+        return e
+
+    def parse_not(self) -> Ast:
+        if self.accept_kw("not"):
+            return UnA("not", self.parse_not())
+        return self.parse_predicate()
+
+    def parse_predicate(self) -> Ast:
+        if self.at_kw("exists"):
+            self.next()
+            self.expect_op("(")
+            stmt = self.parse_set_expr()
+            self.expect_op(")")
+            return ExistsA(stmt)
+        e = self.parse_additive()
+        neg = bool(self.accept_kw("not"))
+        if self.accept_kw("between"):
+            lo = self.parse_additive()
+            self.expect_kw("and")
+            hi = self.parse_additive()
+            return BetweenA(e, lo, hi, neg)
+        if self.accept_kw("in"):
+            self.expect_op("(")
+            if self.at_kw("select", "with"):
+                stmt = self.parse_set_expr()
+                self.expect_op(")")
+                return InSubqueryA(e, stmt, neg)
+            items = [self.parse_expr()]
+            while self.accept_op(","):
+                items.append(self.parse_expr())
+            self.expect_op(")")
+            return InA(e, items, neg)
+        if self.accept_kw("like"):
+            pat = self.next()
+            if pat.kind != "STRING":
+                raise SqlError("LIKE pattern must be a string literal")
+            return LikeA(e, pat.value, neg)
+        if self.accept_kw("rlike", "regexp"):
+            pat = self.next()
+            if pat.kind != "STRING":
+                raise SqlError("RLIKE pattern must be a string literal")
+            return FnA("rlike", [e, LitA(pat.value)]) if not neg else \
+                UnA("not", FnA("rlike", [e, LitA(pat.value)]))
+        if neg:
+            raise SqlError("dangling NOT before non-predicate")
+        if self.accept_kw("is"):
+            isneg = bool(self.accept_kw("not"))
+            self.expect_kw("null")
+            return IsNullA(e, isneg)
+        op = self.accept_op("=", "<>", "!=", "<", "<=", ">", ">=")
+        if op:
+            return BinA(op, e, self.parse_additive())
+        return e
+
+    def parse_additive(self) -> Ast:
+        e = self.parse_multiplicative()
+        while True:
+            op = self.accept_op("+", "-", "||")
+            if not op:
+                return e
+            e = BinA(op, e, self.parse_multiplicative())
+
+    def parse_multiplicative(self) -> Ast:
+        e = self.parse_unary()
+        while True:
+            op = self.accept_op("*", "/", "%")
+            if not op:
+                if self.at_kw("div"):  # integral division keyword op
+                    self.next()
+                    e = BinA("div", e, self.parse_unary())
+                    continue
+                return e
+            e = BinA(op, e, self.parse_unary())
+
+    def parse_unary(self) -> Ast:
+        if self.accept_op("-"):
+            t = self.peek()
+            if t.kind == "NUMBER":
+                # fold the sign into the literal (Spark's AST visitor does
+                # this so Long.MinValue is a VALID literal rather than
+                # -(9223372036854775808) overflowing to decimal)
+                self.next()
+                if "." in t.value or "e" in t.value.lower():
+                    return LitA(-float(t.value))
+                return LitA(-int(t.value))
+            return UnA("-", self.parse_unary())
+        if self.accept_op("+"):
+            return self.parse_unary()
+        return self.parse_primary()
+
+    def parse_primary(self) -> Ast:
+        t = self.peek()
+        if t.kind == "NUMBER":
+            self.next()
+            if "." in t.value or "e" in t.value.lower():
+                return LitA(float(t.value))
+            return LitA(int(t.value))
+        if t.kind == "STRING":
+            self.next()
+            return LitA(t.value)
+        if t.kind == "OP" and t.value == "(":
+            self.next()
+            if self.at_kw("select", "with"):
+                stmt = self.parse_set_expr()
+                self.expect_op(")")
+                return ScalarSubqueryA(stmt)
+            e = self.parse_expr()
+            self.expect_op(")")
+            return e
+        if t.kind == "OP" and t.value == "*":
+            self.next()
+            return StarA()
+        if t.kind != "IDENT":
+            raise SqlError(f"unexpected token {t.value!r} @{t.pos}")
+        word = t.value
+        lower = word.lower()
+        # typed literals
+        if lower == "date" and self.toks[self.i + 1].kind == "STRING":
+            self.next()
+            s = self.next().value
+            return LitA(datetime.date.fromisoformat(s))
+        if lower == "timestamp" and self.toks[self.i + 1].kind == "STRING":
+            self.next()
+            s = self.next().value
+            v = datetime.datetime.fromisoformat(s)
+            if v.tzinfo is None:
+                v = v.replace(tzinfo=datetime.timezone.utc)
+            return LitA(v)
+        if lower == "interval":
+            self.next()
+            nt = self.next()
+            if nt.kind == "STRING":
+                n = int(nt.value)
+            elif nt.kind == "NUMBER":
+                n = int(nt.value)
+            else:
+                raise SqlError("bad INTERVAL quantity")
+            unit = self.next().value.lower().rstrip("s")
+            return IntervalA(n, unit)
+        if lower in ("true", "false"):
+            self.next()
+            return LitA(lower == "true")
+        if lower == "null":
+            self.next()
+            return LitA(None)
+        if lower == "case":
+            return self.parse_case()
+        if lower == "cast":
+            self.next()
+            self.expect_op("(")
+            e = self.parse_expr()
+            self.expect_kw("as")
+            to = self.parse_type()
+            self.expect_op(")")
+            return CastA(e, to)
+        if lower == "extract":
+            self.next()
+            self.expect_op("(")
+            field = self.next().value.lower()
+            self.expect_kw("from")
+            e = self.parse_expr()
+            self.expect_op(")")
+            return FnA(field, [e])
+        self.next()
+        # function call?
+        if self.at_op("("):
+            self.next()
+            if self.accept_op("*"):
+                self.expect_op(")")
+                return self._maybe_over(FnA(lower, [], star=True))
+            if self.at_op(")"):
+                self.next()
+                return self._maybe_over(FnA(lower, []))
+            distinct = bool(self.accept_kw("distinct"))
+            args = [self.parse_expr()]
+            while self.accept_op(","):
+                args.append(self.parse_expr())
+            self.expect_op(")")
+            return self._maybe_over(FnA(lower, args, distinct=distinct))
+        # qualified name / star
+        if self.at_op("."):
+            self.next()
+            if self.accept_op("*"):
+                return StarA(qualifier=word)
+            return ColA(self.next().value, qualifier=word)
+        return ColA(word)
+
+    def parse_case(self) -> Ast:
+        self.expect_kw("case")
+        branches = []
+        base = None
+        if not self.at_kw("when"):
+            base = self.parse_expr()
+        while self.accept_kw("when"):
+            cond = self.parse_expr()
+            self.expect_kw("then")
+            val = self.parse_expr()
+            if base is not None:
+                cond = BinA("=", base, cond)
+            branches.append((cond, val))
+        els = None
+        if self.accept_kw("else"):
+            els = self.parse_expr()
+        self.expect_kw("end")
+        return CaseA(branches, els)
+
+    def parse_type(self) -> dt.DType:
+        name = self.next().value.lower()
+        simple = {
+            "boolean": dt.BOOL, "bool": dt.BOOL,
+            "tinyint": dt.INT8, "byte": dt.INT8,
+            "smallint": dt.INT16, "short": dt.INT16,
+            "int": dt.INT32, "integer": dt.INT32,
+            "bigint": dt.INT64, "long": dt.INT64,
+            "float": dt.FLOAT32, "real": dt.FLOAT32,
+            "double": dt.FLOAT64,
+            "string": dt.STRING, "varchar": dt.STRING, "text": dt.STRING,
+            "date": dt.DATE,
+        }
+        if name in simple:
+            if name == "varchar" and self.accept_op("("):
+                self.next()
+                self.expect_op(")")
+            return simple[name]
+        if name in ("timestamp", "decimal", "numeric"):
+            raise _not_ported(f"type {name}")
+        raise SqlError(f"unknown type {name!r}")
+
+
+# ---------------------------------------------------------------------------
+# Analyzer: AST -> DataFrame
+# ---------------------------------------------------------------------------
+
+_AGG_FNS = {
+    "sum": Agg.Sum, "min": Agg.Min, "max": Agg.Max,
+    "avg": Agg.Average, "mean": Agg.Average,
+}
+
+_UNARY_FNS = {"isnan": P.IsNaN}
+
+_BINARY_FNS = {"nullif": Cond.NullIf, "nvl": Cond.Nvl, "ifnull": Cond.Nvl}
+
+_VARARG_FNS = {"coalesce": Cond.Coalesce}
+
+#: functions the JAX package's analyzer lowers that this port has not
+#: got yet
+_NOT_PORTED = frozenset({
+    "stddev", "stddev_samp", "stddev_pop", "variance", "var_samp",
+    "var_pop", "first", "last", "collect_list", "collect_set",
+    "abs", "sqrt", "cbrt", "exp", "ln", "log", "log2", "log10", "sin",
+    "cos", "tan", "asin", "acos", "atan", "sinh", "cosh", "tanh",
+    "degrees", "radians", "sign", "signum", "floor", "ceil", "ceiling",
+    "length", "char_length", "octet_length", "upper", "ucase", "lower",
+    "lcase", "trim", "ltrim", "rtrim", "reverse", "initcap",
+    "year", "month", "day", "dayofmonth", "quarter", "dayofweek",
+    "dayofyear", "weekday", "last_day", "hour", "minute", "second",
+    "pow", "power", "atan2", "hypot", "pmod", "date_add", "date_sub",
+    "datediff", "add_months", "concat", "least", "greatest", "hash",
+    "xxhash64", "round", "bround", "lpad", "rpad", "replace",
+    "translate", "locate", "position", "concat_ws", "from_unixtime",
+    "make_date", "trunc", "get_json_object", "from_json", "to_json",
+    "regexp_extract", "regexp_replace", "rlike", "regexp_like", "regexp",
+    "from_utc_timestamp", "to_utc_timestamp",
+})
+
+
+class _Scope:
+    """FROM-clause name resolution.
+
+    Entries are ``(alias, [(user_name, internal_name)])``: when two FROM
+    tables share a column name, the analyzer renames the physical
+    columns to unique internal names before joining (our plans use flat
+    column names), and this mapping resolves qualified references to the
+    right copy."""
+
+    def __init__(self, entries, types=None):
+        self.entries = list(entries)
+        #: internal column name -> DType (for type-dependent lowering)
+        self.types = dict(types or {})
+
+    def type_schema(self):
+        return list(self.types.items())
+
+    def resolve(self, name: str, qualifier: Optional[str]) -> str:
+        if qualifier is not None:
+            for alias, cols in self.entries:
+                if alias.lower() == qualifier.lower():
+                    for user, internal in cols:
+                        if user.lower() == name.lower():
+                            return internal
+                    raise SqlError(f"column {qualifier}.{name} not found")
+            raise SqlError(f"unknown table alias {qualifier!r}")
+        hits = []
+        for alias, cols in self.entries:
+            for user, internal in cols:
+                if user.lower() == name.lower():
+                    hits.append(internal)
+                    break
+        if not hits:
+            raise SqlError(f"column {name!r} not found in scope "
+                           f"{[a for a, _ in self.entries]}")
+        if len(set(hits)) > 1:
+            raise SqlError(f"ambiguous column {name!r}")
+        return hits[0]
+
+    def all_columns(self, qualifier: Optional[str] = None):
+        """[(user_name, internal_name)] for star expansion."""
+        out = []
+        for alias, cols in self.entries:
+            if qualifier is None or alias.lower() == qualifier.lower():
+                out.extend(cols)
+        if not out:
+            raise SqlError(f"unknown table alias {qualifier!r}")
+        return out
+
+
+class Analyzer:
+    def __init__(self, session):
+        self.session = session
+        #: WITH-binding scopes, innermost last (CTEs see earlier CTEs)
+        self._cte_frames: List[dict] = []
+
+    # --- entry ---
+    def analyze(self, stmt):
+        ctes = getattr(stmt, "ctes", [])
+        frame = {}
+        if ctes:
+            self._cte_frames.append(frame)
+            for name, sub in ctes:
+                frame[name.lower()] = self.analyze(sub)
+        try:
+            return self._analyze_body(stmt)
+        finally:
+            if ctes:
+                self._cte_frames.pop()
+
+    def _analyze_body(self, stmt):
+        if isinstance(stmt, (UnionA, SetOpA)):
+            raise _not_ported("UNION / INTERSECT / EXCEPT")
+        return self.analyze_select(stmt)
+
+    # --- FROM resolution + join planning ---
+    def _resolve_ref(self, ref):
+        if isinstance(ref, SubqueryA):
+            return ref.alias, self.analyze(ref.stmt)
+        for frame in reversed(self._cte_frames):
+            if ref.name.lower() in frame:
+                return ref.alias, frame[ref.name.lower()]
+        df = self.session.table(ref.name)
+        return ref.alias, df
+
+    def _conjuncts(self, ast) -> List[Ast]:
+        if isinstance(ast, BinA) and ast.op == "and":
+            return self._conjuncts(ast.l) + self._conjuncts(ast.r)
+        return [ast] if ast is not None else []
+
+    def _ast_tables(self, ast, scope: _Scope) -> set:
+        """Aliases referenced by an AST (for join planning)."""
+        out = set()
+
+        def walk(a):
+            if isinstance(a, ColA):
+                if a.qualifier is not None:
+                    out.add(a.qualifier.lower())
+                else:
+                    for alias, cols in scope.entries:
+                        if any(u.lower() == a.name.lower()
+                               for u, _ in cols):
+                            out.add(alias.lower())
+                            break
+            elif isinstance(a, BinA):
+                walk(a.l)
+                walk(a.r)
+            elif isinstance(a, UnA):
+                walk(a.e)
+            elif isinstance(a, BetweenA):
+                walk(a.e), walk(a.lo), walk(a.hi)
+            elif isinstance(a, InA):
+                walk(a.e)
+                for x in a.items:
+                    walk(x)
+            elif isinstance(a, (LikeA, IsNullA)):
+                walk(a.e)
+            elif isinstance(a, CastA):
+                walk(a.e)
+            elif isinstance(a, FnA):
+                for x in a.args:
+                    walk(x)
+            elif isinstance(a, CaseA):
+                for c, v in a.branches:
+                    walk(c), walk(v)
+                if a.els is not None:
+                    walk(a.els)
+        walk(ast)
+        return out
+
+    def analyze_select(self, s: SelectA):
+        if not s.from_:
+            # SELECT without FROM: single-row relation
+            base = self.session.create_dataframe({"__one": [1]},
+                                                 [("__one", dt.INT32)])
+            scope = _Scope([("", [("__one", "__one")])],
+                           {"__one": dt.INT32})
+            return self._finish(base, scope, s)
+
+        entries = []           # [(alias, DataFrame)]
+        for j in s.from_:
+            entries.append(self._resolve_ref(j.ref))
+
+        # duplicate column names across FROM entries get unique internal
+        # names (flat-name plans can't hold two columns called "v")
+        seen_names = {}
+        for alias, df in entries:
+            for n, _ in df.schema:
+                seen_names[n.lower()] = seen_names.get(n.lower(), 0) + 1
+        scope_entries = []
+        renamed_entries = []
+        type_map = {}
+        for alias, df in entries:
+            cols = []
+            renames = []
+            for n, t in df.schema:
+                if seen_names[n.lower()] > 1:
+                    internal = f"__{alias}__{n}"
+                    renames.append(Alias(col(n), internal))
+                    cols.append((n, internal))
+                else:
+                    renames.append(col(n))
+                    cols.append((n, n))
+                type_map[cols[-1][1]] = t
+            if any(isinstance(r, Alias) for r in renames):
+                df = df.select(*renames)
+            scope_entries.append((alias, cols))
+            renamed_entries.append((alias, df))
+        entries = renamed_entries
+        scope = _Scope(scope_entries, type_map)
+
+        # conjuncts holding subquery predicates (EXISTS / IN (SELECT) /
+        # correlated scalar comparisons) lower via joins after the base
+        # join tree is built; everything else flows the normal path
+        all_conjuncts = self._conjuncts(s.where)
+        conjuncts, subq_preds = [], []
+        for c in all_conjuncts:
+            if self._has_subquery_pred(c):
+                subq_preds.append(c)
+            else:
+                conjuncts.append(c)
+        if subq_preds:
+            raise _not_ported("a subquery predicate (EXISTS, IN (SELECT "
+                              "...), a correlated scalar subquery)")
+        used = [False] * len(conjuncts)
+
+        # WHERE predicates may only be pushed below the joins into
+        # tables never on a null-supplying join side (pushing into the
+        # right leg of a LEFT JOIN would let null-extended rows through)
+        preserved = {entries[0][0].lower()}
+        for j, (alias, _) in zip(s.from_[1:], entries[1:]):
+            al = alias.lower()
+            if j.how in (None, "inner", "cross"):
+                preserved.add(al)
+            elif j.how == "left":
+                pass                      # right leg null-supplied
+            elif j.how == "right":
+                preserved = {al}          # accumulated left null-supplied
+            else:                         # full
+                preserved = set()
+
+        table_df = {}
+        for idx, (alias, df) in enumerate(entries):
+            preds = []
+            for ci, c in enumerate(conjuncts):
+                if used[ci]:
+                    continue
+                tabs = self._ast_tables(c, scope)
+                if tabs == {alias.lower()} and alias.lower() in preserved:
+                    preds.append(c)
+                    used[ci] = True
+            sub = _Scope([e for e in scope.entries if e[0] == alias],
+                         scope.types)
+            for p in preds:
+                df = df.filter(self.lower(p, sub))
+            table_df[alias.lower()] = df
+
+        # left-deep join: explicit JOIN ... ON first, then comma joins
+        # connected through WHERE equi-conjuncts
+        joined_aliases = [entries[0][0].lower()]
+        current = table_df[joined_aliases[0]]
+
+        def current_scope():
+            return _Scope([(a, cs) for a, cs in scope.entries
+                           if a.lower() in joined_aliases], scope.types)
+
+        def equi_keys(on_conjs, other_alias):
+            """Split conjuncts into equi key pairs vs residual."""
+            lk, rk, residual = [], [], []
+            right_scope = _Scope([(a, cs) for a, cs in scope.entries
+                                  if a.lower() == other_alias],
+                                 scope.types)
+            left_scope = current_scope()
+            for c in on_conjs:
+                if isinstance(c, BinA) and c.op == "=":
+                    lt = self._ast_tables(c.l, scope)
+                    rt_ = self._ast_tables(c.r, scope)
+                    if lt <= set(joined_aliases) and rt_ == {other_alias}:
+                        lk.append(self.lower(c.l, left_scope))
+                        rk.append(self.lower(c.r, right_scope))
+                        continue
+                    if rt_ <= set(joined_aliases) and lt == {other_alias}:
+                        lk.append(self.lower(c.r, left_scope))
+                        rk.append(self.lower(c.l, right_scope))
+                        continue
+                residual.append(c)
+            return lk, rk, residual
+
+        remaining = [(j, alias) for j, (alias, _) in
+                     list(zip(s.from_, entries))[1:]]
+        force_cross = False
+        while remaining:
+            progressed = False
+            for k, (j, alias) in enumerate(remaining):
+                al = alias.lower()
+                if j.how is not None and j.how != "cross":
+                    if k != 0:
+                        # explicit joins keep declaration order: wait
+                        # until everything declared before them is joined
+                        continue
+                    on_conjs = self._conjuncts(j.on)
+                    lk, rk, residual = equi_keys(on_conjs, al)
+                    how = {"left": "left_outer", "right": "right_outer",
+                           "full": "full_outer"}.get(j.how, j.how)
+                    other = table_df[al]
+                    if lk:
+                        if residual and how != "inner":
+                            # a residual ON conjunct changes outer-join
+                            # match semantics; filtering after the join
+                            # would silently produce inner-join results
+                            raise SqlError(
+                                f"non-equi ON condition on {j.how} JOIN "
+                                "not supported")
+                        current = current.join(other, (lk, rk), how=how)
+                        joined_aliases.append(al)
+                        if residual:
+                            sc = current_scope()
+                            for c in residual:
+                                current = current.filter(self.lower(c, sc))
+                    else:
+                        if how != "inner":
+                            raise SqlError(
+                                f"{j.how} JOIN without equi-condition not "
+                                "supported")
+                        current = current.cross_join(other)
+                        joined_aliases.append(al)
+                        if on_conjs:
+                            sc = current_scope()
+                            for c in on_conjs:
+                                current = current.filter(self.lower(c, sc))
+                    progressed = True
+                elif j.how == "cross":
+                    current = current.cross_join(table_df[al])
+                    joined_aliases.append(al)
+                    progressed = True
+                else:
+                    # comma join: connect via WHERE equi-conjuncts
+                    cand = []
+                    for ci, c in enumerate(conjuncts):
+                        if used[ci]:
+                            continue
+                        tabs = self._ast_tables(c, scope)
+                        if al in tabs and \
+                                tabs <= set(joined_aliases + [al]):
+                            cand.append((ci, c))
+                    lk, rk, residual = equi_keys([c for _, c in cand], al)
+                    if not lk and len(remaining) > 1 and not force_cross:
+                        continue  # try a better-connected table first
+                    for ci, _ in cand:
+                        used[ci] = True
+                    other = table_df[al]
+                    if lk:
+                        current = current.join(other, (lk, rk), how="inner")
+                    else:
+                        current = current.cross_join(other)
+                    joined_aliases.append(al)
+                    if residual:
+                        sc = current_scope()
+                        for c in residual:
+                            current = current.filter(self.lower(c, sc))
+                    progressed = True
+                if progressed:
+                    remaining.pop(k)
+                    break
+            if not progressed:
+                if not force_cross and any(j.how is None
+                                           for j, _ in remaining):
+                    # disconnected comma entry: fall back to a cartesian
+                    # product rather than failing
+                    force_cross = True
+                    continue
+                raise SqlError("could not order joins (disconnected FROM "
+                               "without equi-conditions)")
+            force_cross = False
+
+        # leftover WHERE conjuncts (multi-table non-equi)
+        full_scope = current_scope()
+        for ci, c in enumerate(conjuncts):
+            if not used[ci]:
+                current = current.filter(self.lower(c, full_scope))
+        return self._finish(current, full_scope, s)
+
+    # --- subquery predicates (EXISTS / IN (SELECT) / correlated scalar) ---
+    def _has_subquery_pred(self, a) -> bool:
+        if isinstance(a, (ExistsA, InSubqueryA)):
+            return True
+        if isinstance(a, ScalarSubqueryA):
+            return self._is_correlated(a.stmt)
+        for v in vars(a).values() if isinstance(a, Ast) else ():
+            if isinstance(v, Ast) and self._has_subquery_pred(v):
+                return True
+            if isinstance(v, (list, tuple)):
+                for x in v:
+                    if isinstance(x, Ast) and self._has_subquery_pred(x):
+                        return True
+                    if isinstance(x, tuple):
+                        for y in x:
+                            if isinstance(y, Ast) and \
+                                    self._has_subquery_pred(y):
+                                return True
+        return False
+
+    def _inner_scope_of(self, stmt) -> Optional[_Scope]:
+        """Resolution scope of a subquery's own FROM (schemas only).
+        Memoized per stmt object: correlation classification asks for
+        it repeatedly and derived-table refs are costly to resolve."""
+        cache = getattr(self, "_inner_scope_cache", None)
+        if cache is None:
+            cache = self._inner_scope_cache = {}
+        if id(stmt) in cache:
+            return cache[id(stmt)]
+        if not isinstance(stmt, SelectA) or not stmt.from_:
+            scope = None
+        else:
+            entries, types = [], {}
+            for j in stmt.from_:
+                alias, df = self._resolve_ref(j.ref)
+                cols = [(n, n) for n, _ in df.schema]
+                types.update({n: t for n, t in df.schema})
+                entries.append((alias, cols))
+            scope = _Scope(entries, types)
+        cache[id(stmt)] = scope
+        return scope
+
+    def _is_correlated(self, stmt) -> bool:
+        """Does the subquery's WHERE reference columns outside its own
+        FROM scope?"""
+        inner = self._inner_scope_of(stmt)
+        if inner is None:
+            return False
+        for c in self._conjuncts(stmt.where):
+            if self._outer_refs(c, inner):
+                return True
+        return False
+
+    def _outer_refs(self, ast, inner_scope: _Scope) -> bool:
+        """True when ``ast`` references a column the inner scope cannot
+        resolve (i.e. a correlated outer reference)."""
+        found = [False]
+
+        def walk(a):
+            if found[0]:
+                return
+            if isinstance(a, ColA):
+                try:
+                    inner_scope.resolve(a.name, a.qualifier)
+                except SqlError:
+                    found[0] = True
+                except KeyError:
+                    found[0] = True
+                return
+            if isinstance(a, (ScalarSubqueryA, ExistsA, InSubqueryA)):
+                return  # nested subqueries resolve their own scopes
+            if isinstance(a, Ast):
+                for v in vars(a).items():
+                    _walk_val(v[1])
+
+        def _walk_val(v):
+            if isinstance(v, Ast):
+                walk(v)
+            elif isinstance(v, (list, tuple)):
+                for x in v:
+                    _walk_val(x)
+        walk(ast)
+        return found[0]
+
+    # --- SELECT/GROUP BY/HAVING/ORDER BY lowering ---
+    def _finish(self, df, scope: _Scope, s: SelectA):
+        # expand stars (user-facing names become the output aliases)
+        items: List[Tuple[Ast, Optional[str]]] = []
+        for ast, alias in s.items:
+            if isinstance(ast, StarA):
+                for user, internal in scope.all_columns(ast.qualifier):
+                    items.append((ColA(user), user))
+            else:
+                items.append((ast, alias))
+
+        # group-by ordinals -> select items
+        group_asts = []
+        for g in s.group_by:
+            if isinstance(g, LitA) and isinstance(g.value, int):
+                if not 1 <= g.value <= len(items):
+                    raise SqlError(f"GROUP BY position {g.value} is not "
+                                   f"in the select list (1..{len(items)})")
+                group_asts.append(items[g.value - 1][0])
+            else:
+                group_asts.append(g)
+
+        lowered = [self.lower(a, scope) for a, _ in items]
+        names = [alias or self._default_name(a, i)
+                 for i, ((a, alias), e) in enumerate(zip(items, lowered))]
+        has_agg = any(self._find_aggs(e) for e in lowered) or \
+            bool(group_asts) or \
+            (s.having is not None)
+
+        if not has_agg:
+            pre_sort = []
+            post_sort = []
+            out_like = list(names)
+            for (oast, asc, nf) in s.order_by:
+                if self._resolves_in_output(oast, out_like):
+                    post_sort.append((oast, asc, nf))
+                else:
+                    pre_sort.append((oast, asc, nf))
+            if pre_sort:
+                df = self._order_limit(df, pre_sort, None, scope)
+            out = df.select(*[Alias(e, n)
+                              for e, n in zip(lowered, names)])
+            if s.distinct:
+                out = out.distinct()
+            out = self._order_limit(out, post_sort, s.limit, scope, items)
+            return out
+
+        # aggregate path: split aggs out of select/having/order exprs
+        keys_src = [self.lower(g, scope) for g in group_asts]
+        if s.group_sets is None:
+            keys = keys_src
+            key_names = [output_name(k, i) for i, k in enumerate(keys)]
+        else:
+            raise _not_ported("GROUPING SETS / ROLLUP / CUBE")
+        agg_fns: List[Tuple[Agg.AggregateFunction, str]] = []
+
+        def replace(e: Expression) -> Expression:
+            """Replace aggregate subtrees with refs to computed columns,
+            and group-key subtrees with refs to key output columns."""
+            if isinstance(e, _GroupingMarker):
+                return lit(0)  # plain GROUP BY: every key is grouped
+            for k, kn in zip(keys_src, key_names):
+                if repr(e) == repr(k):
+                    return col(kn)
+            for k, kn in zip(keys, key_names):
+                if repr(e) == repr(k):
+                    return col(kn)
+            if isinstance(e, Agg.AggregateFunction):
+                for fn, n in agg_fns:
+                    if repr(fn) == repr(e):
+                        return col(n)
+                n = f"__agg{len(agg_fns)}"
+                agg_fns.append((e, n))
+                return col(n)
+            if isinstance(e, Cond.CaseWhen):
+                # CaseWhen evaluates via .branches/.otherwise, not
+                # .children — rebuild it so aggregates inside CASE are
+                # substituted too
+                return Cond.CaseWhen(
+                    [(replace(c), replace(v)) for c, v in e.branches],
+                    replace(e.otherwise)
+                    if e.otherwise is not None else None)
+            out = e.__class__.__new__(e.__class__)
+            out.__dict__.update(e.__dict__)
+            out.children = [replace(c) for c in e.children]
+            return out
+
+        post = [replace(e) for e in lowered]
+        having_e = None
+        if s.having is not None:
+            having_e = replace(self.lower(s.having, scope))
+
+        # ORDER BY expressions not present in the output (e.g. ORDER BY
+        # sum(x) when only avg(x) is selected) ride along as hidden
+        # projection columns, then get dropped after the sort
+        proj = [Alias(e, n) for e, n in zip(post, names)]
+        order_post = []
+        hidden = 0
+        for (oast, asc, nf) in s.order_by:
+            if self._resolves_in_output(oast, names):
+                order_post.append((oast, asc, nf))
+            else:
+                e = replace(self.lower(oast, scope))
+                hname = f"__ord{hidden}"
+                hidden += 1
+                proj.append(Alias(e, hname))
+                order_post.append((ColA(hname), asc, nf))
+
+        from ..plan.session import GroupedData
+        agg_df = GroupedData(df, keys).agg(
+            *[Alias(fn, n) for fn, n in agg_fns])
+        if having_e is not None:
+            agg_df = agg_df.filter(having_e)
+        if s.distinct and hidden:
+            # standard SQL: with DISTINCT, ORDER BY items must appear in
+            # the select list
+            raise SqlError("ORDER BY expression must be in the select "
+                           "list when DISTINCT is used")
+        out = agg_df.select(*proj)
+        if s.distinct:
+            out = out.distinct()
+        out = self._order_limit(out, order_post, s.limit, scope, items,
+                                agg_replace=replace)
+        if hidden:
+            out = out.select(*[col(n) for n in names])
+        return out
+
+    def _order_limit(self, df, order_by, limit, scope, items=None,
+                     agg_replace=None):
+        if order_by:
+            from ..plan import logical as L
+            out_names = [n for n, _ in df.schema]
+            fields = []
+            for (oast, asc, nf) in order_by:
+                e = self._resolve_order_expr(oast, out_names, scope,
+                                             items, agg_replace)
+                fields.append(L.SortField(e, asc, nf))
+            df = type(df)(df.session, L.Sort(df.plan, fields))
+        if limit is not None:
+            df = df.limit(limit)
+        return df
+
+    def _resolves_in_output(self, oast, out_names) -> bool:
+        if isinstance(oast, LitA) and isinstance(oast.value, int):
+            return 1 <= oast.value <= len(out_names)
+        return isinstance(oast, ColA) and oast.qualifier is None and \
+            any(n.lower() == oast.name.lower() for n in out_names)
+
+    def _resolve_order_expr(self, oast, out_names, scope, items,
+                            agg_replace):
+        # ordinal
+        if isinstance(oast, LitA) and isinstance(oast.value, int) and \
+                1 <= oast.value <= len(out_names):
+            return col(out_names[oast.value - 1])
+        # output column / select alias
+        if isinstance(oast, ColA) and oast.qualifier is None:
+            for n in out_names:
+                if n.lower() == oast.name.lower():
+                    return col(n)
+        # general expression against the input scope
+        if scope is None:
+            raise SqlError("ORDER BY of a UNION must reference output "
+                           "columns")
+        e = self.lower(oast, scope)
+        if agg_replace is not None:
+            e = agg_replace(e)
+        return e
+
+    def _default_name(self, ast, i) -> str:
+        if isinstance(ast, ColA):
+            return ast.name
+        return f"_c{i}"
+
+    def _find_aggs(self, e: Expression) -> List:
+        out = []
+        if isinstance(e, Agg.AggregateFunction):
+            out.append(e)
+        for c in e.children:
+            out.extend(self._find_aggs(c))
+        return out
+
+    # --- expression lowering ---
+    def lower(self, ast: Ast, scope: _Scope) -> Expression:
+        if isinstance(ast, _PreLowered):
+            return ast.expr
+        if isinstance(ast, (ExistsA, InSubqueryA)):
+            raise SqlError("EXISTS / IN (SELECT ...) is only supported "
+                           "in WHERE conjuncts")
+        if isinstance(ast, ColA):
+            return col(scope.resolve(ast.name, ast.qualifier))
+        if isinstance(ast, ScalarSubqueryA):
+            # scalar subquery: execute now, inline the value (the
+            # uncorrelated-subquery path of SURVEY §2.4 #43; correlated
+            # subqueries are not supported)
+            sub = self.analyze(ast.stmt)
+            rows = sub.collect()
+            if len(sub.schema) != 1:
+                raise SqlError("scalar subquery must return one column")
+            if len(rows) > 1:
+                raise SqlError("scalar subquery returned more than one "
+                               "row")
+            name = sub.schema[0][0]
+            value = rows[0][name] if rows else None
+            from ..expr.core import Literal
+            return Literal(value, sub.schema[0][1]) \
+                if value is not None else Literal(None, sub.schema[0][1])
+        if isinstance(ast, OverA):
+            raise _not_ported("a window function (OVER)")
+        if isinstance(ast, LitA):
+            if isinstance(ast.value, datetime.datetime):
+                raise _not_ported("a timestamp literal")
+            return lit(ast.value)
+        if isinstance(ast, IntervalA):
+            raise SqlError("INTERVAL only supported in +/- date arithmetic")
+        if isinstance(ast, UnA):
+            if ast.op == "not":
+                return P.Not(self.lower(ast.e, scope))
+            return A.UnaryMinus(self.lower(ast.e, scope))
+        if isinstance(ast, BinA):
+            return self._lower_bin(ast, scope)
+        if isinstance(ast, BetweenA):
+            e = self.lower(ast.e, scope)
+            lo = self.lower(ast.lo, scope)
+            hi = self.lower(ast.hi, scope)
+            out = P.And(P.GreaterThanOrEqual(e, lo),
+                        P.LessThanOrEqual(e, hi))
+            return P.Not(out) if ast.neg else out
+        if isinstance(ast, InA):
+            vals = []
+            for x in ast.items:
+                if not isinstance(x, LitA):
+                    raise SqlError("IN list items must be literals")
+                vals.append(x.value)
+            out = P.InSet(self.lower(ast.e, scope), vals)
+            return P.Not(out) if ast.neg else out
+        if isinstance(ast, LikeA):
+            raise _not_ported("LIKE")
+        if isinstance(ast, IsNullA):
+            e = self.lower(ast.e, scope)
+            return P.IsNotNull(e) if ast.neg else P.IsNull(e)
+        if isinstance(ast, CaseA):
+            branches = [(self.lower(c, scope), self.lower(v, scope))
+                        for c, v in ast.branches]
+            els = self.lower(ast.els, scope) if ast.els is not None else None
+            return Cond.CaseWhen(branches, els)
+        if isinstance(ast, CastA):
+            return Cast(self.lower(ast.e, scope), ast.to)
+        if isinstance(ast, FnA):
+            return self._lower_fn(ast, scope)
+        if isinstance(ast, StarA):
+            raise SqlError("* only valid in SELECT list or COUNT(*)")
+        raise SqlError(f"cannot lower {type(ast).__name__}")
+
+    def _lower_bin(self, ast: BinA, scope) -> Expression:
+        op = ast.op
+        if op == "and":
+            return P.And(self.lower(ast.l, scope), self.lower(ast.r, scope))
+        if op == "or":
+            return P.Or(self.lower(ast.l, scope), self.lower(ast.r, scope))
+        if op in ("+", "-") and (isinstance(ast.r, IntervalA)
+                                 or isinstance(ast.l, IntervalA)):
+            raise _not_ported("date +/- INTERVAL")
+        if op in ("div", "%", "||"):
+            raise _not_ported(f"the {op!r} operator")
+        l = self.lower(ast.l, scope)
+        r = self.lower(ast.r, scope)
+        if op == "+":
+            return A.Add(l, r)
+        if op == "-":
+            return A.Subtract(l, r)
+        if op == "*":
+            return A.Multiply(l, r)
+        if op == "/":
+            return A.Divide(l, r)
+        if op == "=":
+            return P.EqualTo(l, r)
+        if op in ("<>", "!="):
+            return P.Not(P.EqualTo(l, r))
+        if op == "<":
+            return P.LessThan(l, r)
+        if op == "<=":
+            return P.LessThanOrEqual(l, r)
+        if op == ">":
+            return P.GreaterThan(l, r)
+        if op == ">=":
+            return P.GreaterThanOrEqual(l, r)
+        raise SqlError(f"unknown operator {op!r}")
+
+    def _lower_fn(self, ast: FnA, scope) -> Expression:
+        name = ast.name
+        if name in _NOT_PORTED:
+            raise _not_ported(f"function {name!r}")
+        if name == "grouping":
+            if len(ast.args) != 1:
+                raise SqlError("GROUPING takes one argument")
+            return _GroupingMarker(self.lower(ast.args[0], scope))
+        if name == "count":
+            if ast.star or not ast.args:
+                return Agg.CountStar()
+            if ast.distinct:
+                raise _not_ported("count(DISTINCT ...)")
+            return Agg.Count(self.lower(ast.args[0], scope))
+        if name in _AGG_FNS:
+            if ast.distinct:
+                raise SqlError(f"{name}(DISTINCT ...) not supported yet")
+            return _AGG_FNS[name](self.lower(ast.args[0], scope))
+        args = [self.lower(a, scope) for a in ast.args]
+        if name in _UNARY_FNS:
+            self._arity(ast, 1)
+            return _UNARY_FNS[name](args[0])
+        if name in _BINARY_FNS:
+            self._arity(ast, 2)
+            return _BINARY_FNS[name](args[0], args[1])
+        if name in _VARARG_FNS:
+            return _VARARG_FNS[name](*args)
+        if name in ("substring", "substr"):
+            pos = self._lit_value(ast.args[1], "substring position")
+            if len(ast.args) >= 3:
+                ln = self._lit_value(ast.args[2], "substring length")
+                return S.Substring(args[0], pos, ln)
+            return S.Substring(args[0], pos)
+        if name == "if":
+            self._arity(ast, 3)
+            return Cond.If(args[0], args[1], args[2])
+        if name == "nvl2":
+            self._arity(ast, 3)
+            return Cond.Nvl2(args[0], args[1], args[2])
+        raise SqlError(f"unknown function {name!r}")
+
+    def _arity(self, ast: FnA, n: int):
+        if len(ast.args) != n:
+            raise SqlError(f"{ast.name} expects {n} argument(s), got "
+                           f"{len(ast.args)}")
+
+    def _lit_value(self, ast, what: str):
+        if not isinstance(ast, LitA):
+            raise SqlError(f"{what} must be a literal")
+        return ast.value
+
+
+def parse_sql(session, text: str):
+    """Parse + analyze SQL text into a DataFrame on ``session``."""
+    stmt = Parser(text).parse_statement()
+    return Analyzer(session).analyze(stmt)

@@ -101,7 +101,8 @@ def test_batch_host_round_trip(name):
         values = rng.integers(-1000, 1000, n).astype(t.np_physical)
         mask = rng.random(n) > 0.3
     table = carry.host_table_from_lanes({"c": (values, mask, name)})
-    batch = host_table.table_to_batch(table, capacity=64)
+    batch = host_table.table_to_batch(table, capacity=64,
+                                      device="cpu")
     assert batch.capacity == 64 and batch.num_rows == n
     back = host_table.to_pydict(host_table.batch_to_table(batch))["c"]
     jt = {repr(x): x for x in _jdtypes()}[name]
@@ -119,7 +120,8 @@ def _jdtypes():
 def test_string_column_layout_matches_jax():
     rng = np.random.default_rng(3)
     values, mask = _strings(rng, 50)
-    sc = vector.column_from_numpy(values, 64, dt.STRING, mask)
+    sc = vector.column_from_numpy(values, 64, dt.STRING, mask,
+                                  device="cpu")
     jsc = jvector.column_from_numpy(values, 64, None, mask)
     assert sc.pad_bucket == jsc.pad_bucket
     np.testing.assert_array_equal(sc.offsets.numpy(), np.asarray(jsc.offsets))
@@ -136,7 +138,8 @@ def test_string_gather_matches_jax():
     values, mask = _strings(rng, 40)
     idx = rng.integers(0, 40, 64)
     valid = np.arange(64) < 50
-    sc = vector.column_from_numpy(values, 64, dt.STRING, mask).gather(
+    sc = vector.column_from_numpy(values, 64, dt.STRING, mask,
+                                  device="cpu").gather(
         torch.from_numpy(idx), torch.from_numpy(valid))
     jsc = jvector.column_from_numpy(values, 64, None, mask).gather(
         jnp.asarray(idx, jnp.int32), jnp.asarray(valid))
@@ -223,7 +226,8 @@ def _jax_batch(lanes, cap):
 def test_sort_indices_matches_jax(keys, asc, nf):
     lanes = _key_table()
     n = len(lanes["f"][0])
-    b = host_table.table_to_batch(carry.host_table_from_lanes(lanes), 512)
+    b = host_table.table_to_batch(carry.host_table_from_lanes(lanes), 512,
+                                  device="cpu")
     jb = _jax_batch(lanes, 512)
     perm = K.sort_indices([b.column(k) for k in keys], asc, nf,
                           b.live_mask())
@@ -234,7 +238,8 @@ def test_sort_indices_matches_jax(keys, asc, nf):
 
 def test_filter_batch_matches_jax():
     lanes = _key_table()
-    b = host_table.table_to_batch(carry.host_table_from_lanes(lanes), 512)
+    b = host_table.table_to_batch(carry.host_table_from_lanes(lanes), 512,
+                                  device="cpu")
     jb = _jax_batch(lanes, 512)
     from spark_rapids_tpu.expr import col as jcol
     from spark_rapids_tpu_torch.expr import col
@@ -249,7 +254,8 @@ def test_group_aggregate_matches_jax():
     from spark_rapids_tpu.expr import aggregates as jAgg
     from spark_rapids_tpu_torch.expr import aggregates as Agg
     lanes = _key_table()
-    b = host_table.table_to_batch(carry.host_table_from_lanes(lanes), 512)
+    b = host_table.table_to_batch(carry.host_table_from_lanes(lanes), 512,
+                                  device="cpu")
     jb = _jax_batch(lanes, 512)
     keys = ["s", "i"]
 
@@ -312,3 +318,16 @@ def test_session_defaults_to_cuda():
         with pytest.raises(RuntimeError, match="CUDA"):
             TpuSession()
     assert TpuSession(device="cpu").device.type == "cpu"
+
+
+def test_host_to_device_helpers_need_a_device():
+    """table_to_batch and column_from_numpy have no default device: a
+    caller who leaves it out gets a TypeError, never CPU tensors."""
+    table = carry.host_table_from_lanes(
+        {"c": (np.arange(4), np.ones(4, bool), "bigint")})
+    with pytest.raises(TypeError, match="device"):
+        host_table.table_to_batch(table)
+    with pytest.raises(TypeError, match="device"):
+        vector.column_from_numpy(np.arange(4), 8)
+    assert host_table.table_to_batch(table, device="cpu").device.type == \
+        "cpu"

@@ -60,7 +60,7 @@ def _lanes(n=3000, seed=0):
 
 def _batches(lanes):
     batch = host_table.table_to_batch(carry.host_table_from_lanes(lanes),
-                                      capacity=CAP)
+                                      capacity=CAP, device="cpu")
     jt = {"int": jdt.INT32, "bigint": jdt.INT64, "double": jdt.FLOAT64,
           "date": jdt.DATE, "string": jdt.STRING}
     jbatch = jhost.table_to_batch(jhost.HostTable(
@@ -88,7 +88,7 @@ def test_murmur3_float_normalization():
                                            .tobytes(), np.float64)[0]]),
                    np.ones(4, bool), "double")}
     batch = host_table.table_to_batch(carry.host_table_from_lanes(lanes),
-                                      capacity=8)
+                                      capacity=8, device="cpu")
     h = H.murmur3_column(batch.column("x"), 42).numpy()
     assert h[0] == h[1] and h[2] == h[3]
 

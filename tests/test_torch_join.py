@@ -66,7 +66,7 @@ def _jtypes():
 
 def _both_batches(lanes, cap):
     batch = host_table.table_to_batch(carry.host_table_from_lanes(lanes),
-                                      capacity=cap)
+                                      capacity=cap, device="cpu")
     jbatch = jhost.table_to_batch(jhost.HostTable(
         [jhost.HostColumn(v, m, _jtypes()[t]) for v, m, t in lanes.values()],
         list(lanes)), cap)
@@ -364,10 +364,26 @@ def test_join_refuses_what_is_not_ported():
     df = session.create_dataframe(carry.host_table_from_lanes(lanes))
     with pytest.raises(NotImplementedError):
         df.join(df, on="a", how="left")
-    other = session.create_dataframe(carry.host_table_from_lanes(
-        {"b": (np.arange(4, dtype=np.int32), np.ones(4, bool), "int")}))
     with pytest.raises(NotImplementedError):
-        df.join(other, on=([col("a")], [col("b")])).collect()
+        df.cross_join(df)
+
+
+def test_join_keys_of_differing_types_meet_through_a_cast():
+    """bigint = int keys join after a Cast of the int side to bigint
+    (the JAX planner's _coerce_join_keys)."""
+    from spark_rapids_tpu_torch.expr.cast import Cast
+    from spark_rapids_tpu_torch.plan.overrides import apply_overrides
+    session = TpuSession(device="cpu")
+    df = session.create_dataframe(carry.host_table_from_lanes(
+        {"a": (np.arange(4, dtype=np.int64), np.ones(4, bool), "bigint")}))
+    other = session.create_dataframe(carry.host_table_from_lanes(
+        {"b": (np.array([3, 1, 1, 9], np.int32),
+               np.array([1, 1, 1, 0], bool), "int")}))
+    joined = df.join(other, on=([col("a")], [col("b")]))
+    physical = apply_overrides(joined.plan, session.conf)
+    assert isinstance(physical.right_keys[0], Cast)
+    rows = sorted((r["a"], r["b"]) for r in joined.collect())
+    assert rows == [(1, 1), (1, 1), (3, 3)]
 
 
 def test_join_using_keeps_the_key_once():

@@ -155,7 +155,8 @@ def test_generated_expressions_match_jax(case):
     from spark_rapids_tpu.columnar import dtypes as jdt
     lanes = _expr_lanes()
     table = carry.host_table_from_lanes(lanes)
-    batch = host_table.table_to_batch(table, capacity=32768)
+    batch = host_table.table_to_batch(table, capacity=32768,
+                                      device="cpu")
     jt = {"double": jdt.FLOAT64, "smallint": jdt.INT16}
     jtable = jhost.HostTable([jhost.HostColumn(v, m, jt[t])
                               for v, m, t in lanes.values()], list(lanes))
@@ -187,7 +188,7 @@ def test_inset_matches_jax_eval():
     from spark_rapids_tpu.columnar import dtypes as jdt
     lanes = _expr_lanes(5000)
     batch = host_table.table_to_batch(carry.host_table_from_lanes(lanes),
-                                      capacity=8192)
+                                      capacity=8192, device="cpu")
     jt = {"double": jdt.FLOAT64, "smallint": jdt.INT16}
     jbatch = jhost.table_to_batch(jhost.HostTable(
         [jhost.HostColumn(v, m, jt[t]) for v, m, t in lanes.values()],
@@ -262,7 +263,7 @@ def test_string_lane_matches_jax(case, monkeypatch):
     from spark_rapids_tpu.columnar import dtypes as jdt
     lanes = _string_lanes()
     batch = host_table.table_to_batch(carry.host_table_from_lanes(lanes),
-                                      capacity=32768)
+                                      capacity=32768, device="cpu")
     jt = {"string": jdt.STRING, "double": jdt.FLOAT64}
     jbatch = jhost.table_to_batch(jhost.HostTable(
         [jhost.HostColumn(v, m, jt[t]) for v, m, t in lanes.values()],
@@ -561,7 +562,7 @@ def test_generated_kernels_match_jax_under_numpy_triton(name, monkeypatch):
     _, jpred, jaggs = _smoke_exprs(jE, jP, jS, jAgg)[name]
     lanes = _smoke_lanes(table)
     batch = host_table.table_to_batch(carry.host_table_from_lanes(lanes),
-                                      capacity=8192)
+                                      capacity=8192, device="cpu")
     jt = {"string": jdt.STRING, "double": jdt.FLOAT64, "date": jdt.DATE}
     jbatch = jhost.table_to_batch(jhost.HostTable(
         [jhost.HostColumn(v, m, jt[t]) for v, m, t in lanes.values()],
@@ -591,7 +592,7 @@ def test_tile_reduce_rejects_kinds_that_differ_from_the_program():
     schema, pred, aggs = _smoke_programs()["minmax_nan"]
     plan = pallas_agg.PallasAggPlan(aggs, schema, pred)
     batch = host_table.table_to_batch(carry.host_table_from_lanes(
-        _smoke_lanes("lineitem", n=100)), capacity=128)
+        _smoke_lanes("lineitem", n=100)), capacity=128, device="cpu")
     wrong = [DK.SUM] * len(plan.kinds)
     with pytest.raises(ValueError, match="differ from the program"):
         DK.tile_reduce(plan.kernel_inputs(batch), plan.program, wrong)
@@ -708,7 +709,7 @@ def _grouped_batch(n, groups, seed=2):
                    np.ones(n, bool), "bigint"),
              "v": (rng.uniform(-5, 5, n), rng.random(n) > 0.1, "double")}
     return host_table.table_to_batch(carry.host_table_from_lanes(lanes),
-                                     capacity=4096)
+                                     capacity=4096, device="cpu")
 
 
 def _by_key(key_batch, states):
