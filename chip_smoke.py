@@ -39,17 +39,28 @@ Needs one NVIDIA GPU (built for an H100: sm_90a), nvcc and triton. It
    text through ``session.sql`` over NDS tables generated in memory at
    ``scale_rows`` 28,800,000 (TPC-DS SF10's store_sales; q82 at
    2,880,000, SF1, because its join grows with the square of the scale)
-   and moved to the card: per query one first run and three warm runs,
+   and moved to the card, then the ten window queries (``NDS_WINDOW``)
+   on the same tables: per query one first run and three warm runs,
    each held against a numpy reference written from the query text
-   (``NdsNumpy``) and checked to be in ORDER BY order; it logs wall
+   (``NdsNumpy``) and checked to be in ORDER BY order, and B3 held
+   against its plain version on every batch it took; it logs wall
    times, fact rows/s, result rows, launches and ``pallasBatches`` per
    kernel and peak device memory, and checks that B3 carried q3, q42,
    q43, q52 and q55;
-7. profiles one TPC-H q3 and one NDS q3 run (torch.profiler: device
-   time by kernel and the device's idle share), then logs the device
-   kernels that one call of each kernel launches (profiles last,
-   because every profiler session slows the host's later launches);
-8. prints one JSON line of kernel numbers, then
+7. runs two windows over all 28,800,000 store_sales rows, partitioned
+   by the zipf-skewed ``ss_customer_sk`` (its 2% NULL partition
+   included): (a) ROW_NUMBER, RANK and a ROWS running SUM, which the
+   planner must give to BatchedRunningWindowExec over 28 sorted
+   1,048,576-row batches, and (b) a whole-partition SUM and a LAG,
+   through two WindowExecs; each first run and three warm runs is held
+   against numpy (lexsort and segment scans) on every row, with wall
+   times, rows/s, peak device memory and operator self times;
+8. profiles one TPC-H q3, one NDS q3, one NDS q47 and one run of window
+   (a) (torch.profiler: device time by kernel and the device's idle
+   share), then logs the device kernels that one call of each kernel
+   launches (profiles last, because every profiler session slows the
+   host's later launches);
+9. prints one JSON line of kernel numbers, then
    {"ok": true, "device": {...}} as its last line.
 
 Any mismatch or error exits non-zero before the last line is printed.
@@ -304,12 +315,13 @@ class NdsNumpy:
         cnt = np.bincount(gid, weights=ok.astype(np.float64), minlength=n)
         return s / np.where(valid, cnt, 1.0), valid
 
-    def result(self, cols, order, limit=None):
+    def result(self, cols, order, limit=None, hidden=()):
         """Rows of ``cols`` ({name: (values, valid)} in SELECT order),
         sorted by ``order`` ([(name, ascending)], Spark's null order)
-        through np.lexsort and cut to ``limit``."""
+        through np.lexsort and cut to ``limit``; ``hidden`` columns only
+        order the rows."""
         np = self.np
-        names = list(cols)
+        names = [c for c in cols if c not in hidden]
         n = len(cols[names[0]][0])
         lex = []
         for name, asc in order:
@@ -831,30 +843,348 @@ class NdsNumpy:
         return self.result(cols, [("d_moy", True)])
 
 
+    # --- the window queries (NDS_WINDOW) -----------------------------------
+    def dim_codes(self, dim, name, rows):
+        """A dimension column at ``rows`` as (int codes in value order,
+        valid, values by code or None): a string column is factorized
+        on its dimension once, so fact-length keys group as ints."""
+        np = self.np
+        key = ("codes", dim, name)
+        if key not in self._cols:
+            values, ok = self.col(dim, name)
+            if values.dtype == object:
+                uniq, inv = np.unique(np.where(ok, values, ""),
+                                      return_inverse=True)
+                self._cols[key] = (inv.reshape(-1), ok, uniq)
+            else:
+                self._cols[key] = (values, ok, None)
+        codes, ok, uniq = self._cols[key]
+        return codes[rows], ok[rows], uniq
+
+    def grouped_codes(self, coded):
+        """GROUP BY over dim_codes keys: (gid, n, each key at its
+        group's first row as (codes, valid, values by code))."""
+        gid, n, first = self.group([(c, ok) for c, ok, _ in coded])
+        return gid, n, [(c[first], ok[first], u) for c, ok, u in coded]
+
+    @staticmethod
+    def decoded(key):
+        codes, ok, uniq = key
+        return (codes if uniq is None else uniq[codes]), ok
+
+    def over(self, part, agg, values, ok):
+        """SUM / AVG(values) OVER (PARTITION BY part) per row: part is a
+        list of (values, valid) keys (a null key is a partition)."""
+        pid, n, _ = self.group(part)
+        out, valid = agg(pid, n, values, ok)
+        return out[pid], valid[pid]
+
+    def rank(self, part, order):
+        """RANK() OVER (PARTITION BY part ORDER BY order) per row;
+        ``order`` is [(values, valid, ascending)] in Spark's null order
+        (first ascending, last descending); no partition is one."""
+        np = self.np
+        n = len(order[0][0])
+        pid = self.group(part)[0] if part else np.zeros(n, np.int64)
+        lex = [pid]
+        for values, ok, asc in order:
+            lex.append(np.where(ok, 1, 0) if asc else np.where(ok, 0, 1))
+            key = np.where(ok, values, 0)
+            lex.append(key if asc else -key)
+        idx = np.lexsort(lex[::-1])
+        sk = [a[idx] for a in lex]
+        new_part = np.r_[True, sk[0][1:] != sk[0][:-1]]
+        new_run = new_part.copy()
+        for a in sk[1:]:
+            new_run |= np.r_[True, a[1:] != a[:-1]]
+        pos = np.arange(n)
+        part_start = np.maximum.accumulate(np.where(new_part, pos, 0))
+        run_start = np.maximum.accumulate(np.where(new_run, pos, 0))
+        out = np.empty(n, np.int64)
+        out[idx] = run_start - part_start + 1
+        return out
+
+    def _item_revenue(self, fact, p, categories, year, moys):
+        """q12 / q20 / q98: item revenue and its share of its class."""
+        np = self.np
+        idx, dims = self.fact_dims(fact, [
+            (f"{p}_sold_date_sk", "date_dim", "d_date_sk",
+             self.dates(d_year=year)
+             & self.between("date_dim", "d_moy", *moys)),
+            (f"{p}_item_sk", "item", "i_item_sk",
+             self.isin("item", "i_category", categories))])
+        names = ["i_item_id", "i_item_desc", "i_category", "i_class",
+                 "i_current_price"]
+        gid, n, keys = self.grouped_codes(
+            [self.dim_codes("item", c, dims["item"]) for c in names])
+        cols = {c: self.decoded(k) for c, k in zip(names, keys)}
+        rev, rok = self.gsum(gid, n, *self.take(
+            fact, f"{p}_ext_sales_price", idx))
+        tot, tok = self.over([keys[3][:2]], self.gsum, rev, rok)
+        ok = rok & tok & (tot != 0)
+        cols["itemrevenue"] = (rev, rok)
+        cols["revenueratio"] = (np.where(
+            ok, rev * 100.0 / np.where(ok, tot, 1.0), 0.0), ok)
+        return self.result(cols, [(c, True) for c in (
+            "i_category", "i_class", "i_item_id", "i_item_desc",
+            "revenueratio")], 100)
+
+    def q12(self):
+        return self._item_revenue("web_sales", "ws",
+                                  ("Sports", "Books", "Home"), 1999, (2, 3))
+
+    def q20(self):
+        return self._item_revenue("catalog_sales", "cs",
+                                  ("Jewelry", "Shoes", "Electronics"), 1999,
+                                  (2, 3))
+
+    def q98(self):
+        return self._item_revenue("store_sales", "ss",
+                                  ("Men", "Music", "Women"), 1998, (5, 6))
+
+    def _class_pairs(self, first, second):
+        """(i_category IN first[0] AND i_class IN first[1]) OR (the same
+        for ``second``) over item rows."""
+        return (self.isin("item", "i_category", first[0])
+                & self.isin("item", "i_class", first[1])) | \
+            (self.isin("item", "i_category", second[0])
+             & self.isin("item", "i_class", second[1]))
+
+    def _deviation(self, sums, sok, avg, aok, nonzero):
+        """The outer WHERE of q53 / q63 / q89: CASE WHEN avg > 0 (avg <>
+        0 for q89) THEN ABS(sum - avg) / avg ELSE NULL END > 0.1."""
+        np = self.np
+        when = aok & ((avg != 0) if nonzero else (avg > 0))
+        return when & sok & (np.abs(sums - avg) / np.where(when, avg, 1.0)
+                             > 0.1)
+
+    def _avg_sales(self, item_cond, key, period, out, order):
+        """q53 / q63: store sales per (item key, period) against the
+        key's average over its periods."""
+        idx, dims = self.fact_dims("store_sales", [
+            ("ss_sold_date_sk", "date_dim", "d_date_sk",
+             self.between("date_dim", "d_month_seq", 1176, 1187)),
+            ("ss_item_sk", "item", "i_item_sk", item_cond),
+            ("ss_store_sk", "store", "s_store_sk", None)])
+        gid, n, keys = self.grouped_codes(
+            [self.dim_codes("item", key, dims["item"]),
+             self.dim_codes("date_dim", period, dims["date_dim"])])
+        sums, sok = self.gsum(gid, n, *self.take("store_sales",
+                                                 "ss_sales_price", idx))
+        avg, aok = self.over([keys[0][:2]], self.gavg, sums, sok)
+        keep = self._deviation(sums, sok, avg, aok, nonzero=False)
+        k, kok = self.decoded(keys[0])
+        cols = {out[0]: (k[keep], kok[keep]), "sum_sales": (
+            sums[keep], sok[keep]), out[1]: (avg[keep], aok[keep])}
+        return self.result(cols, order, 100)
+
+    def q53(self):
+        return self._avg_sales(
+            self.isin("item", "i_category",
+                      ("Books", "Children", "Electronics")),
+            "i_manufact_id", "d_qoy",
+            ("manufact_id", "avg_quarterly_sales"),
+            [("avg_quarterly_sales", True), ("sum_sales", True),
+             ("manufact_id", True)])
+
+    def q63(self):
+        return self._avg_sales(
+            self._class_pairs((("Books", "Children", "Electronics"),
+                               ("class1", "class2", "class3")),
+                              (("Women", "Music", "Men"),
+                               ("class4", "class5", "class6"))),
+            "i_manager_id", "d_moy", ("manager_id", "avg_monthly_sales"),
+            [("manager_id", True), ("avg_monthly_sales", True),
+             ("sum_sales", True)])
+
+    def q89(self):
+        idx, dims = self.fact_dims("store_sales", [
+            ("ss_sold_date_sk", "date_dim", "d_date_sk",
+             self.dates(d_year=1999)),
+            ("ss_item_sk", "item", "i_item_sk", self._class_pairs(
+                (("Books", "Electronics", "Sports"),
+                 ("class1", "class2", "class3")),
+                (("Men", "Jewelry", "Women"),
+                 ("class4", "class5", "class6")))),
+            ("ss_store_sk", "store", "s_store_sk", None)])
+        names = [("i_category", "item"), ("i_class", "item"),
+                 ("i_brand", "item"), ("s_store_name", "store"),
+                 ("s_company_name", "store"), ("d_moy", "date_dim")]
+        gid, n, keys = self.grouped_codes(
+            [self.dim_codes(d, c, dims[d]) for c, d in names])
+        sums, sok = self.gsum(gid, n, *self.take("store_sales",
+                                                 "ss_sales_price", idx))
+        avg, aok = self.over([k[:2] for k in (keys[0], keys[2], keys[3],
+                                              keys[4])], self.gavg, sums, sok)
+        keep = self._deviation(sums, sok, avg, aok, nonzero=True)
+        cols = {c: tuple(a[keep] for a in self.decoded(k))
+                for (c, _), k in zip(names, keys)}
+        cols["sum_sales"] = (sums[keep], sok[keep])
+        cols["avg_monthly_sales"] = (avg[keep], aok[keep])
+        cols["__ord"] = (sums[keep] - avg[keep], sok[keep] & aok[keep])
+        return self.result(cols, [("__ord", True), ("s_store_name", True),
+                                  ("i_category", True), ("i_class", True),
+                                  ("i_brand", True), ("d_moy", True)], 100,
+                           hidden=("__ord",))
+
+    def _monthly(self, fact, p, dim, dim_key, dim_name):
+        """q47 / q57's v1: sales per (category, brand, outlet, year,
+        month) with the outlet-year average: (keys, sums, sok, avg,
+        aok)."""
+        idx, dims = self.fact_dims(fact, [
+            (f"{p}_sold_date_sk", "date_dim", "d_date_sk",
+             self.dates(d_year=1999)),
+            (f"{p}_item_sk", "item", "i_item_sk", None),
+            (dim_key[0], dim, dim_key[1], None)])
+        coded = [self.dim_codes("item", "i_category", dims["item"]),
+                 self.dim_codes("item", "i_brand", dims["item"])] + \
+            [self.dim_codes(dim, c, dims[dim]) for c in dim_name] + \
+            [self.dim_codes("date_dim", c, dims["date_dim"])
+             for c in ("d_year", "d_moy")]
+        gid, n, keys = self.grouped_codes(coded)
+        sums, sok = self.gsum(gid, n, *self.take(fact, f"{p}_sales_price",
+                                                 idx))
+        avg, aok = self.over([k[:2] for k in keys[:-1]], self.gavg, sums,
+                             sok)
+        return keys, sums, sok, avg, aok
+
+    def q47(self):
+        np = self.np
+        keys, sums, sok, avg, aok = self._monthly(
+            "store_sales", "ss", "store", ("ss_store_sk", "s_store_sk"),
+            ("s_store_name", "s_company_name"))
+        rn = self.rank([k[:2] for k in keys[:4]],
+                       [(k[0], k[1], True) for k in keys[4:]])
+        # v1 joined to itself on (category, brand, store name) at rn - 1
+        # and rn + 1 (the company name is not a join key)
+        kid = self.group([k[:2] for k in keys[:3]])[0]
+        kok = keys[0][1] & keys[1][1] & keys[2][1]
+        base = kid * (int(rn.max()) + 3)
+        v, lag = self.pairs(base + rn, kok, base + rn + 1, kok)
+        i, lead = self.pairs(base[v] + rn[v], kok[v], base + rn - 1, kok)
+        v, lag = v[i], lag[i]
+        keep = aok[v] & (avg[v] > 0) & sok[v] & (
+            np.abs(sums[v] - avg[v]) / np.where(aok[v] & (avg[v] > 0),
+                                                 avg[v], 1.0) > 0.1)
+        v, lag, lead = v[keep], lag[keep], lead[keep]
+        cat, cok = self.decoded(keys[0])
+        cols = {"i_category": (cat[v], cok[v]),
+                "d_year": (keys[4][0][v], keys[4][1][v]),
+                "d_moy": (keys[5][0][v], keys[5][1][v]),
+                "avg_monthly_sales": (avg[v], aok[v]),
+                "sum_sales": (sums[v], sok[v]),
+                "psum": (sums[lag], sok[lag]),
+                "nsum": (sums[lead], sok[lead]),
+                "__ord": (sums[v] - avg[v], sok[v] & aok[v])}
+        return self.result(cols, [("__ord", True), ("d_moy", True)], 100,
+                           hidden=("__ord",))
+
+    def q57(self):
+        keys, sums, sok, avg, aok = self._monthly(
+            "catalog_sales", "cs", "call_center",
+            ("cs_call_center_sk", "cc_call_center_sk"), ("cc_name",))
+        keep = self._deviation(sums, sok, avg, aok, nonzero=False)
+        cat, cok = self.decoded(keys[0])
+        cols = {"i_category": (cat[keep], cok[keep]),
+                "d_year": (keys[3][0][keep], keys[3][1][keep]),
+                "d_moy": (keys[4][0][keep], keys[4][1][keep]),
+                "avg_monthly_sales": (avg[keep], aok[keep]),
+                "sum_sales": (sums[keep], sok[keep]),
+                "__ord": (sums[keep] - avg[keep], sok[keep] & aok[keep])}
+        return self.result(cols, [("__ord", True), ("i_category", True),
+                                  ("d_year", True), ("d_moy", True)], 100,
+                           hidden=("__ord",))
+
+    def q44(self):
+        np = self.np
+        store, st_ok = self.col("store_sales", "ss_store_sk")
+        idx = np.nonzero(st_ok & (store == 4))[0]
+        items = self.take("store_sales", "ss_item_sk", idx)
+        gid, n, first = self.group([items])
+        avg, aok = self.gavg(gid, n, *self.take("store_sales",
+                                                "ss_net_profit", idx))
+        item_sk, iok = items[0][first], items[1][first]
+        up = self.rank([], [(avg, aok, True)])
+        down = self.rank([], [(avg, aok, False)])
+        a, d = self.pairs(up, up < 11, down, down < 11)
+        best, bhit = self.lookup("item", "i_item_sk", item_sk[a], iok[a])
+        worst, whit = self.lookup("item", "i_item_sk", item_sk[d], iok[d])
+        keep = bhit & whit
+        desc, dok = self.col("item", "i_item_desc")
+        cols = {"rnk": (up[a][keep], np.ones(int(keep.sum()), bool)),
+                "best_performing": (desc[best[keep]], dok[best[keep]]),
+                "worst_performing": (desc[worst[keep]], dok[worst[keep]])}
+        return self.result(cols, [("rnk", True)], 100)
+
+    def _cume_sales(self, fact, p):
+        """q51's web_v1 / store_v1: per (item, month) sales and their
+        running sum over the months of the item (ROWS frame)."""
+        np = self.np
+        _, item_ok = self.col(fact, f"{p}_item_sk")
+        idx, dims = self.fact_dims(fact, [
+            (f"{p}_sold_date_sk", "date_dim", "d_date_sk",
+             self.between("date_dim", "d_month_seq", 1176, 1187))],
+            where=item_ok)
+        keys = [self.take(fact, f"{p}_item_sk", idx),
+                self.take("date_dim", "d_moy", dims["date_dim"])]
+        gid, n, first = self.group(keys)
+        sums, sok = self.gsum(gid, n, *self.take(fact, f"{p}_sales_price",
+                                                 idx))
+        (item, iok), (moy, mok) = [(v[first], ok[first]) for v, ok in keys]
+        order = np.lexsort((np.where(mok, moy, 0), mok, np.where(iok, item, 0),
+                            iok))
+        cume = np.zeros(n)
+        cnt = np.zeros(n, np.int64)
+        si = item[order]
+        starts = np.nonzero(np.r_[True, si[1:] != si[:-1]])[0]
+        for lo, hi in zip(starts, np.r_[starts[1:], n]):
+            rows = order[lo:hi]
+            cume[rows] = np.cumsum(np.where(sok[rows], sums[rows], 0.0))
+            cnt[rows] = np.cumsum(sok[rows])
+        return item, iok, moy, mok, cume, cnt > 0
+
+    def q51(self):
+        np = self.np
+        w_item, w_iok, w_moy, w_mok, w_cume, w_ok = self._cume_sales(
+            "web_sales", "ws")
+        s_item, s_iok, s_moy, s_mok, s_cume, s_ok = self._cume_sales(
+            "store_sales", "ss")
+        w, s = self.pairs(w_item * 16 + w_moy, w_iok & w_mok,
+                          s_item * 16 + s_moy, s_iok & s_mok)
+        keep = w_ok[w] & s_ok[s] & (w_cume[w] > s_cume[s])
+        w, s = w[keep], s[keep]
+        ones = np.ones(len(w), bool)
+        cols = {"item_sk": (w_item[w], ones), "d_moy": (w_moy[w], ones),
+                "web_sales": (w_cume[w], ones),
+                "store_sales": (s_cume[s], ones)}
+        return self.result(cols, [("item_sk", True), ("d_moy", True)], 100)
+
 def b3_on_batches(torch, physical, conf, dev, label, launched):
     """Holds B3 against its plain version on every batch that the plan's
-    partial aggregate hands the grouped lane: its child subtree runs
-    again and each batch the hash-claim prelude resolves to at most 1024
-    groups goes through both. Checks that as many batches take the lane
-    as the main path launched; returns their rows, groups and lanes, the
-    largest error and the widest batch (rows, groups, gid, lanes)."""
+    partial aggregates hand the grouped lane: each one's child subtree
+    runs again and each batch the hash-claim prelude resolves to at most
+    1024 groups goes through both. Checks that as many batches take the
+    lane as the main path launched; returns their rows, groups and lanes,
+    the largest error and the widest batch (rows, groups, gid, lanes)."""
     from spark_rapids_tpu_torch.exec.aggregate import (PARTIAL,
                                                        HashAggregateExec)
     from spark_rapids_tpu_torch.exec.base import ExecContext
     from spark_rapids_tpu_torch.ops import device_kernels as DK
     from spark_rapids_tpu_torch.ops import kernels as K
 
-    def partial_agg(node):
+    def partial_aggs(node):
         if isinstance(node, HashAggregateExec) and node.mode == PARTIAL:
-            return node
-        return next(filter(None, map(partial_agg, node.children)), None)
+            yield node
+        for c in node.children:
+            yield from partial_aggs(c)
 
-    agg = partial_agg(physical)
-    check(agg is not None, f"{label} has a partial aggregate")
-    fns = [fn for fn, _ in agg.agg_exprs]
+    aggs = list(partial_aggs(physical))
+    check(aggs, f"{label} has a partial aggregate")
     out = {"batches": 0, "rows": [], "groups": [], "lanes": 0, "err": 0.0,
            "widest": None}
-    for batch in agg.children[0].execute(ExecContext(conf, dev)):
+    for agg, batch in ((a, b) for a in aggs for b in a.children[0].execute(
+            ExecContext(conf, dev))):
+        fns = [fn for fn, _ in agg.agg_exprs]
         if batch.num_rows == 0:
             continue
         key_cols, agg_in = agg._eval_update_inputs(batch)
@@ -892,7 +1222,7 @@ def nds_phase(torch, np, dev, read_counts):
     reference)."""
     from spark_rapids_tpu_torch.conf import SrtConf
     from spark_rapids_tpu_torch.models.nds import (NDS_QUERIES, NDS_SLICE,
-                                                   register_nds)
+                                                   NDS_WINDOW, register_nds)
     from spark_rapids_tpu_torch.ops import device_kernels as DK
     from spark_rapids_tpu_torch.testing import compare_rows, order_keys
     from spark_rapids_tpu_torch.plan.session import TpuSession
@@ -998,6 +1328,8 @@ def nds_phase(torch, np, dev, read_counts):
         f"items kept) before its GROUP BY: it runs at {NDS_Q82_ROWS}")
     for q in NDS_SLICE:
         report[q] = q82 if q == "q82" else run(q, session, ref)
+    for q in NDS_WINDOW:
+        report[q] = run(q, session, ref)
     for q in NDS_B3_QUERIES:
         check(report[q]["launches"]["tile_group_reduce"] > 0
               and report[q]["pallas_batches"] > 0,
@@ -1009,6 +1341,179 @@ def nds_phase(torch, np, dev, read_counts):
            "b1": r["launches"]["tile_reduce"]}
         for q, r in report.items()}))
     return report, session, ref, widest[0]
+
+
+#: the store_sales-scale window phase: (a) streams through
+#: BatchedRunningWindowExec, (b) runs through two WindowExecs
+WINDOW_KEYS = "ss_sold_date_sk, ss_ticket_number, ss_item_sk"
+WINDOW_QUERIES = {
+    "a_running": f"""
+        SELECT ss_customer_sk, ss_sold_date_sk, ss_ticket_number,
+               ss_item_sk, ss_net_paid,
+               ROW_NUMBER() OVER (PARTITION BY ss_customer_sk
+                                  ORDER BY {WINDOW_KEYS}) AS rn,
+               RANK() OVER (PARTITION BY ss_customer_sk
+                            ORDER BY {WINDOW_KEYS}) AS rk,
+               SUM(ss_net_paid) OVER (PARTITION BY ss_customer_sk
+                                      ORDER BY {WINDOW_KEYS}
+                                      ROWS BETWEEN UNBOUNDED PRECEDING
+                                      AND CURRENT ROW) AS run_paid
+        FROM store_sales""",
+    "b_partition": f"""
+        SELECT ss_customer_sk, ss_net_paid,
+               SUM(ss_net_paid) OVER (PARTITION BY ss_customer_sk)
+                   AS cust_paid,
+               LAG(ss_net_paid) OVER (PARTITION BY ss_customer_sk
+                                      ORDER BY {WINDOW_KEYS}) AS prev_paid
+        FROM store_sales""",
+}
+
+
+def numpy_windows(np, ref):
+    """Both windows over the host store_sales in numpy: a stable lexsort
+    on (customer, date, ticket, item), nulls first (a null key is -1:
+    every key is positive), segments where the customer changes, runs
+    where any key changes. Returns {query: {column: (values, valid)}}:
+    (a) in sorted order, as BatchedRunningWindowExec emits it, (b) in
+    table order, as WindowExec keeps it."""
+    cols = {c: ref.col("store_sales", c) for c in (
+        "ss_customer_sk", "ss_sold_date_sk", "ss_ticket_number",
+        "ss_item_sk", "ss_net_paid")}
+    keys = [np.where(ok, v, -1) for v, ok in (
+        cols[c] for c in ("ss_customer_sk", "ss_sold_date_sk",
+                          "ss_ticket_number", "ss_item_sk"))]
+    n = len(keys[0])
+    order = np.lexsort(keys[::-1])
+    sk = [k[order] for k in keys]
+    new_part = np.r_[True, sk[0][1:] != sk[0][:-1]]
+    new_run = new_part.copy()
+    for k in sk[1:]:
+        new_run |= np.r_[True, k[1:] != k[:-1]]
+    pos = np.arange(n)
+    part_start = np.maximum.accumulate(np.where(new_part, pos, 0))
+    run_start = np.maximum.accumulate(np.where(new_run, pos, 0))
+    paid, pok = cols["ss_net_paid"]
+    s_paid, s_pok = paid[order], pok[order]
+    vals = np.where(s_pok, s_paid, 0.0)
+    run_paid = np.empty(n)
+    run_cnt = np.empty(n, np.int64)
+    starts = np.nonzero(new_part)[0]
+    ends = np.r_[starts[1:], n]
+    for lo, hi in zip(starts, ends):
+        run_paid[lo:hi] = np.cumsum(vals[lo:hi])
+        run_cnt[lo:hi] = np.cumsum(s_pok[lo:hi])
+    tot = np.add.reduceat(vals, starts)
+    tot_cnt = np.add.reduceat(s_pok.astype(np.int64), starts)
+    seg = np.cumsum(new_part) - 1
+    ones = np.ones(n, bool)
+    a = {c: (v[order], ok[order]) for c, (v, ok) in cols.items()}
+    a["rn"] = (pos - part_start + 1, ones)
+    a["rk"] = (run_start - part_start + 1, ones)
+    a["run_paid"] = (run_paid, run_cnt > 0)
+    b_sorted = {"cust_paid": (tot[seg], tot_cnt[seg] > 0),
+                "prev_paid": (np.r_[0.0, s_paid[:-1]],
+                              np.r_[False, s_pok[:-1]] & ~new_part)}
+    b = {"ss_customer_sk": cols["ss_customer_sk"],
+         "ss_net_paid": cols["ss_net_paid"]}
+    for c, (v, ok) in b_sorted.items():
+        out_v, out_ok = np.empty_like(v), np.empty_like(ok)
+        out_v[order], out_ok[order] = v, ok
+        b[c] = (out_v, out_ok)
+    return {"a_running": a, "b_partition": b}
+
+
+def same_columns(np, table, want, label):
+    """Column arrays of a HostTable against numpy's: masks equal, floats
+    to RTOL, everything else exactly."""
+    check(table.names == list(want), f"{label}: columns {table.names}")
+    for name, (values, ok) in want.items():
+        c = table.column(name)
+        check(len(c) == len(ok), f"{label}: {name} has {len(c)} rows, "
+              f"numpy {len(ok)}")
+        check(np.array_equal(c.mask, ok), f"{label}: {name} nulls differ")
+        got, ref = c.values[ok], values[ok]
+        if ref.dtype.kind == "f":
+            bad = ~np.isclose(got, ref, rtol=RTOL, atol=0.0)
+        else:
+            bad = got != ref
+        check(not bad.any(), f"{label}: {name} differs in "
+              f"{int(bad.sum())} rows (first at {int(np.argmax(bad))})")
+
+
+def window_phase(torch, np, dev, session, ref):
+    """Both store_sales-scale windows through session.sql on the card,
+    each held against numpy on every row; returns ({window: numbers},
+    {window: a function that runs it}, {window: numpy's columns})."""
+    from spark_rapids_tpu_torch.exec.window import (BatchedRunningWindowExec,
+                                                    WindowExec)
+    t = time.perf_counter()
+    want = numpy_windows(np, ref)
+    log(f"window phase: numpy references in {time.perf_counter() - t:.1f} "
+        "s")
+    rows = ref.rows("store_sales")
+    report, runs = {}, {}
+    for name, text in WINDOW_QUERIES.items():
+        def run(text=text):
+            return session.sql(text).to_table()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        table = run()
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t
+        same_columns(np, table, want[name], f"window {name}")
+        del table
+        physical, ctx = session._last_execution
+        nodes, todo = [], [physical]
+        while todo:
+            nodes.append(todo.pop())
+            todo.extend(nodes[-1].children)
+        batched = [x for x in nodes if isinstance(x, BatchedRunningWindowExec)]
+        whole = [x for x in nodes if isinstance(x, WindowExec)]
+        if name == "a_running":
+            check(len(batched) == 1 and not whole,
+                  f"window {name}: ran {[type(x).__name__ for x in nodes]}")
+            out_batches = ctx.metrics[batched[0].exec_id][
+                "numOutputBatches"].value
+            expect = -(-rows // BATCH_ROWS)
+            check(out_batches == expect, f"window {name}: "
+                  f"BatchedRunningWindowExec took {out_batches} batches, "
+                  f"expected {expect}")
+        else:
+            check(len(whole) == 2 and not batched,
+                  f"window {name}: ran {[type(x).__name__ for x in nodes]}")
+            out_batches = None
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            table = run()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            same_columns(np, table, want[name], f"window {name} warm")
+            del table
+        wall = statistics.median(walls)
+        physical, ctx = session._last_execution
+        self_ms = sorted(operator_self_ms(physical, ctx.metrics, {}).items(),
+                         key=lambda kv: -kv[1])
+        report[name] = {"first_s": first, "warm_s": wall,
+                        "warm_runs_s": walls, "rows": rows,
+                        "rows_per_s": rows / wall,
+                        "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                        "execs": sorted({type(x).__name__ for x in nodes
+                                         if "Window" in type(x).__name__}),
+                        "window_batches": out_batches}
+        log(f"window {name}: matches numpy on {rows} rows; first "
+            f"{first:.4f} s, warm median {wall:.4f} of "
+            f"{[round(w, 4) for w in walls]} s; {rows / wall:.4e} rows/s; "
+            f"execs {report[name]['execs']} ({out_batches} batches "
+            f"streamed); max_memory_allocated {report[name]['peak_gb']:.3f}"
+            " GB")
+        log(f"window {name} operator self time (host clock, ms, last warm "
+            "run): " + ", ".join(f"{k} {v:.1f}" for k, v in self_ms[:6]))
+        runs[name] = run
+    log("window summary " + json.dumps(report))
+    return report, runs, want
 
 
 def main():
@@ -1534,6 +2039,10 @@ def main():
     b3_nds["query"] = q_n
     del nds_widest, gid_n, lanes_n
 
+    # --- windows over all of store_sales, on the SF10 session ---------------
+    _, window_runs, window_want = window_phase(torch, np, dev, nds_session,
+                                               nds_ref)
+
     # --- where q3's time goes ------------------------------------------------
     physical, ctx = session._last_execution  # the last timed q3 run
     self_ms = operator_self_ms(physical, ctx.metrics, {})
@@ -1582,7 +2091,15 @@ def main():
     check(compare_rows(rows, nds_ref.q3(), *order_keys(
         NDS_QUERIES["q3"], nds_q3.columns), RTOL) is None,
         "nds q3: profiled run disagrees")
-    del nds_session, nds_ref, nds_q3
+    nds_q47 = nds_session.sql(NDS_QUERIES["q47"])
+    rows = profiled("nds q47", nds_q47.collect)
+    check(compare_rows(rows, nds_ref.q47(), *order_keys(
+        NDS_QUERIES["q47"], nds_q47.columns), RTOL) is None,
+        "nds q47: profiled run disagrees")
+    table = profiled("window a_running", window_runs["a_running"])
+    same_columns(np, table, window_want["a_running"],
+                 "window a_running (profiled)")
+    del nds_session, nds_ref, nds_q3, nds_q47, window_runs, window_want, table
 
     # --- what one kernel call launches ---------------------------------------
     # last: each torch.profiler session leaves the host's launches slower

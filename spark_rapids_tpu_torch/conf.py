@@ -1,8 +1,8 @@
 """Configuration: the keys the ported query path reads.
 
-Counterpart of spark_rapids_tpu/conf.py, cut to the keys q6/q1/q3
-read, with the same names and defaults. Two TPU-only keys are not carried:
-``srt.sql.pallas.tileRows`` (the Pallas grid tile) and
+Counterpart of spark_rapids_tpu/conf.py, cut to the keys the ported
+path reads, with the same names and defaults. Two TPU-only keys are not
+carried: ``srt.sql.pallas.tileRows`` (the Pallas grid tile) and
 ``srt.exec.pallas.groupAgg.maxCapacity`` (a float32 count ceiling; the
 port counts in float64).
 """
@@ -62,6 +62,12 @@ PALLAS_GROUPED_ENABLED = _register(ConfEntry(
     "Run eligible grouped sum/avg/count updates through the grouped "
     "reduction kernel (tile_group_reduce) for batches of <= 1024 groups."))
 
+WINDOW_BATCHED_RUNNING = _register(ConfEntry(
+    "srt.sql.window.batchedRunning.enabled", _bool, True,
+    "Stream running-frame window functions (rank family, ROWS "
+    "unbounded-preceding..current-row aggregates) batch-at-a-time over a "
+    "sorted child with carried state instead of materializing whole "
+    "partitions (GpuRunningWindowExec/BatchedRunningWindowFixer role)."))
 
 BROADCAST_THRESHOLD_ROWS = _register(ConfEntry(
     "srt.sql.broadcastRowThreshold", _positive_int, 100_000,

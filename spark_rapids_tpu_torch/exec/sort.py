@@ -2,8 +2,9 @@
 
 Counterpart of spark_rapids_tpu/exec/sort.py's in-core path: at one
 partition a global sort concatenates the child's batches and sorts them
-with one stable multi-key sort; TopNExec fuses ORDER BY + LIMIT. The
-out-of-core merge is not ported.
+with one stable multi-key sort, emitted as one batch or, below a batched
+running window, in slices of ``batch_rows`` rows; TopNExec fuses ORDER BY
++ LIMIT. The out-of-core merge is not ported.
 """
 
 from __future__ import annotations
@@ -28,9 +29,15 @@ class SortOrder:
 
 
 class SortExec(TpuExec):
-    def __init__(self, child: TpuExec, order: Sequence[SortOrder]):
+    """Global in-core sort. With ``batch_rows`` the sorted rows leave in
+    batches of that many rows (the last one shorter), so that a consumer
+    that streams with carried state sees them batch by batch."""
+
+    def __init__(self, child: TpuExec, order: Sequence[SortOrder],
+                 batch_rows: Optional[int] = None):
         super().__init__(child)
         self.order = list(order)
+        self.batch_rows = batch_rows
 
     @property
     def output_schema(self) -> Schema:
@@ -43,8 +50,15 @@ class SortExec(TpuExec):
         batch = held[0] if len(held) == 1 else K.concat_batches(
             held, choose_capacity(sum(b.num_rows for b in held)))
         keys = [o.expr.eval(batch) for o in self.order]
-        yield K.sort_batch(batch, keys, [o.ascending for o in self.order],
+        out = K.sort_batch(batch, keys, [o.ascending for o in self.order],
                            [o.nulls_first for o in self.order])
+        per = self.batch_rows
+        if per is None or out.num_rows <= per:
+            yield out
+            return
+        cap = choose_capacity(per)
+        for start in range(0, out.num_rows, per):
+            yield K.slice_batch(out, start, per, cap)
 
     def node_description(self) -> str:
         keys = ", ".join(f"{o.expr!r} {'ASC' if o.ascending else 'DESC'}"

@@ -46,6 +46,11 @@ class AggregateFunction(Expression):
 
     name = "agg"
 
+    def over(self, spec):
+        """Use as a window aggregate: sum(x).over(spec)."""
+        from .window import WindowExpression
+        return WindowExpression(self, spec)
+
     def state_schema(self, schema: Schema) -> List:
         """[(state_name, DType), ...] — the partial-aggregation buffer."""
         raise NotImplementedError

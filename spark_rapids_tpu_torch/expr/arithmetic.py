@@ -2,7 +2,8 @@
 
 Counterpart of spark_rapids_tpu/expr/arithmetic.py for the non-decimal
 types: + - * follow numeric promotion, Divide always returns double and
-x / 0 is null, a null input gives a null result.
+x / 0 is null, Abs keeps its input's type, a null input gives a null
+result.
 """
 
 from __future__ import annotations
@@ -82,3 +83,16 @@ class UnaryMinus(Expression):
     def eval(self, batch: ColumnarBatch) -> ColumnVector:
         c = self.children[0].eval(batch)
         return make_result(-c.data, c.validity, c.dtype)
+
+
+class Abs(Expression):
+    """abs(x): the input's type; a null input gives null. Non-ANSI, as
+    the JAX package's default: abs of an integral minimum wraps to
+    itself."""
+
+    def data_type(self, schema: Schema) -> dt.DType:
+        return self.children[0].data_type(schema)
+
+    def eval(self, batch: ColumnarBatch) -> ColumnVector:
+        c = self.children[0].eval(batch)
+        return make_result(torch.abs(c.data), c.validity, c.dtype)

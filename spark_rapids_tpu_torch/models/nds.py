@@ -4,8 +4,9 @@ the in-memory table registration of this port.
 ``nds_specs`` and ``NDS_QUERIES`` are copied verbatim from
 spark_rapids_tpu/models/nds.py (the texts are data: each keeps its
 original query's join graph, predicate shapes and aggregation pattern in
-the engine's SQL dialect). ``NDS_SLICE`` names the queries this port
-runs end to end through ``session.sql``. ``register_nds`` generates each
+the engine's SQL dialect). ``NDS_SLICE``, ``NDS_WINDOW`` and
+``NDS_ALSO_RUNS`` name the queries this port runs end to end through
+``session.sql``. ``register_nds`` generates each
 table in memory, in the JAX package's 1<<18-row chunks (the datagen
 seeds are per chunk, so the bytes equal the JAX package's), moves it to
 the session's device in ``srt.sql.batchSizeRows``-row batches and
@@ -24,10 +25,22 @@ from ..plan.host_table import HostTable, concat_tables, table_to_batch
 CHUNK_ROWS = 1 << 18
 
 #: the star-join queries of the first block that need no window
-#: function (q12, q20 and q98 wait for exec/window.py)
+#: function
 NDS_SLICE = ("q3", "q7", "q15", "q19", "q21", "q25", "q26", "q37", "q40",
              "q42", "q43", "q48", "q52", "q55", "q62", "q68", "q79", "q82",
              "q96", "q99")
+
+#: the window queries (exec/window.py): a window over grouped rows,
+#: OVER (PARTITION BY ...) totals and averages, RANK over an aggregate,
+#: a ROWS running sum; q36 also needs ROLLUP and is not here
+NDS_WINDOW = ("q12", "q20", "q98", "q53", "q63", "q89", "q47", "q57",
+              "q44", "q51")
+
+#: queries that also run end to end through the port, held against the
+#: JAX package on the CPU only (no numpy reference on the card yet)
+NDS_ALSO_RUNS = ("q9", "q13", "q24", "q29", "q31", "q34", "q46", "q50",
+                 "q58", "q59", "q64", "q65", "q72", "q73", "q83", "q84",
+                 "q85", "q91")
 
 # --- schema ---------------------------------------------------------------
 

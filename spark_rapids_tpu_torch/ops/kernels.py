@@ -154,6 +154,17 @@ def _keys_eq_pairs(col: Column, ia: torch.Tensor,
     return (va == vb) & (~va | data_eq)
 
 
+def _adjacent_equal(col: Column) -> torch.Tensor:
+    """eq[i] = row i equals row i-1 under grouping equality (null ==
+    null, NaN == NaN); eq[0] = False. Strings compare their Arrow bytes
+    (``pairs_equal``, in bounded passes), never a padded view."""
+    idx = torch.arange(col.capacity, device=col.device)
+    eq = _keys_eq_pairs(col, idx, (idx - 1).clamp(min=0))
+    if eq.numel():
+        eq[0] = False
+    return eq
+
+
 def _group_ids_from_eq(eq_prev: torch.Tensor, live: torch.Tensor
                        ) -> Tuple[torch.Tensor, int, torch.Tensor]:
     """(gid, num_groups, boundary) from a rows-equal-previous mask over

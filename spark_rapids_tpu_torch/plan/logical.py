@@ -1,7 +1,7 @@
 """Logical plan nodes.
 
-Counterpart of spark_rapids_tpu/plan/logical.py for the nodes q6/q1/q3
-build, plus ``DeviceRelation``: a leaf over batches already on the
+Counterpart of spark_rapids_tpu/plan/logical.py for the nodes the ported
+queries build (q6/q1/q3, the NDS slice and its windows), plus ``DeviceRelation``: a leaf over batches already on the
 device (the JAX package reaches the same leaf through CachedRelation).
 """
 
@@ -167,3 +167,25 @@ class Limit(LogicalPlan):
 
     def node_description(self) -> str:
         return f"Limit[{self.n}]"
+
+
+class Window(LogicalPlan):
+    """Append window-function columns; all entries share one
+    (partition_by, order_by) spec (the DataFrame splits differing specs
+    into a chain of Window nodes, like Spark's Window exec)."""
+
+    def __init__(self, child: LogicalPlan, window_exprs):
+        super().__init__(child)
+        self.window_exprs = list(window_exprs)  # [(WindowExpression, name)]
+        in_schema = child.schema
+        self._schema = list(in_schema) + [
+            (name, we.data_type(in_schema)) for we, name in self.window_exprs]
+
+    @property
+    def schema(self) -> Schema:
+        return self._schema
+
+    def node_description(self) -> str:
+        fns = ", ".join(f"{type(we.func).__name__}->{n}"
+                        for we, n in self.window_exprs)
+        return f"Window[{fns}]"

@@ -2,32 +2,42 @@
 
 Counterpart of the conversion core of spark_rapids_tpu/plan/overrides.py
 (``_build_tpu_exec``, ``_build_join``, the Limit(Sort) -> TopN rewrite)
-for the nodes q6/q1/q3 build. An Aggregate becomes PARTIAL -> FINAL
-HashAggregateExec as in the JAX planner (overrides.py:750-770); an inner
-Join becomes a BroadcastHashJoinExec when its build side's estimated
-rows are at most ``srt.sql.broadcastRowThreshold`` and a
-ShuffledHashJoinExec otherwise (overrides.py:820-871). The port runs one
-partition, where the exchanges the JAX planner inserts (round-robin or
-hash between PARTIAL and FINAL and below a shuffled join, broadcast
-below a broadcast join, range before a global sort) pass batches through
-unchanged, so none is placed. Tagging, CPU fallback and the cost model
-beyond row estimates are not ported.
+for the nodes the ported queries build. An Aggregate becomes PARTIAL ->
+FINAL HashAggregateExec as in the JAX planner (overrides.py:750-770); an
+inner Join becomes a BroadcastHashJoinExec when its build side's
+estimated rows are at most ``srt.sql.broadcastRowThreshold`` and a
+ShuffledHashJoinExec otherwise (overrides.py:820-871). A Window becomes
+a BatchedRunningWindowExec over a SortExec when every function streams
+with carried state, else a WindowExec (overrides.py:776-793); the
+semantic gates of the JAX planner's window tagging (``_tag_window``)
+raise NotImplementedError, as the port has no CPU fallback. The port
+runs one partition, where the exchanges the JAX planner inserts
+(round-robin or hash between PARTIAL and FINAL and below a shuffled
+join, broadcast below a broadcast join, range before a global sort)
+pass batches through unchanged, so none is placed. Tagging, CPU
+fallback and the cost model beyond row estimates are not ported.
 """
 
 from __future__ import annotations
 
-from ..conf import BROADCAST_THRESHOLD_ROWS, SrtConf
+from ..columnar import dtypes as dt
+from ..conf import (BROADCAST_THRESHOLD_ROWS, WINDOW_BATCHED_RUNNING,
+                    SrtConf)
 from ..exec.aggregate import FINAL, PARTIAL, HashAggregateExec
 from ..exec.base import TpuExec
 from ..exec.basic import (BatchScanExec, FilterExec, LocalLimitExec,
                           ProjectExec)
 from ..exec.join import BroadcastHashJoinExec, ShuffledHashJoinExec
 from ..exec.sort import SortExec, SortOrder, TopNExec
+from ..exec.window import (BatchedRunningWindowExec, WindowExec,
+                           running_compatible)
+from ..expr import aggregates as Agg
+from ..expr import window as W
 from ..expr.cast import Cast
 from ..expr.conditional import _common_type
 from .cost import estimate_rows
 from .logical import (Aggregate, DeviceRelation, Filter, Join, Limit,
-                      LogicalPlan, Project, Sort)
+                      LogicalPlan, Project, Sort, Window)
 
 
 def _sort_orders(sort: Sort):
@@ -74,6 +84,61 @@ def _build_join(plan: Join, children, conf: SrtConf) -> TpuExec:
                join_type=plan.join_type, build_side="right")
 
 
+def _check_window(plan: Window) -> None:
+    """The JAX planner's window tagging (``_tag_window``) as hard
+    refusals: the port has no CPU fallback to send these to."""
+    in_schema = plan.children[0].schema
+    ranking = (W.RowNumber, W.Rank, W.DenseRank, W.PercentRank, W.NTile,
+               W.Lead)
+    for we, name in plan.window_exprs:
+        fn, frame = we.func, we.spec.frame
+        what = f"window {name} ({type(fn).__name__})"
+        if isinstance(fn, ranking):
+            continue
+        if isinstance(fn, (Agg.Min, Agg.Max)):
+            if fn.children[0].data_type(in_schema) == dt.STRING:
+                raise NotImplementedError(
+                    f"{what}: string min/max is not in this port yet")
+        elif not isinstance(fn, (Agg.Sum, Agg.Count, Agg.CountStar,
+                                 Agg.Average)):
+            raise NotImplementedError(
+                f"{what}: window function {type(fn).__name__} is not in "
+                "this port yet")
+        bounded = not (frame.is_running or frame.is_unbounded)
+        if bounded and not frame.row_based:
+            # value offsets: one numeric or date order key to search
+            ofs = we.spec.order_fields
+            kt = ofs[0].expr.data_type(in_schema) if len(ofs) == 1 \
+                else None
+            if kt is None or not (kt.is_integral or kt.is_floating
+                                  or kt == dt.DATE):
+                raise NotImplementedError(
+                    f"{what}: a RANGE frame needs one numeric or date "
+                    f"order key, got {kt if kt is not None else len(ofs)}")
+        if bounded and frame.row_based and \
+                isinstance(fn, (Agg.Min, Agg.Max)) and \
+                (frame.lo is None or frame.hi is None):
+            raise NotImplementedError(
+                f"{what}: min/max sliding frames need bounded ROWS "
+                "offsets")
+
+
+def _build_window(plan: Window, child: TpuExec, conf: SrtConf) -> TpuExec:
+    _check_window(plan)
+    if conf.get(WINDOW_BATCHED_RUNNING) and \
+            running_compatible(plan.window_exprs, plan.children[0].schema):
+        # running-only windows stream batch by batch over a sorted child
+        # with carried state (GpuRunningWindowExec role)
+        spec = plan.window_exprs[0][0].spec
+        orders = ([SortOrder(e, True, True) for e in spec.partition_by] +
+                  [SortOrder(o.expr, o.ascending, o.nulls_first)
+                   for o in spec.order_fields])
+        return BatchedRunningWindowExec(
+            SortExec(child, orders, batch_rows=conf.batch_size_rows),
+            plan.window_exprs)
+    return WindowExec(child, plan.window_exprs)
+
+
 def _to_physical(plan: LogicalPlan, conf: SrtConf) -> TpuExec:
     if isinstance(plan, Limit) and isinstance(plan.children[0], Sort):
         # ORDER BY + LIMIT fuse into one top-n operator
@@ -93,6 +158,8 @@ def _to_physical(plan: LogicalPlan, conf: SrtConf) -> TpuExec:
         return LocalLimitExec(children[0], plan.n)
     if isinstance(plan, Join):
         return _build_join(plan, children, conf)
+    if isinstance(plan, Window):
+        return _build_window(plan, children[0], conf)
     if isinstance(plan, Aggregate):
         partial = HashAggregateExec(children[0], plan.group_exprs,
                                     plan.agg_exprs, mode=PARTIAL)

@@ -2,8 +2,8 @@
 
 Counterpart of spark_rapids_tpu/plan/session.py (TpuSession, DataFrame,
 GroupedData) for filter / select / with_column / group_by / agg /
-distinct / join / sort / limit / collect, the temp-view catalog and
-``sql``. The session runs on one torch device, ``cuda`` unless the
+distinct / join / sort / limit / collect, window functions in select and
+with_column, the temp-view catalog and ``sql``. The session runs on one torch device, ``cuda`` unless the
 caller asks for the CPU; a session asked for CUDA where there is none
 raises. Joins other than inner equi-joins raise NotImplementedError.
 """
@@ -55,6 +55,55 @@ def _host_table_from_pydict(data: Dict[str, list], schema) -> HostTable:
                              for v in vals], t.np_physical)
         cols.append(HostColumn(lane, mask, t))
     return HostTable(cols, [n for n, _ in schema])
+
+
+def _extract_windows(plan: L.LogicalPlan, exprs):
+    """Pull WindowExpressions out of a projection list into Window nodes
+    (the analyzer step Spark performs for window functions in select):
+    one Window node per distinct (partition_by, order_by) spec, chained;
+    the projection then references the produced columns by name. Window
+    expressions nested inside larger expressions (the TPC-DS
+    ``sum(x)*100/sum(sum(x)) over (...)`` ratio shape) extract the same
+    way: the surrounding arithmetic stays in the projection and reads
+    the generated column."""
+    from ..expr import conditional as Cond
+    from ..expr.window import WindowExpression
+    groups = {}  # spec signature -> [(WindowExpression, gen_name)]
+    counter = [0]
+
+    def pull(e):
+        if isinstance(e, WindowExpression):
+            # always a fresh internal name: a user alias may collide
+            # with an input column, and name lookup resolves first-match
+            gen = f"__w{counter[0]}"
+            counter[0] += 1
+            sig = (repr(e.spec.partition_by),
+                   repr([(repr(o.expr), o.ascending, o.nulls_first)
+                         for o in e.spec.order_fields]))
+            groups.setdefault(sig, []).append((e, gen))
+            return col(gen)
+        if isinstance(e, Cond.CaseWhen):
+            return Cond.CaseWhen(
+                [(pull(c), pull(v)) for c, v in e.branches],
+                pull(e.otherwise) if e.otherwise is not None else None)
+        if not e.children:
+            return e
+        out = e.__class__.__new__(e.__class__)
+        out.__dict__.update(e.__dict__)
+        out.children = [pull(c) for c in e.children]
+        return out
+
+    out_exprs = []
+    for i, e in enumerate(exprs):
+        if isinstance(e, Alias):
+            out_exprs.append(Alias(pull(e.children[0]), e.name))
+        elif isinstance(e, WindowExpression):
+            out_exprs.append(Alias(pull(e), f"_w{i}"))
+        else:
+            out_exprs.append(pull(e))
+    for wexprs in groups.values():
+        plan = L.Window(plan, wexprs)
+    return plan, out_exprs
 
 
 class TpuSession:
@@ -131,8 +180,9 @@ class DataFrame:
         self.plan = plan
 
     def select(self, *cols) -> "DataFrame":
-        return DataFrame(self.session,
-                         L.Project(self.plan, [_to_expr(c) for c in cols]))
+        plan, exprs = _extract_windows(self.plan,
+                                       [_to_expr(c) for c in cols])
+        return DataFrame(self.session, L.Project(plan, exprs))
 
     def with_column(self, name: str, expr) -> "DataFrame":
         existing = [col(n) for n, _ in self.plan.schema if n != name]

@@ -10,9 +10,9 @@ BY, and lowers everything onto the Expression / LogicalPlan layer.
 
 Its function tables hold the functions this port has. A function,
 clause or type the JAX package's analyzer lowers but this port does not
-have yet (window functions, subquery predicates, set operations,
-GROUPING SETS / ROLLUP / CUBE, LIKE, INTERVAL arithmetic, timestamp and
-decimal types, and the functions in ``_NOT_PORTED``) raises
+have yet (subquery predicates, set operations, GROUPING SETS / ROLLUP /
+CUBE, LIKE, INTERVAL arithmetic, timestamp and decimal types, and the
+functions in ``_NOT_PORTED``) raises
 ``SqlError`` saying so, before any plan is built.
 """
 
@@ -27,6 +27,7 @@ from ..expr import arithmetic as A
 from ..expr import conditional as Cond
 from ..expr import predicates as P
 from ..expr import strings as S
+from ..expr import window as W
 from ..expr.cast import Cast
 from ..expr.core import Alias, ColumnRef, Expression, Literal, col, lit, \
     output_name
@@ -863,7 +864,7 @@ _AGG_FNS = {
     "avg": Agg.Average, "mean": Agg.Average,
 }
 
-_UNARY_FNS = {"isnan": P.IsNaN}
+_UNARY_FNS = {"isnan": P.IsNaN, "abs": A.Abs}
 
 _BINARY_FNS = {"nullif": Cond.NullIf, "nvl": Cond.Nvl, "ifnull": Cond.Nvl}
 
@@ -874,7 +875,7 @@ _VARARG_FNS = {"coalesce": Cond.Coalesce}
 _NOT_PORTED = frozenset({
     "stddev", "stddev_samp", "stddev_pop", "variance", "var_samp",
     "var_pop", "first", "last", "collect_list", "collect_set",
-    "abs", "sqrt", "cbrt", "exp", "ln", "log", "log2", "log10", "sin",
+    "sqrt", "cbrt", "exp", "ln", "log", "log2", "log10", "sin",
     "cos", "tan", "asin", "acos", "atan", "sinh", "cosh", "tanh",
     "degrees", "radians", "sign", "signum", "floor", "ceil", "ceiling",
     "length", "char_length", "octet_length", "upper", "ucase", "lower",
@@ -1346,6 +1347,26 @@ class Analyzer:
             bool(group_asts) or \
             (s.having is not None)
 
+        if not has_agg and not s.distinct and any(
+                not self._resolves_in_output(oast, names)
+                for oast, _, _ in s.order_by):
+            # ORDER BY items the output does not name ride along as
+            # hidden projection columns and every key sorts in one pass
+            # after the projection (the JAX analyzer sorts them before
+            # the projection and the output columns after it, so the
+            # output columns order first: ROADMAP C4)
+            proj = [Alias(e, n) for e, n in zip(lowered, names)]
+            order = []
+            for k, (oast, asc, nf) in enumerate(s.order_by):
+                if self._resolves_in_output(oast, names):
+                    order.append((oast, asc, nf))
+                else:
+                    proj.append(Alias(self.lower(oast, scope), f"__ord{k}"))
+                    order.append((ColA(f"__ord{k}"), asc, nf))
+            out = self._order_limit(df.select(*proj), order, s.limit,
+                                    scope, items)
+            return out.select(*[col(n) for n in names])
+
         if not has_agg:
             pre_sort = []
             post_sort = []
@@ -1384,6 +1405,28 @@ class Analyzer:
             for k, kn in zip(keys, key_names):
                 if repr(e) == repr(k):
                     return col(kn)
+            if isinstance(e, W.WindowExpression):
+                # window OVER aggregated output (SUM(SUM(x)) OVER
+                # (PARTITION BY k), RANK() OVER (ORDER BY SUM(x))):
+                # Spark evaluates the window after the aggregate, so only
+                # the window function's operands and the spec's
+                # partition/order expressions are substituted; the window
+                # function itself stays, applied over the aggregate's rows
+                nf = e.func.__class__.__new__(e.func.__class__)
+                nf.__dict__.update(e.func.__dict__)
+                nf.children = [replace(c) for c in e.func.children]
+                spec = e.spec.__class__.__new__(e.spec.__class__)
+                spec.__dict__.update(e.spec.__dict__)
+                spec.partition_by = [replace(p)
+                                     for p in e.spec.partition_by]
+                new_orders = []
+                for o in e.spec.order_fields:
+                    no = o.__class__.__new__(o.__class__)
+                    no.__dict__.update(o.__dict__)
+                    no.expr = replace(o.expr)
+                    new_orders.append(no)
+                spec.order_fields = new_orders
+                return W.WindowExpression(nf, spec)
             if isinstance(e, Agg.AggregateFunction):
                 for fn, n in agg_fns:
                     if repr(fn) == repr(e):
@@ -1524,7 +1567,7 @@ class Analyzer:
             return Literal(value, sub.schema[0][1]) \
                 if value is not None else Literal(None, sub.schema[0][1])
         if isinstance(ast, OverA):
-            raise _not_ported("a window function (OVER)")
+            return self._lower_over(ast, scope)
         if isinstance(ast, LitA):
             if isinstance(ast.value, datetime.datetime):
                 raise _not_ported("a timestamp literal")
@@ -1604,6 +1647,48 @@ class Analyzer:
         if op == ">=":
             return P.GreaterThanOrEqual(l, r)
         raise SqlError(f"unknown operator {op!r}")
+
+    def _lower_over(self, ast: OverA, scope) -> Expression:
+        from ..plan.logical import SortField
+        fn = ast.fn
+        name = fn.name
+        if name in ("row_number", "rank", "dense_rank", "percent_rank"):
+            func = {"row_number": W.RowNumber, "rank": W.Rank,
+                    "dense_rank": W.DenseRank,
+                    "percent_rank": W.PercentRank}[name]()
+        elif name == "ntile":
+            if not fn.args or not isinstance(fn.args[0], LitA):
+                raise SqlError("ntile(n) needs an integer literal")
+            func = W.NTile(int(fn.args[0].value))
+        elif name in ("lead", "lag"):
+            off = 1
+            default = None
+            if len(fn.args) >= 2:
+                if not isinstance(fn.args[1], LitA):
+                    raise SqlError(f"{name} offset must be a literal")
+                off = int(fn.args[1].value)
+            if len(fn.args) >= 3:
+                if not isinstance(fn.args[2], LitA):
+                    raise SqlError(f"{name} default must be a literal")
+                default = fn.args[2].value
+            cls = W.Lead if name == "lead" else W.Lag
+            func = cls(self.lower(fn.args[0], scope), off, default)
+        elif name in _AGG_FNS or name == "count":
+            func = self._lower_fn(fn, scope)
+        elif name in _NOT_PORTED:
+            raise _not_ported(f"function {name!r}")
+        else:
+            raise SqlError(f"unsupported window function {name!r}")
+        spec = W.WindowSpec(
+            [self.lower(p, scope) for p in ast.partition],
+            [SortField(self.lower(o, scope), asc,
+                       asc if nf is None else nf)
+             for o, asc, nf in ast.order])
+        if ast.frame is not None:
+            row_based, lo, hi = ast.frame
+            spec = spec.with_frame(W.WindowFrame(lo, hi,
+                                                 row_based=row_based))
+        return func.over(spec)
 
     def _lower_fn(self, ast: FnA, scope) -> Expression:
         name = ast.name

@@ -66,9 +66,10 @@ def session():
 
 
 @pytest.mark.parametrize("text, what", [
-    ("SELECT abs(v) FROM t", "function 'abs'"),
+    ("SELECT sqrt(v) FROM t", "function 'sqrt'"),
     ("SELECT upper(s) FROM t", "function 'upper'"),
-    ("SELECT k, SUM(v) OVER (PARTITION BY k) FROM t", "window function"),
+    ("SELECT k, STDDEV_SAMP(v) OVER (PARTITION BY k) FROM t",
+     "function 'stddev_samp'"),
     ("SELECT k FROM t WHERE s LIKE 'a%'", "LIKE"),
     ("SELECT k FROM t UNION SELECT k FROM t", "UNION"),
     ("SELECT k FROM t WHERE k IN (SELECT k FROM t)", "subquery predicate"),
@@ -91,12 +92,41 @@ def nds_session():
     return s
 
 
-@pytest.mark.parametrize("q", ["q1", "q2", "q12"])
+@pytest.mark.parametrize("q", ["q1", "q2", "q36"])
 def test_unported_nds_queries_raise(nds_session, q):
-    """q1 (a correlated scalar subquery), q2 (UNION ALL) and q12 (a
-    window over the aggregate) stop in the analyzer."""
+    """q1 (a correlated scalar subquery), q2 (UNION ALL) and q36 (a
+    window over a ROLLUP) stop in the analyzer."""
     with pytest.raises(SqlError, match="not in this port yet"):
         nds_session.sql(NDS_QUERIES[q])
+
+
+@pytest.mark.parametrize("text, want", [
+    ("SELECT k, abs(v - 2.0) AS a FROM t ORDER BY k NULLS LAST",
+     [{"k": 1, "a": 0.5}, {"k": 2, "a": None}, {"k": None, "a": 1.0}]),
+    ("SELECT k, SUM(v) OVER (PARTITION BY k) AS s, ROW_NUMBER() OVER "
+     "(ORDER BY v DESC) AS r FROM t ORDER BY k NULLS LAST",
+     [{"k": 1, "s": 1.5, "r": 2}, {"k": 2, "s": None, "r": 3},
+      {"k": None, "s": 3.0, "r": 1}]),
+    ("SELECT COUNT(*) AS n, SUM(COUNT(*)) OVER (ORDER BY COUNT(*) ROWS "
+     "BETWEEN UNBOUNDED PRECEDING AND CURRENT ROW) AS c FROM t",
+     [{"n": 3, "c": 3}]),
+    # an ORDER BY expression before an output column: one sort over both
+    ("SELECT k, v FROM t ORDER BY v IS NULL, k DESC",
+     [{"k": 1, "v": 1.5}, {"k": None, "v": 3.0}, {"k": 2, "v": None}]),
+])
+def test_ported_sql_runs(session, text, want):
+    """What the unported cases above used to name (abs, OVER, a window
+    over an aggregate), and a mixed ORDER BY sorted as one key list."""
+    assert session.sql(text).collect() == want
+
+
+def test_nds_window_query_runs(nds_session):
+    """q12 (a window over the aggregate) runs end to end; its
+    differential is tests/test_torch_nds.py's."""
+    df = nds_session.sql(NDS_QUERIES["q12"])
+    assert df.columns[-1] == "revenueratio"
+    rows = df.collect()
+    assert all(0.0 < r["revenueratio"] <= 100.0 for r in rows)
 
 
 def test_outer_join_raises(session):
