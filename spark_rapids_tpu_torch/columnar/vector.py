@@ -334,6 +334,30 @@ class ColumnarBatch:
                 f"num_rows={self.num_rows}, device={self.device})")
 
 
+def with_validity(col: Column, validity: torch.Tensor) -> Column:
+    """``col`` with another validity mask. A string row made null must
+    already have a zero-length extent (the StringColumn invariant), as
+    every row the string MIN / MAX reduction leaves unfound has."""
+    if isinstance(col, StringColumn):
+        return StringColumn(col.offsets, col.chars, validity, col.pad_bucket)
+    return ColumnVector(col.data, validity, col.dtype)
+
+
+def null_column(dtype: dt.DType, capacity: int, device) -> Column:
+    """An all-null column of ``dtype`` (NULL's own type reads as INT32):
+    strings as an empty Arrow column, so every type reads as NULL, not
+    as a zero or an empty string."""
+    invalid = torch.zeros(capacity, dtype=torch.bool, device=device)
+    if dtype == dt.STRING:
+        return StringColumn(
+            torch.zeros(capacity + 1, dtype=torch.int32, device=device),
+            torch.zeros(128, dtype=torch.uint8, device=device), invalid)
+    if dtype == dt.NULL:
+        dtype = dt.INT32
+    return ColumnVector(torch.zeros(capacity, dtype=dtype.physical,
+                                    device=device), invalid, dtype)
+
+
 def column_from_numpy(values, capacity: int, dtype: Optional[dt.DType] = None,
                       mask: Optional[np.ndarray] = None, *,
                       device) -> Column:

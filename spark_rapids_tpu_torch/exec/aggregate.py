@@ -21,8 +21,10 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..columnar.vector import (ColumnVector, ColumnarBatch, choose_capacity,
-                               live_mask)
+from ..columnar import dtypes as dt
+from ..columnar.vector import (ColumnVector, ColumnarBatch, StringColumn,
+                               choose_capacity, live_mask, null_column,
+                               with_validity)
 from ..conf import PALLAS_ENABLED, PALLAS_GROUPED_ENABLED
 from ..expr.aggregates import AggregateFunction
 from ..expr.core import Expression, make_result, output_name
@@ -114,7 +116,9 @@ class HashAggregateExec(TpuExec):
         for i, sschema in enumerate(self._state_schemas):
             for sname, stype in sschema:
                 arr = states[i][sname]
-                if arr.dtype == torch.bool:
+                if isinstance(arr, StringColumn):  # a string MIN / MAX
+                    cols.append(with_validity(arr, arr.validity & lm))
+                elif arr.dtype == torch.bool:
                     cols.append(ColumnVector(arr & lm, lm, stype))
                 else:
                     cols.append(ColumnVector(torch.where(
@@ -126,7 +130,10 @@ class HashAggregateExec(TpuExec):
 
     def _unpack(self, batch: ColumnarBatch):
         key_cols = [batch.column(n) for n in self._key_names]
-        states = [{sname: batch.column(_state_col_name(i, sname)).data
+
+        def state(c):
+            return c if isinstance(c, StringColumn) else c.data
+        states = [{sname: state(batch.column(_state_col_name(i, sname)))
                    for sname, _ in sschema}
                   for i, sschema in enumerate(self._state_schemas)]
         return key_cols, states
@@ -147,6 +154,9 @@ class HashAggregateExec(TpuExec):
         out_cols: List = list(key_batch.columns)
         for i, (fn, _name) in enumerate(self.agg_exprs):
             data, ok = fn.finalize(merged[i])
+            if isinstance(data, StringColumn):
+                out_cols.append(with_validity(data, data.validity & ok & lm))
+                continue
             out_cols.append(make_result(
                 data, ok & lm,
                 self._result_schema[len(self._key_names) + i][1]))
@@ -240,12 +250,16 @@ class HashAggregateExec(TpuExec):
         cap = 8
         cols = []
         for i, (fn, _name) in enumerate(self.agg_exprs):
+            out_t = fn.data_type(self.input_schema)
+            if out_t == dt.STRING:  # MIN / MAX over no row is null
+                cols.append(null_column(out_t, cap, device))
+                continue
             zero = {sname: torch.zeros(cap, dtype=stype.physical,
                                        device=device)
                     for sname, stype in self._state_schemas[i]}
             data, ok = fn.finalize(zero)
             cols.append(make_result(data, ok & live_mask(cap, 1, device),
-                                    fn.data_type(self.input_schema)))
+                                    out_t))
         return ColumnarBatch(cols, [n for _, n in self.agg_exprs], 1, device)
 
     def node_description(self) -> str:

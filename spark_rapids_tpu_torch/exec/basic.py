@@ -1,7 +1,7 @@
 """Basic physical operators: scan over device batches, project, filter.
 
 Counterpart of spark_rapids_tpu/exec/basic.py (BatchScanExec,
-ProjectExec, FilterExec, LocalLimitExec).
+ProjectExec, FilterExec, LocalLimitExec, UnionExec).
 """
 
 from __future__ import annotations
@@ -96,3 +96,24 @@ class LocalLimitExec(TpuExec):
 
     def node_description(self) -> str:
         return f"LocalLimit[{self.limit}]"
+
+
+class UnionExec(TpuExec):
+    """UNION ALL: the children's streams one after another, each batch's
+    columns renamed to the first child's names. As in the JAX package,
+    no column is cast: a child whose types differ from the first's
+    passes its own batches on."""
+
+    @property
+    def output_schema(self) -> Schema:
+        return self.children[0].output_schema
+
+    def do_execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
+        names = [n for n, _ in self.output_schema]
+        for child in self.children:
+            for batch in child.execute(ctx):
+                yield ColumnarBatch(batch.columns, names, batch.num_rows,
+                                    batch.device, capacity=batch.capacity)
+
+    def node_description(self) -> str:
+        return f"Union[{len(self.children)}]"

@@ -1,35 +1,47 @@
 """Hash join execs: shuffled and broadcast hash joins with output-growth
 retry, sub-partitioning of large build sides and a bloom pre-filter.
 
-Counterpart of spark_rapids_tpu/exec/join.py for the inner join at one
-partition, where the exchanges the JAX planner places below a shuffled
-join (and the broadcast exchange below a broadcast one) pass batches
-through unchanged, so none is placed; both execs then join the whole
-probe stream against the whole build side.
+Counterpart of spark_rapids_tpu/exec/join.py at one partition, where
+the exchanges the JAX planner places below a shuffled join (and the
+broadcast exchange below a broadcast one) pass batches through
+unchanged, so none is placed; both execs then join the whole probe
+stream against the whole build side.
 
-- The build side is concatenated once. A build side above
-  ``srt.sql.join.subPartitionRows`` is hash-split into sub-partitions
-  and both sides are bucketed by the same key hash (seed 7), so each
-  bucket pair joins on its own; a bucket still above the threshold (a
-  hot key defeats hashing) is joined in row chunks, which is correct
-  for an inner join.
+Join types (Catalyst names): ``inner``, ``left_outer`` (build right),
+``right_outer`` (build left: the probe side is the preserved one),
+``left_semi`` and ``left_anti`` (build right; probe columns only).
+Full outer joins are planned as a union of a left outer join and a
+null-extended anti join (plan/overrides.py).
+
+- The build side is concatenated once. An empty one gives nothing for
+  inner and semi joins, the probe rows for an anti join and the probe
+  rows null-extended for an outer join.
+- A build side above ``srt.sql.join.subPartitionRows`` is hash-split
+  into sub-partitions and both sides are bucketed by the same key hash
+  (seed 7), so each bucket pair joins on its own and every probe row
+  lands in one bucket. A bucket still above the threshold (a hot key
+  defeats hashing) is joined in row chunks only for an inner join; an
+  outer or anti join runs it whole, since a probe row unmatched in one
+  chunk may match in another.
 - Each (probe batch, build) pair joins through ops/kernels.py
-  ``inner_join`` at an output capacity of the probe's row count. The
-  kernel reports the true candidate count; when that overflows, the
-  pair re-runs at the reported count's capacity, at most
-  ``srt.sql.join.outputGrowthSteps`` times.
+  (``inner_join``, ``left_join``, ``semi_anti_join``) at an output
+  capacity of the probe's row count. The kernel reports the capacity
+  it needed; when that overflows, the pair re-runs at the reported
+  count's capacity, at most ``srt.sql.join.outputGrowthSteps`` times.
 - Probe batches of at least ``srt.sql.join.bloomFilter.minProbeRows``
-  rows are first filtered against a bloom filter of the build keys.
+  rows are first filtered against a bloom filter of the build keys, for
+  inner and semi joins only: an outer or anti join must keep the rows
+  it would drop.
 
-Outer, semi and anti joins, dynamic partition pruning, adaptive join
-demotion and the fused join pipeline are not ported yet.
+Dynamic partition pruning, adaptive join demotion and the fused join
+pipeline are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, List, Optional, Sequence
+from typing import Iterator, List, Sequence
 
-from ..columnar.vector import ColumnarBatch, choose_capacity
+from ..columnar.vector import ColumnarBatch, choose_capacity, null_column
 from ..conf import (JOIN_BLOOM_BITS_PER_KEY, JOIN_BLOOM_ENABLED,
                     JOIN_BLOOM_MIN_PROBE_ROWS, JOIN_GROWTH_STEPS,
                     JOIN_SUB_PARTITION_ROWS)
@@ -39,6 +51,14 @@ from ..ops import kernels as K
 from .base import ExecContext, Metric, Schema, TpuExec
 
 INNER = "inner"
+LEFT_OUTER = "left_outer"
+RIGHT_OUTER = "right_outer"
+LEFT_SEMI = "left_semi"
+LEFT_ANTI = "left_anti"
+#: the build side each join type takes (the probe side is preserved)
+_BUILD_SIDES = {INNER: ("left", "right"), LEFT_OUTER: ("right",),
+                RIGHT_OUTER: ("left",), LEFT_SEMI: ("right",),
+                LEFT_ANTI: ("right",)}
 
 
 class _HashJoinBase(TpuExec):
@@ -50,12 +70,13 @@ class _HashJoinBase(TpuExec):
                  right_keys: Sequence[Expression],
                  join_type: str = INNER, build_side: str = "right"):
         super().__init__(left, right)
-        if join_type != INNER:
+        if join_type not in _BUILD_SIDES:
             raise NotImplementedError(
                 f"join type {join_type!r} is not in this port yet")
-        if build_side not in ("left", "right"):
-            raise ValueError(f"build_side must be left or right, got "
-                             f"{build_side!r}")
+        if build_side not in _BUILD_SIDES[join_type]:
+            raise ValueError(f"a {join_type} join builds the "
+                             f"{' or '.join(_BUILD_SIDES[join_type])} "
+                             f"side, got {build_side!r}")
         if len(left_keys) != len(right_keys) or not left_keys:
             raise ValueError("an equi-join needs matching key lists")
         self.left_keys = list(left_keys)
@@ -65,8 +86,15 @@ class _HashJoinBase(TpuExec):
 
     @property
     def output_schema(self) -> Schema:
+        if self.join_type in (LEFT_SEMI, LEFT_ANTI):
+            return self.children[0].output_schema
         return self.children[0].output_schema + \
             self.children[1].output_schema
+
+    @property
+    def _build_schema(self) -> Schema:
+        return self.children[1 if self.build_side == "right" else 0] \
+            .output_schema
 
     @property
     def _probe_key_exprs(self):
@@ -89,21 +117,11 @@ class _HashJoinBase(TpuExec):
     def _metric(self, ctx: ExecContext, name: str) -> Metric:
         return ctx.metric(self.exec_id, name, Metric.DEBUG)
 
-    # --- build side ---
-    @staticmethod
-    def _concat_build(stream) -> Optional[ColumnarBatch]:
-        batches = [b for b in stream if b.num_rows > 0]
-        if not batches:
-            return None
-        if len(batches) == 1:
-            return batches[0]
-        return K.concat_batches(batches, choose_capacity(
-            sum(b.num_rows for b in batches)))
-
     def _reorder_columns(self, out: ColumnarBatch) -> ColumnarBatch:
         """Kernel output is probe-then-build; the plan's is
         left-then-right."""
-        if self.build_side == "right":
+        if self.build_side == "right" or self.join_type in (LEFT_SEMI,
+                                                            LEFT_ANTI):
             return out
         n_right = len(self.children[1].output_schema)
         return ColumnarBatch(out.columns[n_right:] + out.columns[:n_right],
@@ -121,13 +139,40 @@ class _HashJoinBase(TpuExec):
         # first guess: every probe row matches about one build row
         out_cap = choose_capacity(max(probe.num_rows, 16))
         for _ in range(max_steps + 1):
-            out, total = K.inner_join(probe, build, pk, bk, out_cap)
+            if self.join_type == INNER:
+                out, total = K.inner_join(probe, build, pk, bk, out_cap)
+            elif self.join_type in (LEFT_SEMI, LEFT_ANTI):
+                out, total = K.semi_anti_join(
+                    probe, bk, pk, build.live_mask(),
+                    anti=self.join_type == LEFT_ANTI,
+                    scratch_capacity=out_cap)
+            else:  # an outer join: the probe side is the preserved one
+                out, total = K.left_join(probe, build, pk, bk, out_cap)
             if total <= out_cap:
                 return self._reorder_columns(out)
             retries.add(1)
             out_cap = choose_capacity(total)
         raise RuntimeError(f"join expansion {total} exceeded capacity "
                            f"after {max_steps} growth steps")
+
+    def _empty_build(self, probes) -> Iterator[ColumnarBatch]:
+        """Probe batches against an empty build side: nothing for inner
+        and semi joins, the probe rows for an anti join, the probe rows
+        null-extended for an outer join."""
+        if self.join_type in (INNER, LEFT_SEMI):
+            return
+        for probe in probes:
+            if probe.num_rows == 0:
+                continue
+            if self.join_type == LEFT_ANTI:
+                yield probe
+                continue
+            nulls = [null_column(t, probe.capacity, probe.device)
+                     for _, t in self._build_schema]
+            yield self._reorder_columns(ColumnarBatch(
+                list(probe.columns) + nulls,
+                probe.names + [n for n, _ in self._build_schema],
+                probe.num_rows, probe.device))
 
     def _sub_partition_join(self, ctx: ExecContext, probe_stream,
                             build_holder: List[ColumnarBatch],
@@ -157,15 +202,21 @@ class _HashJoinBase(TpuExec):
         for p in range(parts):
             build_p, probes = sub_builds[p], probe_buckets[p]
             sub_builds[p], probe_buckets[p] = None, []
-            if build_p is None or not probes:
-                continue  # an inner join of an empty side is empty
-            if build_p.num_rows <= threshold:
+            if not probes:
+                continue
+            if build_p is None:
+                yield from self._empty_build(probes)
+                continue
+            if build_p.num_rows > threshold:
+                skew.add(1)  # a hot key defeated the hashing
+            if build_p.num_rows <= threshold or self.join_type != INNER:
+                # a hot bucket of any other join type runs whole: a probe
+                # row unmatched in one chunk may match in another
                 for probe in probes:
                     yield self._join_pair(ctx, probe, build_p)
                 continue
-            # a hot-key bucket: row chunks of the build side join to a
-            # disjoint union of the matches
-            skew.add(1)
+            # a hot bucket of an inner join: row chunks of the build side
+            # join to a disjoint union of the matches
             cap = choose_capacity(threshold)
             for start in range(0, build_p.num_rows, threshold):
                 chunk = K.slice_batch(build_p, start, threshold, cap)
@@ -175,8 +226,10 @@ class _HashJoinBase(TpuExec):
     def _bloom_prefilter(self, ctx: ExecContext, probe_stream,
                          build: ColumnarBatch):
         """Drop probe rows whose keys cannot be in the build side before
-        the gather-map join (sound for an inner join)."""
-        if not ctx.conf.get(JOIN_BLOOM_ENABLED):
+        the gather-map join: sound only where a dropped probe row makes
+        no output, an inner or a semi join."""
+        if not ctx.conf.get(JOIN_BLOOM_ENABLED) or \
+                self.join_type not in (INNER, LEFT_SEMI):
             return probe_stream
         min_rows = ctx.conf.get(JOIN_BLOOM_MIN_PROBE_ROWS)
         num_bits = B.choose_num_bits(build.num_rows,
@@ -199,9 +252,10 @@ class _HashJoinBase(TpuExec):
 
     def _join_partition(self, ctx: ExecContext, probe_stream,
                         build_stream) -> Iterator[ColumnarBatch]:
-        build = self._concat_build(build_stream)
+        build = K.concat_stream(build_stream)
         if build is None:
-            return  # an inner join with an empty build side is empty
+            yield from self._empty_build(probe_stream)
+            return
         probe_stream = self._bloom_prefilter(ctx, probe_stream, build)
         threshold = ctx.conf.get(JOIN_SUB_PARTITION_ROWS)
         if build.num_rows > threshold:

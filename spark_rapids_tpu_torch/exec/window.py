@@ -238,6 +238,18 @@ class _Segments:
         return self._run_bounds[1]
 
 
+def _minmax_fill(op, out_t: dt.DType):
+    """The value under a null row that leaves a window MIN / MAX as it
+    is. Spark orders NaN above every number, so MAX keeps
+    ``torch.maximum`` (a NaN wins) while a float MIN takes
+    ``torch.fmin``, which passes over a NaN unless both are NaN, and NaN
+    is its neutral value."""
+    if op is torch.fmin:
+        return float("nan")
+    return dt.max_value(out_t) if op is torch.minimum else \
+        dt.min_value(out_t)
+
+
 def _agg_inputs(fn: AggregateFunction, col: Optional[Column], live,
                 out_t: dt.DType):
     """(op, values with each null row's neutral element, non-null count
@@ -252,12 +264,11 @@ def _agg_inputs(fn: AggregateFunction, col: Optional[Column], live,
         return torch.add, torch.where(valid_in, vals, torch.zeros(
             (), dtype=phys, device=vals.device)), cnt_vals
     if isinstance(fn, (Min, Max)):
-        fill = dt.max_value(out_t) if isinstance(fn, Min) else \
-            dt.min_value(out_t)
-        op = torch.minimum if isinstance(fn, Min) else torch.maximum
+        op = torch.maximum if isinstance(fn, Max) else \
+            torch.fmin if out_t.is_floating else torch.minimum
         return op, torch.where(valid_in, col.data, torch.full(
-            (), fill, dtype=col.data.dtype, device=col.data.device)), \
-            cnt_vals
+            (), _minmax_fill(op, out_t), dtype=col.data.dtype,
+            device=col.data.device)), cnt_vals
     raise NotImplementedError(f"window aggregate {type(fn).__name__} is "
                               "not in this port yet")
 
@@ -428,9 +439,7 @@ class WindowExec(TpuExec):
         if op is torch.add:
             acc = _range_sum(agg_vals, lo_i, hi_i, width_empty, seg)
         else:
-            fill = dt.max_value(out_t) if op is torch.minimum else \
-                dt.min_value(out_t)
-            acc = _rmq(agg_vals, lo_i, hi_i, op, fill)
+            acc = _rmq(agg_vals, lo_i, hi_i, op, _minmax_fill(op, out_t))
         return acc, _range_count(cnt_vals, lo_i, hi_i, width_empty)
 
     def _sliding(self, frame: WindowFrame, op, agg_vals, cnt_vals,

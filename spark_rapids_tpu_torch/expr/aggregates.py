@@ -1,10 +1,12 @@
 """Aggregate functions: update / merge / finalize over segment ids.
 
 Counterpart of spark_rapids_tpu/expr/aggregates.py (Sum, Average,
-Count, CountStar, Min, Max on non-decimal inputs). Every aggregate
-splits into an update phase (raw rows -> per-group partial state), a
-merge phase (partial states -> merged state) and finalize; states are
-dicts of tensors sized to the group table, so partials flow as batches.
+Count, CountStar, Min, Max on non-decimal inputs, Min and Max on
+strings too). Every aggregate splits into an update phase (raw rows ->
+per-group partial state), a merge phase (partial states -> merged
+state) and finalize; states are dicts of tensors (a StringColumn for a
+string MIN / MAX) sized to the group table, so partials flow as
+batches.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from typing import Dict, List
 import torch
 
 from ..columnar import dtypes as dt
-from ..columnar.vector import Column
+from ..columnar.vector import Column, StringColumn, with_validity
 from .core import Expression, Schema
 
 State = Dict[str, torch.Tensor]
@@ -183,10 +185,38 @@ class _MinMaxBase(AggregateFunction):
         return {self._key: _seg_reduce(vals, gid, num_groups, fill, how),
                 "seen": _seg_sum(valid.to(torch.int32), gid, num_groups) > 0}
 
+    def _string_reduce(self, gid, col: StringColumn, num_groups) -> State:
+        """Strings, as the JAX package reduces them: a row's rank in a
+        stable sort of the column is an order-isomorphic key, so the
+        segment min (max) of the ranks picks each group's row, and its
+        string is gathered; a group with no value is null."""
+        from ..ops.kernels import sort_indices
+        cap = col.capacity
+        perm = sort_indices([col], [True], [False], col.validity)
+        rank = torch.empty_like(perm)
+        rank[perm] = torch.arange(cap, device=perm.device)
+        if self.largest:
+            keyed = torch.where(col.validity, rank, -1)
+            sel = _seg_reduce(keyed, gid, num_groups, -1, "amax")
+            found = sel >= 0
+        else:
+            keyed = torch.where(col.validity, rank, cap)
+            sel = _seg_reduce(keyed, gid, num_groups, cap, "amin")
+            found = sel < cap
+        out = col.gather(perm[sel.clamp(0, max(cap - 1, 0))], found)
+        return {self._key: out, "seen": found}
+
     def update(self, gid, col, num_groups, live) -> State:
+        if isinstance(col, StringColumn):
+            return self._string_reduce(gid, col, num_groups)
         return self._reduce(gid, col.data, col.validity, num_groups)
 
     def merge(self, gid, states, num_groups) -> State:
+        if isinstance(states[self._key], StringColumn):
+            sc = states[self._key]
+            return self._string_reduce(
+                gid, with_validity(sc, sc.validity & states["seen"]),
+                num_groups)
         return self._reduce(gid, states[self._key], states["seen"],
                             num_groups)
 

@@ -48,6 +48,12 @@ def cast_column(c: Column, to: dt.DType) -> Column:
         return make_result(data != 0, validity, to)
     if src == dt.BOOL:
         return make_result(data.to(to.physical), validity, to)
+    if src.is_floating and to in (dt.INT8, dt.INT16):
+        # Spark's non-ANSI cast: toInt (saturating at INT's range), then a
+        # two's-complement wrap to the target width (the JAX package
+        # saturates at the target's range)
+        as_int = cast_column(c, dt.INT32)
+        return make_result(as_int.data.to(to.physical), validity, to)
     if src.is_floating and to.is_integral:
         x = torch.where(torch.isnan(data), torch.zeros((), dtype=data.dtype,
                                                        device=data.device),

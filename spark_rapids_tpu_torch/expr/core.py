@@ -16,7 +16,7 @@ import torch
 
 from ..columnar import dtypes as dt
 from ..columnar.vector import (Column, ColumnVector, ColumnarBatch,
-                               StringColumn, round_pow2)
+                               StringColumn, null_column, round_pow2)
 
 Schema = Sequence  # [(name, DType), ...]
 
@@ -197,12 +197,7 @@ class Literal(Expression):
     def eval(self, batch: ColumnarBatch) -> Column:
         cap, live = batch.capacity, batch.live_mask()
         if self.value is None:
-            phys = self.dtype.physical
-            t = self.dtype if self.dtype != dt.NULL else dt.INT32
-            return ColumnVector(torch.zeros(cap, dtype=t.physical or phys,
-                                            device=batch.device),
-                                torch.zeros(cap, dtype=torch.bool,
-                                            device=batch.device), t)
+            return null_column(self.dtype, cap, batch.device)
         if self.dtype == dt.STRING:
             return _string_literal_column(self.value.encode("utf-8"), live)
         phys = self.dtype.physical

@@ -125,8 +125,12 @@ class StartsWith(Expression):
 
 class Substring(Expression):
     """substring(str, pos, len): 1-based ``pos``, 0 reads as 1, a
-    negative ``pos`` counts from the end. Byte-based, as in the JAX
-    package (exact for ASCII; Spark counts code points)."""
+    negative ``pos`` counts from the end, and the end is ``len`` past
+    the start before the start is clipped to the string, as in Spark's
+    ``substringSQL``. ``pos`` and ``len`` count code points, as in Spark
+    (the JAX package counts bytes and clips the start first). A code
+    point starts at every UTF-8 byte that is not a continuation byte
+    (0b10xxxxxx)."""
 
     def __init__(self, child: Expression, pos: int, length: int = 1 << 30):
         super().__init__(child)
@@ -140,28 +144,33 @@ class Substring(Expression):
         c = self.children[0].eval(batch)
         if not isinstance(c, StringColumn):
             raise TypeError("substring takes a string column")
-        dev = c.device
+        dev, cap = c.device, c.capacity
         lens = c.lengths().to(torch.int64)
-        if self.pos > 0:
-            start = lens.clamp(max=self.pos - 1)
-        elif self.pos == 0:
-            start = torch.zeros_like(lens)
-        else:
-            start = (lens + self.pos).clamp(min=0)
-        out_len = (lens - start).clamp(max=self.length).clamp(min=0)
-        ends = torch.cumsum(out_len, 0)
-        cap = c.capacity
+        n_in = int(lens.sum())
+        # every input byte: its row, its value, its code point in the row
+        row = torch.repeat_interleave(torch.arange(cap, device=dev), lens,
+                                      output_size=n_in)
+        within = torch.arange(n_in, device=dev) - \
+            (torch.cumsum(lens, 0) - lens)[row]
+        byte = c.chars[c.offsets[:-1].to(torch.int64)[row] + within]
+        lead = (byte & 0xC0) != 0x80
+        n_cp = torch.zeros(cap, dtype=torch.int64, device=dev) \
+            .index_add_(0, row, lead.to(torch.int64))
+        cp = torch.cumsum(lead.to(torch.int64), 0) - 1 - \
+            (torch.cumsum(n_cp, 0) - n_cp)[row]
+        # Spark's substringSQL: the end counts from the unclamped start
+        start = n_cp + self.pos if self.pos < 0 else \
+            torch.full_like(n_cp, max(self.pos - 1, 0))
+        stop = start + self.length
+        keep = (cp >= start.clamp(min=0)[row]) & (cp < stop[row])
+        out_len = torch.zeros(cap, dtype=torch.int64, device=dev) \
+            .index_add_(0, row, keep.to(torch.int64))
         offsets = torch.zeros(cap + 1, dtype=torch.int32, device=dev)
-        offsets[1:] = ends.to(torch.int32)
-        total = int(ends[-1]) if cap else 0
-        chars = torch.zeros(max(-(-total // 128) * 128, 128),
+        offsets[1:] = torch.cumsum(out_len, 0).to(torch.int32)
+        kept = byte[keep]
+        chars = torch.zeros(max(-(-kept.numel() // 128) * 128, 128),
                             dtype=torch.uint8, device=dev)
-        if total:
-            row = torch.repeat_interleave(torch.arange(cap, device=dev),
-                                          out_len, output_size=total)
-            within = torch.arange(total, device=dev) - (ends - out_len)[row]
-            src = c.offsets[:-1].to(torch.int64)[row] + start[row] + within
-            chars[:total] = c.chars[src]
+        chars[:kept.numel()] = kept
         return StringColumn(offsets, chars, c.validity, c.pad_bucket)
 
     def __repr__(self):

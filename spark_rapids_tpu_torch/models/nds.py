@@ -4,9 +4,10 @@ the in-memory table registration of this port.
 ``nds_specs`` and ``NDS_QUERIES`` are copied verbatim from
 spark_rapids_tpu/models/nds.py (the texts are data: each keeps its
 original query's join graph, predicate shapes and aggregation pattern in
-the engine's SQL dialect). ``NDS_SLICE``, ``NDS_WINDOW`` and
-``NDS_ALSO_RUNS`` name the queries this port runs end to end through
-``session.sql``. ``register_nds`` generates each
+the engine's SQL dialect). ``NDS_SLICE``, ``NDS_WINDOW``,
+``NDS_ALSO_RUNS`` and ``NDS_JOINS_SETOPS`` (outer, semi, anti and
+nested-loop joins and set operations) name the 66 queries this port
+runs end to end through ``session.sql``. ``register_nds`` generates each
 table in memory, in the JAX package's 1<<18-row chunks (the datagen
 seeds are per chunk, so the bytes equal the JAX package's), moves it to
 the session's device in ``srt.sql.batchSizeRows``-row batches and
@@ -41,6 +42,15 @@ NDS_WINDOW = ("q12", "q20", "q98", "q53", "q63", "q89", "q47", "q57",
 NDS_ALSO_RUNS = ("q9", "q13", "q24", "q29", "q31", "q34", "q46", "q50",
                  "q58", "q59", "q64", "q65", "q72", "q73", "q83", "q84",
                  "q85", "q91")
+
+#: the queries that need outer, keyless and nested-loop joins or set
+#: operations and nothing else the port lacks: a left outer join (q93),
+#: a full outer join (q97), cross products of one-row aggregates (q28,
+#: q61, q88, q90), UNION ALL (q4, q11, q33, q54, q56, q60, q66, q71, q74,
+#: q76), INTERSECT (q38) and EXCEPT (q87)
+NDS_JOINS_SETOPS = ("q93", "q97", "q28", "q61", "q88", "q90", "q4", "q11",
+                    "q33", "q54", "q56", "q60", "q66", "q71", "q74", "q76",
+                    "q38", "q87")
 
 # --- schema ---------------------------------------------------------------
 

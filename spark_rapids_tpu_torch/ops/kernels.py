@@ -3,9 +3,10 @@
 Counterpart of spark_rapids_tpu/ops/kernels.py, ported as deep as TPC-H
 q6/q1/q3 need: filter compaction, hash bucketing, multi-key stable sort,
 hash-claim and sort-based grouping with the grouped update / merge
-passes, the gather-map hash join, limit and slice. Everything is eager
-torch code over ColumnarBatch; the grouped update hands its per-bucket
-sums to the hand-written kernel ``device_kernels.tile_group_reduce``.
+passes, the gather-map hash join (inner, left outer, semi and anti),
+limit, slice and concat. Everything is eager torch code over
+ColumnarBatch; the grouped update hands its per-bucket sums to the
+hand-written kernel ``device_kernels.tile_group_reduce``.
 
 Group ids are an internal numbering (the claim order of the hash-claim
 prelude, or the rank of the key in sort order); state tables are sized
@@ -520,9 +521,13 @@ def group_merge(batch: ColumnarBatch, key_cols: Sequence[Column],
     """Merge partial aggregation states aligned with ``batch`` rows;
     returns (key_batch, merged states, num_groups)."""
     prelude, fast = _grouping_prelude(batch, key_cols, agg_fns, stats)
-    perm, _live_s, gid, num_groups, key_batch = prelude
+    perm, live_s, gid, num_groups, key_batch = prelude
+
+    def take(v):
+        return v.gather(perm, live_s) if isinstance(v, StringColumn) \
+            else v[perm]
     merged = [fn.merge(gid, states if fast else
-                       {k: v[perm] for k, v in states.items()},
+                       {k: take(v) for k, v in states.items()},
                        key_batch.capacity)
               for states, fn in zip(agg_states, agg_fns)]
     return key_batch, merged, num_groups
@@ -557,8 +562,10 @@ def _keys_equal(a_cols: Sequence[Column], a_idx: torch.Tensor,
                 null_safe: bool = False) -> torch.Tensor:
     """True key equality for candidate pairs (collision verification).
     Join equality by default (null matches nothing); ``null_safe`` gives
-    grouping equality (null == null, NaN == NaN). Strings compare their
-    Arrow bytes."""
+    grouping equality (null == null). NaN equals NaN in both, as in
+    Spark, whose join hash also puts every NaN together (the JAX
+    package's ``_keys_equal`` drops NaN join pairs). Strings compare
+    their Arrow bytes."""
     ok = torch.ones(a_idx.shape[0], dtype=torch.bool, device=a_idx.device)
     for ca, cb in zip(a_cols, b_cols):
         va, vb = ca.validity[a_idx], cb.validity[b_idx]
@@ -570,7 +577,7 @@ def _keys_equal(a_cols: Sequence[Column], a_idx: torch.Tensor,
                 t = torch.promote_types(da.dtype, db.dtype)
                 da, db = da.to(t), db.to(t)
             eq = da == db
-            if null_safe and da.is_floating_point():
+            if da.is_floating_point():
                 eq = eq | (torch.isnan(da) & torch.isnan(db))
         if null_safe:
             ok = ok & ((va & vb & eq) | (~va & ~vb))
@@ -626,6 +633,62 @@ def inner_join(probe: ColumnarBatch, build: ColumnarBatch,
         [c.gather(b_take, valid) for c in build.columns]
     return ColumnarBatch(cols, probe.names + build.names, n_out,
                          probe.device), total_cand
+
+
+def _matched(probe: ColumnarBatch, p_idx: torch.Tensor,
+             pair_valid: torch.Tensor) -> torch.Tensor:
+    """bool[probe capacity]: the probe rows with a verified match."""
+    matched = torch.zeros(probe.capacity, dtype=torch.bool,
+                          device=probe.device)
+    matched[p_idx[pair_valid]] = True
+    return matched
+
+
+def left_join(probe: ColumnarBatch, build: ColumnarBatch,
+              probe_keys: Sequence[Column], build_keys: Sequence[Column],
+              out_capacity: int) -> Tuple[ColumnarBatch, int]:
+    """Left outer join, the probe side preserved: the matched pairs,
+    then each probe row without a match, its build columns null.
+    Returns (batch of ``out_capacity``, required capacity): the
+    requirement is max(candidate total, output rows), since candidates
+    past the window are lost and output rows past the capacity are
+    dropped; past ``out_capacity`` the caller must retry larger (the
+    batch is None when its rows do not fit)."""
+    p_idx, b_idx, pair_valid, total_cand, _ = join_gather_maps(
+        probe_keys, build_keys, probe.live_mask(), build.live_mask(),
+        out_capacity)
+    unmatched = probe.live_mask() & ~_matched(probe, p_idx, pair_valid)
+    pairs, n_pairs = compaction_indices(pair_valid)
+    lone = torch.nonzero(unmatched).flatten()
+    n_out = n_pairs + lone.numel()
+    required = max(total_cand, n_out)
+    if n_out > out_capacity:
+        return None, required
+    p_take = p_idx[pairs]
+    p_take[n_pairs:n_out] = lone
+    b_take = b_idx[pairs]
+    valid = live_mask(out_capacity, n_out, probe.device)
+    from_pairs = live_mask(out_capacity, n_pairs, probe.device)
+    cols = [c.gather(p_take, valid) for c in probe.columns] + \
+        [c.gather(b_take, from_pairs) for c in build.columns]
+    return ColumnarBatch(cols, probe.names + build.names, n_out,
+                         probe.device), required
+
+
+def semi_anti_join(probe: ColumnarBatch, build_keys: Sequence[Column],
+                   probe_keys: Sequence[Column], build_live: torch.Tensor,
+                   anti: bool, scratch_capacity: Optional[int] = None
+                   ) -> Tuple[ColumnarBatch, int]:
+    """Left semi (``anti`` False) or anti join: the probe rows with (or
+    without) a key match, probe columns only. Nothing expands, but the
+    candidate window can still overflow on duplicated build keys, so
+    the candidate total is returned: past ``scratch_capacity`` (default
+    the probe's capacity) the caller must retry larger."""
+    scratch = scratch_capacity or probe.capacity
+    p_idx, _, pair_valid, total_cand, _ = join_gather_maps(
+        probe_keys, build_keys, probe.live_mask(), build_live, scratch)
+    matched = _matched(probe, p_idx, pair_valid)
+    return compact(probe, ~matched if anti else matched), total_cand
 
 
 # ---------------------------------------------------------------------------
@@ -686,8 +749,12 @@ def _concat_columns(cols: Sequence[Column], ns: Sequence[int],
         buf[:chars.numel()] = chars
         return StringColumn(offsets, buf, validity,
                             max(c.pad_bucket for c in cols))
-    data = torch.zeros(out_cap, dtype=cols[0].data.dtype, device=dev)
-    data[:total] = torch.cat([c.data[:n] for c, n in zip(cols, ns)])
+    # parts of differing widths (a UNION's children) meet at their
+    # promoted physical type, as the JAX package's concat does; the
+    # column keeps the first part's logical type
+    live = torch.cat([c.data[:n] for c, n in zip(cols, ns)])
+    data = torch.zeros(out_cap, dtype=live.dtype, device=dev)
+    data[:total] = live
     return ColumnVector(data, validity, cols[0].dtype)
 
 
@@ -702,3 +769,15 @@ def concat_batches(batches: Sequence[ColumnarBatch],
             for i in range(first.num_columns)]
     return ColumnarBatch(cols, first.names, sum(ns), first.device,
                          capacity=out_capacity)
+
+
+def concat_stream(stream) -> Optional[ColumnarBatch]:
+    """A stream's live rows in one batch (the batch itself when only one
+    has rows); None when no batch has a row."""
+    batches = [b for b in stream if b.num_rows > 0]
+    if not batches:
+        return None
+    if len(batches) == 1:
+        return batches[0]
+    return concat_batches(batches, choose_capacity(
+        sum(b.num_rows for b in batches)))

@@ -3,13 +3,14 @@
 Counterpart of ``estimate_rows`` in spark_rapids_tpu/plan/cost.py to the
 depth the join planner reads it over in-memory relations: a relation
 counts its rows, a filter keeps half, an aggregate a tenth, a limit at
-most its n and a join as many rows as its larger side.
+most its n, a join (keyless ones too) as many rows as its larger side
+and a union the sum of its children.
 """
 
 from __future__ import annotations
 
 from .logical import (Aggregate, DeviceRelation, Filter, Join, Limit,
-                      LogicalPlan)
+                      LogicalPlan, Union)
 
 
 def estimate_rows(plan: LogicalPlan) -> float:
@@ -25,4 +26,6 @@ def estimate_rows(plan: LogicalPlan) -> float:
         return max(child_rows[0] * 0.1, 1.0)
     if isinstance(plan, Join):
         return max(child_rows)
+    if isinstance(plan, Union):
+        return sum(child_rows)
     return child_rows[0] if child_rows else 0.0

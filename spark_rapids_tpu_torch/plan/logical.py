@@ -1,8 +1,10 @@
 """Logical plan nodes.
 
 Counterpart of spark_rapids_tpu/plan/logical.py for the nodes the ported
-queries build (q6/q1/q3, the NDS slice and its windows), plus ``DeviceRelation``: a leaf over batches already on the
-device (the JAX package reaches the same leaf through CachedRelation).
+queries build (q6/q1/q3, the NDS queries: joins of every type, set
+operations, windows), plus ``DeviceRelation``: a leaf over batches
+already on the device (the JAX package reaches the same leaf through
+CachedRelation).
 """
 
 from __future__ import annotations
@@ -133,27 +135,38 @@ class Sort(LogicalPlan):
 
 
 class Join(LogicalPlan):
-    """Equi-join on key expression pairs."""
+    """Equi-join on key expression pairs, with an optional residual
+    condition; a ``cross`` join takes no keys."""
 
     def __init__(self, left: LogicalPlan, right: LogicalPlan,
                  left_keys: Sequence[Expression],
                  right_keys: Sequence[Expression],
-                 join_type: str = "inner"):
+                 join_type: str = "inner",
+                 condition: Optional[Expression] = None):
         super().__init__(left, right)
         self.left_keys = list(left_keys)
         self.right_keys = list(right_keys)
         self.join_type = join_type
+        self.condition = condition
         if len(self.left_keys) != len(self.right_keys):
             raise ValueError("left/right key counts differ")
+        if join_type == "cross" and self.left_keys:
+            raise ValueError("cross join takes no keys (use inner, or "
+                             "cross_join with a condition)")
 
     @property
     def schema(self) -> Schema:
+        if self.join_type in ("left_semi", "left_anti"):
+            return self.children[0].schema
+        # an outer join's null-supplied side keeps its types
         return self.children[0].schema + self.children[1].schema
 
     def node_description(self) -> str:
         keys = ", ".join(f"{l!r}={r!r}" for l, r in
                          zip(self.left_keys, self.right_keys))
-        return f"Join[{self.join_type}, {keys}]"
+        cond = f", cond={self.condition!r}" if self.condition is not None \
+            else ""
+        return f"Join[{self.join_type}, {keys}{cond}]"
 
 
 class Limit(LogicalPlan):
@@ -189,3 +202,26 @@ class Window(LogicalPlan):
         fns = ", ".join(f"{type(we.func).__name__}->{n}"
                         for we, n in self.window_exprs)
         return f"Window[{fns}]"
+
+
+class Union(LogicalPlan):
+    """UNION ALL of children with equal column counts; the schema is the
+    first child's. As in the JAX package no column is cast; a string
+    column facing a non-string one (which the JAX package passes on as
+    a mixed column) is refused."""
+
+    def __init__(self, *children: LogicalPlan):
+        super().__init__(*children)
+        first = children[0].schema
+        for c in children[1:]:
+            if len(c.schema) != len(first):
+                raise ValueError("UNION children column counts differ")
+            for (name, a), (_, b) in zip(first, c.schema):
+                if (a == dt.STRING) != (b == dt.STRING):
+                    raise NotImplementedError(
+                        f"a UNION of {a} and {b} in column {name!r} is "
+                        "not in this port yet")
+
+    @property
+    def schema(self) -> Schema:
+        return self.children[0].schema

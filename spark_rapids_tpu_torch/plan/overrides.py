@@ -4,11 +4,14 @@ Counterpart of the conversion core of spark_rapids_tpu/plan/overrides.py
 (``_build_tpu_exec``, ``_build_join``, the Limit(Sort) -> TopN rewrite)
 for the nodes the ported queries build. An Aggregate becomes PARTIAL ->
 FINAL HashAggregateExec as in the JAX planner (overrides.py:750-770); an
-inner Join becomes a BroadcastHashJoinExec when its build side's
+equi-Join becomes a BroadcastHashJoinExec when its build side's
 estimated rows are at most ``srt.sql.broadcastRowThreshold`` and a
-ShuffledHashJoinExec otherwise (overrides.py:820-871). A Window becomes
-a BatchedRunningWindowExec over a SortExec when every function streams
-with carried state, else a WindowExec (overrides.py:776-793); the
+ShuffledHashJoinExec otherwise, a keyless one a CartesianProductExec or
+a BroadcastNestedLoopJoinExec, and a full outer one a UnionExec of two
+hash joins (overrides.py:820-871); a Union becomes a UnionExec. A
+Window becomes a BatchedRunningWindowExec over a SortExec when every
+function streams with carried state, else a WindowExec
+(overrides.py:776-793); the
 semantic gates of the JAX planner's window tagging (``_tag_window``)
 raise NotImplementedError, as the port has no CPU fallback. The port
 runs one partition, where the exchanges the JAX planner inserts
@@ -26,8 +29,10 @@ from ..conf import (BROADCAST_THRESHOLD_ROWS, WINDOW_BATCHED_RUNNING,
 from ..exec.aggregate import FINAL, PARTIAL, HashAggregateExec
 from ..exec.base import TpuExec
 from ..exec.basic import (BatchScanExec, FilterExec, LocalLimitExec,
-                          ProjectExec)
+                          ProjectExec, UnionExec)
 from ..exec.join import BroadcastHashJoinExec, ShuffledHashJoinExec
+from ..exec.nested_loop_join import (BroadcastNestedLoopJoinExec,
+                                     CartesianProductExec)
 from ..exec.sort import SortExec, SortOrder, TopNExec
 from ..exec.window import (BatchedRunningWindowExec, WindowExec,
                            running_compatible)
@@ -35,9 +40,10 @@ from ..expr import aggregates as Agg
 from ..expr import window as W
 from ..expr.cast import Cast
 from ..expr.conditional import _common_type
+from ..expr.core import Alias, Literal, col
 from .cost import estimate_rows
 from .logical import (Aggregate, DeviceRelation, Filter, Join, Limit,
-                      LogicalPlan, Project, Sort, Window)
+                      LogicalPlan, Project, Sort, Union, Window)
 
 
 def _sort_orders(sort: Sort):
@@ -74,14 +80,49 @@ def _join_cls(plan: Join, build: str, conf: SrtConf):
 
 
 def _build_join(plan: Join, children, conf: SrtConf) -> TpuExec:
-    if plan.join_type != "inner" or not plan.left_keys:
+    """The JAX planner's ``_build_join``: a keyless join is a cartesian
+    product, or a nested-loop join with its condition; a full outer
+    join is ``left_outer(L, R)`` UNION ``left_anti(R, L)`` with L's
+    columns null (both children run twice: the port places no exchange
+    to share them, so their operator metrics count twice); a right
+    outer join builds the left side; an inner join's residual condition
+    is a filter above it. Where the JAX planner would drop a condition
+    (on an outer, semi or anti join) or run a keyless join as inner,
+    this port raises."""
+    left, right = children
+    if plan.condition is not None and plan.join_type not in ("inner",
+                                                              "cross"):
         raise NotImplementedError(
-            f"{plan.join_type} join without equi-keys or of another type "
-            "than inner is not in this port yet")
+            f"a condition on a {plan.join_type} join is not in this port "
+            "yet")
+    if not plan.left_keys:
+        if plan.join_type not in ("inner", "cross"):
+            raise NotImplementedError(
+                f"a {plan.join_type} join without equi-keys is not in this "
+                "port yet")
+        if plan.condition is None:
+            return CartesianProductExec(left, right)
+        return BroadcastNestedLoopJoinExec(left, right, plan.condition,
+                                           "inner")
     left_keys, right_keys = _coerce_join_keys(plan)
-    cls = _join_cls(plan, "right", conf)
-    return cls(children[0], children[1], left_keys, right_keys,
-               join_type=plan.join_type, build_side="right")
+    if plan.join_type == "full_outer":
+        outer = ShuffledHashJoinExec(left, right, left_keys, right_keys,
+                                     join_type="left_outer",
+                                     build_side="right")
+        anti = ShuffledHashJoinExec(right, left, right_keys, left_keys,
+                                    join_type="left_anti",
+                                    build_side="right")
+        exprs = ([Alias(Literal(None, t), n)
+                  for n, t in plan.children[0].schema] +
+                 [Alias(col(n), n) for n, _ in plan.children[1].schema])
+        return UnionExec(outer, ProjectExec(anti, exprs))
+    build = "left" if plan.join_type == "right_outer" else "right"
+    cls = _join_cls(plan, build, conf)
+    joined = cls(left, right, left_keys, right_keys,
+                 join_type=plan.join_type, build_side=build)
+    if plan.condition is not None:
+        return FilterExec(joined, plan.condition)
+    return joined
 
 
 def _check_window(plan: Window) -> None:
@@ -158,6 +199,8 @@ def _to_physical(plan: LogicalPlan, conf: SrtConf) -> TpuExec:
         return LocalLimitExec(children[0], plan.n)
     if isinstance(plan, Join):
         return _build_join(plan, children, conf)
+    if isinstance(plan, Union):
+        return UnionExec(*children)
     if isinstance(plan, Window):
         return _build_window(plan, children[0], conf)
     if isinstance(plan, Aggregate):

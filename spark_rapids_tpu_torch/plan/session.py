@@ -3,9 +3,10 @@
 Counterpart of spark_rapids_tpu/plan/session.py (TpuSession, DataFrame,
 GroupedData) for filter / select / with_column / group_by / agg /
 distinct / join / sort / limit / collect, window functions in select and
-with_column, the temp-view catalog and ``sql``. The session runs on one torch device, ``cuda`` unless the
-caller asks for the CPU; a session asked for CUDA where there is none
-raises. Joins other than inner equi-joins raise NotImplementedError.
+with_column, the temp-view catalog and ``sql``, joins of every type
+(``join(how=...)``, ``cross_join``) and ``union``. The session runs on
+one torch device, ``cuda`` unless the caller asks for the CPU; a session
+asked for CUDA where there is none raises.
 """
 
 from __future__ import annotations
@@ -201,12 +202,14 @@ class DataFrame:
     def join(self, other: "DataFrame", on, how: str = "inner"
              ) -> "DataFrame":
         """Equi-join. ``on`` is a column name, a list of names (USING:
-        the key is kept once, from the left) or a pair (left key
+        for inner, left outer, semi and anti joins the key is kept once,
+        from the left; other types keep both) or a pair (left key
         expressions, right key expressions). ``how`` takes the JAX
-        package's names; only inner joins are in this port yet."""
-        if _JOIN_TYPES[how] != "inner":
-            raise NotImplementedError(f"{_JOIN_TYPES[how]} join is not in "
-                                      "this port yet")
+        package's names (``inner``, ``left``, ``right``, ``full`` /
+        ``outer``, ``semi``, ``anti``, ``cross`` and the long forms)."""
+        if how not in _JOIN_TYPES:
+            raise ValueError(f"unknown join type {how!r}")
+        how = _JOIN_TYPES[how]
         if isinstance(on, str):
             on = [on]
         using: List[str] = []
@@ -221,16 +224,27 @@ class DataFrame:
             raise TypeError("join `on`: column name(s) or (left_exprs, "
                             "right_exprs)")
         joined: L.LogicalPlan = L.Join(self.plan, other.plan, lk, rk, how)
-        if using:
-            keep = [col(n) for n in self.columns] + \
-                [col(n) for n in other.columns if n not in using]
+        if using and how in ("inner", "left_outer", "left_semi",
+                             "left_anti"):
+            # the left copy of the key is the right survivor for these;
+            # a semi or anti join has no right columns
+            keep = [col(n) for n in self.columns]
+            if how in ("inner", "left_outer"):
+                keep += [col(n) for n in other.columns if n not in using]
             joined = L.Project(joined, keep)
         return DataFrame(self.session, joined)
 
     def cross_join(self, other: "DataFrame",
                    condition: Optional[Expression] = None) -> "DataFrame":
-        raise NotImplementedError("a cross or nested-loop join is not in "
-                                  "this port yet")
+        """Cartesian product, or with ``condition`` a nested-loop join
+        keeping the pairs where it is true."""
+        how = "cross" if condition is None else "inner"
+        return DataFrame(self.session, L.Join(
+            self.plan, other.plan, [], [], how, condition=condition))
+
+    def union(self, other: "DataFrame") -> "DataFrame":
+        """UNION ALL by position; the columns take this side's names."""
+        return DataFrame(self.session, L.Union(self.plan, other.plan))
 
     def limit(self, n: int) -> "DataFrame":
         return DataFrame(self.session, L.Limit(self.plan, n))

@@ -10,9 +10,10 @@ BY, and lowers everything onto the Expression / LogicalPlan layer.
 
 Its function tables hold the functions this port has. A function,
 clause or type the JAX package's analyzer lowers but this port does not
-have yet (subquery predicates, set operations, GROUPING SETS / ROLLUP /
-CUBE, LIKE, INTERVAL arithmetic, timestamp and decimal types, and the
-functions in ``_NOT_PORTED``) raises
+have yet (subquery predicates, INTERSECT / EXCEPT ALL as in the JAX
+package, GROUPING SETS / ROLLUP / CUBE, LIKE, INTERVAL arithmetic,
+string ``<`` / ``>``, timestamp and decimal types, and the functions in
+``_NOT_PORTED``) raises
 ``SqlError`` saying so, before any plan is built.
 """
 
@@ -964,8 +965,47 @@ class Analyzer:
 
     def _analyze_body(self, stmt):
         if isinstance(stmt, (UnionA, SetOpA)):
-            raise _not_ported("UNION / INTERSECT / EXCEPT")
+            left = self.analyze_select(stmt.left) if \
+                isinstance(stmt.left, SelectA) else self.analyze(stmt.left)
+            right = self.analyze_select(stmt.right) if \
+                isinstance(stmt.right, SelectA) else self.analyze(stmt.right)
+            if isinstance(stmt, UnionA):
+                df = left.union(right)
+                if not stmt.all:
+                    df = df.distinct()
+            else:
+                df = self._set_op(left, right, stmt.op, stmt.all)
+            return self._order_limit(df, stmt.order_by, stmt.limit,
+                                     scope=None)
         return self.analyze_select(stmt)
+
+    def _set_op(self, left, right, op: str, all_: bool):
+        """INTERSECT / EXCEPT as the JAX package lowers them: a UNION ALL
+        of both sides tagged by side, a GROUP BY over every column (its
+        keys take NULL = NULL, SQL's set semantics) counting each side's
+        rows, and a filter on the two counts."""
+        if all_:
+            raise SqlError(f"{op.upper()} ALL is not supported")
+        if len(left.schema) != len(right.schema):
+            raise SqlError(f"{op.upper()} branches have different "
+                           "column counts")
+        lnames = [n for n, _ in left.schema]
+        right2 = right.select(*[Alias(col(rn), ln)
+                                for (ln, _), (rn, _) in
+                                zip(left.schema, right.schema)])
+        ltag = left.select(*([col(n) for n in lnames] +
+                             [Alias(lit(1), "__setl"),
+                              Alias(lit(0), "__setr")]))
+        rtag = right2.select(*([col(n) for n in lnames] +
+                               [Alias(lit(0), "__setl"),
+                                Alias(lit(1), "__setr")]))
+        g = ltag.union(rtag).group_by(*[col(n) for n in lnames]).agg(
+            Alias(Agg.Sum(col("__setl")), "__cl"),
+            Alias(Agg.Sum(col("__setr")), "__cr"))
+        right_count = P.GreaterThan(col("__cr"), lit(0)) \
+            if op == "intersect" else P.EqualTo(col("__cr"), lit(0))
+        g = g.filter(P.And(P.GreaterThan(col("__cl"), lit(0)), right_count))
+        return g.select(*[col(n) for n in lnames])
 
     # --- FROM resolution + join planning ---
     def _resolve_ref(self, ref):
@@ -1584,6 +1624,7 @@ class Analyzer:
             e = self.lower(ast.e, scope)
             lo = self.lower(ast.lo, scope)
             hi = self.lower(ast.hi, scope)
+            self._refuse_string_order("BETWEEN", (e, lo, hi), scope)
             out = P.And(P.GreaterThanOrEqual(e, lo),
                         P.LessThanOrEqual(e, hi))
             return P.Not(out) if ast.neg else out
@@ -1638,6 +1679,7 @@ class Analyzer:
             return P.EqualTo(l, r)
         if op in ("<>", "!="):
             return P.Not(P.EqualTo(l, r))
+        self._refuse_string_order(op, (l, r), scope)
         if op == "<":
             return P.LessThan(l, r)
         if op == "<=":
@@ -1647,6 +1689,18 @@ class Analyzer:
         if op == ">=":
             return P.GreaterThanOrEqual(l, r)
         raise SqlError(f"unknown operator {op!r}")
+
+    @staticmethod
+    def _refuse_string_order(op: str, exprs, scope) -> None:
+        """String ordering comparisons are not in this port yet (the
+        JAX package compares strings byte-wise): refuse one wherever an
+        operand's type is known to be a string."""
+        schema = scope.type_schema() if scope is not None else []
+        names = {n for n, _ in schema}
+        for e in exprs:
+            if e.references() <= names and \
+                    e.data_type(schema) == dt.STRING:
+                raise _not_ported(f"string {op}")
 
     def _lower_over(self, ast: OverA, scope) -> Expression:
         from ..plan.logical import SortField

@@ -12,7 +12,12 @@ Two string cases are held against plain Python over the same lanes
 instead, because the JAX package gets them wrong (ROADMAP.md C4): its
 string ``Coalesce`` cuts a result whose bytes outgrow both inputs' char
 buffers ('dd ee' comes back 'dd e'), and its string ``IN`` fails on a
-null in the set.
+null in the set. So are the faults this port repairs and the JAX
+package keeps (ROADMAP.md C8, C9): a float cast to SMALLINT or TINYINT
+goes through INT and wraps, and ``Substring`` counts code points with
+Spark's ``substringSQL`` bounds. String MIN / MAX in a GROUP BY (C7)
+run through both packages' ``session.sql`` and plain Python, and string
+``<`` / ``>`` raise ``SqlError`` in the port's analyzer.
 
 Every JAX cache read is made a miss for this module (tests/conftest.py
 wraps jax's ``_cache_read`` with four arguments; this jax passes five),
@@ -156,10 +161,47 @@ EXPRS = {
 }
 
 
+def _spark_to_int(x):
+    """Spark's non-ANSI double -> int: NaN is 0, saturate at INT's
+    range, truncate toward zero."""
+    if x != x:
+        return 0
+    return int(max(min(x, 2 ** 31 - 1), -2 ** 31))
+
+
+def _wrap(i, bits):
+    i &= (1 << bits) - 1
+    return i - (1 << bits) if i >= 1 << (bits - 1) else i
+
+
+#: cases the JAX package gets wrong (ROADMAP.md C8: it saturates a
+#: float cast to TINYINT or SMALLINT at the target's range), held
+#: against plain Python over the same lanes instead
+PYTHON_REFS = {
+    "cast_double_smallint": lambda: [
+        None if v is None else _wrap(_spark_to_int(v), 16)
+        for v in _python_lane("v")],
+    "cast_double_tinyint": lambda: [
+        None if v is None else _wrap(_spark_to_int(v), 8)
+        for v in _python_lane("v")],
+}
+EXPRS["cast_double_tinyint"] = lambda m: m.cast.Cast(m.col("v"), m.dt.INT8)
+
+
 @pytest.mark.parametrize("name", sorted(EXPRS))
 def test_expression_matches_jax(name, batches, jax_ns):
     batch, jbatch = batches
     e = EXPRS[name](_port_ns())
+    if name in PYTHON_REFS:
+        got = host_table.to_pydict(host_table.batch_to_table(ColumnarBatch(
+            [e.eval(batch)], ["x"], N, "cpu")))["x"]
+        want = PYTHON_REFS[name]()
+        assert got == want
+        # the lanes reach past INT's range and both signs of the wrap
+        assert min(g for g in got if g is not None) < 0 and \
+            any(v is not None and abs(v) > 2 ** 31
+                for v in _python_lane("v"))
+        return
     je = EXPRS[name](jax_ns)
     assert repr(e.data_type(batch.schema())) == \
         repr(je.data_type(jbatch.schema()))
@@ -241,3 +283,89 @@ def test_pairs_equal_in_bounded_passes(bytes_per_pass):
     vals = [v if m else "" for v, m in zip(*lanes["s"][:2])]
     want = [vals[i] == vals[j] for i, j in zip(ia.tolist(), ib.tolist())]
     assert got.tolist() == want
+
+
+def _spark_substring(v, pos, length):
+    """Spark's UTF8String.substringSQL over code points."""
+    n = len(v)
+    start = pos - 1 if pos > 0 else n + pos if pos < 0 else 0
+    end = start + length
+    start = max(start, 0)
+    return v[start:end] if start < end else ""
+
+
+@pytest.mark.parametrize("pos,length", [(0, 2), (1, 1), (2, 3), (-3, 2),
+                                        (-9, 4), (7, 5), (3, -1)])
+def test_c9_substring_counts_code_points(pos, length):
+    """SUBSTRING('héllo', 0, 2) = 'hé' (the JAX package returns 'h' and
+    half of 'é'); multi-byte text of 2, 3 and 4 bytes a code point."""
+    words = ["héllo", "日本語テキスト", "a\U0001F600b", "", "abc", None,
+             "ñ"]
+    lanes = {"s": (np.array([w or "" for w in words], object),
+                   np.array([w is not None for w in words]), "string")}
+    batch = host_table.table_to_batch(carry.host_table_from_lanes(lanes),
+                                      capacity=8, device="cpu")
+    got = host_table.to_pydict(host_table.batch_to_table(ColumnarBatch(
+        [strings.Substring(col("s"), pos, length).eval(batch)], ["x"],
+        len(words), "cpu")))["x"]
+    assert got == [None if w is None else _spark_substring(w, pos, length)
+                   for w in words]
+
+
+def test_c7_string_min_max_group_by_matches_jax_and_python(jax_ns):
+    """String MIN / MAX in a GROUP BY and a global aggregate, over
+    partials of several batches (the merge pass), nulls, empty strings
+    and a group with no value; the JAX package answers the same."""
+    from spark_rapids_tpu.conf import SrtConf as JConf
+    from spark_rapids_tpu.plan.session import TpuSession as JSession
+    from spark_rapids_tpu_torch.plan.session import TpuSession
+    rng = np.random.default_rng(12)
+    n = 300
+    words = np.array(["", "a", "ab", "b", "ba", "zz", "é", "store7"], object)
+    k = rng.integers(0, 9, n).astype(np.int64)
+    mask = (rng.random(n) > 0.2) & (k != 8)  # group 8 has no value
+    lanes = {"k": (k, np.ones(n, bool), "bigint"),
+             "s": (words[rng.integers(0, len(words), n)], mask, "string")}
+    settings = {"srt.sql.batchSizeRows": 64}
+    session = TpuSession(carry.conf_from_dict(settings), device="cpu")
+    session.create_or_replace_temp_view("t", session.create_dataframe(
+        carry.host_table_from_lanes(lanes)))
+    jsession = JSession(JConf(settings))
+    table = jax_ns.host.HostTable(
+        [jax_ns.host.HostColumn(lanes["k"][0], lanes["k"][1],
+                                jax_ns.dt.INT64),
+         jax_ns.host.HostColumn(lanes["s"][0], lanes["s"][1],
+                                jax_ns.dt.STRING)], ["k", "s"])
+    jsession.create_or_replace_temp_view("t", jsession.create_dataframe(
+        jax_ns.host.to_pydict(table), table.schema()))
+    py = {}
+    for kk, v, m in zip(k.tolist(), lanes["s"][0], mask):
+        py.setdefault(kk, [])
+        if m:
+            py[kk].append(v.encode())
+    for text, want in (
+            ("SELECT k, MIN(s) AS mn, MAX(s) AS mx FROM t GROUP BY k "
+             "ORDER BY k",
+             [{"k": kk, "mn": min(vs).decode() if vs else None,
+               "mx": max(vs).decode() if vs else None}
+              for kk, vs in sorted(py.items())]),
+            ("SELECT MIN(s) AS mn, MAX(s) AS mx FROM t",
+             [{"mn": "", "mx": "é"}]),
+            ("SELECT MIN(s) AS mn FROM t WHERE k = 8", [{"mn": None}])):
+        got = session.sql(text).collect()
+        assert got == want == jsession.sql(text).collect(), text
+    assert any(r["mn"] is None for r in session.sql(
+        "SELECT k, MIN(s) AS mn FROM t GROUP BY k").collect())
+
+
+@pytest.mark.parametrize("pred", ["s < 'b'", "s >= s2", "'a' > s",
+                                  "s BETWEEN 'a' AND 'c'"])
+def test_c7_string_order_comparison_is_refused(pred):
+    from spark_rapids_tpu_torch.plan.session import TpuSession
+    from spark_rapids_tpu_torch.sql.parser import SqlError
+    session = TpuSession(device="cpu")
+    session.create_or_replace_temp_view("t", session.create_dataframe(
+        carry.host_table_from_lanes(_lanes())))
+    with pytest.raises(SqlError, match="not in this port yet"):
+        session.sql(f"SELECT k FROM t WHERE {pred}")
+    assert session.sql("SELECT k FROM t WHERE k < 3 AND s = 'a'").collect()

@@ -13,7 +13,17 @@ against the JAX package on the same seeded inputs, on the CPU.
 - the bloom filter's bits (exact);
 - ``_prelude_fast``: group ids, ``ok`` and group count (exact), and the
   fall back to the sort path when ``ok`` is false;
-- ``TopNExec`` against the JAX package's sort + limit (exact order).
+- ``TopNExec`` against the JAX package's sort + limit (exact order);
+- ``left_join`` and ``semi_anti_join`` against the JAX package's, with
+  their capacity reports, and every join type (left, right and full
+  outer, semi, anti) through both DataFrame APIs and plain Python, on
+  the direct and the sub-partition path (a hot key's bucket runs whole
+  for the outer and anti joins), with the bloom pre-filter only where it
+  is sound; an empty build side; NaN join keys (fault C5: Spark joins
+  NaN to NaN, the JAX package does not, so plain Python is the
+  reference); the nested-loop join with and without a condition; and
+  ``session.sql``'s LEFT / RIGHT / FULL OUTER, CROSS and comma joins
+  against plain Python.
 
 Every JAX cache read is made a miss for this module (tests/conftest.py
 wraps jax's ``_cache_read`` with four arguments; this jax passes five),
@@ -29,11 +39,12 @@ import torch
 from spark_rapids_tpu_torch import carry
 from spark_rapids_tpu_torch.exec.base import ExecContext
 from spark_rapids_tpu_torch.expr import aggregates as Agg
-from spark_rapids_tpu_torch.expr.core import col
+from spark_rapids_tpu_torch.expr import predicates as P
+from spark_rapids_tpu_torch.expr.core import Alias, col, lit
 from spark_rapids_tpu_torch.ops import bloom as B
 from spark_rapids_tpu_torch.ops import kernels as K
 from spark_rapids_tpu_torch.plan import host_table
-from spark_rapids_tpu_torch.plan.session import TpuSession
+from spark_rapids_tpu_torch.plan.session import DataFrame, TpuSession
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -359,13 +370,21 @@ def test_exec_context_defaults_to_the_card():
 
 
 def test_join_refuses_what_is_not_ported():
+    """Where the JAX planner drops an outer join's condition or runs a
+    keyless outer join as inner, the port raises."""
+    from spark_rapids_tpu_torch.plan import logical as L
     session = TpuSession(device="cpu")
     lanes = {"a": (np.arange(4, dtype=np.int64), np.ones(4, bool), "bigint")}
     df = session.create_dataframe(carry.host_table_from_lanes(lanes))
-    with pytest.raises(NotImplementedError):
-        df.join(df, on="a", how="left")
-    with pytest.raises(NotImplementedError):
-        df.cross_join(df)
+    other = df.select(Alias(col("a"), "b"))
+    cond = P.GreaterThan(col("a"), col("b"))
+    for plan in (L.Join(df.plan, other.plan, [col("a")], [col("b")],
+                        "left_outer", condition=cond),
+                 L.Join(df.plan, other.plan, [], [], "left_outer")):
+        with pytest.raises(NotImplementedError, match="not in this port"):
+            DataFrame(session, plan).collect()
+    with pytest.raises(ValueError, match="unknown join type"):
+        df.join(other, on=([col("a")], [col("b")]), how="sideways")
 
 
 def test_join_keys_of_differing_types_meet_through_a_cast():
@@ -413,3 +432,272 @@ def test_dates_join_as_keys():
     assert len(rows) == 6
     assert all(r["d"] == r["e"] and isinstance(r["d"], datetime.date)
                for r in rows)
+
+
+# --- outer, semi, anti and nested-loop joins --------------------------------
+
+
+def _py_rows(lanes):
+    """Rows of {name: (values, mask, type)} lanes as tuples of Python
+    values, None for null."""
+    cols = [[(v.item() if hasattr(v, "item") else v) if m else None
+             for v, m in zip(vals, mask)] for vals, mask, _ in lanes.values()]
+    return list(zip(*cols))
+
+
+def _key_eq(a, b):
+    """Spark's join key equality: a null matches nothing, NaN = NaN."""
+    if a is None or b is None:
+        return False
+    return a == b or (a != a and b != b)
+
+
+def _py_join(left, right, li, ri, how, n_left, n_right):
+    """Plain Python join of row tuples on column li = column ri."""
+    out, right_hit = [], set()
+    for lrow in left:
+        hits = [j for j, r in enumerate(right) if _key_eq(lrow[li], r[ri])]
+        right_hit.update(hits)
+        if how == "left_semi":
+            out += [lrow] if hits else []
+        elif how == "left_anti":
+            out += [] if hits else [lrow]
+        else:
+            out += [lrow + right[j] for j in hits]
+            if not hits and how in ("left_outer", "full_outer"):
+                out.append(lrow + (None,) * n_right)
+    if how in ("right_outer", "full_outer"):
+        out += [(None,) * n_left + r for j, r in enumerate(right)
+                if j not in right_hit]
+    return out
+
+
+def _repr_canon(rows):
+    """Rows as a sorted multiset of reprs (NaN != NaN as a float)."""
+    return sorted(repr(tuple(r)) for r in rows)
+
+
+_HOW = {"left": "left_outer", "right": "right_outer", "full": "full_outer",
+        "semi": "left_semi", "anti": "left_anti", "inner": "inner"}
+
+
+def test_c5_nan_keys_join_as_in_spark():
+    """y = (0.0, -0.0, NaN, -NaN) joined to z = (-0.0, NaN) on y = z:
+    both zeros match -0.0 and both NaNs match NaN, 4 rows (the JAX
+    package keeps only the two zero rows)."""
+    y = np.array([0.0, -0.0, np.nan, -np.nan])
+    z = np.array([-0.0, np.nan])
+    left = {"y": (y, np.ones(4, bool), "double")}
+    right = {"z": (z, np.ones(2, bool), "double")}
+    want = _py_join(_py_rows(left), _py_rows(right), 0, 0, "inner", 1, 1)
+    assert len(want) == 4
+    session = TpuSession(device="cpu")
+    ldf = session.create_dataframe(carry.host_table_from_lanes(left))
+    rdf = session.create_dataframe(carry.host_table_from_lanes(right))
+    got = ldf.join(rdf, on=([col("y")], [col("z")])).collect()
+    assert _repr_canon(tuple(r.values()) for r in got) == _repr_canon(want)
+    anti = ldf.join(rdf, on=([col("y")], [col("z")]), how="anti").collect()
+    assert anti == []
+    # the kernel itself: every candidate pair verifies
+    lb, rb = (host_table.table_to_batch(carry.host_table_from_lanes(x),
+                                        device="cpu") for x in (left, right))
+    _, _, valid, total, _ = K.join_gather_maps(
+        [lb.column("y")], [rb.column("z")], lb.live_mask(), rb.live_mask(),
+        8)
+    assert total == int(valid.sum()) == 4
+
+
+def test_left_join_kernel_matches_jax_and_reports_its_need():
+    probe, build = _join_sides(seed=5)
+    p, jp = _both_batches(probe, 2048)
+    b, jb = _both_batches(build, 1024)
+    pk, bk = [p.column("pk")], [b.column("bk")]
+    jpk, jbk = [jp.column("pk")], [jb.column("bk")]
+    out, need = K.left_join(p, b, pk, bk, 2048)
+    _, jneed = jK.left_join(jp, jb, jpk, jbk, 2048)
+    assert out is None and need == int(jneed) > 2048
+    cap = 1 << (need - 1).bit_length()
+    out, need2 = K.left_join(p, b, pk, bk, cap)
+    jout, jneed2 = jK.left_join(jp, jb, jpk, jbk, cap)
+    # with every candidate in the window, the unmatched probe rows are
+    # known: the output outgrows the candidates, still within the retry
+    assert need < need2 == int(jneed2) == out.num_rows <= cap
+    assert out.num_rows == int(jout.num_rows)
+    got = _rows(host_table.batch_to_table(out))
+    assert got == _canon(zip(*jhost.to_pydict(
+        jhost.batch_to_table(jout)).values()))
+    want = _py_join(_py_rows(probe), _py_rows(build), 0, 0, "left_outer",
+                    3, 3)
+    assert _repr_canon(got) == _repr_canon(want)
+
+
+@pytest.mark.parametrize("anti", [False, True])
+def test_semi_anti_join_kernel_matches_jax(anti):
+    probe, build = _join_sides(seed=6)
+    p, jp = _both_batches(probe, 2048)
+    b, jb = _both_batches(build, 1024)
+    args = ([b.column("bk")], [p.column("pk")], b.live_mask(), anti)
+    jargs = ([jb.column("bk")], [jp.column("pk")], jb.live_mask(), anti)
+    _, total = K.semi_anti_join(p, *args)
+    _, jtotal = jK.semi_anti_join(jp, *jargs)
+    # the candidate window overflows the probe's capacity: the exec retries
+    assert total == int(jtotal) > p.capacity
+    cap = 1 << (total - 1).bit_length()
+    out, _ = K.semi_anti_join(p, *args, scratch_capacity=cap)
+    jout, _ = jK.semi_anti_join(jp, *jargs, scratch_capacity=cap)
+    got = _rows(host_table.batch_to_table(out))
+    assert got == _canon(zip(*jhost.to_pydict(
+        jhost.batch_to_table(jout)).values()))
+    how = "left_anti" if anti else "left_semi"
+    want = _py_join(_py_rows(probe), _py_rows(build), 0, 0, how, 3, 3)
+    assert _repr_canon(got) == _repr_canon(want)
+
+
+def _dfs(session, probe, build):
+    return (session.create_dataframe(carry.host_table_from_lanes(probe)),
+            session.create_dataframe(carry.host_table_from_lanes(build)))
+
+
+@pytest.mark.parametrize("sub_rows", [None, 400])
+@pytest.mark.parametrize("how", ["left", "right", "full", "semi", "anti"])
+def test_join_types_match_jax_and_python(how, sub_rows):
+    """Each join type through both DataFrame APIs and plain Python, on
+    null and duplicated keys whose matches overflow the first output
+    capacity; with a small ``subPartitionRows`` the hot key's bucket
+    stays over the threshold and runs whole (row chunks of the build
+    side would emit a left outer or anti row once per chunk)."""
+    probe, build = _join_sides(seed=8)
+    settings = dict(SETTINGS)
+    if sub_rows:
+        settings["srt.sql.join.subPartitionRows"] = sub_rows
+    session = TpuSession(carry.conf_from_dict(settings), device="cpu")
+    pdf, bdf = _dfs(session, probe, build)
+    on = ([col("pk")], [col("bk")])
+    got = _rows(pdf.join(bdf, on=on, how=how).to_table())
+    metrics = session._last_execution[1].metric_totals()
+    jsession = JSession(JConf(settings))
+
+    def jdf(lanes):
+        table = jhost.HostTable([jhost.HostColumn(v, m, _jtypes()[t])
+                                 for v, m, t in lanes.values()], list(lanes))
+        return jsession.create_dataframe(jhost.to_pydict(table),
+                                         table.schema())
+    ref = jdf(probe).join(jdf(build), on=([jcol("pk")], [jcol("bk")]),
+                          how=how).collect()
+    assert got == _canon(r.values() for r in ref)
+    want = _py_join(_py_rows(probe), _py_rows(build), 0, 0, _HOW[how], 3, 3)
+    assert _repr_canon(got) == _repr_canon(want)
+    if sub_rows and how in ("left", "semi", "anti"):
+        assert metrics["joinSubPartitions"] == 3
+        assert metrics["joinSubPartitionSkew"] >= 1
+    # the bloom pre-filter runs only where a dropped row makes no output
+    assert ("bloomFilteredRows" in metrics) == (how == "semi")
+    assert metrics.get("joinOverflowRetries", 0) > 0 or how == "anti"
+
+
+@pytest.mark.parametrize("how", ["inner", "left", "right", "full", "semi",
+                                 "anti"])
+def test_join_with_an_empty_build_side(how):
+    """No build row: nothing for inner and semi joins, the probe rows
+    for anti, null-extended rows (strings read as NULL) for the outer
+    joins that preserve the non-empty side."""
+    probe, build = _join_sides(seed=9, n_probe=300, n_build=300)
+    session = TpuSession(device="cpu")
+    pdf, bdf = _dfs(session, probe, build)
+    empty = bdf.filter(P.LessThan(col("bk"), lit(-1)))
+    rows = pdf.join(empty, on=([col("pk")], [col("bk")]), how=how).collect()
+    want = _py_join(_py_rows(probe), [], 0, 0, _HOW[how], 3, 3)
+    assert _repr_canon(tuple(r.values()) for r in rows) == \
+        _repr_canon(want)
+    if how in ("left", "full"):
+        assert len(rows) == 300 and all(r["bs"] is None for r in rows)
+
+
+@pytest.mark.parametrize("with_condition", [False, True])
+def test_nested_loop_join_matches_jax_and_python(with_condition):
+    """cross_join with and without a condition; the exec pairs in tiles
+    of 7 rows, so tiles cross probe rows."""
+    from spark_rapids_tpu_torch.plan.overrides import apply_overrides
+    rng = np.random.default_rng(10)
+    left = {"a": (rng.integers(0, 9, 23), rng.random(23) > 0.1, "bigint"),
+            "s": (np.array(["x", "yy", ""], object)[rng.integers(0, 3, 23)],
+                  rng.random(23) > 0.1, "string")}
+    right = {"b": (rng.integers(0, 9, 11), rng.random(11) > 0.1, "bigint")}
+    session = TpuSession(device="cpu")
+    ldf, rdf = _dfs(session, left, right)
+    cond = P.LessThan(col("a"), col("b")) if with_condition else None
+    q = ldf.cross_join(rdf, cond)
+    physical = apply_overrides(q.plan, session.conf)
+    assert type(physical).__name__ == ("BroadcastNestedLoopJoinExec"
+                                       if with_condition
+                                       else "CartesianProduct"
+                                       "Exec")
+    physical.tile_rows = 7
+    got = _canon(r for b in physical.execute(ExecContext(device="cpu"))
+                 for r in zip(*host_table.to_pydict(
+                     host_table.batch_to_table(b)).values()))
+    want = [l + r for l in _py_rows(left) for r in _py_rows(right)
+            if not with_condition or (l[0] is not None and r[0] is not None
+                                      and l[0] < r[0])]
+    assert got == _canon(want)
+    assert _rows(q.to_table()) == got
+    jsession = JSession(JConf({}))
+
+    def jdf(lanes):
+        table = jhost.HostTable([jhost.HostColumn(v, m, _jtypes()[t])
+                                 for v, m, t in lanes.values()], list(lanes))
+        return jsession.create_dataframe(jhost.to_pydict(table),
+                                         table.schema())
+    from spark_rapids_tpu.expr import predicates as jP
+    jcond = jP.LessThan(jcol("a"), jcol("b")) if with_condition else None
+    ref = jdf(left).cross_join(jdf(right), jcond).collect()
+    assert got == _canon(r.values() for r in ref)
+
+
+def _sql_tables():
+    """l(k, a) and r(k, b) with NULL and duplicated keys."""
+    rng = np.random.default_rng(11)
+
+    def side(n, name):
+        return {"k": (rng.integers(0, 6, n).astype(np.int64),
+                      rng.random(n) > 0.15, "bigint"),
+                name: (np.arange(n, dtype=np.int64) * 10, np.ones(n, bool),
+                       "bigint")}
+    return side(17, "a"), side(13, "b")
+
+
+@pytest.mark.parametrize("kind", ["LEFT JOIN", "RIGHT JOIN",
+                                  "FULL OUTER JOIN", "JOIN"])
+def test_sql_outer_joins_match_python(kind):
+    """``session.sql``'s LEFT, RIGHT and FULL OUTER JOIN against plain
+    Python, NULL keys matching nothing and null-extended rows reading
+    NULL in every column of the other side."""
+    left, right = _sql_tables()
+    session = TpuSession(device="cpu")
+    ldf, rdf = _dfs(session, left, right)
+    session.create_or_replace_temp_view("l", ldf)
+    session.create_or_replace_temp_view("r", rdf)
+    rows = session.sql(f"SELECT l.k, a, r.k AS rk, b FROM l {kind} r "
+                       "ON l.k = r.k").collect()
+    how = {"LEFT JOIN": "left_outer", "RIGHT JOIN": "right_outer",
+           "FULL OUTER JOIN": "full_outer", "JOIN": "inner"}[kind]
+    want = _py_join(_py_rows(left), _py_rows(right), 0, 0, how, 2, 2)
+    assert _repr_canon(tuple(r.values()) for r in rows) == \
+        _repr_canon(want)
+
+
+@pytest.mark.parametrize("text,cond", [
+    ("SELECT a, b FROM l CROSS JOIN r", lambda a, b: True),
+    ("SELECT a, b FROM l, r WHERE a < b", lambda a, b: a < b),
+])
+def test_sql_cross_and_comma_joins_match_python(text, cond):
+    left, right = _sql_tables()
+    session = TpuSession(device="cpu")
+    ldf, rdf = _dfs(session, left, right)
+    session.create_or_replace_temp_view("l", ldf)
+    session.create_or_replace_temp_view("r", rdf)
+    rows = session.sql(text).collect()
+    want = [(l[1], r[1]) for l in _py_rows(left) for r in _py_rows(right)
+            if cond(l[1], r[1])]
+    assert _repr_canon(tuple(r.values()) for r in rows) == \
+        _repr_canon(want)

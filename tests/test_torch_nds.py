@@ -2,18 +2,21 @@
 
 - The port's ``register_nds`` tables equal the JAX package's
   ``generate_chunk`` lanes for all 24 tables at 20,000 rows.
-- Each query of ``NDS_SLICE``, ``NDS_WINDOW`` and ``NDS_ALSO_RUNS`` runs
-  through the port (one partition, the kernels' plain versions) and
-  through the JAX package on the same generated data; results match
+- Each query of ``NDS_SLICE``, ``NDS_WINDOW``, ``NDS_ALSO_RUNS`` and
+  ``NDS_JOINS_SETOPS`` (66 in all) runs through the port (one
+  partition, the kernels' plain versions) and through the JAX package
+  on the same generated data; results match
   (floats to 1e-9, both float64; the rest exactly; ties cut by a LIMIT
   compare on their ORDER BY keys) and the port's rows are in ORDER BY
   order.
-- The same queries reach the grouped kernel (B3) in both packages: the
-  port's ``pallasBatches`` against the JAX package's, with a counting
-  wrapper on the JAX ``tile_group_reduce``.
+- The same queries reach the grouped kernel (B3), and the same reach
+  the fused global one (B1), in both packages: the port's batches
+  through each lane (its plain calls) against the JAX package's
+  ``pallasBatches`` split by lane, with counting wrappers on the JAX
+  ``tile_group_reduce`` and ``tile_reduce``.
 
 The JAX side runs in subprocesses of this file (its ``__main__`` block),
-seven chunks at once, started before the port's queries run and
+eight chunks at once, started before the port's queries run and
 balanced by their JAX time, each registering the tables as parquet in a shared
 directory: a JAX compile inside pytest fails on tests/conftest.py's
 ``_cache_read`` wrapper, and the JAX package's own NDS suite keeps its
@@ -33,7 +36,8 @@ import numpy as np
 import pytest
 
 from spark_rapids_tpu_torch.conf import SrtConf
-from spark_rapids_tpu_torch.models.nds import (NDS_ALSO_RUNS, NDS_QUERIES,
+from spark_rapids_tpu_torch.models.nds import (NDS_ALSO_RUNS,
+                                               NDS_JOINS_SETOPS, NDS_QUERIES,
                                                NDS_SLICE, NDS_WINDOW,
                                                nds_specs, register_nds)
 from spark_rapids_tpu_torch.ops import device_kernels as DK
@@ -43,22 +47,23 @@ from spark_rapids_tpu_torch.testing import (compare_rows, order_keys,
 
 SCALE = 20_000
 RTOL = 1e-9
-QUERIES = NDS_SLICE + NDS_WINDOW + NDS_ALSO_RUNS
+QUERIES = NDS_SLICE + NDS_WINDOW + NDS_ALSO_RUNS + NDS_JOINS_SETOPS
 #: the JAX side's chunks, run as concurrent subprocesses, each pinned to
-#: a core of its own (with a cold JAX compile cache each takes 190-230 s
-#: of one core, almost all of it compiling; the chunks share one
-#: persistent cache, so a rerun takes a fraction of that); the last
-#: holds the queries that group without an aggregate (q37, q82) and
-#: others that never reach the grouped lane, and runs without the forced
-#: grouped lane
-CHUNKS = (("q15", "q46", "q47", "q50", "q99"),
-          ("q13", "q26", "q40", "q44", "q59", "q68", "q72"),
-          ("q12", "q20", "q21", "q65", "q73"),
-          ("q9", "q25", "q43", "q51", "q52", "q58", "q79"),
-          ("q19", "q31", "q34", "q48", "q55", "q57"),
-          ("q3", "q7", "q42", "q53", "q83", "q85", "q98"),
+#: a core of its own (with a cold JAX compile cache each takes 240-410 s
+#: of one core, almost all of it compiling; the chunks share one persistent cache, so a rerun takes a
+#: fraction of that); the last holds the queries that group without an
+#: aggregate (q37, q82, the CTEs of q97) and others that never reach
+#: the grouped lane, and runs without the forced grouped lane
+CHUNKS = (("q15", "q46", "q47", "q50", "q99", "q38", "q90"),
+          ("q13", "q26", "q40", "q44", "q59", "q68", "q72", "q66", "q28"),
+          ("q12", "q20", "q21", "q65", "q73", "q60", "q71", "q93"),
+          ("q9", "q25", "q43", "q51", "q52", "q58", "q79", "q76", "q61",
+           "q87"),
+          ("q19", "q31", "q34", "q48", "q55", "q57", "q56", "q33", "q11"),
+          ("q3", "q7", "q42", "q53", "q83", "q85", "q98", "q74"),
+          ("q4", "q88", "q54"),
           ("q24", "q29", "q37", "q62", "q63", "q64", "q82", "q84", "q89",
-           "q91", "q96"))
+           "q91", "q96", "q97"))
 NO_AGGREGATE = CHUNKS[-1]
 #: non-aggregate SELECTs whose ORDER BY mixes an expression with output
 #: columns: the JAX analyzer orders them by the output columns first
@@ -66,6 +71,27 @@ NO_AGGREGATE = CHUNKS[-1]
 #: orders and cuts its rows
 ORDER_FAULT = ("q47", "q57", "q89")
 TABLES = [s.name for s in nds_specs(SCALE)]
+
+
+def _lane_batches(physical, metrics) -> dict:
+    """The JAX run's ``pallasBatches``: in all, under the grouped lane
+    (aggregates with grouping keys, B3) and under the fused global lane
+    (B1). A fused pipeline counts its terminal aggregate's batches."""
+    nodes, stack = {}, [physical]
+    while stack:
+        node = stack.pop()
+        nodes[node.exec_id] = node
+        stack.extend(node.children)
+    out = {"pallas_batches": 0, "b3_batches": 0, "b1_batches": 0}
+    for exec_id, m in metrics.items():
+        if "pallasBatches" not in m:
+            continue
+        n = m["pallasBatches"].value
+        agg = getattr(nodes[exec_id], "_agg", None) or nodes[exec_id]
+        lane = "b3_batches" if agg.group_exprs else "b1_batches"
+        out[lane] += n
+        out["pallas_batches"] += n
+    return out
 
 
 def _jax_chunk(data_dir: str, out_path: str, qids, force: bool,
@@ -104,10 +130,9 @@ def _jax_chunk(data_dir: str, out_path: str, qids, force: bool,
         if q in ORDER_FAULT:
             text = re.sub(r"\bLIMIT\s+\d+\s*$", "", text.rstrip())
         rows = session.sql(text).collect()
-        metrics = session._last_execution["ctx"].metrics
-        pb = sum(m["pallasBatches"].value for m in metrics.values()
-                 if "pallasBatches" in m)
-        out[q] = {"rows": rows, "calls": dict(calls), "pallas_batches": pb}
+        last = session._last_execution
+        out[q] = {"rows": rows, "calls": dict(calls),
+                  **_lane_batches(last["physical"], last["ctx"].metrics)}
     with open(out_path, "w") as f:
         json.dump(out, f)
 
@@ -171,12 +196,16 @@ def port_results(port_tables, jax_procs):
     session, _ = port_tables
     out = {}
     for q in QUERIES:
-        DK.reset_counts()
         df = session.sql(NDS_QUERIES[q])
+        # counted from here, as the JAX side's pallasBatches is: a scalar
+        # subquery (q9, q24) runs, and may launch B1, while the text is
+        # analyzed
+        DK.reset_counts()
         rows = df.collect()
         metrics = session._last_execution[1].metric_totals()
         out[q] = {"rows": rows, "columns": df.columns,
                   "pallas_batches": metrics.get("pallasBatches", 0),
+                  "b1_plain": DK.tile_reduce.plain_calls,
                   "b3_plain": DK.tile_group_reduce.plain_calls}
     return out
 
@@ -239,23 +268,49 @@ def test_query_matches_jax(q, port_results, jax_results):
 @pytest.mark.parametrize("q", QUERIES)
 def test_same_queries_reach_the_grouped_kernel(q, port_results,
                                                jax_results):
+    """The same queries reach the grouped kernel (B3), and the same
+    reach the fused global one (B1), in both packages."""
     port, jax = port_results[q], jax_results[q]
-    # the port's plain version ran once per batch the lane took
-    assert port["b3_plain"] == port["pallas_batches"]
+    # the port's plain versions ran once per batch the lanes took
+    assert port["b3_plain"] + port["b1_plain"] == port["pallas_batches"]
     assert (port["pallas_batches"] > 0) == (jax["pallas_batches"] > 0)
-    if jax["pallas_batches"]:
+    assert (port["b3_plain"] > 0) == (jax["b3_batches"] > 0)
+    assert (port["b1_plain"] > 0) == (jax["b1_batches"] > 0)
+    # the JAX lanes' batches went through its kernels (the counts are
+    # traces, and the grouped lane's one-time probe counts too, so they
+    # hold only one way)
+    if jax["b3_batches"]:
         assert jax["calls"]["tile_group_reduce"] > 0
+    if jax["b1_batches"]:
+        assert jax["calls"]["tile_reduce"] > 0
 
 
 def test_grouped_kernel_queries(port_results):
     """At this scale B3 takes q3, q15, q43, q52, q55 and q79 of the
     slice (q42's and q19's join outputs are too small for the lane's
     1024-row floor), the GROUP BY under q12's, q20's, q44's and q53's
-    windows, and q31, q34, q46, q65, q72 and q73."""
-    reached = {q for q in QUERIES if port_results[q]["pallas_batches"]}
+    windows, q31, q34, q46, q65, q72 and q73, and q4, q11, q33, q66 and
+    q74 of the joins and set operations."""
+    reached = {q for q in QUERIES if port_results[q]["b3_plain"]}
     assert reached == {"q3", "q15", "q43", "q52", "q55", "q79", "q12",
                        "q20", "q44", "q53", "q31", "q34", "q46", "q65",
-                       "q72", "q73"}
+                       "q72", "q73", "q4", "q11", "q33", "q66", "q74"}
+
+
+def test_global_kernel_queries(port_results):
+    """B1 takes the global aggregates over one-row cross products (q28,
+    q61, q90) and the COUNT over INTERSECT (q38) and EXCEPT (q87)."""
+    reached = {q for q in QUERIES if port_results[q]["b1_plain"]}
+    assert reached == {"q28", "q61", "q90", "q38", "q87"}
+
+
+def test_c3_and_empty_joins(port_results):
+    """q88's store is named 'store1' and q93's reason 'reason 3', which
+    no generated row is (ROADMAP.md C3): q88 counts 0 in every column
+    and q93's inner join after its left outer join keeps no row."""
+    assert port_results["q88"]["rows"] == [
+        {c: 0 for c in port_results["q88"]["columns"]}]
+    assert port_results["q93"]["rows"] == []
 
 
 def test_c3_queries_reach_no_row(port_results):

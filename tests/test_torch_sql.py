@@ -71,7 +71,7 @@ def session():
     ("SELECT k, STDDEV_SAMP(v) OVER (PARTITION BY k) FROM t",
      "function 'stddev_samp'"),
     ("SELECT k FROM t WHERE s LIKE 'a%'", "LIKE"),
-    ("SELECT k FROM t UNION SELECT k FROM t", "UNION"),
+    ("SELECT round(v, 2) FROM t", "function 'round'"),
     ("SELECT k FROM t WHERE k IN (SELECT k FROM t)", "subquery predicate"),
     ("SELECT k, SUM(v) FROM t GROUP BY ROLLUP(k)", "ROLLUP"),
     ("SELECT COUNT(DISTINCT k) FROM t", "count(DISTINCT"),
@@ -94,8 +94,8 @@ def nds_session():
 
 @pytest.mark.parametrize("q", ["q1", "q2", "q36"])
 def test_unported_nds_queries_raise(nds_session, q):
-    """q1 (a correlated scalar subquery), q2 (UNION ALL) and q36 (a
-    window over a ROLLUP) stop in the analyzer."""
+    """q1 (a correlated scalar subquery), q2 (``round``; its UNION ALL
+    runs) and q36 (a window over a ROLLUP) stop in the analyzer."""
     with pytest.raises(SqlError, match="not in this port yet"):
         nds_session.sql(NDS_QUERIES[q])
 
@@ -130,11 +130,18 @@ def test_nds_window_query_runs(nds_session):
 
 
 def test_outer_join_raises(session):
-    df = session.table("t")
-    with pytest.raises(NotImplementedError, match="left_outer"):
-        df.join(df, "k", how="left")
-    with pytest.raises(NotImplementedError):
-        session.sql("SELECT a.k FROM t a CROSS JOIN t b")
+    """Outer joins run; what still raises is an outer join the JAX
+    planner would run wrongly: with a residual condition or without
+    equi-keys (ROADMAP.md C10)."""
+    with pytest.raises(SqlError, match="non-equi ON condition"):
+        session.sql("SELECT a.k FROM t a LEFT JOIN t b ON a.k = b.k "
+                    "AND a.v < b.v")
+    with pytest.raises(SqlError, match="without equi-condition"):
+        session.sql("SELECT a.k FROM t a FULL OUTER JOIN t b ON a.v < b.v")
+    rows = session.sql("SELECT a.k, b.k AS bk FROM t a LEFT JOIN t b "
+                       "ON a.k = b.k").collect()
+    assert all((r["k"] is None) == (r["bk"] is None) for r in rows)
+    assert session.sql("SELECT a.k FROM t a CROSS JOIN t b").collect()
 
 
 def test_catalog_and_sql_run(session):

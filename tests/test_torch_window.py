@@ -21,8 +21,10 @@ Where the port departs from the JAX package, the case says how:
 
 Beyond the JAX suites: a float64 running sum whose partition follows one
 whose total is about 1e12 (held at 1e-9 against ``math.fsum``), the
-batched running exec carrying state across batches, and the segmented
-primitives against plain Python.
+batched running exec carrying state across batches, window MIN over
+frames holding NaN (ROADMAP.md C6: Spark puts NaN above every number,
+the JAX package returns NaN; plain Python reference, over each frame
+kind), and the segmented primitives against plain Python.
 """
 
 import bisect
@@ -510,6 +512,63 @@ def test_float_running_sum_after_a_1e12_partition(batched):
         want = math.fsum(seg[:i - start + 1])
         assert got[i][0] == pytest.approx(want, rel=RTOL, abs=0), i
         assert got[i][1] == pytest.approx(math.fsum(seg), rel=RTOL, abs=0)
+
+
+def _py_min(vals):
+    """Spark's MIN: nulls skipped, NaN above every number."""
+    vals = [v for v in vals if v is not None]
+    if not vals:
+        return None
+    nums = [v for v in vals if v == v]
+    return min(nums) if nums else float("nan")
+
+
+@pytest.mark.parametrize("frame", ["whole", "running", "rows", "range",
+                                   "batched"])
+def test_c6_window_min_puts_nan_above_numbers(frame):
+    """MIN over a frame holding NaN takes the least number: the whole
+    partition (NaN, 5.0, 3.0) gives 3.0 (the JAX package gives NaN), and
+    so do the running scan, a ROWS frame, a RANGE frame (the sparse
+    table) and the batched running exec's carry across batches; only a
+    frame of NaN and nulls alone gives NaN. Plain Python reference."""
+    rng = np.random.default_rng(5)
+    n = 240
+    k = [0, 0, 0] + [int(x) for x in rng.integers(1, 4, n - 3)]
+    v = [float("nan"), 5.0, 3.0] + [
+        None if r < 0.15 else float("nan") if r < 0.4 else float(x)
+        for r, x in zip(rng.random(n - 3), rng.integers(-9, 9, n - 3))]
+    table = {"k": (k, "bigint"), "o": (list(range(n)), "bigint"),
+             "v": (v, "double")}
+    _, df = _port_df(table, {"srt.sql.batchSizeRows": 32})
+    spec = {"whole": (None, None, True), "running": (None, 0, True),
+            "batched": (None, 0, True), "rows": (-2, 1, True),
+            "range": (-5, 0, False)}[frame]
+    w = PORT.Window.partition_by("k")
+    if frame != "whole":
+        w = w.order_by("o").with_frame(_frame(PORT, spec[0], spec[1],
+                                              rows=spec[2]))
+    q = df.select("k", "o", PORT.Min(PORT.col("v")).over(w).alias("mn"))
+    tree = apply_overrides(q.plan, q.session.conf).tree_string()
+    assert ("BatchedRunningWindow" in tree) == (frame in ("running",
+                                                          "batched"))
+    got = {r["o"]: r["mn"] for r in q.collect()}
+    for i in range(n):
+        part = [j for j in range(n) if k[j] == k[i]]
+        lo, hi = spec[0], spec[1]
+        if frame == "whole":
+            frame_rows = part
+        elif frame == "range":
+            frame_rows = [j for j in part if i + lo <= j <= i]
+        else:
+            pos = part.index(i)
+            frame_rows = part[max(0, pos + lo) if lo is not None else 0:
+                              pos + hi + 1]
+        want = _py_min([v[j] for j in frame_rows])
+        assert repr(got[i]) == repr(want), (frame, i)
+    if frame == "whole":
+        assert got[0] == 3.0
+    else:  # some frame holds only NaN and nulls
+        assert any(isinstance(x, float) and x != x for x in got.values())
 
 
 def test_lag_string_default_longer_than_both_buffers():
