@@ -40,13 +40,17 @@ Needs one NVIDIA GPU (built for an H100: sm_90a), nvcc and triton. It
    ``scale_rows`` 28,800,000 (TPC-DS SF10's store_sales; q82 at
    2,880,000, SF1, because its join grows with the square of the scale)
    and moved to the card, then the ten window queries (``NDS_WINDOW``)
-   on the same tables: per query one first run and two warm runs,
+   on the same tables: per query one first run and one warm run,
    each held against a numpy reference written from the query text
    (``NdsNumpy``) and checked to be in ORDER BY order, and B3 held
    against its plain version on every batch it took; it logs wall
    times, fact rows/s, result rows, launches and ``pallasBatches`` per
    kernel and peak device memory, and checks that B3 carried q3, q42,
-   q43, q52 and q55;
+   q43, q52 and q55; then, on the inputs of the widest float group sum
+   that q12 and q98 each make, it times the float group sums
+   (``_seg_sum``) against one ``index_add_`` call and the hash-claim
+   path's sort of the group ids, and checks that five runs of each give
+   the same bits;
 6b. runs the 18 joins and set operations (``NDS_JOINS_SETOPS``: left
    and full outer joins, cross products, UNION ALL, INTERSECT, EXCEPT)
    on the same tables, plus ``Q93_OUTER`` (q93's left outer join
@@ -58,6 +62,22 @@ Needs one NVIDIA GPU (built for an H100: sm_90a), nvcc and triton. It
    package: this checks the CUDA path, not the semantics); B1 held
    against its plain version on every batch of the global aggregates
    it took (q28, q38, q61, q87, q90), B3 on every batch it took;
+6c. runs the 33 queries of ``NDS_SUBQUERY`` (subquery predicates,
+   COUNT(DISTINCT)), ``NDS_ROLLUP`` (ROLLUP with GROUPING()) and
+   ``NDS_FUNCS`` (round, stddev_samp, q49, q75) on the same tables, plus
+   ``Q10_OR`` (q10 without the county filter no address meets): a first
+   run and one warm run each, with the plan-time subqueries' share of
+   the first run logged; q6, q94, q10, q69, q45, q27, q36, q17, q2 and
+   ``Q10_OR`` held against ``NdsNumpy`` (q17 on its own tables at
+   ``NDS_Q17_ROWS``, as its join grows with the cube of the scale), the
+   others against their first run and, at 200,000 rows, the card's rows
+   against the port's CPU run (q67 against the CPU's ROLLUP sums
+   ``Q67_ROLLUP`` with ties left open, as B3 rounds a sum in another
+   order than its plain version, and its RANK breaks exact ties of
+   float sums by that rounding; ``Q67_ROLLUP`` itself against the CPU's
+   rows); B1 and B3 held against their plain versions on
+   every batch they took, the plan-time subqueries' included; B3 must
+   run under the ROLLUP queries of ``NDS_ROLLUP_B3_QUERIES``;
 7. runs two windows over all 28,800,000 store_sales rows, partitioned
    by the zipf-skewed ``ss_customer_sk`` (its 2% NULL partition
    included): (a) ROW_NUMBER, RANK and a ROWS running SUM, which the
@@ -66,12 +86,12 @@ Needs one NVIDIA GPU (built for an H100: sm_90a), nvcc and triton. It
    through two WindowExecs; each first run and three warm runs is held
    against numpy (lexsort and segment scans) on every row, with wall
    times, rows/s, peak device memory and operator self times;
-8. profiles one TPC-H q3, one NDS q3, one NDS q97 and one run of
-   window (a) (torch.profiler: device time by kernel and the device's
-   idle share; NDS q47 is not profiled: its 7.3 s of device kernels
-   cost about 150 s of profiler work), then logs the device kernels that one call of each kernel
-   launches (profiles last, because every profiler session slows the
-   host's later launches);
+8. profiles one TPC-H q3 and one run of window (a) (torch.profiler:
+   device time by kernel and the device's idle share; no NDS query is
+   profiled, so that the smoke stays inside its time: a profiled NDS
+   run costs 40-70 s of profiler work, q47's about 150 s; profiles
+   last, because every profiler session slows the host's later
+   launches);
 9. prints one JSON line of kernel numbers, then
    {"ok": true, "device": {...}} as its last line.
 
@@ -81,6 +101,7 @@ Any mismatch or error exits non-zero before the last line is printed.
 import datetime
 import gc
 import json
+import math
 import os
 import re
 import statistics
@@ -106,16 +127,32 @@ NDS_Q82_ROWS = 2_880_000
 NDS_B3_QUERIES = ("q3", "q42", "q43", "q52", "q55")
 NDS_FACTS = ("store_sales", "store_returns", "catalog_sales", "web_sales",
              "inventory")
-#: warm runs of each NDS_SLICE / NDS_WINDOW query (2, so that the smoke
-#: stays inside its time with the joins phase), and of each
-#: NDS_JOINS_SETOPS query
-WARM_RUNS = 2
+#: warm runs of each NDS_SLICE / NDS_WINDOW query (1, so that the smoke
+#: stays inside its time with phases 6b and 6c), and of each query of
+#: phases 6b and 6c
+WARM_RUNS = 1
 JOINS_WARM_RUNS = 1
 #: the NDS_JOINS_SETOPS queries held against NdsNumpy at SF10, one or
 #: more per new operator; the other ten are held, at JOINS_CROSS_ROWS,
 #: against the port's own run with device="cpu"
 JOINS_NUMPY = ("q93", "q97", "q90", "q28", "q38", "q87", "q71", "q33")
 JOINS_CROSS_ROWS = 200_000
+#: the phase-6c queries held against NdsNumpy, one per mechanism: a
+#: correlated scalar subquery (q6), EXISTS / NOT EXISTS with a residual
+#: and COUNT(DISTINCT) (q94), EXISTS under OR (q10, and Q10_OR below),
+#: NOT EXISTS (q69), IN (subquery) under OR (q45), ROLLUP with GROUPING()
+#: (q27), RANK over a ROLLUP (q36), stddev_samp (q17), round (q2); the
+#: other 24 are held like the ten of JOINS_CROSS_ROWS
+SUBQ_NUMPY = ("q6", "q94", "q10", "q69", "q45", "q27", "q36", "q17", "q2")
+#: q17 joins store_sales, store_returns and catalog_sales on (customer,
+#: item) before its date filter; the zipf customer keys make that join
+#: grow with the cube of the scale (the smoke logs its size at SF10 and
+#: here), so q17 runs on tables of this scale
+NDS_Q17_ROWS = 200_000
+#: the ROLLUP queries whose expanded groupings reach B3 at every scale
+#: (at 20,000 rows in tests/test_torch_nds.py, and at SF10 on the card;
+#: q14 takes it at 20,000 rows only)
+NDS_ROLLUP_B3_QUERIES = ("q5", "q36", "q67", "q70", "q77", "q80", "q86")
 #: q93's left outer join without its JOIN reason, whose
 #: r_reason_desc = 'reason 3' no row meets (ROADMAP.md C3): every
 #: store_sales row, null-extended where no return matches
@@ -134,6 +171,46 @@ Q93_OUTER = """
                    AND sr_ticket_number = ss_ticket_number) t
         GROUP BY ss_customer_sk
         ORDER BY ss_customer_sk"""
+#: the window queries whose float group sums are timed alone
+#: (expr/aggregates.py _seg_sum against index_add_) at SF10
+SEG_SUM_QUERIES = ("q12", "q98")
+#: q67's ROLLUP aggregate without the RANK over it
+Q67_ROLLUP = """
+        SELECT i_category, i_class, i_brand, s_store_id,
+               SUM(ss_sales_price * ss_quantity) AS sumsales
+        FROM store_sales
+        JOIN date_dim ON ss_sold_date_sk = d_date_sk
+        JOIN store ON ss_store_sk = s_store_sk
+        JOIN item ON ss_item_sk = i_item_sk
+        WHERE d_month_seq BETWEEN 1176 AND 1187
+        GROUP BY ROLLUP (i_category, i_class, i_brand, s_store_id)"""
+#: q10's EXISTS-under-OR without its ca_county IN ('county1', ...), which
+#: no generated address meets (ROADMAP.md C3): the existence markers
+#: over left outer joins then decide which customers count
+Q10_OR = """
+        SELECT cd_gender, cd_marital_status, cd_education_status,
+               COUNT(*) AS cnt1, cd_purchase_estimate, COUNT(*) AS cnt2
+        FROM customer c
+        JOIN customer_address ca ON c.c_current_addr_sk = ca.ca_address_sk
+        JOIN customer_demographics ON cd_demo_sk = c.c_current_cdemo_sk
+        WHERE c.c_customer_sk IN
+              (SELECT ss_customer_sk FROM store_sales
+               JOIN date_dim ON ss_sold_date_sk = d_date_sk
+               WHERE d_year = 1999 AND d_moy BETWEEN 1 AND 8)
+          AND (EXISTS (SELECT 1 FROM web_sales
+                       JOIN date_dim ON ws_sold_date_sk = d_date_sk
+                       WHERE ws_bill_customer_sk = c.c_customer_sk
+                         AND d_year = 1999 AND d_moy BETWEEN 1 AND 8)
+               OR EXISTS (SELECT 1 FROM catalog_sales
+                          JOIN date_dim ON cs_sold_date_sk = d_date_sk
+                          WHERE cs_bill_customer_sk = c.c_customer_sk
+                            AND d_year = 1999
+                            AND d_moy BETWEEN 1 AND 8))
+        GROUP BY cd_gender, cd_marital_status, cd_education_status,
+                 cd_purchase_estimate
+        ORDER BY cd_gender, cd_marital_status, cd_education_status,
+                 cd_purchase_estimate
+        LIMIT 100"""
 
 
 def check(cond, msg):
@@ -186,39 +263,6 @@ def cold_device_ms(torch, fn, calls=2 * TIMED_RUNS):
         end.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
-
-
-def kernel_profile(torch, fn, calls=20):
-    """What one ``fn()`` call runs on the device, from torch.profiler
-    over ``calls`` calls: {kernel name: (launches per call, device us per
-    call)}."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = e.self_cuda_time_total
-            n, t = out.get(e.key, (0.0, 0.0))
-            out[e.key] = (n + e.count / calls, t + us / calls)
-    return out
-
-
-def log_profile(label, prof):
-    """Logs a kernel_profile and returns the CUDA launches per call: each
-    kernel's count rounded, as the profiler can drop a few events at the
-    edges of its window (0.9 per call where the wrapper launches one)."""
-    log(f"  profile {label}: " + "; ".join(
-        f"{n:.2f} x {name[:60]} {us:.2f} us"
-        for name, (n, us) in sorted(prof.items(), key=lambda kv: -kv[1][1])))
-    return sum(round(n) for n, _ in prof.values())
 
 
 def bound_ms(nbytes, flops):
@@ -1438,6 +1482,367 @@ class NdsNumpy:
                                   ("i_manufact_id", True)], 100)
 
 
+    # --- subquery predicates, ROLLUP, round and stddev (phase 6c) -------------
+    def _customer_set(self, fact, p, cust, year, moy_lo, moy_hi):
+        """The non-null customer keys of ``fact`` rows sold in ``year``
+        between the two months (an EXISTS / IN subquery's rows)."""
+        np = self.np
+        idx, _ = self.fact_dims(fact, [
+            (f"{p}_sold_date_sk", "date_dim", "d_date_sk",
+             self.dates(d_year=year)
+             & self.between("date_dim", "d_moy", moy_lo, moy_hi))])
+        c, cok = self.take(fact, cust, idx)
+        return np.unique(c[cok])
+
+    def _demo_counts(self, keep_customer, counts):
+        """q10 / q69: kept customers joined to their demographics, grouped
+        by four demographic columns, ordered by them, LIMIT 100; the
+        SELECT list is ``[gender, marital, education] + counts[:1] +
+        [purchase_estimate] + counts[1:]``, each count a COUNT(*)."""
+        np = self.np
+        cust = np.nonzero(keep_customer)[0]
+        demo, hit = self.lookup("customer_demographics", "cd_demo_sk",
+                                *self.take("customer", "c_current_cdemo_sk",
+                                           cust))
+        names = ["cd_gender", "cd_marital_status", "cd_education_status",
+                 "cd_purchase_estimate"]
+        keys = [self.take("customer_demographics", c, demo[hit])
+                for c in names]
+        gid, n, first = self.group(keys)
+        key_cols = self.keys_of(keys, first, names)
+        cnt = (np.bincount(gid, minlength=n), np.ones(n, bool))
+        select = names[:3] + counts[:1] + names[3:] + counts[1:]
+        cols = {c: cnt if c in counts else key_cols[c] for c in select}
+        return self.result(cols, [(c, True) for c in names], 100)
+
+    def _customers_at(self, addr_keep):
+        """Customers whose current address passes ``addr_keep``."""
+        addr, hit = self.lookup("customer_address", "ca_address_sk",
+                                *self.col("customer", "c_current_addr_sk"))
+        return hit & addr_keep[addr]
+
+    def _q10(self, counties):
+        np = self.np
+        keep = np.ones(self.rows("customer_address"), bool) \
+            if counties is None else \
+            self.isin("customer_address", "ca_county", counties)
+        c, cok = self.col("customer", "c_customer_sk")
+        in_ss = np.isin(c, self._customer_set(
+            "store_sales", "ss", "ss_customer_sk", 1999, 1, 8))
+        in_ws = np.isin(c, self._customer_set(
+            "web_sales", "ws", "ws_bill_customer_sk", 1999, 1, 8))
+        in_cs = np.isin(c, self._customer_set(
+            "catalog_sales", "cs", "cs_bill_customer_sk", 1999, 1, 8))
+        kept = self._customers_at(keep) & cok & in_ss & (in_ws | in_cs)
+        return self._demo_counts(kept, ["cnt1", "cnt2"])
+
+    def q10(self):
+        return self._q10(("county1", "county2", "county3"))
+
+    def q10_or(self):
+        return self._q10(None)
+
+    def q69(self):
+        np = self.np
+        c, cok = self.col("customer", "c_customer_sk")
+        in_ss = np.isin(c, self._customer_set(
+            "store_sales", "ss", "ss_customer_sk", 1999, 1, 3))
+        in_ws = np.isin(c, self._customer_set(
+            "web_sales", "ws", "ws_bill_customer_sk", 1999, 1, 3))
+        keep = self._customers_at(self.isin(
+            "customer_address", "ca_state", ("KY", "GA", "NM", "TX")))
+        return self._demo_counts(keep & cok & in_ss & ~in_ws, ["cnt1"])
+
+    def q6(self):
+        np = self.np
+        month, mok = self.col("date_dim", "d_month_seq")
+        first = self.dates(d_year=1999, d_moy=1) & mok
+        if not first.any():
+            return []
+        cat = self.col("item", "i_category")
+        price, pok = self.col("item", "i_current_price")
+        gid, n, _ = self.group([cat])
+        avg, aok = self.gavg(gid, n, price, pok)
+        # the correlated AVG: no match (a NULL category) or no price is
+        # NULL, and the comparison filters the item out
+        item_keep = pok & cat[1] & aok[gid] & (price > 1.2 * avg[gid])
+        idx, dims = self.fact_dims("store_sales", [
+            ("ss_sold_date_sk", "date_dim", "d_date_sk",
+             mok & (month == month[first].min())),
+            ("ss_item_sk", "item", "i_item_sk", item_keep),
+            ("ss_customer_sk", "customer", "c_customer_sk", None)])
+        addr, hit = self.lookup("customer_address", "ca_address_sk",
+                                *self.take("customer", "c_current_addr_sk",
+                                           dims["customer"]))
+        keys = [self.take("customer_address", "ca_state", addr[hit])]
+        gid, n, first_row = self.group(keys)
+        cols = self.keys_of(keys, first_row, ["state"])
+        cnt = np.bincount(gid, minlength=n)
+        cols["cnt"] = (cnt, np.ones(n, bool))
+        having = cnt >= 10
+        cols = {k: (v[having], ok[having]) for k, (v, ok) in cols.items()}
+        return self.result(cols, [("cnt", True), ("state", True)], 100)
+
+    def q94(self):
+        np = self.np
+        idx, _ = self.fact_dims("web_sales", [
+            ("ws_ship_date_sk", "date_dim", "d_date_sk",
+             self.dates(d_year=1999)
+             & self.between("date_dim", "d_moy", 2, 3)),
+            ("ws_web_site_sk", "web_site", "web_site_sk", None)])
+        order, ook = self.col("web_sales", "ws_order_number")
+        wh, wok = self.col("web_sales", "ws_warehouse_sk")
+        # EXISTS another row of the order from another warehouse: the
+        # order has two or more distinct non-null warehouses (the row's
+        # own warehouse among them), and the row's warehouse is not NULL
+        both = ook & wok
+        pairs = np.unique(order[both] * 64 + wh[both])
+        orders, n_wh = np.unique(pairs // 64, return_counts=True)
+        multi = orders[n_wh >= 2]
+        ret, rok = self.col("web_returns", "wr_order_number")
+        o, ok_o = order[idx], ook[idx]
+        keep = ok_o & wok[idx] & np.isin(o, multi) & \
+            ~np.isin(o, ret[rok])
+        idx = idx[keep]
+        out = {"order_count": len(np.unique(order[idx]))}
+        for name, c in (("total_shipping_cost", "ws_ext_ship_cost"),
+                        ("total_net_profit", "ws_net_profit")):
+            v, ok = self.take("web_sales", c, idx)
+            out[name] = float(v[ok].sum()) if ok.any() else None
+        return [out]
+
+    def q45(self):
+        np = self.np
+        idx, dims = self.fact_dims("web_sales", [
+            ("ws_sold_date_sk", "date_dim", "d_date_sk",
+             self.dates(d_qoy=2, d_year=1999)),
+            ("ws_item_sk", "item", "i_item_sk", None),
+            ("ws_bill_customer_sk", "customer", "c_customer_sk", None)])
+        addr, hit = self.lookup("customer_address", "ca_address_sk",
+                                *self.take("customer", "c_current_addr_sk",
+                                           dims["customer"]))
+        zips = {"85669", "86197", "88274", "83405", "86475"}
+        zip_v, zip_ok = self.col("customer_address", "ca_zip")
+        zip_in = zip_ok & np.fromiter((z[:5] in zips for z in zip_v), bool,
+                                      len(zip_v))
+        item_in = self.isin("item", "i_manufact_id", (7, 11, 13))
+        keep = hit & (zip_in[addr] | item_in[dims["item"]])
+        idx, addr = idx[keep], addr[keep]
+        keys = [self.take("customer_address", c, addr)
+                for c in ("ca_zip", "ca_city")]
+        gid, n, first = self.group(keys)
+        cols = self.keys_of(keys, first, ["ca_zip", "ca_city"])
+        cols["sum_sales"] = self.gsum(
+            gid, n, *self.take("web_sales", "ws_sales_price", idx))
+        return self.result(cols, [("ca_zip", True), ("ca_city", True)], 100)
+
+    def _rollup(self, keys, names, rows_agg):
+        """ROLLUP over ``keys`` ([(values, valid)] at the kept rows):
+        for each prefix length, longest first, the groups of that prefix
+        with the later keys NULL; ``rows_agg(gid, n)`` gives each group's
+        aggregate columns. Returns {name: (values, valid)} plus
+        ``__level``, the number of keys rolled up."""
+        np = self.np
+        rows = len(keys[0][0])
+        parts = []
+        for k in range(len(keys), -1, -1):
+            # the empty grouping set: one group over a constant key, none
+            # over no row
+            gid, n, first = self.group(keys[:k] or [
+                (np.zeros(rows, np.int64), np.ones(rows, bool))])
+            part = {}
+            for i, (name, (values, ok)) in enumerate(zip(names, keys)):
+                part[name] = (values[first], ok[first] & (i < k))
+            part.update(rows_agg(gid, n))
+            part["__level"] = (np.full(n, len(keys) - k), np.ones(n, bool))
+            parts.append(part)
+        return {c: (np.concatenate([p[c][0] for p in parts]),
+                    np.concatenate([p[c][1] for p in parts]))
+                for c in parts[0]}
+
+    def q27(self):
+        np = self.np
+        idx, dims = self.fact_dims("store_sales", [
+            ("ss_cdemo_sk", "customer_demographics", "cd_demo_sk",
+             self.eq("customer_demographics", "cd_gender", "F")
+             & self.eq("customer_demographics", "cd_marital_status", "W")
+             & self.eq("customer_demographics", "cd_education_status",
+                       "Primary")),
+            ("ss_sold_date_sk", "date_dim", "d_date_sk",
+             self.dates(d_year=1998)),
+            ("ss_store_sk", "store", "s_store_sk",
+             self.eq("store", "s_state", "TN")),
+            ("ss_item_sk", "item", "i_item_sk", None)])
+        keys = [self.take("item", "i_item_id", dims["item"]),
+                self.take("store", "s_state", dims["store"])]
+        aggs = [("agg1", "ss_quantity"), ("agg2", "ss_list_price"),
+                ("agg3", "ss_coupon_amt"), ("agg4", "ss_sales_price")]
+        vals = {name: self.take("store_sales", c, idx) for name, c in aggs}
+
+        def rows_agg(gid, n):
+            return {name: self.gavg(gid, n, *vals[name]) for name, _ in aggs}
+        cols = self._rollup(keys, ["i_item_id", "s_state"], rows_agg)
+        level = cols.pop("__level")[0]
+        out = {"i_item_id": cols["i_item_id"], "s_state": cols["s_state"],
+               "g_state": ((level >= 1).astype(np.int64),
+                           np.ones(len(level), bool))}
+        out.update({name: cols[name] for name, _ in aggs})
+        # NULLS LAST on both keys: the result's order puts NULL first
+        # for ascending keys, so order by (is null, value) here
+        for name in ("i_item_id", "s_state"):
+            out[f"__null_{name}"] = ((~out[name][1]).astype(np.int64),
+                                     np.ones(len(level), bool))
+        return self.result(out, [("__null_i_item_id", True),
+                                 ("i_item_id", True),
+                                 ("__null_s_state", True),
+                                 ("s_state", True)], 100,
+                           hidden=("__null_i_item_id", "__null_s_state"))
+
+    def q36(self):
+        np = self.np
+        idx, dims = self.fact_dims("store_sales", [
+            ("ss_sold_date_sk", "date_dim", "d_date_sk",
+             self.dates(d_year=1998)),
+            ("ss_store_sk", "store", "s_store_sk",
+             self.eq("store", "s_state", "TN")),
+            ("ss_item_sk", "item", "i_item_sk", None)])
+        keys = [self.dim_codes("item", "i_category", dims["item"]),
+                self.dim_codes("item", "i_class", dims["item"])]
+        profit = self.take("store_sales", "ss_net_profit", idx)
+        sales = self.take("store_sales", "ss_ext_sales_price", idx)
+
+        def rows_agg(gid, n):
+            p, pok = self.gsum(gid, n, *profit)
+            s, sok = self.gsum(gid, n, *sales)
+            ok = pok & sok & (s != 0)
+            return {"gross_margin": (p / np.where(ok, s, 1.0), ok)}
+        cols = self._rollup([(c, ok) for c, ok, _ in keys],
+                            ["i_category", "i_class"], rows_agg)
+        level, _ = cols.pop("__level")
+        n = len(level)
+        cat, cat_ok = cols["i_category"]
+        # the parent: the rollup level, and the category for the rows
+        # grouped by class (GROUPING(i_class) = 0)
+        parent = [(level, np.ones(n, bool)), (cat, cat_ok & (level == 0))]
+        margin, mok = cols["gross_margin"]
+        rank = self.rank(parent, [(margin, mok, True)])
+        out = {"gross_margin": cols["gross_margin"],
+               "i_category": (keys[0][2][cat], cat_ok),
+               "i_class": (keys[1][2][cols["i_class"][0]],
+                           cols["i_class"][1]),
+               "lochierarchy": (level, np.ones(n, bool)),
+               "rank_within_parent": (rank, np.ones(n, bool)),
+               "__null_cat": ((~cat_ok).astype(np.int64), np.ones(n, bool)),
+               "__cat": (cat, cat_ok)}
+        return self.result(out, [("lochierarchy", False),
+                                 ("__null_cat", True), ("__cat", True),
+                                 ("rank_within_parent", True)], 100,
+                           hidden=("__null_cat", "__cat"))
+
+    def q17_join_rows(self):
+        """Rows q17's join of store_sales, store_returns and
+        catalog_sales on (customer, item) holds before its date filter:
+        the product of the three tables' counts per key, summed."""
+        np = self.np
+
+        def counts(table, cust, item):
+            c, cok = self.col(table, cust)
+            i, iok = self.col(table, item)
+            ok = cok & iok
+            return np.unique(c[ok] * 4096 + i[ok], return_counts=True)
+        k1, n1 = counts("store_sales", "ss_customer_sk", "ss_item_sk")
+        k2, n2 = counts("store_returns", "sr_customer_sk", "sr_item_sk")
+        k3, n3 = counts("catalog_sales", "cs_bill_customer_sk", "cs_item_sk")
+        k12, i1, i2 = np.intersect1d(k1, k2, return_indices=True)
+        _, j, i3 = np.intersect1d(k12, k3, return_indices=True)
+        return int((n1[i1][j] * n2[i2][j] * n3[i3]).sum())
+
+    def q17(self):
+        np = self.np
+        idx, dims = self.fact_dims("store_sales", [
+            ("ss_sold_date_sk", "date_dim", "d_date_sk",
+             self.dates(d_qoy=1, d_year=1998)),
+            ("ss_item_sk", "item", "i_item_sk", None),
+            ("ss_store_sk", "store", "s_store_sk", None)])
+
+        def ci(table, cust, item, rows=None):
+            c, cok = self.col(table, cust)
+            i, iok = self.col(table, item)
+            key, ok = c * 4096 + i, cok & iok
+            return (key, ok) if rows is None else (key[rows], ok[rows])
+        # store_sales x store_returns on (customer, item), then x
+        # catalog_sales on the returns' (customer, item)
+        li, ri = self.pairs(*ci("store_sales", "ss_customer_sk",
+                                "ss_item_sk", idx),
+                            *ci("store_returns", "sr_customer_sk",
+                                "sr_item_sk"))
+        rk, rok = ci("store_returns", "sr_customer_sk", "sr_item_sk", ri)
+        ck, cok = ci("catalog_sales", "cs_bill_customer_sk", "cs_item_sk")
+        mi, ci_rows = self.pairs(rk, rok, ck, cok)
+        ss, sr = idx[li[mi]], ri[mi]
+        item, store = dims["item"][li[mi]], dims["store"][li[mi]]
+        names = [("i_item_id", "item", item), ("i_item_desc", "item", item),
+                 ("s_state", "store", store)]
+        keys = [self.take(t, c, rows) for c, t, rows in names]
+        gid, n, first = self.group(keys)
+        cols = self.keys_of(keys, first, [c for c, _, _ in names])
+        q, qok = self.take("store_sales", "ss_quantity", ss)
+        rq = self.take("store_returns", "sr_return_quantity", sr)
+        cq = self.take("catalog_sales", "cs_quantity", ci_rows)
+        cnt = np.bincount(gid, weights=qok.astype(np.float64), minlength=n)
+        cols["store_sales_quantitycount"] = (cnt.astype(np.int64),
+                                             np.ones(n, bool))
+        mean, mok = self.gavg(gid, n, q, qok)
+        cols["store_sales_quantityave"] = (mean, mok)
+        dev = np.where(qok, q - mean[gid], 0.0)
+        m2 = np.bincount(gid, weights=dev * dev, minlength=n)
+        sd_ok = cnt > 1
+        cols["store_sales_quantitystdev"] = (
+            np.sqrt(m2 / np.where(sd_ok, cnt - 1, 1.0)), sd_ok)
+        for label, (v, ok) in (("sr_quantity", rq), ("catalog_sales_quantity",
+                                                     cq)):
+            cols[f"{label}count"] = (np.bincount(
+                gid, weights=ok.astype(np.float64),
+                minlength=n).astype(np.int64), np.ones(n, bool))
+            cols[f"{label}ave"] = self.gavg(gid, n, v, ok)
+        return self.result(cols, [(c, True) for c, _, _ in names], 100)
+
+    def q2(self):
+        from decimal import ROUND_HALF_UP, Decimal
+        np = self.np
+        week = {name: (np.zeros(105), np.zeros(105, np.int64))
+                for name in ("Sunday", "Monday")}
+        present = np.zeros(105, bool)  # weeks with any sale
+        for fact, p in (("catalog_sales", "cs"), ("web_sales", "ws")):
+            idx, dims = self.fact_dims(fact, [
+                (f"{p}_sold_date_sk", "date_dim", "d_date_sk", None)])
+            w = self.take("date_dim", "d_week_seq", dims["date_dim"])[0]
+            present[np.unique(w) - 5100] = True
+            day, day_ok = self.take("date_dim", "d_day_name",
+                                    dims["date_dim"])
+            price, pok = self.take(fact, f"{p}_ext_sales_price", idx)
+            for name, (s, c) in week.items():
+                hit = day_ok & (day == name) & pok
+                s += np.bincount(w[hit] - 5100, weights=price[hit],
+                                 minlength=105)
+                c += np.bincount(w[hit] - 5100, minlength=105)
+
+        def ratio(name, y, z):
+            s, c = week[name]
+            if not (c[y] and c[z]) or s[z] == 0:
+                return None
+            r = Decimal(repr(float(s[y] / s[z]))).quantize(
+                Decimal("0.01"), rounding=ROUND_HALF_UP)
+            return float(r)
+        out = []
+        for y in range(105 - 52):
+            if present[y] and present[y + 52]:
+                out.append({"d_week_seq1": 5100 + y,
+                            "r1": ratio("Sunday", y, y + 52),
+                            "r2": ratio("Monday", y, y + 52)})
+        return out[:100]
+
+
 def b3_on_batches(torch, physical, conf, dev, label, launched):
     """Holds B3 against its plain version on every batch that the plan's
     partial aggregates hand the grouped lane: each one's child subtree
@@ -1542,6 +1947,52 @@ def b1_on_batches(torch, physical, conf, dev, label, launched):
     return err
 
 
+class executions_of:
+    """Records every plan ``session`` executes inside the block (a query
+    and the subqueries its analysis runs): [(physical plan, its
+    ExecContext, the kernel launches during it)]."""
+
+    def __init__(self, session, read_counts):
+        self.session, self.read_counts = session, read_counts
+        self.runs = []
+
+    def __enter__(self):
+        session, orig = self.session, self.session.execute
+
+        def execute(plan):
+            before = self.read_counts()
+            out = orig(plan)
+            after = self.read_counts()
+            self.runs.append((*session._last_execution,
+                              {k: after[k] - before[k] for k in after}))
+            return out
+        session.execute = execute
+        return self.runs
+
+    def __exit__(self, *exc):
+        del self.session.execute
+
+
+def hold_kernels(torch, executions, conf, dev, label, widest=None, q=None):
+    """B1 and B3 against their plain versions on every batch each
+    recorded execution handed them; ``widest[0]`` keeps the widest batch
+    B3 took. Returns the largest errors (B3, B1)."""
+    b3_err = b1_err = 0.0
+    for physical, _, launched in executions:
+        if launched["tile_reduce"]:
+            b1_err = max(b1_err, b1_on_batches(
+                torch, physical, conf, dev, label, launched["tile_reduce"]))
+        if launched["tile_group_reduce"]:
+            b3 = b3_on_batches(torch, physical, conf, dev, label,
+                               launched["tile_group_reduce"])
+            b3_err = max(b3_err, b3["err"])
+            if widest is not None and (widest[0] is None or
+                                       b3["widest"][0] > widest[0][0]):
+                widest[0] = b3["widest"] + (q,)
+            del b3
+    return b3_err, b1_err
+
+
 def run_nds(torch, dev, read_counts, session, q, text, ref, want_fn, warm,
             widest):
     """One NDS text through ``session.sql`` on the card: a first run and
@@ -1560,13 +2011,17 @@ def run_nds(torch, dev, read_counts, session, q, text, ref, want_fn, warm,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     DK.reset_counts()
-    t = time.perf_counter()
-    df = session.sql(text)
-    rows = df.collect()
-    torch.cuda.synchronize()
-    first = time.perf_counter() - t
+    with executions_of(session, read_counts) as executions:
+        t = time.perf_counter()
+        df = session.sql(text)  # runs the plan-time subqueries
+        torch.cuda.synchronize()
+        analysis = time.perf_counter() - t
+        rows = df.collect()
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t
     counts = read_counts()
-    pb = session._last_execution[1].metric_totals().get("pallasBatches", 0)
+    pb = sum(ctx.metric_totals().get("pallasBatches", 0)
+             for _, ctx, _ in executions)
     keys, limit = order_keys(text, df.columns)
     held = "numpy"
     if want is None:
@@ -1591,18 +2046,10 @@ def run_nds(torch, dev, read_counts, session, q, text, ref, want_fn, warm,
     physical, ctx = session._last_execution
     self_ms = sorted(operator_self_ms(physical, ctx.metrics, {}).items(),
                      key=lambda kv: -kv[1])
-    b3_err = b1_err = 0.0
-    if counts["tile_reduce"]:
-        b1_err = b1_on_batches(torch, physical, session.conf, dev,
-                               f"nds {q}", counts["tile_reduce"])
-    if counts["tile_group_reduce"]:
-        b3 = b3_on_batches(torch, physical, session.conf, dev, f"nds {q}",
-                           counts["tile_group_reduce"])
-        b3_err = b3["err"]
-        if widest[0] is None or b3["widest"][0] > widest[0][0]:
-            widest[0] = b3["widest"] + (q,)
-        del b3
-    out = {"first_s": first, "warm_s": wall, "b3_max_abs_err": b3_err,
+    b3_err, b1_err = hold_kernels(torch, executions, session.conf, dev,
+                                  f"nds {q}", widest, q)
+    out = {"first_s": first, "analysis_s": analysis, "warm_s": wall,
+           "b3_max_abs_err": b3_err,
            "b1_max_abs_err": b1_err, "warm_runs_s": walls,
            "fact_rows": facts,
            "fact_rows_per_s": facts / wall, "result_rows": len(rows),
@@ -1689,6 +2136,185 @@ def nds_phase(torch, np, dev, read_counts):
     return report, session, ref, widest[0]
 
 
+def cross_check(torch, dev, read_counts, queries, scale, held=None):
+    """Each query (a name of NDS_QUERIES, or a (name, text) pair) at
+    ``scale`` on the card and on the CPU (the plain
+    versions, which tests/test_torch_nds.py holds against the JAX
+    package): the card's rows must equal the CPU's, or, for a query in
+    ``held``, pass ``held[q](card rows, CPU session)`` (which returns what
+    differs, or None). That checks the CUDA path, not the semantics. B1
+    and B3 are held against their plain versions on every batch they
+    take. Returns {query: result rows}."""
+    from spark_rapids_tpu_torch.conf import SrtConf
+    from spark_rapids_tpu_torch.models.nds import NDS_QUERIES, register_nds
+    from spark_rapids_tpu_torch.ops import device_kernels as DK
+    from spark_rapids_tpu_torch.plan.session import TpuSession
+    from spark_rapids_tpu_torch.testing import compare_rows, order_keys
+    conf = SrtConf({"srt.sql.batchSizeRows": BATCH_ROWS})
+    t = time.perf_counter()
+    card, cpu = TpuSession(conf, device=dev), TpuSession(conf, device="cpu")
+    register_nds(card, scale)
+    register_nds(cpu, scale)
+    log(f"nds tables at scale_rows {scale} on the card and on the CPU in "
+        f"{time.perf_counter() - t:.1f} s")
+    out = {}
+    for q in queries:
+        q, text = (q, NDS_QUERIES[q]) if isinstance(q, str) else q
+        DK.reset_counts()
+        with executions_of(card, read_counts) as executions:
+            df = card.sql(text)
+            rows = df.collect()
+        counts = read_counts()
+        t = time.perf_counter()
+        if held and q in held:
+            diff = held[q](rows, cpu)
+        else:
+            diff = compare_rows(rows, cpu.sql(text).collect(),
+                                *order_keys(text, df.columns), RTOL)
+        cpu_s = time.perf_counter() - t
+        check(diff is None, f"nds {q} at scale_rows {scale}: {diff} (the "
+              "port's CPU run)")
+        hold_kernels(torch, executions, conf, dev, f"nds {q} at {scale}")
+        out[q] = len(rows)
+        how = " with ties left open" if held and q in held else ""
+        log(f"nds {q} at scale_rows {scale}: the card's {len(rows)} rows "
+            f"match the port's CPU run{how} ({cpu_s:.1f} s; this checks "
+            f"the CUDA path, not the semantics); launches {counts}")
+    del card, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def q67_ties_diff(got, rollup, top=10, limit=100):
+    """What differs between q67's rows and the ROLLUP sums ``rollup``
+    (Q67_ROLLUP's rows) that its RANK reads, with ties left open: sums
+    within RTOL of each other count as tied, so a row's rank may be
+    anything from 1 + the number of larger sums in its category to that
+    plus the number of sums tied with it. Each row must be a row of
+    ``rollup`` with its sum, and its rank in that range and at most
+    ``top``; the rows in ORDER BY order; and every row that ranks within
+    ``top`` however the ties break present where it sorts before the
+    last row (everywhere, when there are fewer than ``limit`` rows).
+    None when nothing differs."""
+    import bisect
+    from collections import defaultdict
+
+    from spark_rapids_tpu_torch.testing import values_equal
+    keys = ("i_category", "i_class", "i_brand", "s_store_id")
+
+    def num(v):  # RANK ... DESC puts a NULL sum last
+        return float("-inf") if v is None else float(v)
+
+    def tol(v):
+        return RTOL * abs(v) if math.isfinite(v) else 0.0
+
+    def order(r):  # ORDER BY the keys NULLS LAST
+        return tuple((r[k] is None, r[k] or "") for k in keys)
+
+    sums = defaultdict(list)  # category -> its sums, ascending
+    for r in rollup:
+        sums[r["i_category"]].append(num(r["sumsales"]))
+    for v in sums.values():
+        v.sort()
+
+    def rank_range(r):
+        v, s = sums[r["i_category"]], num(r["sumsales"])
+        above = len(v) - bisect.bisect_right(v, s + tol(s))
+        tied = bisect.bisect_right(v, s + tol(s)) - \
+            bisect.bisect_left(v, s - tol(s))
+        return 1 + above, above + tied
+
+    by_key = defaultdict(list)
+    for r in rollup:
+        by_key[order(r)].append(r)
+
+    def match(r):
+        return next((w for w in by_key[order(r)] if values_equal(
+            r["sumsales"], w["sumsales"], RTOL)), None)
+
+    prev = None
+    for r in got:
+        w = match(r)
+        if w is None:
+            return f"row {r} is no ROLLUP row of the CPU run"
+        lo, hi = rank_range(w)
+        if not lo <= r["rk"] <= min(hi, top):
+            return f"row {r} ranks {r['rk']}, ties allow {lo}-{hi}"
+        if prev is not None and (order(r), r["rk"]) < prev:
+            return "rows are not in ORDER BY order"
+        prev = (order(r), r["rk"])
+    seen = {(order(r), num(r["sumsales"])) for r in got}
+    last = order(got[-1]) if got else None
+    for w in rollup:
+        if rank_range(w)[1] > top or (len(got) == limit and
+                                      order(w) >= last):
+            continue
+        if not any(k == order(w) and values_equal(s, num(w["sumsales"]),
+                                                  RTOL) for k, s in seen):
+            return f"row {w} ranks within {top} however ties break, " \
+                "and is missing"
+    return None
+
+
+def seg_sum_timing(torch, dev, session):
+    """The float group sums of every device (expr/aggregates.py _seg_sum:
+    a segmented scan over rows in group order) against ``index_add_``
+    (its atomics add in an order that varies between runs), each on the
+    inputs of the widest float _seg_sum call that a SEG_SUM_QUERIES query
+    makes at SF10, and the stable sort of the group ids that the
+    hash-claim path pays once per batch to hand its rows over in group
+    order (ops/kernels.py _in_group_order). Returns {query: numbers}."""
+    from spark_rapids_tpu_torch.expr import aggregates as Agg
+    from spark_rapids_tpu_torch.models.nds import NDS_QUERIES
+    real, out = Agg._seg_sum, {}
+    for q in SEG_SUM_QUERIES:
+        seen = {"calls": 0, "widest": None}
+
+        def spy(values, gid, num_groups, dtype=None):
+            res = real(values, gid, num_groups, dtype)
+            if res.is_floating_point():
+                seen["calls"] += 1
+                w = seen["widest"]
+                if w is None or values.shape[0] > w[0].shape[0]:
+                    seen["widest"] = (values.to(res.dtype).clone(),
+                                      gid.clone(), num_groups)
+            return res
+        Agg._seg_sum = spy
+        try:
+            session.sql(NDS_QUERIES[q]).collect()
+        finally:
+            Agg._seg_sum = real
+        values, gid, slots = seen["widest"]
+
+        def added():
+            return torch.zeros(slots, dtype=values.dtype,
+                               device=dev).index_add_(0, gid, values)
+        ordered, plain = real(values, gid, slots), added()
+        scale = float(values.abs().sum())
+        check(torch.allclose(ordered, plain, rtol=RTOL, atol=RTOL * scale),
+              f"{q}: the ordered group sums disagree with index_add_")
+        r = {"rows": values.shape[0],
+             "groups": int(torch.unique_consecutive(gid).numel()),
+             "float_calls": seen["calls"],
+             "ms": device_ms(torch, lambda: real(values, gid, slots)),
+             "index_add_ms": device_ms(torch, added),
+             "sort_ms": device_ms(torch, lambda: torch.sort(gid,
+                                                            stable=True)),
+             "runs_bit_equal": all(torch.equal(ordered, real(
+                 values, gid, slots)) for _ in range(5)),
+             "index_add_runs_bit_equal": all(torch.equal(plain, added())
+                                             for _ in range(5))}
+        out[q] = r
+        log(f"group sums[{q} widest, {r['rows']} rows, {r['groups']} "
+            f"groups, {r['float_calls']} float calls in the run]: ordered "
+            f"{r['ms']:.4f} ms (five runs bit-equal {r['runs_bit_equal']}),"
+            f" index_add_ {r['index_add_ms']:.4f} ms (five runs bit-equal "
+            f"{r['index_add_runs_bit_equal']}), hash path's gid sort "
+            f"{r['sort_ms']:.4f} ms")
+    return out
+
+
 def joins_setops_phase(torch, np, dev, session, ref, read_counts):
     """The NDS_JOINS_SETOPS queries on the SF10 session: each a first run
     and JOINS_WARM_RUNS warm runs; JOINS_NUMPY and Q93_OUTER held against
@@ -1697,12 +2323,7 @@ def joins_setops_phase(torch, np, dev, session, ref, read_counts):
     plain versions, which tests/test_torch_nds.py holds against the JAX
     package): that checks the CUDA path, not the semantics. Returns
     ({query: numbers}, the widest batch B3 took)."""
-    from spark_rapids_tpu_torch.conf import SrtConf
-    from spark_rapids_tpu_torch.models.nds import (
-        NDS_JOINS_SETOPS, NDS_QUERIES, register_nds)
-    from spark_rapids_tpu_torch.ops import device_kernels as DK
-    from spark_rapids_tpu_torch.plan.session import TpuSession
-    from spark_rapids_tpu_torch.testing import compare_rows, order_keys
+    from spark_rapids_tpu_torch.models.nds import NDS_JOINS_SETOPS, NDS_QUERIES
     report, widest = {}, [None]
     for q in NDS_JOINS_SETOPS:
         report[q] = run_nds(torch, dev, read_counts, session, q,
@@ -1715,47 +2336,88 @@ def joins_setops_phase(torch, np, dev, session, ref, read_counts):
     check(report["q93_outer"]["result_rows"] > 1000,
           "q93_outer: the left outer join kept too few customers")
     # the other ten: the card against the CPU at JOINS_CROSS_ROWS
-    conf = SrtConf({"srt.sql.batchSizeRows": BATCH_ROWS})
-    t = time.perf_counter()
-    card, cpu = TpuSession(conf, device=dev), TpuSession(conf, device="cpu")
-    register_nds(card, JOINS_CROSS_ROWS)
-    register_nds(cpu, JOINS_CROSS_ROWS)
-    log(f"nds tables at scale_rows {JOINS_CROSS_ROWS} on the card and on "
-        f"the CPU in {time.perf_counter() - t:.1f} s")
-    for q in NDS_JOINS_SETOPS:
-        if q in JOINS_NUMPY:
-            continue
-        text = NDS_QUERIES[q]
-        DK.reset_counts()
-        df = card.sql(text)
-        rows = df.collect()
-        counts = read_counts()
-        t = time.perf_counter()
-        want = cpu.sql(text).collect()
-        cpu_s = time.perf_counter() - t
-        diff = compare_rows(rows, want, *order_keys(text, df.columns), RTOL)
-        check(diff is None, f"nds {q} at scale_rows {JOINS_CROSS_ROWS}: "
-              f"{diff} (the port's CPU run)")
-        if counts["tile_reduce"]:
-            b1_on_batches(torch, card._last_execution[0], conf, dev,
-                          f"nds {q} at {JOINS_CROSS_ROWS}",
-                          counts["tile_reduce"])
-        if counts["tile_group_reduce"]:
-            b3_on_batches(torch, card._last_execution[0], conf, dev,
-                          f"nds {q} at {JOINS_CROSS_ROWS}",
-                          counts["tile_group_reduce"])
-        report[q]["cross_rows"] = len(rows)
-        log(f"nds {q} at scale_rows {JOINS_CROSS_ROWS}: the card's "
-            f"{len(rows)} rows match the port's CPU run ({cpu_s:.1f} s; "
-            f"this checks the CUDA path, not the semantics); launches "
-            f"{counts}")
-    del card, cpu
-    gc.collect()
-    torch.cuda.empty_cache()
+    for q, n in cross_check(torch, dev, read_counts, [
+            q for q in NDS_JOINS_SETOPS if q not in JOINS_NUMPY],
+            JOINS_CROSS_ROWS).items():
+        report[q]["cross_rows"] = n
     log("nds joins/setops summary " + json.dumps({q: {
         k: r[k] for k in ("first_s", "warm_s", "fact_rows_per_s",
                           "result_rows", "pallas_batches", "peak_gb")}
         | {"b3": r["launches"]["tile_group_reduce"]}
+        for q, r in report.items()}))
+    return report, widest[0]
+
+
+def subquery_rollup_phase(torch, np, dev, session, ref, read_counts):
+    """The 33 queries of NDS_SUBQUERY, NDS_ROLLUP and NDS_FUNCS on the
+    SF10 session (q17 on its own tables at NDS_Q17_ROWS): each a first
+    run and JOINS_WARM_RUNS warm runs; SUBQ_NUMPY and Q10_OR held against
+    NdsNumpy, the others against their own first run and, at
+    JOINS_CROSS_ROWS, the card's rows against the port's CPU run. B3 must
+    run under NDS_ROLLUP_B3_QUERIES. Returns ({query: numbers}, the
+    widest batch B3 took)."""
+    from spark_rapids_tpu_torch.conf import SrtConf
+    from spark_rapids_tpu_torch.models.nds import (NDS_FUNCS, NDS_QUERIES,
+                                                   NDS_ROLLUP, NDS_SUBQUERY,
+                                                   register_nds)
+    from spark_rapids_tpu_torch.plan.session import TpuSession
+    report, widest = {}, [None]
+    queries = NDS_SUBQUERY + NDS_ROLLUP + NDS_FUNCS
+
+    def run(q, text, sess, reference, want_fn):
+        report[q] = run_nds(torch, dev, read_counts, sess, q, text,
+                            reference, want_fn, JOINS_WARM_RUNS, widest)
+        log(f"nds {q} plan-time subqueries: {report[q]['analysis_s']:.4f} s "
+            f"of the first run's {report[q]['first_s']:.4f} s")
+
+    for q in queries:
+        if q != "q17":
+            run(q, NDS_QUERIES[q], session, ref,
+                getattr(ref, q) if q in SUBQ_NUMPY else None)
+    run("q10_or", Q10_OR, session, ref, ref.q10_or)
+    check(report["q10_or"]["result_rows"] == 100,
+          "q10_or: the existence markers kept too few customers")
+    # q17 joins store_sales to store_returns and then catalog_sales on
+    # (customer, item) before its date filter: with the zipf customer
+    # keys the join grows with the cube of the scale
+    small = TpuSession(SrtConf({"srt.sql.batchSizeRows": BATCH_ROWS}),
+                       device=dev)
+    host = {}
+    register_nds(small, NDS_Q17_ROWS, host_tables=host)
+    small_ref = NdsNumpy(np, host)
+    log(f"nds q17's join of store_sales, store_returns and catalog_sales "
+        f"on (customer, item) would hold {ref.q17_join_rows()} rows at "
+        f"scale_rows {NDS_ROWS} before its date filter: it runs at "
+        f"{NDS_Q17_ROWS}, where it holds {small_ref.q17_join_rows()}")
+    run("q17", NDS_QUERIES["q17"], small, small_ref, small_ref.q17)
+    del small, small_ref, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    # q67 ranks float sums whose ROLLUP subtotals tie in exact
+    # arithmetic; B3 rounds the card's batches in another order than its
+    # plain version does on the CPU, so a tie may break otherwise there:
+    # the card's q67 is held against the CPU's ROLLUP sums with the ties
+    # left open, and its ROLLUP aggregate against the CPU's as well
+    held = {"q67": lambda rows, cpu: q67_ties_diff(
+        rows, cpu.sql(Q67_ROLLUP).collect())}
+    for q, n in cross_check(torch, dev, read_counts, [
+            q for q in queries if q not in SUBQ_NUMPY] +
+            [("q67_rollup", Q67_ROLLUP)], JOINS_CROSS_ROWS, held).items():
+        report[q.replace("_rollup", "")]["cross_" + (
+            "rollup_rows" if q.endswith("_rollup") else "rows")] = n
+    rollup_b3 = [q for q in NDS_ROLLUP
+                 if report[q]["launches"]["tile_group_reduce"]]
+    check(rollup_b3, "B3 ran under no ROLLUP query")
+    for q in NDS_ROLLUP_B3_QUERIES:
+        check(report[q]["launches"]["tile_group_reduce"] > 0
+              and report[q]["pallas_batches"] > 0,
+              f"nds {q}: the grouped kernel (B3) did not run")
+    log("nds subquery/rollup/funcs summary " + json.dumps({q: {
+        k: r[k] for k in ("first_s", "warm_s", "fact_rows_per_s",
+                          "result_rows", "pallas_batches", "peak_gb",
+                          "analysis_s")}
+        | {"b3": r["launches"]["tile_group_reduce"],
+           "b1": r["launches"]["tile_reduce"]}
         for q, r in report.items()}))
     return report, widest[0]
 
@@ -2246,9 +2908,6 @@ def main():
     b3_stress = {}
     for label, (sgid, slanes, groups) in stress.items():
         b3_stress[label] = hold_b3(label, sgid, slanes, groups, plain=False)
-    b1_programs = {"q6": (q6_plan, b0), "minmax_nan": (mm_plan, nan_batch),
-                   "strings_lineitem": (li_plan, b0),
-                   "strings_orders": (od_plan, batches["orders"][0])}
     del stress, dead, gid, lanes, sgid, slanes
 
     # --- hashing on the card gives the CPU's bits ----------------------------
@@ -2446,7 +3105,7 @@ def main():
     rows3, groups3, gid3, lanes3 = widest
     b3_widest = hold_b3(f"q3 widest, {rows3} rows", gid3, lanes3, groups3,
                         library=True)
-    del widest, b3_q3["widest"]
+    del widest, b3_q3["widest"], gid3, lanes3
 
     # --- NDS: the star-join slice through session.sql -------------------------
     nds, nds_session, nds_ref, nds_widest = nds_phase(torch, np, dev,
@@ -2457,6 +3116,9 @@ def main():
     b3_nds["query"] = q_n
     del nds_widest, gid_n, lanes_n
 
+    # --- the float group sums alone, at q12's and q98's widest batch --------
+    seg_sum_timing(torch, dev, nds_session)
+
     # --- outer, keyless and nested-loop joins, set operations -------------
     joins, joins_widest = joins_setops_phase(torch, np, dev, nds_session,
                                              nds_ref, read_counts)
@@ -2465,6 +3127,15 @@ def main():
                        groups_j, library=True)
     b3_joins["query"] = q_j
     del joins_widest, gid_j, lanes_j
+
+    # --- subquery predicates, ROLLUP, round and stddev --------------------
+    subq, subq_widest = subquery_rollup_phase(torch, np, dev, nds_session,
+                                              nds_ref, read_counts)
+    rows_s, groups_s, gid_s, lanes_s, q_s = subq_widest
+    b3_subq = hold_b3(f"nds {q_s} widest, {rows_s} rows", gid_s, lanes_s,
+                      groups_s, library=True)
+    b3_subq["query"] = q_s
+    del subq_widest, gid_s, lanes_s
 
     # --- windows over all of store_sales, on the SF10 session ---------------
     _, window_runs, window_want = window_phase(torch, np, dev, nds_session,
@@ -2511,42 +3182,10 @@ def main():
     rows = profiled("q3", lambda: tpch.q3(dfs["customer"], dfs["orders"],
                                           df).collect())
     check(same_rows(rows, ref3), "q3: profiled run disagrees")
-    from spark_rapids_tpu_torch.models.nds import NDS_QUERIES
-    from spark_rapids_tpu_torch.testing import compare_rows, order_keys
-    nds_q3 = nds_session.sql(NDS_QUERIES["q3"])
-    rows = profiled("nds q3", nds_q3.collect)
-    check(compare_rows(rows, nds_ref.q3(), *order_keys(
-        NDS_QUERIES["q3"], nds_q3.columns), RTOL) is None,
-        "nds q3: profiled run disagrees")
-    nds_q97 = nds_session.sql(NDS_QUERIES["q97"])
-    rows = profiled("nds q97", nds_q97.collect)
-    check(compare_rows(rows, nds_ref.q97(), *order_keys(
-        NDS_QUERIES["q97"], nds_q97.columns), RTOL) is None,
-        "nds q97: profiled run disagrees")
     table = profiled("window a_running", window_runs["a_running"])
     same_columns(np, table, window_want["a_running"],
                  "window a_running (profiled)")
-    del nds_session, nds_ref, nds_q3, nds_q97, window_runs, window_want, \
-        table
-
-    # --- what one kernel call launches ---------------------------------------
-    # last: each torch.profiler session leaves the host's launches slower
-    # for the rest of the process, which would skew the query walls
-    per_call = {}
-    for label, (plan, batch) in b1_programs.items():
-        arrays = plan.kernel_inputs(batch)
-        per_call[label] = log_profile(f"tile_reduce[{label}]", kernel_profile(
-            torch, lambda: DK.tile_reduce(arrays, plan.program, plan.kinds)))
-    for label, (gid, lanes, groups) in (("q1", q1_inputs()),
-                                        ("q3 widest", (gid3, lanes3,
-                                                       groups3))):
-        per_call[label] = log_profile(
-            f"tile_group_reduce[{label}]", kernel_profile(
-                torch, lambda: DK.tile_group_reduce(gid, lanes,
-                                                    num_groups=groups)))
-    b1["cuda_launches_per_call"] = per_call["q6"]
-    b2["cuda_launches_per_call"] = per_call["strings_lineitem"]
-    b3["cuda_launches_per_call"] = per_call["q1"]
+    del nds_session, nds_ref, window_runs, window_want, table
 
     b2_launches = launches["strings_lineitem"]["tile_reduce_str"] + \
         launches["strings_orders"]["tile_reduce_str"]
@@ -2560,13 +3199,13 @@ def main():
          "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:78",
          "launches": launches["q6"]["tile_reduce"]
          + sum(r["launches"]["tile_reduce"]
-               for r in (*nds.values(), *joins.values())),
+               for r in (*nds.values(), *joins.values(), *subq.values())),
          "nds_launches": {q: r["launches"]["tile_reduce"]
-                          for q, r in (*nds.items(), *joins.items())
+                          for q, r in (*nds.items(), *joins.items(),
+                                       *subq.items())
                           if r["launches"]["tile_reduce"]},
          **{k: b1[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                               "bound_by", "cold_ms", "bit_equal",
-                               "cuda_launches_per_call")},
+                               "bound_by", "cold_ms", "bit_equal")},
          "library_ms": None,
          "minmax_nan": {k: b1_mm[k] for k in ("ms", "cold_ms", "bound_ms",
                                               "bit_equal")}},
@@ -2575,8 +3214,7 @@ def main():
          "replaces": "spark_rapids_tpu/exec/pallas_agg.py:60",
          "launches": b2_launches,
          **{k: b2[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                               "bound_by", "cold_ms", "bit_equal",
-                               "cuda_launches_per_call")},
+                               "bound_by", "cold_ms", "bit_equal")},
          "library_ms": None,
          "orders": {k: b2_od[k] for k in ("ms", "cold_ms", "plain_ms",
                                           "bound_ms", "bit_equal")}},
@@ -2586,27 +3224,31 @@ def main():
          "launches": launches["q1"]["tile_group_reduce"]
          + launches["q3"]["tile_group_reduce"]
          + sum(r["launches"]["tile_group_reduce"]
-               for r in (*nds.values(), *joins.values())),
+               for r in (*nds.values(), *joins.values(), *subq.values())),
          "nds_launches": {q: r["launches"]["tile_group_reduce"]
-                          for q, r in (*nds.items(), *joins.items())
+                          for q, r in (*nds.items(), *joins.items(),
+                                       *subq.items())
                           if r["launches"]["tile_group_reduce"]},
          "max_abs_err": max(b3["max_abs_err"], b3_q3["err"],
                             *(r["b3_max_abs_err"] for r in
-                              (*nds.values(), *joins.values()))),
+                              (*nds.values(), *joins.values(),
+                               *subq.values()))),
          **{k: b3[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                               "library_ms", "cold_ms", "bit_equal",
-                               "cuda_launches_per_call")},
+                               "library_ms", "cold_ms", "bit_equal")},
          "q3_widest": b3_extra(b3_widest),
          "nds_widest": {"query": b3_nds["query"], **b3_extra(b3_nds)},
          "joins_widest": {"query": b3_joins["query"],
                           **b3_extra(b3_joins)},
+         "subquery_rollup_widest": {"query": b3_subq["query"],
+                                    **b3_extra(b3_subq)},
          "stress": {k: b3_extra(r) for k, r in b3_stress.items()}},
     ]
     # B1 on the NDS batches it took (the global aggregates under q28, q38,
-    # q61, q87 and q90)
+    # q61, q87 and q90, and under the plan-time subqueries of phase 6c)
     kernels[0]["max_abs_err"] = max(
         kernels[0]["max_abs_err"],
-        *(r["b1_max_abs_err"] for r in (*nds.values(), *joins.values())))
+        *(r["b1_max_abs_err"] for r in (*nds.values(), *joins.values(),
+                                        *subq.values())))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

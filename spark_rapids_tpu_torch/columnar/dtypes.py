@@ -2,8 +2,9 @@
 
 Counterpart of spark_rapids_tpu/columnar/dtypes.py, cut to the types the
 ported path carries: booleans, integers, floats, DATE (int32 days since
-the epoch, Spark's layout) and STRING (offsets + bytes, see
-columnar/vector.py). ``physical`` is the torch dtype of the data buffer
+the epoch, Spark's layout), STRING (offsets + bytes, see
+columnar/vector.py) and ARRAY of one of those (offsets + a child column,
+see columnar/nested.py). ``physical`` is the torch dtype of the data buffer
 and ``np_physical`` the numpy dtype of the host lane.
 """
 
@@ -110,6 +111,20 @@ class NullType(DType):
     physical = torch.bool
     np_physical = np.dtype(np.bool_)
     sql_name = "void"
+
+
+class ArrayType(DType):
+    """A list column's type: offsets + one child column of
+    ``element_type`` (cuDF's LIST layout); equal when the element types
+    are."""
+
+    def __init__(self, element_type: DType):
+        self.element_type = element_type
+        self.sql_name = f"array<{element_type.sql_name}>"
+
+    def __eq__(self, other: object) -> bool:
+        return isinstance(other, ArrayType) and \
+            self.element_type == other.element_type
 
 
 BOOL = BooleanType()

@@ -340,6 +340,8 @@ def with_validity(col: Column, validity: torch.Tensor) -> Column:
     every row the string MIN / MAX reduction leaves unfound has."""
     if isinstance(col, StringColumn):
         return StringColumn(col.offsets, col.chars, validity, col.pad_bucket)
+    if not isinstance(col, ColumnVector):  # a ListColumn
+        return col.with_validity(validity)
     return ColumnVector(col.data, validity, col.dtype)
 
 

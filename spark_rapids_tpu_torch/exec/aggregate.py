@@ -22,7 +22,8 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import torch
 
 from ..columnar import dtypes as dt
-from ..columnar.vector import (ColumnVector, ColumnarBatch, StringColumn,
+from ..columnar.nested import empty_list_column
+from ..columnar.vector import (ColumnVector, ColumnarBatch,
                                choose_capacity, live_mask, null_column,
                                with_validity)
 from ..conf import PALLAS_ENABLED, PALLAS_GROUPED_ENABLED
@@ -116,7 +117,8 @@ class HashAggregateExec(TpuExec):
         for i, sschema in enumerate(self._state_schemas):
             for sname, stype in sschema:
                 arr = states[i][sname]
-                if isinstance(arr, StringColumn):  # a string MIN / MAX
+                if not isinstance(arr, torch.Tensor):
+                    # a string MIN / MAX or a collect's list
                     cols.append(with_validity(arr, arr.validity & lm))
                 elif arr.dtype == torch.bool:
                     cols.append(ColumnVector(arr & lm, lm, stype))
@@ -132,7 +134,7 @@ class HashAggregateExec(TpuExec):
         key_cols = [batch.column(n) for n in self._key_names]
 
         def state(c):
-            return c if isinstance(c, StringColumn) else c.data
+            return c.data if isinstance(c, ColumnVector) else c
         states = [{sname: state(batch.column(_state_col_name(i, sname)))
                    for sname, _ in sschema}
                   for i, sschema in enumerate(self._state_schemas)]
@@ -154,7 +156,7 @@ class HashAggregateExec(TpuExec):
         out_cols: List = list(key_batch.columns)
         for i, (fn, _name) in enumerate(self.agg_exprs):
             data, ok = fn.finalize(merged[i])
-            if isinstance(data, StringColumn):
+            if not isinstance(data, torch.Tensor):  # string or list
                 out_cols.append(with_validity(data, data.validity & ok & lm))
                 continue
             out_cols.append(make_result(
@@ -254,12 +256,16 @@ class HashAggregateExec(TpuExec):
             if out_t == dt.STRING:  # MIN / MAX over no row is null
                 cols.append(null_column(out_t, cap, device))
                 continue
-            zero = {sname: torch.zeros(cap, dtype=stype.physical,
-                                       device=device)
+            zero = {sname: empty_list_column(stype.element_type, cap,
+                                             device)
+                    if isinstance(stype, dt.ArrayType) else
+                    torch.zeros(cap, dtype=stype.physical, device=device)
                     for sname, stype in self._state_schemas[i]}
             data, ok = fn.finalize(zero)
-            cols.append(make_result(data, ok & live_mask(cap, 1, device),
-                                    out_t))
+            ok = ok & live_mask(cap, 1, device)
+            cols.append(with_validity(data, ok)
+                        if not isinstance(data, torch.Tensor)
+                        else make_result(data, ok, out_t))
         return ColumnarBatch(cols, [n for _, n in self.agg_exprs], 1, device)
 
     def node_description(self) -> str:

@@ -1,7 +1,7 @@
 """Basic physical operators: scan over device batches, project, filter.
 
 Counterpart of spark_rapids_tpu/exec/basic.py (BatchScanExec,
-ProjectExec, FilterExec, LocalLimitExec, UnionExec).
+ProjectExec, FilterExec, LocalLimitExec, UnionExec, ExpandExec).
 """
 
 from __future__ import annotations
@@ -9,7 +9,9 @@ from __future__ import annotations
 from typing import Iterator, Sequence
 
 from ..columnar.vector import ColumnarBatch
+from ..expr.cast import Cast
 from ..expr.core import Expression, output_name
+from ..expr.misc import row_offset, uses_row_position
 from ..ops import kernels as K
 from .base import ExecContext, Schema, TpuExec
 
@@ -47,9 +49,17 @@ class ProjectExec(TpuExec):
 
     def do_execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
         names = [n for n, _ in self._schema]
+        positional = uses_row_position(self.exprs)
+        offset = 0
         for batch in self.children[0].execute(ctx):
-            yield ColumnarBatch([e.eval(batch) for e in self.exprs], names,
-                                batch.num_rows, batch.device)
+            if positional:
+                # row ids continue across batches (expr/misc.py)
+                with row_offset(offset):
+                    cols = [e.eval(batch) for e in self.exprs]
+                offset += batch.num_rows
+            else:
+                cols = [e.eval(batch) for e in self.exprs]
+            yield ColumnarBatch(cols, names, batch.num_rows, batch.device)
 
     def node_description(self) -> str:
         return f"Project[{', '.join(n for n, _ in self._schema)}]"
@@ -117,3 +127,38 @@ class UnionExec(TpuExec):
 
     def node_description(self) -> str:
         return f"Union[{len(self.children)}]"
+
+
+class ExpandExec(TpuExec):
+    """GROUPING SETS / ROLLUP / CUBE: one output batch per projection
+    list for every input batch (GpuExpandExec). ``schema`` is the
+    logical Expand's, whose columns take the common type of their slot
+    across the lists; a slot of another type is cast to it, so every
+    batch has that schema. A slot that is a plain column reference
+    passes the input's column on (no copy); a NULL-ed key slot is an
+    all-null column at the batch's capacity."""
+
+    def __init__(self, child: TpuExec,
+                 projections: Sequence[Sequence[Expression]],
+                 schema: Schema):
+        super().__init__(child)
+        in_schema = child.output_schema
+        self._schema = list(schema)
+        self.projections = [
+            [e if e.data_type(in_schema) == t else Cast(e, t)
+             for e, (_, t) in zip(p, self._schema)] for p in projections]
+
+    @property
+    def output_schema(self) -> Schema:
+        return self._schema
+
+    def do_execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
+        names = [n for n, _ in self._schema]
+        for batch in self.children[0].execute(ctx):
+            for proj in self.projections:
+                yield ColumnarBatch([e.eval(batch) for e in proj], names,
+                                    batch.num_rows, batch.device,
+                                    capacity=batch.capacity)
+
+    def node_description(self) -> str:
+        return f"Expand[{len(self.projections)} projections]"

@@ -2,11 +2,12 @@
 
 Counterpart of spark_rapids_tpu/expr/aggregates.py (Sum, Average,
 Count, CountStar, Min, Max on non-decimal inputs, Min and Max on
-strings too). Every aggregate splits into an update phase (raw rows ->
-per-group partial state), a merge phase (partial states -> merged
-state) and finalize; states are dicts of tensors (a StringColumn for a
-string MIN / MAX) sized to the group table, so partials flow as
-batches.
+strings too, the variance / stddev family, CollectList and CollectSet).
+Every aggregate splits into an update phase (raw rows -> per-group
+partial state), a merge phase (partial states -> merged state) and
+finalize; states are dicts of tensors (a StringColumn for a string
+MIN / MAX, a ListColumn for a collect) sized to the group table, so
+partials flow as batches.
 """
 
 from __future__ import annotations
@@ -16,16 +17,51 @@ from typing import Dict, List
 import torch
 
 from ..columnar import dtypes as dt
-from ..columnar.vector import Column, StringColumn, with_validity
+from ..columnar.nested import ListColumn
+from ..columnar.vector import (Column, ColumnVector, StringColumn,
+                               compaction_indices, live_mask, with_validity)
 from .core import Expression, Schema
 
 State = Dict[str, torch.Tensor]
 
 
 def _seg_sum(values, gid, num_groups, dtype=None):
+    """Per-group sums over rows in group order (``gid`` non-decreasing:
+    the grouping hands every aggregate its rows so). Integer sums are
+    exact in any order (``index_add_``); float sums go through
+    _ordered_seg_sum on every device."""
     out = torch.zeros(num_groups, dtype=dtype or values.dtype,
                       device=values.device)
+    if out.is_floating_point():
+        return _ordered_seg_sum(values.to(out.dtype), gid, out)
     return out.index_add_(0, gid, values.to(out.dtype))
+
+
+def _ordered_seg_sum(values, gid, out):
+    """Per-group float sums whose rounding depends only on each group's
+    own values in row order: a log-step segmented scan over the rows
+    (``gid`` non-decreasing), each group's total read at its last row.
+    Two groups over the same rows get the same bits (a ROLLUP subtotal
+    over one child ties with it exactly), every run and every device
+    adds in the same association, and no atomics are involved
+    (``index_add_`` adds floats on the card in an order that varies
+    between runs)."""
+    n = values.shape[0]
+    if n == 0:
+        return out
+    g, v = gid, values
+    step = 1
+    while step < n:
+        same = g[step:] == g[:-step]
+        v = torch.cat([v[:step], v[step:] + torch.where(
+            same, v[:-step], torch.zeros((), dtype=v.dtype,
+                                         device=v.device))])
+        step *= 2
+    last = torch.ones(n, dtype=torch.bool, device=v.device)
+    last[:-1] = g[1:] != g[:-1]
+    # one total and zeros per group: exact in any order, and no host sync
+    return out.index_add_(0, g, torch.where(last, v, torch.zeros(
+        (), dtype=v.dtype, device=v.device)))
 
 
 def _seg_reduce(values, gid, num_groups, fill, how):
@@ -47,6 +83,10 @@ class AggregateFunction(Expression):
     """Base; children[0] (if any) is the input expression."""
 
     name = "agg"
+    #: True when update / merge need the rows of a group contiguous in
+    #: key-sorted order (the collects' offset relabelling); grouping
+    #: then takes the sort path, never the hash-claim one
+    needs_sorted_groups = False
 
     def over(self, spec):
         """Use as a window aggregate: sum(x).over(spec)."""
@@ -259,3 +299,173 @@ class Average(AggregateFunction):
         n = states["count"]
         ok = n > 0
         return states["sum"] / torch.where(ok, n, 1).to(torch.float64), ok
+
+
+class _M2Base(AggregateFunction):
+    """Variance and stddev over (n, avg, m2) states, as the JAX package
+    keeps them: the update takes each group's mean, then the sum of
+    squared deviations from it; the merge is Chan et al.'s parallel
+    combination, so a partial -> final split rounds as the JAX package
+    does. A group with n <= ddof is null."""
+
+    ddof = 1
+
+    def data_type(self, schema: Schema) -> dt.DType:
+        return dt.FLOAT64
+
+    def state_schema(self, schema: Schema) -> List:
+        return [("n", dt.FLOAT64), ("avg", dt.FLOAT64), ("m2", dt.FLOAT64)]
+
+    def update(self, gid, col, num_groups, live) -> State:
+        x = torch.where(col.validity, col.data.to(torch.float64), 0.0)
+        n = _seg_sum(col.validity.to(torch.float64), gid, num_groups)
+        s = _seg_sum(x, gid, num_groups)
+        mean = s / torch.where(n > 0, n, 1.0)
+        dev = torch.where(col.validity, x - mean[gid], 0.0)
+        m2 = _seg_sum(dev * dev, gid, num_groups)
+        return {"n": n, "avg": mean, "m2": m2}
+
+    def merge(self, gid, states, num_groups) -> State:
+        n, navg, nm2 = states["n"], states["avg"], states["m2"]
+        n_tot = _seg_sum(n, gid, num_groups)
+        s_tot = _seg_sum(n * navg, gid, num_groups)
+        avg_tot = s_tot / torch.where(n_tot > 0, n_tot, 1.0)
+        delta = navg - avg_tot[gid]
+        m2_tot = _seg_sum(nm2 + n * delta * delta, gid, num_groups)
+        return {"n": n_tot, "avg": avg_tot, "m2": m2_tot}
+
+    def _var(self, states: State):
+        n = states["n"]
+        denom = n - self.ddof
+        ok = denom > 0
+        return states["m2"] / torch.where(ok, denom, 1.0), ok & (n > 0)
+
+    def finalize(self, states):
+        return self._var(states)
+
+
+class VariancePop(_M2Base):
+    name = "var_pop"
+    ddof = 0
+
+
+class VarianceSamp(_M2Base):
+    name = "var_samp"
+    ddof = 1
+
+
+class StddevPop(_M2Base):
+    name = "stddev_pop"
+    ddof = 0
+
+    def finalize(self, states):
+        v, ok = self._var(states)
+        return torch.sqrt(v), ok
+
+
+class StddevSamp(_M2Base):
+    name = "stddev_samp"
+    ddof = 1
+
+    def finalize(self, states):
+        v, ok = self._var(states)
+        return torch.sqrt(v), ok
+
+
+def _list_state(gid, col: Column, num_groups: int, eligible
+                ) -> ListColumn:
+    """A list state from rows whose groups are contiguous and in group
+    order: per-group counts of the eligible rows, and those rows
+    compacted in their current order as the child."""
+    counts = _seg_sum(eligible.to(torch.int64),
+                      gid.clamp(0, num_groups - 1), num_groups)
+    offsets = torch.zeros(num_groups + 1, dtype=torch.int32,
+                          device=counts.device)
+    offsets[1:] = torch.cumsum(counts, 0).to(torch.int32)
+    idx, n = compaction_indices(eligible)
+    child = col.gather(idx, live_mask(col.capacity, n, col.device))
+    return ListColumn(offsets, child,
+                      torch.ones(num_groups, dtype=torch.bool,
+                                 device=counts.device), col.dtype)
+
+
+def _dedup_sorted(gid, col: Column, eligible):
+    """Sort the rows by (group, value) with the ineligible rows last, and
+    keep the first of each run of equal values in a group (NULL = NULL,
+    NaN = NaN, as the grouping compares): (sorted gid, sorted column,
+    kept mask)."""
+    from ..ops import kernels as K
+    gcol = ColumnVector(gid, eligible, dt.INT64)
+    perm = K.sort_indices([gcol, col], [True, True], [True, True],
+                          eligible)
+    g_s = gid[perm]
+    elig_s = eligible[perm]
+    col_s = col.gather(perm, elig_s)
+    same_group = torch.zeros_like(elig_s)
+    same_group[1:] = g_s[1:] == g_s[:-1]
+    dup = K._adjacent_equal(col_s) & same_group
+    return g_s, col_s, elig_s & ~dup
+
+
+class CollectList(AggregateFunction):
+    """collect_list: a group's non-null values as a list, in row order.
+    The sort-path grouping hands update() key-sorted rows, so each
+    group's values are contiguous and the state is (cumulative group
+    counts, compacted values); the merge relabels offsets the same way,
+    as the JAX package does."""
+
+    name = "collect_list"
+    needs_sorted_groups = True
+
+    def data_type(self, schema: Schema) -> dt.DType:
+        return dt.ArrayType(self.children[0].data_type(schema))
+
+    def state_schema(self, schema: Schema) -> List:
+        return [("list", self.data_type(schema))]
+
+    def update(self, gid, col, num_groups, live) -> State:
+        # NULLs are dropped (Spark's collect_list / collect_set)
+        return {"list": _list_state(gid, col, num_groups,
+                                    col.validity & live)}
+
+    def merge(self, gid, states, num_groups) -> State:
+        lc = states["list"]
+        lens = torch.where(lc.validity, lc.lengths(), 0)
+        counts = _seg_sum(lens.to(torch.int64), gid, num_groups)
+        offsets = torch.zeros(num_groups + 1, dtype=torch.int32,
+                              device=counts.device)
+        offsets[1:] = torch.cumsum(counts, 0).to(torch.int32)
+        # a group's rows are contiguous in merge-sorted order and the
+        # gather repacked the child row by row: relabelling the offsets
+        # is the concatenation
+        return {"list": ListColumn(offsets, lc.child,
+                                   torch.ones(num_groups, dtype=torch.bool,
+                                              device=counts.device),
+                                   lc.dtype.element_type)}
+
+    def finalize(self, states):
+        lc = states["list"]
+        return lc, torch.ones(lc.capacity, dtype=torch.bool,
+                              device=lc.device)
+
+
+class CollectSet(CollectList):
+    """collect_set: collect_list without repeated values, in value order
+    (Spark leaves the order undefined); NULLs dropped, NaN = NaN."""
+
+    name = "collect_set"
+
+    def update(self, gid, col, num_groups, live) -> State:
+        g_s, col_s, keep = _dedup_sorted(gid, col, col.validity & live)
+        return {"list": _list_state(g_s, col_s, num_groups, keep)}
+
+    def merge(self, gid, states, num_groups) -> State:
+        merged = super().merge(gid, states, num_groups)["list"]
+        # element-level dedup: each element's group, then as in update
+        child = merged.child
+        pos = torch.arange(child.capacity, device=child.device)
+        alive = pos < merged.offsets[num_groups].to(torch.int64)
+        egid = torch.searchsorted(merged.offsets[1:].to(torch.int64), pos,
+                                  right=True)
+        g_s, c_s, keep = _dedup_sorted(egid, child, alive)
+        return {"list": _list_state(g_s, c_s, num_groups, keep)}

@@ -5,9 +5,12 @@ the in-memory table registration of this port.
 spark_rapids_tpu/models/nds.py (the texts are data: each keeps its
 original query's join graph, predicate shapes and aggregation pattern in
 the engine's SQL dialect). ``NDS_SLICE``, ``NDS_WINDOW``,
-``NDS_ALSO_RUNS`` and ``NDS_JOINS_SETOPS`` (outer, semi, anti and
-nested-loop joins and set operations) name the 66 queries this port
-runs end to end through ``session.sql``. ``register_nds`` generates each
+``NDS_ALSO_RUNS``, ``NDS_JOINS_SETOPS`` (outer, semi, anti and
+nested-loop joins and set operations), ``NDS_SUBQUERY`` (subquery
+predicates, ``COUNT(DISTINCT)``), ``NDS_ROLLUP`` (ROLLUP with
+``GROUPING()``) and ``NDS_FUNCS`` (``round``, ``stddev_samp`` and the
+last two texts) name all 99 queries; this port runs each end to end
+through ``session.sql``. ``register_nds`` generates each
 table in memory, in the JAX package's 1<<18-row chunks (the datagen
 seeds are per chunk, so the bytes equal the JAX package's), moves it to
 the session's device in ``srt.sql.batchSizeRows``-row batches and
@@ -33,7 +36,7 @@ NDS_SLICE = ("q3", "q7", "q15", "q19", "q21", "q25", "q26", "q37", "q40",
 
 #: the window queries (exec/window.py): a window over grouped rows,
 #: OVER (PARTITION BY ...) totals and averages, RANK over an aggregate,
-#: a ROWS running sum; q36 also needs ROLLUP and is not here
+#: a ROWS running sum; q36 also needs ROLLUP and is in NDS_ROLLUP
 NDS_WINDOW = ("q12", "q20", "q98", "q53", "q63", "q89", "q47", "q57",
               "q44", "q51")
 
@@ -51,6 +54,24 @@ NDS_ALSO_RUNS = ("q9", "q13", "q24", "q29", "q31", "q34", "q46", "q50",
 NDS_JOINS_SETOPS = ("q93", "q97", "q28", "q61", "q88", "q90", "q4", "q11",
                     "q33", "q54", "q56", "q60", "q66", "q71", "q74", "q76",
                     "q38", "q87")
+
+#: the queries with subquery predicates: EXISTS / NOT EXISTS / IN onto
+#: semi and anti joins, EXISTS and IN under OR onto left outer joins,
+#: correlated scalar subqueries onto grouped aggregates (q1, q6, q30,
+#: q32, q81, q92), EXISTS with a ``<>`` correlation (q16, q94) and
+#: ``COUNT(DISTINCT)`` (q16, q94, q95)
+NDS_SUBQUERY = ("q1", "q6", "q8", "q10", "q16", "q23", "q30", "q32", "q35",
+                "q41", "q45", "q69", "q81", "q92", "q94", "q95")
+
+#: the ROLLUP queries (an Expand and a grouping on the grouping id),
+#: with GROUPING() under RANK (q36, q70, q86); q14 and q70 also hold
+#: subquery predicates
+NDS_ROLLUP = ("q5", "q14", "q18", "q22", "q27", "q36", "q67", "q70",
+              "q77", "q80", "q86")
+
+#: ``round`` (q2, q78), ``stddev_samp`` (q17, q39), and q49 and q75,
+#: which need nothing more than the set operations
+NDS_FUNCS = ("q2", "q17", "q39", "q78", "q49", "q75")
 
 # --- schema ---------------------------------------------------------------
 

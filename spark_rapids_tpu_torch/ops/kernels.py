@@ -27,6 +27,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from ..columnar import dtypes as dt
+from ..columnar.nested import ListColumn, concat_lists
 from ..columnar.vector import (Column, ColumnVector, ColumnarBatch,
                                StringColumn, choose_capacity,
                                compaction_indices, live_mask, round_pow2,
@@ -372,14 +373,27 @@ def _grouping_prelude(batch: ColumnarBatch, key_cols: Sequence[Column],
     return _sorted_group_prelude(batch, key_cols), False
 
 
+def _in_group_order(prelude, fast: bool):
+    """The prelude with its rows in group order, as the aggregates take
+    them (their float sums add each group's rows in row order,
+    expr/aggregates.py _ordered_seg_sum). The sort path's rows already
+    are; the hash-claim path leaves rows in place, so its gids are
+    sorted here, stably, so that each group keeps its row order."""
+    if not fast:
+        return prelude
+    _perm, live, gid, num_groups, key_batch = prelude
+    gid_s, order = torch.sort(gid, stable=True)
+    return order, live[order], gid_s, num_groups, key_batch
+
+
 def _update_states(prelude, agg_inputs, agg_fns, fast: bool = False
                    ) -> List[dict]:
-    """Aggregate update over a prelude; the hash path keeps rows in
-    place, so its inputs are not gathered."""
-    perm, live_s, gid, _num_groups, key_batch = prelude
+    """Aggregate update over a prelude, its rows in group order."""
+    perm, live_s, gid, _num_groups, key_batch = _in_group_order(prelude,
+                                                                fast)
     states = []
     for inp, fn in zip(agg_inputs, agg_fns):
-        col = inp if inp is None or fast else inp.gather(perm, live_s)
+        col = inp if inp is None else inp.gather(perm, live_s)
         states.append(fn.update(gid, col, key_batch.capacity, live_s))
     return states
 
@@ -521,13 +535,13 @@ def group_merge(batch: ColumnarBatch, key_cols: Sequence[Column],
     """Merge partial aggregation states aligned with ``batch`` rows;
     returns (key_batch, merged states, num_groups)."""
     prelude, fast = _grouping_prelude(batch, key_cols, agg_fns, stats)
-    perm, live_s, gid, num_groups, key_batch = prelude
+    perm, live_s, gid, num_groups, key_batch = _in_group_order(prelude,
+                                                               fast)
 
-    def take(v):
-        return v.gather(perm, live_s) if isinstance(v, StringColumn) \
-            else v[perm]
-    merged = [fn.merge(gid, states if fast else
-                       {k: take(v) for k, v in states.items()},
+    def take(v):  # a tensor, or a string / list column state
+        return v[perm] if isinstance(v, torch.Tensor) else \
+            v.gather(perm, live_s)
+    merged = [fn.merge(gid, {k: take(v) for k, v in states.items()},
                        key_batch.capacity)
               for states, fn in zip(agg_states, agg_fns)]
     return key_batch, merged, num_groups
@@ -733,6 +747,8 @@ def repack_to(batch: ColumnarBatch, capacity: int) -> ColumnarBatch:
 
 def _concat_columns(cols: Sequence[Column], ns: Sequence[int],
                     out_cap: int) -> Column:
+    if isinstance(cols[0], ListColumn):  # a collect_list / collect_set state
+        return concat_lists(cols, ns, out_cap, _concat_columns)
     dev = cols[0].device
     total = sum(ns)
     validity = torch.zeros(out_cap, dtype=torch.bool, device=dev)

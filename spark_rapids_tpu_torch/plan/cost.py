@@ -3,14 +3,15 @@
 Counterpart of ``estimate_rows`` in spark_rapids_tpu/plan/cost.py to the
 depth the join planner reads it over in-memory relations: a relation
 counts its rows, a filter keeps half, an aggregate a tenth, a limit at
-most its n, a join (keyless ones too) as many rows as its larger side
-and a union the sum of its children.
+most its n, a join (keyless ones too) as many rows as its larger side,
+a union the sum of its children and an expand its child's rows once per
+projection.
 """
 
 from __future__ import annotations
 
-from .logical import (Aggregate, DeviceRelation, Filter, Join, Limit,
-                      LogicalPlan, Union)
+from .logical import (Aggregate, DeviceRelation, Expand, Filter, Join,
+                      Limit, LogicalPlan, Union)
 
 
 def estimate_rows(plan: LogicalPlan) -> float:
@@ -28,4 +29,6 @@ def estimate_rows(plan: LogicalPlan) -> float:
         return max(child_rows)
     if isinstance(plan, Union):
         return sum(child_rows)
+    if isinstance(plan, Expand):
+        return child_rows[0] * len(plan.projections)
     return child_rows[0] if child_rows else 0.0

@@ -2,7 +2,7 @@
 
 Counterpart of spark_rapids_tpu/plan/logical.py for the nodes the ported
 queries build (q6/q1/q3, the NDS queries: joins of every type, set
-operations, windows), plus ``DeviceRelation``: a leaf over batches
+operations, windows, grouping sets), plus ``DeviceRelation``: a leaf over batches
 already on the device (the JAX package reaches the same leaf through
 CachedRelation).
 """
@@ -225,3 +225,28 @@ class Union(LogicalPlan):
     @property
     def schema(self) -> Schema:
         return self.children[0].schema
+
+
+class Expand(LogicalPlan):
+    """GROUPING SETS / ROLLUP / CUBE pre-projection: every input row once
+    per projection list; each output column takes the common type of
+    its slot across the lists."""
+
+    def __init__(self, child: LogicalPlan,
+                 projections: Sequence[Sequence[Expression]],
+                 names: Sequence[str]):
+        super().__init__(child)
+        self.projections = [list(p) for p in projections]
+        in_schema = child.schema
+        from ..expr.conditional import _common_type
+        self._schema = [
+            (n, _common_type([p[i].data_type(in_schema)
+                              for p in self.projections]))
+            for i, n in enumerate(names)]
+
+    @property
+    def schema(self) -> Schema:
+        return self._schema
+
+    def node_description(self) -> str:
+        return f"Expand[{len(self.projections)} projections]"

@@ -8,7 +8,8 @@ equi-Join becomes a BroadcastHashJoinExec when its build side's
 estimated rows are at most ``srt.sql.broadcastRowThreshold`` and a
 ShuffledHashJoinExec otherwise, a keyless one a CartesianProductExec or
 a BroadcastNestedLoopJoinExec, and a full outer one a UnionExec of two
-hash joins (overrides.py:820-871); a Union becomes a UnionExec. A
+hash joins (overrides.py:820-871); a Union becomes a UnionExec and an
+Expand an ExpandExec. A
 Window becomes a BatchedRunningWindowExec over a SortExec when every
 function streams with carried state, else a WindowExec
 (overrides.py:776-793); the
@@ -28,8 +29,8 @@ from ..conf import (BROADCAST_THRESHOLD_ROWS, WINDOW_BATCHED_RUNNING,
                     SrtConf)
 from ..exec.aggregate import FINAL, PARTIAL, HashAggregateExec
 from ..exec.base import TpuExec
-from ..exec.basic import (BatchScanExec, FilterExec, LocalLimitExec,
-                          ProjectExec, UnionExec)
+from ..exec.basic import (BatchScanExec, ExpandExec, FilterExec,
+                          LocalLimitExec, ProjectExec, UnionExec)
 from ..exec.join import BroadcastHashJoinExec, ShuffledHashJoinExec
 from ..exec.nested_loop_join import (BroadcastNestedLoopJoinExec,
                                      CartesianProductExec)
@@ -42,8 +43,8 @@ from ..expr.cast import Cast
 from ..expr.conditional import _common_type
 from ..expr.core import Alias, Literal, col
 from .cost import estimate_rows
-from .logical import (Aggregate, DeviceRelation, Filter, Join, Limit,
-                      LogicalPlan, Project, Sort, Union, Window)
+from .logical import (Aggregate, DeviceRelation, Expand, Filter, Join,
+                      Limit, LogicalPlan, Project, Sort, Union, Window)
 
 
 def _sort_orders(sort: Sort):
@@ -201,6 +202,8 @@ def _to_physical(plan: LogicalPlan, conf: SrtConf) -> TpuExec:
         return _build_join(plan, children, conf)
     if isinstance(plan, Union):
         return UnionExec(*children)
+    if isinstance(plan, Expand):
+        return ExpandExec(children[0], plan.projections, plan.schema)
     if isinstance(plan, Window):
         return _build_window(plan, children[0], conf)
     if isinstance(plan, Aggregate):

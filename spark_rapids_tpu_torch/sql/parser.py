@@ -8,30 +8,44 @@ comma-joins from WHERE equi-conjuncts (left-deep, single-table filters
 pushed below the joins), splits aggregates out of SELECT/HAVING/ORDER
 BY, and lowers everything onto the Expression / LogicalPlan layer.
 
+Subquery predicates lower onto joins as the JAX analyzer lowers them:
+EXISTS / NOT EXISTS / IN onto semi and anti joins, NOT IN onto a
+NULL-aware anti join, EXISTS with a non-equi correlation through row
+ids, EXISTS / IN under OR and correlated scalar subqueries onto left
+outer joins; uncorrelated EXISTS, NOT IN's counts and uncorrelated
+scalar subqueries run while the text is analyzed, on the session's
+device. GROUPING SETS / ROLLUP / CUBE lower onto an Expand and a
+grouping on (keys, ``__grouping_id``); ``COUNT(DISTINCT x)`` onto
+``size(collect_set(x))``.
+
 Its function tables hold the functions this port has. A function,
 clause or type the JAX package's analyzer lowers but this port does not
-have yet (subquery predicates, INTERSECT / EXCEPT ALL as in the JAX
-package, GROUPING SETS / ROLLUP / CUBE, LIKE, INTERVAL arithmetic,
-string ``<`` / ``>``, timestamp and decimal types, and the functions in
-``_NOT_PORTED``) raises
-``SqlError`` saying so, before any plan is built.
+have yet (INTERSECT / EXCEPT ALL as in the JAX package, LIKE, INTERVAL
+arithmetic, string ``<`` / ``>``, timestamp and decimal types, and the
+functions in ``_NOT_PORTED``) raises ``SqlError`` saying so, before any
+plan is built.
 """
 
 from __future__ import annotations
 
+import copy
 import datetime
 from typing import List, Optional, Sequence, Tuple
 
 from ..columnar import dtypes as dt
 from ..expr import aggregates as Agg
 from ..expr import arithmetic as A
+from ..expr import bitwise as Bit
+from ..expr import collections as Coll
 from ..expr import conditional as Cond
+from ..expr import mathfns as M
 from ..expr import predicates as P
 from ..expr import strings as S
 from ..expr import window as W
 from ..expr.cast import Cast
 from ..expr.core import Alias, ColumnRef, Expression, Literal, col, lit, \
     output_name
+from ..expr.misc import monotonically_increasing_id
 from .lexer import Token, tokenize
 
 
@@ -863,7 +877,15 @@ class Parser:
 _AGG_FNS = {
     "sum": Agg.Sum, "min": Agg.Min, "max": Agg.Max,
     "avg": Agg.Average, "mean": Agg.Average,
+    "stddev": Agg.StddevSamp, "stddev_samp": Agg.StddevSamp,
+    "stddev_pop": Agg.StddevPop,
+    "variance": Agg.VarianceSamp, "var_samp": Agg.VarianceSamp,
+    "var_pop": Agg.VariancePop,
+    "collect_list": Agg.CollectList, "collect_set": Agg.CollectSet,
 }
+
+#: the aggregates the window execs run (exec/window.py)
+_WINDOW_AGG_FNS = frozenset({"sum", "min", "max", "avg", "mean", "count"})
 
 _UNARY_FNS = {"isnan": P.IsNaN, "abs": A.Abs}
 
@@ -874,8 +896,7 @@ _VARARG_FNS = {"coalesce": Cond.Coalesce}
 #: functions the JAX package's analyzer lowers that this port has not
 #: got yet
 _NOT_PORTED = frozenset({
-    "stddev", "stddev_samp", "stddev_pop", "variance", "var_samp",
-    "var_pop", "first", "last", "collect_list", "collect_set",
+    "first", "last",
     "sqrt", "cbrt", "exp", "ln", "log", "log2", "log10", "sin",
     "cos", "tan", "asin", "acos", "atan", "sinh", "cosh", "tanh",
     "degrees", "radians", "sign", "signum", "floor", "ceil", "ceiling",
@@ -885,7 +906,7 @@ _NOT_PORTED = frozenset({
     "dayofyear", "weekday", "last_day", "hour", "minute", "second",
     "pow", "power", "atan2", "hypot", "pmod", "date_add", "date_sub",
     "datediff", "add_months", "concat", "least", "greatest", "hash",
-    "xxhash64", "round", "bround", "lpad", "rpad", "replace",
+    "xxhash64", "lpad", "rpad", "replace",
     "translate", "locate", "position", "concat_ws", "from_unixtime",
     "make_date", "trunc", "get_json_object", "from_json", "to_json",
     "regexp_extract", "regexp_replace", "rlike", "regexp_like", "regexp",
@@ -1113,9 +1134,6 @@ class Analyzer:
                 subq_preds.append(c)
             else:
                 conjuncts.append(c)
-        if subq_preds:
-            raise _not_ported("a subquery predicate (EXISTS, IN (SELECT "
-                              "...), a correlated scalar subquery)")
         used = [False] * len(conjuncts)
 
         # WHERE predicates may only be pushed below the joins into
@@ -1272,9 +1290,13 @@ class Analyzer:
         for ci, c in enumerate(conjuncts):
             if not used[ci]:
                 current = current.filter(self.lower(c, full_scope))
+        for c in subq_preds:
+            current = self._apply_subquery_pred(current, full_scope, c)
         return self._finish(current, full_scope, s)
 
     # --- subquery predicates (EXISTS / IN (SELECT) / correlated scalar) ---
+    _subq_n = 0
+
     def _has_subquery_pred(self, a) -> bool:
         if isinstance(a, (ExistsA, InSubqueryA)):
             return True
@@ -1358,6 +1380,344 @@ class Analyzer:
         walk(ast)
         return found[0]
 
+    def _correlation_split(self, stmt: "SelectA", outer_scope: _Scope):
+        """Split a subquery's WHERE into (inner conjuncts, correlation
+        pairs [(outer_ast, inner_ast)], outer-only conjuncts, residual
+        conjuncts). Residuals reference BOTH scopes non-equi (q94's
+        ``ws1.ws_warehouse_sk <> ws2.ws_warehouse_sk``); EXISTS lowers
+        them as a post-join filter (``_apply_exists_residual``), other
+        shapes reject them."""
+        inner = self._inner_scope_of(stmt)
+        if inner is None:
+            raise SqlError("correlated subquery needs a FROM clause")
+        inner_c, pairs, outer_c, residuals = [], [], [], []
+        for c in self._conjuncts(stmt.where):
+            if not self._outer_refs(c, inner):
+                inner_c.append(c)
+                continue
+            if isinstance(c, BinA) and c.op == "=":
+                l_out = self._outer_refs(c.l, inner)
+                r_out = self._outer_refs(c.r, inner)
+                if l_out and not r_out:
+                    pairs.append((c.l, c.r))
+                    continue
+                if r_out and not l_out:
+                    pairs.append((c.r, c.l))
+                    continue
+            if not self._outer_refs_any_inner(c, inner):
+                outer_c.append(c)
+                continue
+            residuals.append(c)
+        return inner_c, pairs, outer_c, residuals
+
+    def _outer_refs_any_inner(self, ast, inner_scope: _Scope) -> bool:
+        """Does ``ast`` reference ANY column the inner scope resolves?"""
+        found = [False]
+
+        def walk(a):
+            if found[0] or not isinstance(a, Ast):
+                return
+            if isinstance(a, ColA):
+                try:
+                    inner_scope.resolve(a.name, a.qualifier)
+                    found[0] = True
+                except (SqlError, KeyError):
+                    pass
+                return
+            for v in vars(a).values():
+                if isinstance(v, Ast):
+                    walk(v)
+                elif isinstance(v, (list, tuple)):
+                    for x in v:
+                        if isinstance(x, Ast):
+                            walk(x)
+        walk(ast)
+        return found[0]
+
+    def _plan_semi_source(self, stmt: "SelectA", outer_scope: _Scope,
+                          value_ast: Optional[Ast]):
+        """Build (sub_df, left_key_exprs, right_key_names) for an
+        EXISTS/IN predicate; ``value_ast`` is the outer expression of an
+        IN (its match column is the subquery's single select item)."""
+        if not isinstance(stmt, SelectA):
+            if value_ast is None:
+                raise SqlError("EXISTS over set operations is not "
+                               "supported")
+            # uncorrelated IN over a set expression
+            sub_df = self.analyze(stmt)
+            if len(sub_df.schema) != 1:
+                raise SqlError("IN subquery must return one column")
+            n = Analyzer._subq_n = Analyzer._subq_n + 1
+            key = f"__sqv{n}"
+            sub_df = sub_df.select(
+                Alias(col(sub_df.schema[0][0]), key))
+            return (sub_df, [self.lower(value_ast, outer_scope)],
+                    [key], [])
+        inner_c, pairs, outer_c, residuals = self._correlation_split(
+            stmt, outer_scope)
+        if outer_c:
+            raise SqlError("outer-only conjunct inside subquery not "
+                           "supported")
+        if residuals and value_ast is not None:
+            raise SqlError("non-equi correlated predicates are only "
+                           "supported in EXISTS")
+        if (stmt.group_by or stmt.having) and (pairs or residuals):
+            raise SqlError("correlated subquery with GROUP BY/HAVING "
+                           "not supported in EXISTS/IN")
+        n = Analyzer._subq_n = Analyzer._subq_n + 1
+        s2 = SelectA()
+        s2.from_ = stmt.from_
+        s2.where = _and_all(inner_c)
+        s2.group_by = list(stmt.group_by)
+        s2.having = stmt.having
+        items = []
+        left_keys, right_names = [], []
+        if value_ast is not None:
+            if len(stmt.items) != 1 or isinstance(stmt.items[0][0],
+                                                  StarA):
+                raise SqlError("IN subquery must select exactly one "
+                               "column")
+            vname = f"__sqv{n}"
+            items.append((stmt.items[0][0], vname))
+            left_keys.append(self.lower(value_ast, outer_scope))
+            right_names.append(vname)
+        for i, (o_ast, i_ast) in enumerate(pairs):
+            kname = f"__sqk{n}_{i}"
+            items.append((i_ast, kname))
+            left_keys.append(self.lower(o_ast, outer_scope))
+            right_names.append(kname)
+        res_asts = []
+        if residuals:
+            # project every inner column a residual references under a
+            # fresh name and rewrite the residual to reference it; the
+            # EXISTS rewrite filters on it post-join
+            inner_scope = self._inner_scope_of(stmt)
+            mapping: dict = {}
+
+            def rw(a):
+                if isinstance(a, ColA):
+                    try:
+                        internal = inner_scope.resolve(a.name,
+                                                       a.qualifier)
+                    except (SqlError, KeyError):
+                        return a
+                    if internal not in mapping:
+                        fresh = f"__sqr{n}_{len(mapping)}"
+                        mapping[internal] = fresh
+                        items.append((ColA(a.name, a.qualifier), fresh))
+                    return ColA(mapping[internal], None)
+                if isinstance(a, (ScalarSubqueryA, ExistsA,
+                                  InSubqueryA)):
+                    raise SqlError("nested subquery inside a "
+                                   "correlated predicate is not "
+                                   "supported")
+                if not isinstance(a, Ast):
+                    return a
+                b = copy.copy(a)
+                for k, v in vars(a).items():
+                    if isinstance(v, Ast):
+                        setattr(b, k, rw(v))
+                    elif isinstance(v, (list, tuple)):
+                        setattr(b, k, type(v)(
+                            rw(x) if isinstance(x, Ast) else x
+                            for x in v))
+                return b
+
+            res_asts = [rw(c) for c in residuals]
+        if not items:
+            # uncorrelated EXISTS: non-emptiness only
+            items.append((LitA(1), f"__sq1_{n}"))
+            right_names, left_keys = [], []
+        s2.items = items
+        sub_df = self.analyze_select(s2)
+        return sub_df, left_keys, right_names, res_asts
+
+    def _apply_subquery_pred(self, df, scope: _Scope, ast):
+        """Lower one WHERE conjunct containing subquery predicates onto
+        joins (the engine-side version of Spark's RewritePredicate
+        Subquery, whose output the reference accelerates as
+        GpuBroadcastHashJoin left-semi/anti)."""
+        neg = False
+        inner = ast
+        while isinstance(inner, UnA) and inner.op == "not":
+            neg = not neg
+            inner = inner.e
+        if isinstance(inner, ExistsA):
+            sub_df, lk, rk, res = self._plan_semi_source(
+                inner.stmt, scope, None)
+            if res:
+                return self._apply_exists_residual(
+                    df, scope, sub_df, lk, rk, res, neg)
+            if not lk:
+                # uncorrelated: EXISTS is a plan-time boolean
+                nonempty = len(sub_df.limit(1).collect()) > 0
+                keep = nonempty != neg
+                return df if keep else df.filter(
+                    P.EqualTo(lit(1), lit(0)))
+            return df.join(sub_df, (lk, [col(n) for n in rk]),
+                           how="left_anti" if neg else "left_semi")
+        if isinstance(inner, InSubqueryA):
+            effective_neg = neg != inner.neg
+            sub_df, lk, rk, _res = self._plan_semi_source(
+                inner.stmt, scope, inner.e)
+            if effective_neg:
+                return self._apply_not_in(df, scope, inner, sub_df, lk,
+                                          rk)
+            return df.join(sub_df, (lk, [col(n) for n in rk]),
+                           how="left_semi")
+        if neg:
+            raise SqlError("NOT over this subquery predicate shape is "
+                           "not supported")
+        return self._apply_general_subquery_expr(df, scope, ast)
+
+    def _apply_exists_residual(self, df, scope: _Scope, sub_df, lk, rk,
+                               res_asts, neg: bool):
+        """EXISTS whose correlation has non-equi conjuncts (q94's
+        ``ws1.ws_warehouse_sk <> ws2.ws_warehouse_sk``): tag each outer
+        row with a unique id, inner-join to the subquery on the equi
+        pairs, filter on the residual, and semi/anti-join the surviving
+        ids back. The reference plans this same shape as a conditional
+        existence join (GpuBroadcastHashJoinExec with a bound AST
+        condition)."""
+        n = Analyzer._subq_n = Analyzer._subq_n + 1
+        rid = f"__srid{n}"
+        out_names = [nm for nm, _t in df.schema]
+        df_id = df.with_column(rid, monotonically_increasing_id())
+        if lk:
+            joined = df_id.join(sub_df, (lk, [col(k) for k in rk]),
+                                how="inner")
+        else:
+            joined = df_id.cross_join(sub_df)
+        comb = _Scope(
+            scope.entries + [(f"__sub{n}",
+                              [(nm, nm) for nm, _t in sub_df.schema])],
+            {**scope.types, **dict(sub_df.schema)})
+        cond = None
+        for a in res_asts:
+            e = self.lower(a, comb)
+            cond = e if cond is None else P.And(cond, e)
+        matched = joined.filter(cond).select(Alias(col(rid), rid))
+        kept = df_id.join(matched, ([col(rid)], [col(rid)]),
+                          how="left_anti" if neg else "left_semi")
+        return kept.select(*[Alias(col(nm), nm) for nm in out_names])
+
+    def _apply_not_in(self, df, scope, inner: "InSubqueryA", sub_df, lk,
+                      rk):
+        """NOT IN (subquery) with SQL null semantics: any NULL in the
+        subquery result ⇒ no row qualifies; a NULL probe value only
+        qualifies when the subquery is empty (GpuBroadcastNestedLoopJoin
+        null-aware anti join in the reference)."""
+        if len(lk) > 1:
+            raise SqlError("correlated NOT IN is not supported")
+        vname = rk[0]
+        from ..plan.session import GroupedData
+        agg = GroupedData(sub_df, []).agg(
+            Alias(Agg.CountStar(), "__n"),
+            Alias(Agg.Count(col(vname)), "__nn"))
+        row = agg.collect()[0]
+        total, nonnull = row["__n"], row["__nn"]
+        if total == 0:
+            return df                     # NOT IN ∅ is TRUE
+        if nonnull < total:
+            return df.filter(P.EqualTo(lit(1), lit(0)))  # NULL ⇒ empty
+        out = df.join(sub_df, (lk, [col(n) for n in rk]),
+                      how="left_anti")
+        return out.filter(P.Not(P.IsNull(lk[0])))
+
+    def _apply_general_subquery_expr(self, df, scope: _Scope, ast):
+        """Subquery predicates nested under OR (q10/q35 shape: EXISTS
+        (...) OR EXISTS (...)) lower as existence-join markers, plus
+        correlated scalar subqueries rewritten to grouped-aggregate
+        joins; the rewritten conjunct then filters normally."""
+        out_names = [n for n, _ in df.schema]
+        repl: dict = {}
+
+        def rewrite(a):
+            nonlocal df
+            if isinstance(a, ExistsA):
+                sub_df, lk, rk, res = self._plan_semi_source(
+                    a.stmt, scope, None)
+                if res:
+                    raise SqlError("non-equi correlated EXISTS under "
+                                   "OR is not supported")
+                if not lk:
+                    nonempty = len(sub_df.limit(1).collect()) > 0
+                    return LitA(nonempty)
+                n = Analyzer._subq_n = Analyzer._subq_n + 1
+                marker = f"__exists{n}"
+                sub_m = sub_df.select(
+                    *[Alias(col(k), k) for k in rk] +
+                    [Alias(lit(True), marker)]).distinct()
+                df = df.join(sub_m, (lk, [col(k) for k in rk]),
+                             how="left_outer")
+                return _PreLowered(Cond.Coalesce(col(marker),
+                                                 lit(False)))
+            if isinstance(a, InSubqueryA):
+                if a.neg:
+                    raise SqlError("NOT IN under OR is not supported")
+                sub_df, lk, rk, _res = self._plan_semi_source(
+                    a.stmt, scope, a.e)
+                n = Analyzer._subq_n = Analyzer._subq_n + 1
+                marker = f"__exists{n}"
+                sub_m = sub_df.select(
+                    *[Alias(col(k), k) for k in rk] +
+                    [Alias(lit(True), marker)]).distinct()
+                df = df.join(sub_m, (lk, [col(k) for k in rk]),
+                             how="left_outer")
+                return _PreLowered(Cond.Coalesce(col(marker),
+                                                 lit(False)))
+            if isinstance(a, ScalarSubqueryA) and \
+                    self._is_correlated(a.stmt):
+                # correlated scalar: rewrite to a grouped aggregate
+                # joined on the correlation keys; no match ⇒ NULL ⇒
+                # the comparison is UNKNOWN and the row filters out,
+                # exactly SQL semantics
+                stmt = a.stmt
+                if not isinstance(stmt, SelectA) or len(stmt.items) != 1:
+                    raise SqlError("correlated scalar subquery must "
+                                   "select one expression")
+                inner_c, pairs, outer_c, residuals = \
+                    self._correlation_split(stmt, scope)
+                if outer_c or residuals or not pairs or stmt.group_by:
+                    raise SqlError("unsupported correlated scalar "
+                                   "subquery shape")
+                n = Analyzer._subq_n = Analyzer._subq_n + 1
+                s2 = SelectA()
+                s2.from_ = stmt.from_
+                s2.where = _and_all(inner_c)
+                s2.group_by = [i_ast for _, i_ast in pairs]
+                vname = f"__scv{n}"
+                knames = [f"__sck{n}_{i}" for i in range(len(pairs))]
+                s2.items = [(i_ast, kn)
+                            for (_, i_ast), kn in zip(pairs, knames)] + \
+                    [(stmt.items[0][0], vname)]
+                sub_df = self.analyze_select(s2)
+                lk = [self.lower(o_ast, scope) for o_ast, _ in pairs]
+                df = df.join(sub_df, (lk, [col(k) for k in knames]),
+                             how="left_outer")
+                return _PreLowered(col(vname))
+            if not isinstance(a, Ast):
+                return a
+            clone = a.__class__.__new__(a.__class__)
+            for k, v in vars(a).items():
+                if isinstance(v, Ast):
+                    setattr(clone, k, rewrite(v))
+                elif isinstance(v, list):
+                    setattr(clone, k, [
+                        rewrite(x) if isinstance(x, Ast) else
+                        (tuple(rewrite(y) if isinstance(y, Ast) else y
+                               for y in x) if isinstance(x, tuple) else x)
+                        for x in v])
+                else:
+                    setattr(clone, k, v)
+            return clone
+
+        new_ast = rewrite(ast)
+        cond = self.lower(new_ast, scope)
+        df = df.filter(cond)
+        # drop the helper columns the joins added
+        return df.select(*[col(n) for n in out_names])
+
     # --- SELECT/GROUP BY/HAVING/ORDER BY lowering ---
     def _finish(self, df, scope: _Scope, s: SelectA):
         # expand stars (user-facing names become the output aliases)
@@ -1427,18 +1787,53 @@ class Analyzer:
 
         # aggregate path: split aggs out of select/having/order exprs
         keys_src = [self.lower(g, scope) for g in group_asts]
+        n_keys = len(keys_src)
         if s.group_sets is None:
             keys = keys_src
             key_names = [output_name(k, i) for i, k in enumerate(keys)]
         else:
-            raise _not_ported("GROUPING SETS / ROLLUP / CUBE")
+            # GROUPING SETS / ROLLUP / CUBE: expand each row once per
+            # grouping set (key slots NULL where absent, plus a grouping
+            # id), then group by (keys..., __grouping_id), so a subtotal
+            # NULL never merges with a natural NULL key (GpuExpandExec's
+            # role in the reference)
+            from ..plan import logical as L
+            in_names = [n for n, _ in df.schema]
+            key_names = [f"__gk{i}" for i in range(n_keys)]
+            projections = []
+            for idxs in s.group_sets:
+                gid_val = 0
+                proj = [col(n) for n in in_names]
+                for i, ke in enumerate(keys_src):
+                    if i in idxs:
+                        proj.append(ke)
+                    else:
+                        proj.append(Literal(None,
+                                            ke.data_type(df.schema)))
+                        gid_val |= 1 << (n_keys - 1 - i)
+                proj.append(lit(gid_val))
+                projections.append(proj)
+            df = type(df)(df.session, L.Expand(
+                df.plan, projections,
+                in_names + key_names + ["__grouping_id"]))
+            keys = [col(kn) for kn in key_names] + [col("__grouping_id")]
+            key_names = list(key_names) + ["__grouping_id"]
         agg_fns: List[Tuple[Agg.AggregateFunction, str]] = []
 
         def replace(e: Expression) -> Expression:
             """Replace aggregate subtrees with refs to computed columns,
             and group-key subtrees with refs to key output columns."""
             if isinstance(e, _GroupingMarker):
-                return lit(0)  # plain GROUP BY: every key is grouped
+                if s.group_sets is None:
+                    return lit(0)  # plain GROUP BY: every key is grouped
+                for i, k in enumerate(keys_src):
+                    if repr(e.children[0]) == repr(k):
+                        return Bit.BitwiseAnd(
+                            Bit.ShiftRight(col("__grouping_id"),
+                                           lit(n_keys - 1 - i)),
+                            lit(1))
+                raise SqlError("GROUPING() argument is not a grouping "
+                               "key")
             for k, kn in zip(keys_src, key_names):
                 if repr(e) == repr(k):
                     return col(kn)
@@ -1727,8 +2122,11 @@ class Analyzer:
                 default = fn.args[2].value
             cls = W.Lead if name == "lead" else W.Lag
             func = cls(self.lower(fn.args[0], scope), off, default)
-        elif name in _AGG_FNS or name == "count":
+        elif name in _WINDOW_AGG_FNS:
             func = self._lower_fn(fn, scope)
+        elif name in _AGG_FNS:
+            # the window execs run sum, count, avg, min and max
+            raise _not_ported(f"function {name!r} over a window")
         elif name in _NOT_PORTED:
             raise _not_ported(f"function {name!r}")
         else:
@@ -1756,7 +2154,13 @@ class Analyzer:
             if ast.star or not ast.args:
                 return Agg.CountStar()
             if ast.distinct:
-                raise _not_ported("count(DISTINCT ...)")
+                # COUNT(DISTINCT x) = size(collect_set(x)): collect_set
+                # drops NULLs and repeats, exactly distinct-count
+                # semantics; the aggregate split substitutes the inner
+                # CollectSet and Size applies after the aggregate
+                return Cast(Coll.Size(
+                    Agg.CollectSet(self.lower(ast.args[0], scope))),
+                    dt.INT64)
             return Agg.Count(self.lower(ast.args[0], scope))
         if name in _AGG_FNS:
             if ast.distinct:
@@ -1777,6 +2181,11 @@ class Analyzer:
                 ln = self._lit_value(ast.args[2], "substring length")
                 return S.Substring(args[0], pos, ln)
             return S.Substring(args[0], pos)
+        if name in ("round", "bround"):
+            scale = self._lit_value(ast.args[1], f"{name} scale") \
+                if len(ast.args) > 1 else 0
+            return (M.Round if name == "round" else M.BRound)(args[0],
+                                                              scale)
         if name == "if":
             self._arity(ast, 3)
             return Cond.If(args[0], args[1], args[2])

@@ -741,6 +741,41 @@ def test_group_aggregate_pallas_matches_stock(groups, expect_kernel):
         np.testing.assert_allclose(got[k], ref[k], rtol=RTOL)
 
 
+@pytest.mark.parametrize("phase", ["update", "merge"])
+def test_hash_and_sort_grouping_give_the_same_float_bits(phase,
+                                                         monkeypatch):
+    """The hash-claim path hands the aggregates its rows in group order,
+    as the sort path does, so both add each group's floats in the same
+    association: Sum, Average and VarianceSamp agree bit for bit, on
+    the update pass and on the merge of its states."""
+    batch = _grouped_batch(3000, 200, seed=5)
+    keys = [batch.column("k"), batch.column("i")]
+    v = batch.column("v")
+    fns = [Agg.Sum(E.col("v")), Agg.Average(E.col("v")),
+           Agg.VarianceSamp(E.col("v"))]
+    kb, st = K.group_aggregate(batch, keys, [v, v, v], fns)
+    # the states twice over, as two partials of one merge
+    both = K.concat_batches([kb, kb], 2 * kb.capacity)
+    n = kb.num_rows
+    twice = [{k: torch.nn.functional.pad(torch.cat([s[k][:n]] * 2),
+                                         (0, both.capacity - 2 * n))
+              for k in s} for s in st]
+    runs = []
+    for fast in (True, False):
+        monkeypatch.setattr(K, "_use_hash_grouping",
+                            lambda *a, fast=fast: fast)
+        stats = {}
+        if phase == "update":
+            out = K.group_aggregate(batch, keys, [v, v, v], fns, stats)
+        else:
+            out = K.group_merge(both, both.columns, twice, fns, stats)[:2]
+        assert stats == ({"claimResolved": 1} if fast else {})
+        runs.append(_by_key(*out))
+    assert runs[0].keys() == runs[1].keys()
+    for k in runs[0]:
+        assert np.array_equal(runs[0][k], runs[1][k], equal_nan=True), k
+
+
 def test_group_lane_rejects_non_sum_aggregates():
     batch = _grouped_batch(200, 5)
     v = batch.column("v")

@@ -1,9 +1,9 @@
 """The port's SQL front door against the JAX package's, on the CPU.
 
 The lexer gives the JAX lexer's tokens and the parser the JAX parser's
-AST (``_ast_repr``) for every one of the 99 NDS texts. A function,
-clause or type the port has not got yet raises ``SqlError`` before a
-plan exists. Importing every module of the port loads neither JAX nor
+AST (``_ast_repr``) for every one of the 99 NDS texts, and the port's
+analyzer and planner take every one. A function, clause or type the
+port has not got yet raises ``SqlError`` before a plan exists. Importing every module of the port loads neither JAX nor
 the JAX package.
 """
 
@@ -71,10 +71,11 @@ def session():
     ("SELECT k, STDDEV_SAMP(v) OVER (PARTITION BY k) FROM t",
      "function 'stddev_samp'"),
     ("SELECT k FROM t WHERE s LIKE 'a%'", "LIKE"),
-    ("SELECT round(v, 2) FROM t", "function 'round'"),
-    ("SELECT k FROM t WHERE k IN (SELECT k FROM t)", "subquery predicate"),
-    ("SELECT k, SUM(v) FROM t GROUP BY ROLLUP(k)", "ROLLUP"),
-    ("SELECT COUNT(DISTINCT k) FROM t", "count(DISTINCT"),
+    ("SELECT s || 'x' FROM t", "'||' operator"),
+    ("SELECT k FROM t WHERE CAST('2000-01-01' AS DATE) + INTERVAL 30 DAYS "
+     "> CAST('2000-01-02' AS DATE)", "INTERVAL"),
+    ("SELECT first(v) FROM t", "function 'first'"),
+    ("SELECT k div 2 FROM t", "'div' operator"),
     ("SELECT CAST(v AS DECIMAL(10,2)) FROM t", "type decimal"),
     ("SELECT k % 2 FROM t", "'%' operator"),
 ])
@@ -92,12 +93,15 @@ def nds_session():
     return s
 
 
-@pytest.mark.parametrize("q", ["q1", "q2", "q36"])
-def test_unported_nds_queries_raise(nds_session, q):
-    """q1 (a correlated scalar subquery), q2 (``round``; its UNION ALL
-    runs) and q36 (a window over a ROLLUP) stop in the analyzer."""
-    with pytest.raises(SqlError, match="not in this port yet"):
-        nds_session.sql(NDS_QUERIES[q])
+@pytest.mark.parametrize("q", QIDS)
+def test_every_nds_text_analyzes_and_plans(nds_session, q):
+    """All 99 texts analyze (their plan-time subqueries run) and plan
+    into physical operators; their results are tests/test_torch_nds.py's
+    differential."""
+    from spark_rapids_tpu_torch.plan.overrides import apply_overrides
+    df = nds_session.sql(NDS_QUERIES[q])
+    assert df.columns
+    assert apply_overrides(df.plan, nds_session.conf).tree_string()
 
 
 @pytest.mark.parametrize("text, want", [
@@ -113,10 +117,20 @@ def test_unported_nds_queries_raise(nds_session, q):
     # an ORDER BY expression before an output column: one sort over both
     ("SELECT k, v FROM t ORDER BY v IS NULL, k DESC",
      [{"k": 1, "v": 1.5}, {"k": None, "v": 3.0}, {"k": 2, "v": None}]),
+    ("SELECT k, round(v, 0) AS r FROM t ORDER BY k NULLS LAST",
+     [{"k": 1, "r": 2.0}, {"k": 2, "r": None}, {"k": None, "r": 3.0}]),
+    ("SELECT k FROM t WHERE k IN (SELECT k FROM t WHERE v < 2.0)",
+     [{"k": 1}]),
+    ("SELECT k, SUM(v) AS s, GROUPING(k) AS g FROM t GROUP BY ROLLUP(k) "
+     "ORDER BY g, k NULLS LAST",
+     [{"k": 1, "s": 1.5, "g": 0}, {"k": 2, "s": None, "g": 0},
+      {"k": None, "s": 3.0, "g": 0}, {"k": None, "s": 4.5, "g": 1}]),
+    ("SELECT COUNT(DISTINCT k) AS c FROM t", [{"c": 2}]),
 ])
 def test_ported_sql_runs(session, text, want):
     """What the unported cases above used to name (abs, OVER, a window
-    over an aggregate), and a mixed ORDER BY sorted as one key list."""
+    over an aggregate, round, an IN subquery, ROLLUP, COUNT(DISTINCT)),
+    and a mixed ORDER BY sorted as one key list."""
     assert session.sql(text).collect() == want
 
 
