@@ -1,14 +1,19 @@
 """Configuration: the keys the ported query path reads.
 
 Counterpart of spark_rapids_tpu/conf.py, cut to the keys the ported
-path reads, with the same names and defaults. Two TPU-only keys are not
-carried: ``srt.sql.pallas.tileRows`` (the Pallas grid tile) and
+path reads, with the same names and defaults. The device pool
+``srt.memory.tpu.poolSize`` keeps its TPU-era name; at 0 it is
+``srt.memory.tpu.allocFraction`` of the free memory that
+``torch.cuda.mem_get_info`` reports on the session's device when the
+budget is first used. Two TPU-only keys are not carried: ``srt.sql.pallas.tileRows`` (the Pallas grid tile) and
 ``srt.exec.pallas.groupAgg.maxCapacity`` (a float32 count ceiling; the
 port counts in float64).
 """
 
 from __future__ import annotations
 
+import os
+import tempfile
 from typing import Any, Callable, Dict, Optional
 
 
@@ -31,6 +36,29 @@ def _bool(v) -> bool:
     if isinstance(v, str):
         return v.strip().lower() == "true"
     return bool(v)
+
+
+def _fraction(v) -> float:
+    f = float(v)
+    if not 0.0 < f <= 1.0:
+        raise ValueError(f"expected a fraction in (0, 1], got {v!r}")
+    return f
+
+
+def _non_negative_int(v) -> int:
+    n = int(v)
+    if n < 0:
+        raise ValueError(f"expected an integer >= 0, got {v!r}")
+    return n
+
+
+def _one_of(*choices):
+    def conv(v) -> str:
+        s = str(v).upper()
+        if s not in choices:
+            raise ValueError(f"expected one of {choices}, got {v!r}")
+        return s
+    return conv
 
 
 def _positive_int(v) -> int:
@@ -98,6 +126,67 @@ JOIN_BLOOM_BITS_PER_KEY = _register(ConfEntry(
     "srt.sql.join.bloomFilter.bitsPerKey", _positive_int, 10,
     "Bloom filter sizing: bits per build-side key (rounded up to a power "
     "of two, clamped to [2^10, 2^24] bits)."))
+
+
+CONCURRENT_TASKS = _register(ConfEntry(
+    "srt.sql.concurrentTpuTasks", _positive_int, 2,
+    "Number of host threads allowed to submit device work "
+    "concurrently (the device semaphore's permits)."))
+
+DEVICE_MEMORY_LIMIT = _register(ConfEntry(
+    "srt.memory.tpu.poolSize", _non_negative_int, 0,
+    "Device budget in bytes for spillable batches; 0 derives it from the "
+    "device (allocFraction of its free memory). Exceeding it spills "
+    "and retries."))
+
+DEVICE_MEMORY_FRACTION = _register(ConfEntry(
+    "srt.memory.tpu.allocFraction", _fraction, 0.75,
+    "Fraction of the device's free memory usable for batches when "
+    "poolSize=0."))
+
+HOST_SPILL_LIMIT = _register(ConfEntry(
+    "srt.memory.host.spillStorageSize", _positive_int, 4 << 30,
+    "Host memory for spilled buffers before overflowing to disk."))
+
+SPILL_DIR = _register(ConfEntry(
+    "srt.memory.spill.dir", str,
+    os.path.join(tempfile.gettempdir(), "srt_spill"),
+    "Directory for disk-tier spill files (one file per buffer, under a "
+    "per-process session directory). The default is srt_spill in the "
+    "temporary directory (TMPDIR), /tmp/srt_spill as in the JAX package "
+    "when TMPDIR is unset."))
+
+RETRY_MAX_SPLITS = _register(ConfEntry(
+    "srt.memory.retry.maxSplits", _positive_int, 8,
+    "Max recursive halvings of an input batch under split-and-retry "
+    "before giving up."))
+
+OOM_INJECTION_MODE = _register(ConfEntry(
+    "srt.test.oomInjection.mode", _one_of("NONE", "RETRY", "SPLIT"),
+    "NONE",
+    "Test-only: fail the first allocation attempt of each query with a "
+    "synthetic OOM (RmmSpark.forceRetryOOM analogue). NONE|RETRY|SPLIT"))
+
+LEAK_DETECTION = _register(ConfEntry(
+    "srt.memory.leakDetection.enabled", _bool, False,
+    "Track the creation stack of every SpillableBatch and report entries "
+    "still registered (a leaked spillable)."))
+
+INTEGRITY_CHECKSUM = _register(ConfEntry(
+    "srt.integrity.checksum.enabled", _bool, True,
+    "Checksum spilled host and disk buffers and verify them when they "
+    "return to the device; a mismatch raises DataCorruption."))
+
+SORT_OOC_ROWS = _register(ConfEntry(
+    "srt.sql.sort.oocRowBudget", _positive_int, 1 << 22,
+    "Sort partitions whose total rows exceed this merge their spilled "
+    "sorted runs with a bounded-memory k-way chunk merge instead of one "
+    "full-size concat and sort."))
+
+AGG_MERGE_PARTITION_ROWS = _register(ConfEntry(
+    "srt.sql.agg.mergePartitionRows", _positive_int, 1 << 22,
+    "Aggregate merges whose concatenated partial rows exceed this are "
+    "re-partitioned by group-key hash and merged bucket by bucket."))
 
 
 class SrtConf:

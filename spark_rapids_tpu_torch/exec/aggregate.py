@@ -13,6 +13,15 @@ FilterExec's predicate) runs as one ``tile_reduce`` pass per batch
 (exec/pallas_agg.py); a grouped PARTIAL update over sum-decomposable
 aggregates takes ``tile_group_reduce`` for batches of <= 1024 groups.
 Neither lane has a fallback: on CUDA the kernel runs or the query fails.
+
+Memory (memory/): each PARTIAL input batch is held as a spillable under
+``with_retry`` with the halving split policy, as the JAX package's
+fused stage holds the batches of a pipeline ending in a partial
+aggregate, so a split batch's halves are aggregated on their own. FINAL
+holds the partials as spillables and merges them under
+``with_retry_no_split``; above ``srt.sql.agg.mergePartitionRows``
+partial rows it re-partitions them by group-key hash and merges the
+disjoint buckets one by one (GpuAggregateExec.scala:711).
 """
 
 from __future__ import annotations
@@ -26,9 +35,12 @@ from ..columnar.nested import empty_list_column
 from ..columnar.vector import (ColumnVector, ColumnarBatch,
                                choose_capacity, live_mask, null_column,
                                with_validity)
-from ..conf import PALLAS_ENABLED, PALLAS_GROUPED_ENABLED
+from ..conf import (AGG_MERGE_PARTITION_ROWS, PALLAS_ENABLED,
+                    PALLAS_GROUPED_ENABLED)
 from ..expr.aggregates import AggregateFunction
 from ..expr.core import Expression, make_result, output_name
+from ..memory.retry import retry_each, with_retry_no_split
+from ..memory.spill import SpillableBatch
 from ..ops import kernels as K
 from . import pallas_agg
 from .base import ExecContext, Metric, Schema, TpuExec
@@ -180,32 +192,113 @@ class HashAggregateExec(TpuExec):
     def _partial_stream(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
         grouped = self._grouped_lane_on(ctx)
         pb = ctx.metric(self.exec_id, "pallasBatches", Metric.DEBUG)
-        stats: dict = {}
-        for batch in self.children[0].execute(ctx):
-            if batch.num_rows == 0:
-                continue
-            if grouped:
-                partial, used = self._update_pallas(batch, stats)
-                pb.add(int(used))
-            else:
-                partial = self._update(batch, stats)
+
+        def update(sb: SpillableBatch) -> ColumnarBatch:
+            batch = sb.get()
+            stats: dict = {}
+            with ctx.semaphore:
+                if grouped:
+                    partial, used = self._update_pallas(batch, stats)
+                    pb.add(int(used))
+                else:
+                    partial = self._update(batch, stats)
+            sb.close()
             self._record_claims(ctx, stats)
-            yield partial
+            return partial
+        yield from retry_each(ctx, self.exec_id,
+                              self.children[0].execute(ctx), update)
+
+    def _merge_batches(self, ctx: ExecContext, held, cap: int
+                       ) -> ColumnarBatch:
+        """Concat + merge + finalize of held partials, under
+        ``with_retry_no_split`` (a pure function of the spillables)."""
+        def merge_all():
+            batches = [sb.get() for sb in held]
+            stats: dict = {}
+            with ctx.semaphore:
+                merged_in = batches[0] if len(batches) == 1 else \
+                    K.concat_batches(batches, cap)
+                del batches
+                out = self._merge_finalize(merged_in, stats)
+            self._record_claims(ctx, stats)
+            return out
+        return with_retry_no_split(
+            merge_all, counters=ctx.retry_counters(self.exec_id))
 
     def _merge_partials(self, ctx: ExecContext,
                         partials) -> Iterator[ColumnarBatch]:
-        held = [p for p in partials if p.num_rows > 0]
-        if not held:
-            if not self.group_exprs:
-                yield self._empty_global_result(ctx.device)
-            return
-        cap = choose_capacity(sum(p.num_rows for p in held))
-        merged_in = held[0] if len(held) == 1 else \
-            K.concat_batches(held, cap)
-        stats: dict = {}
-        out = self._merge_finalize(merged_in, stats)
-        self._record_claims(ctx, stats)
-        yield out
+        """Hold the partials as spillables and merge them: one merge,
+        or the re-partitioned merge above
+        ``srt.sql.agg.mergePartitionRows`` rows."""
+        counters = ctx.retry_counters(self.exec_id)
+        held: List[SpillableBatch] = []
+        total = 0
+        try:
+            for p in partials:
+                if p.num_rows == 0:
+                    continue
+                total += p.num_rows
+                held.append(with_retry_no_split(
+                    lambda b=p: SpillableBatch(b), counters=counters))
+                del p
+            if not held:
+                if not self.group_exprs:
+                    yield self._empty_global_result(ctx.device)
+                return
+            threshold = ctx.conf.get(AGG_MERGE_PARTITION_ROWS)
+            if total > threshold and self.group_exprs:
+                yield from self._repartition_merge(ctx, held, total,
+                                                   threshold)
+                return
+            out = self._merge_batches(ctx, held, choose_capacity(total))
+            for sb in held:
+                sb.close()
+            yield out
+        finally:
+            for sb in held:
+                sb.close()
+
+    def _repartition_merge(self, ctx: ExecContext, held, total: int,
+                           threshold: int) -> Iterator[ColumnarBatch]:
+        """Bucket every held partial by group-key hash (the seed-7 chain
+        the sub-partition join uses) into spillable buckets, then merge
+        each bucket on its own: equal keys share a bucket, so the
+        buckets' results are disjoint."""
+        counters = ctx.retry_counters(self.exec_id)
+        parts = max(2, -(-total // max(threshold, 1)))
+        ctx.metric(self.exec_id, "aggMergePartitions",
+                   Metric.DEBUG).add(parts)
+        buckets: List[List[SpillableBatch]] = [[] for _ in range(parts)]
+        bucket_rows = [0] * parts
+        try:
+            for sb in held:
+                batch = with_retry_no_split(sb.get, counters=counters)
+                with ctx.semaphore:
+                    ids = K.bucket_ids([batch.column(n)
+                                        for n in self._key_names], parts)
+                for p in range(parts):
+                    with ctx.semaphore:
+                        sub = K.bucket_compact(batch, ids, p)
+                    if sub is None:
+                        continue
+                    bucket_rows[p] += sub.num_rows
+                    buckets[p].append(with_retry_no_split(
+                        lambda b=sub: SpillableBatch(b), counters=counters))
+                del batch, ids, sub
+                sb.close()
+            for p in range(parts):
+                if not buckets[p]:
+                    continue
+                out = self._merge_batches(ctx, buckets[p],
+                                          choose_capacity(bucket_rows[p]))
+                for b in buckets[p]:
+                    b.close()
+                buckets[p] = []
+                yield out
+        finally:
+            for bs in buckets:
+                for b in bs:
+                    b.close()
 
     def do_execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
         if self.mode == FINAL:
@@ -235,17 +328,23 @@ class HashAggregateExec(TpuExec):
         def stream():
             pb = ctx.metric(self.exec_id, "pallasBatches", Metric.DEBUG)
             totals = plan.init_totals()
-            device = None
-            for batch in source.execute(ctx):
-                if batch.num_rows == 0:
-                    continue
-                device = batch.device
-                plan.combine(totals, fn(batch))
+
+            def reduce(sb: SpillableBatch):
+                batch = sb.get()
+                with ctx.semaphore:
+                    part = fn(batch)
+                sb.close()
+                return part
+            seen = False
+            for part in retry_each(ctx, self.exec_id, source.execute(ctx),
+                                   reduce):
+                plan.combine(totals, part)
                 pb.add(1)
-            if device is None:
+                seen = True
+            if not seen:
                 return  # FINAL emits the empty-input row
-            key_batch = ColumnarBatch([], [], 1, device, capacity=8)
-            yield self._pack(key_batch, plan.states(totals, device))
+            key_batch = ColumnarBatch([], [], 1, ctx.device, capacity=8)
+            yield self._pack(key_batch, plan.states(totals, ctx.device))
         return stream()
 
     def _empty_global_result(self, device) -> ColumnarBatch:

@@ -1,19 +1,23 @@
-"""Exec base: the physical operator protocol and its metrics.
+"""Exec base: the physical operator protocol, its metrics, and the
+device semaphore.
 
-Counterpart of spark_rapids_tpu/exec/base.py, without the device
-semaphore, profiler spans and fault-injection hooks (not ported yet).
+Counterpart of spark_rapids_tpu/exec/base.py, without the profiler
+spans and fault-injection hooks (not ported yet).
 """
 
 from __future__ import annotations
 
 import itertools
+import threading
 import time
 from typing import Dict, Iterator, List, Optional
 
 import torch
 
 from ..columnar.vector import ColumnarBatch
-from ..conf import SrtConf
+from ..conf import CONCURRENT_TASKS, SrtConf
+from ..memory.budget import task_context
+from ..memory.spill import spill_catalog
 
 Schema = List  # [(name, DType), ...]
 
@@ -38,11 +42,72 @@ class Metric:
         return f"{self.name}={self.value}{self.unit}"
 
 
+class TpuSemaphore:
+    """Limits the host threads that submit device work at once
+    (GpuSemaphore.scala); re-entrant per thread. Time spent blocked goes
+    to the task's ``semaphore_wait_ns``."""
+
+    def __init__(self, permits: int):
+        self._sem = threading.Semaphore(permits)
+        self.permits = permits
+        self._holders: Dict[int, int] = {}
+        self._lock = threading.Lock()
+
+    def acquire_if_necessary(self) -> None:
+        tid = threading.get_ident()
+        with self._lock:
+            if self._holders.get(tid, 0) > 0:
+                self._holders[tid] += 1
+                return
+        # uncontended fast path: only actual blocking counts as wait
+        if not self._sem.acquire(blocking=False):
+            t0 = time.perf_counter_ns()
+            self._sem.acquire()
+            task_context().semaphore_wait_ns += time.perf_counter_ns() - t0
+        with self._lock:
+            self._holders[tid] = 1
+
+    def release_if_held(self) -> None:
+        tid = threading.get_ident()
+        with self._lock:
+            n = self._holders.get(tid, 0)
+            if n == 0:
+                return
+            if n > 1:
+                self._holders[tid] = n - 1
+                return
+            del self._holders[tid]
+        self._sem.release()
+
+    def __enter__(self):
+        self.acquire_if_necessary()
+        return self
+
+    def __exit__(self, *exc):
+        self.release_if_held()
+        return False
+
+
+_GLOBAL_SEM: Optional[TpuSemaphore] = None
+_SEM_LOCK = threading.Lock()
+
+
+def device_semaphore(conf: Optional[SrtConf] = None) -> TpuSemaphore:
+    """The process-wide device semaphore, sized from
+    ``srt.sql.concurrentTpuTasks`` at first use."""
+    global _GLOBAL_SEM
+    with _SEM_LOCK:
+        if _GLOBAL_SEM is None:
+            _GLOBAL_SEM = TpuSemaphore((conf or SrtConf()).get(
+                CONCURRENT_TASKS))
+        return _GLOBAL_SEM
+
+
 class ExecContext:
-    """Per-query execution context: conf, the session's device and the
-    metrics sink. The device is ``cuda`` unless the caller asks for the
-    CPU, as for TpuSession; a context asked for CUDA where there is none
-    raises."""
+    """Per-query execution context: conf, the session's device, the
+    metrics sink, the device semaphore and the query's memory counters.
+    The device is ``cuda`` unless the caller asks for the CPU, as for
+    TpuSession; a context asked for CUDA where there is none raises."""
 
     def __init__(self, conf: Optional[SrtConf] = None, device="cuda"):
         device = torch.device(device)
@@ -52,6 +117,19 @@ class ExecContext:
         self.conf = conf or SrtConf()
         self.device = device
         self.metrics: Dict[str, Dict[str, Metric]] = {}
+        self.semaphore = device_semaphore(self.conf)
+        #: the task's memory counters at the query's end (the session
+        #: fills them in)
+        self.memory: Dict[str, int] = {}
+        # the process-wide spill catalog and budget, sized on first use
+        # from this context's conf and device
+        spill_catalog(self.conf, device)
+
+    def retry_counters(self, exec_id: str) -> Dict[str, Metric]:
+        """The operator's retry and split metrics, as with_retry takes
+        them."""
+        return {n: self.metric(exec_id, n, Metric.DEBUG)
+                for n in ("retryCount", "splitAndRetryCount")}
 
     def metric(self, exec_id: str, name: str, level: str = Metric.MODERATE,
                unit: str = "") -> Metric:

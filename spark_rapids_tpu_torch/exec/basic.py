@@ -1,19 +1,24 @@
 """Basic physical operators: scan over device batches, project, filter.
 
 Counterpart of spark_rapids_tpu/exec/basic.py (BatchScanExec,
-ProjectExec, FilterExec, LocalLimitExec, UnionExec, ExpandExec).
+ProjectExec, FilterExec, LocalLimitExec, UnionExec, ExpandExec,
+CoalesceBatchesExec).
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Sequence
+import time
+from typing import Iterator, List, Optional, Sequence
 
-from ..columnar.vector import ColumnarBatch
+from ..columnar.vector import ColumnarBatch, choose_capacity
+from ..conf import BATCH_SIZE_ROWS
 from ..expr.cast import Cast
 from ..expr.core import Expression, output_name
 from ..expr.misc import row_offset, uses_row_position
+from ..memory.retry import with_retry_no_split
+from ..memory.spill import SpillableBatch
 from ..ops import kernels as K
-from .base import ExecContext, Schema, TpuExec
+from .base import ExecContext, Metric, Schema, TpuExec
 
 
 class BatchScanExec(TpuExec):
@@ -162,3 +167,79 @@ class ExpandExec(TpuExec):
 
     def node_description(self) -> str:
         return f"Expand[{len(self.projections)} projections]"
+
+
+class CoalesceBatchesExec(TpuExec):
+    """Combine small batches up to the target row count
+    (GpuCoalesceBatches, AbstractGpuCoalesceIterator:250). Pending
+    batches are held as spillables while they accumulate, like the
+    reference's on-deck storage. The JAX planner places none; a caller
+    builds it over a child that emits small batches."""
+
+    def __init__(self, child: TpuExec, target_rows: Optional[int] = None):
+        super().__init__(child)
+        self.target_rows = target_rows
+
+    @property
+    def output_schema(self) -> Schema:
+        return self.children[0].output_schema
+
+    def do_execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
+        target = self.target_rows or ctx.conf.get(BATCH_SIZE_ROWS)
+        counters = ctx.retry_counters(self.exec_id)
+        # time spent blocked pulling the child
+        wait = ctx.metric(self.exec_id, "coalesceWaitTime", Metric.MODERATE,
+                          "ns")
+        pending: List[SpillableBatch] = []
+        pending_rows = 0
+
+        def flush() -> ColumnarBatch:
+            nonlocal pending, pending_rows
+            cap = choose_capacity(pending_rows)
+
+            def concat():
+                batches = [sb.get() for sb in pending]
+                if len(batches) == 1:
+                    return batches[0]
+                with ctx.semaphore:
+                    return K.concat_batches(batches, cap)
+            out = with_retry_no_split(concat, counters=counters)
+            for sb in pending:
+                sb.close()
+            pending, pending_rows = [], 0
+            return out
+
+        try:
+            it = iter(self.children[0].execute(ctx))
+            while True:
+                t0 = time.perf_counter_ns()
+                batch = next(it, None)
+                wait.add(time.perf_counter_ns() - t0)
+                if batch is None:
+                    break
+                n = batch.num_rows
+                if n == 0:
+                    continue
+                if n >= target and not pending:
+                    # already at target with nothing buffered
+                    yield batch
+                    continue
+                if pending_rows + n > target and pending:
+                    yield flush()
+                    if n >= target:
+                        yield batch
+                        continue
+                pending.append(with_retry_no_split(
+                    lambda b=batch: SpillableBatch(b), counters=counters))
+                pending_rows += n
+                del batch
+                if pending_rows >= target:
+                    yield flush()
+            if pending:
+                yield flush()
+        finally:
+            for sb in pending:
+                sb.close()
+
+    def node_description(self) -> str:
+        return f"CoalesceBatches[target={self.target_rows or 'conf'}]"

@@ -32,6 +32,13 @@ null-extended anti join (plan/overrides.py).
   rows are first filtered against a bloom filter of the build keys, for
   inner and semi joins only: an outer or anti join must keep the rows
   it would drop.
+- Memory (memory/): each probe batch is held as a spillable and joined
+  under ``with_retry`` with the halving split policy, as the JAX
+  package's fused join does (every probe row's output depends on that
+  row and the whole build side alone, so halves join on their own). The
+  sub-partition path holds its sub-builds and probe buckets as
+  spillables and brings each sub-build back under
+  ``with_retry_no_split``.
 
 Dynamic partition pruning, adaptive join demotion and the fused join
 pipeline are not ported yet.
@@ -46,6 +53,8 @@ from ..conf import (JOIN_BLOOM_BITS_PER_KEY, JOIN_BLOOM_ENABLED,
                     JOIN_BLOOM_MIN_PROBE_ROWS, JOIN_GROWTH_STEPS,
                     JOIN_SUB_PARTITION_ROWS)
 from ..expr.core import Expression
+from ..memory.retry import retry_each, with_retry_no_split
+from ..memory.spill import SpillableBatch
 from ..ops import bloom as B
 from ..ops import kernels as K
 from .base import ExecContext, Metric, Schema, TpuExec
@@ -174,54 +183,107 @@ class _HashJoinBase(TpuExec):
                 probe.names + [n for n, _ in self._build_schema],
                 probe.num_rows, probe.device))
 
+    def _probe_pairs(self, ctx: ExecContext, probes, build: ColumnarBatch
+                     ) -> Iterator[ColumnarBatch]:
+        """Each probe batch against ``build``, under the per-batch retry
+        block (a probe batch that does not fit is joined in halves)."""
+        def pair(sb: SpillableBatch) -> ColumnarBatch:
+            probe = sb.get()
+            out = self._join_pair(ctx, probe, build)
+            sb.close()
+            return out
+        yield from retry_each(ctx, self.exec_id, probes, pair)
+
+    def _unspill(self, ctx: ExecContext, held: List[SpillableBatch],
+                 close: bool = True) -> Iterator[ColumnarBatch]:
+        counters = ctx.retry_counters(self.exec_id)
+        for sb in held:
+            batch = with_retry_no_split(sb.get, counters=counters)
+            if close:
+                sb.close()
+            yield batch
+
     def _sub_partition_join(self, ctx: ExecContext, probe_stream,
                             build_holder: List[ColumnarBatch],
                             threshold: int) -> Iterator[ColumnarBatch]:
-        """Bucket both sides by the same key hash, then join bucket
-        pairs. ``build_holder`` hands over the concatenated build, so it
-        is freed once it has been bucketed. The whole probe stream is
-        bucketed first, so each sub-build is joined in one go."""
+        """Bucket both sides by the same key hash into spillables, then
+        join bucket pairs. ``build_holder`` hands over the concatenated
+        build, so it is freed once it has been bucketed. The whole probe
+        stream is bucketed first, so each sub-build comes back to the
+        device once."""
+        counters = ctx.retry_counters(self.exec_id)
+
+        def retried(fn):
+            return with_retry_no_split(fn, counters=counters)
+
+        def bucket(batch: ColumnarBatch, ids, p: int):
+            """Bucket ``p``'s rows, held as a spillable (None if none):
+            one retry block, so an OOM spills the buckets made so far."""
+            sub = K.bucket_compact(batch, ids, p)
+            return None if sub is None else SpillableBatch(sub)
         build = build_holder.pop()
         parts = max(2, -(-build.num_rows // threshold))
         self._metric(ctx, "joinSubPartitions").add(parts)
-        ids = K.bucket_ids([e.eval(build) for e in self._build_key_exprs],
-                           parts)
-        sub_builds = [K.bucket_compact(build, ids, p) for p in range(parts)]
-        del build, ids
-        probe_buckets: List[List[ColumnarBatch]] = [[] for _ in range(parts)]
-        for probe in probe_stream:
-            if probe.num_rows == 0:
-                continue
-            ids = K.bucket_ids(
-                [e.eval(probe) for e in self._probe_key_exprs], parts)
+        sub_builds: List = []
+        probe_buckets: List[List[SpillableBatch]] = [[] for _ in range(parts)]
+        try:
+            ids = retried(lambda: K.bucket_ids(
+                [e.eval(build) for e in self._build_key_exprs], parts))
             for p in range(parts):
-                sub = K.bucket_compact(probe, ids, p)
-                if sub is not None:
-                    probe_buckets[p].append(sub)
-        skew = self._metric(ctx, "joinSubPartitionSkew")
-        for p in range(parts):
-            build_p, probes = sub_builds[p], probe_buckets[p]
-            sub_builds[p], probe_buckets[p] = None, []
-            if not probes:
-                continue
-            if build_p is None:
-                yield from self._empty_build(probes)
-                continue
-            if build_p.num_rows > threshold:
-                skew.add(1)  # a hot key defeated the hashing
-            if build_p.num_rows <= threshold or self.join_type != INNER:
-                # a hot bucket of any other join type runs whole: a probe
-                # row unmatched in one chunk may match in another
-                for probe in probes:
-                    yield self._join_pair(ctx, probe, build_p)
-                continue
-            # a hot bucket of an inner join: row chunks of the build side
-            # join to a disjoint union of the matches
-            cap = choose_capacity(threshold)
-            for start in range(0, build_p.num_rows, threshold):
-                chunk = K.slice_batch(build_p, start, threshold, cap)
-                for probe in probes:
-                    yield self._join_pair(ctx, probe, chunk)
+                sub_builds.append(retried(lambda p=p: bucket(build, ids, p)))
+            del build, ids
+            for probe in probe_stream:
+                if probe.num_rows == 0:
+                    continue
+                ids = retried(lambda b=probe: K.bucket_ids(
+                    [e.eval(b) for e in self._probe_key_exprs], parts))
+                for p in range(parts):
+                    sb = retried(lambda p=p, b=probe: bucket(b, ids, p))
+                    if sb is not None:
+                        probe_buckets[p].append(sb)
+                del probe, ids
+            skew = self._metric(ctx, "joinSubPartitionSkew")
+            for p in range(parts):
+                if not probe_buckets[p]:
+                    continue
+                if sub_builds[p] is None:
+                    yield from self._empty_build(
+                        self._unspill(ctx, probe_buckets[p]))
+                    continue
+                build_p = with_retry_no_split(sub_builds[p].get,
+                                              counters=counters)
+                if build_p.num_rows > threshold:
+                    skew.add(1)  # a hot key defeated the hashing
+                if build_p.num_rows <= threshold or \
+                        self.join_type != INNER:
+                    # a hot bucket of any other join type runs whole: a
+                    # probe row unmatched in one chunk may match in
+                    # another
+                    yield from self._probe_pairs(
+                        ctx, self._unspill(ctx, probe_buckets[p]), build_p)
+                else:
+                    # a hot bucket of an inner join: row chunks of the
+                    # build side join to a disjoint union of the matches
+                    cap = choose_capacity(threshold)
+                    for start in range(0, build_p.num_rows, threshold):
+                        chunk = K.slice_batch(build_p, start, threshold, cap)
+                        yield from self._probe_pairs(
+                            ctx, self._unspill(ctx, probe_buckets[p],
+                                               close=False), chunk)
+                        del chunk
+                del build_p
+                for sb in probe_buckets[p]:
+                    sb.close()
+                probe_buckets[p] = []
+                sub_builds[p].close()
+                sub_builds[p] = None
+        finally:
+            for sb in sub_builds:
+                if sb is not None:
+                    sb.close()
+            for bucket in probe_buckets:
+                for sb in bucket:
+                    sb.close()
 
     def _bloom_prefilter(self, ctx: ExecContext, probe_stream,
                          build: ColumnarBatch):
@@ -264,9 +326,7 @@ class _HashJoinBase(TpuExec):
             yield from self._sub_partition_join(ctx, probe_stream, holder,
                                                 threshold)
             return
-        for probe in probe_stream:
-            if probe.num_rows:
-                yield self._join_pair(ctx, probe, build)
+        yield from self._probe_pairs(ctx, probe_stream, build)
 
     def do_execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
         # the build side is drawn first, as the JAX package does

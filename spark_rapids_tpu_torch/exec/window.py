@@ -24,8 +24,9 @@ Only the columns the functions read are gathered into sorted order.
 sorted by (partition, order), batch by batch, with carried state.
 
 Eager torch code: the JAX package's per-plan jit (``shared_method_jit``)
-is not carried. Without the memory module (spill, retry) ``WindowExec``
-concatenates its input's batches directly.
+is not carried. ``WindowExec`` holds its input's batches as spillable
+runs and concatenates and computes them under ``with_retry_no_split``,
+as the JAX package does.
 """
 
 from __future__ import annotations
@@ -44,6 +45,8 @@ from ..expr.conditional import _select_strings
 from ..expr.core import Literal, make_result
 from ..expr.window import (DenseRank, Lag, Lead, NTile, PercentRank, Rank,
                            RowNumber, WindowExpression, WindowFrame)
+from ..memory.retry import with_retry_no_split
+from ..memory.spill import SpillableBatch
 from ..ops import kernels as K
 from .base import ExecContext, Schema, TpuExec
 
@@ -469,12 +472,38 @@ class WindowExec(TpuExec):
         return acc, ncnt
 
     def do_execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
-        # one partition: the whole input is one window partition set
-        held = [b for b in self.children[0].execute(ctx) if b.num_rows]
-        if not held:
-            return
-        yield self._compute(held[0] if len(held) == 1 else K.concat_batches(
-            held, choose_capacity(sum(b.num_rows for b in held))))
+        # one partition: the whole input is one window partition set,
+        # held as spillable runs
+        counters = ctx.retry_counters(self.exec_id)
+        runs: List[SpillableBatch] = []
+        total = 0
+        try:
+            for b in self.children[0].execute(ctx):
+                if b.num_rows == 0:
+                    continue
+                total += b.num_rows
+                runs.append(with_retry_no_split(
+                    lambda x=b: SpillableBatch(x), counters=counters))
+                del b
+            if not runs:
+                return
+            cap = choose_capacity(total)
+
+            def compute():
+                batches = [sb.get() for sb in runs]
+                with ctx.semaphore:
+                    merged = batches[0] if len(batches) == 1 \
+                        else K.concat_batches(batches, cap)
+                    del batches
+                    return self._compute(merged)
+            # RetryOOM: spill and re-run (pure over the held spillables)
+            out = with_retry_no_split(compute, counters=counters)
+            for sb in runs:
+                sb.close()
+            yield out
+        finally:
+            for sb in runs:
+                sb.close()
 
     def node_description(self) -> str:
         fns = ", ".join(type(we.func).__name__

@@ -136,6 +136,181 @@ def sort_batch(batch: ColumnarBatch, key_cols: Sequence[Column],
     return batch.gather(perm, batch.num_rows)
 
 
+#: a float's order word for NaN: above +inf's, as sort_indices places NaN
+_NAN_WORD = 0x7FF8000000000000
+
+
+def _string_widths(a_cols: Sequence[Column], b_cols: Sequence[Column]):
+    """One padded width per string key for both sides of a comparison,
+    so that their words line up."""
+    return [max(a.pad_bucket, b.pad_bucket)
+            if isinstance(a, StringColumn) else 0
+            for a, b in zip(a_cols, b_cols)]
+
+
+def _order_words(cols: Sequence[Column], widths: Sequence[int],
+                 ascending: Sequence[bool], nulls_first: Sequence[bool],
+                 n: int) -> List[torch.Tensor]:
+    """int64 words of the first ``n`` rows whose lexicographic order is
+    ``sort_indices``'s order of the rows: per key a null-class word and
+    its value words, nulls placed by ``nulls_first``, NaN above every
+    number, -0.0 equal to 0.0, a descending key's words inverted."""
+    words = []
+    for col, w, asc, nf in zip(cols, widths, ascending, nulls_first):
+        if isinstance(col, StringColumn):
+            col = StringColumn(col.offsets, col.chars, col.validity, w)
+        valid = col.validity[:n]
+        words.append((valid if nf else ~valid).to(torch.int64))
+        for key in _rank_keys(col):
+            key = key[:n]
+            if key.is_floating_point():
+                bits = key.to(torch.float64).view(torch.int64)
+                # negative floats: flip the magnitude bits, so that
+                # signed int64 order is the floats' order
+                bits = torch.where(bits < 0, bits ^ 0x7FFFFFFFFFFFFFFF,
+                                   bits)
+                key = torch.where(torch.isnan(key), _NAN_WORD, bits)
+            else:
+                key = key.to(torch.int64)
+            if not asc:
+                key = ~key
+            words.append(torch.where(valid, key, 0))
+    return words
+
+
+def _compare_words(a: Sequence[torch.Tensor],
+                   b: Sequence[torch.Tensor]) -> torch.Tensor:
+    """-1 / 0 / 1 per row: row i of ``a`` orders before / ties with /
+    after row i of ``b`` (``_order_words``; a side of one row
+    broadcasts)."""
+    cmp = None
+    for x, y in zip(a, b):
+        step = (x > y).to(torch.int8) - (x < y).to(torch.int8)
+        cmp = step if cmp is None else torch.where(cmp == 0, step, cmp)
+    return cmp
+
+
+def rows_not_after(key_cols: Sequence[Column], bound_cols: Sequence[Column],
+                   ascending: Sequence[bool], nulls_first: Sequence[bool],
+                   live: torch.Tensor) -> int:
+    """Live rows that order at or before the first row of ``bound_cols``
+    under ``sort_indices``'s order. Over sorted rows they are a prefix:
+    the out-of-core merge's safe prefix."""
+    widths = _string_widths(key_cols, bound_cols)
+    cmp = _compare_words(
+        _order_words(key_cols, widths, ascending, nulls_first,
+                     live.shape[0]),
+        _order_words(bound_cols, widths, ascending, nulls_first, 1))
+    return int(((cmp <= 0) & live).sum())
+
+
+def _packed_groups(wa: List[torch.Tensor], wb: List[torch.Tensor]):
+    """The words of both sides packed, most significant first, into
+    int64 keys of at most 63 bits each, offset by each word's least
+    value over both sides; a word whose range is wider stays a key of
+    its own as it is, and a word with one value on both sides drops out.
+    The keys' lexicographic order is the words'. Pairs of (a's key,
+    b's key)."""
+    lo_hi = torch.stack([torch.stack([torch.minimum(x.min(), y.min()),
+                                      torch.maximum(x.max(), y.max())])
+                         for x, y in zip(wa, wb)]).tolist()
+    groups = []
+    pa = pb = None
+    used = 0
+    for x, y, (lo, hi) in zip(wa, wb, lo_hi):
+        bits = (hi - lo).bit_length()
+        if bits == 0:
+            continue
+        if bits > 63 or used + bits > 63:
+            if pa is not None:
+                groups.append((pa, pb))
+            pa = pb = None
+            used = 0
+        if bits > 63:
+            groups.append((x, y))
+            continue
+        pa = x - lo if pa is None else (pa << bits) | (x - lo)
+        pb = y - lo if pb is None else (pb << bits) | (y - lo)
+        used += bits
+    if pa is not None:
+        groups.append((pa, pb))
+    return groups
+
+
+def _bound_in(sorted_a: torch.Tensor, keys: torch.Tensor,
+              lo: torch.Tensor, hi: torch.Tensor, width: int,
+              right: bool) -> torch.Tensor:
+    """Per row, the first index of ``sorted_a`` in [lo, hi) whose value
+    is above (``right``) or at least (not ``right``) the row's key; hi
+    where none is. ``width`` bounds hi - lo; one vectorised binary
+    search step per bit of it."""
+    last = sorted_a.shape[0] - 1
+    for _ in range(width.bit_length()):
+        mid = (lo + hi) // 2
+        v = sorted_a[mid.clamp(max=last)]
+        up = v <= keys if right else v < keys
+        active = lo < hi
+        lo, hi = (torch.where(active & up, mid + 1, lo),
+                  torch.where(active & ~up, mid, hi))
+    return lo
+
+
+def _rows_not_after_each(wa: List[torch.Tensor], wb: List[torch.Tensor],
+                         na: int) -> torch.Tensor:
+    """For each row of ``wb``, the rows of sorted ``wa`` (``na`` of them)
+    that order at or before it. The words pack into few int64 keys
+    (``_packed_groups``): ``searchsorted`` on the first gives each row
+    the range of ``a``'s rows equal to it there, and each further key
+    narrows that range with a binary search as deep as the widest
+    range."""
+    groups = _packed_groups(wa, wb)
+    if not groups:  # every row ties with every row
+        return torch.full((wb[0].shape[0],), na, dtype=torch.int64,
+                          device=wb[0].device)
+    ga, gb = groups[0]
+    hi = torch.searchsorted(ga, gb, right=True)
+    if len(groups) == 1:
+        return hi
+    lo = torch.searchsorted(ga, gb, right=False)
+    for k, (ga, gb) in enumerate(groups[1:], 2):
+        width = int((hi - lo).max())
+        if width == 0:
+            break
+        upper = _bound_in(ga, gb, lo, hi, width, right=True)
+        if k == len(groups):
+            return upper
+        lo, hi = _bound_in(ga, gb, lo, hi, width, right=False), upper
+    return hi
+
+
+def merge_sorted(a: ColumnarBatch, b: ColumnarBatch,
+                 a_keys: Sequence[Column], b_keys: Sequence[Column],
+                 ascending: Sequence[bool],
+                 nulls_first: Sequence[bool]) -> ColumnarBatch:
+    """Two batches whose live rows are sorted under ``sort_indices``'s
+    order, merged into one sorted batch; rows that tie leave ``a``'s
+    first. It gives what a stable sort of their concatenation gives,
+    with one search of ``b``'s rows into ``a``'s and one gather."""
+    na, nb = a.num_rows, b.num_rows
+    dev = a.device
+    cap = choose_capacity(na + nb)
+    both = concat_batches([a, b], cap)
+    if na == 0 or nb == 0:
+        return both
+    widths = _string_widths(a_keys, b_keys)
+    cnt = _rows_not_after_each(
+        _order_words(a_keys, widths, ascending, nulls_first, na),
+        _order_words(b_keys, widths, ascending, nulls_first, nb), na)
+    ia = torch.arange(na, device=dev)
+    ib = torch.arange(nb, device=dev)
+    idx = torch.zeros(cap, dtype=torch.int64, device=dev)
+    # a's row i has the rows of b that order strictly before it,
+    # those with cnt[j] <= i, ahead of it
+    idx[ia + torch.searchsorted(cnt, ia, right=True)] = ia
+    idx[ib + cnt] = na + ib
+    return both.gather(idx, na + nb)
+
+
 # ---------------------------------------------------------------------------
 # Group-by (sort-based)
 # ---------------------------------------------------------------------------

@@ -7,17 +7,27 @@ with_column, the temp-view catalog and ``sql``, joins of every type
 (``join(how=...)``, ``cross_join``) and ``union``. The session runs on
 one torch device, ``cuda`` unless the caller asks for the CPU; a session
 asked for CUDA where there is none raises.
+
+Each query registers with the device budget for its run (a budget
+slice, and the owner its spillables are charged to), starts its
+thread's task counters from zero, and leaves its task metrics
+(``spilledBytes``, ``retryCount``, ``splitAndRetryCount``,
+``spillTimeNs``, ``semaphoreWaitTimeNs``, ``allocAttempts``) in
+``_last_execution[1].memory``.
 """
 
 from __future__ import annotations
 
+import itertools
+import os
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from ..conf import SrtConf
+from ..conf import OOM_INJECTION_MODE, SrtConf
 from ..exec.base import ExecContext
+from ..memory.budget import device_budget, query_scope, task_context
 from ..expr.core import Alias, Expression, col, output_name
 from . import logical as L
 from .host_table import (HostColumn, HostTable, batch_to_table,
@@ -163,13 +173,31 @@ class TpuSession:
         from ..sql import parse_sql
         return parse_sql(self, text)
 
+    _query_seq = itertools.count(1)
+
     def execute(self, plan: L.LogicalPlan) -> HostTable:
-        """Run a logical plan to a host table."""
+        """Run a logical plan to a host table, as one query of the
+        device budget."""
         physical = apply_overrides(plan, self.conf)
         ctx = ExecContext(self.conf, self.device)
         self._last_execution = (physical, ctx)
-        tables = [batch_to_table(b) for b in physical.execute(ctx)
-                  if b.num_rows]
+        qid = f"q{os.getpid()}-{next(TpuSession._query_seq)}"
+        task = task_context()
+        task.reset_counters()
+        mode = self.conf.get(OOM_INJECTION_MODE)
+        if mode == "RETRY":
+            task.force_retry_oom(0)
+        elif mode == "SPLIT":
+            task.force_split_and_retry_oom(0)
+        budget = device_budget(self.conf, self.device)
+        budget.register_query(qid)
+        try:
+            with query_scope(qid):
+                tables = [batch_to_table(b) for b in physical.execute(ctx)
+                          if b.num_rows]
+        finally:
+            budget.unregister_query(qid)
+            ctx.memory = task.metrics()
         return concat_tables(tables) if tables else empty_table(plan.schema)
 
 

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import spark_rapids_tpu_torch
+from jax_reference import patch_jax_compiles
 from spark_rapids_tpu_torch import carry, datagen
 from spark_rapids_tpu_torch.columnar import dtypes as dt
 from spark_rapids_tpu_torch.columnar import vector
@@ -27,10 +28,21 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(scope="module", autouse=True)
+def _nds_jax_side_early(request, tmp_path_factory):
+    """When the session will run tests/test_torch_nds.py, start its JAX
+    side now: its eight chunks (most of the suite's CPU time) compile
+    while the port's files before it run on one core each."""
+    if any(item.path.name == "test_torch_nds.py"
+           for item in request.session.items):
+        import test_torch_nds
+        test_torch_nds.start_jax_chunks(tmp_path_factory)
+    yield
+
+
+@pytest.fixture(scope="module", autouse=True)
 def _jax_cache_miss():
-    from jax._src import compiler
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(compiler, "_cache_read", lambda *a, **k: (None, None))
+        patch_jax_compiles(mp)
         global jdatagen, jvector, jK, jhost
         import spark_rapids_tpu  # noqa: F401  (x64 and jax config)
         from spark_rapids_tpu import datagen as jdatagen

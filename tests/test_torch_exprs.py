@@ -41,6 +41,7 @@ import numpy as np
 import pytest
 import torch
 
+from jax_reference import patch_jax_compiles
 from spark_rapids_tpu_torch import carry
 from spark_rapids_tpu_torch.columnar import dtypes as dt
 from spark_rapids_tpu_torch.columnar.vector import ColumnarBatch
@@ -55,9 +56,8 @@ N, CAP = 200, 256
 
 @pytest.fixture(scope="module", autouse=True)
 def jax_ns():
-    from jax._src import compiler
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(compiler, "_cache_read", lambda *a, **k: (None, None))
+        patch_jax_compiles(mp)
         import spark_rapids_tpu  # noqa: F401  (x64 and jax config)
         from spark_rapids_tpu.columnar import dtypes as jdt
         from spark_rapids_tpu.columnar import vector as jvector

@@ -33,6 +33,7 @@ import sys
 import numpy as np
 import pytest
 
+from jax_reference import SUBPROCESS_XLA_FLAGS
 from spark_rapids_tpu_torch import carry
 from spark_rapids_tpu_torch.columnar import dtypes as dt
 from spark_rapids_tpu_torch.ops import device_kernels as DK
@@ -144,6 +145,8 @@ def jax_procs(tmp_path_factory):
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"]
                                 if env.get("PYTHONPATH") else "")
+    env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") + " "
+                        + SUBPROCESS_XLA_FLAGS).strip()
     procs = []
     for i, jobs in enumerate(JAX_JOBS):
         out = str(tmp / f"out{i}.json")

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from jax_reference import patch_jax_compiles
 from spark_rapids_tpu_torch import carry
 from spark_rapids_tpu_torch.expr import hashing as H
 from spark_rapids_tpu_torch.plan import host_table
@@ -20,9 +21,8 @@ CAP = 4096
 
 @pytest.fixture(scope="module", autouse=True)
 def _jax_cache_miss():
-    from jax._src import compiler
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(compiler, "_cache_read", lambda *a, **k: (None, None))
+        patch_jax_compiles(mp)
         global jnp, JH, jdt, jhost
         import jax.numpy as jnp
         import spark_rapids_tpu  # noqa: F401  (x64 and jax config)

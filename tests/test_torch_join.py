@@ -36,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+from jax_reference import patch_jax_compiles
 from spark_rapids_tpu_torch import carry
 from spark_rapids_tpu_torch.exec.base import ExecContext
 from spark_rapids_tpu_torch.expr import aggregates as Agg
@@ -49,9 +50,8 @@ from spark_rapids_tpu_torch.plan.session import DataFrame, TpuSession
 
 @pytest.fixture(scope="module", autouse=True)
 def _jax_cache_miss():
-    from jax._src import compiler
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(compiler, "_cache_read", lambda *a, **k: (None, None))
+        patch_jax_compiles(mp)
         global jK, jB, jdt, jhost, jcol, JConf, JSession
         import spark_rapids_tpu  # noqa: F401  (x64 and jax config)
         from spark_rapids_tpu.columnar import dtypes as jdt

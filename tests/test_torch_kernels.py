@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from jax_reference import patch_jax_compiles
 from spark_rapids_tpu_torch import carry
 from spark_rapids_tpu_torch.exec import pallas_agg
 from spark_rapids_tpu_torch.expr import aggregates as Agg
@@ -33,9 +34,8 @@ RTOL = 1e-9  # both sides float64; only the summation order differs
 
 @pytest.fixture(scope="module", autouse=True)
 def _jax_cache_miss():
-    from jax._src import compiler
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(compiler, "_cache_read", lambda *a, **k: (None, None))
+        patch_jax_compiles(mp)
         global PK, jpallas_agg, jAgg, jA, jE, jP, jhost, jS
         import spark_rapids_tpu  # noqa: F401  (x64 and jax config)
         from spark_rapids_tpu.exec import pallas_agg as jpallas_agg

@@ -14,12 +14,15 @@
   the fused global one (B1), in both packages: the port's batches
   through each lane (its plain calls) against the JAX package's
   ``pallasBatches`` split by lane, with counting wrappers on the JAX
-  ``tile_group_reduce`` and ``tile_reduce``.
+  ``tile_group_reduce`` and ``tile_reduce`` that count per jitted
+  program: a query's count holds the kernel calls traced by every
+  program it launched, whichever query first traced it.
 
 The JAX side runs in subprocesses of this file (its ``__main__`` block),
-eight chunks at once, started before the port's queries run and
-balanced by their JAX time, each registering the tables as parquet in a shared
-directory: a JAX compile inside pytest fails on tests/conftest.py's
+eight chunks at once, balanced by their JAX time, each registering the
+tables as parquet in a shared directory; they start with the session's
+first port test file (tests/test_torch_columnar.py) when the session
+runs this file, else before this file's port queries: a JAX compile inside pytest fails on tests/conftest.py's
 ``_cache_read`` wrapper, and the JAX package's own NDS suite keeps its
 queries out of long processes. There the grouped Pallas lane is forced
 on (SRT_PALLAS_GROUPED_FORCE=1), except for the queries with no
@@ -27,6 +30,7 @@ aggregate, which its gate would send into the kernel with no lane to
 sum.
 """
 
+import atexit
 import json
 import os
 import re
@@ -37,6 +41,7 @@ import numpy as np
 import pytest
 import torch
 
+from jax_reference import SUBPROCESS_XLA_FLAGS, patch_jax_compiles
 from spark_rapids_tpu_torch.conf import SrtConf
 from spark_rapids_tpu_torch.models.nds import (NDS_ALSO_RUNS, NDS_FUNCS,
                                                NDS_JOINS_SETOPS, NDS_QUERIES,
@@ -53,28 +58,32 @@ RTOL = 1e-9
 QUERIES = NDS_SLICE + NDS_WINDOW + NDS_ALSO_RUNS + NDS_JOINS_SETOPS + \
     NDS_SUBQUERY + NDS_ROLLUP + NDS_FUNCS
 #: the JAX side's chunks, run as concurrent subprocesses, each pinned to
-#: a core of its own (with a cold JAX compile cache each takes 150-420 s
-#: of one core for its first queries and 180-460 s for the 33 of
-#: NDS_SUBQUERY, NDS_ROLLUP and NDS_FUNCS, balanced by those times,
-#: almost all of it compiling; the chunks share one persistent cache,
-#: so a rerun takes a fraction of that); the last holds the queries
-#: that group without an aggregate (q37, q82, the CTEs of q97, the
-#: DISTINCT and the existence markers of q10, q35, q41 and q95) and
-#: others that never reach the grouped lane, and runs without the
-#: forced grouped lane
-CHUNKS = (("q15", "q46", "q47", "q50", "q99", "q38", "q90", "q5", "q75",
-           "q69", "q2"),
-          ("q13", "q26", "q40", "q44", "q59", "q68", "q72", "q66", "q28",
-           "q80", "q17", "q77", "q8"),
-          ("q12", "q20", "q21", "q65", "q73", "q60", "q71", "q93", "q18",
-           "q27", "q81", "q30"),
-          ("q9", "q25", "q43", "q51", "q52", "q58", "q79", "q76", "q61",
-           "q87", "q22", "q45", "q32", "q39"),
-          ("q19", "q31", "q34", "q48", "q55", "q57", "q56", "q33", "q11",
-           "q70", "q23", "q92", "q16"),
-          ("q3", "q7", "q42", "q53", "q83", "q85", "q98", "q74", "q36", "q6",
-           "q86", "q1"),
-          ("q4", "q88", "q54", "q14", "q67", "q49", "q78", "q94"),
+#: a core of its own. With a cold JAX compile cache a chunk takes about
+#: 500 s of one core (505-523 s for the seven forced chunks of one run
+#: on 8 cores), almost all of it compiling a program per operator shape
+#: of each query, at XLA's optimization level 0 (jax_reference.py; 700-
+#: 1000 s at the default level); a query's programs are its own, so
+#: keeping them across queries saves less than a tenth. The seven
+#: forced chunks are balanced by those times, measured per query. The
+#: chunks share one persistent cache, so a rerun takes a fraction of
+#: that. The last holds the queries that group without an aggregate
+#: (q37, q82, the CTEs of q97, the DISTINCT and the existence markers of
+#: q10, q35, q41 and q95) and others that never reach the grouped lane,
+#: and runs without the forced grouped lane
+CHUNKS = (("q14", "q57", "q6", "q83", "q59", "q77", "q69", "q79", "q71",
+           "q55", "q25", "q9"),
+          ("q4", "q70", "q11", "q45", "q51", "q46", "q43", "q34", "q53", "q1",
+           "q42"),
+          ("q18", "q36", "q76", "q56", "q86", "q19", "q7", "q33", "q78",
+           "q30", "q99", "q93"),
+          ("q67", "q38", "q60", "q75", "q27", "q17", "q13", "q61", "q3", "q2",
+           "q8", "q68"),
+          ("q80", "q66", "q31", "q58", "q20", "q65", "q32", "q48", "q73",
+           "q92", "q88", "q28"),
+          ("q22", "q47", "q12", "q98", "q23", "q87", "q81", "q50", "q85",
+           "q39", "q94", "q16"),
+          ("q5", "q74", "q72", "q21", "q49", "q40", "q15", "q44", "q26",
+           "q52", "q90", "q54"),
           ("q24", "q29", "q37", "q62", "q63", "q64", "q82", "q84", "q89",
            "q91", "q96", "q97", "q10", "q35", "q41", "q95"))
 NO_AGGREGATE = CHUNKS[-1]
@@ -112,52 +121,128 @@ def _lane_batches(physical, metrics) -> dict:
     return out
 
 
+def _count_kernels_per_program(jax, PK, names):
+    """Count the JAX kernels per jitted program instead of per trace.
+
+    ``jax.jit`` is wrapped (before any program exists) so that each
+    jitted function notes when it is launched and, while it is traced,
+    stands on a stack; each of ``names`` in ``PK`` is wrapped to count
+    its calls against every program on that stack, or as an eager call
+    outside any trace. A query's count of a kernel is then the calls
+    traced by the programs it launched, whenever they were traced, plus
+    its eager calls: the same per-query count as clearing every cache
+    before each query gave, without recompiling each query's programs.
+    Returns (start a query, read its counts)."""
+    import functools
+    import itertools
+    ids = itertools.count()
+    stack, launched = [], set()
+    per_program: dict = {}
+    eager = {n: 0 for n in names}
+    orig_jit = jax.jit
+
+    class Program:
+        def __init__(self, jitted, pid):
+            self._jitted, self._pid = jitted, pid
+
+        def __call__(self, *a, **k):
+            launched.add(self._pid)
+            return self._jitted(*a, **k)
+
+        def __getattr__(self, name):
+            return getattr(self._jitted, name)
+
+    def jit(fun=None, *args, **kwargs):
+        if fun is None:
+            return lambda f: jit(f, *args, **kwargs)
+        pid = next(ids)
+
+        @functools.wraps(fun)
+        def traced(*a, **k):
+            stack.append(pid)
+            try:
+                return fun(*a, **k)
+            finally:
+                stack.pop()
+        return Program(orig_jit(traced, *args, **kwargs), pid)
+    jax.jit = jit
+
+    for name in names:
+        orig = getattr(PK, name)
+
+        def counting(*a, _orig=orig, _name=name, **k):
+            if stack:
+                for pid in set(stack):
+                    counts = per_program.setdefault(pid, {})
+                    counts[_name] = counts.get(_name, 0) + 1
+            else:
+                eager[_name] += 1
+            return _orig(*a, **k)
+        setattr(PK, name, counting)
+
+    def start():
+        launched.clear()
+        eager.update({n: 0 for n in names})
+
+    def read():
+        return {n: eager[n] + sum(per_program.get(p, {}).get(n, 0)
+                                  for p in launched) for n in names}
+    return start, read
+
+
 def _jax_chunk(data_dir: str, out_path: str, qids, force: bool,
                core: int) -> None:
     """Run ``qids`` through the JAX package on one core; write {qid:
-    {rows, calls, pallas_batches}} to ``out_path``."""
+    {rows, calls, pallas_batches, seconds}} to ``out_path``."""
     if hasattr(os, "sched_setaffinity"):
         # XLA's thread pools would otherwise oversubscribe the cores
         # that the other chunks hold
         os.sched_setaffinity(0, {core})
     if force:
         os.environ["SRT_PALLAS_GROUPED_FORCE"] = "1"
+    # shared programs launch through their jit wrappers, which the
+    # per-program kernel count sees (the compile ledger would launch
+    # its own compiled executables)
+    os.environ["SRT_JIT_LEDGER"] = "0"
+    import time
+
     import jax
-    from spark_rapids_tpu import jit_registry
+    from spark_rapids_tpu.ops import pallas_kernels as PK
+    start, read = _count_kernels_per_program(
+        jax, PK, ("tile_reduce", "tile_group_reduce"))
     from spark_rapids_tpu.conf import SrtConf as JConf
     from spark_rapids_tpu.models.nds import register_nds as jregister
-    from spark_rapids_tpu.ops import pallas_kernels as PK
     from spark_rapids_tpu.plan.session import TpuSession as JSession
-    calls = {"tile_reduce": 0, "tile_group_reduce": 0}
-    for name in calls:
-        orig = getattr(PK, name)
-
-        def counting(*a, _orig=orig, _name=name, **k):
-            calls[_name] += 1
-            return _orig(*a, **k)
-        setattr(PK, name, counting)
     session = JSession(JConf({"srt.shuffle.partitions": 1}))
     jregister(session, data_dir, scale_rows=SCALE)
     out = {}
     for q in qids:
-        # programs traced by an earlier query would skip the wrappers
-        jax.clear_caches()
-        jit_registry.clear()
-        calls.update({k: 0 for k in calls})
+        t = time.perf_counter()
+        start()
         text = NDS_QUERIES[q]
         if q in ORDER_FAULT:
             text = re.sub(r"\bLIMIT\s+\d+\s*$", "", text.rstrip())
         rows = session.sql(text).collect()
         last = session._last_execution
-        out[q] = {"rows": rows, "calls": dict(calls),
-                  **_lane_batches(last["physical"], last["ctx"].metrics)}
+        out[q] = {"rows": rows, "calls": read(),
+                  **_lane_batches(last["physical"], last["ctx"].metrics),
+                  "seconds": time.perf_counter() - t}
     with open(out_path, "w") as f:
         json.dump(out, f)
 
 
-@pytest.fixture(scope="module")
-def jax_procs(tmp_path_factory):
-    """The JAX chunks, started: [(output path, stderr file, process)]."""
+#: the running JAX side, once per session: [(output path, stderr file,
+#: process)]
+_STARTED: list = []
+
+
+def start_jax_chunks(tmp_path_factory) -> list:
+    """Start the JAX chunks, once per session, and return them. A port
+    test file that runs before this one starts them while the session
+    will run this file (tests/test_torch_columnar.py), so that they
+    compile on the cores its single-threaded tests leave idle."""
+    if _STARTED:
+        return _STARTED
     tmp = tmp_path_factory.mktemp("nds_jax")
     data_dir = str(tmp / "data")
     os.makedirs(data_dir)
@@ -165,24 +250,37 @@ def jax_procs(tmp_path_factory):
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"]
                                 if env.get("PYTHONPATH") else "")
+    env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") + " "
+                        + SUBPROCESS_XLA_FLAGS).strip()
     cores = sorted(os.sched_getaffinity(0)) if hasattr(
         os, "sched_getaffinity") else [0]
-    procs = []
     for i, qids in enumerate(CHUNKS):
         out = str(tmp / f"chunk{i}.json")
         force = "0" if qids == NO_AGGREGATE else "1"
         err = open(str(tmp / f"chunk{i}.stderr"), "wb")
-        procs.append((out, err, subprocess.Popen(
+        _STARTED.append((out, err, subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), data_dir, out,
              ",".join(qids), force, str(cores[i % len(cores)])], env=env,
             stdout=subprocess.DEVNULL,
             stderr=err)))
-    yield procs
-    for _, err, p in procs:
+    # a session that ends before this file's tests ran stops them too
+    atexit.register(stop_jax_chunks)
+    return _STARTED
+
+
+def stop_jax_chunks() -> None:
+    for _, err, p in _STARTED:
         if p.poll() is None:
             p.kill()
             p.wait()
         err.close()
+
+
+@pytest.fixture(scope="module")
+def jax_procs(tmp_path_factory):
+    """The JAX chunks, started: [(output path, stderr file, process)]."""
+    yield start_jax_chunks(tmp_path_factory)
+    stop_jax_chunks()
 
 
 @pytest.fixture(scope="module")
@@ -241,9 +339,8 @@ def _port_runs(session):
 
 @pytest.fixture(scope="module")
 def jax_chunks():
-    from jax._src import compiler
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(compiler, "_cache_read", lambda *a, **k: (None, None))
+        patch_jax_compiles(mp)
         from spark_rapids_tpu.datagen import generate_chunk
         from spark_rapids_tpu.models.nds import nds_specs as jspecs
         yield {s.name: generate_chunk(s, 0, 1 << 18)

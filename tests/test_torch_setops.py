@@ -27,6 +27,7 @@ from collections import Counter
 import numpy as np
 import pytest
 
+from jax_reference import patch_jax_compiles
 from spark_rapids_tpu_torch import carry
 from spark_rapids_tpu_torch.plan.session import TpuSession
 from spark_rapids_tpu_torch.sql.parser import SqlError
@@ -57,9 +58,8 @@ def _tables():
 
 @pytest.fixture(scope="module")
 def sessions():
-    from jax._src import compiler
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(compiler, "_cache_read", lambda *a, **k: (None, None))
+        patch_jax_compiles(mp)
         from spark_rapids_tpu.columnar import dtypes as jdt
         from spark_rapids_tpu.conf import SrtConf as JConf
         from spark_rapids_tpu.plan import host_table as jhost

@@ -13,6 +13,7 @@ import sys
 
 import pytest
 
+from jax_reference import patch_jax_compiles
 from spark_rapids_tpu_torch.conf import SrtConf
 from spark_rapids_tpu_torch.models.nds import NDS_QUERIES, NDS_SLICE
 from spark_rapids_tpu_torch.plan.session import TpuSession
@@ -25,9 +26,8 @@ QIDS = sorted(NDS_QUERIES)
 
 @pytest.fixture(scope="module")
 def jax_sql():
-    from jax._src import compiler
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(compiler, "_cache_read", lambda *a, **k: (None, None))
+        patch_jax_compiles(mp)
         from spark_rapids_tpu.models.nds import NDS_QUERIES as JQ
         from spark_rapids_tpu.sql import lexer as jlexer
         from spark_rapids_tpu.sql import parser as jparser

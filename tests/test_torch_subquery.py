@@ -35,6 +35,7 @@ from collections import Counter
 import numpy as np
 import pytest
 
+from jax_reference import SUBPROCESS_XLA_FLAGS
 from spark_rapids_tpu_torch import carry
 from spark_rapids_tpu_torch.plan.session import TpuSession
 
@@ -110,6 +111,8 @@ def jax_procs(tmp_path_factory):
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"]
                                 if env.get("PYTHONPATH") else "")
+    env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") + " "
+                        + SUBPROCESS_XLA_FLAGS).strip()
     procs = []
     for i, names in enumerate(JAX_JOBS):
         out = str(tmp / f"out{i}.json")

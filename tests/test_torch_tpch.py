@@ -14,6 +14,7 @@ this jax passes five), and the JAX package is imported under that patch.
 import numpy as np
 import pytest
 
+from jax_reference import patch_jax_compiles
 from spark_rapids_tpu_torch import carry
 from spark_rapids_tpu_torch.models import tpch
 from spark_rapids_tpu_torch.ops import device_kernels as DK
@@ -26,9 +27,8 @@ SETTINGS = {"srt.sql.batchSizeRows": BATCH}
 
 @pytest.fixture(scope="module")
 def lineitem_lanes():
-    from jax._src import compiler
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(compiler, "_cache_read", lambda *a, **k: (None, None))
+        patch_jax_compiles(mp)
         from spark_rapids_tpu.datagen import generate_chunk, lineitem_spec
         table = generate_chunk(lineitem_spec(ROWS), 0, ROWS)
         yield {n: (c.values, c.mask, repr(c.dtype))
@@ -39,9 +39,8 @@ def lineitem_lanes():
 def jax_results(lineitem_lanes):
     """q6 and q1 through the JAX package, counting its kernel calls."""
     import jax
-    from jax._src import compiler
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(compiler, "_cache_read", lambda *a, **k: (None, None))
+        patch_jax_compiles(mp)
         mp.setenv("SRT_PALLAS_GROUPED_FORCE", "1")
         from spark_rapids_tpu import jit_registry
         from spark_rapids_tpu.columnar import dtypes as jdt
@@ -232,9 +231,8 @@ def _string_queries(E, P, S, Agg):
 def q3_lanes(lineitem_lanes):
     """orders and customer generated by the JAX package at the
     lineitem's scale (tpch_tables' ratios), as numpy lanes."""
-    from jax._src import compiler
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(compiler, "_cache_read", lambda *a, **k: (None, None))
+        patch_jax_compiles(mp)
         from spark_rapids_tpu.datagen import generate_chunk, orders_spec
         from spark_rapids_tpu.models.tpch import customer_spec
         tables = {spec.name: generate_chunk(spec, 0, spec.num_rows)
@@ -247,9 +245,8 @@ def q3_lanes(lineitem_lanes):
 
 @pytest.fixture(scope="module")
 def jax_q3_results(q3_lanes):
-    from jax._src import compiler
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(compiler, "_cache_read", lambda *a, **k: (None, None))
+        patch_jax_compiles(mp)
         from spark_rapids_tpu.columnar import dtypes as jdt
         from spark_rapids_tpu.conf import SrtConf
         from spark_rapids_tpu.expr import aggregates as jAgg

@@ -37,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 
+from jax_reference import patch_jax_compiles
 from spark_rapids_tpu_torch.columnar import dtypes as dt
 from spark_rapids_tpu_torch.columnar.vector import column_from_numpy
 from spark_rapids_tpu_torch.conf import SrtConf
@@ -300,9 +301,8 @@ def _jax_frame(session, jdt, table):
 def jax_side():
     """Every case's rows through the JAX package, plus the decimal-key
     RANGE case."""
-    from jax._src import compiler
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(compiler, "_cache_read", lambda *a, **k: (None, None))
+        patch_jax_compiles(mp)
         from spark_rapids_tpu.columnar import dtypes as jdt
         from spark_rapids_tpu.conf import SrtConf as JConf
         from spark_rapids_tpu.plan.session import TpuSession as JSession
