@@ -35,6 +35,15 @@ Needs one NVIDIA GPU (built for an H100: sm_90a), nvcc and triton. It
    computation over the same host data; for q3 it also logs each
    operator's self time and, from one run under torch.profiler, the
    device time by kernel and the device's idle share;
+5b. runs the scalar expression library (``scalar_queries``: string
+   functions, LIKE and regexes, date fields and date arithmetic, a time
+   zone (America/Los_Angeles, or +08:00 where the machine has no tz
+   database, which it logs), integral arithmetic, math, hashes, casts
+   and FIRST / LAST) through ``session.sql`` over the same TPC-H tables:
+   per query a first run and one warm run, each held against numpy and
+   Python references over the host columns (``scalar_references``);
+   B3 must run under s1, s2, s4 and s6, B1 on every lineitem batch of
+   s7;
 6. runs the NDS slice (``NDS_SLICE``, 20 star-join queries) as SQL
    text through ``session.sql`` over NDS tables generated in memory at
    ``scale_rows`` 28,800,000 (TPC-DS SF10's store_sales; q82 at
@@ -60,7 +69,7 @@ Needs one NVIDIA GPU (built for an H100: sm_90a), nvcc and triton. It
    against ``NdsNumpy``,
    the other ten a first and one warm run, held against their first run
    and, at
-   ``scale_rows`` 200,000, the card's rows against the port's own CPU
+   ``scale_rows`` 100,000, the card's rows against the port's own CPU
    run (the plain versions, which the CPU tests hold against the JAX
    package: this checks the CUDA path, not the semantics); B1 held
    against its plain version on every batch of the global aggregates
@@ -74,7 +83,7 @@ Needs one NVIDIA GPU (built for an H100: sm_90a), nvcc and triton. It
    warm run each held against ``NdsNumpy`` (q17 on its own tables at
    ``NDS_Q17_ROWS``, as its join grows with the cube of the scale), the
    others a first and one warm run, held against their first run and,
-   at 200,000 rows, the card's rows
+   at 100,000 rows, the card's rows
    against the port's CPU run (q67 against the CPU's ROLLUP sums
    ``Q67_ROLLUP`` with ties left open, as B3 rounds a sum in another
    order than its plain version, and its RANK breaks exact ties of
@@ -119,6 +128,10 @@ Needs one NVIDIA GPU (built for an H100: sm_90a), nvcc and triton. It
    launches);
 9. prints one JSON line of kernel numbers, then
    {"ok": true, "device": {...}} as its last line.
+
+Every query's first run holds each B1 / B3 launch against the kernel's
+plain version on the same inputs (``holding_launches``); warm runs are
+timed outside the hold.
 
 Any mismatch or error exits non-zero before the last line is printed.
 """
@@ -354,6 +367,20 @@ def host_match(np, hs, lit, prefix=False):
     return hit
 
 
+class Key(tuple):
+    """(values, valid) of a column's rows, as ``NdsNumpy.col`` and
+    ``NdsNumpy.take`` give them; a string column's also carries
+    ``codes``, each row's integer code (equal strings, equal codes),
+    which ``NdsNumpy.group`` groups by instead of hashing the strings.
+    Only those two make one, from the column's codes at the same rows:
+    an array computed from the values never carries codes."""
+
+    def __new__(cls, values, ok, codes=None):
+        key = super().__new__(cls, (values, ok))
+        key.codes = codes
+        return key
+
+
 class NdsNumpy:
     """numpy references for the NDS slice, written from the query texts
     (spark_rapids_tpu_torch/models/nds.py) over the generated host
@@ -369,15 +396,23 @@ class NdsNumpy:
         self.tables = tables
         self._cols = {}
         self._full_lookups = {}
+        self._sorted_dims = {}
 
     def col(self, table, name):
-        """(values, valid) of one column; strings as an object array."""
+        """(values, valid) of one column as a ``Key``; strings as an
+        object array with their codes, made once per column so that
+        grouping by a string does not hash Python strings per query."""
         key = (table, name)
         if key not in self._cols:
             c = self.tables[table].column(name)
-            values = c.values.to_objects() if hasattr(c.values, "to_objects") \
-                else c.values
-            self._cols[key] = (values, c.mask)
+            values, codes = c.values, None
+            if hasattr(values, "to_objects"):
+                values = values.to_objects()
+                index = {}
+                codes = self.np.fromiter(
+                    (index.setdefault(v, len(index)) for v in values),
+                    self.np.int64, len(values))
+            self._cols[key] = Key(values, c.mask, codes)
         return self._cols[key]
 
     def rows(self, table):
@@ -388,9 +423,27 @@ class NdsNumpy:
         """Row of ``dim`` whose (unique, non-null) key equals each fact
         key, and whether there is one."""
         np = self.np
-        keys, _ = self.col(dim, dim_key)
-        order = np.argsort(keys, kind="stable")
-        sk = keys[order]
+        got = self._sorted_dims.get((dim, dim_key))
+        if got is None:
+            keys, _ = self.col(dim, dim_key)
+            order = np.argsort(keys, kind="stable")
+            sk = keys[order]
+            lo = int(sk[0]) if len(sk) else 0
+            span = int(sk[-1]) - lo + 1 if len(sk) else 0
+            dense = None
+            if keys.dtype.kind in "iu" and span <= 4 * len(sk) + 1024:
+                # surrogate keys: a table from key to row, one gather
+                # per fact row instead of a binary search
+                dense = np.full(span, -1, np.int64)
+                dense[sk - lo] = order
+            got = self._sorted_dims[(dim, dim_key)] = (order, sk, lo, dense)
+        order, sk, lo, dense = got
+        if dense is not None:
+            at = np.asarray(fact_key, np.int64) - lo
+            inside = (at >= 0) & (at < len(dense))
+            row = dense[np.where(inside, at, 0)]
+            hit = fact_ok & inside & (row >= 0)
+            return np.where(hit, row, 0), hit
         pos = np.searchsorted(sk, fact_key).clip(0, len(sk) - 1)
         return order[pos], fact_ok & (sk[pos] == fact_key)
 
@@ -413,8 +466,14 @@ class NdsNumpy:
         group of its own), their count and each group's first row."""
         np = self.np
         combined = np.zeros(len(keys[0][0]), np.int64)
-        for values, ok in keys:
-            if values.dtype == object:
+        for key in keys:
+            values, ok = key
+            codes = getattr(key, "codes", None)
+            if codes is not None:
+                # strings taken from a column: the column's codes
+                uniq, inv = np.unique(codes, return_inverse=True)
+                n = len(uniq)
+            elif values.dtype == object:
                 # strings: one dict pass (np.unique would sort Python
                 # objects)
                 index = {}
@@ -492,17 +551,17 @@ class NdsNumpy:
         rows = {}
         for fk, dim, dk, dim_keep in fk_dims:
             v, ok = self.col(fact, fk)
+            # a whole fact column against a dimension, once: many
+            # queries share it, and a subset of rows gathers from it
+            key = (fact, fk, dim, dk)
+            if key not in self._full_lookups:
+                self._full_lookups[key] = self.lookup(dim, dk, v, ok)
+            pos, hit = self._full_lookups[key]
             if idx is None:
-                # a whole fact column against a dimension: several
-                # queries share it
-                key = (fact, fk, dim, dk)
-                if key not in self._full_lookups:
-                    self._full_lookups[key] = self.lookup(dim, dk, v, ok)
-                pos, hit = self._full_lookups[key]
                 hit = hit.copy()
                 idx = np.arange(len(v))
             else:
-                pos, hit = self.lookup(dim, dk, v[idx], ok[idx])
+                pos, hit = pos[idx], hit[idx]
             if dim_keep is not None:
                 hit &= dim_keep[pos]
             idx = idx[hit]
@@ -511,8 +570,10 @@ class NdsNumpy:
         return idx, rows
 
     def take(self, table, name, rows):
-        values, ok = self.col(table, name)
-        return values[rows], ok[rows]
+        key = self.col(table, name)
+        values, ok = key
+        return Key(values[rows], ok[rows],
+                   None if key.codes is None else key.codes[rows])
 
     def eq(self, table, name, value):
         values, ok = self.col(table, name)
@@ -1868,108 +1929,17 @@ class NdsNumpy:
         return out[:100]
 
 
-def b3_on_batches(torch, physical, conf, dev, label, launched):
-    """Holds B3 against its plain version on every batch that the plan's
-    partial aggregates hand the grouped lane: each one's child subtree
-    runs again and each batch the hash-claim prelude resolves to at most
-    1024 groups goes through both. Checks that as many batches take the
-    lane as the main path launched; returns their rows, groups and lanes,
-    the largest error and the widest batch (rows, groups, gid, lanes)."""
-    from spark_rapids_tpu_torch.exec.aggregate import (PARTIAL,
-                                                       HashAggregateExec)
-    from spark_rapids_tpu_torch.exec.base import ExecContext
-    from spark_rapids_tpu_torch.ops import device_kernels as DK
-    from spark_rapids_tpu_torch.ops import kernels as K
-
-    def partial_aggs(node):
-        if isinstance(node, HashAggregateExec) and node.mode == PARTIAL:
-            yield node
-        for c in node.children:
-            yield from partial_aggs(c)
-
-    aggs = list(partial_aggs(physical))
-    check(aggs, f"{label} has a partial aggregate")
-    out = {"batches": 0, "rows": [], "groups": [], "lanes": 0, "err": 0.0,
-           "widest": None}
-    for agg, batch in ((a, b) for a in aggs for b in a.children[0].execute(
-            ExecContext(conf, dev))):
-        fns = [fn for fn, _ in agg.agg_exprs]
-        if batch.num_rows == 0:
-            continue
-        key_cols, agg_in = agg._eval_update_inputs(batch)
-        prelude, _, kernel_in = K.grouped_lane_inputs(batch, key_cols, agg_in,
-                                                      fns)
-        if kernel_in is None:
-            continue
-        gid, lanes = kernel_in
-        groups = max(prelude[3], 1)
-        got = torch.stack(DK.tile_group_reduce(gid, lanes, num_groups=groups))
-        ref = torch.stack(DK.tile_group_reduce_plain(gid, lanes))
-        check(torch.allclose(got, ref, rtol=RTOL, atol=0.0),
-              f"tile_group_reduce disagrees with its plain version on "
-              f"{label} batch {out['batches']} ({batch.num_rows} rows)")
-        out["err"] = max(out["err"], float((got - ref).abs().max()))
-        out["batches"] += 1
-        out["rows"].append(batch.num_rows)
-        out["groups"].append(prelude[3])
-        out["lanes"] = len(lanes)
-        if out["widest"] is None or batch.num_rows > out["widest"][0]:
-            out["widest"] = (batch.num_rows, groups, gid, lanes)
-    check(out["batches"] == launched,
-          f"{out['batches']} {label} batches take the grouped lane, the "
-          f"main path launched {launched}")
-    log(f"tile_group_reduce[{label}]: {out['batches']} batches "
-        f"({out['lanes']} lanes, {min(out['rows'])}-{max(out['rows'])} "
-        f"rows, {min(out['groups'])}-{max(out['groups'])} groups) match "
-        f"plain (max_abs_err {out['err']:.3e})")
-    return out
-
-
-def b1_on_batches(torch, physical, conf, dev, label, launched):
-    """Holds B1 against its plain version on every batch that the plan's
-    fused global aggregates hand ``tile_reduce``: each source subtree
-    runs again (below the absorbed filter, as the exec reads it) and
-    each batch goes through both. Checks that as many batches take the
-    lane as the main path launched; returns the largest error."""
-    from spark_rapids_tpu_torch.exec import pallas_agg
-    from spark_rapids_tpu_torch.exec.aggregate import HashAggregateExec
-    from spark_rapids_tpu_torch.exec.base import ExecContext
-    from spark_rapids_tpu_torch.exec.basic import FilterExec
-    from spark_rapids_tpu_torch.ops import device_kernels as DK
-
-    def fused(node):
-        if isinstance(node, HashAggregateExec) and node._pallas_plans:
-            yield node
-        for c in node.children:
-            yield from fused(c)
-
-    batches, err = 0, 0.0
-    for agg in fused(physical):
-        source, pred = agg.children[0], None
-        if isinstance(source, FilterExec) and \
-                pallas_agg.pred_safe(source.condition, agg.input_schema):
-            source, pred = source.children[0], source.condition
-        plan = agg._pallas_plans[id(pred)]
-        for batch in source.execute(ExecContext(conf, dev)):
-            if batch.num_rows == 0:
-                continue
-            arrays = plan.kernel_inputs(batch)
-            got = DK.tile_reduce(arrays, plan.program, plan.kinds)
-            ref = DK.tile_reduce_plain(arrays, plan.program, plan.kinds)
-            finite = torch.isfinite(ref)
-            diff = (got - ref).abs()
-            check(torch.equal(torch.isnan(got), torch.isnan(ref)) and bool(
-                torch.all(torch.where(finite, diff <= RTOL * ref.abs(),
-                                      got == ref) | torch.isnan(ref))),
-                f"tile_reduce disagrees with its plain version on {label} "
-                f"batch {batches}: {got.tolist()} vs {ref.tolist()}")
-            err = max(err, float(torch.where(finite, diff, 0.0).max()))
-            batches += 1
-    check(batches == launched, f"{batches} {label} batches take the fused "
-          f"global lane, the main path launched {launched}")
-    log(f"tile_reduce[{label}]: {batches} batches match plain (max_abs_err "
-        f"{err:.3e})")
-    return err
+def check_held(hold, counts, label):
+    """Every B1 / B3 launch the counters saw went through ``hold``
+    (``holding_launches``): held against the plain version on its own
+    inputs."""
+    check(hold.held["tile_reduce"] == counts["tile_reduce"] and
+          hold.held["tile_group_reduce"] == counts["tile_group_reduce"],
+          f"{label}: held {hold.held}, launched {counts}")
+    if counts["tile_reduce"] or counts["tile_group_reduce"]:
+        log(f"{label}: B1 {hold.held['tile_reduce']} / B3 "
+            f"{hold.held['tile_group_reduce']} launches held against the "
+            f"plain versions (max_abs_err {hold.err})")
 
 
 class executions_of:
@@ -1998,24 +1968,26 @@ class executions_of:
         del self.session.execute
 
 
-def hold_kernels(torch, executions, conf, dev, label, widest=None, q=None):
-    """B1 and B3 against their plain versions on every batch each
-    recorded execution handed them; ``widest[0]`` keeps the widest batch
-    B3 took. Returns the largest errors (B3, B1)."""
-    b3_err = b1_err = 0.0
-    for physical, _, launched in executions:
-        if launched["tile_reduce"]:
-            b1_err = max(b1_err, b1_on_batches(
-                torch, physical, conf, dev, label, launched["tile_reduce"]))
-        if launched["tile_group_reduce"]:
-            b3 = b3_on_batches(torch, physical, conf, dev, label,
-                               launched["tile_group_reduce"])
-            b3_err = max(b3_err, b3["err"])
-            if widest is not None and (widest[0] is None or
-                                       b3["widest"][0] > widest[0][0]):
-                widest[0] = b3["widest"] + (q,)
-            del b3
-    return b3_err, b1_err
+class references_ahead:
+    """numpy references computed on one host thread, in the order the
+    queries will ask for them, while the card runs the queries before
+    them: ``get(q)`` waits for q's. numpy's heavy operations release
+    the interpreter lock, so the references mostly overlap the queries'
+    walls (which they share the host with)."""
+
+    def __init__(self, fns):
+        from concurrent.futures import ThreadPoolExecutor
+        self.pool = ThreadPoolExecutor(1)
+        self.futures = {q: self.pool.submit(fn) for q, fn in fns
+                        if fn is not None}
+
+    def get(self, q):
+        return self.futures.pop(q).result()
+
+    def close(self):
+        for f in self.futures.values():
+            f.cancel()
+        self.pool.shutdown(wait=True)
 
 
 def run_nds(torch, dev, read_counts, session, q, text, ref, want_fn, warm,
@@ -2025,7 +1997,8 @@ def run_nds(torch, dev, read_counts, session, q, text, ref, want_fn, warm,
     rows; with None, each warm run is held against the first run), with
     the launch counts equal in every run and B3 held against its plain
     version on every batch it took; ``widest[0]`` keeps the widest batch
-    B3 took. Returns the query's numbers."""
+    B3 took. ``want_fn`` may be a ``references_ahead``'s getter of the
+    query. Returns the query's numbers."""
     from spark_rapids_tpu_torch.ops import device_kernels as DK
     from spark_rapids_tpu_torch.testing import compare_rows, order_keys
     t = time.perf_counter()
@@ -2036,7 +2009,8 @@ def run_nds(torch, dev, read_counts, session, q, text, ref, want_fn, warm,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     DK.reset_counts()
-    with executions_of(session, read_counts) as executions:
+    with executions_of(session, read_counts) as executions, \
+            holding_launches(torch, DK) as hold:
         t = time.perf_counter()
         df = session.sql(text)  # runs the plan-time subqueries
         torch.cuda.synchronize()
@@ -2045,6 +2019,7 @@ def run_nds(torch, dev, read_counts, session, q, text, ref, want_fn, warm,
         torch.cuda.synchronize()
         first = time.perf_counter() - t
     counts = read_counts()
+    check_held(hold, counts, f"nds {q}")
     pb = sum(ctx.metric_totals().get("pallasBatches", 0)
              for _, ctx, _ in executions)
     keys, limit = order_keys(text, df.columns)
@@ -2071,8 +2046,11 @@ def run_nds(torch, dev, read_counts, session, q, text, ref, want_fn, warm,
     physical, ctx = session._last_execution
     self_ms = sorted(operator_self_ms(physical, ctx.metrics, {}).items(),
                      key=lambda kv: -kv[1])
-    b3_err, b1_err = hold_kernels(torch, executions, session.conf, dev,
-                                  f"nds {q}", widest, q)
+    b3_err, b1_err = hold.err["tile_group_reduce"], hold.err["tile_reduce"]
+    if hold.widest is not None and (widest[0] is None or
+                                    hold.widest[0] > widest[0][0]):
+        widest[0] = hold.widest + (q,)
+    del hold
     out = {"first_s": first, "analysis_s": analysis, "warm_s": wall,
            "b3_max_abs_err": b3_err,
            "b1_max_abs_err": b1_err, "warm_runs_s": walls,
@@ -2081,8 +2059,8 @@ def run_nds(torch, dev, read_counts, session, q, text, ref, want_fn, warm,
            "launches": counts, "pallas_batches": pb,
            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
            "reference_s": ref_s}
-    log(f"nds {q}: matches {held} ({len(rows)} rows); first "
-        f"{first:.4f} s, " + (f"warm median {wall:.4f} of "
+    log(f"nds {q}: matches {held} ({len(rows)} rows); first (B1 / B3 "
+        f"held on every launch) {first:.4f} s, " + (f"warm median {wall:.4f} of "
                               f"{[round(w, 4) for w in walls]} s"
                               if walls else "no warm run") +
         f"; {facts} fact rows, "
@@ -2124,9 +2102,11 @@ def nds_phase(torch, np, dev, read_counts):
             f"card, generated and moved in {secs:.1f} s")
         return session, NdsNumpy(np, host)
 
-    def run(q, session, ref):
+    def run(q, session, ref, ahead=None):
+        want = (lambda: ahead.get(q)) if ahead is not None \
+            else getattr(ref, q)
         return run_nds(torch, dev, read_counts, session, q, NDS_QUERIES[q],
-                       ref, getattr(ref, q), WARM_RUNS, widest)
+                       ref, want, WARM_RUNS, widest)
 
     # q82 first, alone on the card with its SF1 tables: its join output
     # and grouping take more than the SF10 tables leave free
@@ -2146,10 +2126,15 @@ def nds_phase(torch, np, dev, read_counts):
     items, big = ref.q82_join_rows()
     log(f"nds q82 at scale_rows {NDS_ROWS} would join {big} rows ({items} "
         f"items kept) before its GROUP BY: it runs at {NDS_Q82_ROWS}")
-    for q in NDS_SLICE:
-        report[q] = q82 if q == "q82" else run(q, session, ref)
-    for q in NDS_WINDOW:
-        report[q] = run(q, session, ref)
+    order = [q for q in NDS_SLICE + NDS_WINDOW if q != "q82"]
+    ahead = references_ahead([(q, getattr(ref, q)) for q in order])
+    try:
+        for q in NDS_SLICE:
+            report[q] = q82 if q == "q82" else run(q, session, ref, ahead)
+        for q in NDS_WINDOW:
+            report[q] = run(q, session, ref, ahead)
+    finally:
+        ahead.close()
     for q in NDS_B3_QUERIES:
         check(report[q]["launches"]["tile_group_reduce"] > 0
               and report[q]["pallas_batches"] > 0,
@@ -2188,10 +2173,11 @@ def cross_check(torch, dev, read_counts, queries, scale, held=None):
     for q in queries:
         q, text = (q, NDS_QUERIES[q]) if isinstance(q, str) else q
         DK.reset_counts()
-        with executions_of(card, read_counts) as executions:
+        with holding_launches(torch, DK) as hold:
             df = card.sql(text)
             rows = df.collect()
         counts = read_counts()
+        check_held(hold, counts, f"nds {q} at {scale}")
         t = time.perf_counter()
         if held and q in held:
             diff = held[q](rows, cpu)
@@ -2201,7 +2187,6 @@ def cross_check(torch, dev, read_counts, queries, scale, held=None):
         cpu_s = time.perf_counter() - t
         check(diff is None, f"nds {q} at scale_rows {scale}: {diff} (the "
               "port's CPU run)")
-        hold_kernels(torch, executions, conf, dev, f"nds {q} at {scale}")
         out[q] = len(rows)
         how = " with ties left open" if held and q in held else ""
         log(f"nds {q} at scale_rows {scale}: the card's {len(rows)} rows "
@@ -2353,15 +2338,20 @@ def joins_setops_phase(torch, np, dev, session, ref, read_counts):
     ({query: numbers}, the widest batch B3 took)."""
     from spark_rapids_tpu_torch.models.nds import NDS_JOINS_SETOPS, NDS_QUERIES
     report, widest = {}, [None]
-    for q in NDS_JOINS_SETOPS:
-        report[q] = run_nds(torch, dev, read_counts, session, q,
-                            NDS_QUERIES[q], ref,
-                            getattr(ref, q) if q in JOINS_NUMPY else None,
-                            WARM_RUNS if q in JOINS_NUMPY
-                            else JOINS_WARM_RUNS, widest)
-    report["q93_outer"] = run_nds(
-        torch, dev, read_counts, session, "q93_outer", Q93_OUTER, ref,
-        ref.q93_outer, WARM_RUNS, widest)
+    ahead = references_ahead(
+        [(q, getattr(ref, q)) for q in NDS_JOINS_SETOPS if q in JOINS_NUMPY]
+        + [("q93_outer", ref.q93_outer)])
+    try:
+        for q in NDS_JOINS_SETOPS:
+            report[q] = run_nds(
+                torch, dev, read_counts, session, q, NDS_QUERIES[q], ref,
+                (lambda q=q: ahead.get(q)) if q in JOINS_NUMPY else None,
+                WARM_RUNS if q in JOINS_NUMPY else JOINS_WARM_RUNS, widest)
+        report["q93_outer"] = run_nds(
+            torch, dev, read_counts, session, "q93_outer", Q93_OUTER, ref,
+            lambda: ahead.get("q93_outer"), WARM_RUNS, widest)
+    finally:
+        ahead.close()
     check(report["q93_outer"]["result_rows"] > 1000,
           "q93_outer: the left outer join kept too few customers")
     # the other ten: the card against the CPU at JOINS_CROSS_ROWS
@@ -2402,11 +2392,17 @@ def subquery_rollup_phase(torch, np, dev, session, ref, read_counts):
         log(f"nds {q} plan-time subqueries: {report[q]['analysis_s']:.4f} s "
             f"of the first run's {report[q]['first_s']:.4f} s")
 
-    for q in queries:
-        if q != "q17":
-            run(q, NDS_QUERIES[q], session, ref,
-                getattr(ref, q) if q in SUBQ_NUMPY else None)
-    run("q10_or", Q10_OR, session, ref, ref.q10_or)
+    ahead = references_ahead(
+        [(q, getattr(ref, q)) for q in queries
+         if q in SUBQ_NUMPY and q != "q17"] + [("q10_or", ref.q10_or)])
+    try:
+        for q in queries:
+            if q != "q17":
+                run(q, NDS_QUERIES[q], session, ref,
+                    (lambda q=q: ahead.get(q)) if q in SUBQ_NUMPY else None)
+        run("q10_or", Q10_OR, session, ref, lambda: ahead.get("q10_or"))
+    finally:
+        ahead.close()
     check(report["q10_or"]["result_rows"] == 100,
           "q10_or: the existence markers kept too few customers")
     # q17 joins store_sales to store_returns and then catalog_sales on
@@ -2569,16 +2565,22 @@ def same_columns(np, table, want, label):
               f"{int(bad.sum())} rows (first at {int(np.argmax(bad))})")
 
 
-def window_phase(torch, np, dev, session, ref):
+def window_phase(torch, np, dev, session, ref, ahead):
     """Both store_sales-scale windows through session.sql on the card,
-    each held against numpy on every row; returns ({window: numbers},
-    {window: a function that runs it}, {window: numpy's columns})."""
+    each held against numpy on every row (``ahead``: a
+    ``references_ahead`` whose "windows" entry is ``numpy_windows``,
+    computed during the phases before; closed here); returns
+    ({window: numbers}, {window: a function that runs it}, {window:
+    numpy's columns})."""
     from spark_rapids_tpu_torch.exec.window import (BatchedRunningWindowExec,
                                                     WindowExec)
     t = time.perf_counter()
-    want = numpy_windows(np, ref)
-    log(f"window phase: numpy references in {time.perf_counter() - t:.1f} "
-        "s")
+    try:
+        want = ahead.get("windows")
+    finally:
+        ahead.close()
+    log(f"window phase: numpy references ready after "
+        f"{time.perf_counter() - t:.1f} s")
     rows = ref.rows("store_sales")
     report, runs = {}, {}
     for name, text in WINDOW_QUERIES.items():
@@ -2859,12 +2861,15 @@ class _Held:
 class holding_launches:
     """Every launch of B1 (``tile_reduce``) and B3 (``tile_group_reduce``)
     inside the block is held against the kernel's plain version on the
-    same inputs (the plain calls launch nothing)."""
+    same inputs (the plain calls launch nothing): the smoke's one hold of
+    the kernels on the main path. ``widest`` keeps the B3 batch with the
+    most live rows: (live rows, groups, gid, lanes)."""
 
     def __init__(self, torch, DK):
         self.torch, self.DK = torch, DK
         self.held = {"tile_reduce": 0, "tile_group_reduce": 0}
         self.err = {"tile_reduce": 0.0, "tile_group_reduce": 0.0}
+        self.widest = None
 
     def __enter__(self):
         torch, DK = self.torch, self.DK
@@ -2899,6 +2904,10 @@ class holding_launches:
             self.err["tile_group_reduce"] = max(
                 self.err["tile_group_reduce"], float((g - r).abs().max()))
             self.held["tile_group_reduce"] += 1
+            groups = kw.get("num_groups") or DK.GROUP_BUCKETS
+            live = int((gid < groups).sum())
+            if self.widest is None or live > self.widest[0]:
+                self.widest = (live, groups, gid, values)
             return got
         DK.tile_reduce = _Held(b1, tile_reduce)
         DK.tile_group_reduce = _Held(b3, tile_group_reduce)
@@ -3124,6 +3133,563 @@ def memory_phase(torch, np, dev, nds, nds_ref, tpch_session, tpch_runs,
     return report, launched
 
 
+# --- phase 5b: the scalar expression library on the TPC-H tables ----------
+
+#: the zone scalar_phase's time-zone query converts through; a card
+#: machine without a tz database takes SCALAR_FIXED_ZONE (logged)
+SCALAR_ZONE = "America/Los_Angeles"
+SCALAR_FIXED_ZONE = "+08:00"
+#: l_partkey of the rows whose CAST(l_quantity AS STRING) is held string
+#: by string against Java's Double.toString
+SCALAR_SAMPLE_PARTKEY = 4242
+#: expression types of s7_fused's filter (B1's new generator arms) that
+#: the fused plan must hold, with no FilterExec run beside it
+S7_FUSED_NODES = ("Cast", "Abs", "Greatest")
+
+
+def scalar_queries(zone):
+    """{name: (SQL text, the launch counters that must be non-zero)}:
+    the scalar library (strings, LIKE and regex, dates, timestamps and a
+    time zone, integral arithmetic, math, hashes, casts, FIRST / LAST)
+    over lineitem, orders and customer."""
+    return {
+        "s1_strings": ("""
+SELECT k, n, u, SUM(p) AS sp, SUM(q) AS sq, COUNT(*) AS c
+FROM (SELECT l_returnflag || '-' || lower(l_linestatus) AS k,
+             length(concat(l_returnflag, l_linestatus)) AS n,
+             upper(concat_ws('/', l_linestatus, l_returnflag)) AS u,
+             l_extendedprice AS p, l_quantity AS q
+      FROM lineitem) x
+GROUP BY k, n, u ORDER BY k""", ("tile_group_reduce",)),
+        "s2_regex": ("""
+SELECT pr, r, s4, SUM(o_totalprice) AS t, COUNT(*) AS c
+FROM (SELECT regexp_extract(o_orderpriority, '^([0-9])-', 1) AS pr,
+             regexp_replace(o_orderpriority, '[0-9]-', '') AS r,
+             substr(o_orderpriority, 3, 4) AS s4, o_totalprice
+      FROM orders
+      WHERE o_orderpriority LIKE '%URGENT'
+         OR o_orderpriority RLIKE 'LOW$') x
+GROUP BY pr, r, s4 ORDER BY pr""", ("tile_group_reduce",)),
+        "s3_string_order": ("""
+SELECT COUNT(*) AS n, SUM(o_totalprice) AS t,
+       MIN(lpad(trim(o_orderpriority), 12, '*')) AS lp,
+       MAX(locate('-', o_orderpriority)) AS loc
+FROM orders
+WHERE o_orderpriority BETWEEN '2-HIGH' AND '4-NOT SPECIFIED'
+  AND o_orderpriority <> '3-MEDIUM'""", ()),
+        "s3_segments": ("""
+SELECT c_mktsegment AS m, COUNT(*) AS n FROM customer
+WHERE c_mktsegment >= 'AUTOMOBILE' AND c_mktsegment < 'HOUSEHOLD'
+GROUP BY c_mktsegment ORDER BY m""", ()),
+        "s4_dates": ("""
+SELECT y, qtr, SUM(CAST(m AS DOUBLE)) AS sm, SUM(CAST(dw AS DOUBLE)) AS sdw,
+       SUM(CAST(datediff(ld, d) AS DOUBLE)) AS sld,
+       SUM(CAST(dd AS DOUBLE)) AS sdd,
+       SUM(CAST(datediff(da, d) AS DOUBLE)) AS sda, COUNT(*) AS c
+FROM (SELECT year(l_shipdate) AS y, quarter(l_shipdate) AS qtr,
+             month(l_shipdate) AS m, dayofweek(l_shipdate) AS dw,
+             last_day(l_shipdate) AS ld, l_shipdate AS d,
+             datediff(l_shipdate, DATE '1992-01-01') AS dd,
+             date_add(l_shipdate, 30) AS da
+      FROM lineitem
+      WHERE l_shipdate + INTERVAL 90 DAYS < DATE '1998-12-01') x
+GROUP BY y, qtr ORDER BY y, qtr""", ("tile_group_reduce",)),
+        "s5_timestamps": (f"""
+SELECT COUNT(*) AS n, SUM(h) AS sh, MIN(f) AS mf, MAX(t2) AS mt,
+       MIN(w) AS mw
+FROM (SELECT hour(from_utc_timestamp(ts, '{zone}')) AS h,
+             from_unixtime(o_orderkey) AS f,
+             to_utc_timestamp(ts, '{zone}') AS t2,
+             from_utc_timestamp(ts, '{zone}') AS w
+      FROM (SELECT CAST(o_orderdate AS TIMESTAMP) AS ts, o_orderkey
+            FROM orders) y
+      WHERE ts < TIMESTAMP '1995-03-15 12:00:00') x""", ()),
+        "s6_integral": ("""
+SELECT pm, SUM(CAST(r AS DOUBLE)) AS sr, SUM(CAST(q AS DOUBLE)) AS sq,
+       SUM(lg) AS slg, SUM(gr) AS sgr, COUNT(*) AS c
+FROM (SELECT pmod(l_orderkey, 7) AS pm, l_orderkey % 97 AS r,
+             l_orderkey div 1000 AS q, least(l_tax, l_discount) AS lg,
+             greatest(l_quantity, l_tax * 100.0) AS gr
+      FROM lineitem) x
+GROUP BY pm ORDER BY pm""", ("tile_group_reduce",)),
+        "s7_fused": ("""
+SELECT SUM(l_extendedprice * l_discount) AS revenue, COUNT(*) AS n
+FROM lineitem
+WHERE l_shipdate >= DATE '1994-01-01' AND l_shipdate < DATE '1995-01-01'
+  AND CAST(l_quantity AS INT) < 24 AND abs(l_discount - 0.06) <= 0.011
+  AND greatest(l_tax, 0.02) < 0.08""", ("tile_reduce",)),
+        "s8_math": ("""
+SELECT SUM(sqrt(l_extendedprice)) AS a, SUM(ln(l_quantity)) AS b,
+       SUM(exp(l_tax)) AS c, SUM(pow(l_discount, 2.0)) AS d,
+       SUM(floor(l_quantity)) AS e, SUM(ceil(l_quantity)) AS f,
+       SUM(signum(l_tax - 0.04)) AS g, SUM(atan2(l_tax, l_discount)) AS h,
+       SUM(hypot(l_tax, l_discount)) AS i
+FROM lineitem""", ()),
+        "s9_hashes": ("""
+SELECT SUM(pmod(xxhash64(l_orderkey, l_partkey), 1000)) AS x,
+       SUM(pmod(hash(l_returnflag, l_shipdate), 1000)) AS m, COUNT(*) AS n
+FROM lineitem""", ()),
+        "s10_casts": ("""
+SELECT SUM(CAST(CAST(l_orderkey AS STRING) AS BIGINT)) AS b,
+       SUM(CAST(CAST(CAST(l_quantity AS STRING) AS DOUBLE) = l_quantity
+                AS INT)) AS qrt,
+       MIN(CAST(l_shipdate AS STRING)) AS mn,
+       MAX(CAST(l_shipdate AS STRING)) AS mx,
+       SUM(CAST(l_shipdate = CAST('1995-03-15' AS DATE) AS INT)) AS d,
+       COUNT(*) AS n
+FROM lineitem""", ()),
+        "s10_sample": (f"""
+SELECT l_orderkey, l_quantity, CAST(l_quantity AS STRING) AS qs,
+       CAST(l_shipdate AS STRING) AS ds
+FROM lineitem WHERE l_partkey = {SCALAR_SAMPLE_PARTKEY}
+ORDER BY l_orderkey, qs""", ()),
+        "s11_first_last": ("""
+SELECT l_returnflag, first(l_orderkey) AS f, last(l_orderkey) AS l,
+       first(l_shipdate) AS fd, last(l_extendedprice) AS lp, COUNT(*) AS n
+FROM lineitem GROUP BY l_returnflag ORDER BY l_returnflag""", ()),
+    }
+
+
+def java_double_string(x):
+    """Java's Double.toString from Python's shortest repr (the
+    reference for CAST(double AS STRING))."""
+    from decimal import Decimal
+    if x != x:
+        return "NaN"
+    if math.isinf(x):
+        return "Infinity" if x > 0 else "-Infinity"
+    if x == 0:
+        return "-0.0" if math.copysign(1.0, x) < 0 else "0.0"
+    t = Decimal(repr(abs(float(x)))).normalize().as_tuple()
+    digits = "".join(map(str, t.digits))
+    sx = len(digits) - 1 + t.exponent
+    sign = "-" if x < 0 else ""
+    if -3 <= sx < 7:
+        if sx >= 0:
+            return sign + (digits + "0" * 8)[:sx + 1] + "." + \
+                (digits[sx + 1:] or "0")
+        return sign + "0." + "0" * (-sx - 1) + digits
+    return sign + digits[0] + "." + (digits[1:] or "0") + "E" + str(sx)
+
+
+def numpy_xxhash64_long(np, v, seed):
+    """Spark's XxHash64.hashLong over uint64 lanes (numpy wraps)."""
+    p1, p2 = np.uint64(0x9E3779B185EBCA87), np.uint64(0xC2B2AE3D27D4EB4F)
+    p3, p4 = np.uint64(0x165667B19E3779F9), np.uint64(0x85EBCA77C2B2AE63)
+    p5 = np.uint64(0x27D4EB2F165667C5)
+
+    def rotl(x, r):
+        return (x << np.uint64(r)) | (x >> np.uint64(64 - r))
+    h = seed + p5 + np.uint64(8)
+    h = h ^ (rotl(v * p2, 31) * p1)
+    h = rotl(h, 27) * p1 + p4
+    h = h ^ (h >> np.uint64(33))
+    h = h * p2
+    h = h ^ (h >> np.uint64(29))
+    h = h * p3
+    return h ^ (h >> np.uint64(32))
+
+
+def numpy_murmur3_step(np, k1, h1):
+    """Murmur3_x86_32's mixK1 then mixH1, uint32 lanes."""
+    def rotl(x, r):
+        return (x << np.uint32(r)) | (x >> np.uint32(32 - r))
+    k1 = rotl(k1 * np.uint32(0xCC9E2D51), 15) * np.uint32(0x1B873593)
+    h1 = rotl(h1 ^ k1, 13)
+    return h1 * np.uint32(5) + np.uint32(0xE6546B64)
+
+
+def numpy_murmur3_fmix(np, h1, length):
+    h1 = h1 ^ np.uint32(length)
+    h1 = h1 ^ (h1 >> np.uint32(16))
+    h1 = h1 * np.uint32(0x85EBCA6B)
+    h1 = h1 ^ (h1 >> np.uint32(13))
+    h1 = h1 * np.uint32(0xC2B2AE35)
+    return h1 ^ (h1 >> np.uint32(16))
+
+
+def scalar_references(np, li, od, cu, zone, chunk=1 << 22):
+    """numpy / Python references of scalar_queries over the host copies
+    of the columns: choice strings through their codes (Python's str and
+    re on each distinct value), dates through numpy datetime64, the time
+    zone through zoneinfo (or the fixed offset) per distinct date, the
+    hashes through numpy's wrapping uint arithmetic."""
+    import zoneinfo
+    epoch = datetime.date(1970, 1, 1)
+    utc = datetime.timezone.utc
+
+    def codes(hs, width=16):
+        """(distinct strings, each row's index into them) of a column of
+        choice strings: each row's first ``width`` bytes and length
+        hashed to one uint64, np.unique over the hashes, and every row
+        checked byte for byte against its code's first row."""
+        offs = hs.offsets.astype(np.int64)
+        lens = np.diff(offs)
+        if len(lens) and int(lens.min()) == int(lens.max()) == 1:
+            # one byte a row (l_returnflag, l_linestatus): the byte
+            byte = hs.chars[offs[:-1]]
+            uniq, inv = np.unique(byte, return_inverse=True)
+            return [bytes([b]).decode() for b in uniq], inv.reshape(-1)
+        check(int(lens.max()) <= width, "choice strings fit the key")
+        keys = np.empty(len(lens), np.uint64)
+        words = np.empty((len(lens), width // 8), np.uint64)
+        last = max(len(hs.chars) - 1, 0)
+        for s0 in range(0, len(lens), chunk):
+            o, n = offs[:-1][s0:s0 + chunk], lens[s0:s0 + chunk]
+            k = np.arange(width)
+            mat = np.where(k < n[:, None], hs.chars[np.minimum(
+                o[:, None] + k, last)], 0).astype(np.uint8)
+            w = np.ascontiguousarray(mat).view(np.uint64)
+            words[s0:s0 + len(n)] = w
+            h = n.astype(np.uint64) * np.uint64(0x9E3779B97F4A7C15)
+            for j in range(w.shape[1]):
+                h = (h ^ w[:, j]) * np.uint64(0xC2B2AE3D27D4EB4F)
+            keys[s0:s0 + len(n)] = h
+        _, first, inv = np.unique(keys, return_index=True,
+                                  return_inverse=True)
+        inv = inv.reshape(-1)
+        check(bool(np.all(words == words[first][inv]))
+              and bool(np.all(lens == lens[first][inv])),
+              "choice string codes are exact")
+        values = [bytes(hs.chars[offs[i]:offs[i + 1]]).decode()
+                  for i in first]
+        return values, inv
+
+    def grouped(keys_inv, n, **sums):
+        out = {}
+        for name, w in sums.items():
+            out[name] = np.bincount(keys_inv, weights=w, minlength=n)
+        return out
+
+    refs = {}
+    rf_u, rf = codes(li["rf"])
+    ls_u, ls = codes(li["ls"])
+    # s1: six (flag, status) groups
+    g = rf * len(ls_u) + ls
+    sums = grouped(g, len(rf_u) * len(ls_u), sp=li["price"], sq=li["qty"])
+    cnt = np.bincount(g, minlength=len(rf_u) * len(ls_u))
+    rows = []
+    for i in range(len(rf_u)):
+        for j in range(len(ls_u)):
+            k = i * len(ls_u) + j
+            if cnt[k]:
+                a, b = rf_u[i], ls_u[j]
+                rows.append({"k": a + "-" + b.lower(), "n": len(a + b),
+                             "u": (b + "/" + a).upper(),
+                             "sp": float(sums["sp"][k]),
+                             "sq": float(sums["sq"][k]), "c": int(cnt[k])})
+    refs["s1_strings"] = sorted(rows, key=lambda r: r["k"].encode())
+    # s2: priorities through Python's re
+    pr_u, pr = codes(od["prio"])
+    keep_u = [bool(re.search(r"URGENT\Z", p)) or bool(re.search("LOW$", p))
+              for p in pr_u]
+    rows = {}
+    for i, p in enumerate(pr_u):
+        if not keep_u[i]:
+            continue
+        m = re.search(r"^([0-9])-", p)
+        key = (m.group(1) if m else "", re.sub("[0-9]-", "", p), p[2:6])
+        sel = pr == i
+        r = rows.setdefault(key, [0.0, 0])
+        r[0] += float(np.sum(od["total"][sel]))
+        r[1] += int(sel.sum())
+    refs["s2_regex"] = [{"pr": k[0], "r": k[1], "s4": k[2], "t": v[0],
+                         "c": v[1]} for k, v in sorted(
+                             rows.items(), key=lambda kv: kv[0][0].encode())]
+    # s3: byte order of the priorities and segments
+    inside = [b"2-HIGH" <= p.encode() <= b"4-NOT SPECIFIED" and
+              p != "3-MEDIUM" for p in pr_u]
+    sel = np.asarray(inside)[pr]
+    lp = [p.strip(" ") for p in pr_u]
+    lp = [(("*" * 12) + p)[-12:] if len(p) < 12 else p[:12] for p in lp]
+    refs["s3_string_order"] = [{
+        "n": int(sel.sum()), "t": float(np.sum(od["total"][sel])),
+        "lp": min((lp[i] for i in range(len(pr_u)) if inside[i]),
+                  key=lambda v: v.encode()),
+        "loc": max(pr_u[i].find("-") + 1 for i in range(len(pr_u))
+                   if inside[i])}]
+    seg_u, seg = codes(cu["seg"])
+    seg_rows = [{"m": m, "n": int((seg == i).sum())}
+                for i, m in enumerate(seg_u)
+                if b"AUTOMOBILE" <= m.encode() < b"HOUSEHOLD"]
+    refs["s3_segments"] = sorted(seg_rows, key=lambda r: r["m"].encode())
+    # s4: calendar fields through datetime64
+    ship = li["ship"].astype(np.int64)
+    keep = ship + 90 < (datetime.date(1998, 12, 1) - epoch).days
+    d = ship[keep].astype("datetime64[D]")
+    y = d.astype("datetime64[Y]").astype(np.int64) + 1970
+    mo = d.astype("datetime64[M]").astype(np.int64) % 12 + 1
+    qtr = (mo - 1) // 3 + 1
+    dw = (ship[keep] + 4) % 7 + 1
+    nxt = (d.astype("datetime64[M]") + 1).astype("datetime64[D]")
+    last = nxt.astype(np.int64) - 1
+    dd = ship[keep] - (datetime.date(1992, 1, 1) - epoch).days
+    key = y * 10 + qtr
+    uk, inv = np.unique(key, return_inverse=True)
+    inv = inv.reshape(-1)
+    s = grouped(inv, len(uk), sm=mo.astype(np.float64),
+                sdw=dw.astype(np.float64),
+                sld=(last - ship[keep]).astype(np.float64),
+                sdd=dd.astype(np.float64))
+    cnt = np.bincount(inv, minlength=len(uk))
+    refs["s4_dates"] = [{"y": int(k // 10), "qtr": int(k % 10),
+                         "sm": float(s["sm"][i]), "sdw": float(s["sdw"][i]),
+                         "sld": float(s["sld"][i]), "sdd": float(s["sdd"][i]),
+                         "sda": float(30 * cnt[i]), "c": int(cnt[i])}
+                        for i, k in enumerate(uk)]
+    # s5: the zone's offset per distinct date (its midnight in UTC)
+    odate = od["odate"].astype(np.int64)
+    cut = ((datetime.date(1995, 3, 15) - epoch).days * 86_400 + 43_200)
+    sel = odate * 86_400 < cut
+    udays = np.unique(odate[sel])
+    tz = zoneinfo.ZoneInfo(zone) if not zone.startswith(("+", "-")) else \
+        datetime.timezone(datetime.timedelta(hours=int(zone[1:3]),
+                                             minutes=int(zone[4:6]))
+                          * (1 if zone[0] == "+" else -1))
+
+    def utc_at(day):
+        return datetime.datetime(1970, 1, 1, tzinfo=utc) + \
+            datetime.timedelta(days=int(day))
+
+    def wall(day):  # from_utc_timestamp: the wall clock read as UTC
+        at = utc_at(day)
+        return at + at.astimezone(tz).utcoffset()
+
+    def to_utc(day):  # to_utc_timestamp: the wall clock in the zone
+        naive = datetime.datetime(1970, 1, 1) + \
+            datetime.timedelta(days=int(day))
+        local = naive.replace(tzinfo=tz, fold=0)
+        return utc_at(day) - local.utcoffset()
+    hour_at = np.zeros(int(udays.max() - udays.min()) + 1, np.int64)
+    for u in udays:
+        hour_at[int(u - udays.min())] = wall(u).hour
+    refs["s5_timestamps"] = [{
+        "n": int(sel.sum()),
+        "sh": int(hour_at[odate[sel] - udays.min()].sum()),
+        "mf": datetime.datetime(1970, 1, 1, tzinfo=utc) +
+        datetime.timedelta(seconds=int(od["okey"][sel].min())),
+        "mt": max(to_utc(u) for u in udays),
+        "mw": min(wall(u) for u in udays)}]
+    # s6: integral arithmetic (positive keys: pmod is %)
+    ok = li["okey"]
+    pm = ok % 7
+    s = grouped(pm, 7, sr=(ok % 97).astype(np.float64),
+                sq=(ok // 1000).astype(np.float64),
+                slg=np.minimum(li["tax"], li["disc"]),
+                sgr=np.maximum(li["qty"], li["tax"] * 100.0))
+    cnt = np.bincount(pm, minlength=7)
+    refs["s6_integral"] = [{"pm": int(i), "sr": float(s["sr"][i]),
+                            "sq": float(s["sq"][i]), "slg": float(s["slg"][i]),
+                            "sgr": float(s["sgr"][i]), "c": int(cnt[i])}
+                           for i in range(7) if cnt[i]]
+    # s7: q6's shape with a cast, an abs and a greatest in the filter
+    m = ((ship >= (datetime.date(1994, 1, 1) - epoch).days)
+         & (ship < (datetime.date(1995, 1, 1) - epoch).days)
+         & (np.trunc(li["qty"]).astype(np.int64) < 24)
+         & (np.abs(li["disc"] - 0.06) <= 0.011)
+         & (np.maximum(li["tax"], 0.02) < 0.08))
+    refs["s7_fused"] = [{"revenue": float(np.sum(li["price"][m]
+                                                 * li["disc"][m])),
+                         "n": int(m.sum())}]
+    # s8: math
+    t, q, dsc = li["tax"], li["qty"], li["disc"]
+    refs["s8_math"] = [{
+        "a": float(np.sum(np.sqrt(li["price"]))),
+        "b": float(np.sum(np.log(q))), "c": float(np.sum(np.exp(t))),
+        "d": float(np.sum(dsc ** 2.0)),
+        "e": int(np.sum(np.floor(q).astype(np.int64))),
+        "f": int(np.sum(np.ceil(q).astype(np.int64))),
+        "g": float(np.sum(np.sign(t - 0.04))),
+        "h": float(np.sum(np.arctan2(t, dsc))),
+        "i": float(np.sum(np.hypot(t, dsc)))}]
+    # s9: XXH64 and Murmur3 of numpy's own
+    xs = 0
+    ms = 0
+    seed64 = np.uint64(42)
+    for s0 in range(0, len(ok), chunk):
+        sl = slice(s0, s0 + chunk)
+        h = numpy_xxhash64_long(np, ok[sl].astype(np.uint64),
+                                np.full(len(ok[sl]), seed64))
+        h = numpy_xxhash64_long(np, li["pkey"][sl].astype(np.uint64), h)
+        xs += int((h.view(np.int64) % 1000).sum())
+        flag = np.asarray([ord(v) for v in rf_u], np.int64)[rf[sl]]
+        byte = np.where(flag >= 128, flag - 256, flag).astype(np.uint32)
+        h1 = numpy_murmur3_step(np, byte, np.full(len(byte), np.uint32(42)))
+        h1 = numpy_murmur3_fmix(np, h1, 1)
+        h1 = numpy_murmur3_step(np, ship[sl].astype(np.int64).astype(
+            np.uint32), h1)
+        h1 = numpy_murmur3_fmix(np, h1, 4)
+        ms += int((h1.view(np.int32).astype(np.int64) % 1000).sum())
+    refs["s9_hashes"] = [{"x": xs, "m": ms, "n": len(ok)}]
+    # s10: casts; the double -> string -> double round trip keeps every
+    # value (the shortest decimal reads back to the double)
+    day = datetime.date(1995, 3, 15)
+    refs["s10_casts"] = [{
+        "b": int(ok.sum()), "qrt": len(ok),
+        "mn": str(epoch + datetime.timedelta(days=int(ship.min()))),
+        "mx": str(epoch + datetime.timedelta(days=int(ship.max()))),
+        "d": int((ship == (day - epoch).days).sum()), "n": len(ok)}]
+    rows = [i for i in np.nonzero(li["pkey"] == SCALAR_SAMPLE_PARTKEY)[0]]
+    sample = [{"l_orderkey": int(ok[i]), "l_quantity": float(q[i]),
+               "qs": java_double_string(float(q[i])),
+               "ds": str(epoch + datetime.timedelta(days=int(ship[i])))}
+              for i in rows]
+    refs["s10_sample"] = sorted(sample, key=lambda r: (r["l_orderkey"],
+                                                       r["qs"].encode()))
+    # s11: each flag's first and last row in the table's order
+    rows = []
+    for i, flag in sorted(enumerate(rf_u), key=lambda kv: kv[1].encode()):
+        at = np.nonzero(rf == i)[0]
+        if not len(at):
+            continue
+        a, b = at[0], at[-1]
+        rows.append({"l_returnflag": flag, "f": int(ok[a]), "l": int(ok[b]),
+                     "fd": epoch + datetime.timedelta(days=int(ship[a])),
+                     "lp": float(li["price"][b]), "n": len(at)})
+    refs["s11_first_last"] = rows
+    return refs
+
+
+def fused_filter(physical, ctx, nodes, label):
+    """Checks the run of the physical plan ``physical`` (with its
+    ExecContext ``ctx``): one HashAggregateExec's fused plan (B1) holds
+    the query's filter as its predicate, with an expression of each
+    type in ``nodes`` (names of expression classes), and no FilterExec
+    ran. Returns the predicate's expression types."""
+    from spark_rapids_tpu_torch.exec.aggregate import HashAggregateExec
+
+    def execs(node):
+        yield node
+        for c in node.children:
+            yield from execs(c)
+
+    def types(e):
+        yield type(e).__name__
+        for c in e.children:
+            yield from types(c)
+    preds = [p.pred for x in execs(physical)
+             if isinstance(x, HashAggregateExec)
+             for p in x._pallas_plans.values() if p.pred is not None]
+    check(len(preds) == 1, f"{label}: {len(preds)} fused plans hold a "
+          "filter, not 1")
+    found = set(types(preds[0]))
+    check(set(nodes) <= found, f"{label}: the fused filter lacks "
+          f"{sorted(set(nodes) - found)}")
+    ran = [eid for eid in ctx.metrics if eid.startswith("FilterExec#")]
+    check(not ran, f"{label}: {ran} ran beside the fused filter")
+    return found
+
+
+def run_scalar(torch, dev, session, read_counts, name, text, must):
+    """One scalar query through session.sql: a first run with every
+    B1 / B3 launch held against the plain version, and a warm run
+    outside the hold with the same launch counts; each kernel in
+    ``must`` launched. Returns (its numbers, (text, columns, first
+    run's rows, warm run's rows))."""
+    from spark_rapids_tpu_torch.ops import device_kernels as DK
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    DK.reset_counts()
+    with holding_launches(torch, DK) as hold:
+        t = time.perf_counter()
+        df = session.sql(text)
+        rows = df.collect()
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t
+    counts = read_counts()
+    check_held(hold, counts, f"scalar {name}")
+    for k in must:
+        check(counts[k] > 0, f"scalar {name}: {k} did not run")
+    out = {}
+    if name == "s7_fused":
+        out["fused_filter"] = sorted(fused_filter(
+            *session._last_execution, S7_FUSED_NODES, f"scalar {name}"))
+    DK.reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    again = session.sql(text).collect()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t
+    check(read_counts() == counts, f"scalar {name}: the warm run launched "
+          f"{read_counts()}, the first {counts}")
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    out |= {"first_s": first, "warm_s": warm, "peak_gb": peak,
+            "result_rows": len(rows), "launches": counts,
+            "held": dict(hold.held), "max_abs_err": dict(hold.err)}
+    log(f"scalar {name}: first {first:.4f} s (B1 / B3 held on every "
+        f"launch), warm {warm:.4f} s; launches {counts}; held B1 "
+        f"{hold.held['tile_reduce']} / B3 {hold.held['tile_group_reduce']} "
+        f"batches (max_abs_err {hold.err}); max_memory_allocated "
+        f"{peak:.3f} GB" + (f"; B1's fused filter holds "
+                            f"{out['fused_filter']}" if "fused_filter" in out
+                            else ""))
+    return out, (text, df.columns, rows, again)
+
+
+def scalar_phase(torch, np, dev, session, dfs, host, read_counts):
+    """Phase 5b: scalar_queries through session.sql on the TPC-H tables
+    already on the card (60M lineitem, 15M orders, 1.5M customer rows):
+    a first run, with every B1 / B3 launch held against the plain
+    version (``holding_launches``), and one warm run outside the hold,
+    each held against scalar_references; logs walls, the device memory
+    peak, each query's launches and its held B1 / B3 batches."""
+    from spark_rapids_tpu_torch.ops import device_kernels as DK
+    from spark_rapids_tpu_torch.testing import compare_rows, order_keys
+    try:
+        import zoneinfo
+        zoneinfo.ZoneInfo(SCALAR_ZONE)
+        zone = SCALAR_ZONE
+    except (ImportError, KeyError, OSError) as e:  # no tz database
+        zone = SCALAR_FIXED_ZONE
+        log(f"scalar: zoneinfo cannot resolve {SCALAR_ZONE} on this machine "
+            f"({type(e).__name__}: {e}); the time-zone query uses the fixed "
+            f"offset {zone}")
+    else:
+        log(f"scalar: zoneinfo resolves {zone} here; the time-zone query "
+            "uses it")
+    for name, df in dfs.items():
+        session.create_or_replace_temp_view(name, df)
+    # the references on a host thread while the card runs the queries
+    t_ref = time.perf_counter()
+
+    def references():
+        out = scalar_references(np, host["lineitem"], host["orders"],
+                                host["customer"], zone)
+        return out, time.perf_counter() - t_ref
+    ahead = references_ahead([("scalar", references)])
+    report, results = {}, {}
+    try:
+        for name, (text, must) in scalar_queries(zone).items():
+            report[name], results[name] = run_scalar(
+                torch, dev, session, read_counts, name, text, must)
+        t = time.perf_counter()
+        refs, ref_s = ahead.get("scalar")
+    finally:
+        ahead.close()
+    log(f"scalar: numpy / Python references in {ref_s:.1f} s on a host "
+        f"thread beside the queries (waited {time.perf_counter() - t:.1f} "
+        "s after them)")
+    for name, (text, columns, rows, again) in results.items():
+        keys, limit = order_keys(text, columns)
+        diff = compare_rows(rows, refs[name], keys, limit, RTOL)
+        check(diff is None, f"scalar {name}: {diff} (reference)")
+        check(compare_rows(again, refs[name], keys, limit, RTOL) is None,
+              f"scalar {name}: the warm run disagrees with the reference")
+        log(f"scalar {name}: the first and the warm run match the reference "
+            f"({len(rows)} rows)")
+    n_li = -(-ROWS // BATCH_ROWS)
+    check(report["s7_fused"]["launches"]["tile_reduce"] == n_li,
+          f"scalar s7_fused: B1 ran on "
+          f"{report['s7_fused']['launches']['tile_reduce']} of {n_li} "
+          "batches")
+    log("scalar summary " + json.dumps({q: {
+        k: r[k] for k in ("first_s", "warm_s", "peak_gb", "result_rows")}
+        | {"b1": r["launches"]["tile_reduce"],
+           "b3": r["launches"]["tile_group_reduce"]}
+        for q, r in report.items()}))
+    return report
+
+
 def main():
     # the allocator setting the port asks for where queries spill under
     # a memory cap (README; a budget on the card warns without it): the
@@ -3142,8 +3708,6 @@ def main():
     from spark_rapids_tpu_torch.conf import SrtConf
     from spark_rapids_tpu_torch.datagen import generate_chunk
     from spark_rapids_tpu_torch.exec import pallas_agg
-    from spark_rapids_tpu_torch.exec.aggregate import (PARTIAL,
-                                                       HashAggregateExec)
     from spark_rapids_tpu_torch.exec.base import ExecContext
     from spark_rapids_tpu_torch.expr import aggregates as Agg
     from spark_rapids_tpu_torch.expr import hashing as H
@@ -3193,7 +3757,8 @@ def main():
     host_cols = {
         "lineitem": {"qty": "l_quantity", "price": "l_extendedprice",
                      "disc": "l_discount", "tax": "l_tax",
-                     "ship": "l_shipdate", "okey": "l_orderkey"},
+                     "ship": "l_shipdate", "okey": "l_orderkey",
+                     "pkey": "l_partkey"},
         "orders": {"okey": "o_orderkey", "ckey": "o_custkey",
                    "total": "o_totalprice", "odate": "o_orderdate"},
         "customer": {"ckey": "c_custkey"}}
@@ -3575,14 +4140,18 @@ def main():
     launches = {}
 
     def run_query(name, make, ref, rows_in, expect, at_least=None):
-        """A checked run (counts reset just before, read just after),
-        then three timed runs; ``expect`` maps launch counters to the
-        counts each run must give, ``at_least`` to a least count."""
+        """A checked run (counts reset just before, read just after;
+        every B1 / B3 launch held against the plain version), then
+        three timed runs outside the hold; ``expect`` maps launch
+        counters to the counts each run must give, ``at_least`` to a
+        least count. Returns the operator metrics and the hold."""
         at_least = at_least or {}
         DK.reset_counts()
         torch.cuda.synchronize()
-        rows = make().collect()
+        with holding_launches(torch, DK) as hold:
+            rows = make().collect()
         counts = read_counts()
+        check_held(hold, counts, name)
         metrics = session._last_execution[1].metric_totals()
         check(same_rows(rows, ref), f"{name}: {rows} != numpy {ref}")
         for key, n in expect.items():
@@ -3611,7 +4180,7 @@ def main():
             f"wall s median {wall:.4f} of {[round(w, 4) for w in walls]}; "
             f"rows/s {rows_in / wall:.4e}; max_memory_allocated "
             f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB")
-        return metrics
+        return metrics, hold
 
     n_li, n_od = len(batches["lineitem"]), len(batches["orders"])
     run_query("q6", lambda: tpch.q6(df), ref6, ROWS,
@@ -3624,7 +4193,7 @@ def main():
               ROWS // 4, {"tile_reduce_str": n_od})
     # q3's partial aggregate takes B3 for join output batches of at most
     # 1024 groups (the hot keys' chunks), the hash path for the rest
-    q3_metrics = run_query(
+    q3_metrics, q3_hold = run_query(
         "q3", lambda: tpch.q3(dfs["customer"], dfs["orders"], df), ref3,
         ROWS, {"tile_reduce": 0}, at_least={"tile_group_reduce": 1})
     log("q3 operators: " + ", ".join(
@@ -3636,14 +4205,16 @@ def main():
 
     # --- kernel phase: B3 tile_group_reduce at q3's shapes -------------------
     # q3's partial aggregate hands the kernel the join output batches that
-    # the hash-claim prelude resolves to at most 1024 groups
-    b3_q3 = b3_on_batches(torch, session._last_execution[0], conf, dev,
-                          "q3", launches["q3"]["tile_group_reduce"])
-    widest = b3_q3["widest"]
-    rows3, groups3, gid3, lanes3 = widest
+    # the hash-claim prelude resolves to at most 1024 groups; the checked
+    # run held each one and kept the widest
+    b3_q3 = {"err": q3_hold.err["tile_group_reduce"]}
+    rows3, groups3, gid3, lanes3 = q3_hold.widest
     b3_widest = hold_b3(f"q3 widest, {rows3} rows", gid3, lanes3, groups3,
                         library=True)
-    del widest, b3_q3["widest"], gid3, lanes3
+    del q3_hold, gid3, lanes3
+
+    # --- the scalar expression library on the same tables ------------------
+    scalar = scalar_phase(torch, np, dev, session, dfs, host, read_counts)
 
     # --- NDS: the star-join slice through session.sql -------------------------
     nds, nds_session, nds_ref, nds_widest = nds_phase(torch, np, dev,
@@ -3653,6 +4224,10 @@ def main():
                      groups_n, library=True)
     b3_nds["query"] = q_n
     del nds_widest, gid_n, lanes_n
+
+    # the windows' numpy references, on a host thread from here on
+    windows_ahead = references_ahead(
+        [("windows", lambda: numpy_windows(np, nds_ref))])
 
     # --- the float group sums alone, at q12's and q98's widest batch --------
     seg_sum_timing(torch, dev, nds_session)
@@ -3677,7 +4252,7 @@ def main():
 
     # --- windows over all of store_sales, on the SF10 session ---------------
     _, window_runs, window_want = window_phase(torch, np, dev, nds_session,
-                                               nds_ref)
+                                               nds_ref, windows_ahead)
 
     # --- memory: out-of-core sort, caps, injected OOM, spill rate ----------
     def runs_of(make, ref, kernel):
@@ -3757,9 +4332,13 @@ def main():
          "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:78",
          "launches": launches["q6"]["tile_reduce"]
          + sum(r["launches"]["tile_reduce"]
-               for r in (*nds.values(), *joins.values(), *subq.values()))
+               for r in (*nds.values(), *joins.values(), *subq.values(),
+                         *scalar.values()))
          + memory_launches["tile_reduce"]
          - memory_launches["tile_reduce_str"],
+         "scalar_launches": {q: r["launches"]["tile_reduce"]
+                             for q, r in scalar.items()
+                             if r["launches"]["tile_reduce"]},
          "memory_launches": memory_launches["tile_reduce"]
          - memory_launches["tile_reduce_str"],
          "nds_launches": {q: r["launches"]["tile_reduce"]
@@ -3787,8 +4366,12 @@ def main():
          "launches": launches["q1"]["tile_group_reduce"]
          + launches["q3"]["tile_group_reduce"]
          + sum(r["launches"]["tile_group_reduce"]
-               for r in (*nds.values(), *joins.values(), *subq.values()))
+               for r in (*nds.values(), *joins.values(), *subq.values(),
+                         *scalar.values()))
          + memory_launches["tile_group_reduce"],
+         "scalar_launches": {q: r["launches"]["tile_group_reduce"]
+                             for q, r in scalar.items()
+                             if r["launches"]["tile_group_reduce"]},
          "memory_launches": memory_launches["tile_group_reduce"],
          "nds_launches": {q: r["launches"]["tile_group_reduce"]
                           for q, r in (*nds.items(), *joins.items(),
@@ -3810,7 +4393,8 @@ def main():
     ]
     # B1 on the NDS batches it took (the global aggregates under q28, q38,
     # q61, q87 and q90, and under the plan-time subqueries of phase 6c)
-    held_err = [r["max_abs_err"] for r in memory["injected"].values()]
+    held_err = [r["max_abs_err"] for r in (*memory["injected"].values(),
+                                            *scalar.values())]
     kernels[0]["max_abs_err"] = max(
         kernels[0]["max_abs_err"],
         *(r["b1_max_abs_err"] for r in (*nds.values(), *joins.values(),

@@ -2,9 +2,10 @@
 
 Counterpart of spark_rapids_tpu/columnar/dtypes.py, cut to the types the
 ported path carries: booleans, integers, floats, DATE (int32 days since
-the epoch, Spark's layout), STRING (offsets + bytes, see
-columnar/vector.py) and ARRAY of one of those (offsets + a child column,
-see columnar/nested.py). ``physical`` is the torch dtype of the data buffer
+the epoch, Spark's layout), TIMESTAMP (int64 microseconds since the
+epoch in UTC), STRING (offsets + bytes, see columnar/vector.py) and
+ARRAY of one of those (offsets + a child column, see
+columnar/nested.py). ``physical`` is the torch dtype of the data buffer
 and ``np_physical`` the numpy dtype of the host lane.
 """
 
@@ -107,6 +108,15 @@ class DateType(DType):
     sql_name = "date"
 
 
+class TimestampType(DType):
+    """Microseconds since the unix epoch in UTC, int64 (Spark's internal
+    TimestampType)."""
+
+    physical = torch.int64
+    np_physical = np.dtype(np.int64)
+    sql_name = "timestamp"
+
+
 class NullType(DType):
     physical = torch.bool
     np_physical = np.dtype(np.bool_)
@@ -136,10 +146,11 @@ FLOAT32 = FloatType()
 FLOAT64 = DoubleType()
 STRING = StringType()
 DATE = DateType()
+TIMESTAMP = TimestampType()
 NULL = NullType()
 
 _BY_NAME = {t.sql_name: t for t in (BOOL, INT8, INT16, INT32, INT64, FLOAT32,
-                                     FLOAT64, STRING, DATE, NULL)}
+                                     FLOAT64, STRING, DATE, TIMESTAMP, NULL)}
 
 _NUMPY_TO_DTYPE = {t.np_physical: t for t in (BOOL, INT8, INT16, INT32,
                                               INT64, FLOAT32, FLOAT64)}
@@ -177,7 +188,7 @@ def promote(a: DType, b: DType) -> DType:
 
 
 def min_value(t: DType):
-    if t.is_integral or t == DATE:
+    if t.is_integral or t in (DATE, TIMESTAMP):
         return int(np.iinfo(t.np_physical).min)
     if t.is_floating:
         return -np.inf
@@ -187,7 +198,7 @@ def min_value(t: DType):
 
 
 def max_value(t: DType):
-    if t.is_integral or t == DATE:
+    if t.is_integral or t in (DATE, TIMESTAMP):
         return int(np.iinfo(t.np_physical).max)
     if t.is_floating:
         return np.inf

@@ -405,10 +405,14 @@ def column_from_numpy(values, capacity: int, dtype: Optional[dt.DType] = None,
 
 
 def from_physical(v, dtype: dt.DType):
-    """One physical lane value as its Python value (DATE -> date)."""
+    """One physical lane value as its Python value (DATE -> date,
+    TIMESTAMP -> a datetime in UTC)."""
     import datetime
     if hasattr(v, "item"):
         v = v.item()
     if dtype == dt.DATE:
         return datetime.date(1970, 1, 1) + datetime.timedelta(days=int(v))
+    if dtype == dt.TIMESTAMP:
+        return datetime.datetime(1970, 1, 1, tzinfo=datetime.timezone.utc) \
+            + datetime.timedelta(microseconds=int(v))
     return v

@@ -188,6 +188,13 @@ AGG_MERGE_PARTITION_ROWS = _register(ConfEntry(
     "Aggregate merges whose concatenated partial rows exceed this are "
     "re-partitioned by group-key hash and merged bucket by bucket."))
 
+SESSION_TIMEZONE = _register(ConfEntry(
+    "srt.sql.session.timeZone", str, "UTC",
+    "Session time zone (spark.sql.session.timeZone): the field "
+    "functions of a timestamp (hour, year, ...) read its wall clock "
+    "there. A zone id is a fixed offset ('+08:00', 'GMT-3') or a name "
+    "that zoneinfo resolves; an unknown name raises."))
+
 
 class SrtConf:
     """Immutable snapshot of settings, one per session."""

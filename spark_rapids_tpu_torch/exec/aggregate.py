@@ -8,8 +8,8 @@ structure:
 
 At one partition the exchange the JAX planner places between PARTIAL
 and FINAL passes every partial through unchanged, so it is not placed.
-Two kernel lanes: a global aggregate (optionally absorbing its child
-FilterExec's predicate) runs as one ``tile_reduce`` pass per batch
+Two kernel lanes: a global aggregate (optionally absorbing the chain of
+FilterExecs below it) runs as one ``tile_reduce`` pass per batch
 (exec/pallas_agg.py); a grouped PARTIAL update over sum-decomposable
 aggregates takes ``tile_group_reduce`` for batches of <= 1024 groups.
 Neither lane has a fallback: on CUDA the kernel runs or the query fails.
@@ -26,6 +26,7 @@ disjoint buckets one by one (GpuAggregateExec.scala:711).
 
 from __future__ import annotations
 
+import functools
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
@@ -37,6 +38,7 @@ from ..columnar.vector import (ColumnVector, ColumnarBatch,
                                with_validity)
 from ..conf import (AGG_MERGE_PARTITION_ROWS, PALLAS_ENABLED,
                     PALLAS_GROUPED_ENABLED)
+from ..expr import predicates as Pr
 from ..expr.aggregates import AggregateFunction
 from ..expr.core import Expression, make_result, output_name
 from ..memory.retry import retry_each, with_retry_no_split
@@ -315,14 +317,20 @@ class HashAggregateExec(TpuExec):
         gate or the conf keeps the stock path."""
         if not self._pallas_gate or not ctx.conf.get(PALLAS_ENABLED):
             return None
-        source, pred = self.children[0], None
-        if isinstance(source, FilterExec) and \
+        # a WHERE plans as one FilterExec per conjunct: the lane takes
+        # the chain of them it can lower, top down, as one conjunction
+        # (the safe nodes cannot fail, so evaluating a condition on rows
+        # a lower one drops changes no result)
+        source, preds = self.children[0], []
+        while isinstance(source, FilterExec) and \
                 pallas_agg.pred_safe(source.condition, self.input_schema):
-            source, pred = source.children[0], source.condition
-        plan = self._pallas_plans.get(id(pred))
+            preds.append(source.condition)
+            source = source.children[0]
+        key = tuple(id(p) for p in preds)
+        plan = self._pallas_plans.get(key)
         if plan is None:
-            plan = self._pallas_plans[id(pred)] = \
-                pallas_agg.build_plan(self, pred)
+            plan = self._pallas_plans[key] = pallas_agg.build_plan(
+                self, functools.reduce(Pr.And, preds) if preds else None)
         fn = plan.batch_fn()
 
         def stream():

@@ -3,8 +3,8 @@
 Counterpart of spark_rapids_tpu/exec/pallas_agg.py (the module and class
 names are the JAX package's; the kernel is the Triton rewrite in
 ops/device_kernels.py). A global HashAggregateExec whose aggregates —
-and, when its child is a FilterExec, the filter predicate too — are
-simple numeric expressions runs as ONE kernel pass per input batch:
+and the predicates of the chain of FilterExecs below it, as far as each
+is one too — are simple numeric expressions runs as ONE kernel pass per input batch:
 each input column is read once and no filtered batch is materialized.
 
 All lanes stay float64, so nothing here demotes types (the JAX
@@ -33,11 +33,13 @@ from ..expr import arithmetic as A
 from ..expr import core as E
 from ..expr import predicates as Pr
 from ..expr import strings as S
+from ..expr.cast import Cast
 from ..ops import device_kernels as DK
 
 _SAFE_NODES = (
-    E.ColumnRef, E.Literal, E.Alias,
+    E.ColumnRef, E.Literal, E.Alias, Cast,
     A.Add, A.Subtract, A.Multiply, A.Divide, A.UnaryMinus,
+    A.UnaryPositive, A.Abs, A.Least, A.Greatest,
     Pr.EqualTo, Pr.LessThan, Pr.GreaterThan, Pr.LessThanOrEqual,
     Pr.GreaterThanOrEqual, Pr.EqualNullSafe, Pr.And, Pr.Or, Pr.Not,
     Pr.IsNull, Pr.IsNotNull, Pr.IsNaN, Pr.InSet,
@@ -270,11 +272,16 @@ def pallas_eligible(agg_exec) -> bool:
         return False
     schema = list(agg_exec.input_schema)
     for fn, _name in agg_exec.agg_exprs:
+        try:
+            in_t = fn.children[0].data_type(schema) if fn.children \
+                else None
+        except TypeError:  # no type: the stock path raises its error
+            return False
         if isinstance(fn, (Agg.Sum, Agg.Average)):
-            if fn.children[0].data_type(schema) not in _FLOATY:
+            if in_t not in _FLOATY:
                 return False
         elif isinstance(fn, (Agg.Min, Agg.Max)):
-            if fn.children[0].data_type(schema) not in _MINMAX_DTYPES:
+            if in_t not in _MINMAX_DTYPES:
                 return False
         elif not isinstance(fn, (Agg.CountStar, Agg.Count)):
             return False

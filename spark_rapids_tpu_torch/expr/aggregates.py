@@ -469,3 +469,70 @@ class CollectSet(CollectList):
                                   right=True)
         g_s, c_s, keep = _dedup_sorted(egid, child, alive)
         return {"list": _list_state(g_s, c_s, num_groups, keep)}
+
+
+class First(AggregateFunction):
+    """first(x [, ignoreNulls]): the value of each group's first row (its
+    first non-null row with ``ignore_nulls``), in input order, as the
+    JAX package's; order dependent, as in Spark. The grouping hands
+    update() each group's rows in input order and the merge its
+    partials in batch order, so the state is the picked value, its
+    validity and whether the partial saw an eligible row."""
+
+    name = "first"
+    largest = False
+
+    def __init__(self, child: Expression, ignore_nulls: bool = False):
+        super().__init__(child)
+        self.ignore_nulls = ignore_nulls
+
+    def data_type(self, schema: Schema) -> dt.DType:
+        return self.children[0].data_type(schema)
+
+    def state_schema(self, schema: Schema) -> List:
+        return [("val", self.data_type(schema)), ("valid", dt.BOOL),
+                ("found", dt.BOOL)]
+
+    def _pick(self, gid, eligible, num_groups):
+        cap = eligible.shape[0]
+        idx = torch.arange(cap, device=eligible.device)
+        if self.largest:
+            sel = _seg_reduce(torch.where(eligible, idx, -1), gid,
+                              num_groups, -1, "amax")
+            found = sel >= 0
+        else:
+            sel = _seg_reduce(torch.where(eligible, idx, cap), gid,
+                              num_groups, cap, "amin")
+            found = sel < cap
+        return sel.clamp(0, max(cap - 1, 0)), found
+
+    @staticmethod
+    def _take(val, validity, take, found):
+        if isinstance(val, torch.Tensor):
+            out = val[take]
+            return torch.where(found, out, torch.zeros((), dtype=out.dtype,
+                                                       device=out.device))
+        return val.gather(take, found & validity[take])
+
+    def update(self, gid, col, num_groups, live) -> State:
+        eligible = live & col.validity if self.ignore_nulls else live
+        take, found = self._pick(gid, eligible, num_groups)
+        data = col.data if isinstance(col, ColumnVector) else col
+        return {"val": self._take(data, col.validity, take, found),
+                "valid": col.validity[take] & found, "found": found}
+
+    def merge(self, gid, states, num_groups) -> State:
+        take, found = self._pick(gid, states["found"], num_groups)
+        return {"val": self._take(states["val"], states["valid"], take,
+                                  found),
+                "valid": states["valid"][take] & found, "found": found}
+
+    def finalize(self, states):
+        return states["val"], states["valid"] & states["found"]
+
+
+class Last(First):
+    """last(x [, ignoreNulls]): each group's last row's value."""
+
+    name = "last"
+    largest = True

@@ -169,15 +169,25 @@ def _infer_literal_dtype(value) -> dt.DType:
         return dt.FLOAT64
     if isinstance(value, str):
         return dt.STRING
-    if isinstance(value, datetime.date) and \
-            not isinstance(value, datetime.datetime):
+    if isinstance(value, datetime.datetime):
+        return dt.TIMESTAMP
+    if isinstance(value, datetime.date):
         return dt.DATE
     raise TypeError(f"no literal of {type(value).__name__} {value!r} in "
                     "this port yet")
 
 
 def literal_physical(value, dtype: dt.DType):
-    """The physical lane value of a literal (DATE -> int days)."""
+    """The physical lane value of a literal (DATE -> int days, TIMESTAMP
+    -> int microseconds since the epoch; a datetime without a zone
+    reads as UTC)."""
+    if dtype == dt.TIMESTAMP and isinstance(value, datetime.datetime):
+        if value.tzinfo is None:
+            value = value.replace(tzinfo=datetime.timezone.utc)
+        delta = value - datetime.datetime(1970, 1, 1,
+                                          tzinfo=datetime.timezone.utc)
+        return (delta.days * 86_400 + delta.seconds) * 1_000_000 + \
+            delta.microseconds
     if dtype == dt.DATE and isinstance(value, datetime.date):
         return (value - datetime.date(1970, 1, 1)).days
     return value

@@ -1,7 +1,9 @@
-"""Spark-bit-exact Murmur3 (Murmur3_x86_32) over device columns.
+"""Spark-bit-exact Murmur3 (Murmur3_x86_32) and XXH64 over device
+columns.
 
 Counterpart of spark_rapids_tpu/expr/hashing.py (murmur3_column,
-_murmur3_string, murmur3_row_hash). Matching Spark bit for bit matters
+_murmur3_string, murmur3_row_hash, ``Murmur3Hash`` — SQL ``hash`` —,
+xxhash64_column and ``XxHash64``). Matching Spark bit for bit matters
 because hashes decide partitioning: equal keys must land alike in every
 engine.
 
@@ -13,6 +15,12 @@ rotate and shift masks back to 32 bits, and a 64-bit column value is
 hashed as its two 32-bit words taken with an arithmetic shift followed
 by a mask (a logical shift). Null rows leave the running hash unchanged
 (Spark semantics); the default seed is 42.
+
+XXH64 runs in int64 lanes whose multiplies and adds wrap modulo 2^64,
+which is uint64 arithmetic on the same bits; a logical right shift is an
+arithmetic one masked to the low bits. It takes what the JAX package's
+takes: booleans, integers, dates, timestamps and floats (strings raise,
+as there).
 """
 
 from __future__ import annotations
@@ -22,7 +30,8 @@ from typing import Sequence, Union
 import torch
 
 from ..columnar import dtypes as dt
-from ..columnar.vector import Column, StringColumn
+from ..columnar.vector import Column, ColumnVector, ColumnarBatch, StringColumn
+from .core import Expression, Schema, make_result
 
 M32 = 0xFFFFFFFF
 _C1 = 0xCC9E2D51
@@ -102,7 +111,7 @@ def murmur3_column(col: Column, seed: Seed) -> torch.Tensor:
         elif t in (dt.INT8, dt.INT16, dt.INT32, dt.DATE):
             # sign-extend, then wrap to 32 bits
             h = _hash_int32(d.to(torch.int64) & M32, h0)
-        elif t == dt.INT64:
+        elif t in (dt.INT64, dt.TIMESTAMP):
             h = _hash_int64(d, h0)
         elif t == dt.FLOAT32:
             bits = _normalize_float(d).view(torch.int32).to(torch.int64)
@@ -160,3 +169,106 @@ def murmur3_row_hash(cols: Sequence[Column], seed: int = 42
     for c in cols:
         h = murmur3_column(c, h)
     return to_int32(h)
+
+
+class Murmur3Hash(Expression):
+    """hash(...): Spark's Murmur3 row hash, int32, never null."""
+
+    def __init__(self, *children: Expression, seed: int = 42):
+        super().__init__(*children)
+        self.seed = seed
+
+    def data_type(self, schema: Schema) -> dt.DType:
+        return dt.INT32
+
+    def eval(self, batch: ColumnarBatch) -> ColumnVector:
+        cols = [c.eval(batch) for c in self.children]
+        return make_result(murmur3_row_hash(cols, self.seed),
+                           batch.live_mask(), dt.INT32)
+
+
+# ---------------------------------------------------------------------------
+# xxhash64 (Spark's XxHash64)
+# ---------------------------------------------------------------------------
+
+def _s64(v: int) -> int:
+    """A uint64 constant as the int64 with the same bits."""
+    return v - (1 << 64) if v >= 1 << 63 else v
+
+
+_P1 = _s64(0x9E3779B185EBCA87)
+_P2 = _s64(0xC2B2AE3D27D4EB4F)
+_P3 = _s64(0x165667B19E3779F9)
+_P4 = _s64(0x85EBCA77C2B2AE63)
+_P5 = _s64(0x27D4EB2F165667C5)
+
+
+def _shr64(x: torch.Tensor, r: int) -> torch.Tensor:
+    """Logical right shift of int64 lanes."""
+    return (x >> r) & ((1 << (64 - r)) - 1)
+
+
+def _rotl64(x: torch.Tensor, r: int) -> torch.Tensor:
+    return (x << r) | _shr64(x, 64 - r)
+
+
+def _xx_fmix(h: torch.Tensor) -> torch.Tensor:
+    h = h ^ _shr64(h, 33)
+    h = h * _P2
+    h = h ^ _shr64(h, 29)
+    h = h * _P3
+    return h ^ _shr64(h, 32)
+
+
+def _xx_hash_long(v: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    h = seed + _P5 + 8
+    h = h ^ (_rotl64(v * _P2, 31) * _P1)
+    return _xx_fmix(_rotl64(h, 27) * _P1 + _P4)
+
+
+def _xx_hash_int(v: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    """Spark's XxHash64.hashInt: the 4-byte tail path; ``v`` in
+    [0, 2^32)."""
+    h = seed + _P5 + 4
+    h = h ^ (v * _P1)
+    return _xx_fmix(_rotl64(h, 23) * _P2 + _P3)
+
+
+def xxhash64_column(col: Column, seed: torch.Tensor) -> torch.Tensor:
+    """Per-row XXH64 of one column, int64 bits; null rows keep the
+    seed."""
+    if isinstance(col, StringColumn):
+        raise TypeError("xxhash64 of a string is not in this port")
+    d, t = col.data, col.dtype
+    if t == dt.BOOL:
+        h = _xx_hash_int(d.to(torch.int64), seed)
+    elif t in (dt.INT8, dt.INT16, dt.INT32, dt.DATE):
+        h = _xx_hash_int(d.to(torch.int64) & M32, seed)
+    elif t in (dt.INT64, dt.TIMESTAMP):
+        h = _xx_hash_long(d, seed)
+    elif t == dt.FLOAT32:
+        bits = _normalize_float(d).view(torch.int32).to(torch.int64)
+        h = _xx_hash_int(bits & M32, seed)
+    elif t == dt.FLOAT64:
+        h = _xx_hash_long(_normalize_float(d).view(torch.int64), seed)
+    else:
+        raise TypeError(f"xxhash64 unsupported for {t}")
+    return torch.where(col.validity, h, seed)
+
+
+class XxHash64(Expression):
+    """xxhash64(...): bigint, never null; each column seeds the next."""
+
+    def __init__(self, *children: Expression, seed: int = 42):
+        super().__init__(*children)
+        self.seed = seed
+
+    def data_type(self, schema: Schema) -> dt.DType:
+        return dt.INT64
+
+    def eval(self, batch: ColumnarBatch) -> ColumnVector:
+        h = torch.full((batch.capacity,), self.seed, dtype=torch.int64,
+                       device=batch.device)
+        for c in self.children:
+            h = xxhash64_column(c.eval(batch), h)
+        return make_result(h, batch.live_mask(), dt.INT64)

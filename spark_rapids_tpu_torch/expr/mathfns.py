@@ -1,8 +1,17 @@
-"""Rounding functions.
+"""Math functions.
 
-Counterpart of spark_rapids_tpu/expr/mathfns.py, cut to ``Round`` and
-``BRound`` over floats, integers and dates (decimals wait for
-columnar/decimal128.py).
+Counterpart of spark_rapids_tpu/expr/mathfns.py for the non-decimal
+types: the unary functions of a double (Spark's NULL on a domain error
+for ``ln`` / ``log*``, NaN and the infinities elsewhere, as
+``StrictMath``), ``signum``, ``rint``, ``floor`` / ``ceil`` to BIGINT,
+``pow``, ``atan2``, ``hypot``, and ``Round`` / ``BRound`` over floats,
+integers and dates (decimals wait for columnar/decimal128.py).
+
+Where IEEE's ``pow`` and Java's differ, the port takes Java's: a NaN
+exponent gives NaN (``pow(1, NaN)`` is 1 in C, in torch and in the JAX
+package), and so does +-1 to an infinite power. ``floor`` / ``ceil`` of
+NaN or a value past BIGINT's range take Spark's cast (0, saturated).
+``signum`` keeps -0.0 and NaN. (ROADMAP.md C13 lists these.)
 
 Spark rounds a double through its decimal string:
 ``BigDecimal(Double.toString(x)).setScale(d, mode).toDouble``. So
@@ -24,7 +33,7 @@ import torch
 
 from ..columnar import dtypes as dt
 from ..columnar.vector import ColumnVector, ColumnarBatch
-from .core import Expression, Schema, make_result
+from .core import Expression, Schema, make_result, merged_validity
 
 _EXACT = float(1 << 52)
 
@@ -102,3 +111,135 @@ class BRound(Round):
     decimal string."""
 
     half_even = True
+
+
+class _UnaryDouble(Expression):
+    """f(double(x)); a null input gives null. ``domain`` (optional)
+    names the inputs f takes; outside it the row is null (Spark's
+    ``ln`` of a non-positive value)."""
+
+    @staticmethod
+    def fn(x):
+        raise NotImplementedError
+
+    domain = None
+
+    def data_type(self, schema: Schema) -> dt.DType:
+        return dt.FLOAT64
+
+    def eval(self, batch: ColumnarBatch) -> ColumnVector:
+        c = self.children[0].eval(batch)
+        x = c.data.to(torch.float64)
+        validity = c.validity
+        if self.domain is not None:
+            ok = type(self).domain(x)
+            validity = validity & ok
+            x = torch.where(ok, x, torch.ones((), dtype=x.dtype,
+                                               device=x.device))
+        return make_result(type(self).fn(x), validity, dt.FLOAT64)
+
+
+def _unary(name: str, fn, domain=None, doc: str = ""):
+    cls = type(name, (_UnaryDouble,), {"fn": staticmethod(fn),
+                                       "domain": domain and
+                                       staticmethod(domain),
+                                       "__doc__": doc or f"{name}(x)"})
+    cls.__module__ = __name__
+    return cls
+
+
+def _cbrt(x):
+    """Real cube root: |x|^(1/3) with the sign, one Newton step to the
+    nearest double (torch has no cbrt)."""
+    y = x.abs().pow(1.0 / 3.0)
+    y = torch.where((y > 0) & torch.isfinite(y),
+                    y - (y * y * y - x.abs()) / (3.0 * y * y), y)
+    return torch.copysign(y, x)
+
+
+def _signum(x):
+    return torch.where((x == 0) | torch.isnan(x), x, torch.sign(x))
+
+
+Sqrt = _unary("Sqrt", torch.sqrt)
+Cbrt = _unary("Cbrt", _cbrt)
+Exp = _unary("Exp", torch.exp)
+Expm1 = _unary("Expm1", torch.expm1)
+Log = _unary("Log", torch.log, lambda x: x > 0,
+             "ln(x); null where x <= 0 (Spark)")
+Log1p = _unary("Log1p", torch.log1p, lambda x: x > -1,
+               "log1p(x); null where x <= -1")
+Log2 = _unary("Log2", torch.log2, lambda x: x > 0)
+Log10 = _unary("Log10", torch.log10, lambda x: x > 0)
+Sin = _unary("Sin", torch.sin)
+Cos = _unary("Cos", torch.cos)
+Tan = _unary("Tan", torch.tan)
+Asin = _unary("Asin", torch.asin)
+Acos = _unary("Acos", torch.acos)
+Atan = _unary("Atan", torch.atan)
+Sinh = _unary("Sinh", torch.sinh)
+Cosh = _unary("Cosh", torch.cosh)
+Tanh = _unary("Tanh", torch.tanh)
+Asinh = _unary("Asinh", torch.asinh)
+Acosh = _unary("Acosh", torch.acosh)
+Atanh = _unary("Atanh", torch.atanh)
+ToDegrees = _unary("ToDegrees", torch.rad2deg)
+ToRadians = _unary("ToRadians", torch.deg2rad)
+Signum = _unary("Signum", _signum)
+Rint = _unary("Rint", torch.round, doc="rint(x): half to even")
+
+
+class _FloorCeil(Expression):
+    """floor / ceil: BIGINT, through Spark's double -> bigint cast (NaN
+    is 0, saturated past the range)."""
+
+    fn = None
+
+    def data_type(self, schema: Schema) -> dt.DType:
+        return dt.INT64
+
+    def eval(self, batch: ColumnarBatch) -> ColumnVector:
+        from .cast import cast_column
+        c = self.children[0].eval(batch)
+        if c.dtype.is_integral:
+            return make_result(c.data.to(torch.int64), c.validity, dt.INT64)
+        x = type(self).fn(c.data.to(torch.float64))
+        return cast_column(ColumnVector(x, c.validity, dt.FLOAT64),
+                           dt.INT64)
+
+
+class Floor(_FloorCeil):
+    fn = staticmethod(torch.floor)
+
+
+class Ceil(_FloorCeil):
+    fn = staticmethod(torch.ceil)
+
+
+class _BinaryDouble(Expression):
+    def data_type(self, schema: Schema) -> dt.DType:
+        return dt.FLOAT64
+
+    def eval(self, batch: ColumnarBatch) -> ColumnVector:
+        a = self.children[0].eval(batch)
+        b = self.children[1].eval(batch)
+        data = self.fn(a.data.to(torch.float64), b.data.to(torch.float64))
+        return make_result(data, merged_validity(a, b), dt.FLOAT64)
+
+
+class Pow(_BinaryDouble):
+    """pow(x, y) with Java's special cases (see the module note)."""
+
+    @staticmethod
+    def fn(x, y):
+        r = torch.pow(x, y)
+        nan = torch.isnan(y) | ((x.abs() == 1.0) & torch.isinf(y))
+        return torch.where(nan, float("nan"), r)
+
+
+class Atan2(_BinaryDouble):
+    fn = staticmethod(torch.atan2)
+
+
+class Hypot(_BinaryDouble):
+    fn = staticmethod(torch.hypot)

@@ -2,9 +2,10 @@
 
 Counterpart of spark_rapids_tpu/expr/predicates.py for non-decimal
 operands: NaN compares greater than everything and equal to itself
-(Spark ordering); And/Or use Kleene three-valued logic. Strings support
-``=`` and ``IN`` (byte equality over offsets/chars, expr/strings.py);
-string ordering comparisons are not ported yet.
+(Spark ordering); And/Or use Kleene three-valued logic. Strings compare
+over their offsets and chars (expr/strings.py): unsigned bytes, then the
+shorter string first, so 'a' < 'a\\0' as in Spark (the JAX package pads
+with zero bytes and finds them equal; ROADMAP.md C13).
 """
 
 from __future__ import annotations
@@ -51,29 +52,37 @@ class BinaryComparison(Expression):
     def eval(self, batch: ColumnarBatch) -> ColumnVector:
         string_lit = self._string_literal_side()
         if string_lit is not None:
-            # col = 'lit': compare bytes in place, no literal column
+            # col <op> 'lit': compare bytes in place, no literal column
             c = self.children[1 - string_lit].eval(batch)
             raw = S.utf8(self.children[string_lit].value)
-            return make_result(S.match_literal(c, raw), c.validity, dt.BOOL)
+            if isinstance(self, EqualTo):
+                hit = S.match_literal(c, raw)
+            else:
+                cmp = S.compare_literal(c, raw)
+                hit = self._from_cmp(cmp if string_lit == 1 else -cmp)
+            return make_result(hit, c.validity, dt.BOOL)
         left = self.children[0].eval(batch)
         right = self.children[1].eval(batch)
         if isinstance(left, StringColumn) or isinstance(right, StringColumn):
-            if not (isinstance(self, EqualTo)
-                    and isinstance(left, StringColumn)
+            if not (isinstance(left, StringColumn)
                     and isinstance(right, StringColumn)):
-                raise TypeError(f"string {type(self).__name__} is not in "
-                                "this port yet")
-            return make_result(S.string_eq(left, right),
-                               merged_validity(left, right), dt.BOOL)
+                raise TypeError(f"{type(self).__name__} of a string and a "
+                                "non-string")
+            hit = S.string_eq(left, right) if isinstance(self, EqualTo) \
+                else self._from_cmp(S.string_compare(left, right))
+            return make_result(hit, merged_validity(left, right), dt.BOOL)
         a, b = _aligned(left, right)
         return make_result(self._compare(a, b), merged_validity(left, right),
                            dt.BOOL)
 
+    def _from_cmp(self, cmp: torch.Tensor) -> torch.Tensor:
+        """The comparison's answer from -1 / 0 / 1 per row."""
+        return self._compare(cmp, torch.zeros((), dtype=cmp.dtype,
+                                              device=cmp.device))
+
     def _string_literal_side(self):
-        """Index of a non-null string literal child of an EqualTo whose
-        other child is not a literal, else None."""
-        if not isinstance(self, EqualTo):
-            return None
+        """Index of a non-null string literal child whose other child is
+        not a literal, else None."""
         for i, e in enumerate(self.children):
             other = self.children[1 - i]
             if isinstance(e, Literal) and isinstance(e.value, str) and \

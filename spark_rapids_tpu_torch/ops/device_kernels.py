@@ -62,6 +62,7 @@ from ..columnar.vector import ColumnVector, ColumnarBatch, StringColumn
 from ..expr import arithmetic as A
 from ..expr import core as E
 from ..expr import predicates as Pr
+from ..expr.cast import Cast
 from ..expr.core import literal_physical
 from ..expr.strings import match_literal
 
@@ -344,6 +345,20 @@ class _TritonGen:
             r = self.tmp()
             self.emit(f"{r} = tl.where({av}, -{a}, {self.zero(t)})")
             return r, av, t
+        if isinstance(e, A.UnaryPositive):
+            return self.lower(e.children[0])
+        if isinstance(e, A.Abs):
+            a, av, t = self.lower(e.children[0])
+            r = self.tmp()
+            # an integral minimum wraps to itself, as torch.abs does
+            absval = f"tl.abs({a})" if t.is_floating else \
+                f"tl.where({a} < 0, -{a}, {a})"
+            self.emit(f"{r} = tl.where({av}, {absval}, {self.zero(t)})")
+            return r, av, t
+        if isinstance(e, Cast):
+            return self._cast(e)
+        if isinstance(e, A._LeastGreatestBase):
+            return self._minmax(e)
         if isinstance(e, Pr.BinaryComparison):
             return self._compare(e)
         if isinstance(e, Pr.EqualNullSafe):
@@ -412,6 +427,83 @@ class _TritonGen:
             return r, av, dt.BOOL
         raise NotImplementedError(
             f"{type(e).__name__} has no tile_reduce lowering")
+
+    def _cast(self, e):
+        """expr/cast.py's numeric, boolean and date casts: a wrap on
+        narrowing, a float truncated toward zero and saturated (NaN is
+        0; TINYINT / SMALLINT through INT, then a wrap), x != 0 to
+        boolean, 0 / 1 from it."""
+        a, av, src = self.lower(e.children[0])
+        to = e.to
+        r = self.tmp()
+        if src == to:
+            return a, av, src
+        if to == dt.BOOL:
+            self.emit(f"{r} = ({a} != 0) & {av}")
+            return r, av, to
+        if src.is_floating and to.is_integral:
+            wide = dt.INT64 if to == dt.INT64 else dt.INT32
+            lo, hi = dt.min_value(wide), dt.max_value(wide)
+            # float64(2^63 - 1) rounds up to 2^63: saturate explicitly
+            top = float(2 ** 63) if wide == dt.INT64 else float(hi)
+            x, c = self.tmp(), self.tmp()
+            self.emit(f"{x} = tl.where({a} != {a}, 0.0, "
+                      f"{a}.to(tl.float64))")
+            self.emit(f"{c} = tl.where({x} < {float(lo)!r}, "
+                      f"{float(lo)!r}, {x})")
+            self.emit(f"{c} = tl.where({c} > {top!r}, {top!r}, {c})")
+            self.emit(f"{c} = tl.where({c} < 0, -tl.floor(-{c}), "
+                      f"tl.floor({c}))")
+            self.emit(f"{r} = tl.where({c} >= {top}, "
+                      f"tl.full([BLOCK], {hi}, {_TT[wide]}), "
+                      f"{c}.to({_TT[wide]}))")
+            if wide != to:
+                self.emit(f"{r} = {r}.to({_TT[to]})")
+        else:
+            self.emit(f"{r} = {a}.to({_TT[to]})")
+        self.emit(f"{r} = tl.where({av}, {r}, {self.zero(to)})")
+        return r, av, to
+
+    def _minmax(self, e):
+        """least / greatest: NULLs skipped, NaN above every number (as
+        expr/arithmetic.py ``minmax_columns``)."""
+        kids = [self.lower(c) for c in e.children]
+        out_t = kids[0][2]
+        for _, _, t in kids[1:]:
+            out_t = dt.promote(out_t, t)
+        largest = e.largest
+        fill = dt.min_value(out_t) if largest else dt.max_value(out_t)
+        # float fills (the infinities, NaN) ride the literal buffer
+        fill_s = self.lit(fill, out_t) if out_t.is_floating else \
+            f"tl.full([BLOCK], {int(fill)}, {_TT[out_t]})"
+        red = "tl.maximum" if largest else "tl.minimum"
+        data, anyv = self.tmp(), self.tmp()
+        self.emit(f"{data} = {fill_s}")
+        self.emit(f"{anyv} = inb & (offs < 0)")
+        if out_t.is_floating:
+            nan_seen, num_seen = self.tmp(), self.tmp()
+            self.emit(f"{nan_seen} = inb & (offs < 0)")
+            self.emit(f"{num_seen} = inb & (offs < 0)")
+        for a, av, t in kids:
+            x = a if t == out_t else f"{a}.to({_TT[out_t]})"
+            if out_t.is_floating:
+                nan = self.tmp()
+                self.emit(f"{nan} = {x} != {x}")
+                self.emit(f"{data} = {red}({data}, tl.where({av} & ~{nan}, "
+                          f"{x}, {fill_s}))")
+                self.emit(f"{nan_seen} = {nan_seen} | ({av} & {nan})")
+                self.emit(f"{num_seen} = {num_seen} | ({av} & ~{nan})")
+            else:
+                self.emit(f"{data} = {red}({data}, tl.where({av}, {x}, "
+                          f"{fill_s}))")
+            self.emit(f"{anyv} = {anyv} | {av}")
+        r = self.tmp()
+        if out_t.is_floating:
+            pick = nan_seen if largest else f"~{num_seen}"
+            nan_v = self.lit(float("nan"), out_t)
+            self.emit(f"{data} = tl.where({pick}, {nan_v}, {data})")
+        self.emit(f"{r} = tl.where({anyv}, {data}, {self.zero(out_t)})")
+        return r, anyv, out_t
 
     def _str_lane(self, name: str) -> int:
         return self.p.str_names.index(name)

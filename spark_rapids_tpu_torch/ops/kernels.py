@@ -84,7 +84,10 @@ def _rank_keys(col: Column) -> List[torch.Tensor]:
     """Lower a column to sort-key tensors whose ascending order is SQL
     value order (most significant first). Strings become big-endian
     8-byte words of the padded view, biased so that signed int64 order
-    is unsigned byte order; floats fold -0.0 into 0.0."""
+    is unsigned byte order, then their byte length, so that a string
+    sorts after its prefix even where the rest is zero bytes (Spark's
+    order, and string ``<``'s, expr/strings.py ``string_compare``);
+    floats fold -0.0 into 0.0."""
     if isinstance(col, StringColumn):
         padded = col.padded().to(torch.int64)
         cap, w = padded.shape
@@ -98,6 +101,7 @@ def _rank_keys(col: Column) -> List[torch.Tensor]:
             for k in range(1, 8):
                 word = word + chunk[:, k] * (1 << (8 * (7 - k)))
             words.append(word)
+        words.append(col.lengths().to(torch.int64))
         return words
     d = col.data
     if d.is_floating_point():

@@ -18,12 +18,16 @@ device. GROUPING SETS / ROLLUP / CUBE lower onto an Expand and a
 grouping on (keys, ``__grouping_id``); ``COUNT(DISTINCT x)`` onto
 ``size(collect_set(x))``.
 
-Its function tables hold the functions this port has. A function,
-clause or type the JAX package's analyzer lowers but this port does not
-have yet (INTERSECT / EXCEPT ALL as in the JAX package, LIKE, INTERVAL
-arithmetic, string ``<`` / ``>``, timestamp and decimal types, and the
-functions in ``_NOT_PORTED``) raises ``SqlError`` saying so, before any
-plan is built.
+Its function tables hold the JAX package's scalar library: string,
+regex, date, time-zone, math, hash and integral-arithmetic functions,
+LIKE, ``date +/- INTERVAL n DAY|WEEK|MONTH|YEAR``, ``div``, ``%``,
+``||``, string ordering, TIMESTAMP literals and casts, and ``first`` /
+``last``. A function, clause or type the JAX package's analyzer lowers
+but this port does not have yet (INTERSECT / EXCEPT ALL as in the JAX
+package, the DECIMAL type and the JSON functions in ``_NOT_PORTED``)
+raises ``SqlError`` saying so, before any plan is built; so does a
+regex, time zone or cast the port cannot run (it has no CPU
+fallback).
 """
 
 from __future__ import annotations
@@ -38,6 +42,8 @@ from ..expr import arithmetic as A
 from ..expr import bitwise as Bit
 from ..expr import collections as Coll
 from ..expr import conditional as Cond
+from ..expr import datetime as D
+from ..expr import hashing as H
 from ..expr import mathfns as M
 from ..expr import predicates as P
 from ..expr import strings as S
@@ -858,14 +864,14 @@ class Parser:
             "float": dt.FLOAT32, "real": dt.FLOAT32,
             "double": dt.FLOAT64,
             "string": dt.STRING, "varchar": dt.STRING, "text": dt.STRING,
-            "date": dt.DATE,
+            "date": dt.DATE, "timestamp": dt.TIMESTAMP,
         }
         if name in simple:
             if name == "varchar" and self.accept_op("("):
                 self.next()
                 self.expect_op(")")
             return simple[name]
-        if name in ("timestamp", "decimal", "numeric"):
+        if name in ("decimal", "numeric"):
             raise _not_ported(f"type {name}")
         raise SqlError(f"unknown type {name!r}")
 
@@ -881,37 +887,56 @@ _AGG_FNS = {
     "stddev_pop": Agg.StddevPop,
     "variance": Agg.VarianceSamp, "var_samp": Agg.VarianceSamp,
     "var_pop": Agg.VariancePop,
+    "first": Agg.First, "last": Agg.Last,
     "collect_list": Agg.CollectList, "collect_set": Agg.CollectSet,
 }
 
 #: the aggregates the window execs run (exec/window.py)
 _WINDOW_AGG_FNS = frozenset({"sum", "min", "max", "avg", "mean", "count"})
 
-_UNARY_FNS = {"isnan": P.IsNaN, "abs": A.Abs}
+_UNARY_FNS = {
+    "abs": A.Abs, "sqrt": M.Sqrt, "cbrt": M.Cbrt, "exp": M.Exp,
+    "ln": M.Log, "log": M.Log, "log2": M.Log2, "log10": M.Log10,
+    "sin": M.Sin, "cos": M.Cos, "tan": M.Tan, "asin": M.Asin,
+    "acos": M.Acos, "atan": M.Atan, "sinh": M.Sinh, "cosh": M.Cosh,
+    "tanh": M.Tanh, "degrees": M.ToDegrees, "radians": M.ToRadians,
+    "sign": M.Signum, "signum": M.Signum, "floor": M.Floor,
+    "ceil": M.Ceil, "ceiling": M.Ceil,
+    "length": S.Length, "char_length": S.Length,
+    "octet_length": S.OctetLength,
+    "upper": S.Upper, "ucase": S.Upper, "lower": S.Lower,
+    "lcase": S.Lower, "trim": S.StringTrim, "ltrim": S.StringTrimLeft,
+    "rtrim": S.StringTrimRight, "reverse": S.Reverse,
+    "initcap": S.InitCap, "isnan": P.IsNaN,
+    "year": D.Year, "month": D.Month, "day": D.DayOfMonth,
+    "dayofmonth": D.DayOfMonth, "quarter": D.Quarter,
+    "dayofweek": D.DayOfWeek, "dayofyear": D.DayOfYear,
+    "weekday": D.WeekDay, "last_day": D.LastDay,
+    "hour": D.Hour, "minute": D.Minute, "second": D.Second,
+}
 
-_BINARY_FNS = {"nullif": Cond.NullIf, "nvl": Cond.Nvl, "ifnull": Cond.Nvl}
+_BINARY_FNS = {
+    "pow": M.Pow, "power": M.Pow, "atan2": M.Atan2, "hypot": M.Hypot,
+    "pmod": A.Pmod, "date_add": D.DateAdd, "date_sub": D.DateSub,
+    "datediff": D.DateDiff, "add_months": D.AddMonths,
+    "nullif": Cond.NullIf, "nvl": Cond.Nvl, "ifnull": Cond.Nvl,
+}
 
-_VARARG_FNS = {"coalesce": Cond.Coalesce}
+_VARARG_FNS = {
+    "concat": S.Concat, "coalesce": Cond.Coalesce,
+    "least": A.Least, "greatest": A.Greatest,
+    "hash": H.Murmur3Hash, "xxhash64": H.XxHash64,
+}
+
+#: the field functions that read a timestamp's wall clock in the
+#: session time zone
+_TS_FIELD_FNS = frozenset({"hour", "minute", "second", "year", "month",
+                           "day", "dayofmonth", "quarter", "dayofweek",
+                           "dayofyear", "weekday", "last_day"})
 
 #: functions the JAX package's analyzer lowers that this port has not
 #: got yet
-_NOT_PORTED = frozenset({
-    "first", "last",
-    "sqrt", "cbrt", "exp", "ln", "log", "log2", "log10", "sin",
-    "cos", "tan", "asin", "acos", "atan", "sinh", "cosh", "tanh",
-    "degrees", "radians", "sign", "signum", "floor", "ceil", "ceiling",
-    "length", "char_length", "octet_length", "upper", "ucase", "lower",
-    "lcase", "trim", "ltrim", "rtrim", "reverse", "initcap",
-    "year", "month", "day", "dayofmonth", "quarter", "dayofweek",
-    "dayofyear", "weekday", "last_day", "hour", "minute", "second",
-    "pow", "power", "atan2", "hypot", "pmod", "date_add", "date_sub",
-    "datediff", "add_months", "concat", "least", "greatest", "hash",
-    "xxhash64", "lpad", "rpad", "replace",
-    "translate", "locate", "position", "concat_ws", "from_unixtime",
-    "make_date", "trunc", "get_json_object", "from_json", "to_json",
-    "regexp_extract", "regexp_replace", "rlike", "regexp_like", "regexp",
-    "from_utc_timestamp", "to_utc_timestamp",
-})
+_NOT_PORTED = frozenset({"get_json_object", "from_json", "to_json"})
 
 
 class _Scope:
@@ -2004,8 +2029,6 @@ class Analyzer:
         if isinstance(ast, OverA):
             return self._lower_over(ast, scope)
         if isinstance(ast, LitA):
-            if isinstance(ast.value, datetime.datetime):
-                raise _not_ported("a timestamp literal")
             return lit(ast.value)
         if isinstance(ast, IntervalA):
             raise SqlError("INTERVAL only supported in +/- date arithmetic")
@@ -2019,7 +2042,6 @@ class Analyzer:
             e = self.lower(ast.e, scope)
             lo = self.lower(ast.lo, scope)
             hi = self.lower(ast.hi, scope)
-            self._refuse_string_order("BETWEEN", (e, lo, hi), scope)
             out = P.And(P.GreaterThanOrEqual(e, lo),
                         P.LessThanOrEqual(e, hi))
             return P.Not(out) if ast.neg else out
@@ -2032,7 +2054,9 @@ class Analyzer:
             out = P.InSet(self.lower(ast.e, scope), vals)
             return P.Not(out) if ast.neg else out
         if isinstance(ast, LikeA):
-            raise _not_ported("LIKE")
+            out = self._made(lambda: S.Like(self.lower(ast.e, scope),
+                                            ast.pattern), "LIKE")
+            return P.Not(out) if ast.neg else out
         if isinstance(ast, IsNullA):
             e = self.lower(ast.e, scope)
             return P.IsNotNull(e) if ast.neg else P.IsNull(e)
@@ -2042,7 +2066,11 @@ class Analyzer:
             els = self.lower(ast.els, scope) if ast.els is not None else None
             return Cond.CaseWhen(branches, els)
         if isinstance(ast, CastA):
-            return Cast(self.lower(ast.e, scope), ast.to)
+            out = Cast(self.lower(ast.e, scope), ast.to)
+            schema = scope.type_schema() if scope is not None else []
+            if out.children[0].references() <= {n for n, _ in schema}:
+                self._made(lambda: out.check_supported(schema), "CAST")
+            return out
         if isinstance(ast, FnA):
             return self._lower_fn(ast, scope)
         if isinstance(ast, StarA):
@@ -2055,11 +2083,13 @@ class Analyzer:
             return P.And(self.lower(ast.l, scope), self.lower(ast.r, scope))
         if op == "or":
             return P.Or(self.lower(ast.l, scope), self.lower(ast.r, scope))
-        if op in ("+", "-") and (isinstance(ast.r, IntervalA)
-                                 or isinstance(ast.l, IntervalA)):
-            raise _not_ported("date +/- INTERVAL")
-        if op in ("div", "%", "||"):
-            raise _not_ported(f"the {op!r} operator")
+        if op in ("+", "-"):
+            if isinstance(ast.r, IntervalA):
+                return self._date_shift(self.lower(ast.l, scope), ast.r,
+                                        negate=(op == "-"))
+            if isinstance(ast.l, IntervalA) and op == "+":
+                return self._date_shift(self.lower(ast.r, scope), ast.l,
+                                        negate=False)
         l = self.lower(ast.l, scope)
         r = self.lower(ast.r, scope)
         if op == "+":
@@ -2070,11 +2100,16 @@ class Analyzer:
             return A.Multiply(l, r)
         if op == "/":
             return A.Divide(l, r)
+        if op == "div":
+            return A.IntegralDivide(l, r)
+        if op == "%":
+            return A.Remainder(l, r)
+        if op == "||":
+            return S.Concat(l, r)
         if op == "=":
             return P.EqualTo(l, r)
         if op in ("<>", "!="):
             return P.Not(P.EqualTo(l, r))
-        self._refuse_string_order(op, (l, r), scope)
         if op == "<":
             return P.LessThan(l, r)
         if op == "<=":
@@ -2085,17 +2120,28 @@ class Analyzer:
             return P.GreaterThanOrEqual(l, r)
         raise SqlError(f"unknown operator {op!r}")
 
+    def _date_shift(self, base: Expression, iv: IntervalA,
+                    negate: bool) -> Expression:
+        n = -iv.n if negate else iv.n
+        if iv.unit == "day":
+            return D.DateAdd(base, lit(n))
+        if iv.unit == "week":
+            return D.DateAdd(base, lit(n * 7))
+        if iv.unit == "month":
+            return D.AddMonths(base, lit(n))
+        if iv.unit == "year":
+            return D.AddMonths(base, lit(n * 12))
+        raise SqlError(f"unsupported interval unit {iv.unit!r}")
+
     @staticmethod
-    def _refuse_string_order(op: str, exprs, scope) -> None:
-        """String ordering comparisons are not in this port yet (the
-        JAX package compares strings byte-wise): refuse one wherever an
-        operand's type is known to be a string."""
-        schema = scope.type_schema() if scope is not None else []
-        names = {n for n, _ in schema}
-        for e in exprs:
-            if e.references() <= names and \
-                    e.data_type(schema) == dt.STRING:
-                raise _not_ported(f"string {op}")
+    def _made(build, what: str):
+        """``build()``, with what the port refuses when the plan is made
+        (a regex, time zone, format or cast it cannot run: TypeError,
+        ValueError, or zoneinfo's KeyError / OSError) as SqlError."""
+        try:
+            return build()
+        except (TypeError, ValueError, KeyError, OSError) as e:
+            raise SqlError(f"{what}: {e}") from e
 
     def _lower_over(self, ast: OverA, scope) -> Expression:
         from ..plan.logical import SortField
@@ -2167,6 +2213,10 @@ class Analyzer:
                 raise SqlError(f"{name}(DISTINCT ...) not supported yet")
             return _AGG_FNS[name](self.lower(ast.args[0], scope))
         args = [self.lower(a, scope) for a in ast.args]
+        if name in _TS_FIELD_FNS:
+            self._arity(ast, 1)
+            return _UNARY_FNS[name](self._session_wall_clock(args[0],
+                                                             scope))
         if name in _UNARY_FNS:
             self._arity(ast, 1)
             return _UNARY_FNS[name](args[0])
@@ -2192,6 +2242,83 @@ class Analyzer:
         if name == "nvl2":
             self._arity(ast, 3)
             return Cond.Nvl2(args[0], args[1], args[2])
+        return self._lower_scalar_fn(ast, args)
+
+    def _session_wall_clock(self, arg: Expression, scope) -> Expression:
+        """A timestamp argument of a field function moved to the session
+        time zone's wall clock (spark.sql.session.timeZone); a date, or
+        a UTC session, is left as it is."""
+        from ..conf import SESSION_TIMEZONE
+        zone = self.session.conf.get(SESSION_TIMEZONE)
+        schema = scope.type_schema() if scope is not None else []
+        if not arg.references() <= {n for n, _ in schema} or \
+                arg.data_type(schema) != dt.TIMESTAMP or \
+                zone in ("UTC", "GMT", "+00:00", "Z"):
+            return arg
+        from ..expr import timezone as TZ
+        return self._made(lambda: TZ.FromUTCTimestamp(arg, zone),
+                          f"session time zone {zone!r}")
+
+    def _lower_scalar_fn(self, ast: FnA, args) -> Expression:
+        """The functions with literal arguments: pads, replace,
+        translate, locate, concat_ws, the regexes, the time-zone
+        conversions and the date constructors."""
+        from ..expr import regex as RX
+        from ..expr import timezone as TZ
+        name = ast.name
+
+        def lit_arg(i: int, what: str):
+            return self._lit_value(ast.args[i], what)
+
+        if name in ("lpad", "rpad"):
+            pad = lit_arg(2, "pad string") if len(ast.args) > 2 else " "
+            cls = S.Lpad if name == "lpad" else S.Rpad
+            return cls(args[0], lit_arg(1, "pad length"), pad)
+        if name == "replace":
+            return S.StringReplace(
+                args[0], lit_arg(1, "search"),
+                lit_arg(2, "replacement") if len(ast.args) > 2 else "")
+        if name == "translate":
+            self._arity(ast, 3)
+            return self._made(lambda: S.StringTranslate(
+                args[0], lit_arg(1, "from"), lit_arg(2, "to")), name)
+        if name in ("locate", "position"):
+            start = lit_arg(2, "start") if len(ast.args) > 2 else 1
+            return S.StringLocate(args[1], lit_arg(0, "substring"), start)
+        if name == "concat_ws":
+            return S.ConcatWs(lit_arg(0, "separator"), *args[1:])
+        if name == "from_unixtime":
+            self._arity(ast, 1)
+            return D.FromUnixTime(args[0])
+        if name == "make_date":
+            self._arity(ast, 3)
+            return D.MakeDate(args[0], args[1], args[2])
+        if name == "trunc":
+            self._arity(ast, 2)
+            return self._made(lambda: D.TruncDate(
+                args[0], lit_arg(1, "trunc format")), name)
+        if name == "regexp_extract":
+            if len(ast.args) not in (2, 3):
+                raise SqlError("regexp_extract expects 2 or 3 arguments, "
+                               f"got {len(ast.args)}")
+            grp = lit_arg(2, "group") if len(ast.args) > 2 else 1
+            return self._made(lambda: RX.RegExpExtract(
+                args[0], lit_arg(1, "pattern"), grp), name)
+        if name == "regexp_replace":
+            self._arity(ast, 3)
+            return self._made(lambda: RX.RegExpReplace(
+                args[0], lit_arg(1, "pattern"),
+                lit_arg(2, "replacement")), name)
+        if name in ("rlike", "regexp_like", "regexp"):
+            self._arity(ast, 2)
+            return self._made(lambda: RX.RLike(args[0],
+                                               lit_arg(1, "pattern")), name)
+        if name in ("from_utc_timestamp", "to_utc_timestamp"):
+            self._arity(ast, 2)
+            cls = TZ.FromUTCTimestamp if name == "from_utc_timestamp" \
+                else TZ.ToUTCTimestamp
+            return self._made(lambda: cls(args[0], lit_arg(1, "timezone")),
+                              name)
         raise SqlError(f"unknown function {name!r}")
 
     def _arity(self, ast: FnA, n: int):

@@ -485,6 +485,8 @@ def _triton_stand_in():
     # min.f64 / max.f64 on the card return the operand that is not NaN
     tl.minimum = lambda x, y: _V(np.fmin(_np(x), _np(y)))
     tl.maximum = lambda x, y: _V(np.fmax(_np(x), _np(y)))
+    tl.abs = lambda x: _V(np.abs(_np(x)))
+    tl.floor = lambda x: _V(np.floor(_np(x)))
     tl.sum = lambda x, axis: _V(np.sum(x.a, axis=axis))
     tl.min = lambda x, axis: _V(np.fmin.reduce(x.a, axis=axis))
     tl.max = lambda x, axis: _V(np.fmax.reduce(x.a, axis=axis))
@@ -782,3 +784,229 @@ def test_group_lane_rejects_non_sum_aggregates():
     assert not K.pallas_group_fns_ok([v], [Agg.Min(E.col("v"))])
     assert K.pallas_group_fns_ok([v, None], [Agg.Sum(E.col("v")),
                                              Agg.CountStar()])
+
+
+# --- B1's casts, abs, unary plus, least and greatest --------------------------
+
+def _node_lanes(n=3000, seed=33):
+    """Columns of every type the fused lane takes, with NULLs, NaN, the
+    infinities, values past the narrow types' ranges and their
+    minimums."""
+    rng = np.random.default_rng(seed)
+    valid = lambda p: rng.random(n) > p  # noqa: E731
+    f = rng.uniform(-60, 60, n)
+    f[rng.integers(0, n, n // 30)] = np.nan
+    f[rng.integers(0, n, n // 60)] = np.inf
+    f[rng.integers(0, n, n // 60)] = -np.inf
+    f[rng.integers(0, n, n // 60)] = 3e10
+    i32 = rng.integers(-2 ** 31, 2 ** 31 - 1, n)
+    i32[:n // 3] = rng.integers(-300, 300, n // 3)
+    i16 = rng.integers(-2 ** 15, 2 ** 15 - 1, n)
+    i16[rng.integers(0, n, 10)] = -2 ** 15
+    return {
+        "f64": (f, valid(0.1), "double"),
+        "tax": (rng.choice([0.0, 0.02, 0.03, 0.08], n), valid(0.05),
+                "double"),
+        "f32": (rng.uniform(-5, 5, n).astype(np.float32), valid(0.1),
+                "float"),
+        "i32": (i32.astype(np.int32), valid(0.1), "int"),
+        "i16": (i16.astype(np.int16), valid(0.1), "smallint"),
+        "i8": (rng.integers(-128, 127, n).astype(np.int8), valid(0.1),
+               "tinyint"),
+        "d": (rng.integers(8600, 9300, n).astype(np.int32), valid(0.1),
+              "date"),
+        "b": (rng.random(n) > 0.5, valid(0.1), "boolean"),
+    }
+
+
+def _node_programs(E, P, A, Agg, Cast, d):
+    """(predicate, aggregates) per node family, in either package."""
+    c, lit = E.col, E.lit
+    return {
+        "cast": ((Cast(c("i32"), d.FLOAT64) < lit(10.5))
+                 | (Cast(c("f64"), d.INT32) > lit(24))
+                 | (Cast(c("d"), d.INT32) < lit(8700))
+                 | (Cast(c("b"), d.INT32) == lit(1)),
+                 [(Agg.Sum(Cast(c("i16"), d.FLOAT64)), "s16"),
+                  (Agg.Sum(Cast(c("b"), d.FLOAT64)), "sb"),
+                  (Agg.Min(Cast(c("f64"), d.FLOAT32)), "mn32"),
+                  (Agg.Max(Cast(c("i32"), d.INT16)), "narrow"),
+                  (Agg.Count(Cast(c("f32"), d.BOOL)), "nb"),
+                  (Agg.Sum(Cast(c("f32"), d.FLOAT64)), "s32")]),
+        "abs_plus": ((A.Abs(c("f64") - lit(0.06)) <= lit(30.0))
+                     & (A.UnaryPositive(c("i32")) > lit(-2 ** 30)),
+                     [(Agg.Sum(A.Abs(c("f64"))), "sabs"),
+                      (Agg.Max(A.Abs(c("i16"))), "mabs"),
+                      (Agg.Min(A.Abs(c("f32"))), "mabs32"),
+                      (Agg.Sum(A.UnaryPositive(c("tax"))), "spos")]),
+        "least_greatest": ((A.Greatest(c("tax"), lit(0.02)) < lit(0.08))
+                           | (A.Least(c("f64"), c("f32")) > lit(1.0)),
+                           [(Agg.Sum(A.Least(c("f64"), c("tax"))), "sl"),
+                            (Agg.Max(A.Greatest(c("f64"), c("f32"),
+                                                lit(-1.0))), "mg"),
+                            (Agg.Min(A.Greatest(c("i16"), c("i8"))), "mi"),
+                            (Agg.Min(A.Least(c("d"), Cast(lit(9000), d.DATE))),
+                             "md"),
+                            (Agg.Count(A.Least(c("i32"), c("i16"))), "n")]),
+    }
+
+
+def _node_batches(lanes):
+    from spark_rapids_tpu.columnar import dtypes as jdt
+    batch = host_table.table_to_batch(carry.host_table_from_lanes(lanes),
+                                      capacity=4096, device="cpu")
+    jt = {"double": jdt.FLOAT64, "float": jdt.FLOAT32, "int": jdt.INT32,
+          "smallint": jdt.INT16, "tinyint": jdt.INT8, "date": jdt.DATE,
+          "boolean": jdt.BOOL}
+    jbatch = jhost.table_to_batch(jhost.HostTable(
+        [jhost.HostColumn(v, m, jt[t]) for v, m, t in lanes.values()],
+        list(lanes)), 4096)
+    return batch, jbatch
+
+
+@pytest.fixture(scope="module")
+def node_cases():
+    """Each node family's plan, plain result and JAX kernel result on
+    one batch (the JAX kernel in interpret mode, compiled once per
+    family here)."""
+    from spark_rapids_tpu.columnar import dtypes as jdt
+    from spark_rapids_tpu.expr.cast import Cast as JCast
+    from spark_rapids_tpu_torch.columnar import dtypes as d
+    from spark_rapids_tpu_torch.expr.cast import Cast
+    lanes = _node_lanes()
+    batch, jbatch = _node_batches(lanes)
+    progs = _node_programs(E, P, A, Agg, Cast, d)
+    jprogs = _node_programs(jE, jP, jA, jAgg, JCast, jdt)
+    out = {}
+    for name, (pred, aggs) in progs.items():
+        jpred, jaggs = jprogs[name]
+        plan = pallas_agg.PallasAggPlan(aggs, batch.schema(), pred)
+        jplan = jpallas_agg.PallasAggPlan(jaggs, jbatch.schema(), jpred)
+        ref = np.array([float(r) for r in jplan.batch_fn()(jbatch)])
+        out[name] = (plan, batch, ref)
+    return out
+
+
+@pytest.mark.parametrize("name", ["cast", "abs_plus", "least_greatest"])
+def test_new_nodes_generated_source_parses(name):
+    from spark_rapids_tpu_torch.columnar import dtypes as d
+    from spark_rapids_tpu_torch.expr.cast import Cast
+    pred, aggs = _node_programs(E, P, A, Agg, Cast, d)[name]
+    schema = [(k, d.from_name(t)) for k, (_, _, t) in _node_lanes(8).items()]
+    assert pallas_agg.pred_safe(pred, schema)
+    agg_exec = types.SimpleNamespace(group_exprs=[], agg_exprs=aggs,
+                                     input_schema=schema)
+    assert pallas_agg.pallas_eligible(agg_exec)
+    plan = pallas_agg.PallasAggPlan(aggs, schema, pred)
+    src, _ = plan.program.triton_source()
+    compile(src, f"tile_reduce_{name}", "exec")
+    assert "tile_reduce_kernel" in {f.name for f in ast.parse(src).body
+                                    if isinstance(f, ast.FunctionDef)}
+
+
+@pytest.mark.parametrize("name", ["cast", "abs_plus", "least_greatest"])
+def test_new_nodes_generated_kernel_equals_plain_and_jax(name, node_cases,
+                                                         monkeypatch):
+    """The generated kernel under the numpy stand-in equals the plain row
+    function (the expressions' torch eval) on every slot, NULL and NaN
+    lanes included, and both equal the JAX kernel."""
+    plan, batch, ref = node_cases[name]
+    plain = plan.batch_fn()(batch).numpy()
+    got = _run_generated(plan, batch, 4, 4, monkeypatch)
+    exact = np.array([k != DK.SUM for k in plan.kinds])
+    np.testing.assert_allclose(got, plain, rtol=RTOL)
+    np.testing.assert_array_equal(got[exact], plain[exact])
+    np.testing.assert_allclose(plain, ref, rtol=RTOL)
+    np.testing.assert_array_equal(plain[exact], ref[exact])
+    assert plain[1] > 0  # the predicate keeps some rows
+
+
+@pytest.mark.parametrize("pred_src", [
+    "Cast(c('f64'), d.INT32) < lit(24)",
+    "Cast(c('i32'), d.INT64) < lit(24)",
+    "A.Abs(c('f64') - lit(0.06)) <= lit(0.011)",
+    "A.Greatest(c('tax'), lit(0.02)) < lit(0.08)",
+    "A.Least(c('i8'), c('i16')) > lit(0)",
+    "A.UnaryPositive(c('d')) > lit(8800)",
+    "Cast(c('f64'), d.STRING) == lit('1.0')",
+    "A.Abs(c('k')) > lit(3)",
+    "A.Greatest(c('k'), c('i32')) > lit(3)",
+])
+def test_b1_gate_agrees_with_jax(pred_src):
+    """The port's fused-lane gates (pred_safe, pallas_eligible) take a
+    filter or aggregate input with these nodes exactly where the JAX
+    package's do."""
+    from spark_rapids_tpu.columnar import dtypes as jdt
+    from spark_rapids_tpu.expr.cast import Cast as JCast
+    from spark_rapids_tpu_torch.columnar import dtypes as d
+    from spark_rapids_tpu_torch.expr.cast import Cast
+
+    def build(E, A, Agg, Cast, d):
+        c, lit = E.col, E.lit
+        pred = eval(pred_src, {"Cast": Cast, "c": c, "lit": lit, "A": A,
+                               "d": d})
+        types_ = {"double": d.FLOAT64, "float": d.FLOAT32, "int": d.INT32,
+                  "smallint": d.INT16, "tinyint": d.INT8, "date": d.DATE,
+                  "boolean": d.BOOL}
+        schema = [(k, types_[t]) for k, (_, _, t)
+                  in _node_lanes(8).items()] + [("k", d.INT64)]
+        agg_exec = types.SimpleNamespace(
+            group_exprs=[], input_schema=schema,
+            agg_exprs=[(Agg.Sum(Cast(pred, d.FLOAT64)), "s")])
+        return pred, schema, agg_exec
+    pred, schema, ex = build(E, A, Agg, Cast, d)
+    jpred, jschema, jex = build(jE, jA, jAgg, JCast, jdt)
+    assert pallas_agg.pred_safe(pred, schema) == \
+        jpallas_agg.pred_safe(jpred, jschema)
+    assert pallas_agg.pallas_eligible(ex) == jpallas_agg.pallas_eligible(jex)
+
+
+@pytest.mark.parametrize("where,absorbed", [
+    # S7's conjuncts: the lane takes all five filters
+    ("d >= DATE '1994-01-01' AND d < DATE '1995-01-01' "
+     "AND CAST(f64 AS INT) < 24 AND abs(f64 - 0.06) <= 30.0 "
+     "AND greatest(tax, 0.02) < 0.08", 5),
+    # a conjunct the lane cannot lower (the top one) keeps it stock
+    ("CAST(f64 AS INT) < 24 AND CAST(i32 AS STRING) LIKE '1%'", 0),
+    # one below the top ends the chain there
+    ("CAST(i32 AS STRING) LIKE '1%' AND abs(f64) < 30.0 "
+     "AND greatest(tax, 0.02) < 0.08", 2),
+])
+def test_global_aggregate_takes_the_filter_chain(where, absorbed):
+    """A WHERE plans as one FilterExec per conjunct; the fused lane takes
+    the chain below the global aggregate down to the first filter it
+    cannot lower, as one conjunction, and the rest run as FilterExecs.
+    The result equals the stock path's (the lane off)."""
+    from spark_rapids_tpu_torch.conf import SrtConf
+    from spark_rapids_tpu_torch.exec.aggregate import HashAggregateExec
+    from spark_rapids_tpu_torch.plan.session import TpuSession
+    lanes = _node_lanes()
+    text = (f"SELECT SUM(f64 * tax) AS s, COUNT(*) AS n FROM t "
+            f"WHERE {where}")
+    out = {}
+    for on in (True, False):
+        session = TpuSession(SrtConf({"srt.sql.pallas.enabled": on}),
+                             device="cpu")
+        session.create_or_replace_temp_view("t", session.from_batches(
+            [_node_batches(lanes)[0]]))
+        DK.reset_counts()
+        out[on] = session.sql(text).collect()
+        physical, ctx = session._last_execution
+
+        def execs(node):
+            yield node
+            for ch in node.children:
+                yield from execs(ch)
+        plans = [p for x in execs(physical)
+                 if isinstance(x, HashAggregateExec)
+                 for p in x._pallas_plans.values()]
+        ran = [e for e in ctx.metrics if e.startswith("FilterExec#")]
+        if on:
+            assert DK.tile_reduce.plain_calls == 1 and len(plans) == 1
+            assert (plans[0].pred is None) == (absorbed == 0)
+            assert len(ran) == where.count(" AND ") + 1 - absorbed
+        else:
+            assert DK.tile_reduce.plain_calls == 0 and not plans
+    assert out[True][0]["n"] == out[False][0]["n"] > 0
+    np.testing.assert_allclose(out[True][0]["s"], out[False][0]["s"],
+                               rtol=RTOL)
