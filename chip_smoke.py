@@ -44,6 +44,30 @@ Needs one NVIDIA GPU (built for an H100: sm_90a), nvcc and triton. It
    Python references over the host columns (``scalar_references``);
    B3 must run under s1, s2, s4 and s6, B1 on every lineitem batch of
    s7;
+5c. runs the DECIMAL type (``decimal_phase``): lineitem's l_quantity,
+   l_extendedprice, l_discount and l_tax and orders' o_totalprice as
+   DECIMAL(12,2), made on the card from the float lanes already there
+   (x 100, truncated toward zero, as the JAX datagen makes a decimal);
+   through ``session.sql`` a first and one warm run each of D1 TPC-H q1
+   (DECIMAL(22,2) / (36,4) / (38,6) sums, DECIMAL(16,6) AVGs: the
+   two-limb multiply, segmented sum and overflow check over 60M rows),
+   D2 q6 and D3 q3 (its DECIMAL(36,4) revenue the ORDER BY key: two sort
+   words on the card), each held exactly against Python ints over the
+   host lanes (``decimal_references``, on a host thread beside the
+   queries), with Spark's result types checked; D4 the exact 256-bit
+   divide (DECIMAL(27,15)), round, casts to DOUBLE, BIGINT,
+   DECIMAL(38,10) and STRING and a product chain NULL past 38 digits,
+   row by row over lineitem's first 4,194,304 rows (cut so that its
+   Python reference stays inside half a minute); D6 D1 under an injected
+   RetryOOM and SplitAndRetryOOMs (equal to the clean run, a split
+   reached) and a DECIMAL(38,6) batch spilled to host and disk and back
+   bit-equal; walls, fact rows/s, peak and transient memory and the top
+   operators' self times for each, and no B1 / B3 launch (their gates
+   refuse decimal lanes); D5, after phase 7 on the NDS tables:
+   ss_net_paid as DECIMAL(7,2) (TPC-DS's type) over all 28.8M
+   store_sales rows, a ROWS running SUM (DECIMAL(17,2)) and a
+   whole-partition AVG (DECIMAL(11,6)) per customer through two
+   WindowExecs, held against numpy int64 scans on every row;
 6. runs the NDS slice (``NDS_SLICE``, 20 star-join queries) as SQL
    text through ``session.sql`` over NDS tables generated in memory at
    ``scale_rows`` 28,800,000 (TPC-DS SF10's store_sales; q82 at
@@ -119,8 +143,8 @@ Needs one NVIDIA GPU (built for an H100: sm_90a), nvcc and triton. It
    version on the same inputs, one more launch per split; (d) the rate
    of one 1 GB SpillableBatch's device -> pinned host -> device copies
    beside the PCIe link's nominal rate;
-8. profiles one TPC-H q3 and one run of window (a), in core
-   (torch.profiler:
+8. profiles one TPC-H q3, one decimal D1 (what the two-limb lanes cost
+   on the device) and one run of window (a), in core (torch.profiler:
    device time by kernel and the device's idle share; no NDS query is
    profiled, so that the smoke stays inside its time: a profiled NDS
    run costs 40-70 s of profiler work, q47's about 150 s; profiles
@@ -3690,6 +3714,469 @@ def scalar_phase(torch, np, dev, session, dfs, host, read_counts):
     return report
 
 
+# --- phase 5c: the DECIMAL type ----------------------------------------------
+
+#: the money columns typed DECIMAL(12,2), as Spark's TPC-H schemas type
+#: them (databricks spark-sql-perf TPCH.scala; TPC-H clause 1.4)
+DECIMAL_MONEY = ("l_quantity", "l_extendedprice", "l_discount", "l_tax",
+                 "o_totalprice")
+#: D4 runs over lineitem's first rows only, so that its Python reference
+#: (per-row Python ints) stays inside half a minute on the host thread
+DECIMAL_D4_ROWS = 1 << 22
+#: D6: one RetryOOM and one SplitAndRetryOOM, at the middle allocation
+#: attempt of the clean run
+DECIMAL_Q1 = """
+    SELECT l_returnflag, l_linestatus, SUM(l_quantity) AS sum_qty,
+           SUM(l_extendedprice) AS sum_base_price,
+           SUM(l_extendedprice * (1 - l_discount)) AS sum_disc_price,
+           SUM(l_extendedprice * (1 - l_discount) * (1 + l_tax))
+               AS sum_charge,
+           AVG(l_quantity) AS avg_qty, AVG(l_extendedprice) AS avg_price,
+           AVG(l_discount) AS avg_disc, COUNT(*) AS count_order
+    FROM lineitem WHERE l_shipdate <= date '1998-09-02'
+    GROUP BY l_returnflag, l_linestatus
+    ORDER BY l_returnflag, l_linestatus"""
+DECIMAL_Q1_TYPES = {"sum_qty": (22, 2), "sum_base_price": (22, 2),
+                    "sum_disc_price": (36, 4), "sum_charge": (38, 6),
+                    "avg_qty": (16, 6), "avg_price": (16, 6),
+                    "avg_disc": (16, 6)}
+DECIMAL_Q6 = """
+    SELECT SUM(l_extendedprice * l_discount) AS revenue FROM lineitem
+    WHERE l_shipdate >= date '1994-01-01' AND l_shipdate < date '1995-01-01'
+      AND l_discount BETWEEN 0.05 AND 0.07 AND l_quantity < 24"""
+DECIMAL_Q3 = """
+    SELECT l_orderkey, SUM(l_extendedprice * (1 - l_discount)) AS revenue,
+           o_orderdate, o_shippriority
+    FROM customer, orders, lineitem
+    WHERE c_mktsegment = 'BUILDING' AND c_custkey = o_custkey
+      AND l_orderkey = o_orderkey AND o_orderdate < date '1995-03-15'
+      AND l_shipdate > date '1995-03-15'
+    GROUP BY l_orderkey, o_orderdate, o_shippriority
+    ORDER BY revenue DESC, o_orderdate LIMIT 10"""
+#: the exact 256-bit divide (DECIMAL(27,15)), round, four casts and a
+#: product chain past 38 digits on most rows (price^7 needs 35 integral
+#: digits at price 1e5; DECIMAL(38,6) holds 32)
+DECIMAL_D4 = """
+    SELECT l_extendedprice / l_quantity AS q,
+           ROUND(l_extendedprice / l_quantity, 2) AS r,
+           CAST(l_extendedprice AS DOUBLE) AS f,
+           CAST(l_extendedprice AS BIGINT) AS b,
+           CAST(l_extendedprice AS DECIMAL(38,10)) AS w,
+           CAST(l_quantity AS STRING) AS s,
+           l_extendedprice * l_extendedprice * l_extendedprice
+             * l_extendedprice * l_extendedprice * l_extendedprice
+             * l_extendedprice AS ovf
+    FROM lineitem"""
+DECIMAL_D4_TYPES = {"q": (27, 15), "r": (15, 2), "w": (38, 10),
+                    "ovf": (38, 6)}
+#: D5: ss_net_paid as DECIMAL(7,2), as TPC-DS defines it
+DECIMAL_D5 = f"""
+    SELECT ss_customer_sk, ss_net_paid,
+           SUM(ss_net_paid) OVER (PARTITION BY ss_customer_sk
+                                  ORDER BY {WINDOW_KEYS}
+                                  ROWS BETWEEN UNBOUNDED PRECEDING
+                                  AND CURRENT ROW) AS run_paid,
+           AVG(ss_net_paid) OVER (PARTITION BY ss_customer_sk) AS avg_paid
+    FROM store_sales_dec"""
+
+
+def decimal_batches(torch, batches, names=DECIMAL_MONEY, precision=12):
+    """The card's batches with the columns ``names`` as DECIMAL(p,2)
+    lanes made on the card from the float lanes already there: x 100 in
+    float64, truncated toward zero (the JAX datagen's bytes for a
+    decimal column); the other columns are the same tensors."""
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.columnar.vector import (ColumnVector,
+                                                        ColumnarBatch)
+    t = dt.DecimalType(precision, 2)
+    out = []
+    for b in batches:
+        cols = [ColumnVector(torch.where(c.validity,
+                                         (c.data * 100.0).to(torch.int64), 0),
+                             c.validity, t) if n in names else c
+                for n, c in zip(b.names, b.columns)]
+        out.append(ColumnarBatch(cols, b.names, b.num_rows, b.device))
+    return out
+
+
+def _dec(v, scale):
+    import decimal
+    return decimal.Decimal(int(v)).scaleb(
+        -scale, context=decimal.Context(prec=80))
+
+
+def _half_up_div(num, den):
+    """HALF_UP num / den for Python ints (den > 0)."""
+    q, r = divmod(abs(num), den)
+    q += 2 * r >= den
+    return -q if num < 0 else q
+
+
+def decimal_references(np, li, od, cu):
+    """D1-D4's exact references from the host lanes: the money lanes as
+    unscaled int64 (x 100, truncated), sums in int64 (each group's
+    fits at this scale), AVG and the divide HALF_UP in Python ints."""
+    d = {k: (li[k] * 100).astype(np.int64) for k in ("qty", "price",
+                                                      "disc", "tax")}
+    out = {}
+    # D1
+    m = li["ship"] <= days(1998, 9, 2)
+    rf = li["rf"].chars[li["rf"].offsets[:-1]]
+    ls = li["ls"].chars[li["ls"].offsets[:-1]]
+    code = rf[m].astype(np.int64) * 256 + ls[m]
+    keys, g = np.unique(code, return_inverse=True)
+    order = np.argsort(g, kind="stable")
+    starts = np.r_[0, np.nonzero(np.diff(g[order]))[0] + 1]
+    qty, price = d["qty"][m][order], d["price"][m][order]
+    disc, tax = d["disc"][m][order], d["tax"][m][order]
+    disc_price = price * (100 - disc)
+    cols = {"sum_qty": (qty, 2), "sum_base_price": (price, 2),
+            "sum_disc_price": (disc_price, 4),
+            "sum_charge": (disc_price * (100 + tax), 6)}
+    sums = {n: [int(x) for x in np.add.reduceat(v, starts)]
+            for n, (v, _) in cols.items()}
+    avg_in = {"avg_qty": qty, "avg_price": price, "avg_disc": disc}
+    avg_sums = {n: [int(x) for x in np.add.reduceat(v, starts)]
+                for n, v in avg_in.items()}
+    counts = np.diff(np.r_[starts, len(g)])
+    rows = []
+    for i, k in enumerate(keys):
+        r = {"l_returnflag": chr(k // 256), "l_linestatus": chr(k % 256)}
+        r.update({n: _dec(sums[n][i], cols[n][1]) for n in cols})
+        r.update({n: _dec(_half_up_div(avg_sums[n][i] * 10 ** 4,
+                                       int(counts[i])), 6)
+                  for n in avg_in})
+        r["count_order"] = int(counts[i])
+        rows.append(r)
+    out["d1"] = rows
+    # D2: the BETWEEN over doubles, as both packages type 0.05
+    m = ((li["ship"] >= days(1994, 1, 1)) & (li["ship"] < days(1995, 1, 1))
+         & (d["disc"] / 100.0 >= 0.05) & (d["disc"] / 100.0 <= 0.07)
+         & (d["qty"] < 2400))
+    out["d2"] = [{"revenue": _dec(int(np.sum(d["price"][m] * d["disc"][m])),
+                                  4)}]
+    # D3
+    cutoff = days(1995, 3, 15)
+    ckeys = np.sort(cu["ckey"][host_match(np, cu["seg"], b"BUILDING")])
+    om = od["odate"] < cutoff
+    okey, ockey, odate = od["okey"][om], od["ckey"][om], od["odate"][om]
+    at = np.minimum(np.searchsorted(ckeys, ockey), max(len(ckeys) - 1, 0))
+    hit = ckeys[at] == ockey
+    okey, odate = okey[hit], odate[hit]
+    o_order = np.argsort(okey, kind="stable")
+    okey, odate = okey[o_order], odate[o_order]
+    lm = li["ship"] > cutoff
+    lkey = li["okey"][lm]
+    rev = d["price"][lm] * (100 - d["disc"][lm])
+    at = np.minimum(np.searchsorted(okey, lkey), max(len(okey) - 1, 0))
+    hit = okey[at] == lkey
+    lkey, rev = lkey[hit], rev[hit]
+    l_order = np.argsort(lkey, kind="stable")
+    lkey, rev = lkey[l_order], rev[l_order]
+    gstart = np.r_[0, np.nonzero(np.diff(lkey))[0] + 1]
+    groups, gsum = lkey[gstart], np.add.reduceat(rev, gstart)
+    gdate = odate[np.searchsorted(okey, groups)]
+    top = np.lexsort((gdate, -gsum))[:10]
+    epoch = datetime.date(1970, 1, 1)
+    out["d3"] = [{"l_orderkey": int(groups[i]), "revenue": _dec(gsum[i], 4),
+                  "o_orderdate": epoch + datetime.timedelta(
+                      days=int(gdate[i])), "o_shippriority": 0}
+                 for i in top]
+    out["d3_ties"] = int(np.sum((gsum == gsum[top[-1]])
+                                & (gdate == gdate[top[-1]])))
+    # D4 over the first rows
+    n = DECIMAL_D4_ROWS
+    price = d["price"][:n].astype(object)
+    qty = d["qty"][:n].astype(object)
+    q = (2 * price * 10 ** 15 + qty) // (2 * qty)      # all positive
+    ten13 = 10 ** 13
+    chain = price * price * price                        # scale 6
+    ok = np.ones(n, bool)
+    for _ in range(4):
+        chain = (2 * (chain * price) + 100) // 200       # scale 8 -> 6
+        ok &= chain < 10 ** 38
+        chain = np.where(ok, chain, 0)
+    qv = d["qty"][:n]
+    out["d4"] = {
+        "q": (q, np.ones(n, bool)),
+        "r": ((2 * q + ten13) // (2 * ten13), np.ones(n, bool)),
+        "f": (d["price"][:n] / 100.0, np.ones(n, bool)),
+        "b": (d["price"][:n] // 100, np.ones(n, bool)),
+        "w": (d["price"][:n] * 10 ** 8, np.ones(n, bool)),
+        "s": (np.array([f"{v // 100}.{v % 100:02d}" for v in qv.tolist()],
+                       object), np.ones(n, bool)),
+        "ovf": (chain, ok)}
+    return out
+
+
+def decimal_window_reference(np, ref):
+    """D5 in numpy int64 on every row, in table order: the running SUM of
+    the unscaled cents over (customer; date, ticket, item), stable, nulls
+    first, and each customer's AVG, HALF_UP at scale 6."""
+    cols = {c: ref.col("store_sales", c) for c in (
+        "ss_customer_sk", "ss_sold_date_sk", "ss_ticket_number",
+        "ss_item_sk", "ss_net_paid")}
+    keys = [np.where(ok, v, -1).astype(np.int64) for v, ok in (
+        cols[c] for c in ("ss_customer_sk", "ss_sold_date_sk",
+                          "ss_ticket_number", "ss_item_sk"))]
+    n = len(keys[0])
+    order = stable_order(np, keys)
+    new_part = np.r_[True, keys[0][order][1:] != keys[0][order][:-1]]
+    paid, pok = cols["ss_net_paid"]
+    cents = np.where(pok, (np.asarray(paid) * 100).astype(np.int64), 0)
+    s_cents, s_ok = cents[order], pok[order]
+    starts = np.nonzero(new_part)[0]
+    seg = np.cumsum(new_part) - 1
+    cs = np.cumsum(s_cents)
+    cc = np.cumsum(s_ok.astype(np.int64))
+    base = (cs - s_cents)[starts][seg]
+    base_c = (cc - s_ok)[starts][seg]
+    run, run_n = cs - base, cc - base_c
+    tot = np.add.reduceat(s_cents, starts)[seg]
+    cnt = np.add.reduceat(s_ok.astype(np.int64), starts)[seg]
+    avg = (2 * tot * 10 ** 4 + cnt) // np.maximum(2 * cnt, 1)
+    want = {"ss_customer_sk": cols["ss_customer_sk"],
+            "ss_net_paid": (cents, pok)}
+    for name, (v, ok) in {"run_paid": (run, run_n > 0),
+                          "avg_paid": (avg, cnt > 0)}.items():
+        out_v, out_ok = np.empty_like(v), np.empty_like(ok)
+        out_v[order], out_ok[order] = v, ok
+        want[name] = (out_v, out_ok)
+    return want, n
+
+
+def same_decimal_rows(got, want):
+    """Rows equal exactly (decimal.Decimal by value); nothing floats."""
+    return len(got) == len(want) and all(
+        g.keys() == w.keys() and all(g[k] == w[k] for k in w)
+        for g, w in zip(got, want))
+
+
+def run_decimal(torch, dev, session, read_counts, name, text, rows_in,
+                collect=True):
+    """A first and one warm run of ``text`` through session.sql: walls,
+    fact rows/s, the device memory peak and the transient part of it
+    (peak minus what was resident before), the top operators' self
+    times; no B1 / B3 launch may happen (their gates refuse decimal
+    lanes). Returns (numbers, first result, warm result)."""
+    from spark_rapids_tpu_torch.ops import device_kernels as DK
+    results, walls = [], []
+    for _ in range(2):
+        gc.collect()
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        DK.reset_counts()
+        t = time.perf_counter()
+        df = session.sql(text)
+        results.append(df.collect() if collect else df.to_table())
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        counts = read_counts()
+        check(not any(counts.values()), f"decimal {name}: launched "
+              f"{counts}; no kernel gate admits a decimal lane")
+    peak = torch.cuda.max_memory_allocated(dev)
+    physical, ctx = session._last_execution
+    self_ms = sorted(operator_self_ms(physical, ctx.metrics, {}).items(),
+                     key=lambda kv: -kv[1])
+    out = {"first_s": walls[0], "warm_s": walls[1], "rows": rows_in,
+           "rows_per_s": rows_in / walls[1], "peak_gb": peak / 1e9,
+           "transient_gb": (peak - resident) / 1e9,
+           "schema": [(n, repr(t)) for n, t in df.schema]}
+    log(f"decimal {name}: first {walls[0]:.4f} s, warm {walls[1]:.4f} s, "
+        f"{rows_in / walls[1]:.4e} fact rows/s; max_memory_allocated "
+        f"{peak / 1e9:.3f} GB, transient {(peak - resident) / 1e9:.3f} GB; "
+        "operator self time (host clock, ms, warm run): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in self_ms[:6]))
+    return out, results[0], results[1]
+
+
+def decimal_phase(torch, np, dev, batches, host, read_counts, ahead):
+    """Phase 5c: TPC-H over DECIMAL(12,2) money on the card (D1 q1, D2 q6,
+    D3 q3 at 60M / 15M / 1.5M rows; D4 the casts and the exact divide
+    over lineitem's first DECIMAL_D4_ROWS rows; D6 D1 under an injected
+    RetryOOM and SplitAndRetryOOM, and a Decimal128Column's spill round
+    trip), each held against ``decimal_references`` (``ahead``'s
+    "decimal" entry). Returns (report, the session, a function that runs
+    D1, D1's reference)."""
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.columnar.decimal128 import Decimal128Column
+    from spark_rapids_tpu_torch.conf import SrtConf
+    from spark_rapids_tpu_torch.memory.budget import task_context
+    from spark_rapids_tpu_torch.memory.spill import SpillableBatch
+    from spark_rapids_tpu_torch.plan.session import TpuSession
+    t = time.perf_counter()
+    before = torch.cuda.memory_allocated(dev)
+    dec = {n: decimal_batches(torch, b) for n, b in batches.items()}
+    torch.cuda.synchronize()
+    log(f"decimal: DECIMAL(12,2) money lanes made on the card from the "
+        f"float lanes in {time.perf_counter() - t:.2f} s, "
+        f"{(torch.cuda.memory_allocated(dev) - before) / 1e9:.3f} GB more "
+        "resident")
+    session = TpuSession(SrtConf({"srt.sql.batchSizeRows": BATCH_ROWS}),
+                         device=dev)
+    for name, bs in dec.items():
+        session.create_or_replace_temp_view(name, session.from_batches(bs))
+    li_types = dict(session.table("lineitem").schema)
+    check(li_types["l_extendedprice"] == dt.DecimalType(12, 2),
+          f"lineitem types {li_types}")
+    report, results = {}, {}
+    for name, text, rows_in in (("d1_q1", DECIMAL_Q1, ROWS),
+                                ("d2_q6", DECIMAL_Q6, ROWS),
+                                ("d3_q3", DECIMAL_Q3, ROWS)):
+        report[name], first, warm = run_decimal(
+            torch, dev, session, read_counts, name, text, rows_in)
+        results[name] = (first, warm)
+    types = dict(report["d1_q1"]["schema"])
+    for col_name, (p, sc) in DECIMAL_Q1_TYPES.items():
+        check(types[col_name] == f"decimal({p},{sc})",
+              f"decimal d1: {col_name} is {types[col_name]}")
+    check(dict(report["d3_q3"]["schema"])["revenue"] == "decimal(36,4)",
+          f"decimal d3: {report['d3_q3']['schema']}")
+    log(f"decimal d4: over lineitem's first {DECIMAL_D4_ROWS} rows (cut so "
+        "that its per-row Python reference stays inside half a minute)")
+    d4_session = TpuSession(SrtConf({"srt.sql.batchSizeRows": BATCH_ROWS}),
+                            device=dev)
+    d4_session.create_or_replace_temp_view(
+        "lineitem", d4_session.from_batches(
+            dec["lineitem"][:DECIMAL_D4_ROWS // BATCH_ROWS]))
+    report["d4_casts"], d4_first, d4_warm = run_decimal(
+        torch, dev, d4_session, read_counts, "d4_casts", DECIMAL_D4,
+        DECIMAL_D4_ROWS, collect=False)
+    d4_types = dict(report["d4_casts"]["schema"])
+    for col_name, (p, sc) in DECIMAL_D4_TYPES.items():
+        check(d4_types[col_name] == f"decimal({p},{sc})",
+              f"decimal d4: {col_name} is {d4_types[col_name]}")
+    # D6: injected OOMs in D1 (a RetryOOM at the middle allocation
+    # attempt; SplitAndRetryOOMs at INJECTIONS attempts spread over the
+    # run, until one lands where a batch halves), then one
+    # Decimal128Column's spill round trip
+    with memory_conf(torch, dev, session, {}):
+        clean = session.sql(DECIMAL_Q1).collect()
+        total = session._last_execution[1].memory["allocAttempts"]
+        offsets = sorted({(total - 1) * (i + 1) // (INJECTIONS + 1)
+                          for i in range(INJECTIONS)})
+        injected = {"retry": {"at": [], "retries": 0, "splits": 0},
+                    "split": {"at": [], "retries": 0, "splits": 0}}
+        for mode, at in [("retry", total // 2)] + [("split", o)
+                                                  for o in offsets]:
+            if mode == "split" and injected["split"]["splits"]:
+                break
+            tc = task_context()
+            if mode == "retry":
+                tc.force_retry_oom(at)
+            else:
+                tc.force_split_and_retry_oom(at)
+            got = session.sql(DECIMAL_Q1).collect()
+            mem = dict(session._last_execution[1].memory)
+            check(got == clean, f"decimal d6: the {mode} injected at {at} "
+                  "differs from the clean run")
+            check(mem["retryCount"] + mem["splitAndRetryCount"] >= 1,
+                  f"decimal d6: the {mode} at {at} reached no retry or split")
+            injected[mode]["at"].append(at)
+            injected[mode]["retries"] += mem["retryCount"]
+            injected[mode]["splits"] += mem["splitAndRetryCount"]
+        check(injected["split"]["splits"] > 0, "decimal d6: no injected "
+              f"split landed where a batch could be halved ({injected})")
+    from spark_rapids_tpu_torch.columnar.vector import ColumnarBatch
+    from spark_rapids_tpu_torch.expr.core import col as ref
+    b0 = dec["lineitem"][0]
+    price = ref("l_extendedprice")
+    col = (price * price * price).eval(b0)
+    batch = ColumnarBatch([col], ["cube"], b0.num_rows, dev)
+    check(isinstance(col, Decimal128Column), f"decimal d6: {type(col)}")
+    sb = SpillableBatch(batch)
+    moved = {"host": sb.spill_to_host()}
+    moved["disk"] = sb.spill_to_disk()
+    back = sb.get().column("cube")
+    check(torch.equal(back.hi, col.hi) and torch.equal(back.lo, col.lo)
+          and torch.equal(back.validity, col.validity),
+          "decimal d6: a Decimal128Column came back from disk changed")
+    sb.close()
+    report["d6_injected"] = {"alloc_attempts": total, **injected,
+                             "spilled_bytes": moved}
+    log(f"decimal d6: D1 ({total} allocation attempts) with a RetryOOM "
+        f"and SplitAndRetryOOMs injected equals the clean run "
+        f"({injected}); a {batch.num_rows}-row DECIMAL(38,6) batch spilled "
+        f"to host and disk ({moved} bytes) came back bit-equal")
+    t = time.perf_counter()
+    refs = ahead.get("decimal")
+    log(f"decimal: references ready after {time.perf_counter() - t:.1f} s "
+        "more")
+    for name, key in (("d1_q1", "d1"), ("d2_q6", "d2")):
+        for label, rows in zip(("first", "warm"), results[name]):
+            check(same_decimal_rows(rows, refs[key]),
+                  f"decimal {name} {label}: {rows} != {refs[key]}")
+        log(f"decimal {name}: first and warm run equal the exact reference "
+            f"{refs[key] if key == 'd2' else len(refs[key])}")
+    check(same_decimal_rows(clean, refs["d1"]), "decimal d6: clean run")
+    for label, rows in zip(("first", "warm"), results["d3_q3"]):
+        got = [(r["revenue"], r["o_orderdate"]) for r in rows]
+        want = [(r["revenue"], r["o_orderdate"]) for r in refs["d3"]]
+        check(got == want, f"decimal d3_q3 {label}: {got} != {want}")
+        tail = [(r["revenue"], r["o_orderdate"]) for r in refs["d3"]]
+        unique = [i for i, v in enumerate(tail) if tail.count(v) == 1
+                  and not (i == 9 and refs["d3_ties"] > 1)]
+        check(all(rows[i]["l_orderkey"] == refs["d3"][i]["l_orderkey"]
+                  for i in unique), f"decimal d3_q3 {label}: order keys")
+    log(f"decimal d3_q3: revenue DECIMAL(36,4) top 10 sorted on the card "
+        f"equals the exact reference ({refs['d3'][0]['revenue']} first)")
+    for label, table in (("first", d4_first), ("warm", d4_warm)):
+        for c in table.columns:
+            if c.dtype == dt.STRING:
+                c.values = c.values.to_objects()
+        same_columns(np, table, refs["d4"], f"decimal d4_casts {label}")
+    nulls = int((~refs["d4"]["ovf"][1]).sum())
+    check(0 < nulls < DECIMAL_D4_ROWS, f"decimal d4: {nulls} overflow rows")
+    report["d4_casts"]["overflow_nulls"] = nulls
+    log(f"decimal d4_casts: every row equals the reference; the product "
+        f"chain is NULL (past 38 digits) on {nulls} of {DECIMAL_D4_ROWS} "
+        "rows")
+    log("decimal summary " + json.dumps(report, default=str))
+
+    def run_d1():
+        return session.sql(DECIMAL_Q1).collect()
+    return report, session, run_d1, refs["d1"]
+
+
+def decimal_window_phase(torch, np, dev, session, read_counts, ahead):
+    """D5: ss_net_paid as DECIMAL(7,2) over all store_sales rows: a ROWS
+    running SUM (DECIMAL(17,2)) and a whole-partition AVG
+    (DECIMAL(11,6)) per customer through two WindowExecs, held against
+    numpy int64 scans on every row."""
+    from spark_rapids_tpu_torch.exec.window import WindowExec
+    rel = session.table("store_sales").plan
+    keep = ("ss_customer_sk", "ss_sold_date_sk", "ss_ticket_number",
+            "ss_item_sk", "ss_net_paid")
+    bs = [b.select(list(keep)) for b in rel.batches]
+    session.create_or_replace_temp_view("store_sales_dec", session.from_batches(
+        decimal_batches(torch, bs, ("ss_net_paid",), precision=7)))
+    t = time.perf_counter()
+    try:
+        want, rows = ahead.get("d5")
+    finally:
+        ahead.close()
+    ref_s = time.perf_counter() - t
+    report, first, warm = run_decimal(torch, dev, session, read_counts,
+                                      "d5_window", DECIMAL_D5, rows,
+                                      collect=False)
+    types = dict(report["schema"])
+    check(types["run_paid"] == "decimal(17,2)" and
+          types["avg_paid"] == "decimal(11,6)", f"decimal d5: {types}")
+    physical, _ = session._last_execution
+    nodes, todo = [], [physical]
+    while todo:
+        nodes.append(todo.pop())
+        todo.extend(nodes[-1].children)
+    check(sum(isinstance(x, WindowExec) for x in nodes) == 2,
+          f"decimal d5: ran {[type(x).__name__ for x in nodes]}")
+    for label, table in (("first", first), ("warm", warm)):
+        same_columns(np, table, want, f"decimal d5_window {label}")
+    log(f"decimal d5_window: both runs equal numpy's int64 scans on all "
+        f"{rows} rows (waited {ref_s:.1f} s for the reference)")
+    return report
+
+
 def main():
     # the allocator setting the port asks for where queries spill under
     # a memory cap (README; a budget on the card warns without it): the
@@ -4214,7 +4701,17 @@ def main():
     del q3_hold, gid3, lanes3
 
     # --- the scalar expression library on the same tables ------------------
+    # the decimal phase's exact references start on their own host thread
+    decimal_ahead = references_ahead([("decimal", lambda: decimal_references(
+        np, li, od, cu))])
     scalar = scalar_phase(torch, np, dev, session, dfs, host, read_counts)
+
+    # --- phase 5c: TPC-H over DECIMAL(12,2) money -----------------------------
+    try:
+        dec_report, dec_session, run_d1, ref_d1 = decimal_phase(
+            torch, np, dev, batches, host, read_counts, decimal_ahead)
+    finally:
+        decimal_ahead.close()
 
     # --- NDS: the star-join slice through session.sql -------------------------
     nds, nds_session, nds_ref, nds_widest = nds_phase(torch, np, dev,
@@ -4228,6 +4725,8 @@ def main():
     # the windows' numpy references, on a host thread from here on
     windows_ahead = references_ahead(
         [("windows", lambda: numpy_windows(np, nds_ref))])
+    d5_ahead = references_ahead(
+        [("d5", lambda: decimal_window_reference(np, nds_ref))])
 
     # --- the float group sums alone, at q12's and q98's widest batch --------
     seg_sum_timing(torch, dev, nds_session)
@@ -4253,6 +4752,9 @@ def main():
     # --- windows over all of store_sales, on the SF10 session ---------------
     _, window_runs, window_want = window_phase(torch, np, dev, nds_session,
                                                nds_ref, windows_ahead)
+    # D5 of phase 5c: the decimal window on the same store_sales rows
+    dec_report["d5_window"] = decimal_window_phase(
+        torch, np, dev, nds_session, read_counts, d5_ahead)
 
     # --- memory: out-of-core sort, caps, injected OOM, spill rate ----------
     def runs_of(make, ref, kernel):
@@ -4310,6 +4812,11 @@ def main():
     rows = profiled("q3", lambda: tpch.q3(dfs["customer"], dfs["orders"],
                                           df).collect())
     check(same_rows(rows, ref3), "q3: profiled run disagrees")
+    # decimal q1 (D1): what the two-limb lanes cost on the device
+    rows = profiled("decimal d1_q1", run_d1)
+    check(same_decimal_rows(rows, ref_d1), "decimal d1_q1: profiled run "
+          "disagrees")
+    del dec_session, run_d1
     # window (a) profiled in core: its window and sort without the
     # out-of-core merge, whose time memory phase (a) logs
     with memory_conf(torch, dev, nds_session,

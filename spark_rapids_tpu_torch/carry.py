@@ -18,13 +18,16 @@ def host_table_from_lanes(
         lanes: Dict[str, Tuple[np.ndarray, np.ndarray, str]]) -> HostTable:
     """{name: (values, mask, dtype_name)} -> HostTable. ``dtype_name``
     is the type's SQL name (its repr in either package); string values
-    are an object array of str or HostStrings."""
+    are an object array of str or HostStrings, a wide decimal's an
+    object array of unscaled Python ints."""
     cols, names = [], []
     for name, (values, mask, type_name) in lanes.items():
         t = dt.from_name(type_name)
         if t == dt.STRING:
             if not isinstance(values, HostStrings):
                 values = HostStrings.from_objects(values)
+        elif dt.is_wide_decimal(t):
+            values = np.array([int(v) for v in values], dtype=object)
         else:
             values = np.asarray(values).astype(t.np_physical, copy=False)
         cols.append(HostColumn(values, np.asarray(mask, bool), t))

@@ -3,14 +3,17 @@
 Counterpart of spark_rapids_tpu/columnar/dtypes.py, cut to the types the
 ported path carries: booleans, integers, floats, DATE (int32 days since
 the epoch, Spark's layout), TIMESTAMP (int64 microseconds since the
-epoch in UTC), STRING (offsets + bytes, see columnar/vector.py) and
-ARRAY of one of those (offsets + a child column, see
-columnar/nested.py). ``physical`` is the torch dtype of the data buffer
-and ``np_physical`` the numpy dtype of the host lane.
+epoch in UTC), DECIMAL(p, s) (a scaled int64 up to p = 18, two
+64-bit limbs above, see columnar/decimal128.py), STRING (offsets +
+bytes, see columnar/vector.py) and ARRAY of one of those (offsets + a
+child column, see columnar/nested.py). ``physical`` is the torch dtype
+of the data buffer and ``np_physical`` the numpy dtype of the host lane
+(a wide decimal's host lane is an object array of Python ints).
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any
 
 import numpy as np
@@ -117,6 +120,89 @@ class TimestampType(DType):
     sql_name = "timestamp"
 
 
+class DecimalType(DType):
+    """Fixed point DECIMAL(precision, scale): the unscaled value in a
+    scaled int64 up to precision 18 ("long-backed", Spark's compact
+    Decimal), in two limbs (hi: int64 with the sign, lo: the low 64 bits
+    held in an int64) above it (columnar/decimal128.py). Equal when
+    precision and scale are."""
+
+    MAX_PRECISION = 38
+    MAX_LONG_PRECISION = 18
+    physical = torch.int64
+    np_physical = np.dtype(np.int64)
+
+    def __init__(self, precision: int = 10, scale: int = 0):
+        if not 0 < precision <= self.MAX_PRECISION or \
+                not 0 <= scale <= precision:
+            raise TypeError(f"no decimal({precision},{scale})")
+        self.precision = precision
+        self.scale = scale
+        self.sql_name = f"decimal({precision},{scale})"
+
+    def __eq__(self, other: object) -> bool:
+        return isinstance(other, DecimalType) and \
+            (self.precision, self.scale) == (other.precision, other.scale)
+
+    def __hash__(self) -> int:
+        return hash(self.sql_name)
+
+    @property
+    def is_wide(self) -> bool:
+        return self.precision > self.MAX_LONG_PRECISION
+
+
+def is_decimal(t: DType) -> bool:
+    return isinstance(t, DecimalType)
+
+
+def is_wide_decimal(t: DType) -> bool:
+    return isinstance(t, DecimalType) and t.is_wide
+
+
+def adjust_decimal_precision(precision: int, scale: int) -> DecimalType:
+    """Spark's DecimalPrecision.adjustPrecisionScale with
+    allowPrecisionLoss: past 38 digits keep the integral digits and cut
+    the scale, but to no fewer than min(scale, 6) digits."""
+    if precision <= DecimalType.MAX_PRECISION:
+        return DecimalType(precision, scale)
+    digits = precision - scale
+    min_scale = min(scale, 6)
+    return DecimalType(DecimalType.MAX_PRECISION,
+                       max(DecimalType.MAX_PRECISION - digits, min_scale))
+
+
+def decimal_result_type(op: str, a: DecimalType, b: DecimalType
+                        ) -> DecimalType:
+    """Spark's DecimalPrecision result type of a binary decimal op
+    (add / sub / mul / div / mod)."""
+    p1, s1, p2, s2 = a.precision, a.scale, b.precision, b.scale
+    if op in ("add", "sub"):
+        scale = max(s1, s2)
+        prec = max(p1 - s1, p2 - s2) + scale + 1
+    elif op == "mul":
+        scale = s1 + s2
+        prec = p1 + p2 + 1
+    elif op == "div":
+        scale = max(6, s1 + p2 + 1)
+        prec = p1 - s1 + s2 + scale
+    elif op == "mod":
+        scale = max(s1, s2)
+        prec = min(p1 - s1, p2 - s2) + scale
+    else:
+        raise TypeError(f"decimal {op} unsupported")
+    return adjust_decimal_precision(prec, scale)
+
+
+def wider_decimal(a: DecimalType, b: DecimalType) -> DecimalType:
+    """Spark's DecimalPrecision.widerDecimalType: room for both sides'
+    integral and fractional digits, bounded at 38."""
+    scale = max(a.scale, b.scale)
+    digits = max(a.precision - a.scale, b.precision - b.scale)
+    return DecimalType(min(digits + scale, DecimalType.MAX_PRECISION),
+                       min(scale, DecimalType.MAX_PRECISION))
+
+
 class NullType(DType):
     physical = torch.bool
     np_physical = np.dtype(np.bool_)
@@ -156,8 +242,18 @@ _NUMPY_TO_DTYPE = {t.np_physical: t for t in (BOOL, INT8, INT16, INT32,
                                               INT64, FLOAT32, FLOAT64)}
 
 
+#: a decimal's SQL name, or the JAX package's repr of its DecimalType
+#: (a dataclass repr)
+_DECIMAL_NAME = re.compile(
+    r"decimal\((\d+),(\d+)\)|DecimalType\(precision=(\d+), scale=(\d+)\)")
+
+
 def from_name(sql_name: str) -> DType:
     """The type whose ``sql_name`` (its repr) is ``sql_name``."""
+    m = _DECIMAL_NAME.fullmatch(sql_name)
+    if m:
+        p, s = (g for g in m.groups() if g is not None)
+        return DecimalType(int(p), int(s))
     try:
         return _BY_NAME[sql_name]
     except KeyError:
@@ -181,6 +277,9 @@ def promote(a: DType, b: DType) -> DType:
     """Numeric promotion for binary arithmetic, Spark-style."""
     if a == b:
         return a
+    if isinstance(a, DecimalType) or isinstance(b, DecimalType):
+        raise TypeError("decimal types meet per operator "
+                        "(expr/arithmetic.py)")
     if a in _PROMOTION_ORDER and b in _PROMOTION_ORDER:
         return _PROMOTION_ORDER[max(_PROMOTION_ORDER.index(a),
                                     _PROMOTION_ORDER.index(b))]
@@ -188,7 +287,7 @@ def promote(a: DType, b: DType) -> DType:
 
 
 def min_value(t: DType):
-    if t.is_integral or t in (DATE, TIMESTAMP):
+    if t.is_integral or t in (DATE, TIMESTAMP) or isinstance(t, DecimalType):
         return int(np.iinfo(t.np_physical).min)
     if t.is_floating:
         return -np.inf
@@ -198,7 +297,7 @@ def min_value(t: DType):
 
 
 def max_value(t: DType):
-    if t.is_integral or t in (DATE, TIMESTAMP):
+    if t.is_integral or t in (DATE, TIMESTAMP) or isinstance(t, DecimalType):
         return int(np.iinfo(t.np_physical).max)
     if t.is_floating:
         return np.inf

@@ -14,6 +14,9 @@ traces it inside jit). Every batch names its ``device`` explicitly.
 
 Strings use the Arrow layout: ``offsets:int32[capacity+1]`` into a flat
 ``chars:uint8`` buffer. ``HostStrings`` is the same layout in numpy.
+A DECIMAL(p <= 18) column is a ColumnVector of its unscaled int64; a
+wider one is a ``Decimal128Column`` (columnar/decimal128.py) of two
+limbs, whose host lane is an object array of unscaled Python ints.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 
 from . import dtypes as dt
+from .decimal128 import Decimal128Column, from_unscaled_ints
 
 
 def live_mask(capacity: int, num_rows: int, device) -> torch.Tensor:
@@ -275,7 +279,7 @@ class StringColumn:
                 f"char_capacity={self.char_capacity})")
 
 
-Column = Union[ColumnVector, StringColumn]
+Column = Union[ColumnVector, StringColumn, "Decimal128Column"]
 
 
 class ColumnarBatch:
@@ -340,7 +344,7 @@ def with_validity(col: Column, validity: torch.Tensor) -> Column:
     every row the string MIN / MAX reduction leaves unfound has."""
     if isinstance(col, StringColumn):
         return StringColumn(col.offsets, col.chars, validity, col.pad_bucket)
-    if not isinstance(col, ColumnVector):  # a ListColumn
+    if not isinstance(col, ColumnVector):  # a ListColumn or wide decimal
         return col.with_validity(validity)
     return ColumnVector(col.data, validity, col.dtype)
 
@@ -356,6 +360,9 @@ def null_column(dtype: dt.DType, capacity: int, device) -> Column:
             torch.zeros(128, dtype=torch.uint8, device=device), invalid)
     if dtype == dt.NULL:
         dtype = dt.INT32
+    if dt.is_wide_decimal(dtype):
+        z = torch.zeros(capacity, dtype=torch.int64, device=device)
+        return Decimal128Column(z, z.clone(), invalid, dtype)
     return ColumnVector(torch.zeros(capacity, dtype=dtype.physical,
                                     device=device), invalid, dtype)
 
@@ -396,6 +403,16 @@ def column_from_numpy(values, capacity: int, dtype: Optional[dt.DType] = None,
                             torch.from_numpy(validity).to(device),
                             pad_bucket=round_pow2(max_len))
 
+    if isinstance(dtype, dt.DecimalType):
+        values = np.asarray(values)
+        if values.dtype == object:  # logical values: Decimal, int, float
+            values = np.array([None if not valid[i] or v is None else
+                               decimal_unscaled(v, dtype)
+                               for i, v in enumerate(values)], object)
+        if dtype.is_wide:
+            return from_unscaled_ints(list(values), capacity, dtype,
+                                      mask=valid, device=device)
+        values = np.where(valid, values, 0).astype(np.int64)
     phys = dtype.np_physical
     data = np.zeros(capacity, dtype=phys)
     data[:n] = np.where(valid, np.asarray(values).astype(phys, copy=False),
@@ -404,12 +421,48 @@ def column_from_numpy(values, capacity: int, dtype: Optional[dt.DType] = None,
                         torch.from_numpy(validity).to(device), dtype)
 
 
+#: exact decimal arithmetic for host conversions (38 digits and more)
+_DECIMAL_CONTEXT = None
+
+
+def _decimal_context():
+    global _DECIMAL_CONTEXT
+    if _DECIMAL_CONTEXT is None:
+        import decimal
+        _DECIMAL_CONTEXT = decimal.Context(prec=80,
+                                           rounding=decimal.ROUND_HALF_UP)
+    return _DECIMAL_CONTEXT
+
+
+def decimal_unscaled(v, dtype: "dt.DecimalType") -> int:
+    """The unscaled int of a logical value at ``dtype``'s scale: a
+    Decimal or an int exactly (HALF_UP past the scale), a float through
+    its shortest decimal (Python's repr, as Spark's
+    ``BigDecimal(Double.toString(x))``)."""
+    import decimal
+    ctx = _decimal_context()
+    if isinstance(v, float):
+        v = decimal.Decimal(repr(v))
+    d = decimal.Decimal(v).scaleb(dtype.scale, context=ctx)
+    return int(d.to_integral_value(rounding=decimal.ROUND_HALF_UP,
+                                   context=ctx))
+
+
+def decimal_value(unscaled: int, scale: int):
+    """The exact decimal.Decimal of an unscaled int at ``scale``."""
+    import decimal
+    return decimal.Decimal(int(unscaled)).scaleb(-scale,
+                                                 context=_decimal_context())
+
+
 def from_physical(v, dtype: dt.DType):
     """One physical lane value as its Python value (DATE -> date,
-    TIMESTAMP -> a datetime in UTC)."""
+    TIMESTAMP -> a datetime in UTC, DECIMAL -> decimal.Decimal)."""
     import datetime
     if hasattr(v, "item"):
         v = v.item()
+    if isinstance(dtype, dt.DecimalType):
+        return decimal_value(v, dtype.scale)
     if dtype == dt.DATE:
         return datetime.date(1970, 1, 1) + datetime.timedelta(days=int(v))
     if dtype == dt.TIMESTAMP:

@@ -107,7 +107,13 @@ def _gen_column(spec: ColumnSpec, table: str, chunk: int, start_row: int,
     phys = t.np_physical
     if idx is not None:
         vals = np.asarray(spec.choices)[idx]
-    out = np.asarray(vals).astype(phys)
+    if dt.is_decimal(t):
+        # the unscaled lane: x 10^scale in float64, truncated toward
+        # zero (the JAX package's bytes)
+        out = (np.asarray(vals, np.float64) * 10 ** t.scale).astype(
+            np.int64)
+    else:
+        out = np.asarray(vals).astype(phys)
     out = np.where(mask, out, np.zeros(1, phys))
     return HostColumn(out, mask, t)
 

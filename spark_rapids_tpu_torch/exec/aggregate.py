@@ -31,6 +31,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..columnar import decimal128 as d128
 from ..columnar import dtypes as dt
 from ..columnar.nested import empty_list_column
 from ..columnar.vector import (ColumnVector, ColumnarBatch,
@@ -54,6 +55,21 @@ FINAL = "final"
 
 def _state_col_name(agg_index: int, state_name: str) -> str:
     return f"__agg{agg_index}__{state_name}"
+
+
+def make_agg_result(data, validity, out_t: dt.DType):
+    """A finalized aggregate as its output column: a string or list
+    column as it is, a wide decimal's (hi, lo) pair through the
+    precision check of its type (the JAX package's make_agg_result), a
+    plain lane through make_result."""
+    if isinstance(data, tuple):
+        hi, lo = data
+        validity = validity & d128.d128_fits_precision(hi, lo,
+                                                       out_t.precision)
+        return d128.build_decimal_column(hi, lo, validity, out_t)
+    if not isinstance(data, torch.Tensor):
+        return with_validity(data, data.validity & validity)
+    return make_result(data, validity, out_t)
 
 
 class HashAggregateExec(TpuExec):
@@ -170,10 +186,7 @@ class HashAggregateExec(TpuExec):
         out_cols: List = list(key_batch.columns)
         for i, (fn, _name) in enumerate(self.agg_exprs):
             data, ok = fn.finalize(merged[i])
-            if not isinstance(data, torch.Tensor):  # string or list
-                out_cols.append(with_validity(data, data.validity & ok & lm))
-                continue
-            out_cols.append(make_result(
+            out_cols.append(make_agg_result(
                 data, ok & lm,
                 self._result_schema[len(self._key_names) + i][1]))
         return ColumnarBatch(out_cols, [n for n, _ in self._result_schema],
@@ -366,13 +379,13 @@ class HashAggregateExec(TpuExec):
             zero = {sname: empty_list_column(stype.element_type, cap,
                                              device)
                     if isinstance(stype, dt.ArrayType) else
+                    null_column(stype, cap, device)
+                    if dt.is_wide_decimal(stype) else
                     torch.zeros(cap, dtype=stype.physical, device=device)
                     for sname, stype in self._state_schemas[i]}
             data, ok = fn.finalize(zero)
-            ok = ok & live_mask(cap, 1, device)
-            cols.append(with_validity(data, ok)
-                        if not isinstance(data, torch.Tensor)
-                        else make_result(data, ok, out_t))
+            cols.append(make_agg_result(data, ok & live_mask(cap, 1, device),
+                                        out_t))
         return ColumnarBatch(cols, [n for _, n in self.agg_exprs], 1, device)
 
     def node_description(self) -> str:

@@ -23,6 +23,17 @@ Only the columns the functions read are gathered into sorted order.
 ``BatchedRunningWindowExec`` streams running frames over a child already
 sorted by (partition, order), batch by batch, with carried state.
 
+Decimals (long-backed in and out; a wide one waits for the CPU fallback,
+plan/overrides.py): SUM scans the unscaled int64 lanes (a sum of
+DECIMAL(p <= 8) values stays inside DECIMAL(p + 10) below 2^31 rows);
+AVG is Spark's exact DECIMAL(p + 4, s + 4),
+HALF_UP, from two int64 scans of each value's high and low 32 bits (no
+wrap below 2^31 rows) joined into two limbs and divided by the count
+(the JAX package divides float sums, ROADMAP.md C15); MIN / MAX scan the
+int64 lanes; a RANGE frame over a decimal order key takes its offsets
+in the key's fixed point. ``BatchedRunningWindowExec`` refuses decimal
+inputs, as the JAX package's does.
+
 Eager torch code: the JAX package's per-plan jit (``shared_method_jit``)
 is not carried. ``WindowExec`` holds its input's batches as spillable
 runs and concatenates and computes them under ``with_retry_no_split``,
@@ -36,6 +47,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..columnar import decimal128 as d128
 from ..columnar import dtypes as dt
 from ..columnar.vector import (Column, ColumnVector, ColumnarBatch,
                                StringColumn, choose_capacity)
@@ -262,7 +274,8 @@ def _agg_inputs(fn: AggregateFunction, col: Optional[Column], live,
     if isinstance(fn, (Count, CountStar)):
         return torch.add, cnt_vals, cnt_vals
     if isinstance(fn, (Sum, Average)):
-        phys = torch.float64 if isinstance(fn, Average) else out_t.physical
+        phys = torch.float64 if isinstance(fn, Average) and \
+            not dt.is_decimal(out_t) else out_t.physical
         vals = col.data.to(phys)
         return torch.add, torch.where(valid_in, vals, torch.zeros(
             (), dtype=phys, device=vals.device)), cnt_vals
@@ -276,10 +289,25 @@ def _agg_inputs(fn: AggregateFunction, col: Optional[Column], live,
                               "not in this port yet")
 
 
-def _finalize_agg(fn, acc, ncnt, s_live, out_t) -> ColumnVector:
+def _finalize_agg(fn, acc, ncnt, s_live, out_t, in_scale: int = 0
+                  ) -> ColumnVector:
     if isinstance(fn, (Count, CountStar)):
         return make_result(acc.to(torch.int64), s_live, dt.INT64)
     has_vals = (ncnt > 0) & s_live
+    if isinstance(fn, Average) and dt.is_decimal(out_t):
+        # acc: the (high 32 bits, low 32 bits) sums; two limbs of
+        # sum_hi * 2^32 + sum_lo, divided exactly by the count
+        hs, ls = acc
+        hh, hl = d128.d128_from_i64(hs)
+        hh = (hh << 32) | d128._lshr(hl, 32)
+        hl = hl << 32
+        sh, sl = d128.d128_add(hh, hl, *d128.d128_from_i64(ls))
+        up = out_t.scale - in_scale
+        nh, nl = d128.d128_from_i64(torch.where(ncnt > 0, ncnt, 1))
+        qh, ql, ovf = d128.d128_div_exact(sh, sl, nh, nl, up)
+        ok = has_vals & ~ovf & d128.d128_fits_precision(qh, ql,
+                                                        out_t.precision)
+        return d128.build_decimal_column(qh, ql, ok, out_t)
     if isinstance(fn, Average):
         out = acc / torch.where(ncnt > 0, ncnt, 1).to(torch.float64)
         return make_result(out, has_vals, dt.FLOAT64)
@@ -393,11 +421,29 @@ class WindowExec(TpuExec):
 
     def _window_aggregate(self, we: WindowExpression, batch, perm,
                           seg: _Segments) -> Column:
-        fn, frame = we.func, we.spec.frame
+        fn = we.func
         out_t = _agg_out_type(fn, self._in_schema)
         col = None if isinstance(fn, CountStar) else \
             fn.children[0].eval(batch).gather(perm)
         op, agg_vals, cnt_vals = _agg_inputs(fn, col, seg.s_live, out_t)
+        if isinstance(fn, Average) and dt.is_decimal(out_t):
+            # two exact int64 scans: each value's high and low 32 bits
+            hi_acc, ncnt = self._accumulate(we, batch, perm, seg, op,
+                                            agg_vals >> 32, cnt_vals, out_t)
+            lo_acc, _ = self._accumulate(we, batch, perm, seg, op,
+                                         agg_vals & 0xFFFFFFFF, cnt_vals,
+                                         out_t)
+            return _finalize_agg(fn, (hi_acc, lo_acc), ncnt, seg.s_live,
+                                 out_t, col.dtype.scale)
+        acc, ncnt = self._accumulate(we, batch, perm, seg, op, agg_vals,
+                                     cnt_vals, out_t)
+        return _finalize_agg(fn, acc, ncnt, seg.s_live, out_t)
+
+    def _accumulate(self, we: WindowExpression, batch, perm, seg: _Segments,
+                    op, agg_vals, cnt_vals, out_t):
+        """(accumulated values, non-null counts) per row over the
+        function's frame."""
+        frame = we.spec.frame
         if frame.is_unbounded or frame.is_running:
             acc = _seg_scan(op, agg_vals, seg.new_part)
             ncnt = _seg_scan(torch.add, cnt_vals, seg.new_part)
@@ -411,12 +457,11 @@ class WindowExec(TpuExec):
                 at = None
             if at is not None:
                 acc, ncnt = acc[at], ncnt[at]
-        elif frame.row_based:
-            acc, ncnt = self._sliding(frame, op, agg_vals, cnt_vals, seg)
-        else:
-            acc, ncnt = self._range_sliding(we, batch, perm, op, agg_vals,
-                                            cnt_vals, seg, out_t)
-        return _finalize_agg(fn, acc, ncnt, seg.s_live, out_t)
+            return acc, ncnt
+        if frame.row_based:
+            return self._sliding(frame, op, agg_vals, cnt_vals, seg)
+        return self._range_sliding(we, batch, perm, op, agg_vals, cnt_vals,
+                                   seg, out_t)
 
     def _range_sliding(self, we, batch, perm, op, agg_vals, cnt_vals,
                        seg: _Segments, out_t):
@@ -428,6 +473,14 @@ class WindowExec(TpuExec):
         of = we.spec.order_fields[0]
         key_col = of.expr.eval(batch).gather(perm)
         k = key_col.data.to(torch.float64)
+        if dt.is_decimal(key_col.dtype):
+            # the key's lanes are scaled ints and the offsets logical
+            # values: take the offsets to the key's fixed point
+            factor = float(10 ** key_col.dtype.scale)
+            frame = WindowFrame(
+                None if frame.lo is None else frame.lo * factor,
+                None if frame.hi is None else frame.hi * factor,
+                row_based=False)
         if not of.ascending:
             k = -k
         # null order keys are their own peer group at the sort's null
@@ -531,8 +584,9 @@ def running_compatible(window_exprs, in_schema) -> bool:
         if isinstance(fn, (Sum, Count, CountStar, Min, Max, Average)) \
                 and frame is not None and frame.is_running \
                 and frame.row_based:
-            if fn.children and \
-                    fn.children[0].data_type(in_schema) == dt.STRING:
+            if fn.children and (
+                    fn.children[0].data_type(in_schema) == dt.STRING or
+                    dt.is_decimal(fn.children[0].data_type(in_schema))):
                 return False
             continue
         return False

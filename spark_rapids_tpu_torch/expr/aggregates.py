@@ -1,8 +1,20 @@
 """Aggregate functions: update / merge / finalize over segment ids.
 
 Counterpart of spark_rapids_tpu/expr/aggregates.py (Sum, Average,
-Count, CountStar, Min, Max on non-decimal inputs, Min and Max on
-strings too, the variance / stddev family, CollectList and CollectSet).
+Count, CountStar, Min, Max, Min and Max on strings too, the variance /
+stddev family, CollectList and CollectSet).
+
+Decimals take Spark's types: SUM of DECIMAL(p, s) is DECIMAL(min(p +
+10, 38), s), AVG DECIMAL(p + 4, s + 4) (adjusted past 38). A long-backed
+sum adds int64 lanes; a wide one, and
+every decimal AVG, keeps a two-limb segmented sum (exact mod 2^128,
+columnar/decimal128.py ``seg_sum128``) beside a float64 shadow sum: a
+group whose shadow passes 1.6e38 wrapped or lies past any 38-digit
+bound and is null (Spark's overflow to NULL), and the finalize checks
+the precision. AVG divides that sum by the count exactly
+(``d128_div_exact``, HALF_UP). MIN / MAX of a wide decimal reduce the
+(hi, lo) pair lexicographically. A wide result finalizes to a (hi, lo)
+pair that the aggregate exec builds into a Decimal128Column.
 Every aggregate splits into an update phase (raw rows -> per-group
 partial state), a merge phase (partial states -> merged state) and
 finalize; states are dicts of tensors (a StringColumn for a string
@@ -16,6 +28,7 @@ from typing import Dict, List
 
 import torch
 
+from ..columnar import decimal128 as d128
 from ..columnar import dtypes as dt
 from ..columnar.nested import ListColumn
 from ..columnar.vector import (Column, ColumnVector, StringColumn,
@@ -79,6 +92,54 @@ def _phys_extreme(dtype: torch.dtype, largest: bool):
     return info.max if largest else info.min
 
 
+def _sum_decimal_type(t: dt.DecimalType) -> dt.DecimalType:
+    """Spark's SUM type of a decimal: DECIMAL(p + 10, s), at most 38."""
+    return dt.DecimalType(min(t.precision + 10,
+                              dt.DecimalType.MAX_PRECISION), t.scale)
+
+
+#: a two-limb sum wrapped iff its magnitude passed 2^127 ~ 1.70e38; the
+#: float64 shadow sum tells that apart at this guard (and a sum past it
+#: is past every 38-digit bound anyway, so the shadow's rounding, and
+#: the order of its adds, decide nothing that the bound would not)
+_WRAP_GUARD = 1.6e38
+
+_WIDE_SUM_STATE = [("sum_hi", dt.INT64), ("sum_lo", dt.INT64),
+                   ("approx", dt.FLOAT64), ("count", dt.INT64)]
+
+
+def _dec_update(gid, col, num_groups) -> State:
+    """The two-limb sum state of a decimal column (either width). The
+    rows come in group order, so every sum here is a prefix-sum
+    difference (``sorted_seg_sum``): ``index_add_``'s atomics serialize
+    on the card over a few groups (TPC-H q1 has four). The float64
+    shadow's error then grows with the prefix before a group, at most
+    the rows' total times 2^-52: far inside the gap between the guard
+    and 2^127."""
+    hi, lo = d128.limbs_of(col)
+    z = torch.zeros((), dtype=torch.int64, device=hi.device)
+    hi = torch.where(col.validity, hi, z)
+    lo = torch.where(col.validity, lo, z)
+    sh, sl = d128.seg_sum128(hi, lo, gid, num_groups)
+    return {"sum_hi": sh, "sum_lo": sl,
+            "approx": d128.sorted_seg_sum(d128.d128_to_f64(hi, lo), gid,
+                                          num_groups),
+            "count": d128.sorted_seg_sum(col.validity.to(torch.int64), gid,
+                                         num_groups)}
+
+
+def _dec_merge(gid, states, num_groups) -> State:
+    sh, sl = d128.seg_sum128(states["sum_hi"], states["sum_lo"], gid,
+                             num_groups)
+    return {"sum_hi": sh, "sum_lo": sl,
+            "approx": d128.sorted_seg_sum(states["approx"], gid, num_groups),
+            "count": d128.sorted_seg_sum(states["count"], gid, num_groups)}
+
+
+def _no_wrap(states) -> torch.Tensor:
+    return (states["count"] > 0) & (states["approx"].abs() < _WRAP_GUARD)
+
+
 class AggregateFunction(Expression):
     """Base; children[0] (if any) is the input expression."""
 
@@ -108,22 +169,32 @@ class AggregateFunction(Expression):
         raise NotImplementedError
 
 
+def _sum_type(t: dt.DType) -> dt.DType:
+    if dt.is_decimal(t):
+        return _sum_decimal_type(t)
+    return dt.INT64 if t.is_integral or t == dt.BOOL else dt.FLOAT64
+
+
 class Sum(AggregateFunction):
-    """Spark sum: long for integrals, double for floats; an empty or
-    all-null group is null."""
+    """Spark sum: long for integrals, double for floats, DECIMAL(p + 10,
+    s) for decimals (see the module note); an empty or all-null group is
+    null."""
 
     name = "sum"
 
     def data_type(self, schema: Schema) -> dt.DType:
-        t = self.children[0].data_type(schema)
-        return dt.INT64 if t.is_integral or t == dt.BOOL else dt.FLOAT64
+        return _sum_type(self.children[0].data_type(schema))
 
     def state_schema(self, schema: Schema) -> List:
-        return [("sum", self.data_type(schema)), ("count", dt.INT64)]
+        out_t = self.data_type(schema)
+        if dt.is_wide_decimal(out_t):
+            return list(_WIDE_SUM_STATE)
+        return [("sum", out_t), ("count", dt.INT64)]
 
     def update(self, gid, col, num_groups, live) -> State:
-        out_t = dt.INT64 if col.dtype.is_integral or col.dtype == dt.BOOL \
-            else dt.FLOAT64
+        out_t = _sum_type(col.dtype)
+        if dt.is_wide_decimal(out_t):
+            return _dec_update(gid, col, num_groups)
         vals = torch.where(col.validity, col.data.to(out_t.physical),
                            torch.zeros((), dtype=out_t.physical,
                                        device=col.data.device))
@@ -132,10 +203,16 @@ class Sum(AggregateFunction):
                                   num_groups)}
 
     def merge(self, gid, states, num_groups) -> State:
+        if "sum_hi" in states:
+            return _dec_merge(gid, states, num_groups)
         return {"sum": _seg_sum(states["sum"], gid, num_groups),
                 "count": _seg_sum(states["count"], gid, num_groups)}
 
     def finalize(self, states):
+        if "sum_hi" in states:
+            return (states["sum_hi"], states["sum_lo"]), _no_wrap(states)
+        # a long-backed decimal sum (p <= 8) stays inside DECIMAL(p + 10)
+        # below 2^31 rows: no bound to check
         return states["sum"], states["count"] > 0
 
 
@@ -193,7 +270,19 @@ class _MinMaxBase(AggregateFunction):
         return self.children[0].data_type(schema)
 
     def state_schema(self, schema: Schema) -> List:
-        return [(self._key, self.data_type(schema)), ("seen", dt.BOOL)]
+        t = self.data_type(schema)
+        if dt.is_wide_decimal(t):
+            return [(self._key + "_hi", dt.INT64),
+                    (self._key + "_lo", dt.INT64), ("seen", dt.BOOL)]
+        return [(self._key, t), ("seen", dt.BOOL)]
+
+    def _wide_reduce(self, gid, hi, lo, valid, num_groups) -> State:
+        bh, bl = d128.seg_minmax128(hi, lo, valid, gid, num_groups,
+                                    self.largest)
+        seen = _seg_sum(valid.to(torch.int32), gid, num_groups) > 0
+        z = torch.zeros((), dtype=torch.int64, device=hi.device)
+        return {self._key + "_hi": torch.where(seen, bh, z),
+                self._key + "_lo": torch.where(seen, bl, z), "seen": seen}
 
     def _float_reduce(self, gid, data, valid, num_groups) -> State:
         """Spark float order: NaN is the greatest value. Reduce the
@@ -249,9 +338,16 @@ class _MinMaxBase(AggregateFunction):
     def update(self, gid, col, num_groups, live) -> State:
         if isinstance(col, StringColumn):
             return self._string_reduce(gid, col, num_groups)
+        if isinstance(col, d128.Decimal128Column):
+            return self._wide_reduce(gid, col.hi, col.lo, col.validity,
+                                     num_groups)
         return self._reduce(gid, col.data, col.validity, num_groups)
 
     def merge(self, gid, states, num_groups) -> State:
+        if self._key + "_hi" in states:
+            return self._wide_reduce(gid, states[self._key + "_hi"],
+                                     states[self._key + "_lo"],
+                                     states["seen"], num_groups)
         if isinstance(states[self._key], StringColumn):
             sc = states[self._key]
             return self._string_reduce(
@@ -261,6 +357,9 @@ class _MinMaxBase(AggregateFunction):
                             num_groups)
 
     def finalize(self, states):
+        if self._key + "_hi" in states:
+            return (states[self._key + "_hi"], states[self._key + "_lo"]), \
+                states["seen"]
         return states[self._key], states["seen"]
 
 
@@ -275,29 +374,53 @@ class Max(_MinMaxBase):
 
 
 class Average(AggregateFunction):
-    """avg: double result over a (sum, count) state."""
+    """avg: double result over a (sum, count) state; a decimal's is
+    DECIMAL(p + 4, s + 4) over the two-limb sum state, divided exactly
+    (HALF_UP), null where the sum passes DECIMAL(p + 10)'s bound (as
+    Spark's Average sum buffer)."""
 
     name = "avg"
 
     def data_type(self, schema: Schema) -> dt.DType:
+        t = self.children[0].data_type(schema)
+        if dt.is_decimal(t):
+            return dt.adjust_decimal_precision(t.precision + 4, t.scale + 4)
         return dt.FLOAT64
 
     def state_schema(self, schema: Schema) -> List:
+        t = self.children[0].data_type(schema)
+        if dt.is_decimal(t):
+            # the scale lift from the sum (the input's scale) to the
+            # result's, and the sum buffer's precision
+            self._avg_up = self.data_type(schema).scale - t.scale
+            self._sum_prec = _sum_decimal_type(t).precision
+            return list(_WIDE_SUM_STATE)
         return [("sum", dt.FLOAT64), ("count", dt.INT64)]
 
     def update(self, gid, col, num_groups, live) -> State:
+        if dt.is_decimal(col.dtype):
+            return _dec_update(gid, col, num_groups)
         vals = torch.where(col.validity, col.data.to(torch.float64), 0.0)
         return {"sum": _seg_sum(vals, gid, num_groups),
                 "count": _seg_sum(col.validity.to(torch.int64), gid,
                                   num_groups)}
 
     def merge(self, gid, states, num_groups) -> State:
+        if "sum_hi" in states:
+            return _dec_merge(gid, states, num_groups)
         return {"sum": _seg_sum(states["sum"], gid, num_groups),
                 "count": _seg_sum(states["count"], gid, num_groups)}
 
     def finalize(self, states):
         n = states["count"]
         ok = n > 0
+        if "sum_hi" in states:
+            hi, lo = states["sum_hi"], states["sum_lo"]
+            nh, nl = d128.d128_from_i64(torch.where(ok, n, 1))
+            qh, ql, ovf = d128.d128_div_exact(hi, lo, nh, nl, self._avg_up)
+            ok = _no_wrap(states) & ~ovf & \
+                d128.d128_fits_precision(hi, lo, self._sum_prec)
+            return (qh, ql), ok
         return states["sum"] / torch.where(ok, n, 1).to(torch.float64), ok
 
 

@@ -21,7 +21,9 @@ from .core import Expression, Literal, Schema, make_result
 
 def _common_type(types: List[dt.DType]) -> dt.DType:
     """The type a set of branch types meets at: NULL gives way to any
-    other type, numerics promote (dtypes.promote)."""
+    other type, numerics promote (dtypes.promote), decimals meet at
+    their wider decimal (an integral as its exact decimal; a float
+    makes it DOUBLE)."""
     out = types[0]
     for t in types[1:]:
         if t == dt.NULL:
@@ -29,7 +31,11 @@ def _common_type(types: List[dt.DType]) -> dt.DType:
         if out == dt.NULL:
             out = t
         elif out != t:
-            out = dt.promote(out, t)
+            if dt.is_decimal(out) or dt.is_decimal(t):
+                from .arithmetic import _least_greatest_type
+                out = _least_greatest_type([out, t])
+            else:
+                out = dt.promote(out, t)
     return out
 
 
@@ -51,6 +57,16 @@ def _select(cond: torch.Tensor, a: Column, b: Column,
     if out_t == dt.STRING or isinstance(a, StringColumn) or \
             isinstance(b, StringColumn):
         return _select_strings(cond, _as_string(a), _as_string(b))
+    if dt.is_decimal(out_t) or dt.is_decimal(a.dtype) or \
+            dt.is_decimal(b.dtype):
+        from .cast import cast_column
+        a, b = cast_column(a, out_t), cast_column(b, out_t)
+        if dt.is_wide_decimal(out_t):
+            from ..columnar.decimal128 import Decimal128Column
+            return Decimal128Column(
+                torch.where(cond, a.hi, b.hi), torch.where(cond, a.lo, b.lo),
+                torch.where(cond, a.validity, b.validity), out_t
+            ).with_validity(torch.where(cond, a.validity, b.validity))
     phys = out_t.physical
     data = torch.where(cond, a.data.to(phys), b.data.to(phys))
     return make_result(data, torch.where(cond, a.validity, b.validity),
@@ -83,6 +99,17 @@ def _select_strings(cond: torch.Tensor, a: StringColumn,
         chars[:total] = torch.where(cond[row], a.chars[sa], b.chars[sb])
     return StringColumn(offsets, chars, validity,
                         pad_bucket=max(a.pad_bucket, b.pad_bucket))
+
+
+def _as_type(result: Column, out_t: dt.DType) -> Column:
+    """A lone branch's column at the expression's type."""
+    if isinstance(result, StringColumn) or result.dtype == out_t:
+        return result
+    if dt.is_decimal(out_t):
+        from .cast import cast_column
+        return cast_column(result, out_t)
+    return make_result(result.data.to(out_t.physical), result.validity,
+                       out_t)
 
 
 class If(Expression):
@@ -126,10 +153,7 @@ class CaseWhen(Expression):
             cond = cond_e.eval(batch)
             val = val_e.eval(batch)
             result = _select(cond.data & cond.validity, val, result, out_t)
-        if not isinstance(result, StringColumn) and result.dtype != out_t:
-            result = make_result(result.data.to(out_t.physical),
-                                 result.validity, out_t)
-        return result
+        return _as_type(result, out_t)
 
 
 class Coalesce(Expression):
@@ -144,10 +168,7 @@ class Coalesce(Expression):
         for e in reversed(self.children[:-1]):
             c = e.eval(batch)
             result = _select(c.validity, c, result, out_t)
-        if not isinstance(result, StringColumn) and result.dtype != out_t:
-            result = make_result(result.data.to(out_t.physical),
-                                 result.validity, out_t)
-        return result
+        return _as_type(result, out_t)
 
 
 class NullIf(Expression):

@@ -10,6 +10,7 @@ Kleene logic, predicates.py), and data lanes under a null are zeroed.
 from __future__ import annotations
 
 import datetime
+import decimal
 from typing import List, Optional, Sequence
 
 import torch
@@ -165,6 +166,19 @@ def _infer_literal_dtype(value) -> dt.DType:
             return dt.INT32
         if -(2 ** 63) <= value < 2 ** 63:
             return dt.INT64
+        # past BIGINT Spark types an integral literal DECIMAL(digits, 0);
+        # past 38 digits its analysis fails
+        digits = len(str(abs(value)))
+        if digits > dt.DecimalType.MAX_PRECISION:
+            raise TypeError(f"integral literal needs precision {digits} "
+                            "> 38")
+        return dt.DecimalType(digits, 0)
+    if isinstance(value, decimal.Decimal):
+        # its own precision and scale (Spark's Literal of a BigDecimal)
+        sign, digits, exp = value.as_tuple()
+        scale = max(-exp, 0)
+        return dt.DecimalType(max(len(digits) + max(exp, 0), scale + 1,
+                                  1), scale)
     if isinstance(value, float):
         return dt.FLOAT64
     if isinstance(value, str):
@@ -190,6 +204,9 @@ def literal_physical(value, dtype: dt.DType):
             delta.microseconds
     if dtype == dt.DATE and isinstance(value, datetime.date):
         return (value - datetime.date(1970, 1, 1)).days
+    if isinstance(dtype, dt.DecimalType):
+        from ..columnar.vector import decimal_unscaled
+        return decimal_unscaled(value, dtype)
     return value
 
 
@@ -210,6 +227,14 @@ class Literal(Expression):
             return null_column(self.dtype, cap, batch.device)
         if self.dtype == dt.STRING:
             return _string_literal_column(self.value.encode("utf-8"), live)
+        if dt.is_wide_decimal(self.dtype):
+            from ..columnar.decimal128 import Decimal128Column, _signed
+            v = literal_physical(self.value, self.dtype)
+            hi, lo = (torch.full((cap,), w, dtype=torch.int64,
+                                 device=batch.device)
+                      for w in (v >> 64, _signed(v)))
+            return Decimal128Column(hi, lo, live, self.dtype) \
+                .with_validity(live)
         phys = self.dtype.physical
         data = torch.full((cap,), literal_physical(self.value, self.dtype),
                           dtype=phys, device=batch.device)
@@ -261,6 +286,14 @@ def output_name(expr: Expression, index: int) -> str:
     if isinstance(expr, (Alias, ColumnRef)):
         return expr.name
     return f"_c{index}"
+
+
+def cpu_fallback(what: str) -> NotImplementedError:
+    """The error for what the JAX planner sends to its CPU engine: the
+    port has no CPU fallback yet (ROADMAP.md A8)."""
+    return NotImplementedError(
+        f"{what} runs on the JAX package's CPU engine and is not in this "
+        "port yet: it waits for the CPU fallback (ROADMAP.md A8)")
 
 
 def merged_validity(*cols: Column) -> torch.Tensor:

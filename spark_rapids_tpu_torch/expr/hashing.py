@@ -20,7 +20,10 @@ XXH64 runs in int64 lanes whose multiplies and adds wrap modulo 2^64,
 which is uint64 arithmetic on the same bits; a logical right shift is an
 arithmetic one masked to the low bits. It takes what the JAX package's
 takes: booleans, integers, dates, timestamps and floats (strings raise,
-as there).
+as there). A long-backed decimal hashes as its unscaled long (Spark's
+``hashLong`` of ``toUnscaledLong``) in both; a DECIMAL(p>18) hashes its
+BigDecimal's bytes in Spark and waits for the CPU fallback here (the
+JAX planner sends it to its CPU engine).
 """
 
 from __future__ import annotations
@@ -98,14 +101,23 @@ def _seed_lane(seed: Seed, cap: int, device) -> torch.Tensor:
                       device=device)
 
 
+def _no_wide(col: Column) -> None:
+    if dt.is_wide_decimal(col.dtype):
+        from .core import cpu_fallback
+        raise cpu_fallback(f"a hash of {col.dtype}")
+
+
 def murmur3_column(col: Column, seed: Seed) -> torch.Tensor:
     """Per-row Murmur3 of one column as int64 in [0, 2^32); null rows
     return the seed unchanged. ``seed`` is an int or a per-row lane."""
     h0 = _seed_lane(seed, col.capacity, col.device)
+    _no_wide(col)
     if isinstance(col, StringColumn):
         h = _murmur3_string(col, h0)
     else:
         d, t = col.data, col.dtype
+        if dt.is_decimal(t):
+            t = dt.INT64
         if t == dt.BOOL:
             h = _hash_int32(d.to(torch.int64), h0)
         elif t in (dt.INT8, dt.INT16, dt.INT32, dt.DATE):
@@ -239,7 +251,10 @@ def xxhash64_column(col: Column, seed: torch.Tensor) -> torch.Tensor:
     seed."""
     if isinstance(col, StringColumn):
         raise TypeError("xxhash64 of a string is not in this port")
+    _no_wide(col)
     d, t = col.data, col.dtype
+    if dt.is_decimal(t):
+        t = dt.INT64
     if t == dt.BOOL:
         h = _xx_hash_int(d.to(torch.int64), seed)
     elif t in (dt.INT8, dt.INT16, dt.INT32, dt.DATE):

@@ -5,7 +5,14 @@ types: the unary functions of a double (Spark's NULL on a domain error
 for ``ln`` / ``log*``, NaN and the infinities elsewhere, as
 ``StrictMath``), ``signum``, ``rint``, ``floor`` / ``ceil`` to BIGINT,
 ``pow``, ``atan2``, ``hypot``, and ``Round`` / ``BRound`` over floats,
-integers and dates (decimals wait for columnar/decimal128.py).
+integers, dates and decimals.
+
+On a DECIMAL(p, s), ``floor`` / ``ceil`` give Spark's DECIMAL(p - s + 1,
+0) (the JAX package caps the precision at 18), and ``round(x, d)`` /
+``bround`` Spark's DECIMAL(min(p - s + 1 + min(s, d), 38), min(s, d))
+(for d < 0, DECIMAL(max(p - s + 1, 1 - d), 0); the JAX package keeps
+p), HALF_UP (HALF_EVEN) on the unscaled value; a result past its
+precision is null (ROADMAP.md C15).
 
 Where IEEE's ``pow`` and Java's differ, the port takes Java's: a NaN
 exponent gives NaN (``pow(1, NaN)`` is 1 in C, in torch and in the JAX
@@ -31,6 +38,7 @@ from __future__ import annotations
 
 import torch
 
+from ..columnar import decimal128 as d128
 from ..columnar import dtypes as dt
 from ..columnar.vector import ColumnVector, ColumnarBatch
 from .core import Expression, Schema, make_result, merged_validity
@@ -79,9 +87,49 @@ def _round_integral(x: torch.Tensor, scale: int, half_even: bool
     return torch.where(x < 0, -r, r).to(x.dtype)
 
 
+def _decimal_round(c, out_t: dt.DecimalType, drop: int, half_even: bool,
+                   floor_ceil: int = 0):
+    """A decimal column with ``drop`` fractional digits cut (rounded
+    HALF_UP, HALF_EVEN, or with ``floor_ceil`` -1 / +1 toward -inf /
+    +inf) and expressed at ``out_t``'s scale; null past its
+    precision."""
+    hi, lo = d128.limbs_of(c)
+    if drop > 0:
+        neg = hi < 0
+        mh, ml = d128.d128_abs(hi, lo)
+        qh, ql = d128.d128_div_pow10_trunc(mh, ml, drop)
+        bh, bl, _ = d128.d128_mul_pow10(qh, ql, drop)
+        rh, rl = d128.d128_sub(mh, ml, bh, bl)     # 0 <= r < 10^drop
+        half = 10 ** drop // 2
+        r_lt_half = d128.d128_lt(rh, rl, torch.full_like(rh, half >> 64),
+                                 torch.full_like(rl, d128._signed(half)))
+        r_eq_half = d128.d128_eq(rh, rl, torch.full_like(rh, half >> 64),
+                                 torch.full_like(rl, d128._signed(half)))
+        nonzero = (rh != 0) | (rl != 0)
+        if floor_ceil:
+            # toward -inf: a negative value with a remainder moves away
+            # from zero; toward +inf a positive one does
+            up = nonzero & (neg if floor_ceil < 0 else ~neg)
+        elif half_even:
+            up = ~r_lt_half & (~r_eq_half | ((ql & 1) == 1))
+        else:
+            up = ~r_lt_half
+        qh, ql = d128.d128_add(qh, ql, torch.zeros_like(qh),
+                               up.to(torch.int64))
+        nh, nl = d128.d128_neg(qh, ql)
+        hi, lo = torch.where(neg, nh, qh), torch.where(neg, nl, ql)
+    ok = torch.ones_like(c.validity)
+    lift = out_t.scale - (c.dtype.scale - max(drop, 0))
+    if lift > 0:
+        hi, lo, ovf = d128.d128_mul_pow10(hi, lo, lift)
+        ok = ~ovf
+    ok = ok & d128.d128_fits_precision(hi, lo, out_t.precision)
+    return d128.build_decimal_column(hi, lo, c.validity & ok, out_t)
+
+
 class Round(Expression):
     """round(x, d): HALF_UP on the value's decimal string (Spark); the
-    input type is kept."""
+    input type is kept, but for a decimal's (see the module note)."""
 
     half_even = False
 
@@ -91,6 +139,15 @@ class Round(Expression):
 
     def data_type(self, schema: Schema) -> dt.DType:
         t = self.children[0].data_type(schema)
+        if dt.is_decimal(t):
+            digits = t.precision - t.scale + 1
+            if self.scale < 0:
+                return dt.DecimalType(min(max(digits, 1 - self.scale),
+                                          dt.DecimalType.MAX_PRECISION), 0)
+            new_scale = min(t.scale, self.scale)
+            return dt.DecimalType(min(digits + new_scale,
+                                      dt.DecimalType.MAX_PRECISION),
+                                  new_scale)
         if not (t.is_integral or t.is_floating or t == dt.DATE):
             raise TypeError(f"{type(self).__name__.lower()} of {t} is not "
                             "in this port yet")
@@ -98,6 +155,11 @@ class Round(Expression):
 
     def eval(self, batch: ColumnarBatch) -> ColumnVector:
         c = self.children[0].eval(batch)
+        if dt.is_decimal(c.dtype):
+            # a negative d rounds to a multiple of 10^-d, at scale 0
+            drop = c.dtype.scale - min(self.scale, c.dtype.scale)
+            return _decimal_round(c, self.data_type(batch.schema()), drop,
+                                  self.half_even)
         fn = _round_float if c.dtype.is_floating else _round_integral
         return make_result(fn(c.data, self.scale, self.half_even),
                            c.validity, c.dtype)
@@ -191,16 +253,28 @@ Rint = _unary("Rint", torch.round, doc="rint(x): half to even")
 
 class _FloorCeil(Expression):
     """floor / ceil: BIGINT, through Spark's double -> bigint cast (NaN
-    is 0, saturated past the range)."""
+    is 0, saturated past the range); a DECIMAL(p, s > 0) gives
+    DECIMAL(p - s + 1, 0), a DECIMAL(p, 0) itself."""
 
     fn = None
+    direction = 0
 
     def data_type(self, schema: Schema) -> dt.DType:
+        t = self.children[0].data_type(schema)
+        if dt.is_decimal(t):
+            return t if t.scale == 0 else \
+                dt.DecimalType(min(t.precision - t.scale + 1,
+                                   dt.DecimalType.MAX_PRECISION), 0)
         return dt.INT64
 
     def eval(self, batch: ColumnarBatch) -> ColumnVector:
         from .cast import cast_column
         c = self.children[0].eval(batch)
+        if dt.is_decimal(c.dtype):
+            if c.dtype.scale == 0:
+                return c
+            return _decimal_round(c, self.data_type(batch.schema()),
+                                  c.dtype.scale, False, self.direction)
         if c.dtype.is_integral:
             return make_result(c.data.to(torch.int64), c.validity, dt.INT64)
         x = type(self).fn(c.data.to(torch.float64))
@@ -210,10 +284,12 @@ class _FloorCeil(Expression):
 
 class Floor(_FloorCeil):
     fn = staticmethod(torch.floor)
+    direction = -1
 
 
 class Ceil(_FloorCeil):
     fn = staticmethod(torch.ceil)
+    direction = 1
 
 
 class _BinaryDouble(Expression):

@@ -1,8 +1,11 @@
 """Predicates and comparisons.
 
-Counterpart of spark_rapids_tpu/expr/predicates.py for non-decimal
-operands: NaN compares greater than everything and equal to itself
-(Spark ordering); And/Or use Kleene three-valued logic. Strings compare
+Counterpart of spark_rapids_tpu/expr/predicates.py: NaN compares greater
+than everything and equal to itself (Spark ordering); And/Or use Kleene
+three-valued logic. Decimals compare by value across scales and widths
+(``decimal_compare``: two limbs at the common scale; against a float as
+doubles), in ``<=>`` and IN too, where the JAX package compares the
+unscaled lanes of differing scales as they are (ROADMAP.md C15). Strings compare
 over their offsets and chars (expr/strings.py): unsigned bytes, then the
 shorter string first, so 'a' < 'a\\0' as in Spark (the JAX package pads
 with zero bytes and finds them equal; ROADMAP.md C13).
@@ -14,7 +17,9 @@ from typing import List
 
 import torch
 
+from ..columnar import decimal128 as d128
 from ..columnar import dtypes as dt
+from ..columnar.decimal128 import Decimal128Column
 from ..columnar.vector import ColumnVector, ColumnarBatch, StringColumn
 from . import strings as S
 from .core import (Expression, Literal, Schema, literal_physical,
@@ -29,6 +34,50 @@ def _aligned(left: ColumnVector, right: ColumnVector):
         out_t = dt.promote(left.dtype, right.dtype)
         a, b = a.to(out_t.physical), b.to(out_t.physical)
     return a, b
+
+
+def _as_f64(c) -> torch.Tensor:
+    if dt.is_decimal(c.dtype):
+        hi, lo = d128.limbs_of(c)
+        return d128.d128_to_f64(hi, lo) / (10.0 ** c.dtype.scale)
+    return c.data.to(torch.float64)
+
+
+def decimal_compare(left, right):
+    """(lt, eq) of two numeric columns of which one is a decimal: as
+    doubles against a float, else exactly at the common scale. The
+    upscaled side (the one of smaller scale) is the only one that can
+    pass 128 bits, and then it lies beyond the other: its sign
+    decides."""
+    if left.dtype.is_floating or right.dtype.is_floating:
+        a, b = _as_f64(left), _as_f64(right)
+        return _nan_safe_lt(a, b), _nan_safe_eq(a, b)
+
+    def scale(c):
+        return c.dtype.scale if dt.is_decimal(c.dtype) else 0
+
+    s = max(scale(left), scale(right))
+    narrow = all(not isinstance(c, Decimal128Column) and (
+        not dt.is_decimal(c.dtype) or
+        c.dtype.precision + s - scale(c) <= 18) for c in (left, right))
+    if narrow and all(dt.is_decimal(c.dtype) or c.dtype.is_integral
+                      and s == 0 for c in (left, right)):
+        a = left.data.to(torch.int64) * 10 ** (s - scale(left))
+        b = right.data.to(torch.int64) * 10 ** (s - scale(right))
+        return a < b, a == b
+
+    def lift(c):
+        hi, lo = d128.limbs_of(c) if dt.is_decimal(c.dtype) else \
+            d128.d128_from_i64(c.data)
+        h, l, ovf = d128.d128_mul_pow10(hi, lo, s - scale(c))
+        return h, l, ovf, hi < 0
+
+    ah, al, ao, an = lift(left)
+    bh, bl, bo, bn = lift(right)
+    lt = torch.where(ao, an, torch.where(bo, ~bn,
+                                         d128.d128_lt(ah, al, bh, bl)))
+    eq = ~ao & ~bo & d128.d128_eq(ah, al, bh, bl)
+    return lt, eq
 
 
 def _nan_safe_lt(a, b):
@@ -71,6 +120,11 @@ class BinaryComparison(Expression):
             hit = S.string_eq(left, right) if isinstance(self, EqualTo) \
                 else self._from_cmp(S.string_compare(left, right))
             return make_result(hit, merged_validity(left, right), dt.BOOL)
+        if dt.is_decimal(left.dtype) or dt.is_decimal(right.dtype):
+            lt, eq = decimal_compare(left, right)
+            cmp = lt.to(torch.int8) * -1 + (~lt & ~eq).to(torch.int8)
+            return make_result(self._from_cmp(cmp),
+                               merged_validity(left, right), dt.BOOL)
         a, b = _aligned(left, right)
         return make_result(self._compare(a, b), merged_validity(left, right),
                            dt.BOOL)
@@ -130,8 +184,13 @@ class EqualNullSafe(Expression):
         right = self.children[1].eval(batch)
         both_null = ~left.validity & ~right.validity
         both_valid = left.validity & right.validity
-        a, b = _aligned(left, right)
-        data = both_null | (both_valid & _nan_safe_eq(a, b))
+        if dt.is_decimal(left.dtype) or dt.is_decimal(right.dtype):
+            eq = decimal_compare(left, right)[1]
+        elif isinstance(left, StringColumn):
+            eq = S.string_eq(left, right)
+        else:
+            eq = _nan_safe_eq(*_aligned(left, right))
+        data = both_null | (both_valid & eq)
         return make_result(data, batch.live_mask(), dt.BOOL)
 
 
@@ -220,6 +279,12 @@ class InSet(Expression):
             for v in self.values:
                 if v is not None:
                     hit = hit | S.match_literal(c, S.utf8(v))
+            return make_result(hit, c.validity, dt.BOOL)
+        if dt.is_decimal(c.dtype):
+            # each value by value (Spark's coercion of the IN list)
+            for v in self.values:
+                if v is not None:
+                    hit = hit | decimal_compare(c, Literal(v).eval(batch))[1]
             return make_result(hit, c.validity, dt.BOOL)
         for v in self.values:
             if v is not None:

@@ -885,6 +885,33 @@ def _int_to_string(data: torch.Tensor, validity) -> StringColumn:
     return _pack_matrix(mat, ndig + sign, validity)
 
 
+def _decimal_to_string(c: ColumnVector) -> StringColumn:
+    """A long-backed decimal in plain notation, Spark's form: a sign,
+    the integral digits (0 under 1), and, for a scale s > 0, a point and
+    s digits (-0.50, 12.30)."""
+    if c.dtype.is_wide:
+        from .core import cpu_fallback
+        raise cpu_fallback(f"CAST({c.dtype} AS STRING)")
+    s = c.dtype.scale
+    if s == 0:
+        return _int_to_string(c.data, c.validity)
+    v = c.data
+    neg = v < 0
+    mag = v.abs()          # |v| < 10^18: no int64 minimum here
+    ip = torch.div(mag, _POW10[s], rounding_mode="floor")
+    frac = mag - ip * _POW10[s]
+    sign = neg.to(torch.int64)
+    int_len = sign + _ndigits(ip)
+    width = 1 + 19 + 1 + s
+    k = torch.arange(width, device=v.device)[None, :]
+    L = int_len[:, None]
+    int_ch = _digit(ip[:, None].expand(-1, width), L - 1 - k)
+    frac_ch = _digit(frac[:, None].expand(-1, width), L + s - k)
+    mat = torch.where(k < L, int_ch, torch.where(k == L, 46, frac_ch))
+    mat = torch.where((k == 0) & neg[:, None], 45, mat).to(torch.uint8)
+    return _pack_matrix(mat, int_len + 1 + s, c.validity)
+
+
 def _two_digits(mat, col: int, v):
     mat[:, col] = (48 + v // 10).to(torch.uint8)
     mat[:, col + 1] = (48 + v % 10).to(torch.uint8)
@@ -1149,6 +1176,8 @@ def cast_to_string(c: ColumnVector) -> StringColumn:
         f = torch.tensor(list(b"false"), dtype=torch.uint8, device=c.device)
         mat = torch.where(c.data[:, None], t[None, :], f[None, :])
         return _pack_matrix(mat, torch.where(c.data, 4, 5), c.validity)
+    if dt.is_decimal(src):
+        return _decimal_to_string(c)
     if src.is_integral:
         return _int_to_string(c.data, c.validity)
     if src.is_floating:
@@ -1433,4 +1462,63 @@ def cast_from_string(c: StringColumn, to: dt.DType) -> Column:
     if to == dt.DATE:
         val, ok = _parse_date(padded, lens)
         return make_result(val.to(torch.int32), c.validity & ok, to)
+    if dt.is_decimal(to):
+        if to.is_wide:
+            from .core import cpu_fallback
+            raise cpu_fallback(f"CAST(STRING AS {to})")
+        val, ok = _parse_decimal(padded, lens, to)
+        return make_result(val, c.validity & ok, to)
     raise TypeError(f"cast string -> {to} is not in this port yet")
+
+
+def _parse_decimal(padded: torch.Tensor, lens: torch.Tensor,
+                   to: "dt.DecimalType"):
+    """[+-]digits[.digits][eE[+-]digits] as the unscaled int64 at the
+    long-backed ``to``, exactly: each digit lands at its power of ten
+    plus the scale, the first digit past the scale rounds HALF_UP, and
+    a digit at or past the precision makes the row null (Spark's
+    BigDecimal, then changePrecision)."""
+    cap, w = padded.shape
+    dev = padded.device
+    start, end, nonempty = _strip_bounds(padded, lens)
+    k = torch.arange(w, device=dev)[None, :]
+    first = _at(padded, start)
+    neg = first == 45
+    pos0 = start + (neg | (first == 43)).to(torch.int64)
+    in_str = (k >= pos0[:, None]) & (k < end[:, None])
+    is_digit = (padded >= 48) & (padded <= 57)
+    e_mask = in_str & ((padded == 101) | (padded == 69))
+    has_e = e_mask.any(1)
+    e_pos = _first_true(e_mask, end)
+    dot_mask = in_str & (padded == 46) & (k < e_pos[:, None])
+    dot_pos = _first_true(dot_mask, e_pos)
+    mant_zone = in_str & (k < e_pos[:, None]) & (padded != 46)
+    ok = nonempty & (~mant_zone | is_digit).all(1) & \
+        (dot_mask.sum(1) <= 1) & (mant_zone & is_digit).any(1)
+    digit = padded.to(torch.int64) - 48
+    e_first = e_pos + 1
+    efirst = _at(padded, e_first)
+    eneg = efirst == 45
+    e_dstart = e_first + (eneg | (efirst == 43)).to(torch.int64)
+    e_zone = (k >= e_dstart[:, None]) & (k < end[:, None])
+    ok = ok & torch.where(has_e, (e_zone & is_digit).any(1) &
+                          (~e_zone | is_digit).all(1), True)
+    ev = torch.zeros(cap, dtype=torch.int64, device=dev)
+    for i in range(w):
+        ev = torch.where(e_zone[:, i] & has_e,
+                         (ev * 10 + digit[:, i]).clamp(max=10 ** 6), ev)
+    ev = torch.where(eneg, -ev, ev) + to.scale
+    val = torch.zeros(cap, dtype=torch.int64, device=dev)
+    over = torch.zeros(cap, dtype=torch.bool, device=dev)
+    up = torch.zeros(cap, dtype=torch.bool, device=dev)
+    for i in range(w):
+        d = torch.where(mant_zone[:, i] & is_digit[:, i], digit[:, i], 0)
+        # the digit's power of ten at the target scale
+        e = dot_pos - i - (i < dot_pos).to(torch.int64) + ev
+        val = val + torch.where((e >= 0) & (e < to.precision),
+                                d * _pow10(dev)[e.clamp(0, 18)], 0)
+        over = over | ((d != 0) & (e >= to.precision))
+        up = up | ((e == -1) & (d >= 5))
+    val = val + up.to(torch.int64)
+    ok = ok & ~over & (val < _POW10[to.precision])
+    return torch.where(neg, -val, val), ok

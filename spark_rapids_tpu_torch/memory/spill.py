@@ -3,8 +3,9 @@
 Counterpart of spark_rapids_tpu/memory/spill.py (the reference's
 RapidsBufferCatalog, its device / host / disk stores and
 SpillableColumnarBatch). A batch's "buffers" are the tensors of its
-columns: data and validity of a ``ColumnVector``, offsets, chars and
-validity of a ``StringColumn``, offsets and validity of a
+columns: data and validity of a ``ColumnVector``, hi, lo and validity
+of a ``Decimal128Column``, offsets, chars and validity of a
+``StringColumn``, offsets and validity of a
 ``ListColumn`` plus its child's buffers.
 
 - Device -> host copies each buffer of a CUDA batch into a pinned host
@@ -45,6 +46,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..columnar.decimal128 import Decimal128Column
 from ..columnar.nested import ListColumn
 from ..columnar.vector import ColumnVector, ColumnarBatch, StringColumn
 from .budget import MemoryBudget, current_query_id, device_budget, \
@@ -115,6 +117,9 @@ def _column_buffers(col, out: List[torch.Tensor]):
     if isinstance(col, StringColumn):
         out += [col.offsets, col.chars, col.validity]
         return ("str", col.pad_bucket)
+    if isinstance(col, Decimal128Column):
+        out += [col.hi, col.lo, col.validity]
+        return ("d128", col.dtype)
     if isinstance(col, ListColumn):
         out += [col.offsets, col.validity]
         return ("list", col.dtype.element_type,
@@ -128,6 +133,8 @@ def _column_from(spec, bufs):
         return ColumnVector(next(bufs), next(bufs), spec[1])
     if kind == "str":
         return StringColumn(next(bufs), next(bufs), next(bufs), spec[1])
+    if kind == "d128":
+        return Decimal128Column(next(bufs), next(bufs), next(bufs), spec[1])
     offsets, validity = next(bufs), next(bufs)
     return ListColumn(offsets, _column_from(spec[2], bufs), validity, spec[1])
 

@@ -27,6 +27,8 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from ..columnar import dtypes as dt
+from ..columnar import decimal128 as d128
+from ..columnar.decimal128 import Decimal128Column
 from ..columnar.nested import ListColumn, concat_lists
 from ..columnar.vector import (Column, ColumnVector, ColumnarBatch,
                                StringColumn, choose_capacity,
@@ -87,7 +89,10 @@ def _rank_keys(col: Column) -> List[torch.Tensor]:
     is unsigned byte order, then their byte length, so that a string
     sorts after its prefix even where the rest is zero bytes (Spark's
     order, and string ``<``'s, expr/strings.py ``string_compare``);
-    floats fold -0.0 into 0.0."""
+    floats fold -0.0 into 0.0; a wide decimal gives two words, its hi
+    limb and its lo limb read as unsigned (decimal128.order_words)."""
+    if isinstance(col, Decimal128Column):
+        return list(d128.order_words(col.hi, col.lo))
     if isinstance(col, StringColumn):
         padded = col.padded().to(torch.int64)
         cap, w = padded.shape
@@ -327,6 +332,8 @@ def _keys_eq_pairs(col: Column, ia: torch.Tensor,
     va, vb = col.validity[ia], col.validity[ib]
     if isinstance(col, StringColumn):
         data_eq = S.pairs_equal(col, ia, col, ib)
+    elif isinstance(col, Decimal128Column):
+        data_eq = (col.hi[ia] == col.hi[ib]) & (col.lo[ia] == col.lo[ib])
     else:
         da, db = col.data[ia], col.data[ib]
         data_eq = da == db
@@ -764,6 +771,9 @@ def _keys_equal(a_cols: Sequence[Column], a_idx: torch.Tensor,
         va, vb = ca.validity[a_idx], cb.validity[b_idx]
         if isinstance(ca, StringColumn):
             eq = S.pairs_equal(ca, a_idx, cb, b_idx)
+        elif isinstance(ca, Decimal128Column):
+            eq = (ca.hi[a_idx] == cb.hi[b_idx]) & \
+                (ca.lo[a_idx] == cb.lo[b_idx])
         else:
             da, db = ca.data[a_idx], cb.data[b_idx]
             if da.dtype != db.dtype:
@@ -898,6 +908,8 @@ def local_limit(batch: ColumnarBatch, n: int) -> ColumnarBatch:
         if isinstance(c, StringColumn):
             cols.append(StringColumn(c.offsets, c.chars, c.validity & keep,
                                      c.pad_bucket))
+        elif isinstance(c, Decimal128Column):
+            cols.append(c.with_validity(c.validity & keep))
         else:
             cols.append(ColumnVector(torch.where(keep, c.data, torch.zeros(
                 (), dtype=c.data.dtype, device=c.data.device)),
@@ -944,6 +956,18 @@ def _concat_columns(cols: Sequence[Column], ns: Sequence[int],
         buf[:chars.numel()] = chars
         return StringColumn(offsets, buf, validity,
                             max(c.pad_bucket for c in cols))
+    if len({c.dtype for c in cols if dt.is_decimal(c.dtype)}) > 1:
+        # unscaled lanes of two scales cannot meet as they are
+        raise TypeError("concat of decimal parts of different types: "
+                        f"{sorted({repr(c.dtype) for c in cols})}")
+    if isinstance(cols[0], Decimal128Column):
+        limbs = []
+        for part in ("hi", "lo"):
+            out = torch.zeros(out_cap, dtype=torch.int64, device=dev)
+            out[:total] = torch.cat([getattr(c, part)[:n]
+                                     for c, n in zip(cols, ns)])
+            limbs.append(out)
+        return Decimal128Column(*limbs, validity, cols[0].dtype)
     # parts of differing widths (a UNION's children) meet at their
     # promoted physical type, as the JAX package's concat does; the
     # column keeps the first part's logical type

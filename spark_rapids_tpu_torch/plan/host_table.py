@@ -2,7 +2,9 @@
 
 Counterpart of spark_rapids_tpu/plan/host_table.py. Each column is
 (values, mask) in the same physical lane encoding the device side uses
-(dates = int32 days); string lanes are HostStrings (Arrow layout).
+(dates = int32 days, decimals their unscaled int64, or unscaled Python
+ints in an object array above precision 18); string lanes are
+HostStrings (Arrow layout).
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from ..columnar import dtypes as dt
+from ..columnar.decimal128 import from_unscaled_ints
 from ..columnar.vector import (ColumnarBatch, HostStrings, choose_capacity,
                                column_from_numpy, from_physical)
 
@@ -101,7 +104,10 @@ def table_to_batch(table: HostTable, capacity: Optional[int] = None, *,
     card or the CPU) as one batch."""
     n = table.num_rows
     cap = capacity or choose_capacity(n)
-    cols = [column_from_numpy(c.values, cap, dtype=c.dtype, mask=c.mask,
+    cols = [from_unscaled_ints(list(c.values), cap, c.dtype, mask=c.mask,
+                               device=device)
+            if dt.is_wide_decimal(c.dtype) else
+            column_from_numpy(c.values, cap, dtype=c.dtype, mask=c.mask,
                               device=device) for c in table.columns]
     return ColumnarBatch(cols, table.names, n, device)
 
@@ -118,6 +124,7 @@ def batch_to_table(batch: ColumnarBatch) -> HostTable:
 def empty_table(schema: Schema) -> HostTable:
     no_strings = HostStrings(np.zeros(1, np.int32), np.zeros(0, np.uint8))
     cols = [HostColumn(no_strings if t == dt.STRING
+                       else np.zeros(0, object) if dt.is_wide_decimal(t)
                        else np.zeros(0, t.np_physical), np.zeros(0, bool), t)
             for _, t in schema]
     return HostTable(cols, [n for n, _ in schema])

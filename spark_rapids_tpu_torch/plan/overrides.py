@@ -19,7 +19,11 @@ runs one partition, where the exchanges the JAX planner inserts
 (round-robin or hash between PARTIAL and FINAL and below a shuffled
 join, broadcast below a broadcast join, range before a global sort)
 pass batches through unchanged, so none is placed. Tagging, CPU
-fallback and the cost model beyond row estimates are not ported.
+fallback and the cost model beyond row estimates are not ported: what
+the JAX planner sends to its CPU engine for a DECIMAL(p>18) (a group-by
+or join key, a window partition or order key, a window aggregate over
+or into one) raises here (``expr/core.py cpu_fallback``); an ORDER BY
+on one runs on the device (two sort words a key).
 """
 
 from __future__ import annotations
@@ -41,10 +45,14 @@ from ..expr import aggregates as Agg
 from ..expr import window as W
 from ..expr.cast import Cast
 from ..expr.conditional import _common_type
-from ..expr.core import Alias, Literal, col
+from ..expr.core import Alias, Literal, col, cpu_fallback
 from .cost import estimate_rows
 from .logical import (Aggregate, DeviceRelation, Expand, Filter, Join,
                       Limit, LogicalPlan, Project, Sort, Union, Window)
+
+
+AGG_TYPES = (Agg.Sum, Agg.Count, Agg.CountStar, Agg.Average, Agg.Min,
+             Agg.Max)
 
 
 def _sort_orders(sort: Sort):
@@ -105,6 +113,8 @@ def _build_join(plan: Join, children, conf: SrtConf) -> TpuExec:
             return CartesianProductExec(left, right)
         return BroadcastNestedLoopJoinExec(left, right, plan.condition,
                                            "inner")
+    _no_wide_keys(plan.left_keys, plan.children[0].schema, "join key")
+    _no_wide_keys(plan.right_keys, plan.children[1].schema, "join key")
     left_keys, right_keys = _coerce_join_keys(plan)
     if plan.join_type == "full_outer":
         outer = ShuffledHashJoinExec(left, right, left_keys, right_keys,
@@ -126,17 +136,34 @@ def _build_join(plan: Join, children, conf: SrtConf) -> TpuExec:
     return joined
 
 
+def _no_wide_keys(exprs, schema, what: str) -> None:
+    for e in exprs:
+        t = e.data_type(schema)
+        if dt.is_wide_decimal(t):
+            raise cpu_fallback(f"a {what} of type {t}")
+
+
 def _check_window(plan: Window) -> None:
     """The JAX planner's window tagging (``_tag_window``) as hard
     refusals: the port has no CPU fallback to send these to."""
     in_schema = plan.children[0].schema
     ranking = (W.RowNumber, W.Rank, W.DenseRank, W.PercentRank, W.NTile,
                W.Lead)
+    if plan.window_exprs:
+        spec = plan.window_exprs[0][0].spec
+        _no_wide_keys(list(spec.partition_by) +
+                      [o.expr for o in spec.order_fields], in_schema,
+                      "window partition or order key")
     for we, name in plan.window_exprs:
         fn, frame = we.func, we.spec.frame
         what = f"window {name} ({type(fn).__name__})"
         if isinstance(fn, ranking):
             continue
+        if isinstance(fn, AGG_TYPES) and (
+                any(dt.is_wide_decimal(c.data_type(in_schema))
+                    for c in fn.children) or
+                dt.is_wide_decimal(fn.data_type(in_schema))):
+            raise cpu_fallback(f"{what} over or into a DECIMAL(p>18)")
         if isinstance(fn, (Agg.Min, Agg.Max)):
             if fn.children[0].data_type(in_schema) == dt.STRING:
                 raise NotImplementedError(
@@ -153,7 +180,7 @@ def _check_window(plan: Window) -> None:
             kt = ofs[0].expr.data_type(in_schema) if len(ofs) == 1 \
                 else None
             if kt is None or not (kt.is_integral or kt.is_floating
-                                  or kt == dt.DATE):
+                                  or kt == dt.DATE or dt.is_decimal(kt)):
                 raise NotImplementedError(
                     f"{what}: a RANGE frame needs one numeric or date "
                     f"order key, got {kt if kt is not None else len(ofs)}")
@@ -201,12 +228,23 @@ def _to_physical(plan: LogicalPlan, conf: SrtConf) -> TpuExec:
     if isinstance(plan, Join):
         return _build_join(plan, children, conf)
     if isinstance(plan, Union):
+        first = plan.children[0].schema
+        for c in plan.children[1:]:
+            for (name, a), (_, b) in zip(first, c.schema):
+                if (dt.is_decimal(a) or dt.is_decimal(b)) and a != b:
+                    # Spark widens the column to a common decimal; the
+                    # port's Union keeps its first child's types
+                    raise NotImplementedError(
+                        f"a UNION of {a} and {b} in column {name} is not in "
+                        "this port yet")
         return UnionExec(*children)
     if isinstance(plan, Expand):
         return ExpandExec(children[0], plan.projections, plan.schema)
     if isinstance(plan, Window):
         return _build_window(plan, children[0], conf)
     if isinstance(plan, Aggregate):
+        _no_wide_keys(plan.group_exprs, plan.children[0].schema,
+                      "group-by key")
         partial = HashAggregateExec(children[0], plan.group_exprs,
                                     plan.agg_exprs, mode=PARTIAL)
         return HashAggregateExec(partial, plan.group_exprs, plan.agg_exprs,

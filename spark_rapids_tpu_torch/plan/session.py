@@ -25,6 +25,7 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ..columnar import dtypes as dt
 from ..conf import OOM_INJECTION_MODE, SrtConf
 from ..exec.base import ExecContext
 from ..memory.budget import device_budget, query_scope, task_context
@@ -61,6 +62,9 @@ def _host_table_from_pydict(data: Dict[str, list], schema) -> HostTable:
         mask = np.array([v is not None for v in vals], bool)
         if t.np_physical is None:  # strings
             lane = HostStrings.from_objects(vals)
+        elif dt.is_wide_decimal(t):
+            lane = np.array([0 if v is None else literal_physical(v, t)
+                             for v in vals], object)
         else:
             lane = np.array([0 if v is None else literal_physical(v, t)
                              for v in vals], t.np_physical)

@@ -21,13 +21,15 @@ grouping on (keys, ``__grouping_id``); ``COUNT(DISTINCT x)`` onto
 Its function tables hold the JAX package's scalar library: string,
 regex, date, time-zone, math, hash and integral-arithmetic functions,
 LIKE, ``date +/- INTERVAL n DAY|WEEK|MONTH|YEAR``, ``div``, ``%``,
-``||``, string ordering, TIMESTAMP literals and casts, and ``first`` /
-``last``. A function, clause or type the JAX package's analyzer lowers
-but this port does not have yet (INTERSECT / EXCEPT ALL as in the JAX
-package, the DECIMAL type and the JSON functions in ``_NOT_PORTED``)
-raises ``SqlError`` saying so, before any plan is built; so does a
-regex, time zone or cast the port cannot run (it has no CPU
-fallback).
+``||``, string ordering, TIMESTAMP literals and casts, ``first`` /
+``last``, and the DECIMAL(p, s) / NUMERIC(p, s) type in CAST (numeric
+literals keep the JAX parser's typing: ``0.05`` is DOUBLE, where Spark
+types it DECIMAL(2,2); ROADMAP.md C14). A function, clause or type the
+JAX package's analyzer lowers but this port does not have yet
+(INTERSECT / EXCEPT ALL as in the JAX package, and the JSON functions
+in ``_NOT_PORTED``) raises ``SqlError`` saying so, before any plan is
+built; so does a regex, time zone or cast the port cannot run (it has
+no CPU fallback: a DECIMAL(p>18) to or from STRING).
 """
 
 from __future__ import annotations
@@ -871,8 +873,17 @@ class Parser:
                 self.next()
                 self.expect_op(")")
             return simple[name]
-        if name in ("decimal", "numeric"):
-            raise _not_ported(f"type {name}")
+        if name in ("decimal", "numeric", "dec"):
+            p, sc = 10, 0
+            if self.accept_op("("):
+                p = int(self.next().value)
+                if self.accept_op(","):
+                    sc = int(self.next().value)
+                self.expect_op(")")
+            try:
+                return dt.DecimalType(p, sc)
+            except TypeError as e:
+                raise SqlError(str(e)) from e
         raise SqlError(f"unknown type {name!r}")
 
 
@@ -2137,10 +2148,12 @@ class Analyzer:
     def _made(build, what: str):
         """``build()``, with what the port refuses when the plan is made
         (a regex, time zone, format or cast it cannot run: TypeError,
-        ValueError, or zoneinfo's KeyError / OSError) as SqlError."""
+        ValueError, zoneinfo's KeyError / OSError, or what waits for the
+        CPU fallback: NotImplementedError) as SqlError."""
         try:
             return build()
-        except (TypeError, ValueError, KeyError, OSError) as e:
+        except (TypeError, ValueError, KeyError, OSError,
+                NotImplementedError) as e:
             raise SqlError(f"{what}: {e}") from e
 
     def _lower_over(self, ast: OverA, scope) -> Expression:

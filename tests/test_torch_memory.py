@@ -641,6 +641,43 @@ def test_corrupted_disk_buffer_raises(fresh_port):
 
 
 @pytest.mark.parametrize("tier", ["host", "disk"])
+def test_decimal128_column_spills_bit_equal(tier, fresh_port):
+    """A SpillableBatch of a Decimal128Column (hi, lo and validity) and a
+    long-backed decimal comes back bit-equal from host and disk."""
+    import decimal
+    from spark_rapids_tpu_torch.columnar import dtypes as pdt
+    from spark_rapids_tpu_torch.columnar.decimal128 import (
+        Decimal128Column, from_unscaled_ints)
+    _fresh(PORT, fresh_port)
+    rng = np.random.default_rng(5)
+    wide = [None if v % 7 == 0 else int(v) * (1 << 64) + int(w) for v, w in
+            zip(rng.integers(-(1 << 62), 1 << 62, 300),
+                rng.integers(0, 1 << 63, 300))]
+    wide[:3] = [10 ** 38 - 1, -(10 ** 38 - 1), (1 << 64) - 1]
+    dcol = from_unscaled_ints(wide, 512, pdt.DecimalType(38, 6),
+                              device="cpu")
+    narrow = column_from_numpy(
+        np.array([decimal.Decimal(int(v)).scaleb(-2) for v in
+                  rng.integers(-10 ** 9, 10 ** 9, 300)], object), 512,
+        pdt.DecimalType(12, 2), device="cpu")
+    batch = ColumnarBatch([dcol, narrow], ["w", "m"], 300, "cpu")
+    sb = PORT.SpillableBatch(batch)
+    sb.spill_to_host()
+    if tier == "disk":
+        sb.spill_to_disk()
+    back = sb.get()
+    got = back.column("w")
+    assert isinstance(got, Decimal128Column) and \
+        got.dtype == pdt.DecimalType(38, 6)
+    for a, b in ((got.hi, dcol.hi), (got.lo, dcol.lo),
+                 (got.validity, dcol.validity),
+                 (back.column("m").data, narrow.data)):
+        assert torch.equal(a, b)
+    assert got.to_numpy(3)[0].tolist() == wide[:3]
+    sb.close()
+
+
+@pytest.mark.parametrize("tier", ["host", "disk"])
 def test_allocator_oom_while_unspilling_keeps_the_batch(tier, fresh_port,
                                                         monkeypatch):
     """A CUDA allocator failure in the copies back to the device leaves

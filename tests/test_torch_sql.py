@@ -68,7 +68,8 @@ def session():
 @pytest.mark.parametrize("text, what", [
     ("SELECT k, STDDEV_SAMP(v) OVER (PARTITION BY k) FROM t",
      "function 'stddev_samp'"),
-    ("SELECT CAST(v AS DECIMAL(10,2)) FROM t", "type decimal"),
+    ("SELECT CAST(CAST(v AS DECIMAL(30,2)) AS STRING) FROM t",
+     "CAST(decimal(30,2) AS string)"),
     ("SELECT get_json_object(s, '$.a') FROM t", "function 'get_json_object'"),
     ("SELECT from_json(s, 'a INT') FROM t", "function 'from_json'"),
     ("SELECT to_json(s) FROM t", "function 'to_json'"),

@@ -13,8 +13,7 @@ patch.
 Where the port departs from the JAX package, the case says how:
 - string min/max over a window raises NotImplementedError in the port
   (the JAX planner sends it to its CPU fallback; the port has none);
-- the port has no decimal type, so the decimal RANGE key case runs the
-  port over the same key values as DOUBLE against the JAX decimal run;
+- the decimal RANGE key case runs both packages over DECIMAL(10,2);
 - a ``Lag`` string default longer than both string buffers is held
   against plain Python (the JAX string select cuts it: condition C4 in
   ROADMAP.md).
@@ -434,10 +433,14 @@ def test_range_frame_inf_poisons_only_its_frames():
 
 
 def test_range_frame_key_values_as_double_match_jax_decimal(jax_side):
-    """The JAX case orders by DECIMAL(10,2); the port has no decimal
-    type and runs the same logical key values as DOUBLE."""
-    _, df = _port_df({"o": ([1.0, 2.5, 6.0, 7.25], "double"),
-                      "v": ([1, 10, 100, 1000], "bigint")})
+    """Both packages order by DECIMAL(10,2): the RANGE offsets are taken
+    to the key's fixed point."""
+    session = TpuSession(SrtConf(), device="cpu")
+    df = session.create_dataframe(
+        {"o": [decimal.Decimal("1.00"), decimal.Decimal("2.50"),
+               decimal.Decimal("6.00"), decimal.Decimal("7.25")],
+         "v": [1, 10, 100, 1000]},
+        [("o", dt.DecimalType(10, 2)), ("v", dt.INT64)])
     rows = _decimal_key_query(PORT, df).collect()
     assert {r["v"]: r["s"] for r in rows} == {1: 1, 10: 11, 100: 100,
                                              1000: 1100}
