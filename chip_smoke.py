@@ -32,16 +32,19 @@ Needs one NVIDIA GPU (built for an H100: sm_90a), nvcc and triton. It
    orders) and q3 through TpuSession: per query a checked run with the
    launch counts set to 0 just before and read just after, then three
    timed runs; each result is held against an independent numpy
-   computation over the same host data; for q3 it also logs each
-   operator's self time and, from one run under torch.profiler, the
-   device time by kernel and the device's idle share;
+   computation over the same host data (``tpch_references``, in a
+   ``host_worker`` process); for q3 it also logs each
+   operator's self time;
 5b. runs the scalar expression library (``scalar_queries``: string
    functions, LIKE and regexes, date fields and date arithmetic, a time
    zone (America/Los_Angeles, or +08:00 where the machine has no tz
    database, which it logs), integral arithmetic, math, hashes, casts
    and FIRST / LAST) through ``session.sql`` over the same TPC-H tables:
    per query a first run and one warm run, each held against numpy and
-   Python references over the host columns (``scalar_references``);
+   Python references over the host columns (``scalar_references``,
+   computed in a ``host_worker`` process: started with the smoke, it
+   generates the same host lanes from the same seeds and never touches
+   the card);
    B3 must run under s1, s2, s4 and s6, B1 on every lineitem batch of
    s7;
 5c. runs the DECIMAL type (``decimal_phase``): lineitem's l_quantity,
@@ -68,6 +71,23 @@ Needs one NVIDIA GPU (built for an H100: sm_90a), nvcc and triton. It
    store_sales rows, a ROWS running SUM (DECIMAL(17,2)) and a
    whole-partition AVG (DECIMAL(11,6)) per customer through two
    WindowExecs, held against numpy int64 scans on every row;
+5d. runs the nested types (``nested_phase``) over the same tables:
+   ``orders_nested`` (models/nested.py: lineitem stably sorted on
+   l_orderkey and cut into orders of 1-7 lines, five arrays of 60M
+   elements over about 15M orders) built on the host and moved to the
+   card through the flat host lanes in 1,048,576-row batches, and
+   ``orders_json`` (NESTED_JSON_ROWS documents of the first orders,
+   built in a second ``host_worker`` process);
+   N1-N7: posexplode of arrays_zip grouped by position (B3), the
+   lambdas and the fold (zip_with, aggregate, filter, exists, forall),
+   fifteen collection functions as checksums and one order range row by
+   row, the map functions, structs and explode_outer (B1 under its
+   global aggregate), get_json_object through ``session.sql`` grouped
+   by priority (B3), collect_list by the skewed l_orderkey; a first run
+   each with every B1 / B3 launch held and one warm run, against numpy
+   segment reductions over the sorted host lanes on a host thread and
+   Python's json in ``host_worker``; walls, elements/s, peak and
+   transient memory, the fold's steps;
 6. runs the NDS slice (``NDS_SLICE``, 20 star-join queries) as SQL
    text through ``session.sql`` over NDS tables generated in memory at
    ``scale_rows`` 28,800,000 (TPC-DS SF10's store_sales; q82 at
@@ -143,13 +163,14 @@ Needs one NVIDIA GPU (built for an H100: sm_90a), nvcc and triton. It
    version on the same inputs, one more launch per split; (d) the rate
    of one 1 GB SpillableBatch's device -> pinned host -> device copies
    beside the PCIe link's nominal rate;
-8. profiles one TPC-H q3, one decimal D1 (what the two-limb lanes cost
-   on the device) and one run of window (a), in core (torch.profiler:
-   device time by kernel and the device's idle share; no NDS query is
-   profiled, so that the smoke stays inside its time: a profiled NDS
-   run costs 40-70 s of profiler work, q47's about 150 s; profiles
-   last, because every profiler session slows the host's later
-   launches);
+8. logs TPC-H q3's operator self times and profiles one nested N2 (the
+   lambdas and the fold) and one run of window (a), in core
+   (torch.profiler: device time by kernel and the device's idle share).
+   The q3 and decimal D1 profiles are cut, and no NDS query is
+   profiled, so that the smoke stays inside its time: the profiler's
+   work grows with the run's launches (q3's 25-32 s, D1's about 37 s,
+   a profiled NDS run 40-70 s, q47's about 150 s). Profiles come last,
+   because every profiler session slows the host's later launches;
 9. prints one JSON line of kernel numbers, then
    {"ok": true, "device": {...}} as its last line.
 
@@ -2014,6 +2035,41 @@ class references_ahead:
         self.pool.shutdown(wait=True)
 
 
+class HostWorker:
+    """``host_worker(conn, *args)`` in a second process, spawned (it
+    shares no CUDA state and no interpreter lock with the smoke): it
+    sends its results one by one, and ``get(key)`` waits for one. A daemon, so that the
+    interpreter's exit stops it if ``close`` is never reached."""
+
+    def __init__(self, *args):
+        import multiprocessing
+        ctx = multiprocessing.get_context("spawn")
+        self.conn, child = ctx.Pipe(duplex=False)
+        self.proc = ctx.Process(target=host_worker, args=(child, *args),
+                                daemon=True)
+        self.proc.start()
+        child.close()
+        self.got = {}
+
+    def get(self, key, timeout=900):
+        while key not in self.got:
+            check(self.conn.poll(timeout), f"host worker: no {key} in "
+                  f"{timeout} s")
+            got, value = self.conn.recv()
+            check(got != "error", f"host worker failed:\n{value}")
+            self.got[got] = value
+        return self.got.pop(key)
+
+    def close(self):
+        if self.proc.is_alive():
+            self.proc.terminate()
+        self.proc.join(30)
+        if self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join()
+        self.conn.close()
+
+
 def run_nds(torch, dev, read_counts, session, q, text, ref, want_fn, warm,
             widest):
     """One NDS text through ``session.sql`` on the card: a first run and
@@ -2102,7 +2158,9 @@ def run_nds(torch, dev, read_counts, session, q, text, ref, want_fn, warm,
 def nds_phase(torch, np, dev, read_counts):
     """The NDS slice through ``session.sql`` on the card, each run held
     against NdsNumpy; returns ({query: numbers}, the SF10 session, its
-    reference)."""
+    reference, the widest batch B3 took, and the joins phase's numpy
+    references, started on a host thread of their own once the SF10
+    tables exist)."""
     from spark_rapids_tpu_torch.conf import SrtConf
     from spark_rapids_tpu_torch.models.nds import (NDS_QUERIES, NDS_SLICE,
                                                    NDS_WINDOW, register_nds)
@@ -2150,6 +2208,7 @@ def nds_phase(torch, np, dev, read_counts):
     items, big = ref.q82_join_rows()
     log(f"nds q82 at scale_rows {NDS_ROWS} would join {big} rows ({items} "
         f"items kept) before its GROUP BY: it runs at {NDS_Q82_ROWS}")
+    joins_ahead = references_ahead(joins_references(ref))
     order = [q for q in NDS_SLICE + NDS_WINDOW if q != "q82"]
     ahead = references_ahead([(q, getattr(ref, q)) for q in order])
     try:
@@ -2157,6 +2216,9 @@ def nds_phase(torch, np, dev, read_counts):
             report[q] = q82 if q == "q82" else run(q, session, ref, ahead)
         for q in NDS_WINDOW:
             report[q] = run(q, session, ref, ahead)
+    except BaseException:
+        joins_ahead.close()
+        raise
     finally:
         ahead.close()
     for q in NDS_B3_QUERIES:
@@ -2169,7 +2231,7 @@ def nds_phase(torch, np, dev, read_counts):
         | {"b3": r["launches"]["tile_group_reduce"],
            "b1": r["launches"]["tile_reduce"]}
         for q, r in report.items()}))
-    return report, session, ref, widest[0]
+    return report, session, ref, widest[0], joins_ahead
 
 
 def cross_check(torch, dev, read_counts, queries, scale, held=None):
@@ -2351,9 +2413,17 @@ def seg_sum_timing(torch, dev, session):
     return out
 
 
-def joins_setops_phase(torch, np, dev, session, ref, read_counts):
+def joins_references(ref):
+    """The joins phase's NdsNumpy references, in the order it asks."""
+    from spark_rapids_tpu_torch.models.nds import NDS_JOINS_SETOPS
+    return [(q, getattr(ref, q)) for q in NDS_JOINS_SETOPS
+            if q in JOINS_NUMPY] + [("q93_outer", ref.q93_outer)]
+
+
+def joins_setops_phase(torch, np, dev, session, ref, ahead, read_counts):
     """The NDS_JOINS_SETOPS queries on the SF10 session: JOINS_NUMPY and
-    Q93_OUTER a first run and WARM_RUNS warm runs held against NdsNumpy,
+    Q93_OUTER a first run and WARM_RUNS warm runs held against NdsNumpy
+    (``ahead``: ``joins_references`` on a host thread),
     the other ten a first run and JOINS_WARM_RUNS warm runs held against
     their own first run at SF10 and, at
     JOINS_CROSS_ROWS, the card's rows against the port's CPU run (the
@@ -2362,9 +2432,6 @@ def joins_setops_phase(torch, np, dev, session, ref, read_counts):
     ({query: numbers}, the widest batch B3 took)."""
     from spark_rapids_tpu_torch.models.nds import NDS_JOINS_SETOPS, NDS_QUERIES
     report, widest = {}, [None]
-    ahead = references_ahead(
-        [(q, getattr(ref, q)) for q in NDS_JOINS_SETOPS if q in JOINS_NUMPY]
-        + [("q93_outer", ref.q93_outer)])
     try:
         for q in NDS_JOINS_SETOPS:
             report[q] = run_nds(
@@ -2754,9 +2821,9 @@ def measured(torch, dev, session, run):
     return out, secs, resident, torch.cuda.max_memory_allocated(dev), memory
 
 
-def ooc_sort_phase(torch, np, dev, session, ref):
-    """(a) ORDER BY over all store_sales rows out of core at the default
-    row budget and in core, each held against numpy's stable sort."""
+def ooc_sort_reference(np, ref):
+    """numpy's stable sort of store_sales by OOC_SORT_KEYS: (rows, the
+    sorted key columns, the sorted ss_net_paid, seconds)."""
     cols = {c: ref.col("store_sales", c) for c in OOC_SORT_KEYS
             + ("ss_net_paid",)}
     t = time.perf_counter()
@@ -2766,9 +2833,18 @@ def ooc_sort_phase(torch, np, dev, session, ref):
     order = stable_order(np, keys)
     want = [(cols[c][0][order], cols[c][1][order]) for c in OOC_SORT_KEYS]
     paid, pok = cols["ss_net_paid"]
-    want_paid = (paid[order], pok[order])
-    log(f"memory (a): numpy's stable sort of {len(order)} rows in "
-        f"{time.perf_counter() - t:.1f} s")
+    return len(order), want, (paid[order], pok[order]), \
+        time.perf_counter() - t
+
+
+def ooc_sort_phase(torch, np, dev, session, ahead):
+    """(a) ORDER BY over all store_sales rows out of core at the default
+    row budget and in core, each held against numpy's stable sort
+    (``ooc_sort_reference``, on a host thread since the window phase)."""
+    t = time.perf_counter()
+    n_rows, want, want_paid, sort_s = ahead.get("ooc_sort")
+    log(f"memory (a): numpy's stable sort of {n_rows} rows in {sort_s:.1f} "
+        f"s on a host thread (waited {time.perf_counter() - t:.1f} s)")
     report = {}
     tables = {}
     for label, budget in (("out_of_core", OOC_ROW_BUDGET),
@@ -2792,7 +2868,7 @@ def ooc_sort_phase(torch, np, dev, session, ref):
                          "ooc_peak_rows": m.get("sortOocPeakRows", 0),
                          "output_batches": m.get("numOutputBatches", 0)}
         log(f"memory (a) {label} (oocRowBudget {budget}): matches numpy's "
-            f"stable sort on {len(order)} rows in {secs:.4f} s; transient peak "
+            f"stable sort on {n_rows} rows in {secs:.4f} s; transient peak "
             f"{(peak - resident) / 1e9:.3f} GB over {resident / 1e9:.3f} "
             f"GB resident; spilled {mem['spilledBytes']} bytes; merge carry "
             f"peak {report[label]['ooc_peak_rows']} rows")
@@ -3094,8 +3170,8 @@ def tables_equal(np, a, b):
     return True
 
 
-def memory_phase(torch, np, dev, nds, nds_ref, tpch_session, tpch_runs,
-                 window_run, window_want, read_counts):
+def memory_phase(torch, np, dev, nds, nds_ref, ooc_ahead, tpch_session,
+                 tpch_runs, window_run, window_want, read_counts):
     """The memory layer on the card: (a) the out-of-core sort, (b) queries
     under a cap below their uncapped peak, (c) injected OOMs with B1 and
     B3 held on every batch they take, split halves included, (d) the
@@ -3103,7 +3179,7 @@ def memory_phase(torch, np, dev, nds, nds_ref, tpch_session, tpch_runs,
     from spark_rapids_tpu_torch.models.nds import NDS_QUERIES
     from spark_rapids_tpu_torch.testing import compare_rows, order_keys
     t0 = time.perf_counter()
-    report = {"ooc_sort": ooc_sort_phase(torch, np, dev, nds, nds_ref)}
+    report = {"ooc_sort": ooc_sort_phase(torch, np, dev, nds, ooc_ahead)}
 
     def nds_query(session, q):
         df = session.sql(NDS_QUERIES[q])
@@ -3650,49 +3726,43 @@ def run_scalar(torch, dev, session, read_counts, name, text, must):
     return out, (text, df.columns, rows, again)
 
 
-def scalar_phase(torch, np, dev, session, dfs, host, read_counts):
+def scalar_zone():
+    """The zone the time-zone query converts through: SCALAR_ZONE, or
+    SCALAR_FIXED_ZONE where the machine has no tz database; and why."""
+    try:
+        import zoneinfo
+        zoneinfo.ZoneInfo(SCALAR_ZONE)
+    except (ImportError, KeyError, OSError) as e:  # no tz database
+        return SCALAR_FIXED_ZONE, (
+            f"zoneinfo cannot resolve {SCALAR_ZONE} on this machine "
+            f"({type(e).__name__}: {e}); the time-zone query uses the fixed "
+            f"offset {SCALAR_FIXED_ZONE}")
+    return SCALAR_ZONE, (f"zoneinfo resolves {SCALAR_ZONE} here; the "
+                         "time-zone query uses it")
+
+
+def scalar_phase(torch, np, dev, session, dfs, zone, worker, read_counts):
     """Phase 5b: scalar_queries through session.sql on the TPC-H tables
     already on the card (60M lineitem, 15M orders, 1.5M customer rows):
     a first run, with every B1 / B3 launch held against the plain
     version (``holding_launches``), and one warm run outside the hold,
-    each held against scalar_references; logs walls, the device memory
-    peak, each query's launches and its held B1 / B3 batches."""
+    each held against scalar_references (from ``worker``, a
+    ``host_worker`` process); logs walls, the device memory peak, each query's launches
+    and its held B1 / B3 batches."""
     from spark_rapids_tpu_torch.ops import device_kernels as DK
     from spark_rapids_tpu_torch.testing import compare_rows, order_keys
-    try:
-        import zoneinfo
-        zoneinfo.ZoneInfo(SCALAR_ZONE)
-        zone = SCALAR_ZONE
-    except (ImportError, KeyError, OSError) as e:  # no tz database
-        zone = SCALAR_FIXED_ZONE
-        log(f"scalar: zoneinfo cannot resolve {SCALAR_ZONE} on this machine "
-            f"({type(e).__name__}: {e}); the time-zone query uses the fixed "
-            f"offset {zone}")
-    else:
-        log(f"scalar: zoneinfo resolves {zone} here; the time-zone query "
-            "uses it")
     for name, df in dfs.items():
         session.create_or_replace_temp_view(name, df)
-    # the references on a host thread while the card runs the queries
-    t_ref = time.perf_counter()
-
-    def references():
-        out = scalar_references(np, host["lineitem"], host["orders"],
-                                host["customer"], zone)
-        return out, time.perf_counter() - t_ref
-    ahead = references_ahead([("scalar", references)])
     report, results = {}, {}
-    try:
-        for name, (text, must) in scalar_queries(zone).items():
-            report[name], results[name] = run_scalar(
-                torch, dev, session, read_counts, name, text, must)
-        t = time.perf_counter()
-        refs, ref_s = ahead.get("scalar")
-    finally:
-        ahead.close()
-    log(f"scalar: numpy / Python references in {ref_s:.1f} s on a host "
-        f"thread beside the queries (waited {time.perf_counter() - t:.1f} "
-        "s after them)")
+    for name, (text, must) in scalar_queries(zone).items():
+        report[name], results[name] = run_scalar(
+            torch, dev, session, read_counts, name, text, must)
+    t = time.perf_counter()
+    refs, lanes_s, ref_s, worker_s = worker.get("scalar")
+    log(f"scalar: numpy / Python references in {ref_s:.1f} s in a second "
+        f"process, after its host lanes ({lanes_s:.1f} s), ready "
+        f"{worker_s:.1f} s after it began (waited "
+        f"{time.perf_counter() - t:.1f} s after the queries)")
     for name, (text, columns, rows, again) in results.items():
         keys, limit = order_keys(text, columns)
         diff = compare_rows(rows, refs[name], keys, limit, RTOL)
@@ -4177,6 +4247,393 @@ def decimal_window_phase(torch, np, dev, session, read_counts, ahead):
     return report
 
 
+def profiled(torch, label, run):
+    """One run under torch.profiler: its device time by kernel and
+    the device's idle share; returns the run's rows."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    # the device's activity only: the host's op events are not
+    # read here, and the profiler works through every event it
+    # holds once the run ends
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        rows = run()
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t
+    kernel_us = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            kernel_us[e.key] = kernel_us.get(e.key, 0.0) + us
+    busy = sum(kernel_us.values()) / 1e6
+    if busy > 0:
+        log(f"{label} profiled run: wall {prof_wall:.4f} s (profiler "
+            f"on), device kernels {busy:.4f} s over {len(kernel_us)} "
+            f"kernel names, idle share {1 - busy / prof_wall:.3f}")
+        for name, us in sorted(kernel_us.items(),
+                               key=lambda kv: -kv[1])[:12]:
+            log(f"  {label} kernel {us / 1e3:9.3f} ms "
+                f"{us / 1e4 / busy:5.1f}%  {name[:110]}")
+    else:
+        log(f"{label} profiled run: the profiler recorded no device "
+            "time")
+    return rows
+
+
+# --- phase 5d: nested types, higher-order functions, JSON -----------------
+
+#: orders_json's documents: the first 4,194,304 orders (a Python
+#: f-string a document takes about 5 us on a host core, so all 15M would
+#: take about 75 s to build, past the 60 s this phase allows it)
+NESTED_JSON_ROWS = 1 << 22
+#: rows per orders_json batch: the JSON scan keeps about ten int64 lanes
+#: per byte on the card while a batch runs
+NESTED_JSON_BATCH = 1 << 18
+
+
+def nested_host_tables(np, host):
+    """lineitem and orders as the port's host tables, over the host
+    lanes main keeps (no copy)."""
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.plan.host_table import HostColumn, HostTable
+    li, od = host["lineitem"], host["orders"]
+
+    def table(cols):
+        return HostTable([HostColumn(v, np.ones(len(v), bool), t)
+                          for _, (v, t) in cols.items()], list(cols))
+    return table({"l_orderkey": (li["okey"], dt.INT64),
+                  "l_quantity": (li["qty"], dt.FLOAT64),
+                  "l_extendedprice": (li["price"], dt.FLOAT64),
+                  "l_discount": (li["disc"], dt.FLOAT64),
+                  "l_shipdate": (li["ship"], dt.DATE),
+                  "l_returnflag": (li["rf"], dt.STRING)}), \
+        table({"o_totalprice": (od["total"], dt.FLOAT64),
+               "o_orderpriority": (od["prio"], dt.STRING)})
+
+
+def nested_same(got, want):
+    """A result row against its reference: floats to RTOL, NaN equal."""
+    if isinstance(want, dict):
+        return isinstance(got, dict) and got.keys() == want.keys() and all(
+            nested_same(got[k], want[k]) for k in want)
+    if isinstance(want, (list, tuple)):
+        return isinstance(got, (list, tuple)) and len(got) == len(want) \
+            and all(nested_same(g, w) for g, w in zip(got, want))
+    if isinstance(want, float) and isinstance(got, float):
+        return (got != got and want != want) or \
+            abs(got - want) <= RTOL * abs(want)
+    return got == want
+
+
+def nested_phase(torch, np, dev, session, li_df, host, worker, read_counts):
+    """Phase 5d: ``orders_nested`` (lineitem stably sorted on l_orderkey
+    and cut into orders of 1-7 lines: 60M elements in each of five
+    arrays over about 15M orders) built on the host and moved to the card
+    through the flat host lanes in 1,048,576-row batches, and
+    ``orders_json`` (NESTED_JSON_ROWS documents, from ``worker``); N1-N7
+    of models/nested.py, each a first run with every B1 / B3 launch held
+    and one warm run, held against numpy segment reductions over the
+    sorted host lanes, computed on a host thread beside the queries (N6
+    against Python's json, in ``worker``). Returns (report, N2's run, N2's
+    reference, the resident DataFrames' batches) for phase 8's profile."""
+    from spark_rapids_tpu_torch.expr import higher_order as HO
+    from spark_rapids_tpu_torch.models import nested as NM
+    from spark_rapids_tpu_torch.ops import device_kernels as DK
+    from spark_rapids_tpu_torch.plan.host_table import table_to_batch
+    t0 = time.perf_counter()
+    li_t, _ = nested_host_tables(np, host)
+    no = NM.NestedOrders(li_t)
+    nt = no.table()
+    build_s = time.perf_counter() - t0
+    # the numpy references on one host thread from here
+    ahead = references_ahead([
+        ("nested", lambda: NM.references(no, li_t)),
+        ("n3_rows", lambda: NM.n3_rows_reference(no))])
+    try:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        t = time.perf_counter()
+        on_batches = [table_to_batch(nt.slice(s, s + BATCH_ROWS),
+                                     device=dev)
+                      for s in range(0, no.n, BATCH_ROWS)]
+        torch.cuda.synchronize()
+        move_s = time.perf_counter() - t
+        nested_gb = (torch.cuda.memory_allocated(dev) - before) / 1e9
+        log(f"nested: orders_nested {no.n} orders, {len(no.row)} elements "
+            f"in each of price / disc / qty / ship / flags (longest "
+            f"{int(no.lens.max())}, one price array in "
+            f"{NM.NULL_PRICE_EVERY} NULL); host build {build_s:.1f} s, "
+            f"moved in {move_s:.1f} s as {len(on_batches)} batches, "
+            f"{nested_gb:.3f} GB on the card")
+        t = time.perf_counter()
+        (jt, n_orders), _, docs_s, _ = worker.get("orders_json")
+        check(n_orders == no.n, f"nested: a second process made "
+              f"{n_orders} orders, this one {no.n}")
+        n_docs = len(jt.columns[0])
+        doc_bytes = int(jt.columns[0].values.offsets[-1])
+        wait_s = time.perf_counter() - t
+        before = torch.cuda.memory_allocated(dev)
+        json_batches = [table_to_batch(jt.slice(s, s + NESTED_JSON_BATCH),
+                                       device=dev)
+                        for s in range(0, n_docs, NESTED_JSON_BATCH)]
+        torch.cuda.synchronize()
+        log(f"nested: orders_json {n_docs} documents of the first orders "
+            f"(cut from {no.n}: their build would pass the 60 s allowed), "
+            f"{doc_bytes} bytes (longest "
+            f"{int(jt.columns[0].values.lengths().max())}), "
+            f"built in {docs_s:.1f} s in a second process (waited "
+            f"{wait_s:.1f} s), "
+            f"{(torch.cuda.memory_allocated(dev) - before) / 1e9:.3f} GB on "
+            f"the card in {len(json_batches)} batches")
+        del jt
+        on = session.from_batches(on_batches)
+        session.create_or_replace_temp_view(
+            "orders_json", session.from_batches(json_batches))
+        queries = NM.queries(NM.port_api(), on, li_df)
+        runs = {k: (lambda q=q: q.collect()) for k, q in queries.items()}
+        runs["N6"] = lambda: session.sql(NM.N6_SQL).collect()
+        elements = {"N6": n_docs, "N7": len(li_t.columns[0])}
+        report, results = {}, {}
+        for name, run in runs.items():
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            DK.reset_counts()
+            HO.FOLD_STEPS["steps"] = 0
+            with holding_launches(torch, DK) as hold:
+                t = time.perf_counter()
+                rows = run()
+                torch.cuda.synchronize()
+                first = time.perf_counter() - t
+            counts = read_counts()
+            check_held(hold, counts, f"nested {name}")
+            steps = HO.FOLD_STEPS["steps"]
+            if name in ("N1", "N6"):
+                check(counts["tile_group_reduce"] > 0,
+                      f"nested {name}: B3 did not run ({counts})")
+            DK.reset_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            again = run()
+            torch.cuda.synchronize()
+            warm = time.perf_counter() - t
+            check(read_counts() == counts, f"nested {name}: the warm run "
+                  f"launched {read_counts()}, the first {counts}")
+            peak = torch.cuda.max_memory_allocated(dev)
+            n_el = elements.get(name, len(no.row))
+            report[name] = {
+                "first_s": first, "warm_s": warm,
+                "elements_per_s": n_el / warm, "peak_gb": peak / 1e9,
+                "transient_gb": (peak - resident) / 1e9,
+                "launches": counts, "fold_steps": steps,
+                "held": dict(hold.held), "max_abs_err": dict(hold.err)}
+            results[name] = (rows, again)
+            log(f"nested {name}: first {first:.4f} s (B1 / B3 held), warm "
+                f"{warm:.4f} s, {n_el / warm:.4e} "
+                f"{'documents' if name == 'N6' else 'elements'}/s; launches "
+                f"{counts}" + (f"; aggregate fold steps {steps}" if steps
+                               else "") + f"; peak {peak / 1e9:.3f} GB, "
+                f"transient {(peak - resident) / 1e9:.3f} GB")
+        t = time.perf_counter()
+        refs = ahead.get("nested")
+        n3_rows = ahead.get("n3_rows")
+        n6, _, n6_s, _ = worker.get("n6")
+        log(f"nested: references waited {time.perf_counter() - t:.1f} s "
+            f"after the queries (N6's json in {n6_s:.1f} s in a second "
+            "process)")
+    finally:
+        ahead.close()
+    for name, (rows, again) in results.items():
+        if name == "N6":
+            want = n6
+            for r in (rows, again):
+                got = {x["prio"]: (x["total"], x["p1"], x["notes"], x["n"])
+                       for x in r}
+                check(got.keys() == want.keys() and all(
+                    nested_same(list(got[k]), list(want[k])) for k in want),
+                    f"nested N6: {got} != json {want}")
+        elif name == "N3_rows":
+            check(rows == n3_rows and again == n3_rows,
+                  f"nested N3_rows: {rows[:2]} != {n3_rows[:2]}")
+        elif name == "N1":
+            for r in (rows, again):
+                got = {x["pos"]: (x["rev"], x["n"]) for x in r}
+                check(nested_same(got, {k: v for k, v in
+                                        refs["N1"].items()}),
+                      f"nested N1: {got} != numpy {refs['N1']}")
+        else:
+            for r in (rows, again):
+                check(len(r) == 1 and nested_same(r[0], refs[name]),
+                      f"nested {name}: {r} != numpy {refs[name]}")
+        log(f"nested {name}: first and warm runs match the "
+            f"{'json' if name == 'N6' else 'numpy'} reference")
+    log("nested summary " + json.dumps({q: {
+        k: r[k] for k in ("first_s", "warm_s", "elements_per_s", "peak_gb",
+                          "transient_gb", "fold_steps")}
+        | {"b1": r["launches"]["tile_reduce"],
+           "b3": r["launches"]["tile_group_reduce"]}
+        for q, r in report.items()}))
+    return report, runs["N2"], refs["N2"], (on_batches, json_batches)
+
+
+def tpch_references(np, li, od, cu):
+    """numpy over the TPC-H host lanes: (q6, q1, the lineitem and orders
+    string aggregates, q3's top 10, the lineitem rows q3 joins)."""
+    def numpy_q6():
+        m = ((li["ship"] >= days(1994, 1, 1)) & (li["ship"] < days(1995, 1, 1))
+             & (li["disc"] >= 0.05) & (li["disc"] <= 0.07)
+             & (li["qty"] < 24.0))
+        return [{"revenue": float(np.sum(li["price"][m] * li["disc"][m]))}]
+
+    def numpy_q1():
+        m = li["ship"] <= days(1998, 9, 2)
+        rf = li["rf"].chars[li["rf"].offsets[:-1]]
+        ls = li["ls"].chars[li["ls"].offsets[:-1]]
+        code = rf[m].astype(np.int64) * 256 + ls[m]
+        keys, g = np.unique(code, return_inverse=True)
+        price, disc = li["price"][m], li["disc"][m]
+        qty, tax = li["qty"][m], li["tax"][m]
+        disc_price = price * (1.0 - disc)
+
+        def s(w):
+            return np.bincount(g, weights=w, minlength=len(keys))
+        cnt = np.bincount(g, minlength=len(keys))
+        sums = {"sum_qty": s(qty), "sum_base_price": s(price),
+                "sum_disc_price": s(disc_price),
+                "sum_charge": s(disc_price * (1.0 + tax))}
+        rows = []
+        for i, k in enumerate(keys):
+            r = {"l_returnflag": chr(k // 256), "l_linestatus": chr(k % 256)}
+            r.update({n: float(v[i]) for n, v in sums.items()})
+            r["avg_qty"] = float(s(qty)[i] / cnt[i])
+            r["avg_price"] = float(s(price)[i] / cnt[i])
+            r["avg_disc"] = float(s(disc)[i] / cnt[i])
+            r["count_order"] = int(cnt[i])
+            rows.append(r)
+        return rows
+
+    def numpy_li_str():
+        m = ((host_match(np, li["rf"], b"A") | host_match(np, li["rf"], b"R"))
+             & host_match(np, li["ls"], b"F")
+             & (li["ship"] >= days(1994, 1, 1))
+             & (li["ship"] < days(1995, 1, 1)))
+        return [{"revenue": float(np.sum(li["price"][m] * li["disc"][m])),
+                 "n": int(m.sum())}]
+
+    def numpy_ord_str():
+        m = ((host_match(np, od["prio"], b"1-", prefix=True)
+              | host_match(np, od["prio"], b"2-HIGH"))
+             & (od["odate"] < days(1995, 3, 15)))
+        return [{"total": float(np.sum(od["total"][m])), "n": int(m.sum())}]
+
+    def numpy_q3():
+        cutoff = days(1995, 3, 15)
+        ckeys = np.sort(cu["ckey"][host_match(np, cu["seg"], b"BUILDING")])
+        om = od["odate"] < cutoff
+        okey, ockey, odate = od["okey"][om], od["ckey"][om], od["odate"][om]
+        at = np.minimum(np.searchsorted(ckeys, ockey), max(len(ckeys) - 1, 0))
+        hit = ckeys[at] == ockey          # c_custkey is unique
+        okey, odate = okey[hit], odate[hit]
+        order = np.argsort(okey, kind="stable")
+        okey, odate = okey[order], odate[order]
+        lm = li["ship"] > cutoff
+        lkey = li["okey"][lm]
+        rev = li["price"][lm] * (1.0 - li["disc"][lm])
+        at = np.minimum(np.searchsorted(okey, lkey), max(len(okey) - 1, 0))
+        hit = okey[at] == lkey            # o_orderkey is unique
+        groups, g = np.unique(lkey[hit], return_inverse=True)
+        sums = np.bincount(g, weights=rev[hit], minlength=len(groups))
+        gdate = odate[np.searchsorted(okey, groups)]
+        top = np.argsort(-sums, kind="stable")[:10]
+        epoch = datetime.date(1970, 1, 1)
+        return [{"o_orderkey": int(groups[i]),
+                 "o_orderdate": epoch + datetime.timedelta(days=int(gdate[i])),
+                 "revenue": float(sums[i])} for i in top], int(hit.sum())
+
+    return (numpy_q6(), numpy_q1(), numpy_li_str(), numpy_ord_str(),
+            *numpy_q3())
+
+
+#: the TPC-H host lanes main keeps beside the batches on the card:
+#: {table: {key: column}} of numeric lanes, then of strings
+HOST_COLS = {
+    "lineitem": {"qty": "l_quantity", "price": "l_extendedprice",
+                 "disc": "l_discount", "tax": "l_tax", "ship": "l_shipdate",
+                 "okey": "l_orderkey", "pkey": "l_partkey"},
+    "orders": {"okey": "o_orderkey", "ckey": "o_custkey",
+               "total": "o_totalprice", "odate": "o_orderdate"},
+    "customer": {"ckey": "c_custkey"}}
+HOST_STRS = {"lineitem": {"rf": "l_returnflag", "ls": "l_linestatus"},
+             "orders": {"prio": "o_orderpriority"},
+             "customer": {"seg": "c_mktsegment"}}
+
+
+def tpch_host_lanes(np, on_chunk=None):
+    """lineitem (ROWS), orders and customer generated chunk by chunk:
+    {table: {key: lane}} after HOST_COLS and HOST_STRS; each chunk also
+    goes to ``on_chunk(table, chunk)``."""
+    from spark_rapids_tpu_torch.datagen import generate_chunk
+    from spark_rapids_tpu_torch.models import tpch
+    host = {}
+    for spec in tpch.tpch_table_specs(ROWS):
+        name = spec.name
+        cols = {**HOST_COLS[name], **HOST_STRS[name]}
+        lanes = {k: [] for k in cols}
+        for c in range(-(-spec.num_rows // BATCH_ROWS)):
+            chunk = generate_chunk(spec, c, BATCH_ROWS)
+            for key, cname in cols.items():
+                lanes[key].append(chunk.column(cname).values)
+            if on_chunk is not None:
+                on_chunk(name, chunk)
+        host[name] = {k: (np.concatenate(v) if k in HOST_COLS[name]
+                          else type(v[0]).concat(v))
+                      for k, v in lanes.items()}
+    return host
+
+
+def host_worker(conn, jobs, zone, n_docs):
+    """A second process's work: the TPC-H host lanes generated from the
+    seeds main uses, then ``jobs`` in order, each sent as (job, (result,
+    the lanes' seconds, the job's seconds, seconds since the process
+    began)): "tpch" (``tpch_references``), "scalar"
+    (``scalar_references``), "orders_json" (``orders_json``'s first
+    ``n_docs`` documents as a host table, and the number of orders) and
+    "n6" (N6's json reference over them). It hides the card, and sends
+    ("error", traceback) if it fails."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    try:
+        import numpy as np
+
+        from spark_rapids_tpu_torch.models import nested as NM
+        t0 = time.perf_counter()
+        host = tpch_host_lanes(np)
+        lanes_s = time.perf_counter() - t0
+        li, od, cu = host["lineitem"], host["orders"], host["customer"]
+        for job in jobs:
+            t = time.perf_counter()
+            if job == "tpch":
+                out = tpch_references(np, li, od, cu)
+            elif job == "scalar":
+                out = scalar_references(np, li, od, cu, zone)
+            elif job == "orders_json":
+                li_t, od_t = nested_host_tables(np, host)
+                no = NM.NestedOrders(li_t)
+                docs = NM.json_docs(no, od_t, min(n_docs, no.n))
+                out = NM.json_table(docs), no.n
+                del li_t, od_t, no
+            else:
+                out = NM.json_reference(docs)
+            conn.send((job, (out, lanes_s, time.perf_counter() - t,
+                             time.perf_counter() - t0)))
+    except BaseException:
+        import traceback
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
 def main():
     # the allocator setting the port asks for where queries spill under
     # a memory cap (README; a budget on the card warns without it): the
@@ -4212,6 +4669,12 @@ def main():
                          text=True, check=True)
     # on a line of its own, as nvidia-smi gives it
     print(smi.stdout.strip().splitlines()[0], flush=True)
+    # two more processes, each on its own host core: the TPC-H and
+    # scalar references, and orders_json's documents with N6's
+    # reference, ahead of the phases that read them
+    zone, zone_why = scalar_zone()
+    refs_worker = HostWorker(("tpch", "scalar"), zone, NESTED_JSON_ROWS)
+    json_worker = HostWorker(("orders_json", "n6"), zone, NESTED_JSON_ROWS)
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4240,33 +4703,9 @@ def main():
 
     # --- data: three tables, chunk by chunk onto the card --------------------
     t0 = time.perf_counter()
-    host = {}
-    host_cols = {
-        "lineitem": {"qty": "l_quantity", "price": "l_extendedprice",
-                     "disc": "l_discount", "tax": "l_tax",
-                     "ship": "l_shipdate", "okey": "l_orderkey",
-                     "pkey": "l_partkey"},
-        "orders": {"okey": "o_orderkey", "ckey": "o_custkey",
-                   "total": "o_totalprice", "odate": "o_orderdate"},
-        "customer": {"ckey": "c_custkey"}}
-    host_strs = {"lineitem": {"rf": "l_returnflag", "ls": "l_linestatus"},
-                 "orders": {"prio": "o_orderpriority"},
-                 "customer": {"seg": "c_mktsegment"}}
-    batches = {}
-    for spec in tpch.tpch_table_specs(ROWS):
-        name = spec.name
-        lanes = {k: [] for k in list(host_cols[name]) + list(host_strs[name])}
-        batches[name] = []
-        for c in range(-(-spec.num_rows // BATCH_ROWS)):
-            chunk = generate_chunk(spec, c, BATCH_ROWS)
-            for key, cname in host_cols[name].items():
-                lanes[key].append(chunk.column(cname).values)
-            for key, cname in host_strs[name].items():
-                lanes[key].append(chunk.column(cname).values)
-            batches[name].append(table_to_batch(chunk, device=dev))
-        host[name] = {k: (np.concatenate(v) if k in host_cols[name]
-                          else type(v[0]).concat(v))
-                      for k, v in lanes.items()}
+    batches = {n: [] for n in HOST_COLS}
+    host = tpch_host_lanes(np, lambda name, chunk: batches[name].append(
+        table_to_batch(chunk, device=dev)))
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     resident = torch.cuda.memory_allocated(dev)
@@ -4524,78 +4963,6 @@ def main():
         f" resolved {ok_gpu}) on the card equal the CPU's")
     del cpu_b0, cpu_cols, cpu_ob0, pre_gpu, pre_cpu
 
-    # --- numpy references ----------------------------------------------------
-    def numpy_q6():
-        m = ((li["ship"] >= days(1994, 1, 1)) & (li["ship"] < days(1995, 1, 1))
-             & (li["disc"] >= 0.05) & (li["disc"] <= 0.07)
-             & (li["qty"] < 24.0))
-        return [{"revenue": float(np.sum(li["price"][m] * li["disc"][m]))}]
-
-    def numpy_q1():
-        m = li["ship"] <= days(1998, 9, 2)
-        rf = li["rf"].chars[li["rf"].offsets[:-1]]
-        ls = li["ls"].chars[li["ls"].offsets[:-1]]
-        code = rf[m].astype(np.int64) * 256 + ls[m]
-        keys, g = np.unique(code, return_inverse=True)
-        price, disc = li["price"][m], li["disc"][m]
-        qty, tax = li["qty"][m], li["tax"][m]
-        disc_price = price * (1.0 - disc)
-
-        def s(w):
-            return np.bincount(g, weights=w, minlength=len(keys))
-        cnt = np.bincount(g, minlength=len(keys))
-        sums = {"sum_qty": s(qty), "sum_base_price": s(price),
-                "sum_disc_price": s(disc_price),
-                "sum_charge": s(disc_price * (1.0 + tax))}
-        rows = []
-        for i, k in enumerate(keys):
-            r = {"l_returnflag": chr(k // 256), "l_linestatus": chr(k % 256)}
-            r.update({n: float(v[i]) for n, v in sums.items()})
-            r["avg_qty"] = float(s(qty)[i] / cnt[i])
-            r["avg_price"] = float(s(price)[i] / cnt[i])
-            r["avg_disc"] = float(s(disc)[i] / cnt[i])
-            r["count_order"] = int(cnt[i])
-            rows.append(r)
-        return rows
-
-    def numpy_li_str():
-        m = ((host_match(np, li["rf"], b"A") | host_match(np, li["rf"], b"R"))
-             & host_match(np, li["ls"], b"F")
-             & (li["ship"] >= days(1994, 1, 1))
-             & (li["ship"] < days(1995, 1, 1)))
-        return [{"revenue": float(np.sum(li["price"][m] * li["disc"][m])),
-                 "n": int(m.sum())}]
-
-    def numpy_ord_str():
-        m = ((host_match(np, od["prio"], b"1-", prefix=True)
-              | host_match(np, od["prio"], b"2-HIGH"))
-             & (od["odate"] < days(1995, 3, 15)))
-        return [{"total": float(np.sum(od["total"][m])), "n": int(m.sum())}]
-
-    def numpy_q3():
-        cutoff = days(1995, 3, 15)
-        ckeys = np.sort(cu["ckey"][host_match(np, cu["seg"], b"BUILDING")])
-        om = od["odate"] < cutoff
-        okey, ockey, odate = od["okey"][om], od["ckey"][om], od["odate"][om]
-        at = np.minimum(np.searchsorted(ckeys, ockey), max(len(ckeys) - 1, 0))
-        hit = ckeys[at] == ockey          # c_custkey is unique
-        okey, odate = okey[hit], odate[hit]
-        order = np.argsort(okey, kind="stable")
-        okey, odate = okey[order], odate[order]
-        lm = li["ship"] > cutoff
-        lkey = li["okey"][lm]
-        rev = li["price"][lm] * (1.0 - li["disc"][lm])
-        at = np.minimum(np.searchsorted(okey, lkey), max(len(okey) - 1, 0))
-        hit = okey[at] == lkey            # o_orderkey is unique
-        groups, g = np.unique(lkey[hit], return_inverse=True)
-        sums = np.bincount(g, weights=rev[hit], minlength=len(groups))
-        gdate = odate[np.searchsorted(okey, groups)]
-        top = np.argsort(-sums, kind="stable")[:10]
-        epoch = datetime.date(1970, 1, 1)
-        return [{"o_orderkey": int(groups[i]),
-                 "o_orderdate": epoch + datetime.timedelta(days=int(gdate[i])),
-                 "revenue": float(sums[i])} for i in top], int(hit.sum())
-
     def same_rows(got, ref):
         if len(got) != len(ref):
             return False
@@ -4611,10 +4978,10 @@ def main():
         return True
 
     t = time.perf_counter()
-    ref6, ref1 = numpy_q6(), numpy_q1()
-    ref_li, ref_od = numpy_li_str(), numpy_ord_str()
-    ref3, q3_pairs = numpy_q3()
-    log(f"numpy reference: {time.perf_counter() - t:.1f} s; q1 groups "
+    (ref6, ref1, ref_li, ref_od, ref3, q3_pairs), _, ref_s, _ = \
+        refs_worker.get("tpch")
+    log(f"numpy reference: {ref_s:.1f} s in a second process (waited "
+        f"{time.perf_counter() - t:.1f} s); q1 groups "
         f"{[(r['l_returnflag'], r['l_linestatus']) for r in ref1]}; q3 "
         f"joins {q3_pairs} lineitem rows; q3 top order keys "
         f"{[r['o_orderkey'] for r in ref3]}")
@@ -4704,7 +5071,10 @@ def main():
     # the decimal phase's exact references start on their own host thread
     decimal_ahead = references_ahead([("decimal", lambda: decimal_references(
         np, li, od, cu))])
-    scalar = scalar_phase(torch, np, dev, session, dfs, host, read_counts)
+    log(f"scalar: {zone_why}")
+    scalar = scalar_phase(torch, np, dev, session, dfs, zone, refs_worker,
+                          read_counts)
+    refs_worker.close()
 
     # --- phase 5c: TPC-H over DECIMAL(12,2) money -----------------------------
     try:
@@ -4713,9 +5083,14 @@ def main():
     finally:
         decimal_ahead.close()
 
+    # --- phase 5d: nested types, higher-order functions, JSON ---------------
+    nested, run_n2, ref_n2, nested_batches = nested_phase(
+        torch, np, dev, session, df, host, json_worker, read_counts)
+    json_worker.close()
+
     # --- NDS: the star-join slice through session.sql -------------------------
-    nds, nds_session, nds_ref, nds_widest = nds_phase(torch, np, dev,
-                                                      read_counts)
+    nds, nds_session, nds_ref, nds_widest, joins_ahead = nds_phase(
+        torch, np, dev, read_counts)
     rows_n, groups_n, gid_n, lanes_n, q_n = nds_widest
     b3_nds = hold_b3(f"nds {q_n} widest, {rows_n} rows", gid_n, lanes_n,
                      groups_n, library=True)
@@ -4727,13 +5102,18 @@ def main():
         [("windows", lambda: numpy_windows(np, nds_ref))])
     d5_ahead = references_ahead(
         [("d5", lambda: decimal_window_reference(np, nds_ref))])
+    # memory phase (a)'s stable sort of store_sales, from here on its own
+    # host thread too
+    ooc_ahead = references_ahead(
+        [("ooc_sort", lambda: ooc_sort_reference(np, nds_ref))])
 
     # --- the float group sums alone, at q12's and q98's widest batch --------
     seg_sum_timing(torch, dev, nds_session)
 
     # --- outer, keyless and nested-loop joins, set operations -------------
     joins, joins_widest = joins_setops_phase(torch, np, dev, nds_session,
-                                             nds_ref, read_counts)
+                                             nds_ref, joins_ahead,
+                                             read_counts)
     rows_j, groups_j, gid_j, lanes_j, q_j = joins_widest
     b3_joins = hold_b3(f"nds {q_j} widest, {rows_j} rows", gid_j, lanes_j,
                        groups_j, library=True)
@@ -4759,15 +5139,18 @@ def main():
     # --- memory: out-of-core sort, caps, injected OOM, spill rate ----------
     def runs_of(make, ref, kernel):
         return (lambda: make().collect()), ref, kernel, same_rows
-    memory, memory_launches = memory_phase(
-        torch, np, dev, nds_session, nds_ref, session, {
-            "q1": runs_of(lambda: tpch.q1(df), ref1, "tile_group_reduce"),
-            "q6": runs_of(lambda: tpch.q6(df), ref6, "tile_reduce"),
-            "strings_lineitem": runs_of(lambda: li_str(df), ref_li,
-                                        "tile_reduce"),
-            "q3": runs_of(lambda: tpch.q3(dfs["customer"], dfs["orders"],
-                                          df), ref3, None)},
-        window_runs["a_running"], window_want, read_counts)
+    try:
+        memory, memory_launches = memory_phase(
+            torch, np, dev, nds_session, nds_ref, ooc_ahead, session, {
+                "q1": runs_of(lambda: tpch.q1(df), ref1, "tile_group_reduce"),
+                "q6": runs_of(lambda: tpch.q6(df), ref6, "tile_reduce"),
+                "strings_lineitem": runs_of(lambda: li_str(df), ref_li,
+                                            "tile_reduce"),
+                "q3": runs_of(lambda: tpch.q3(dfs["customer"], dfs["orders"],
+                                              df), ref3, None)},
+            window_runs["a_running"], window_want, read_counts)
+    finally:
+        ooc_ahead.close()
 
     # --- where q3's time goes ------------------------------------------------
     physical, ctx = q3_last
@@ -4775,53 +5158,17 @@ def main():
     log("q3 operator self time (host clock, ms, last timed run): " + ", ".join(
         f"{k} {v:.1f}" for k, v in sorted(self_ms.items(),
                                           key=lambda kv: -kv[1])))
-    def profiled(label, run):
-        """One run under torch.profiler: its device time by kernel and
-        the device's idle share; returns the run's rows."""
-        from torch.profiler import ProfilerActivity, profile
-        torch.cuda.synchronize()
-        # the device's activity only: the host's op events are not
-        # read here, and the profiler works through every event it
-        # holds once the run ends
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            rows = run()
-            torch.cuda.synchronize()
-            prof_wall = time.perf_counter() - t
-        kernel_us = {}
-        for e in prof.key_averages():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                us = getattr(e, "self_device_time_total", None)
-                if us is None:
-                    us = e.self_cuda_time_total
-                kernel_us[e.key] = kernel_us.get(e.key, 0.0) + us
-        busy = sum(kernel_us.values()) / 1e6
-        if busy > 0:
-            log(f"{label} profiled run: wall {prof_wall:.4f} s (profiler "
-                f"on), device kernels {busy:.4f} s over {len(kernel_us)} "
-                f"kernel names, idle share {1 - busy / prof_wall:.3f}")
-            for name, us in sorted(kernel_us.items(),
-                                   key=lambda kv: -kv[1])[:12]:
-                log(f"  {label} kernel {us / 1e3:9.3f} ms "
-                    f"{us / 1e4 / busy:5.1f}%  {name[:110]}")
-        else:
-            log(f"{label} profiled run: the profiler recorded no device "
-                "time")
-        return rows
-
-    rows = profiled("q3", lambda: tpch.q3(dfs["customer"], dfs["orders"],
-                                          df).collect())
-    check(same_rows(rows, ref3), "q3: profiled run disagrees")
-    # decimal q1 (D1): what the two-limb lanes cost on the device
-    rows = profiled("decimal d1_q1", run_d1)
-    check(same_decimal_rows(rows, ref_d1), "decimal d1_q1: profiled run "
-          "disagrees")
-    del dec_session, run_d1
+    # nested N2 (the lambdas and the fold): device time by kernel; the
+    # q3 and decimal D1 profiles are cut to keep the smoke in its time
+    rows = profiled(torch, "nested N2", run_n2)
+    check(len(rows) == 1 and nested_same(rows[0], ref_n2),
+          "nested N2: profiled run disagrees")
+    del dec_session, run_d1, ref_d1, run_n2, nested_batches
     # window (a) profiled in core: its window and sort without the
     # out-of-core merge, whose time memory phase (a) logs
     with memory_conf(torch, dev, nds_session,
                      {"srt.sql.sort.oocRowBudget": IN_CORE_ROW_BUDGET}):
-        table = profiled("window a_running (in core)",
+        table = profiled(torch, "window a_running (in core)",
                          window_runs["a_running"])
     same_columns(np, table, window_want["a_running"],
                  "window a_running (profiled)")
@@ -4840,11 +5187,14 @@ def main():
          "launches": launches["q6"]["tile_reduce"]
          + sum(r["launches"]["tile_reduce"]
                for r in (*nds.values(), *joins.values(), *subq.values(),
-                         *scalar.values()))
+                         *scalar.values(), *nested.values()))
          + memory_launches["tile_reduce"]
          - memory_launches["tile_reduce_str"],
          "scalar_launches": {q: r["launches"]["tile_reduce"]
                              for q, r in scalar.items()
+                             if r["launches"]["tile_reduce"]},
+         "nested_launches": {q: r["launches"]["tile_reduce"]
+                             for q, r in nested.items()
                              if r["launches"]["tile_reduce"]},
          "memory_launches": memory_launches["tile_reduce"]
          - memory_launches["tile_reduce_str"],
@@ -4860,7 +5210,8 @@ def main():
         {"name": "tile_reduce_string_lane", "route": "triton",
          "source": "spark_rapids_tpu_torch/ops/device_kernels.py",
          "replaces": "spark_rapids_tpu/exec/pallas_agg.py:60",
-         "launches": b2_launches + memory_launches["tile_reduce_str"],
+         "launches": b2_launches + memory_launches["tile_reduce_str"]
+         + sum(r["launches"]["tile_reduce_str"] for r in nested.values()),
          "memory_launches": memory_launches["tile_reduce_str"],
          **{k: b2[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                "bound_by", "cold_ms", "bit_equal")},
@@ -4874,10 +5225,13 @@ def main():
          + launches["q3"]["tile_group_reduce"]
          + sum(r["launches"]["tile_group_reduce"]
                for r in (*nds.values(), *joins.values(), *subq.values(),
-                         *scalar.values()))
+                         *scalar.values(), *nested.values()))
          + memory_launches["tile_group_reduce"],
          "scalar_launches": {q: r["launches"]["tile_group_reduce"]
                              for q, r in scalar.items()
+                             if r["launches"]["tile_group_reduce"]},
+         "nested_launches": {q: r["launches"]["tile_group_reduce"]
+                             for q, r in nested.items()
                              if r["launches"]["tile_group_reduce"]},
          "memory_launches": memory_launches["tile_group_reduce"],
          "nds_launches": {q: r["launches"]["tile_group_reduce"]
@@ -4901,7 +5255,8 @@ def main():
     # B1 on the NDS batches it took (the global aggregates under q28, q38,
     # q61, q87 and q90, and under the plan-time subqueries of phase 6c)
     held_err = [r["max_abs_err"] for r in (*memory["injected"].values(),
-                                            *scalar.values())]
+                                            *scalar.values(),
+                                            *nested.values())]
     kernels[0]["max_abs_err"] = max(
         kernels[0]["max_abs_err"],
         *(r["b1_max_abs_err"] for r in (*nds.values(), *joins.values(),

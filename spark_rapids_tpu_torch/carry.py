@@ -9,6 +9,7 @@ from typing import Dict, Tuple
 import numpy as np
 
 from .columnar import dtypes as dt
+from .columnar.nested import HostList, HostStruct
 from .columnar.vector import HostStrings
 from .conf import SrtConf
 from .plan.host_table import HostColumn, HostTable
@@ -17,13 +18,20 @@ from .plan.host_table import HostColumn, HostTable
 def host_table_from_lanes(
         lanes: Dict[str, Tuple[np.ndarray, np.ndarray, str]]) -> HostTable:
     """{name: (values, mask, dtype_name)} -> HostTable. ``dtype_name``
-    is the type's SQL name (its repr in either package); string values
+    is the type's SQL name or its repr in either package; string values
     are an object array of str or HostStrings, a wide decimal's an
-    object array of unscaled Python ints."""
+    object array of unscaled Python ints, a nested type's an object
+    array of Python lists, dicts and tuples or flat lanes (``HostList``
+    offsets plus the child's lane, ``HostStruct`` one lane per field)."""
     cols, names = [], []
     for name, (values, mask, type_name) in lanes.items():
         t = dt.from_name(type_name)
-        if t == dt.STRING:
+        if t.is_nested:
+            if not isinstance(values, (HostList, HostStruct)):
+                lane = np.empty(len(values), dtype=object)
+                lane[:] = list(values)
+                values = lane
+        elif t == dt.STRING:
             if not isinstance(values, HostStrings):
                 values = HostStrings.from_objects(values)
         elif dt.is_wide_decimal(t):

@@ -5,8 +5,9 @@ ported path carries: booleans, integers, floats, DATE (int32 days since
 the epoch, Spark's layout), TIMESTAMP (int64 microseconds since the
 epoch in UTC), DECIMAL(p, s) (a scaled int64 up to p = 18, two
 64-bit limbs above, see columnar/decimal128.py), STRING (offsets +
-bytes, see columnar/vector.py) and ARRAY of one of those (offsets + a
-child column, see columnar/nested.py). ``physical`` is the torch dtype
+bytes, see columnar/vector.py) and the nested types (columnar/nested.py):
+ARRAY (offsets + a child column), STRUCT (named children sharing the
+parent validity) and MAP (physically ``array<struct<key,value>>``). ``physical`` is the torch dtype
 of the data buffer and ``np_physical`` the numpy dtype of the host lane
 (a wide decimal's host lane is an object array of Python ints).
 """
@@ -42,6 +43,10 @@ class DType:
 
     @property
     def is_floating(self) -> bool:
+        return False
+
+    @property
+    def is_nested(self) -> bool:
         return False
 
 
@@ -222,6 +227,67 @@ class ArrayType(DType):
         return isinstance(other, ArrayType) and \
             self.element_type == other.element_type
 
+    def __hash__(self) -> int:
+        return hash(self.sql_name)
+
+    @property
+    def is_nested(self) -> bool:
+        return True
+
+
+class StructType(DType):
+    """A struct column's type: named child columns sharing the parent
+    validity; ``fields`` is a tuple of (name, DType)."""
+
+    def __init__(self, fields=()):
+        self.fields = tuple((str(n), t) for n, t in fields)
+        inner = ",".join(f"{n}:{t.sql_name}" for n, t in self.fields)
+        self.sql_name = f"struct<{inner}>"
+
+    def __eq__(self, other: object) -> bool:
+        return isinstance(other, StructType) and self.fields == other.fields
+
+    def __hash__(self) -> int:
+        return hash(self.sql_name)
+
+    @property
+    def is_nested(self) -> bool:
+        return True
+
+    def field_names(self):
+        return [n for n, _ in self.fields]
+
+    def field_types(self):
+        return [t for _, t in self.fields]
+
+
+class MapType(DType):
+    """A map column's type: physically ``array<struct<key,value>>``
+    (cuDF's and Arrow's layout), so the list machinery that asks for
+    ``element_type`` works on maps unchanged."""
+
+    def __init__(self, key_type: DType, value_type: DType):
+        self.key_type = key_type
+        self.value_type = value_type
+        self.sql_name = f"map<{key_type.sql_name},{value_type.sql_name}>"
+
+    def __eq__(self, other: object) -> bool:
+        return isinstance(other, MapType) and \
+            (self.key_type, self.value_type) == (other.key_type,
+                                                 other.value_type)
+
+    def __hash__(self) -> int:
+        return hash(self.sql_name)
+
+    @property
+    def is_nested(self) -> bool:
+        return True
+
+    @property
+    def element_type(self) -> StructType:
+        return StructType((("key", self.key_type),
+                           ("value", self.value_type)))
+
 
 BOOL = BooleanType()
 INT8 = ByteType()
@@ -242,22 +308,151 @@ _NUMPY_TO_DTYPE = {t.np_physical: t for t in (BOOL, INT8, INT16, INT32,
                                               INT64, FLOAT32, FLOAT64)}
 
 
-#: a decimal's SQL name, or the JAX package's repr of its DecimalType
-#: (a dataclass repr)
-_DECIMAL_NAME = re.compile(
-    r"decimal\((\d+),(\d+)\)|DecimalType\(precision=(\d+), scale=(\d+)\)")
+class _TypeNameParser:
+    """Recursive descent over a type name: the SQL names (``int``,
+    ``decimal(10,2)``, ``array<int>``, ``struct<a:int,b:string>``,
+    ``map<string,double>``) and the JAX package's dataclass reprs
+    (``DecimalType(precision=10, scale=2)``, ``ArrayType(element_type=int,
+    contains_null=True)``, ``StructType(fields=(('a', int),))``,
+    ``MapType(key_type=string, value_type=double)``)."""
+
+    _WORD = re.compile(r"[A-Za-z_][A-Za-z0-9_]*")
+    _INT = re.compile(r"\d+")
+    _FIELD = re.compile(r"[A-Za-z0-9_$]+")
+
+    def __init__(self, text: str):
+        self.text = text
+        self.i = 0
+
+    def fail(self):
+        raise TypeError(f"unsupported type {self.text!r}")
+
+    def ws(self):
+        while self.i < len(self.text) and self.text[self.i] == " ":
+            self.i += 1
+
+    def eat(self, tok: str) -> bool:
+        self.ws()
+        if self.text.startswith(tok, self.i):
+            self.i += len(tok)
+            return True
+        return False
+
+    def need(self, tok: str):
+        if not self.eat(tok):
+            self.fail()
+
+    def match(self, pat) -> str:
+        self.ws()
+        m = pat.match(self.text, self.i)
+        if not m:
+            self.fail()
+        self.i = m.end()
+        return m.group(0)
+
+    def kwarg(self, name: str):
+        self.need(name)
+        self.need("=")
+
+    def quoted(self) -> str:
+        self.ws()
+        q = self.text[self.i:self.i + 1]
+        if q not in ("'", '"'):
+            self.fail()
+        j = self.text.index(q, self.i + 1)
+        out = self.text[self.i + 1:j]
+        self.i = j + 1
+        return out
+
+    def parse(self) -> DType:
+        word = self.match(self._WORD)
+        if word == "decimal":
+            self.need("(")
+            p = int(self.match(self._INT))
+            self.need(",")
+            s = int(self.match(self._INT))
+            self.need(")")
+            return DecimalType(p, s)
+        if word == "DecimalType":
+            self.need("(")
+            self.kwarg("precision")
+            p = int(self.match(self._INT))
+            self.need(",")
+            self.kwarg("scale")
+            s = int(self.match(self._INT))
+            self.need(")")
+            return DecimalType(p, s)
+        if word == "array":
+            self.need("<")
+            et = self.parse()
+            self.need(">")
+            return ArrayType(et)
+        if word == "ArrayType":
+            self.need("(")
+            self.kwarg("element_type")
+            et = self.parse()
+            if self.eat(","):
+                self.kwarg("contains_null")
+                self.match(self._WORD)
+            self.need(")")
+            return ArrayType(et)
+        if word == "map":
+            self.need("<")
+            kt = self.parse()
+            self.need(",")
+            vt = self.parse()
+            self.need(">")
+            return MapType(kt, vt)
+        if word == "MapType":
+            self.need("(")
+            self.kwarg("key_type")
+            kt = self.parse()
+            self.need(",")
+            self.kwarg("value_type")
+            vt = self.parse()
+            self.need(")")
+            return MapType(kt, vt)
+        if word == "struct":
+            self.need("<")
+            fields = []
+            while not self.eat(">"):
+                if fields:
+                    self.need(",")
+                name = self.match(self._FIELD)
+                self.need(":")
+                fields.append((name, self.parse()))
+            return StructType(tuple(fields))
+        if word == "StructType":
+            self.need("(")
+            self.kwarg("fields")
+            self.need("(")
+            fields = []
+            while not self.eat(")"):
+                self.eat(",")
+                if self.eat(")"):
+                    break
+                self.need("(")
+                name = self.quoted()
+                self.need(",")
+                fields.append((name, self.parse()))
+                self.need(")")
+            self.need(")")
+            return StructType(tuple(fields))
+        try:
+            return _BY_NAME[word]
+        except KeyError:
+            self.fail()
 
 
 def from_name(sql_name: str) -> DType:
-    """The type whose ``sql_name`` (its repr) is ``sql_name``."""
-    m = _DECIMAL_NAME.fullmatch(sql_name)
-    if m:
-        p, s = (g for g in m.groups() if g is not None)
-        return DecimalType(int(p), int(s))
-    try:
-        return _BY_NAME[sql_name]
-    except KeyError:
-        raise TypeError(f"unsupported type {sql_name!r}") from None
+    """The type whose ``sql_name`` (its repr) is ``sql_name``, or whose
+    JAX package repr it is."""
+    p = _TypeNameParser(sql_name)
+    t = p.parse()
+    p.ws()
+    if p.i != len(sql_name):
+        p.fail()
+    return t
 
 
 def from_numpy_dtype(d) -> DType:

@@ -6,7 +6,8 @@ SpillableColumnarBatch). A batch's "buffers" are the tensors of its
 columns: data and validity of a ``ColumnVector``, hi, lo and validity
 of a ``Decimal128Column``, offsets, chars and validity of a
 ``StringColumn``, offsets and validity of a
-``ListColumn`` plus its child's buffers.
+``ListColumn`` (a list or a map) plus its child's buffers, the validity
+of a ``StructColumn`` plus its children's.
 
 - Device -> host copies each buffer of a CUDA batch into a pinned host
   tensor with ``non_blocking=True`` and records a CUDA event after the
@@ -46,8 +47,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..columnar import dtypes as dt
 from ..columnar.decimal128 import Decimal128Column
-from ..columnar.nested import ListColumn
+from ..columnar.nested import ListColumn, StructColumn
 from ..columnar.vector import ColumnVector, ColumnarBatch, StringColumn
 from .budget import MemoryBudget, current_query_id, device_budget, \
     task_context
@@ -122,8 +124,11 @@ def _column_buffers(col, out: List[torch.Tensor]):
         return ("d128", col.dtype)
     if isinstance(col, ListColumn):
         out += [col.offsets, col.validity]
-        return ("list", col.dtype.element_type,
-                _column_buffers(col.child, out))
+        return ("list", col.dtype, _column_buffers(col.child, out))
+    if isinstance(col, StructColumn):
+        out.append(col.validity)
+        return ("struct", col.dtype,
+                [_column_buffers(c, out) for c in col.children])
     raise TypeError(f"cannot spill a {type(col).__name__}")
 
 
@@ -135,8 +140,14 @@ def _column_from(spec, bufs):
         return StringColumn(next(bufs), next(bufs), next(bufs), spec[1])
     if kind == "d128":
         return Decimal128Column(next(bufs), next(bufs), next(bufs), spec[1])
+    if kind == "struct":
+        validity = next(bufs)
+        return StructColumn([_column_from(k, bufs) for k in spec[2]],
+                            validity, spec[1])
     offsets, validity = next(bufs), next(bufs)
-    return ListColumn(offsets, _column_from(spec[2], bufs), validity, spec[1])
+    t = spec[1]
+    return ListColumn(offsets, _column_from(spec[2], bufs), validity,
+                      t.element_type, t if isinstance(t, dt.MapType) else None)
 
 
 def _flatten(batch: ColumnarBatch) -> Tuple[List[torch.Tensor], tuple]:

@@ -29,7 +29,8 @@ import torch
 from ..columnar import dtypes as dt
 from ..columnar import decimal128 as d128
 from ..columnar.decimal128 import Decimal128Column
-from ..columnar.nested import ListColumn, concat_lists
+from ..columnar.nested import (ListColumn, StructColumn, concat_lists,
+                               concat_structs)
 from ..columnar.vector import (Column, ColumnVector, ColumnarBatch,
                                StringColumn, choose_capacity,
                                compaction_indices, live_mask, round_pow2,
@@ -908,7 +909,7 @@ def local_limit(batch: ColumnarBatch, n: int) -> ColumnarBatch:
         if isinstance(c, StringColumn):
             cols.append(StringColumn(c.offsets, c.chars, c.validity & keep,
                                      c.pad_bucket))
-        elif isinstance(c, Decimal128Column):
+        elif isinstance(c, (Decimal128Column, ListColumn, StructColumn)):
             cols.append(c.with_validity(c.validity & keep))
         else:
             cols.append(ColumnVector(torch.where(keep, c.data, torch.zeros(
@@ -938,8 +939,10 @@ def repack_to(batch: ColumnarBatch, capacity: int) -> ColumnarBatch:
 
 def _concat_columns(cols: Sequence[Column], ns: Sequence[int],
                     out_cap: int) -> Column:
-    if isinstance(cols[0], ListColumn):  # a collect_list / collect_set state
+    if isinstance(cols[0], ListColumn):  # lists, maps, the collect states
         return concat_lists(cols, ns, out_cap, _concat_columns)
+    if isinstance(cols[0], StructColumn):
+        return concat_structs(cols, ns, out_cap, _concat_columns)
     dev = cols[0].device
     total = sum(ns)
     validity = torch.zeros(out_cap, dtype=torch.bool, device=dev)
@@ -975,6 +978,45 @@ def _concat_columns(cols: Sequence[Column], ns: Sequence[int],
     data = torch.zeros(out_cap, dtype=live.dtype, device=dev)
     data[:total] = live
     return ColumnVector(data, validity, cols[0].dtype)
+
+
+# ---------------------------------------------------------------------------
+# Generate / explode
+# ---------------------------------------------------------------------------
+
+
+def explode_batch(batch: ColumnarBatch, list_col: ListColumn,
+                  element_name: str, outer: bool = False,
+                  pos_name: Optional[str] = None) -> ColumnarBatch:
+    """One output row per list element, the generating row's columns
+    repeated (JAX kernels.py:965). ``outer``: a null or empty list still
+    gives one row, with a null element (explode_outer). ``pos_name``
+    adds the 0-based element position (posexplode; null on an outer
+    row). The output is sized from the true total, read once, where the
+    JAX package grows a static capacity and retries."""
+    live = batch.live_mask()
+    real = torch.where(list_col.validity & live, list_col.lengths(), 0) \
+        .to(torch.int64)
+    eff = torch.where(live, real.clamp(min=1), 0) if outer else real
+    ends = torch.cumsum(eff, 0)
+    total = int(ends[-1]) if eff.numel() else 0
+    cap = choose_capacity(total)
+    dev = batch.device
+    pos = torch.arange(cap, device=dev)
+    row = rows_from_offsets(ends - eff, eff, cap)
+    within = pos - (ends - eff)[row]
+    gathered = batch.gather(row, total)
+    elem_ok = (pos < total) & (within < real[row])
+    src = list_col.offsets[:-1].to(torch.int64)[row] + within.clamp(min=0)
+    element = list_col.child.gather(src, elem_ok)
+    cols, names = list(gathered.columns), list(gathered.names)
+    if pos_name is not None:
+        cols.append(ColumnVector(torch.where(elem_ok, within, 0)
+                                 .to(torch.int32), elem_ok, dt.INT32))
+        names.append(pos_name)
+    cols.append(element)
+    names.append(element_name)
+    return ColumnarBatch(cols, names, total, dev)
 
 
 def concat_batches(batches: Sequence[ColumnarBatch],

@@ -5,13 +5,31 @@ depth the join planner reads it over in-memory relations: a relation
 counts its rows, a filter keeps half, an aggregate a tenth, a limit at
 most its n, a join (keyless ones too) as many rows as its larger side,
 a union the sum of its children and an expand its child's rows once per
-projection.
+projection. A Generate over a column of a relation counts the elements
+it emits (and the null or empty lists explode_outer keeps); over
+anything else it keeps its child's rows, as in the JAX package.
 """
 
 from __future__ import annotations
 
-from .logical import (Aggregate, DeviceRelation, Expand, Filter, Join,
-                      Limit, LogicalPlan, Union)
+import torch
+
+from .logical import (Aggregate, DeviceRelation, Expand, Filter, Generate,
+                      Join, Limit, LogicalPlan, Union)
+
+
+def _generated_rows(plan: Generate) -> float:
+    """The rows an explode of a relation's column emits."""
+    rel, arg = plan.children[0], plan.generator.children[0]
+    total = 0
+    for b in rel.batches:
+        lc = b.column(arg.name)
+        n = b.num_rows
+        lens = lc.lengths()[:n].to(torch.int64)
+        if plan.generator.outer:
+            lens = torch.where(lc.validity[:n], lens, 0).clamp(min=1)
+        total += int(lens.sum())
+    return float(total)
 
 
 def estimate_rows(plan: LogicalPlan) -> float:
@@ -31,4 +49,9 @@ def estimate_rows(plan: LogicalPlan) -> float:
         return sum(child_rows)
     if isinstance(plan, Expand):
         return child_rows[0] * len(plan.projections)
+    if isinstance(plan, Generate):
+        from ..expr.core import ColumnRef
+        if isinstance(plan.children[0], DeviceRelation) and \
+                isinstance(plan.generator.children[0], ColumnRef):
+            return _generated_rows(plan)
     return child_rows[0] if child_rows else 0.0

@@ -4,7 +4,9 @@ Counterpart of spark_rapids_tpu/plan/host_table.py. Each column is
 (values, mask) in the same physical lane encoding the device side uses
 (dates = int32 days, decimals their unscaled int64, or unscaled Python
 ints in an object array above precision 18); string lanes are
-HostStrings (Arrow layout).
+HostStrings (Arrow layout); a nested column's lane is an object array
+of Python values (lists, dicts) or flat lanes (``HostList``,
+``HostStruct``, columnar/nested.py).
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import numpy as np
 
 from ..columnar import dtypes as dt
 from ..columnar.decimal128 import from_unscaled_ints
+from ..columnar.nested import (HostList, HostStruct, column_from_host_lane,
+                               host_python)
 from ..columnar.vector import (ColumnarBatch, HostStrings, choose_capacity,
                                column_from_numpy, from_physical)
 
@@ -35,9 +39,7 @@ class HostColumn:
         return len(self.values)
 
     def take(self, idx: np.ndarray) -> "HostColumn":
-        return HostColumn(self.values.take(idx) if isinstance(
-            self.values, HostStrings) else self.values[idx],
-            self.mask[idx], self.dtype)
+        return HostColumn(self.values.take(idx), self.mask[idx], self.dtype)
 
     def __repr__(self):
         return f"HostColumn({self.dtype}, n={len(self)})"
@@ -77,6 +79,8 @@ def concat_tables(tables: Sequence[HostTable]) -> HostTable:
     cols = []
     for i, c0 in enumerate(first.columns):
         parts = [t.columns[i].values for t in tables]
+        if isinstance(c0.values, (HostList, HostStruct)):
+            parts = [p.to_objects(c0.dtype) for p in parts]
         values = HostStrings.concat(parts) if isinstance(
             c0.values, HostStrings) else np.concatenate(parts)
         mask = np.concatenate([t.columns[i].mask for t in tables])
@@ -92,6 +96,8 @@ def to_pydict(table: HostTable) -> dict:
             vals = c.values.to_objects()
             out[name] = [vals[i] if c.mask[i] else None
                          for i in range(len(c))]
+        elif c.dtype.is_nested:
+            out[name] = host_python(c.values, c.mask, c.dtype)
         else:
             out[name] = [from_physical(c.values[i], c.dtype)
                          if c.mask[i] else None for i in range(len(c))]
@@ -104,7 +110,10 @@ def table_to_batch(table: HostTable, capacity: Optional[int] = None, *,
     card or the CPU) as one batch."""
     n = table.num_rows
     cap = capacity or choose_capacity(n)
-    cols = [from_unscaled_ints(list(c.values), cap, c.dtype, mask=c.mask,
+    cols = [column_from_host_lane(c.values, c.mask, c.dtype, cap,
+                                  device=device)
+            if c.dtype.is_nested else
+            from_unscaled_ints(list(c.values), cap, c.dtype, mask=c.mask,
                                device=device)
             if dt.is_wide_decimal(c.dtype) else
             column_from_numpy(c.values, cap, dtype=c.dtype, mask=c.mask,
@@ -124,7 +133,8 @@ def batch_to_table(batch: ColumnarBatch) -> HostTable:
 def empty_table(schema: Schema) -> HostTable:
     no_strings = HostStrings(np.zeros(1, np.int32), np.zeros(0, np.uint8))
     cols = [HostColumn(no_strings if t == dt.STRING
-                       else np.zeros(0, object) if dt.is_wide_decimal(t)
+                       else np.zeros(0, object)
+                       if dt.is_wide_decimal(t) or t.is_nested
                        else np.zeros(0, t.np_physical), np.zeros(0, bool), t)
             for _, t in schema]
     return HostTable(cols, [n for n, _ in schema])

@@ -2,7 +2,7 @@
 
 Counterpart of spark_rapids_tpu/plan/logical.py for the nodes the ported
 queries build (q6/q1/q3, the NDS queries: joins of every type, set
-operations, windows, grouping sets), plus ``DeviceRelation``: a leaf over batches
+operations, windows, grouping sets; explode as ``Generate``), plus ``DeviceRelation``: a leaf over batches
 already on the device (the JAX package reaches the same leaf through
 CachedRelation).
 """
@@ -250,3 +250,31 @@ class Expand(LogicalPlan):
 
     def node_description(self) -> str:
         return f"Expand[{len(self.projections)} projections]"
+
+
+class Generate(LogicalPlan):
+    """explode / explode_outer / posexplode (JAX logical.py:323): the
+    child's columns (+ the position) + the element column, one row per
+    list element."""
+
+    def __init__(self, child: LogicalPlan, generator, element_name: str,
+                 pos_name: Optional[str] = None):
+        super().__init__(child)
+        from ..expr.collections import Explode
+        if not isinstance(generator, Explode):
+            raise TypeError(f"Generate needs an Explode, got {generator!r}")
+        self.generator = generator
+        self.element_name = element_name
+        self.pos_name = pos_name if generator.with_position else None
+        self._schema = list(child.schema)
+        if self.pos_name:
+            self._schema.append((self.pos_name, dt.INT32))
+        self._schema.append((element_name,
+                             generator.data_type(child.schema)))
+
+    @property
+    def schema(self) -> Schema:
+        return self._schema
+
+    def node_description(self) -> str:
+        return f"Generate[{self.generator!r} -> {self.element_name}]"

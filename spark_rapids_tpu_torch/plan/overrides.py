@@ -23,7 +23,14 @@ fallback and the cost model beyond row estimates are not ported: what
 the JAX planner sends to its CPU engine for a DECIMAL(p>18) (a group-by
 or join key, a window partition or order key, a window aggregate over
 or into one) raises here (``expr/core.py cpu_fallback``); an ORDER BY
-on one runs on the device (two sort words a key).
+on one runs on the device (two sort words a key). The JAX planner's
+gates on nested types (JAX overrides.py:324-489: element, key, value and
+lambda result types that are strings or nested, a column
+``array_repeat`` count, an ``aggregate`` lambda reading outer columns,
+an explode of a non-array, ``map_concat``, ``from_json`` / ``to_json``)
+and its refusal of a nested GROUP BY, join or ORDER BY key raise the
+same way at planning time (``_check_nested``). A Generate becomes a
+GenerateExec.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from ..conf import (BROADCAST_THRESHOLD_ROWS, WINDOW_BATCHED_RUNNING,
                     SrtConf)
 from ..exec.aggregate import FINAL, PARTIAL, HashAggregateExec
 from ..exec.base import TpuExec
+from ..exec.generate import GenerateExec
 from ..exec.basic import (BatchScanExec, ExpandExec, FilterExec,
                           LocalLimitExec, ProjectExec, UnionExec)
 from ..exec.join import BroadcastHashJoinExec, ShuffledHashJoinExec
@@ -47,8 +55,9 @@ from ..expr.cast import Cast
 from ..expr.conditional import _common_type
 from ..expr.core import Alias, Literal, col, cpu_fallback
 from .cost import estimate_rows
-from .logical import (Aggregate, DeviceRelation, Expand, Filter, Join,
-                      Limit, LogicalPlan, Project, Sort, Union, Window)
+from .logical import (Aggregate, DeviceRelation, Expand, Filter, Generate,
+                      Join, Limit, LogicalPlan, Project, Sort, Union,
+                      Window)
 
 
 AGG_TYPES = (Agg.Sum, Agg.Count, Agg.CountStar, Agg.Average, Agg.Min,
@@ -192,6 +201,170 @@ def _check_window(plan: Window) -> None:
                 "offsets")
 
 
+def _string_or_nested(t: dt.DType) -> bool:
+    return t.is_nested or t == dt.STRING
+
+
+def _gate_primitive_elements(e, schema) -> None:
+    """JAX ``_primitive_elements``: the lane kernels need a primitive
+    (non-string) element type."""
+    t = e.children[0].data_type(schema)
+    if isinstance(t, dt.ArrayType) and _string_or_nested(t.element_type):
+        raise cpu_fallback(f"{type(e).__name__} over {t.element_type} "
+                           "elements")
+
+
+def _gate_array_repeat(e, schema) -> None:
+    if not isinstance(e.children[1], Literal):
+        raise cpu_fallback("array_repeat with a column count")
+    t = e.children[0].data_type(schema)
+    if _string_or_nested(t):
+        raise cpu_fallback(f"array_repeat of {t}")
+
+
+def _gate_zip_with(e, schema) -> None:
+    for child in e.children[:2]:
+        t = child.data_type(schema)
+        et = t.element_type if isinstance(t, dt.ArrayType) else t
+        if _string_or_nested(et):
+            raise cpu_fallback(f"zip_with over {et} elements")
+    out = e.data_type(schema).element_type
+    if _string_or_nested(out):
+        raise cpu_fallback(f"zip_with producing {out}")
+
+
+def _gate_lambda_elements(e, schema) -> None:
+    """JAX ``_lambda_primitive_elements``: element, key and value types
+    and a transform's lambda result must be primitive lanes."""
+    from ..expr import higher_order as HO
+    for child in e.children:
+        t = child.data_type(schema)
+        parts = [t.key_type, t.value_type] if isinstance(t, dt.MapType) \
+            else [t.element_type] if isinstance(t, dt.ArrayType) else []
+        for p in parts:
+            if _string_or_nested(p):
+                raise cpu_fallback(f"{type(e).__name__} over {p} elements")
+    if isinstance(e, (HO.ArrayTransform, HO.TransformKeys,
+                      HO.TransformValues)):
+        rt = e.children[1].data_type(schema)
+        if _string_or_nested(rt):
+            raise cpu_fallback(f"{type(e).__name__} producing {rt}")
+
+
+def _gate_aggregate(e, schema) -> None:
+    from ..expr.higher_order import outer_refs
+    for body in e.bodies():
+        if outer_refs(body, e.lambda_vars):
+            raise cpu_fallback("an aggregate() lambda reading outer "
+                               "columns")
+    _gate_lambda_elements(e, schema)
+
+
+def _gate_explode(e, schema) -> None:
+    t = e.children[0].data_type(schema)
+    if not isinstance(t, dt.ArrayType):
+        raise cpu_fallback(f"explode of {t}")
+
+
+def _gate_cpu_only(e, schema) -> None:
+    raise cpu_fallback(type(e).__name__)
+
+
+def _nested_gates():
+    from ..expr import collections as CX
+    from ..expr import higher_order as HO
+    from ..expr import json as JX
+    gates = {}
+    for cls in (CX.ArrayContains, CX.ArrayMin, CX.ArrayMax, CX.SortArray,
+                CX.ArrayDistinct, CX.ArrayUnion, CX.ArrayIntersect,
+                CX.ArrayExcept, CX.ArraysOverlap, CX.ArrayRemove,
+                CX.ArrayPosition, CX.Slice, CX.ArrayReverse):
+        gates[cls] = _gate_primitive_elements
+    for cls in (HO.ArrayTransform, HO.ArrayExists, HO.ArrayForAll,
+                HO.ArrayFilter, HO.GetMapValue, HO.MapContainsKey,
+                HO.TransformValues, HO.TransformKeys, HO.MapFilter,
+                HO.MapFromArrays):
+        gates[cls] = _gate_lambda_elements
+    gates[CX.ArrayRepeat] = _gate_array_repeat
+    gates[CX.ZipWith] = _gate_zip_with
+    gates[HO.ArrayAggregate] = _gate_aggregate
+    gates[CX.Explode] = _gate_explode
+    for cls in (CX.MapConcat, JX.JsonToStructs, JX.StructsToJson):
+        gates[cls] = _gate_cpu_only
+    return gates
+
+
+_GATES = None
+
+
+def _node_exprs(plan: LogicalPlan):
+    """(expression, input schema) of each expression a node holds."""
+    ins = [c.schema for c in plan.children]
+    if isinstance(plan, Project):
+        return [(e, ins[0]) for e in plan.exprs]
+    if isinstance(plan, Filter):
+        return [(plan.condition, ins[0])]
+    if isinstance(plan, Aggregate):
+        return [(e, ins[0]) for e in plan.group_exprs] + \
+            [(fn, ins[0]) for fn, _ in plan.agg_exprs]
+    if isinstance(plan, Sort):
+        return [(o.expr, ins[0]) for o in plan.order]
+    if isinstance(plan, Join):
+        out = [(e, ins[0]) for e in plan.left_keys] + \
+            [(e, ins[1]) for e in plan.right_keys]
+        if plan.condition is not None:
+            out.append((plan.condition, ins[0] + ins[1]))
+        return out
+    if isinstance(plan, Expand):
+        return [(e, ins[0]) for p in plan.projections for e in p]
+    if isinstance(plan, Generate):
+        return [(plan.generator, ins[0])]
+    if isinstance(plan, Window):
+        return [(c, ins[0]) for we, _ in plan.window_exprs
+                for c in list(we.func.children) + list(we.spec.partition_by)
+                + [o.expr for o in we.spec.order_fields]]
+    return []
+
+
+def _check_nested(plan: LogicalPlan) -> None:
+    """The JAX planner's nested-type gates as planning-time refusals:
+    each expression tree typed root first (a higher-order function binds
+    its lambda variables' types), then every node of it gated; a nested
+    grouping, join or sort key refused."""
+    global _GATES
+    if _GATES is None:
+        _GATES = _nested_gates()
+    for child in plan.children:
+        _check_nested(child)
+    for root, schema in _node_exprs(plan):
+        gated, stack = [], [root]
+        while stack:
+            e = stack.pop()
+            if type(e) in _GATES:
+                gated.append(e)
+            stack.extend(e.children)
+        if gated:
+            root.data_type(schema)
+            for e in gated:
+                _GATES[type(e)](e, schema)
+    keys = []
+    if isinstance(plan, Aggregate):
+        keys = [("group-by key", e, plan.children[0].schema)
+                for e in plan.group_exprs]
+    elif isinstance(plan, Sort):
+        keys = [("sort key", o.expr, plan.children[0].schema)
+                for o in plan.order]
+    elif isinstance(plan, Join):
+        keys = [("join key", e, plan.children[0].schema)
+                for e in plan.left_keys] + \
+            [("join key", e, plan.children[1].schema)
+             for e in plan.right_keys]
+    for what, e, schema in keys:
+        t = e.data_type(schema)
+        if t.is_nested:
+            raise cpu_fallback(f"a {what} of type {t}")
+
+
 def _build_window(plan: Window, child: TpuExec, conf: SrtConf) -> TpuExec:
     _check_window(plan)
     if conf.get(WINDOW_BATCHED_RUNNING) and \
@@ -242,6 +415,9 @@ def _to_physical(plan: LogicalPlan, conf: SrtConf) -> TpuExec:
         return ExpandExec(children[0], plan.projections, plan.schema)
     if isinstance(plan, Window):
         return _build_window(plan, children[0], conf)
+    if isinstance(plan, Generate):
+        return GenerateExec(children[0], plan.generator, plan.element_name,
+                            plan.pos_name)
     if isinstance(plan, Aggregate):
         _no_wide_keys(plan.group_exprs, plan.children[0].schema,
                       "group-by key")
@@ -256,4 +432,5 @@ def _to_physical(plan: LogicalPlan, conf: SrtConf) -> TpuExec:
 
 def apply_overrides(plan: LogicalPlan, conf: SrtConf) -> TpuExec:
     """The physical operator tree for ``plan``."""
+    _check_nested(plan)
     return _to_physical(plan, conf)

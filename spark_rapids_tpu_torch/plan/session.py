@@ -2,8 +2,9 @@
 
 Counterpart of spark_rapids_tpu/plan/session.py (TpuSession, DataFrame,
 GroupedData) for filter / select / with_column / group_by / agg /
-distinct / join / sort / limit / collect, window functions in select and
-with_column, the temp-view catalog and ``sql``, joins of every type
+distinct / join / sort / limit / collect, window functions and explode
+generators in select and with_column, nested columns (arrays, structs,
+maps) in ``create_dataframe``, the temp-view catalog and ``sql``, joins of every type
 (``join(how=...)``, ``cross_join``) and ``union``. The session runs on
 one torch device, ``cuda`` unless the caller asks for the CPU; a session
 asked for CUDA where there is none raises.
@@ -60,7 +61,10 @@ def _host_table_from_pydict(data: Dict[str, list], schema) -> HostTable:
     for name, t in schema:
         vals = data[name]
         mask = np.array([v is not None for v in vals], bool)
-        if t.np_physical is None:  # strings
+        if t.is_nested:  # Python lists, dicts and tuples
+            lane = np.empty(len(vals), dtype=object)
+            lane[:] = list(vals)
+        elif t == dt.STRING:
             lane = HostStrings.from_objects(vals)
         elif dt.is_wide_decimal(t):
             lane = np.array([0 if v is None else literal_physical(v, t)
@@ -121,6 +125,32 @@ def _extract_windows(plan: L.LogicalPlan, exprs):
     return plan, out_exprs
 
 
+def _extract_generators(plan: L.LogicalPlan, exprs):
+    """Pull explode generators out of a projection into a Generate node
+    (the analyzer step Spark performs for explode() in select; JAX
+    session.py:493): at most one generator a projection. The element
+    column takes the alias (``col`` without one), posexplode's position
+    ``pos``."""
+    from ..expr.collections import Explode
+    out_exprs = []
+    gen_count = 0
+    for i, e in enumerate(exprs):
+        inner = e.children[0] if isinstance(e, Alias) else e
+        if not isinstance(inner, Explode):
+            out_exprs.append(e)
+            continue
+        gen_count += 1
+        if gen_count > 1:
+            raise ValueError("only one generator allowed per select")
+        user = e.name if isinstance(e, Alias) else "col"
+        pos_name = f"__gpos{i}" if inner.with_position else None
+        plan = L.Generate(plan, inner, f"__gen{i}", pos_name)
+        if pos_name:
+            out_exprs.append(Alias(col(pos_name), "pos"))
+        out_exprs.append(Alias(col(f"__gen{i}"), user))
+    return plan, out_exprs
+
+
 class TpuSession:
     """Entry point (SparkSession analogue): holds the conf and the
     device queries run on."""
@@ -151,7 +181,10 @@ class TpuSession:
     def create_dataframe(self, table, schema=None) -> "DataFrame":
         """Move a host table (or a {name: [values]} dict with its
         [(name, DType)] schema) to the device in batches of
-        ``srt.sql.batchSizeRows`` rows."""
+        ``srt.sql.batchSizeRows`` rows. A nested column's values are
+        Python lists (arrays), dicts or tuples (structs) and dicts
+        (maps), None for null; a host table may carry flat lanes
+        (columnar/nested.py ``HostList`` / ``HostStruct``)."""
         if not isinstance(table, HostTable):
             table = _host_table_from_pydict(table, schema)
         per = self.conf.batch_size_rows
@@ -213,8 +246,9 @@ class DataFrame:
         self.plan = plan
 
     def select(self, *cols) -> "DataFrame":
-        plan, exprs = _extract_windows(self.plan,
-                                       [_to_expr(c) for c in cols])
+        plan, exprs = _extract_generators(self.plan,
+                                          [_to_expr(c) for c in cols])
+        plan, exprs = _extract_windows(plan, exprs)
         return DataFrame(self.session, L.Project(plan, exprs))
 
     def with_column(self, name: str, expr) -> "DataFrame":

@@ -26,8 +26,8 @@ LIKE, ``date +/- INTERVAL n DAY|WEEK|MONTH|YEAR``, ``div``, ``%``,
 literals keep the JAX parser's typing: ``0.05`` is DOUBLE, where Spark
 types it DECIMAL(2,2); ROADMAP.md C14). A function, clause or type the
 JAX package's analyzer lowers but this port does not have yet
-(INTERSECT / EXCEPT ALL as in the JAX package, and the JSON functions
-in ``_NOT_PORTED``) raises ``SqlError`` saying so, before any plan is
+(INTERSECT / EXCEPT ALL as in the JAX package, and ``from_json`` /
+``to_json`` in ``_NOT_PORTED``) raises ``SqlError`` saying so, before any plan is
 built; so does a regex, time zone or cast the port cannot run (it has
 no CPU fallback: a DECIMAL(p>18) to or from STRING).
 """
@@ -947,7 +947,7 @@ _TS_FIELD_FNS = frozenset({"hour", "minute", "second", "year", "month",
 
 #: functions the JAX package's analyzer lowers that this port has not
 #: got yet
-_NOT_PORTED = frozenset({"get_json_object", "from_json", "to_json"})
+_NOT_PORTED = frozenset({"from_json", "to_json"})
 
 
 class _Scope:
@@ -2255,6 +2255,14 @@ class Analyzer:
         if name == "nvl2":
             self._arity(ast, 3)
             return Cond.Nvl2(args[0], args[1], args[2])
+        if name == "get_json_object":
+            from ..expr import json as JX
+            self._arity(ast, 2)
+            try:
+                return JX.GetJsonObject(
+                    args[0], self._lit_value(ast.args[1], "JSON path"))
+            except TypeError as e:
+                raise SqlError(f"get_json_object: {e}") from None
         return self._lower_scalar_fn(ast, args)
 
     def _session_wall_clock(self, arg: Expression, scope) -> Expression:

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import spark_rapids_tpu_torch
+import torch_jax_early
 from jax_reference import patch_jax_compiles
 from spark_rapids_tpu_torch import carry, datagen
 from spark_rapids_tpu_torch.columnar import dtypes as dt
@@ -28,14 +29,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _nds_jax_side_early(request, tmp_path_factory):
-    """When the session will run tests/test_torch_nds.py, start its JAX
-    side now: its eight chunks (most of the suite's CPU time) compile
-    while the port's files before it run on one core each."""
-    if any(item.path.name == "test_torch_nds.py"
-           for item in request.session.items):
-        import test_torch_nds
-        test_torch_nds.start_jax_chunks(tmp_path_factory)
+def _jax_sides_early(request, tmp_path_factory):
+    """Start the long suites' JAX subprocesses now (tests/torch_jax_early.py),
+    while the port's files before them run on one core each."""
+    torch_jax_early.start_for(request.session, tmp_path_factory)
     yield
 
 

@@ -70,7 +70,8 @@ def session():
      "function 'stddev_samp'"),
     ("SELECT CAST(CAST(v AS DECIMAL(30,2)) AS STRING) FROM t",
      "CAST(decimal(30,2) AS string)"),
-    ("SELECT get_json_object(s, '$.a') FROM t", "function 'get_json_object'"),
+    ("SELECT k, VAR_SAMP(v) OVER (PARTITION BY k) FROM t",
+     "function 'var_samp'"),
     ("SELECT from_json(s, 'a INT') FROM t", "function 'from_json'"),
     ("SELECT to_json(s) FROM t", "function 'to_json'"),
 ])
