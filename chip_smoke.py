@@ -105,6 +105,18 @@ Needs one NVIDIA GPU (built for an H100: sm_90a), nvcc and triton. It
    (``_seg_sum``) against one ``index_add_`` call and the hash-claim
    path's sort of the group ids, and checks that five runs of each give
    the same bits;
+5e. runs the mixed device / CPU-engine plans (``fallback_phase``,
+   after the NDS slice, on the resident TPC-H, DECIMAL and NDS tables):
+   F1-F5 of models/fallback.py, each sending one operator to the CPU
+   engine for a reason its ``explain("NOT_ON_TPU")`` states (checked
+   against ``CPU_NODES``), and F6, TPC-H q6 and q1 with
+   ``srt.sql.enabled=false`` over lineitem's first 6,000,000 rows; a
+   first run with every B1 / B3 launch held (B1 under F2, B3 under F1
+   and F4, above a HostToDevice seam) and one warm run, against numpy,
+   ``re`` and ``decimal`` references from a ``host_worker`` process
+   (F5's from NdsNumpy); walls, rows and bytes across the seams, the
+   CPU engine's seconds. Every plan outside this phase must have no
+   CPU-engine node (``guarded_planner``);
 6b. runs the 18 joins and set operations (``NDS_JOINS_SETOPS``: left
    and full outer joins, cross products, UNION ALL, INTERSECT, EXCEPT)
    on the same tables, plus ``Q93_OUTER`` (q93's left outer join
@@ -4282,6 +4294,276 @@ def profiled(torch, label, run):
     return rows
 
 
+# --- phase 5e: mixed device / CPU-engine plans ----------------------------
+
+#: F6: TPC-H q6 and q1 with srt.sql.enabled=false over lineitem's first
+#: 6,000,000 rows (SF1's count; the CPU engine's Python loops would take
+#: minutes over all 60M)
+FALLBACK_F6_ROWS = 6_000_000
+
+
+def _f6_reference(np, li, n):
+    """q6 and q1 over lineitem's first ``n`` rows, in numpy."""
+    ship, qty, price = li["ship"][:n], li["qty"][:n], li["price"][:n]
+    disc, tax = li["disc"][:n], li["tax"][:n]
+    m = (ship >= days(1994, 1, 1)) & (ship < days(1995, 1, 1)) & \
+        (disc >= 0.05) & (disc <= 0.07) & (qty < 24.0)
+    q6 = [{"revenue": float((price[m] * disc[m]).sum())}]
+    keep = ship <= days(1998, 9, 2)
+    flag = np.array([chr(b) for b in li["rf"].chars[li["rf"].offsets[:-1]]])
+    status = np.array([chr(b) for b in li["ls"].chars[li["ls"].offsets[:-1]]])
+    key = np.char.add(flag[:n], status[:n])
+    q1 = []
+    for k in sorted(set(key[keep])):
+        g = keep & (key == k)
+        dp = price[g] * (1.0 - disc[g])
+        q1.append({"l_returnflag": k[0], "l_linestatus": k[1],
+                   "sum_qty": float(qty[g].sum()),
+                   "sum_base_price": float(price[g].sum()),
+                   "sum_disc_price": float(dp.sum()),
+                   "sum_charge": float((dp * (1.0 + tax[g])).sum()),
+                   "avg_qty": float(qty[g].mean()),
+                   "avg_price": float(price[g].mean()),
+                   "avg_disc": float(disc[g].mean()),
+                   "count_order": int(g.sum())})
+    return q6, q1
+
+
+def fallback_references(np, li, od):
+    """F1-F4's and F6's references from the TPC-H host lanes, written
+    from the query texts (models/fallback.py) in numpy and Python's re
+    and decimal, independent of the port's code (a ``host_worker``
+    job)."""
+    import decimal
+    import re as pyre
+    out = {}
+    # F1: regexp_replace over one quarter's orders, grouped
+    m = (od["odate"] >= days(1995, 1, 1)) & (od["odate"] < days(1995, 4, 1))
+    idx = np.nonzero(m)[0]
+    prio = od["prio"].take(idx).to_objects()
+    p = np.array([pyre.sub(r"(\w)(\w*)", r"\2\1", x, flags=pyre.ASCII)
+                  for x in prio], dtype=object)
+    uniq, inv = np.unique(p, return_inverse=True)
+    n = np.bincount(inv, minlength=len(uniq))
+    tot = np.bincount(inv, weights=od["total"][idx], minlength=len(uniq))
+    out["f1"] = [{"p": u, "n": int(c), "total": float(t)}
+                 for u, c, t in zip(uniq, n, tot)]
+    # F2: q6's conjuncts for January 1994 and the decimal string's '5.'
+    li_ship, qty, price, disc = li["ship"], li["qty"], li["price"], li["disc"]
+    m = (li_ship >= days(1994, 1, 1)) & (li_ship < days(1994, 2, 1)) & \
+        (disc >= 0.05) & (disc <= 0.07) & (qty < 24)
+    idx = np.nonzero(m)[0]
+    cent = decimal.Decimal("0.01")
+    text = [format(decimal.Decimal(repr(float(x))).quantize(
+        cent, decimal.ROUND_HALF_UP), "f") for x in price[idx]]
+    keep = idx[np.array(["5." in t for t in text], bool)]
+    out["f2"] = [{"revenue": float((price[keep] * disc[keep]).sum()),
+                  "n": int(len(keep))}]
+    # F3: DECIMAL(12,2) quantities (x 100 truncated, as decimal_batches
+    # makes them) grouped at DECIMAL(20,2) for June 1995
+    m = (li_ship >= days(1995, 6, 1)) & (li_ship < days(1995, 7, 1))
+    qc = (qty[m] * 100.0).astype(np.int64)
+    dc = (disc[m] * 100.0).astype(np.int64)
+    uniq, inv = np.unique(qc, return_inverse=True)
+    n = np.bincount(inv, minlength=len(uniq))
+    dsum = np.zeros(len(uniq), np.int64)
+    np.add.at(dsum, inv, dc)
+    out["f3"] = [{"q": decimal.Decimal(int(q)).scaleb(-2),
+                  "n": int(c), "disc": decimal.Decimal(int(d)).scaleb(-2)}
+                 for q, c, d in zip(uniq, n, dsum)]
+    # F4: January 1995's orders joined to the lineitems shipped in
+    # January and February 1995, per priority
+    om = (od["odate"] >= days(1995, 1, 1)) & (od["odate"] < days(1995, 2, 1))
+    oi = np.nonzero(om)[0]
+    okeys = od["okey"][oi]
+    order = np.argsort(okeys, kind="stable")
+    sk = okeys[order]
+    lm = (li_ship >= days(1995, 1, 1)) & (li_ship < days(1995, 3, 1))
+    lk, lq = li["okey"][lm], qty[lm]
+    pos = np.searchsorted(sk, lk).clip(0, max(len(sk) - 1, 0))
+    hit = (sk[pos] == lk) if len(sk) else np.zeros(len(lk), bool)
+    prio = od["prio"].take(oi[order[pos[hit]]]).to_objects()
+    uniq, inv = np.unique(prio, return_inverse=True)
+    out["f4"] = [{"o_orderpriority": u, "n": int(c), "qty": float(t)}
+                 for u, c, t in zip(uniq, np.bincount(inv, minlength=len(
+                     uniq)), np.bincount(inv, weights=lq[hit],
+                                         minlength=len(uniq)))]
+    out["f6_q6"], out["f6_q1"] = _f6_reference(np, li, FALLBACK_F6_ROWS)
+    return out
+
+
+def f5_reference(np, nds_ref):
+    """F5's reference from NdsNumpy: store_sales x item x date_dim for
+    June 1999, stddev_samp of ss_net_paid per category, the largest
+    brand per store."""
+    dates = nds_ref.dates(d_year=1999, d_moy=6)
+    idx, dims = nds_ref.fact_dims(
+        "store_sales",
+        [("ss_sold_date_sk", "date_dim", "d_date_sk", dates),
+         ("ss_item_sk", "item", "i_item_sk", None)])
+    cat = nds_ref.take("item", "i_category", dims["item"])
+    brand = nds_ref.take("item", "i_brand", dims["item"])
+    paid, paid_ok = nds_ref.take("store_sales", "ss_net_paid", idx)
+    store = nds_ref.take("store_sales", "ss_store_sk", idx)
+    gid, ng, _ = nds_ref.group([cat])
+    w = paid_ok.astype(np.float64)
+    x = np.where(paid_ok, paid, 0.0).astype(np.float64)
+    cnt = np.bincount(gid, weights=w, minlength=ng)
+    mean = np.bincount(gid, weights=x, minlength=ng) / np.maximum(cnt, 1)
+    m2 = np.bincount(gid, weights=w * (x - mean[gid]) ** 2, minlength=ng)
+    sd = np.sqrt(m2 / np.maximum(cnt - 1, 1))
+    sgid, ns, _ = nds_ref.group([store])
+    best = [None] * ns
+    for g, b, ok in zip(sgid, brand[0], brand[1]):
+        if ok and (best[g] is None or b > best[g]):
+            best[g] = b
+    return {
+        "ticket": nds_ref.take("store_sales", "ss_ticket_number", idx)[0],
+        "item": nds_ref.take("store_sales", "ss_item_sk", idx)[0],
+        "category": np.where(cat[1], cat[0], None),
+        "sd": sd[gid], "sd_ok": cnt[gid] >= 2,
+        "brand": np.array([best[g] for g in sgid], dtype=object)}
+
+
+def same_f5(np, table, want):
+    """F5's rows against its reference, both in (ticket, item, sd,
+    brand) order."""
+    got = {n: c for n, c in zip(table.names, table.columns)}
+    tick, item = got["ss_ticket_number"], got["ss_item_sk"]
+    check(table.num_rows == len(want["ticket"]),
+          f"F5: {table.num_rows} rows, reference {len(want['ticket'])}")
+    cat = got["i_category"].values.to_objects()
+    cat = np.where(got["i_category"].mask, cat, None)
+    brand = got["top_brand"].values.to_objects()
+    brand = np.where(got["top_brand"].mask, brand, None)
+    sd, sd_ok = got["sd"].values, got["sd"].mask
+
+    def order(t, i, s, b):
+        return np.lexsort((np.array([str(v) for v in b], dtype=object)
+                           .astype(str), np.round(s, 6), i, t))
+    g = order(tick.values, item.values, np.where(sd_ok, sd, -1.0), brand)
+    r = order(want["ticket"], want["item"],
+              np.where(want["sd_ok"], want["sd"], -1.0), want["brand"])
+    check(np.array_equal(tick.values[g], want["ticket"][r]) and
+          np.array_equal(item.values[g], want["item"][r]),
+          "F5: the (ticket, item) rows differ")
+    check(np.array_equal(sd_ok[g], want["sd_ok"][r]), "F5: NULL sd differ")
+    a, b = sd[g][sd_ok[g]], want["sd"][r][want["sd_ok"][r]]
+    check(bool(np.all(np.abs(a - b) <= RTOL * np.abs(b))),
+          "F5: stddev_samp differs past rtol")
+    check(bool(np.all(cat[g] == want["category"][r])) and
+          bool(np.all(brand[g] == want["brand"][r])),
+          "F5: category or brand differ")
+
+
+def fallback_phase(torch, np, dev, sessions, li_batches, read_counts,
+                   worker, nds_ref):
+    """Phase 5e: F1-F6 (models/fallback.py) on the resident SF10 tables:
+    each plan's CPU-engine nodes against the ones the query names, a
+    first run with every B1 / B3 launch held against the plain version,
+    one warm run, both against ``fallback_references`` (from
+    ``worker``, a ``host_worker`` process) and ``f5_reference``; logs
+    walls, the rows and bytes across each seam and the seconds in the
+    CPU engine against the rest (the device, host clock)."""
+    from spark_rapids_tpu_torch.columnar.vector import ColumnarBatch
+    from spark_rapids_tpu_torch.conf import SrtConf
+    from spark_rapids_tpu_torch.models import fallback as FB
+    from spark_rapids_tpu_torch.models import tpch
+    from spark_rapids_tpu_torch.ops import device_kernels as DK
+    from spark_rapids_tpu_torch.plan.session import TpuSession
+    from spark_rapids_tpu_torch.testing import compare_rows
+    # F6: a session with the device turned off over the first 6M rows
+    per = BATCH_ROWS
+    cut = []
+    for b in li_batches:
+        left = FALLBACK_F6_ROWS - sum(c.num_rows for c in cut)
+        if left <= 0:
+            break
+        cut.append(b if b.num_rows <= left else
+                   ColumnarBatch(b.columns, b.names, left, b.device))
+    off = TpuSession(SrtConf({"srt.sql.batchSizeRows": per,
+                              "srt.sql.enabled": False}), device=dev)
+    off_li = off.from_batches(cut)
+    t = time.perf_counter()
+    want, _, ref_s, _ = worker.get("fallback")
+    waited = time.perf_counter() - t
+    t = time.perf_counter()
+    want["f5"] = f5_reference(np, nds_ref)
+    log(f"fallback: references in {ref_s:.1f} s in a second process "
+        f"(waited {waited:.1f} s), F5's {time.perf_counter() - t:.1f} s "
+        "here")
+    runs = {
+        "f1": (sessions["float"], lambda: sessions["float"].sql(FB.F1),
+               {"tile_group_reduce": 1}),
+        "f2": (sessions["float"], lambda: sessions["float"].sql(FB.F2),
+               {"tile_reduce": 1}),
+        "f3": (sessions["decimal"], lambda: sessions["decimal"].sql(FB.F3),
+               {}),
+        "f4": (sessions["float"], lambda: sessions["float"].sql(FB.F4),
+               {"tile_group_reduce": 1}),
+        "f5": (sessions["nds"], lambda: sessions["nds"].sql(FB.F5), {}),
+        "f6_q6": (off, lambda: tpch.q6(off_li), {}),
+        "f6_q1": (off, lambda: tpch.q1(off_li), {}),
+    }
+    report = {}
+    for name, (session, make, at_least) in runs.items():
+        df = make()
+        marks = FB.not_on_device(df.explain("NOT_ON_TPU").splitlines())
+        expect = FB.CPU_NODES.get(name, [])
+        check(marks == expect, f"fallback {name}: CPU-engine nodes {marks}, "
+              f"expected {expect}")
+        walls, outs = [], []
+        for run in range(2):
+            DK.reset_counts()
+            torch.cuda.synchronize()
+            hold = holding_launches(torch, DK) if run == 0 else None
+            t = time.perf_counter()
+            if hold is not None:
+                with hold:
+                    out = df.to_table() if name == "f5" else df.collect()
+            else:
+                out = df.to_table() if name == "f5" else df.collect()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            counts = read_counts()
+            if hold is not None:
+                check_held(hold, counts, f"fallback {name}")
+                first_counts, first_err = counts, dict(hold.err)
+            for key, n in at_least.items():
+                check(counts[key] >= n, f"fallback {name}: {key} launched "
+                      f"{counts[key]} times, expected at least {n}")
+            if name.startswith("f6"):
+                check(sum(counts.values()) == 0,
+                      f"fallback {name}: launched {counts} with the device "
+                      "turned off")
+            outs.append(out)
+        totals = session._last_execution[1].metric_totals()
+        for out in outs:
+            if name == "f5":
+                same_f5(np, out, want["f5"])
+            else:
+                diff = compare_rows(out, want[name], [], None, RTOL)
+                check(diff is None, f"fallback {name}: {diff}")
+        cpu_s = totals.get("cpuTimeNs", 0) / 1e9
+        seam_s = totals.get("transitionTimeNs", 0) / 1e9
+        report[name] = {
+            "first_s": walls[0], "warm_s": walls[1],
+            "seam_rows": totals.get("transitionRows", 0),
+            "seam_bytes": totals.get("transitionBytes", 0),
+            "seam_s": seam_s, "cpu_engine_s": cpu_s,
+            "rest_s": walls[1] - cpu_s - seam_s,
+            "launches": first_counts, "max_abs_err": first_err,
+            "cpu_nodes": marks}
+        log(f"fallback {name}: CPU-engine nodes {marks}; matches the "
+            f"reference; walls first {walls[0]:.3f} s, warm {walls[1]:.3f} "
+            f"s; seams {report[name]['seam_rows']} rows, "
+            f"{report[name]['seam_bytes']} B, {seam_s:.3f} s; CPU engine "
+            f"{cpu_s:.3f} s, the rest (device and planning, host clock) "
+            f"{report[name]['rest_s']:.3f} s; launches {first_counts}")
+    log("fallback summary " + json.dumps(report))
+    return report
+
+
 # --- phase 5d: nested types, higher-order functions, JSON -----------------
 
 #: orders_json's documents: the first 4,194,304 orders (a Python
@@ -4617,6 +4899,8 @@ def host_worker(conn, jobs, zone, n_docs):
                 out = tpch_references(np, li, od, cu)
             elif job == "scalar":
                 out = scalar_references(np, li, od, cu, zone)
+            elif job == "fallback":
+                out = fallback_references(np, li, od)
             elif job == "orders_json":
                 li_t, od_t = nested_host_tables(np, host)
                 no = NM.NestedOrders(li_t)
@@ -4661,8 +4945,29 @@ def main():
     from spark_rapids_tpu_torch.models import tpch
     from spark_rapids_tpu_torch.ops import device_kernels as DK
     from spark_rapids_tpu_torch.ops import kernels as K
+    from spark_rapids_tpu_torch.plan import session as session_module
     from spark_rapids_tpu_torch.plan.host_table import table_to_batch
     from spark_rapids_tpu_torch.plan.session import TpuSession
+    from spark_rapids_tpu_torch.plan.transitions import (CpuPhysical,
+                                                         HostToDeviceExec)
+
+    # every query outside phase 5e must plan wholly on the device: no
+    # CPU-engine node, no seam (the planner as the sessions call it)
+    plan_guard = {"allow": False, "plans": 0}
+    planner = session_module.apply_overrides
+
+    def on_host(node):
+        return isinstance(node, (CpuPhysical, HostToDeviceExec)) or any(
+            on_host(c) for c in getattr(node, "children", []))
+
+    def guarded_planner(plan, conf):
+        physical = planner(plan, conf)
+        if not plan_guard["allow"]:
+            check(not on_host(physical), "a query outside phase 5e planned "
+                  f"a CPU-engine node:\n{physical.tree_string()}")
+            plan_guard["plans"] += 1
+        return physical
+    session_module.apply_overrides = guarded_planner
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4673,7 +4978,8 @@ def main():
     # scalar references, and orders_json's documents with N6's
     # reference, ahead of the phases that read them
     zone, zone_why = scalar_zone()
-    refs_worker = HostWorker(("tpch", "scalar"), zone, NESTED_JSON_ROWS)
+    refs_worker = HostWorker(("tpch", "scalar", "fallback"), zone,
+                             NESTED_JSON_ROWS)
     json_worker = HostWorker(("orders_json", "n6"), zone, NESTED_JSON_ROWS)
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5074,7 +5380,6 @@ def main():
     log(f"scalar: {zone_why}")
     scalar = scalar_phase(torch, np, dev, session, dfs, zone, refs_worker,
                           read_counts)
-    refs_worker.close()
 
     # --- phase 5c: TPC-H over DECIMAL(12,2) money -----------------------------
     try:
@@ -5109,6 +5414,17 @@ def main():
 
     # --- the float group sums alone, at q12's and q98's widest batch --------
     seg_sum_timing(torch, dev, nds_session)
+
+    # --- phase 5e: mixed device / CPU-engine plans --------------------------
+    plan_guard["allow"] = True
+    try:
+        fallback = fallback_phase(
+            torch, np, dev, {"float": session, "decimal": dec_session,
+                             "nds": nds_session},
+            batches["lineitem"], read_counts, refs_worker, nds_ref)
+    finally:
+        plan_guard["allow"] = False
+        refs_worker.close()
 
     # --- outer, keyless and nested-loop joins, set operations -------------
     joins, joins_widest = joins_setops_phase(torch, np, dev, nds_session,
@@ -5174,6 +5490,8 @@ def main():
                  "window a_running (profiled)")
     del nds_session, nds_ref, window_runs, window_want, table
 
+    log(f"planner: {plan_guard['plans']} plans outside phase 5e, each "
+        "wholly on the device")
     b2_launches = launches["strings_lineitem"]["tile_reduce_str"] + \
         launches["strings_orders"]["tile_reduce_str"]
     def b3_extra(r):
@@ -5187,7 +5505,8 @@ def main():
          "launches": launches["q6"]["tile_reduce"]
          + sum(r["launches"]["tile_reduce"]
                for r in (*nds.values(), *joins.values(), *subq.values(),
-                         *scalar.values(), *nested.values()))
+                         *scalar.values(), *nested.values(),
+                         *fallback.values()))
          + memory_launches["tile_reduce"]
          - memory_launches["tile_reduce_str"],
          "scalar_launches": {q: r["launches"]["tile_reduce"]
@@ -5196,6 +5515,9 @@ def main():
          "nested_launches": {q: r["launches"]["tile_reduce"]
                              for q, r in nested.items()
                              if r["launches"]["tile_reduce"]},
+         "fallback_launches": {q: r["launches"]["tile_reduce"]
+                               for q, r in fallback.items()
+                               if r["launches"]["tile_reduce"]},
          "memory_launches": memory_launches["tile_reduce"]
          - memory_launches["tile_reduce_str"],
          "nds_launches": {q: r["launches"]["tile_reduce"]
@@ -5225,7 +5547,8 @@ def main():
          + launches["q3"]["tile_group_reduce"]
          + sum(r["launches"]["tile_group_reduce"]
                for r in (*nds.values(), *joins.values(), *subq.values(),
-                         *scalar.values(), *nested.values()))
+                         *scalar.values(), *nested.values(),
+                         *fallback.values()))
          + memory_launches["tile_group_reduce"],
          "scalar_launches": {q: r["launches"]["tile_group_reduce"]
                              for q, r in scalar.items()
@@ -5233,6 +5556,9 @@ def main():
          "nested_launches": {q: r["launches"]["tile_group_reduce"]
                              for q, r in nested.items()
                              if r["launches"]["tile_group_reduce"]},
+         "fallback_launches": {q: r["launches"]["tile_group_reduce"]
+                               for q, r in fallback.items()
+                               if r["launches"]["tile_group_reduce"]},
          "memory_launches": memory_launches["tile_group_reduce"],
          "nds_launches": {q: r["launches"]["tile_group_reduce"]
                           for q, r in (*nds.items(), *joins.items(),
@@ -5256,7 +5582,8 @@ def main():
     # q61, q87 and q90, and under the plan-time subqueries of phase 6c)
     held_err = [r["max_abs_err"] for r in (*memory["injected"].values(),
                                             *scalar.values(),
-                                            *nested.values())]
+                                            *nested.values(),
+                                            *fallback.values())]
     kernels[0]["max_abs_err"] = max(
         kernels[0]["max_abs_err"],
         *(r["b1_max_abs_err"] for r in (*nds.values(), *joins.values(),

@@ -169,10 +169,23 @@ class HostStrings:
         return HostStrings(offsets, self.chars[src])
 
     def to_objects(self) -> np.ndarray:
-        raw = self.chars.tobytes()
         o = self.offsets
+        n = len(self)
+        lens = np.diff(o)
+        width = int(lens.max()) if n else 0
+        body = self.chars[o[0]:o[-1]] if n else self.chars[:0]
+        if n and 0 < width <= 64 and bool(np.all((body > 0) & (body < 128))):
+            # ASCII without NUL bytes: one padded (rows, width) byte
+            # matrix read as fixed-width strings, decoded in C
+            mat = np.zeros((n, width), np.uint8)
+            col = np.arange(width)
+            inside = col[None, :] < lens[:, None]
+            mat[inside] = body
+            return mat.view(f"S{width}").reshape(n).astype(
+                f"U{width}").astype(object)
+        raw = self.chars.tobytes()
         return np.array([raw[o[i]:o[i + 1]].decode("utf-8", errors="replace")
-                         for i in range(len(self))], dtype=object)
+                         for i in range(n)], dtype=object)
 
     @staticmethod
     def concat(parts: Sequence["HostStrings"]) -> "HostStrings":

@@ -76,6 +76,24 @@ def _register(entry: ConfEntry) -> ConfEntry:
     return entry
 
 
+SQL_ENABLED = _register(ConfEntry(
+    "srt.sql.enabled", _bool, True,
+    "Run SQL operators on the device. When false every plan runs on "
+    "the CPU engine (plan/cpu_exec.py). (spark.rapids.sql.enabled)"))
+
+EXPLAIN = _register(ConfEntry(
+    "srt.sql.explain", _one_of("NONE", "NOT_ON_TPU", "ALL"), "NONE",
+    "Explain mode at planning: NONE, NOT_ON_TPU (print the operators "
+    "that run on the CPU engine and why), ALL (print every operator "
+    "with its mark). (spark.rapids.sql.explain)"))
+
+OPTIMIZER_ENABLED = _register(ConfEntry(
+    "srt.sql.optimizer.enabled", _bool, False,
+    "Cost model (plan/cost.py): keep plan sections below its "
+    "ROW_THRESHOLD on the CPU engine where device launch and transfer "
+    "overheads dominate. Its weights are the JAX package's, not measured "
+    "on the H100. (spark.rapids.sql.optimizer.enabled)"))
+
 BATCH_SIZE_ROWS = _register(ConfEntry(
     "srt.sql.batchSizeRows", _positive_int, 1 << 20,
     "Target rows per columnar batch."))

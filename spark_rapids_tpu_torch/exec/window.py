@@ -23,8 +23,8 @@ Only the columns the functions read are gathered into sorted order.
 ``BatchedRunningWindowExec`` streams running frames over a child already
 sorted by (partition, order), batch by batch, with carried state.
 
-Decimals (long-backed in and out; a wide one waits for the CPU fallback,
-plan/overrides.py): SUM scans the unscaled int64 lanes (a sum of
+Decimals (long-backed in and out; a wide one runs on the CPU engine,
+plan/overrides.py ``_tag_window``): SUM scans the unscaled int64 lanes (a sum of
 DECIMAL(p <= 8) values stays inside DECIMAL(p + 10) below 2^31 rows);
 AVG is Spark's exact DECIMAL(p + 4, s + 4),
 HALF_UP, from two int64 scans of each value's high and low 32 bits (no

@@ -13,8 +13,9 @@ long-backed and the result is too, the int64 lane is exact; otherwise
 the operands go to two limbs (columnar/decimal128.py), * and / through
 Spark-exact 256-bit intermediates, and a result past its precision is
 NULL (non-ANSI). ``div``, ``%`` and ``pmod`` run on long-backed
-decimals; on a wide one, as ``least`` / ``greatest``, they wait for the
-CPU fallback (the JAX planner sends them to its CPU engine). ``div``, ``%`` and ``pmod`` take Java's truncating division
+decimals; on a wide one, as ``least`` / ``greatest``, they run on the
+CPU engine (their rules' type signatures send them there, as in the JAX
+planner). ``div``, ``%`` and ``pmod`` take Java's truncating division
 (x div 0, x % 0 and pmod(x, 0) are null); ``least`` / ``greatest`` skip
 NULLs and order NaN above every number.
 
@@ -290,10 +291,11 @@ def _decimal_divmod_aligned(op_name: str, left, right, validity):
     """Common-scale truncating 128-bit divmod of long-backed decimal
     operands (the alignment cannot overflow: |v| < 10^18 * 10^18 <
     2^127): (qh, ql, rh, rl, bh, bl, validity & divisor != 0, scale).
-    A wide operand waits for the CPU fallback."""
+    A wide operand runs on the CPU engine (the rule's type signature)."""
     if isinstance(left, Decimal128Column) or \
             isinstance(right, Decimal128Column):
-        raise cpu_fallback(f"{op_name} on a DECIMAL(p>18)")
+        raise cpu_fallback(f"{op_name} on a DECIMAL(p>18)",
+                           "type signature of div / % / pmod")
     s = max(left.dtype.scale, right.dtype.scale)
     ah, al, _ = _lift_rescaled(left, s)
     bh, bl, _ = _lift_rescaled(right, s)
@@ -301,11 +303,6 @@ def _decimal_divmod_aligned(op_name: str, left, right, validity):
     safe_bl = torch.where(nonzero, bl, torch.ones_like(bl))
     qh, ql, rh, rl = d128.d128_div_trunc(ah, al, bh, safe_bl)
     return qh, ql, rh, rl, bh, safe_bl, validity & nonzero, s
-
-
-def _check_narrow(op_name: str, lt: dt.DType, rt: dt.DType) -> None:
-    if dt.is_wide_decimal(lt) or dt.is_wide_decimal(rt):
-        raise cpu_fallback(f"{op_name} on a DECIMAL(p>18)")
 
 
 class IntegralDivide(BinaryArithmetic):
@@ -321,7 +318,6 @@ class IntegralDivide(BinaryArithmetic):
         return dt.INT64
 
     def _out_type(self, lt, rt):
-        _check_narrow(self.op_name, lt, rt)
         return dt.INT64
 
     def eval(self, batch: ColumnarBatch) -> ColumnVector:
@@ -344,10 +340,6 @@ class Remainder(BinaryArithmetic):
 
     op_name = "%"
     decimal_op = "mod"
-
-    def _out_type(self, lt, rt):
-        _check_narrow(self.op_name, lt, rt)
-        return super()._out_type(lt, rt)
 
     def _compute(self, a, b, validity):
         return trunc_mod(a, b), validity & (b != 0)
@@ -416,18 +408,18 @@ class _LeastGreatestBase(Expression):
     largest = False
 
     def data_type(self, schema: Schema) -> dt.DType:
-        out = _least_greatest_type([c.data_type(schema)
-                                    for c in self.children])
-        if dt.is_wide_decimal(out):
-            raise cpu_fallback(f"{type(self).__name__.lower()} of a "
-                               "DECIMAL(p>18)")
-        return out
+        return _least_greatest_type([c.data_type(schema)
+                                     for c in self.children])
 
     def eval(self, batch: ColumnarBatch):
         cols = [c.eval(batch) for c in self.children]
         if any(isinstance(c, StringColumn) for c in cols):
             return self._strings(cols)
         out_t = self.data_type(batch.schema())
+        if dt.is_wide_decimal(out_t):
+            raise cpu_fallback(f"{type(self).__name__.lower()} of a "
+                               "DECIMAL(p>18)", "type signature of "
+                               "least / greatest")
         if dt.is_decimal(out_t) or out_t == dt.FLOAT64 and \
                 any(dt.is_decimal(c.dtype) for c in cols):
             from .cast import cast_column

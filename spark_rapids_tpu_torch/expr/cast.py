@@ -22,9 +22,9 @@ non-ANSI semantics:
   JAX package makes an out-of-range row null; ROADMAP.md C15).
 
 ``check_supported`` refuses, when the plan is made, what the port
-cannot cast (STRING -> TIMESTAMP, TIMESTAMP -> float; a DECIMAL(p>18)
-to or from STRING waits for the CPU fallback, as the JAX planner sends
-it to its CPU engine).
+cannot cast (STRING -> TIMESTAMP, TIMESTAMP -> float). A DECIMAL(p>18)
+to or from STRING runs on the CPU engine: the planner's ``_tag_cast``
+(plan/overrides.py) sends it there, as the JAX planner does.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ from ..columnar import decimal128 as d128
 from ..columnar import dtypes as dt
 from ..columnar.decimal128 import Decimal128Column
 from ..columnar.vector import Column, ColumnarBatch, StringColumn
-from .core import Expression, Schema, cpu_fallback, make_result
+from .core import Expression, Schema, make_result
 
 
 class Cast(Expression):
@@ -49,10 +49,7 @@ class Cast(Expression):
     def check_supported(self, schema: Schema) -> None:
         """Raise TypeError where this port has no such cast."""
         src = self.children[0].data_type(schema)
-        if (dt.is_wide_decimal(src) and self.to == dt.STRING) or \
-                (src == dt.STRING and dt.is_wide_decimal(self.to)):
-            raise cpu_fallback(f"CAST({src} AS {self.to})")
-        if not supported(src, self.to):
+        if not supported(src, self.to) and not cpu_only(src, self.to):
             raise TypeError(f"cast {src} -> {self.to} is not in this port "
                             "yet")
 
@@ -66,6 +63,13 @@ class Cast(Expression):
 def _numeric(t: dt.DType) -> bool:
     return t.is_integral or t.is_floating or t == dt.BOOL or \
         dt.is_decimal(t)
+
+
+def cpu_only(src: dt.DType, to: dt.DType) -> bool:
+    """A cast only the CPU engine runs: a DECIMAL(p>18) to or from
+    STRING."""
+    return (dt.is_wide_decimal(src) and to == dt.STRING) or \
+        (src == dt.STRING and dt.is_wide_decimal(to))
 
 
 def supported(src: dt.DType, to: dt.DType) -> bool:

@@ -44,10 +44,11 @@ def _element_type(expr: Expression, schema: Schema) -> dt.DType:
 
 def _primitive_child(lc: ListColumn, what: str) -> ColumnVector:
     """The child of a list whose functions compare elements: a flat
-    primitive column (string and nested elements wait for the CPU
-    fallback, as the planner's gates say)."""
+    primitive column (string and nested elements run on the CPU engine:
+    the planner's gates send them there)."""
     if not isinstance(lc.child, ColumnVector):
-        raise cpu_fallback(f"{what} over {lc.element_type} elements")
+        raise cpu_fallback(f"{what} over {lc.element_type} elements",
+                           "nested gate")
     return lc.child
 
 
@@ -550,8 +551,8 @@ class ArrayReverse(Expression):
 
 
 class ArrayRepeat(Expression):
-    """array_repeat(v, n) with a literal count (a column count waits for
-    the CPU fallback, as the planner's gate says)."""
+    """array_repeat(v, n) with a literal count (a column count runs on
+    the CPU engine: the planner's gate sends it there)."""
 
     def __init__(self, value: Expression, count: Expression):
         super().__init__(value, count)
@@ -567,7 +568,8 @@ class ArrayRepeat(Expression):
     def eval(self, batch: ColumnarBatch) -> ListColumn:
         n = self._count()
         if n is None:
-            raise cpu_fallback("array_repeat with a column count")
+            raise cpu_fallback("array_repeat with a column count",
+                               "nested gate")
         n = max(int(n), 0)
         v = self.children[0].eval(batch)
         live = batch.live_mask()
@@ -786,8 +788,8 @@ class ZipWith(Expression):
 
 
 class MapConcat(Expression):
-    """map_concat(m1, m2, ...): waits for the CPU fallback (the JAX
-    package runs it on its CPU engine)."""
+    """map_concat(m1, m2, ...): runs on the CPU engine (the planner's
+    gate sends it there, as the JAX planner does)."""
 
     def __init__(self, *children: Expression):
         super().__init__(*children)
@@ -800,7 +802,7 @@ class MapConcat(Expression):
         return ts_[0]
 
     def eval(self, batch: ColumnarBatch):
-        raise cpu_fallback("map_concat")
+        raise cpu_fallback("map_concat", "nested gate")
 
 
 def zip_with(a, b, fn):
@@ -878,8 +880,12 @@ class Explode(Expression):
 
     def data_type(self, schema: Schema) -> dt.DType:
         t = self.children[0].data_type(schema)
-        if isinstance(t, dt.MapType):  # the JAX planner's _tag_explode
-            raise cpu_fallback(f"explode of {t}")
+        if isinstance(t, dt.MapType):
+            # Spark gives a key and a value column; the port's Generate
+            # has one element column (the JAX CPU engine explodes a map
+            # into its keys alone)
+            raise NotImplementedError(f"explode of {t} is not in this "
+                                      "port yet")
         return _element_type(self.children[0], schema)
 
     def eval(self, batch: ColumnarBatch):

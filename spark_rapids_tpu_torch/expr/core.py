@@ -288,12 +288,14 @@ def output_name(expr: Expression, index: int) -> str:
     return f"_c{index}"
 
 
-def cpu_fallback(what: str) -> NotImplementedError:
-    """The error for what the JAX planner sends to its CPU engine: the
-    port has no CPU fallback yet (ROADMAP.md A8)."""
+def cpu_fallback(what: str, rule: str) -> NotImplementedError:
+    """The guard a device evaluator raises on what only the CPU engine
+    runs. The planner's ``rule`` (plan/overrides.py) tags such an
+    expression off the device, so reaching this is a planner fault: the
+    port never falls back quietly."""
     return NotImplementedError(
-        f"{what} runs on the JAX package's CPU engine and is not in this "
-        "port yet: it waits for the CPU fallback (ROADMAP.md A8)")
+        f"{what} runs on the CPU engine: the planner's {rule} "
+        "should have tagged it off the device (a planner fault)")
 
 
 def merged_validity(*cols: Column) -> torch.Tensor:

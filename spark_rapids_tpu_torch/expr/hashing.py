@@ -22,8 +22,9 @@ arithmetic one masked to the low bits. It takes what the JAX package's
 takes: booleans, integers, dates, timestamps and floats (strings raise,
 as there). A long-backed decimal hashes as its unscaled long (Spark's
 ``hashLong`` of ``toUnscaledLong``) in both; a DECIMAL(p>18) hashes its
-BigDecimal's bytes in Spark and waits for the CPU fallback here (the
-JAX planner sends it to its CPU engine).
+BigDecimal's bytes in Spark; the planner tags it off the device (as the
+JAX planner does) and the port's CPU engine refuses it (not in this
+port yet).
 """
 
 from __future__ import annotations
@@ -104,7 +105,8 @@ def _seed_lane(seed: Seed, cap: int, device) -> torch.Tensor:
 def _no_wide(col: Column) -> None:
     if dt.is_wide_decimal(col.dtype):
         from .core import cpu_fallback
-        raise cpu_fallback(f"a hash of {col.dtype}")
+        raise cpu_fallback(f"a hash of {col.dtype}",
+                           "type signature of hash / xxhash64")
 
 
 def murmur3_column(col: Column, seed: Seed) -> torch.Tensor:

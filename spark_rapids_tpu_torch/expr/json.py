@@ -24,8 +24,8 @@ Semantic envelope, kept as the JAX package has it (ROADMAP C17): a
 nested object or array result is the raw input span (whitespace kept),
 and ``\\uXXXX`` escapes pass through undecoded; a malformed document
 (unbalanced brackets, an open string) gives NULL. Scalar extractions
-match Spark. ``from_json`` / ``to_json`` wait for the CPU fallback
-(ROADMAP A8).
+match Spark. ``from_json`` / ``to_json`` run on the CPU engine (the
+planner's gate sends them there).
 """
 
 from __future__ import annotations
@@ -409,8 +409,8 @@ class GetJsonObject(Expression):
 
 
 class JsonToStructs(Expression):
-    """from_json(json, schema): waits for the CPU fallback (the JAX
-    package runs it on its CPU engine)."""
+    """from_json(json, schema): runs on the CPU engine (the planner's
+    gate sends it there, as the JAX planner does)."""
 
     def __init__(self, child: Expression, schema: dt.StructType):
         super().__init__(child)
@@ -420,14 +420,15 @@ class JsonToStructs(Expression):
         return self.struct_schema
 
     def eval(self, batch: ColumnarBatch):
-        raise cpu_fallback("from_json")
+        raise cpu_fallback("from_json", "nested gate")
 
 
 class StructsToJson(Expression):
-    """to_json(struct): waits for the CPU fallback."""
+    """to_json(struct): runs on the CPU engine (the planner's gate
+    sends it there)."""
 
     def data_type(self, schema: Schema) -> dt.DType:
         return dt.STRING
 
     def eval(self, batch: ColumnarBatch):
-        raise cpu_fallback("to_json")
+        raise cpu_fallback("to_json", "nested gate")

@@ -5,9 +5,11 @@ its Thompson NFA (``_Parser``, ``CompiledRegex``, ``transpile``) are
 copied from the JAX package (pure Python and numpy): they accept the
 same Java-flavoured subset and refuse the rest with
 ``RegexUnsupported`` (backreferences, lookaround, ``\\p`` classes,
-named groups, inline flags, interior word boundaries). The port has no
-CPU fallback: a refused pattern raises, and the analyzer turns that into
-``SqlError``.
+named groups, inline flags, interior word boundaries). A refused
+pattern, and a ``regexp_replace`` replacement with group references,
+runs on the CPU engine through Python's ``re`` (the planner's
+``_tag_rlike``, ``_tag_regexp_extract`` and ``_tag_regexp_replace``
+read ``device_unsupported``, as the JAX planner does).
 
 The JAX package steps the NFA's state set through every byte of a
 padded (rows, width) view. Here each NFA becomes a DFA by subset
@@ -788,13 +790,27 @@ def _simulate(rx: CompiledRegex, col: StringColumn) -> torch.Tensor:
     return matched
 
 
+def _refusal(check, what: str):
+    try:
+        check()
+    except RegexUnsupported as e:
+        return f"{what}: {e}"
+    return None
+
+
+def _guard(expr, rule: str) -> None:
+    reason = expr.device_unsupported()
+    if reason is not None:
+        from .core import cpu_fallback
+        raise cpu_fallback(reason, rule)
+
+
 class RLike(Expression):
     """rlike / regexp_like: unanchored regex search."""
 
     def __init__(self, child: Expression, pattern: str):
         super().__init__(child)
         self.pattern = pattern
-        self.compiled()  # a refused pattern raises when the plan is made
 
     def data_type(self, schema: Schema) -> dt.DType:
         return dt.BOOL
@@ -802,7 +818,13 @@ class RLike(Expression):
     def compiled(self) -> CompiledRegex:
         return transpile(self.pattern)
 
+    def device_unsupported(self):
+        """Why the device cannot run this pattern (the planner's
+        ``_tag_rlike`` reads it), else None."""
+        return _refusal(lambda: transpile(self.pattern), "rlike")
+
     def eval(self, batch: ColumnarBatch) -> ColumnVector:
+        _guard(self, "_tag_rlike")
         c = self.children[0].eval(batch)
         return make_result(_simulate(self.compiled(), c), c.validity,
                            dt.BOOL)
@@ -966,13 +988,18 @@ class RegExpExtract(Expression):
         super().__init__(child)
         self.pattern = pattern
         self.group = group
-        check_submatch_supported(pattern, group)
 
     def data_type(self, schema: Schema) -> dt.DType:
         return dt.STRING
 
+    def device_unsupported(self):
+        return _refusal(lambda: check_submatch_supported(self.pattern,
+                                                         self.group),
+                        "regexp_extract")
+
     def eval(self, batch: ColumnarBatch) -> StringColumn:
         from .strings import slice_rows
+        _guard(self, "_tag_regexp_extract")
         c = self.children[0].eval(batch)
         rows = _Rows(c)
         rx = check_submatch_supported(self.pattern, self.group)
@@ -989,23 +1016,27 @@ class RegExpReplace(Expression):
     leftmost match replaced, empty matches included (Java's
     ``replaceAll``: after an empty match the search moves on one
     character). A ``$`` or ``\\`` in the replacement (group references)
-    is refused."""
+    runs on the CPU engine."""
 
     def __init__(self, child: Expression, pattern: str, replacement: str):
         super().__init__(child)
-        if "$" in replacement or "\\" in replacement:
-            raise RegexUnsupported(
-                f"regexp_replace replacement {replacement!r}: group "
-                "references are not supported")
         self.pattern = pattern
         self.replacement = replacement
-        check_submatch_supported(pattern, 0)
+        self._repl_refs = "$" in replacement or "\\" in replacement
 
     def data_type(self, schema: Schema) -> dt.DType:
         return dt.STRING
 
+    def device_unsupported(self):
+        if self._repl_refs:
+            return ("regexp_replace: group references in the "
+                    "replacement run on the CPU engine")
+        return _refusal(lambda: check_submatch_supported(self.pattern, 0),
+                        "regexp_replace")
+
     def eval(self, batch: ColumnarBatch) -> StringColumn:
         from .strings import code_point_length, replace_spans
+        _guard(self, "_tag_regexp_replace")
         c = self.children[0].eval(batch)
         rows = _Rows(c)
         rx = check_submatch_supported(self.pattern, 0)

@@ -891,7 +891,7 @@ def _decimal_to_string(c: ColumnVector) -> StringColumn:
     s digits (-0.50, 12.30)."""
     if c.dtype.is_wide:
         from .core import cpu_fallback
-        raise cpu_fallback(f"CAST({c.dtype} AS STRING)")
+        raise cpu_fallback(f"CAST({c.dtype} AS STRING)", "_tag_cast")
     s = c.dtype.scale
     if s == 0:
         return _int_to_string(c.data, c.validity)
@@ -1465,7 +1465,7 @@ def cast_from_string(c: StringColumn, to: dt.DType) -> Column:
     if dt.is_decimal(to):
         if to.is_wide:
             from .core import cpu_fallback
-            raise cpu_fallback(f"CAST(STRING AS {to})")
+            raise cpu_fallback(f"CAST(STRING AS {to})", "_tag_cast")
         val, ok = _parse_decimal(padded, lens, to)
         return make_result(val, c.validity & ok, to)
     raise TypeError(f"cast string -> {to} is not in this port yet")

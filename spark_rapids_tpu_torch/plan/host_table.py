@@ -2,11 +2,22 @@
 
 Counterpart of spark_rapids_tpu/plan/host_table.py. Each column is
 (values, mask) in the same physical lane encoding the device side uses
-(dates = int32 days, decimals their unscaled int64, or unscaled Python
-ints in an object array above precision 18); string lanes are
-HostStrings (Arrow layout); a nested column's lane is an object array
-of Python values (lists, dicts) or flat lanes (``HostList``,
-``HostStruct``, columnar/nested.py).
+(dates = int32 days, timestamps int64 microseconds, decimals their
+unscaled int64, or unscaled Python ints in an object array above
+precision 18). The two sides of the host differ in strings and nested
+lanes:
+
+- the device path's host tables (``batch_to_table``, ``table_to_batch``)
+  keep a string lane as HostStrings (Arrow offsets and bytes) and a
+  nested lane as an object array of Python values or as flat lanes
+  (``HostList``, ``HostStruct``, columnar/nested.py);
+- the CPU engine (cpu_eval.py, cpu_exec.py), copied from the JAX
+  package, reads a string lane as an object array of ``str`` ("" under
+  a null) and a nested lane as an object array of Python lists and
+  dicts (None under a null).
+
+``to_engine`` and ``from_engine`` convert between the two, losslessly;
+the seams of a mixed plan (transitions.py) call them.
 """
 
 from __future__ import annotations
@@ -38,8 +49,21 @@ class HostColumn:
     def __len__(self):
         return len(self.values)
 
-    def take(self, idx: np.ndarray) -> "HostColumn":
-        return HostColumn(self.values.take(idx), self.mask[idx], self.dtype)
+    def take(self, idx: np.ndarray,
+             valid: Optional[np.ndarray] = None) -> "HostColumn":
+        """Rows ``idx``; where ``valid`` is given, rows it clears are
+        null (an outer join's unmatched side, gathered from an empty
+        column too)."""
+        idx = np.asarray(idx, dtype=np.int64)
+        if len(self.values) == 0 and len(idx):
+            values = np.zeros(len(idx), dtype=self.values.dtype) \
+                if isinstance(self.values, np.ndarray) else \
+                self.values.take(np.zeros(0, np.int64))
+            return HostColumn(values, np.zeros(len(idx), bool), self.dtype)
+        mask = self.mask[idx]
+        if valid is not None:
+            mask = mask & valid
+        return HostColumn(self.values.take(idx), mask, self.dtype)
 
     def __repr__(self):
         return f"HostColumn({self.dtype}, n={len(self)})"
@@ -68,6 +92,18 @@ class HostTable:
         return HostTable([c.take(np.arange(start, min(stop, len(c))))
                           for c in self.columns], self.names)
 
+    def take(self, idx: np.ndarray,
+             valid: Optional[np.ndarray] = None) -> "HostTable":
+        return HostTable([c.take(idx, valid) for c in self.columns],
+                         self.names)
+
+    def select_rows(self, mask: np.ndarray) -> "HostTable":
+        return self.take(np.nonzero(mask)[0])
+
+    def with_columns(self, columns: Sequence[HostColumn],
+                     names: Sequence[str]) -> "HostTable":
+        return HostTable(list(columns), list(names))
+
     def __repr__(self):
         cols = ", ".join(f"{n}:{c.dtype}"
                          for n, c in zip(self.names, self.columns))
@@ -82,7 +118,9 @@ def concat_tables(tables: Sequence[HostTable]) -> HostTable:
         if isinstance(c0.values, (HostList, HostStruct)):
             parts = [p.to_objects(c0.dtype) for p in parts]
         values = HostStrings.concat(parts) if isinstance(
-            c0.values, HostStrings) else np.concatenate(parts)
+            c0.values, HostStrings) else np.concatenate(parts) \
+            if parts[0].dtype != object else _objects(
+                [v for p in parts for v in p])
         mask = np.concatenate([t.columns[i].mask for t in tables])
         cols.append(HostColumn(values, mask, c0.dtype))
     return HostTable(cols, first.names)
@@ -93,7 +131,8 @@ def to_pydict(table: HostTable) -> dict:
     out = {}
     for name, c in zip(table.names, table.columns):
         if c.dtype == dt.STRING:
-            vals = c.values.to_objects()
+            vals = c.values.to_objects() \
+                if isinstance(c.values, HostStrings) else c.values
             out[name] = [vals[i] if c.mask[i] else None
                          for i in range(len(c))]
         elif c.dtype.is_nested:
@@ -130,11 +169,77 @@ def batch_to_table(batch: ColumnarBatch) -> HostTable:
     return HostTable(cols, batch.names)
 
 
-def empty_table(schema: Schema) -> HostTable:
-    no_strings = HostStrings(np.zeros(1, np.int32), np.zeros(0, np.uint8))
-    cols = [HostColumn(no_strings if t == dt.STRING
-                       else np.zeros(0, object)
-                       if dt.is_wide_decimal(t) or t.is_nested
-                       else np.zeros(0, t.np_physical), np.zeros(0, bool), t)
-            for _, t in schema]
+def empty_like(schema: Schema) -> HostTable:
+    """An empty table in the CPU engine's layout."""
+    cols = [HostColumn(np.zeros(0, object)
+                       if t == dt.STRING or t.is_nested
+                       or dt.is_wide_decimal(t)
+                       else np.zeros(0, t.np_physical or np.int32),
+                       np.zeros(0, bool), t) for _, t in schema]
     return HostTable(cols, [n for n, _ in schema])
+
+
+def _objects(values) -> np.ndarray:
+    out = np.empty(len(values), dtype=object)
+    out[:] = list(values)
+    return out
+
+
+def from_pydict(data: dict, schema: Schema) -> HostTable:
+    """{name: [Python values, None for null]} in the CPU engine's
+    layout (the JAX package's ``from_pydict``)."""
+    from ..expr.core import literal_physical
+    cols = []
+    for name, t in schema:
+        raw = list(data[name])
+        mask = np.array([v is not None for v in raw], dtype=bool)
+        if t.is_nested:
+            values = _objects(raw)
+        elif t == dt.STRING:
+            values = _objects(["" if v is None else v for v in raw])
+        elif dt.is_wide_decimal(t):
+            values = _objects([0 if v is None else literal_physical(v, t)
+                               for v in raw])
+        else:
+            values = np.array([0 if v is None else literal_physical(v, t)
+                               for v in raw], t.np_physical or np.int32)
+        cols.append(HostColumn(values, mask, t))
+    return HostTable(cols, [n for n, _ in schema])
+
+
+def to_engine(table: HostTable) -> HostTable:
+    """The device path's host layout -> the CPU engine's: a string lane
+    as an object array of ``str`` ("" under a null), a nested lane as
+    an object array of Python values (None under a null), a wide
+    decimal as Python ints."""
+    cols = []
+    for c in table.columns:
+        values = c.values
+        if c.dtype == dt.STRING:
+            strs = values.to_objects() if isinstance(values, HostStrings) \
+                else values
+            values = _objects([s if ok else "" for s, ok in
+                               zip(strs, c.mask)])
+        elif c.dtype.is_nested:
+            values = _objects(host_python(values, c.mask, c.dtype))
+        elif dt.is_wide_decimal(c.dtype):
+            values = _objects([int(v) for v in values])
+        cols.append(HostColumn(values, c.mask, c.dtype))
+    return HostTable(cols, table.names)
+
+
+def from_engine(table: HostTable) -> HostTable:
+    """The CPU engine's host layout -> the device path's (the inverse
+    of ``to_engine``): strings back to HostStrings; nested lanes stay
+    object arrays of Python values, which ``table_to_batch`` takes."""
+    cols = []
+    for c in table.columns:
+        values = c.values
+        if c.dtype == dt.STRING and not isinstance(values, HostStrings):
+            values = HostStrings.from_objects(
+                [s if ok else None for s, ok in zip(values, c.mask)])
+        elif c.dtype.is_nested:
+            values = _objects([v if ok else None
+                               for v, ok in zip(values, c.mask)])
+        cols.append(HostColumn(values, c.mask, c.dtype))
+    return HostTable(cols, table.names)

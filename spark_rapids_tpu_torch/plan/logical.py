@@ -19,12 +19,34 @@ Schema = List  # [(name, DType), ...]
 
 
 class LogicalPlan:
+    def __new__(cls, *args, **kwargs):
+        node = super().__new__(cls)
+        node._built_from = (args, kwargs)   # for with_children
+        return node
+
     def __init__(self, *children: "LogicalPlan"):
         self.children: List[LogicalPlan] = list(children)
+
+    def with_children(self, children) -> "LogicalPlan":
+        """The node built again from its own arguments over other
+        children, whose schemas may differ (every node takes its
+        children first)."""
+        args, kwargs = self._built_from
+        return type(self)(*children, *args[len(self.children):], **kwargs)
 
     @property
     def schema(self) -> Schema:
         raise NotImplementedError
+
+    def expressions(self) -> List[Expression]:
+        """The expressions this node holds (for tagging)."""
+        return []
+
+    def expressions_with_schemas(self):
+        """[(expression, the schema it resolves against)]; a Join's
+        condition resolves against both children."""
+        schema = self.children[0].schema if self.children else self.schema
+        return [(e, schema) for e in self.expressions()]
 
     def node_description(self) -> str:
         return type(self).__name__
@@ -55,6 +77,24 @@ class DeviceRelation(LogicalPlan):
                 f"{len(self.batches)} batches]")
 
 
+class LocalRelation(LogicalPlan):
+    """In-memory host data: {name: [Python values]} with its schema
+    (JAX logical.py LocalRelation). The CPU engine reads it; on the
+    device it enters through a HostToDevice seam."""
+
+    def __init__(self, data: dict, schema: Schema):
+        super().__init__()
+        self.data = data
+        self._schema = list(schema)
+
+    @property
+    def schema(self) -> Schema:
+        return self._schema
+
+    def node_description(self) -> str:
+        return f"LocalRelation[{', '.join(n for n, _ in self._schema)}]"
+
+
 class Project(LogicalPlan):
     def __init__(self, child: LogicalPlan, exprs: Sequence[Expression]):
         super().__init__(child)
@@ -65,6 +105,12 @@ class Project(LogicalPlan):
     @property
     def schema(self) -> Schema:
         return self._schema
+
+    def expressions(self) -> List[Expression]:
+        return list(self.exprs)
+
+    def node_description(self) -> str:
+        return f"Project[{', '.join(n for n, _ in self._schema)}]"
 
 
 class Filter(LogicalPlan):
@@ -78,6 +124,9 @@ class Filter(LogicalPlan):
     @property
     def schema(self) -> Schema:
         return self.children[0].schema
+
+    def expressions(self) -> List[Expression]:
+        return [self.condition]
 
     def node_description(self) -> str:
         return f"Filter[{self.condition!r}]"
@@ -100,6 +149,9 @@ class Aggregate(LogicalPlan):
     @property
     def schema(self) -> Schema:
         return self._schema
+
+    def expressions(self) -> List[Expression]:
+        return list(self.group_exprs) + [fn for fn, _ in self.agg_exprs]
 
     def node_description(self) -> str:
         keys = ", ".join(repr(e) for e in self.group_exprs)
@@ -129,6 +181,9 @@ class Sort(LogicalPlan):
     @property
     def schema(self) -> Schema:
         return self.children[0].schema
+
+    def expressions(self) -> List[Expression]:
+        return [o.expr for o in self.order]
 
     def node_description(self) -> str:
         return f"Sort[{', '.join(repr(o) for o in self.order)}]"
@@ -160,6 +215,38 @@ class Join(LogicalPlan):
             return self.children[0].schema
         # an outer join's null-supplied side keeps its types
         return self.children[0].schema + self.children[1].schema
+
+    def expressions(self) -> List[Expression]:
+        out = self.left_keys + self.right_keys
+        if self.condition is not None:
+            out.append(self.condition)
+        return out
+
+    def coerced_keys(self):
+        """Each key pair at its common type (expr/conditional.py
+        ``_common_type``) through a Cast, as Spark's analyzer meets
+        them: murmur3 is width-sensitive, and a DECIMAL(18,0) and a
+        DECIMAL(12,3) key compare as DECIMAL(21,3), not as their
+        unscaled ints."""
+        from ..expr.cast import Cast
+        from ..expr.conditional import _common_type
+        ls, rs = self.children[0].schema, self.children[1].schema
+        lk, rk = [], []
+        for l, r in zip(self.left_keys, self.right_keys):
+            lt, rt = l.data_type(ls), r.data_type(rs)
+            ct = lt if lt == rt else _common_type([lt, rt])
+            lk.append(l if lt == ct else Cast(l, ct))
+            rk.append(r if rt == ct else Cast(r, ct))
+        return lk, rk
+
+    def expressions_with_schemas(self):
+        ls = self.children[0].schema
+        rs = self.children[1].schema
+        out = ([(e, ls) for e in self.left_keys] +
+               [(e, rs) for e in self.right_keys])
+        if self.condition is not None:
+            out.append((self.condition, ls + rs))
+        return out
 
     def node_description(self) -> str:
         keys = ", ".join(f"{l!r}={r!r}" for l, r in
@@ -197,6 +284,14 @@ class Window(LogicalPlan):
     @property
     def schema(self) -> Schema:
         return self._schema
+
+    def expressions(self) -> List[Expression]:
+        out = []
+        for we, _ in self.window_exprs:
+            out.extend(we.func.children)
+            out.extend(we.spec.partition_by)
+            out.extend(o.expr for o in we.spec.order_fields)
+        return out
 
     def node_description(self) -> str:
         fns = ", ".join(f"{type(we.func).__name__}->{n}"
@@ -251,6 +346,9 @@ class Expand(LogicalPlan):
     def node_description(self) -> str:
         return f"Expand[{len(self.projections)} projections]"
 
+    def expressions(self) -> List[Expression]:
+        return [e for p in self.projections for e in p]
+
 
 class Generate(LogicalPlan):
     """explode / explode_outer / posexplode (JAX logical.py:323): the
@@ -278,3 +376,6 @@ class Generate(LogicalPlan):
 
     def node_description(self) -> str:
         return f"Generate[{self.generator!r} -> {self.element_name}]"
+
+    def expressions(self) -> List[Expression]:
+        return [self.generator]

@@ -1,48 +1,62 @@
-"""Logical -> physical conversion.
+"""Rule registry, tag-then-convert planning and logical -> physical
+conversion.
 
-Counterpart of the conversion core of spark_rapids_tpu/plan/overrides.py
-(``_build_tpu_exec``, ``_build_join``, the Limit(Sort) -> TopN rewrite)
-for the nodes the ported queries build. An Aggregate becomes PARTIAL ->
-FINAL HashAggregateExec as in the JAX planner (overrides.py:750-770); an
-equi-Join becomes a BroadcastHashJoinExec when its build side's
-estimated rows are at most ``srt.sql.broadcastRowThreshold`` and a
-ShuffledHashJoinExec otherwise, a keyless one a CartesianProductExec or
-a BroadcastNestedLoopJoinExec, and a full outer one a UnionExec of two
-hash joins (overrides.py:820-871); a Union becomes a UnionExec and an
-Expand an ExpandExec. A
-Window becomes a BatchedRunningWindowExec over a SortExec when every
-function streams with carried state, else a WindowExec
-(overrides.py:776-793); the
-semantic gates of the JAX planner's window tagging (``_tag_window``)
-raise NotImplementedError, as the port has no CPU fallback. The port
-runs one partition, where the exchanges the JAX planner inserts
-(round-robin or hash between PARTIAL and FINAL and below a shuffled
-join, broadcast below a broadcast join, range before a global sort)
-pass batches through unchanged, so none is placed. Tagging, CPU
-fallback and the cost model beyond row estimates are not ported: what
-the JAX planner sends to its CPU engine for a DECIMAL(p>18) (a group-by
-or join key, a window partition or order key, a window aggregate over
-or into one) raises here (``expr/core.py cpu_fallback``); an ORDER BY
-on one runs on the device (two sort words a key). The JAX planner's
-gates on nested types (JAX overrides.py:324-489: element, key, value and
-lambda result types that are strings or nested, a column
-``array_repeat`` count, an ``aggregate`` lambda reading outer columns,
-an explode of a non-array, ``map_concat``, ``from_json`` / ``to_json``)
-and its refusal of a nested GROUP BY, join or ORDER BY key raise the
-same way at planning time (``_check_nested``). A Generate becomes a
-GenerateExec.
+Counterpart of spark_rapids_tpu/plan/overrides.py (GpuOverrides'
+role): a registry of expression rules (``ExprRule``: a type signature
+and an extra tag) and exec rules (``ExecRule``), the tagging pass over
+the meta wrappers (meta.py), and the conversion of the tagged tree into
+a physical tree that mixes device subtrees with CPU-engine subtrees,
+with transitions at the seams (transitions.py).
+
+The port's rules state what the port's device code runs, which is at
+least what the JAX rules admit; where the port runs more, its rule
+stays wider (``tests/test_torch_fallback.py`` lists each difference):
+string ``least`` / ``greatest``, multi-byte LIKE patterns, CASE / IF /
+COALESCE over two decimal types, map projections, nested payload
+columns through sort, join, union and expand, and an ORDER BY on a
+DECIMAL(p>18) run on the device. What a rule tags runs on the CPU
+engine and ``srt.sql.explain`` / ``DataFrame.explain`` print why:
+
+- a DECIMAL(p>18) as a group-by or join key (a join key's common type
+  included), a window partition or order key, under ``div`` / ``%`` /
+  ``pmod`` / ``least`` / ``greatest`` / a hash, a window aggregate over
+  or into one, or cast to or from STRING;
+- a nested group-by, join or sort key and the nested gates (string or
+  nested elements under the list kernels and lambdas, a column
+  ``array_repeat`` count, an ``aggregate`` lambda reading outer
+  columns, ``map_concat``, ``from_json`` / ``to_json``);
+- window functions the window execs do not run (stddev / variance,
+  first / last, collect, a string min / max), a min / max sliding frame
+  without bounded ROWS offsets (a RANGE frame with value offsets needs
+  one numeric or date order key: Spark refuses the rest, and so does
+  the planner);
+- a regex the device's transpiler refuses, and group references in a
+  ``regexp_replace`` replacement;
+- a condition on an outer, semi or anti join, and a keyless one that
+  is not inner (ROADMAP C10).
+
+An Aggregate becomes PARTIAL -> FINAL HashAggregateExec; an equi-Join a
+BroadcastHashJoinExec when its build side's estimated rows are at most
+``srt.sql.broadcastRowThreshold`` and a ShuffledHashJoinExec otherwise,
+a keyless one a CartesianProductExec or a BroadcastNestedLoopJoinExec,
+a full outer one a UnionExec of two hash joins; a Window a
+BatchedRunningWindowExec over a SortExec when every function streams
+with carried state, else a WindowExec; Limit over Sort a TopNExec. The
+port runs one partition, so no exchange is placed.
 """
 
 from __future__ import annotations
 
+from typing import Callable, Dict, List, Optional, Type
+
 from ..columnar import dtypes as dt
-from ..conf import (BROADCAST_THRESHOLD_ROWS, WINDOW_BATCHED_RUNNING,
-                    SrtConf)
+from ..conf import (BROADCAST_THRESHOLD_ROWS, EXPLAIN, SQL_ENABLED,
+                    WINDOW_BATCHED_RUNNING, SrtConf)
 from ..exec.aggregate import FINAL, PARTIAL, HashAggregateExec
 from ..exec.base import TpuExec
-from ..exec.generate import GenerateExec
 from ..exec.basic import (BatchScanExec, ExpandExec, FilterExec,
                           LocalLimitExec, ProjectExec, UnionExec)
+from ..exec.generate import GenerateExec
 from ..exec.join import BroadcastHashJoinExec, ShuffledHashJoinExec
 from ..exec.nested_loop_join import (BroadcastNestedLoopJoinExec,
                                      CartesianProductExec)
@@ -51,41 +65,345 @@ from ..exec.window import (BatchedRunningWindowExec, WindowExec,
                            running_compatible)
 from ..expr import aggregates as Agg
 from ..expr import window as W
-from ..expr.cast import Cast
-from ..expr.conditional import _common_type
-from ..expr.core import Alias, Literal, col, cpu_fallback
-from .cost import estimate_rows
+from ..expr.cast import Cast, cpu_only
+from ..expr.core import Alias, Expression, Literal, col
+from . import typechecks as ts
+from .cost import apply_cost_model, estimate_rows
 from .logical import (Aggregate, DeviceRelation, Expand, Filter, Generate,
-                      Join, Limit, LogicalPlan, Project, Sort, Union,
-                      Window)
+                      Join, Limit, LocalRelation, LogicalPlan, Project,
+                      Sort, Union, Window)
+from .meta import ExprMeta, PlanMeta
+from .transitions import CpuPhysical, DeviceToHostBridge, HostToDeviceExec
 
 
-AGG_TYPES = (Agg.Sum, Agg.Count, Agg.CountStar, Agg.Average, Agg.Min,
-             Agg.Max)
+class ExprRule:
+    """Support metadata for one expression class (GpuOverrides.expr):
+    the types its inputs may have on the device and an extra tag."""
 
+    def __init__(self, cls: Type, sig: ts.TypeSig,
+                 extra_tag: Optional[Callable[[ExprMeta], None]] = None):
+        self.cls = cls
+        self.sig = sig
+        self.extra_tag = extra_tag
+
+    def tag(self, meta: ExprMeta) -> None:
+        for child in meta.expr.children:
+            reason = self.sig.reason_if_unsupported(
+                child.data_type(meta.schema),
+                f"{type(meta.expr).__name__} input")
+            if reason:
+                meta.will_not_work_on_tpu(reason)
+        if self.extra_tag is not None:
+            self.extra_tag(meta)
+
+
+class ExecRule:
+    """Support metadata for one logical node class (GpuOverrides.exec)."""
+
+    def __init__(self, cls: Type,
+                 tag_fn: Optional[Callable[[PlanMeta], None]] = None):
+        self.cls = cls
+        self.tag_fn = tag_fn
+
+    def tag(self, meta: PlanMeta) -> None:
+        if self.tag_fn is not None:
+            self.tag_fn(meta)
+
+
+_EXPR_RULES: Dict[Type, ExprRule] = {}
+_EXEC_RULES: Dict[Type, ExecRule] = {}
+
+
+def expr_rule_for(cls: Type) -> Optional[ExprRule]:
+    if not _EXPR_RULES:
+        _register_expr_rules()
+    return _EXPR_RULES.get(cls)
+
+
+def exec_rule_for(cls: Type) -> Optional[ExecRule]:
+    return _EXEC_RULES.get(cls)
+
+
+# --- expression rules ------------------------------------------------------
+
+#: every type tag: the default signature of a port expression, whose
+#: device code takes what its data_type admits
+ALL_TYPES = ts.TypeSig(*ts.ALL_TAGS)
+NO_WIDE = ALL_TYPES - ts.decimal128
+
+
+def _string_or_nested(t: dt.DType) -> bool:
+    return t.is_nested or t == dt.STRING
+
+
+def _tag_cast(meta: ExprMeta) -> None:
+    src = meta.expr.children[0].data_type(meta.schema)
+    if cpu_only(src, meta.expr.to):
+        meta.will_not_work_on_tpu(f"cast: {src} -> {meta.expr.to} runs on "
+                                  "the CPU engine")
+
+
+def _tag_regex(meta: ExprMeta) -> None:
+    """_tag_rlike / _tag_regexp_extract / _tag_regexp_replace: a pattern
+    the device's transpiler refuses, or group references in a
+    replacement, run through Python's ``re``."""
+    reason = meta.expr.device_unsupported()
+    if reason:
+        meta.will_not_work_on_tpu(reason)
+
+
+def _tag_primitive_elements(meta: ExprMeta) -> None:
+    """JAX ``_primitive_elements``: the list kernels need a primitive
+    (non-string) element type."""
+    t = meta.expr.children[0].data_type(meta.schema)
+    if isinstance(t, dt.ArrayType) and _string_or_nested(t.element_type):
+        meta.will_not_work_on_tpu(
+            f"{type(meta.expr).__name__}: {t.element_type} elements run "
+            "on the CPU engine")
+
+
+def _tag_array_repeat(meta: ExprMeta) -> None:
+    if not isinstance(meta.expr.children[1], Literal):
+        meta.will_not_work_on_tpu("array_repeat: a column count runs on "
+                                  "the CPU engine")
+    t = meta.expr.children[0].data_type(meta.schema)
+    if _string_or_nested(t):
+        meta.will_not_work_on_tpu(f"array_repeat of {t} runs on the CPU "
+                                  "engine")
+
+
+def _tag_zip_with(meta: ExprMeta) -> None:
+    for child in meta.expr.children[:2]:
+        t = child.data_type(meta.schema)
+        et = t.element_type if isinstance(t, dt.ArrayType) else t
+        if _string_or_nested(et):
+            meta.will_not_work_on_tpu(f"zip_with over {et} elements runs "
+                                      "on the CPU engine")
+    out = meta.expr.data_type(meta.schema).element_type
+    if _string_or_nested(out):
+        meta.will_not_work_on_tpu(f"zip_with producing {out} runs on the "
+                                  "CPU engine")
+
+
+def _tag_lambda_elements(meta: ExprMeta) -> None:
+    """JAX ``_lambda_primitive_elements``: element, key and value types
+    and a transform's lambda result must be primitive lanes."""
+    from ..expr import higher_order as HO
+    what = type(meta.expr).__name__
+    for child in meta.expr.children:
+        t = child.data_type(meta.schema)
+        parts = [t.key_type, t.value_type] if isinstance(t, dt.MapType) \
+            else [t.element_type] if isinstance(t, dt.ArrayType) else []
+        for p in parts:
+            if _string_or_nested(p):
+                meta.will_not_work_on_tpu(f"{what}: {p} elements run on "
+                                          "the CPU engine")
+    if isinstance(meta.expr, (HO.ArrayTransform, HO.TransformKeys,
+                              HO.TransformValues)):
+        rt = meta.expr.children[1].data_type(meta.schema)
+        if _string_or_nested(rt):
+            meta.will_not_work_on_tpu(f"{what}: a {rt} lambda result runs "
+                                      "on the CPU engine")
+
+
+def _tag_aggregate_lambda(meta: ExprMeta) -> None:
+    from ..expr.higher_order import outer_refs
+    for body in meta.expr.bodies():
+        if outer_refs(body, meta.expr.lambda_vars):
+            meta.will_not_work_on_tpu("aggregate(): a lambda reading outer "
+                                      "columns runs on the CPU engine")
+    _tag_lambda_elements(meta)
+
+
+def _tag_explode(meta: ExprMeta) -> None:
+    t = meta.expr.children[0].data_type(meta.schema)
+    if not isinstance(t, dt.ArrayType):
+        meta.will_not_work_on_tpu(f"explode of {t} runs on the CPU engine")
+
+
+def _tag_cpu_only(meta: ExprMeta) -> None:
+    meta.will_not_work_on_tpu(f"{type(meta.expr).__name__} runs on the "
+                              "CPU engine")
+
+
+def _concrete_expression_classes():
+    """Every expression class of the port that can stand in a plan."""
+    import importlib
+    import pkgutil
+
+    from .. import expr as pkg
+    abstract = {"Expression", "BinaryArithmetic", "BinaryComparison",
+                "AggregateFunction", "WindowFunction", "HigherOrderFunction",
+                "WindowExpression"}
+    out = []
+    for m in pkgutil.iter_modules(pkg.__path__):
+        mod = importlib.import_module(f"{pkg.__name__}.{m.name}")
+        for name, cls in vars(mod).items():
+            if (isinstance(cls, type) and issubclass(cls, Expression)
+                    and cls.__module__ == mod.__name__
+                    and not name.startswith("_") and name not in abstract):
+                out.append(cls)
+    return out
+
+
+def _register_expr_rules() -> None:
+    from ..expr import arithmetic as A
+    from ..expr import collections as CX
+    from ..expr import hashing as H
+    from ..expr import higher_order as HO
+    from ..expr import json as JX
+    from ..expr import regex as RX
+    rules = {cls: ExprRule(cls, ALL_TYPES)
+             for cls in _concrete_expression_classes()}
+
+    def rule(cls, sig=ALL_TYPES, extra=None):
+        rules[cls] = ExprRule(cls, sig, extra)
+
+    # mod / div on a DECIMAL(p>18) needs wider than 128-bit alignment
+    for cls in (A.IntegralDivide, A.Remainder, A.Pmod, H.Murmur3Hash,
+                H.XxHash64):
+        rule(cls, NO_WIDE)
+    # strings fold on the device (the JAX package sends them to its CPU
+    # engine); a DECIMAL(p>18) does not
+    for cls in (A.Least, A.Greatest):
+        rule(cls, NO_WIDE)
+    rule(Cast, extra=_tag_cast)
+    for cls in (RX.RLike, RX.RegExpExtract, RX.RegExpReplace):
+        rule(cls, extra=_tag_regex)
+    for cls in (CX.ArrayContains, CX.ArrayMin, CX.ArrayMax, CX.SortArray,
+                CX.ArrayDistinct, CX.ArrayUnion, CX.ArrayIntersect,
+                CX.ArrayExcept, CX.ArraysOverlap, CX.ArrayRemove,
+                CX.ArrayPosition, CX.Slice, CX.ArrayReverse):
+        rule(cls, extra=_tag_primitive_elements)
+    for cls in (HO.ArrayTransform, HO.ArrayExists, HO.ArrayForAll,
+                HO.ArrayFilter, HO.GetMapValue, HO.MapContainsKey,
+                HO.TransformValues, HO.TransformKeys, HO.MapFilter,
+                HO.MapFromArrays):
+        rule(cls, extra=_tag_lambda_elements)
+    rule(CX.ArrayRepeat, extra=_tag_array_repeat)
+    rule(CX.ZipWith, extra=_tag_zip_with)
+    rule(HO.ArrayAggregate, extra=_tag_aggregate_lambda)
+    rule(CX.Explode, extra=_tag_explode)
+    for cls in (CX.MapConcat, JX.JsonToStructs, JX.StructsToJson):
+        rule(cls, extra=_tag_cpu_only)
+    _EXPR_RULES.update(rules)
+
+
+# --- exec rules ------------------------------------------------------------
+
+def _tag_keys(meta: PlanMeta, what: str, typed) -> None:
+    """A nested or DECIMAL(p>18) key runs on the CPU engine."""
+    for t in typed:
+        if t.is_nested or dt.is_wide_decimal(t):
+            meta.will_not_work_on_tpu(f"a {what} of type {t} runs on the "
+                                      "CPU engine")
+
+
+def _tag_agg(meta: PlanMeta) -> None:
+    schema = meta.plan.children[0].schema
+    _tag_keys(meta, "group-by key",
+              [e.data_type(schema) for e in meta.plan.group_exprs])
+
+
+def _tag_sort(meta: PlanMeta) -> None:
+    """A nested sort key; a DECIMAL(p>18) one sorts on the device (two
+    sort words a key), where the JAX planner sends it to its CPU
+    engine."""
+    schema = meta.plan.children[0].schema
+    for o in meta.plan.order:
+        t = o.expr.data_type(schema)
+        if t.is_nested:
+            meta.will_not_work_on_tpu(f"a sort key of type {t} runs on "
+                                      "the CPU engine")
+
+
+def _tag_join(meta: PlanMeta) -> None:
+    plan: Join = meta.plan
+    if plan.condition is not None and plan.join_type not in ("inner",
+                                                              "cross"):
+        # a residual condition on an outer, semi or anti join decides
+        # which pairs match (ROADMAP C10)
+        meta.will_not_work_on_tpu(f"a condition on a {plan.join_type} "
+                                  "join runs on the CPU engine")
+    if not plan.left_keys and plan.join_type not in ("inner", "cross"):
+        meta.will_not_work_on_tpu(f"a keyless {plan.join_type} join runs "
+                                  "on the CPU engine")
+    keys, _ = plan.coerced_keys()   # the type both sides meet at
+    _tag_keys(meta, "join key",
+              [k.data_type(plan.children[0].schema) for k in keys])
+
+
+_RANKING = (W.RowNumber, W.Rank, W.DenseRank, W.PercentRank, W.NTile,
+            W.Lead)
+_WINDOW_AGGS = (Agg.Sum, Agg.Count, Agg.CountStar, Agg.Average, Agg.Min,
+                Agg.Max)
+
+
+def _tag_window(meta: PlanMeta) -> None:
+    """The JAX planner's ``_tag_window``, for what the port's window
+    execs run."""
+    plan: Window = meta.plan
+    schema = plan.children[0].schema
+    if plan.window_exprs:
+        spec = plan.window_exprs[0][0].spec
+        _tag_keys(meta, "window partition or order key", [
+            e.data_type(schema) for e in list(spec.partition_by) +
+            [o.expr for o in spec.order_fields]])
+    for we, name in plan.window_exprs:
+        fn, frame = we.func, we.spec.frame
+        what = f"window {name} ({type(fn).__name__})"
+        if isinstance(fn, _RANKING):
+            continue
+        if not isinstance(fn, _WINDOW_AGGS):
+            meta.will_not_work_on_tpu(f"{what} runs on the CPU engine")
+            continue
+        types = [c.data_type(schema) for c in fn.children] + \
+            [fn.data_type(schema)]
+        if any(dt.is_wide_decimal(t) for t in types):
+            meta.will_not_work_on_tpu(f"{what} over or into a "
+                                      "DECIMAL(p>18) runs on the CPU engine")
+        if isinstance(fn, (Agg.Min, Agg.Max)) and types[0] == dt.STRING:
+            meta.will_not_work_on_tpu(f"{what}: a string min / max runs "
+                                      "on the CPU engine")
+        bounded = not (frame.is_running or frame.is_unbounded)
+        if bounded and not frame.row_based:
+            ofs = we.spec.order_fields
+            kt = ofs[0].expr.data_type(schema) if len(ofs) == 1 else None
+            if kt is None or not (kt.is_integral or kt.is_floating
+                                  or kt == dt.DATE or dt.is_decimal(kt)):
+                # Spark refuses such a frame when it analyzes the query
+                raise NotImplementedError(
+                    f"{what}: a RANGE frame needs one numeric or date "
+                    f"order key, got {kt if kt is not None else len(ofs)}")
+        if bounded and frame.row_based and \
+                isinstance(fn, (Agg.Min, Agg.Max)) and \
+                (frame.lo is None or frame.hi is None):
+            meta.will_not_work_on_tpu(
+                f"{what}: a min / max sliding frame without bounded ROWS "
+                "offsets runs on the CPU engine")
+
+
+_EXEC_RULES.update({
+    DeviceRelation: ExecRule(DeviceRelation),
+    LocalRelation: ExecRule(LocalRelation),
+    Project: ExecRule(Project),
+    Filter: ExecRule(Filter),
+    Limit: ExecRule(Limit),
+    Union: ExecRule(Union),
+    Expand: ExecRule(Expand),
+    Generate: ExecRule(Generate),
+    Sort: ExecRule(Sort, _tag_sort),
+    Aggregate: ExecRule(Aggregate, _tag_agg),
+    Join: ExecRule(Join, _tag_join),
+    Window: ExecRule(Window, _tag_window),
+})
+
+
+# --- conversion ------------------------------------------------------------
 
 def _sort_orders(sort: Sort):
     return [SortOrder(o.expr, o.ascending, o.nulls_first)
             for o in sort.order]
-
-
-def _coerce_join_keys(plan: Join):
-    """Join keys must share a type across sides: murmur3 is
-    width-sensitive. Where they differ, both meet at their common type
-    (expr/conditional.py ``_common_type``) through a Cast, as in the JAX
-    planner."""
-    ls, rs = plan.children[0].schema, plan.children[1].schema
-    lk, rk = [], []
-    for l, r in zip(plan.left_keys, plan.right_keys):
-        lt, rt = l.data_type(ls), r.data_type(rs)
-        if lt == rt:
-            lk.append(l)
-            rk.append(r)
-            continue
-        ct = _common_type([lt, rt])
-        lk.append(l if lt == ct else Cast(l, ct))
-        rk.append(r if rt == ct else Cast(r, ct))
-    return lk, rk
 
 
 def _join_cls(plan: Join, build: str, conf: SrtConf):
@@ -104,27 +422,15 @@ def _build_join(plan: Join, children, conf: SrtConf) -> TpuExec:
     columns null (both children run twice: the port places no exchange
     to share them, so their operator metrics count twice); a right
     outer join builds the left side; an inner join's residual condition
-    is a filter above it. Where the JAX planner would drop a condition
-    (on an outer, semi or anti join) or run a keyless join as inner,
-    this port raises."""
+    is a filter above it. ``_tag_join`` sends the rest to the CPU
+    engine."""
     left, right = children
-    if plan.condition is not None and plan.join_type not in ("inner",
-                                                              "cross"):
-        raise NotImplementedError(
-            f"a condition on a {plan.join_type} join is not in this port "
-            "yet")
     if not plan.left_keys:
-        if plan.join_type not in ("inner", "cross"):
-            raise NotImplementedError(
-                f"a {plan.join_type} join without equi-keys is not in this "
-                "port yet")
         if plan.condition is None:
             return CartesianProductExec(left, right)
         return BroadcastNestedLoopJoinExec(left, right, plan.condition,
                                            "inner")
-    _no_wide_keys(plan.left_keys, plan.children[0].schema, "join key")
-    _no_wide_keys(plan.right_keys, plan.children[1].schema, "join key")
-    left_keys, right_keys = _coerce_join_keys(plan)
+    left_keys, right_keys = plan.coerced_keys()
     if plan.join_type == "full_outer":
         outer = ShuffledHashJoinExec(left, right, left_keys, right_keys,
                                      join_type="left_outer",
@@ -145,228 +451,7 @@ def _build_join(plan: Join, children, conf: SrtConf) -> TpuExec:
     return joined
 
 
-def _no_wide_keys(exprs, schema, what: str) -> None:
-    for e in exprs:
-        t = e.data_type(schema)
-        if dt.is_wide_decimal(t):
-            raise cpu_fallback(f"a {what} of type {t}")
-
-
-def _check_window(plan: Window) -> None:
-    """The JAX planner's window tagging (``_tag_window``) as hard
-    refusals: the port has no CPU fallback to send these to."""
-    in_schema = plan.children[0].schema
-    ranking = (W.RowNumber, W.Rank, W.DenseRank, W.PercentRank, W.NTile,
-               W.Lead)
-    if plan.window_exprs:
-        spec = plan.window_exprs[0][0].spec
-        _no_wide_keys(list(spec.partition_by) +
-                      [o.expr for o in spec.order_fields], in_schema,
-                      "window partition or order key")
-    for we, name in plan.window_exprs:
-        fn, frame = we.func, we.spec.frame
-        what = f"window {name} ({type(fn).__name__})"
-        if isinstance(fn, ranking):
-            continue
-        if isinstance(fn, AGG_TYPES) and (
-                any(dt.is_wide_decimal(c.data_type(in_schema))
-                    for c in fn.children) or
-                dt.is_wide_decimal(fn.data_type(in_schema))):
-            raise cpu_fallback(f"{what} over or into a DECIMAL(p>18)")
-        if isinstance(fn, (Agg.Min, Agg.Max)):
-            if fn.children[0].data_type(in_schema) == dt.STRING:
-                raise NotImplementedError(
-                    f"{what}: string min/max is not in this port yet")
-        elif not isinstance(fn, (Agg.Sum, Agg.Count, Agg.CountStar,
-                                 Agg.Average)):
-            raise NotImplementedError(
-                f"{what}: window function {type(fn).__name__} is not in "
-                "this port yet")
-        bounded = not (frame.is_running or frame.is_unbounded)
-        if bounded and not frame.row_based:
-            # value offsets: one numeric or date order key to search
-            ofs = we.spec.order_fields
-            kt = ofs[0].expr.data_type(in_schema) if len(ofs) == 1 \
-                else None
-            if kt is None or not (kt.is_integral or kt.is_floating
-                                  or kt == dt.DATE or dt.is_decimal(kt)):
-                raise NotImplementedError(
-                    f"{what}: a RANGE frame needs one numeric or date "
-                    f"order key, got {kt if kt is not None else len(ofs)}")
-        if bounded and frame.row_based and \
-                isinstance(fn, (Agg.Min, Agg.Max)) and \
-                (frame.lo is None or frame.hi is None):
-            raise NotImplementedError(
-                f"{what}: min/max sliding frames need bounded ROWS "
-                "offsets")
-
-
-def _string_or_nested(t: dt.DType) -> bool:
-    return t.is_nested or t == dt.STRING
-
-
-def _gate_primitive_elements(e, schema) -> None:
-    """JAX ``_primitive_elements``: the lane kernels need a primitive
-    (non-string) element type."""
-    t = e.children[0].data_type(schema)
-    if isinstance(t, dt.ArrayType) and _string_or_nested(t.element_type):
-        raise cpu_fallback(f"{type(e).__name__} over {t.element_type} "
-                           "elements")
-
-
-def _gate_array_repeat(e, schema) -> None:
-    if not isinstance(e.children[1], Literal):
-        raise cpu_fallback("array_repeat with a column count")
-    t = e.children[0].data_type(schema)
-    if _string_or_nested(t):
-        raise cpu_fallback(f"array_repeat of {t}")
-
-
-def _gate_zip_with(e, schema) -> None:
-    for child in e.children[:2]:
-        t = child.data_type(schema)
-        et = t.element_type if isinstance(t, dt.ArrayType) else t
-        if _string_or_nested(et):
-            raise cpu_fallback(f"zip_with over {et} elements")
-    out = e.data_type(schema).element_type
-    if _string_or_nested(out):
-        raise cpu_fallback(f"zip_with producing {out}")
-
-
-def _gate_lambda_elements(e, schema) -> None:
-    """JAX ``_lambda_primitive_elements``: element, key and value types
-    and a transform's lambda result must be primitive lanes."""
-    from ..expr import higher_order as HO
-    for child in e.children:
-        t = child.data_type(schema)
-        parts = [t.key_type, t.value_type] if isinstance(t, dt.MapType) \
-            else [t.element_type] if isinstance(t, dt.ArrayType) else []
-        for p in parts:
-            if _string_or_nested(p):
-                raise cpu_fallback(f"{type(e).__name__} over {p} elements")
-    if isinstance(e, (HO.ArrayTransform, HO.TransformKeys,
-                      HO.TransformValues)):
-        rt = e.children[1].data_type(schema)
-        if _string_or_nested(rt):
-            raise cpu_fallback(f"{type(e).__name__} producing {rt}")
-
-
-def _gate_aggregate(e, schema) -> None:
-    from ..expr.higher_order import outer_refs
-    for body in e.bodies():
-        if outer_refs(body, e.lambda_vars):
-            raise cpu_fallback("an aggregate() lambda reading outer "
-                               "columns")
-    _gate_lambda_elements(e, schema)
-
-
-def _gate_explode(e, schema) -> None:
-    t = e.children[0].data_type(schema)
-    if not isinstance(t, dt.ArrayType):
-        raise cpu_fallback(f"explode of {t}")
-
-
-def _gate_cpu_only(e, schema) -> None:
-    raise cpu_fallback(type(e).__name__)
-
-
-def _nested_gates():
-    from ..expr import collections as CX
-    from ..expr import higher_order as HO
-    from ..expr import json as JX
-    gates = {}
-    for cls in (CX.ArrayContains, CX.ArrayMin, CX.ArrayMax, CX.SortArray,
-                CX.ArrayDistinct, CX.ArrayUnion, CX.ArrayIntersect,
-                CX.ArrayExcept, CX.ArraysOverlap, CX.ArrayRemove,
-                CX.ArrayPosition, CX.Slice, CX.ArrayReverse):
-        gates[cls] = _gate_primitive_elements
-    for cls in (HO.ArrayTransform, HO.ArrayExists, HO.ArrayForAll,
-                HO.ArrayFilter, HO.GetMapValue, HO.MapContainsKey,
-                HO.TransformValues, HO.TransformKeys, HO.MapFilter,
-                HO.MapFromArrays):
-        gates[cls] = _gate_lambda_elements
-    gates[CX.ArrayRepeat] = _gate_array_repeat
-    gates[CX.ZipWith] = _gate_zip_with
-    gates[HO.ArrayAggregate] = _gate_aggregate
-    gates[CX.Explode] = _gate_explode
-    for cls in (CX.MapConcat, JX.JsonToStructs, JX.StructsToJson):
-        gates[cls] = _gate_cpu_only
-    return gates
-
-
-_GATES = None
-
-
-def _node_exprs(plan: LogicalPlan):
-    """(expression, input schema) of each expression a node holds."""
-    ins = [c.schema for c in plan.children]
-    if isinstance(plan, Project):
-        return [(e, ins[0]) for e in plan.exprs]
-    if isinstance(plan, Filter):
-        return [(plan.condition, ins[0])]
-    if isinstance(plan, Aggregate):
-        return [(e, ins[0]) for e in plan.group_exprs] + \
-            [(fn, ins[0]) for fn, _ in plan.agg_exprs]
-    if isinstance(plan, Sort):
-        return [(o.expr, ins[0]) for o in plan.order]
-    if isinstance(plan, Join):
-        out = [(e, ins[0]) for e in plan.left_keys] + \
-            [(e, ins[1]) for e in plan.right_keys]
-        if plan.condition is not None:
-            out.append((plan.condition, ins[0] + ins[1]))
-        return out
-    if isinstance(plan, Expand):
-        return [(e, ins[0]) for p in plan.projections for e in p]
-    if isinstance(plan, Generate):
-        return [(plan.generator, ins[0])]
-    if isinstance(plan, Window):
-        return [(c, ins[0]) for we, _ in plan.window_exprs
-                for c in list(we.func.children) + list(we.spec.partition_by)
-                + [o.expr for o in we.spec.order_fields]]
-    return []
-
-
-def _check_nested(plan: LogicalPlan) -> None:
-    """The JAX planner's nested-type gates as planning-time refusals:
-    each expression tree typed root first (a higher-order function binds
-    its lambda variables' types), then every node of it gated; a nested
-    grouping, join or sort key refused."""
-    global _GATES
-    if _GATES is None:
-        _GATES = _nested_gates()
-    for child in plan.children:
-        _check_nested(child)
-    for root, schema in _node_exprs(plan):
-        gated, stack = [], [root]
-        while stack:
-            e = stack.pop()
-            if type(e) in _GATES:
-                gated.append(e)
-            stack.extend(e.children)
-        if gated:
-            root.data_type(schema)
-            for e in gated:
-                _GATES[type(e)](e, schema)
-    keys = []
-    if isinstance(plan, Aggregate):
-        keys = [("group-by key", e, plan.children[0].schema)
-                for e in plan.group_exprs]
-    elif isinstance(plan, Sort):
-        keys = [("sort key", o.expr, plan.children[0].schema)
-                for o in plan.order]
-    elif isinstance(plan, Join):
-        keys = [("join key", e, plan.children[0].schema)
-                for e in plan.left_keys] + \
-            [("join key", e, plan.children[1].schema)
-             for e in plan.right_keys]
-    for what, e, schema in keys:
-        t = e.data_type(schema)
-        if t.is_nested:
-            raise cpu_fallback(f"a {what} of type {t}")
-
-
 def _build_window(plan: Window, child: TpuExec, conf: SrtConf) -> TpuExec:
-    _check_window(plan)
     if conf.get(WINDOW_BATCHED_RUNNING) and \
             running_compatible(plan.window_exprs, plan.children[0].schema):
         # running-only windows stream batch by batch over a sorted child
@@ -381,15 +466,13 @@ def _build_window(plan: Window, child: TpuExec, conf: SrtConf) -> TpuExec:
     return WindowExec(child, plan.window_exprs)
 
 
-def _to_physical(plan: LogicalPlan, conf: SrtConf) -> TpuExec:
-    if isinstance(plan, Limit) and isinstance(plan.children[0], Sort):
-        # ORDER BY + LIMIT fuse into one top-n operator
-        sort = plan.children[0]
-        return TopNExec(_to_physical(sort.children[0], conf),
-                        _sort_orders(sort), plan.n)
-    children = [_to_physical(c, conf) for c in plan.children]
+def _build_device_exec(plan: LogicalPlan, children: List[TpuExec],
+                       conf: SrtConf) -> TpuExec:
     if isinstance(plan, DeviceRelation):
         return BatchScanExec(plan.batches, plan.schema)
+    if isinstance(plan, LocalRelation):
+        # host data enters the device through the transition
+        return HostToDeviceExec(CpuPhysical(plan, []))
     if isinstance(plan, Project):
         return ProjectExec(children[0], plan.exprs)
     if isinstance(plan, Filter):
@@ -419,8 +502,6 @@ def _to_physical(plan: LogicalPlan, conf: SrtConf) -> TpuExec:
         return GenerateExec(children[0], plan.generator, plan.element_name,
                             plan.pos_name)
     if isinstance(plan, Aggregate):
-        _no_wide_keys(plan.group_exprs, plan.children[0].schema,
-                      "group-by key")
         partial = HashAggregateExec(children[0], plan.group_exprs,
                                     plan.agg_exprs, mode=PARTIAL)
         return HashAggregateExec(partial, plan.group_exprs, plan.agg_exprs,
@@ -430,7 +511,145 @@ def _to_physical(plan: LogicalPlan, conf: SrtConf) -> TpuExec:
         f"{type(plan).__name__} has no physical operator in this port yet")
 
 
-def apply_overrides(plan: LogicalPlan, conf: SrtConf) -> TpuExec:
-    """The physical operator tree for ``plan``."""
-    _check_nested(plan)
-    return _to_physical(plan, conf)
+def _to_device(children):
+    return [c if isinstance(c, TpuExec) else HostToDeviceExec(c)
+            for c in children]
+
+
+def _refs(plan: LogicalPlan) -> set:
+    out = set()
+    for e in plan.expressions():
+        out |= e.references()
+    return out
+
+
+def _child_needs(plan: LogicalPlan, needed):
+    """The columns each child must give when the node's parent reads
+    ``needed`` of its output (None: every column)."""
+    k = len(plan.children)
+    if isinstance(plan, (Project, Aggregate, Expand)):
+        return [_refs(plan)] * k
+    if needed is None or isinstance(plan, Union):
+        return [None] * k
+    if isinstance(plan, (Window, Generate)):
+        made = {n for n, _ in plan.schema} - \
+            {n for n, _ in plan.children[0].schema}
+        return [(needed - made) | _refs(plan)]
+    if isinstance(plan, Join):
+        want = needed | _refs(plan)
+        return [want & {n for n, _ in c.schema} for c in plan.children]
+    return [needed | _refs(plan)] * k
+
+
+class _Input(LogicalPlan):
+    """A CPU-engine node's child as the seam gives it: the logical
+    child's columns that the plan above reads."""
+
+    def __init__(self, schema):
+        super().__init__()
+        self._schema = list(schema)
+
+    @property
+    def schema(self):
+        return self._schema
+
+
+def _kept(schema, need):
+    """The columns of ``schema`` that ``need`` names, in order; one
+    column where it names none (the rows must still cross); None to keep
+    them all."""
+    names = [n for n, _ in schema]
+    if need is None or len(set(names)) < len(names) or set(names) <= need:
+        return None
+    return [n for n in names if n in need] or names[:1]
+
+
+def _prune(child: TpuExec, need) -> TpuExec:
+    """A device child cut to the columns ``need`` names, below a seam
+    (the bytes a DeviceToHost seam moves: Spark's ColumnPruning at the
+    seams)."""
+    keep = _kept(child.output_schema, need)
+    return child if keep is None else ProjectExec(child,
+                                                  [col(n) for n in keep])
+
+
+def _to_physical(meta: PlanMeta, conf: SrtConf, needed=None):
+    """A TpuExec where the node runs on the device, a CpuPhysical where
+    it runs on the CPU engine; a seam wherever the two meet. ``needed``
+    names the columns the parent reads (None: all): a DeviceToHost seam
+    moves only those, and a CPU-engine node's output keeps only those."""
+    on = conf.get(SQL_ENABLED)
+    plan = meta.plan
+    if (isinstance(plan, Limit) and isinstance(plan.children[0], Sort)
+            and on and meta.can_this_be_replaced
+            and meta.child_plans[0].can_this_be_replaced):
+        # ORDER BY + LIMIT fuse into one top-n operator, across a seam
+        sort_meta = meta.child_plans[0]
+        child = _to_device([_to_physical(c, conf)
+                            for c in sort_meta.child_plans])[0]
+        return TopNExec(child, _sort_orders(sort_meta.plan), plan.n)
+    needs = _child_needs(plan, needed)
+    if on and meta.can_this_be_replaced:
+        # device operators read their inputs by name; only those that
+        # replace their columns tell a CPU-engine child what they read
+        if not isinstance(plan, (Project, Aggregate)):
+            needs = [None] * len(needs)
+        children = [_to_physical(c, conf, n)
+                    for c, n in zip(meta.child_plans, needs)]
+        return _build_device_exec(plan, _to_device(children), conf)
+    keep = _kept(plan.schema, needed) \
+        if isinstance(plan, DeviceRelation) else None
+    if keep is not None:
+        plan = DeviceRelation([b.select(keep) for b in plan.batches],
+                              [(n, t) for n, t in plan.schema if n in keep])
+    children = [_to_physical(c, conf, n)
+                for c, n in zip(meta.child_plans, needs)]
+    children = [DeviceToHostBridge(_prune(c, n))
+                if isinstance(c, TpuExec) else c
+                for c, n in zip(children, needs)]
+    schemas = [c.output_schema for c in children]
+    if any(s != c.schema for s, c in zip(schemas, plan.children)):
+        plan = plan.with_children([_Input(s) for s in schemas])
+    return CpuPhysical(plan, children)
+
+
+def tag_only(plan: LogicalPlan, conf: Optional[SrtConf] = None) -> PlanMeta:
+    """The tagging pass without conversion (explain), with the cost
+    model where the conf enables it, so the marks are those
+    ``apply_overrides`` plans by."""
+    meta = PlanMeta(plan)
+    meta.tag_for_tpu()
+    apply_cost_model(meta, conf or SrtConf())
+    return meta
+
+
+def apply_overrides(plan: LogicalPlan, conf: SrtConf):
+    """Wrap, tag, convert (GpuOverrides.applyWithContext). The root is a
+    TpuExec (a device result) or a CpuPhysical (a host result).
+    ``srt.sql.explain`` prints the marks: ``*`` on the device, ``!`` on
+    the CPU engine with the reasons."""
+    meta = tag_only(plan, conf)
+    mode = conf.get(EXPLAIN)
+    if mode != "NONE":
+        lines = meta.explain_lines(only_not_on_tpu=mode == "NOT_ON_TPU")
+        if lines:
+            print("\n".join(lines))
+    return _to_physical(meta, conf)
+
+
+def generate_supported_ops_doc() -> str:
+    """The expression rules' type signatures as a table (TypeChecks'
+    doc generation): one row an expression class, one column a type
+    tag; ``S`` runs on the device, ``NS`` sends the expression to the
+    CPU engine. Extra tags (nested gates, regex, casts) are not in the
+    table."""
+    if not _EXPR_RULES:
+        _register_expr_rules()
+    tags = ts.ALL_TAGS
+    lines = ["| Expression | " + " | ".join(tags) + " |",
+             "|---" * (len(tags) + 1) + "|"]
+    for cls in sorted(_EXPR_RULES, key=lambda c: c.__name__):
+        sig = _EXPR_RULES[cls].sig
+        cells = ["S" if t in sig.tags else "NS" for t in tags]
+        lines.append(f"| {cls.__name__} | " + " | ".join(cells) + " |")
+    return "\n".join(lines) + "\n"

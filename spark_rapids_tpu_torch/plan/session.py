@@ -9,6 +9,13 @@ maps) in ``create_dataframe``, the temp-view catalog and ``sql``, joins of every
 one torch device, ``cuda`` unless the caller asks for the CPU; a session
 asked for CUDA where there is none raises.
 
+Planning tags each node for the device or the CPU engine
+(plan/overrides.py); a query whose root runs on the CPU engine returns
+that engine's table, and with ``srt.sql.enabled=false`` the whole plan
+runs there. ``DataFrame.explain(mode)`` prints the marks (``*`` on the
+device, ``!`` on the CPU engine with the reasons) and the physical tree
+with its seams.
+
 Each query registers with the device budget for its run (a budget
 slice, and the owner its spillables are charged to), starts its
 thread's task counters from zero, and leaves its task metrics
@@ -28,14 +35,14 @@ import torch
 
 from ..columnar import dtypes as dt
 from ..conf import OOM_INJECTION_MODE, SrtConf
-from ..exec.base import ExecContext
+from ..exec.base import ExecContext, TpuExec
 from ..memory.budget import device_budget, query_scope, task_context
 from ..expr.core import Alias, Expression, col, output_name
 from . import logical as L
-from .host_table import (HostColumn, HostTable, batch_to_table,
-                         concat_tables, empty_table, table_to_batch,
-                         to_pydict)
-from .overrides import apply_overrides
+from .host_table import (HostTable, batch_to_table, concat_tables,
+                         empty_like, from_engine, from_pydict,
+                         table_to_batch, to_pydict)
+from .overrides import apply_overrides, tag_only
 
 
 def _to_expr(c) -> Expression:
@@ -54,26 +61,8 @@ _JOIN_TYPES = {"inner": "inner", "left": "left_outer",
 
 def _host_table_from_pydict(data: Dict[str, list], schema) -> HostTable:
     """{name: [python values, None for null]} with a [(name, DType)]
-    schema -> HostTable."""
-    from ..columnar.vector import HostStrings
-    from ..expr.core import literal_physical
-    cols = []
-    for name, t in schema:
-        vals = data[name]
-        mask = np.array([v is not None for v in vals], bool)
-        if t.is_nested:  # Python lists, dicts and tuples
-            lane = np.empty(len(vals), dtype=object)
-            lane[:] = list(vals)
-        elif t == dt.STRING:
-            lane = HostStrings.from_objects(vals)
-        elif dt.is_wide_decimal(t):
-            lane = np.array([0 if v is None else literal_physical(v, t)
-                             for v in vals], object)
-        else:
-            lane = np.array([0 if v is None else literal_physical(v, t)
-                             for v in vals], t.np_physical)
-        cols.append(HostColumn(lane, mask, t))
-    return HostTable(cols, [n for n, _ in schema])
+    schema -> HostTable in the device path's layout."""
+    return from_engine(from_pydict(data, schema))
 
 
 def _extract_windows(plan: L.LogicalPlan, exprs):
@@ -230,12 +219,16 @@ class TpuSession:
         budget.register_query(qid)
         try:
             with query_scope(qid):
-                tables = [batch_to_table(b) for b in physical.execute(ctx)
-                          if b.num_rows]
+                if isinstance(physical, TpuExec):
+                    tables = [batch_to_table(b)
+                              for b in physical.execute(ctx) if b.num_rows]
+                else:  # the root runs on the CPU engine
+                    tables = [from_engine(physical.evaluate(ctx))]
         finally:
             budget.unregister_query(qid)
             ctx.memory = task.metrics()
-        return concat_tables(tables) if tables else empty_table(plan.schema)
+        return concat_tables(tables) if tables else \
+            from_engine(empty_like(plan.schema))
 
 
 class DataFrame:
@@ -345,9 +338,18 @@ class DataFrame:
         data = to_pydict(table)
         return [{k: data[k][i] for k in data} for i in range(table.num_rows)]
 
-    def explain(self) -> str:
-        """The physical plan this DataFrame runs as."""
+    def explain(self, mode: Optional[str] = None) -> str:
+        """The physical plan this DataFrame runs as; with ``mode``
+        (``ALL`` or ``NOT_ON_TPU``, as ``srt.sql.explain``) first the
+        tagging's marks: every node (``ALL``) or only those that run on
+        the CPU engine, with the reasons."""
         out = apply_overrides(self.plan, self.session.conf).tree_string()
+        if mode is not None:
+            if mode not in ("ALL", "NOT_ON_TPU"):
+                raise ValueError(f"explain mode {mode!r}: ALL or NOT_ON_TPU")
+            marks = tag_only(self.plan, self.session.conf).explain_lines(
+                only_not_on_tpu=mode == "NOT_ON_TPU")
+            out = "\n".join(marks + [out])
         print(out)
         return out
 

@@ -28,8 +28,10 @@ types it DECIMAL(2,2); ROADMAP.md C14). A function, clause or type the
 JAX package's analyzer lowers but this port does not have yet
 (INTERSECT / EXCEPT ALL as in the JAX package, and ``from_json`` /
 ``to_json`` in ``_NOT_PORTED``) raises ``SqlError`` saying so, before any plan is
-built; so does a regex, time zone or cast the port cannot run (it has
-no CPU fallback: a DECIMAL(p>18) to or from STRING).
+built; so does a time zone or cast the port cannot run. What the
+planner sends to the CPU engine (a regex the device refuses, a
+DECIMAL(p>18) to or from STRING, stddev / variance over a window) is
+lowered as the JAX analyzer lowers it.
 """
 
 from __future__ import annotations
@@ -901,9 +903,6 @@ _AGG_FNS = {
     "first": Agg.First, "last": Agg.Last,
     "collect_list": Agg.CollectList, "collect_set": Agg.CollectSet,
 }
-
-#: the aggregates the window execs run (exec/window.py)
-_WINDOW_AGG_FNS = frozenset({"sum", "min", "max", "avg", "mean", "count"})
 
 _UNARY_FNS = {
     "abs": A.Abs, "sqrt": M.Sqrt, "cbrt": M.Cbrt, "exp": M.Exp,
@@ -2147,9 +2146,9 @@ class Analyzer:
     @staticmethod
     def _made(build, what: str):
         """``build()``, with what the port refuses when the plan is made
-        (a regex, time zone, format or cast it cannot run: TypeError,
-        ValueError, zoneinfo's KeyError / OSError, or what waits for the
-        CPU fallback: NotImplementedError) as SqlError."""
+        (a time zone, format or cast it cannot run: TypeError,
+        ValueError, zoneinfo's KeyError / OSError, or NotImplementedError)
+        as SqlError."""
         try:
             return build()
         except (TypeError, ValueError, KeyError, OSError,
@@ -2181,11 +2180,11 @@ class Analyzer:
                 default = fn.args[2].value
             cls = W.Lead if name == "lead" else W.Lag
             func = cls(self.lower(fn.args[0], scope), off, default)
-        elif name in _WINDOW_AGG_FNS:
+        elif name in _AGG_FNS or name == "count":
+            # the planner's _tag_window sends what the window execs do
+            # not run (stddev / variance, first / last, a string min /
+            # max) to the CPU engine
             func = self._lower_fn(fn, scope)
-        elif name in _AGG_FNS:
-            # the window execs run sum, count, avg, min and max
-            raise _not_ported(f"function {name!r} over a window")
         elif name in _NOT_PORTED:
             raise _not_ported(f"function {name!r}")
         else:

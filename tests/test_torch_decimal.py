@@ -16,7 +16,10 @@
 - TPC-H q1, q6 and q3 with DECIMAL(12,2) money columns at 20,000
   lineitem rows against the JAX package (its q3 sorts on the wide
   revenue on its CPU fallback).
-- Every case the JAX planner sends to its CPU engine raises in the port.
+- Every case the planner sends to the CPU engine (a DECIMAL(p>18) key,
+  window aggregate, div / % / pmod, least / greatest, or cast to or from
+  STRING) runs there, against the JAX package's rows, or Python's
+  decimal where the JAX package raises.
 - The port's departures from the JAX package, where the port follows
   Spark (ROADMAP.md C14, C15), against Python's ``decimal`` at 80 digits
   with ROUND_HALF_UP.
@@ -493,6 +496,11 @@ def jax_side(tpch_lanes):
         for q, text in (("q1", Q1), ("q6", Q6), ("q3", Q3)):
             df = session.sql(text)
             out[q] = (df.schema, df.collect())
+        for text in FALLBACK:
+            try:
+                out[text] = session.sql(text).collect()
+            except Exception as e:  # noqa: BLE001 - C16's refusals
+                out[text] = e
     return out
 
 
@@ -600,9 +608,9 @@ def test_decimal_q1_split_and_retry_equals_clean(port_tpch):
         assert sum(mem.values()) > 0, (arm, mem)
 
 
-# --- what waits for the CPU fallback ---------------------------------------
+# --- what the planner sends to the CPU engine ------------------------------
 
-RAISES = [
+FALLBACK = [
     "SELECT c, count(*) FROM t GROUP BY c",
     "SELECT sum(a) FROM t GROUP BY d",
     "SELECT x.a FROM t x JOIN t y ON x.c = y.c",
@@ -621,13 +629,63 @@ RAISES = [
 ]
 
 
-@pytest.mark.parametrize("text", RAISES)
-def test_cpu_fallback_cases_raise(port, text):
-    """Each sends the JAX planner to its CPU engine; the port raises,
-    naming the CPU fallback."""
-    with pytest.raises((SqlError, NotImplementedError),
-                       match="CPU fallback"):
-        port.sql(text).collect()
+def _python_reference(text):
+    """Python's decimal at 80 digits, for the texts the JAX package's CPU
+    engine fails on (its join and window keys call ``.item()`` on a
+    Python int; its least / greatest refuse two decimal types, C16)."""
+    with decimal.localcontext(CTX):
+        return _python_rows(text, _table())
+
+
+def _python_rows(text, data):
+    rows = range(len(data["k"]))
+    if text.startswith("SELECT x.a FROM t x JOIN"):
+        return [data["a"][i] for i in rows for j in rows
+                if data["c"][i] is not None and data["c"][i] == data["c"][j]]
+    if text.startswith("SELECT sum(c) OVER"):
+        sums = {}
+        for i in rows:
+            if data["c"][i] is not None:
+                sums[data["k"][i]] = sums.get(data["k"][i], 0) + data["c"][i]
+        return [sums.get(data["k"][i]) for i in rows]
+    if text.startswith("SELECT max(d) OVER"):
+        def key(i):  # ascending, NULLs first
+            return (data["a"][i] is not None, data["a"][i] or 0)
+        out = []
+        for i in rows:
+            peers = [data["d"][j] for j in rows
+                     if data["k"][j] == data["k"][i] and key(j) <= key(i)
+                     and data["d"][j] is not None]
+            out.append(max(peers) if peers else None)
+        return out
+    x, y = ("c", "d") if "least" in text else ("a", "c")
+    pick = min if "least" in text else max
+    return [pick([v for v in (data[x][i], data[y][i]) if v is not None])
+            if data[x][i] is not None or data[y][i] is not None else None
+            for i in rows]
+
+
+@pytest.mark.parametrize("text", FALLBACK)
+def test_cpu_fallback_cases_run(port, jax_side, text):
+    """Each sends the planner to the CPU engine (a DECIMAL(p>18) group-by,
+    join or window key, window aggregate, div / % / pmod, least /
+    greatest, or cast to or from STRING): the rows equal the JAX
+    package's, or Python's decimal where the JAX package raises."""
+    df = port.sql(text)
+    assert any(line.lstrip().startswith("!")
+               for line in df.explain("NOT_ON_TPU").splitlines())
+    got = [r[df.columns[-1]] for r in df.collect()]
+    want = jax_side[text]
+    if isinstance(want, Exception):
+        want = _python_reference(text)
+    else:
+        want = [r[list(r)[-1]] for r in want]
+    if "GROUP BY" in text or "JOIN" in text:
+        got, want = sorted(got, key=repr), sorted(want, key=repr)
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert _same(g, w) or (isinstance(g, Decimal) and g == w), \
+            (text, i, g, w)
 
 
 def test_union_of_two_decimal_types_raises(port):

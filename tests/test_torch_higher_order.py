@@ -9,8 +9,10 @@ elements. The JAX side runs in a subprocess (tests/torch_nested_jax.py).
 Where the port follows Spark (``map_from_arrays`` of arrays of two
 lengths, a NULL or repeated map key raise; ROADMAP C17) it is held
 against plain Python. The fold's steps follow the longest list
-(``FOLD_STEPS``). Each JAX planner gate on lambdas raises
-NotImplementedError at planning time, naming ROADMAP A8.
+(``FOLD_STEPS``). Each planner gate on lambdas sends its expression to
+the CPU engine, held against the JAX package's rows (plain Python for
+an ``aggregate`` reading an outer column, which the JAX engine cannot
+resolve).
 """
 
 import math
@@ -132,23 +134,31 @@ def test_map_keys_follow_spark(case, session):
         d.select(Alias(e, "m")).collect()
 
 
-GATES = {
-    "transform_string_elements": lambda: HO.transform(
-        CX.array(lit("a"), lit("b")), lambda v: lit(1)),
-    "transform_string_result": lambda: HO.transform(col("a"),
-                                                    lambda v: lit("s")),
-    "exists_nested_elements": lambda: HO.exists(
-        CX.array(col("a"), col("a")), lambda v: CX.Size(v) > lit(1)),
-    "aggregate_outer_column": lambda: HO.aggregate(
-        col("a"), lit(0), lambda acc, v: acc + v + col("x")),
-    "map_string_keys": lambda: HO.map_contains_key(
-        HO.create_map(lit("k"), col("x")), lit("k")),
-    "filter_map_values_string": lambda: HO.map_filter(
-        HO.create_map(col("x"), lit("v")), lambda k, v: k > lit(1)),
-}
+GATES = list(J.hof_gate_exprs(CX, HO, col, lit))
 
 
-@pytest.mark.parametrize("gate", list(GATES))
+def _outer_fold(a, x):
+    """aggregate(a, 0, (acc, v) -> acc + v + x) in plain Python."""
+    if a is None:
+        return None
+    acc = 0
+    for v in a:
+        acc = None if acc is None or v is None else acc + v + x
+    return acc
+
+
+@pytest.mark.parametrize("gate", GATES)
 def test_gates_raise_at_planning(gate, df):
-    with pytest.raises(NotImplementedError, match="A8"):
-        df.select(Alias(GATES[gate](), "r")).explain()
+    """Each gate sends its expression to the CPU engine (the name is
+    kept from when the port refused them): the node is marked ``!``
+    and its rows equal the JAX package's."""
+    q = df.select(Alias(J.hof_gate_exprs(CX, HO, col, lit)[gate], "r"))
+    assert q.explain("NOT_ON_TPU").splitlines()[0].startswith("! Project")
+    got = [r["r"] for r in q.collect()]
+    want = J.result("hof")["gates"][gate]
+    if isinstance(want, Exception):
+        data = J.hof_data()
+        want = [_outer_fold(a, x) for a, x in zip(data["a"], data["x"])]
+    assert len(got) == len(want) == J.N
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert _same(g, w), (gate, i, g, w)

@@ -370,19 +370,52 @@ def test_exec_context_defaults_to_the_card():
 
 
 def test_join_refuses_what_is_not_ported():
-    """Where the JAX planner drops an outer join's condition or runs a
-    keyless outer join as inner, the port raises."""
+    """A condition on an outer, semi or anti join and a keyless outer
+    join run on the CPU engine (the name is kept from when the port
+    refused them; ROADMAP C10), against plain Python: the condition
+    decides which key-matched pairs match, and an unmatched row is
+    null-extended."""
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
     from spark_rapids_tpu_torch.plan import logical as L
     session = TpuSession(device="cpu")
-    lanes = {"a": (np.arange(4, dtype=np.int64), np.ones(4, bool), "bigint")}
-    df = session.create_dataframe(carry.host_table_from_lanes(lanes))
-    other = df.select(Alias(col("a"), "b"))
-    cond = P.GreaterThan(col("a"), col("b"))
-    for plan in (L.Join(df.plan, other.plan, [col("a")], [col("b")],
-                        "left_outer", condition=cond),
-                 L.Join(df.plan, other.plan, [], [], "left_outer")):
-        with pytest.raises(NotImplementedError, match="not in this port"):
-            DataFrame(session, plan).collect()
+    a = [0, 1, 2, 3, 3, None]
+    df = session.create_dataframe({"a": a}, [("a", dt.INT64)])
+    other = session.create_dataframe({"b": [1, 3, 3, 5, None]},
+                                     [("b", dt.INT64)])
+    bs = [1, 3, 3, 5, None]
+    cond = P.GreaterThan(col("b"), lit(2))
+    cases = [("left_outer", True), ("left_semi", True), ("left_anti", True),
+             ("full_outer", True), ("left_outer", False),
+             ("right_outer", False)]
+    for how, keyed in cases:
+        keys = ([col("a")], [col("b")]) if keyed else ([], [])
+        plan = L.Join(df.plan, other.plan, *keys, how,
+                      condition=cond if keyed else
+                      P.LessThan(col("a"), col("b")))
+        q = DataFrame(session, plan)
+        assert q.explain("NOT_ON_TPU").splitlines()[0].startswith(
+            "! Join"), how
+        got = sorted((tuple(r.values()) for r in q.collect()), key=repr)
+
+        def match(x, y):
+            if x is None or y is None:
+                return False
+            return (x == y and y > 2) if keyed else x < y
+        li = [(x, [y for y in bs if match(x, y)]) for x in a]
+        if how == "left_semi":
+            want = [(x,) for x, m in li if m]
+        elif how == "left_anti":
+            want = [(x,) for x, m in li if not m]
+        else:
+            want = [(x, y) for x, m in li for y in (m or [None])]
+            if how == "right_outer":
+                want = [(x, y) for x, y in want if y is not None] + [
+                    (None, y) for y in bs
+                    if not any(match(x, y) for x in a)]
+            if how == "full_outer":
+                want += [(None, y) for y in bs
+                         if not any(match(x, y) for x in a)]
+        assert got == sorted(want, key=repr), how
     with pytest.raises(ValueError, match="unknown join type"):
         df.join(other, on=([col("a")], [col("b")]), how="sideways")
 

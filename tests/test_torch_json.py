@@ -10,8 +10,9 @@ tests/torch_nested_jax.py), exactly: the port keeps the JAX envelope
 (a nested result is the raw span, ``\\uXXXX`` undecoded; ROADMAP C17).
 Long documents, past the JAX pad widths, are held against Python's
 ``json``. ``get_json_object`` runs through ``session.sql``; a wildcard
-path raises ``SqlError``, and ``from_json`` / ``to_json`` wait for the
-CPU fallback (ROADMAP A8).
+path raises ``SqlError``. ``from_json`` / ``to_json`` are not in the
+port's SQL yet; through the DataFrame API they run on the CPU engine,
+against the JAX package's.
 """
 
 import json
@@ -116,13 +117,54 @@ def test_unsupported_paths_raise(session, path):
 
 @pytest.mark.parametrize("fn", ["from_json", "to_json"])
 def test_json_functions_wait_for_the_cpu_fallback(session, fn):
+    """Not in the port's SQL yet; through the DataFrame API the planner
+    sends them to the CPU engine (the name is kept from when the port
+    refused them), against the JAX package's rows."""
     df = session.create_dataframe({"s": ['{"a": 1}']}, [("s", dt.STRING)])
     session.create_or_replace_temp_view("one", df)
     text = {"from_json": "SELECT from_json(s, 'a INT') FROM one",
             "to_json": "SELECT to_json(s) FROM one"}[fn]
     with pytest.raises(SqlError, match="not in this port yet"):
         session.sql(text)
-    e = JsonToStructs(col("s"), dt.StructType((("a", dt.INT32),))) \
-        if fn == "from_json" else StructsToJson(col("s"))
-    with pytest.raises(NotImplementedError, match="A8"):
-        df.select(Alias(e, "r")).explain()
+    docs = ['{"a": 1}', '{"a": "x"}', 'not json', None, '{"b": 2}',
+            '{"a": 2147483648}', '[1]', '{"a": -7, "a2": [1]}']
+    rows = _json_fn_rows(session, fn, docs, dt, JsonToStructs,
+                         StructsToJson, TpuSession)
+    assert rows[0]["marks"].startswith("! Project")
+    with pytest.MonkeyPatch.context() as mp:
+        from jax_reference import patch_jax_compiles
+        patch_jax_compiles(mp)
+        from spark_rapids_tpu.columnar import dtypes as jdt
+        from spark_rapids_tpu.expr.json import JsonToStructs as JTS
+        from spark_rapids_tpu.expr.json import StructsToJson as JSJ
+        from spark_rapids_tpu.plan.session import TpuSession as JSession
+        want = _json_fn_rows(None, fn, docs, jdt, JTS, JSJ, JSession)
+    assert [r["r"] for r in rows] == [r["r"] for r in want]
+    if fn == "from_json":
+        assert [r["r"] for r in rows][:3] == [{"a": 1}, {"a": None}, None]
+
+
+def _json_fn_rows(session, fn, docs, types, from_json, to_json, make):
+    """from_json(s, 'a INT'), or to_json of it, through one package's
+    DataFrame API (the port's with its explain marks)."""
+    from_expr = from_json(col("s") if session else _jcol("s"),
+                          types.StructType((("a", types.INT32),)))
+    e = from_expr if fn == "from_json" else to_json(from_expr)
+    s = session or make()
+    df = s.create_dataframe({"s": docs}, [("s", types.STRING)])
+    alias = Alias if session else _jalias
+    q = df.select(alias(e, "r"))
+    rows = q.collect()
+    if session:
+        rows[0]["marks"] = q.explain("NOT_ON_TPU")
+    return rows
+
+
+def _jcol(name):
+    from spark_rapids_tpu.expr.core import col as jcol
+    return jcol(name)
+
+
+def _jalias(e, name):
+    from spark_rapids_tpu.expr.core import Alias as JAlias
+    return JAlias(e, name)

@@ -11,9 +11,10 @@ subprocesses, tests/torch_nested_jax.py) and through the port with
 the rest exactly. Where the port follows Spark and
 the JAX package does not (a slice start before the array's first
 element; NaN and -0.0 in the element comparisons; ROADMAP.md C17), the
-port is held against plain Python. Each gate of the JAX planner that
-sends a nested expression to its CPU engine raises NotImplementedError
-at planning time in the port, naming ROADMAP A8.
+port is held against plain Python. Each gate of the planner that sends a
+nested expression to the CPU engine runs it there, against the JAX
+package's rows; a nested GROUP BY, ORDER BY or join key runs there too,
+against plain Python.
 """
 
 import datetime
@@ -299,40 +300,68 @@ def test_carry_takes_a_jax_host_table(data):
 
 # --- gates -------------------------------------------------------------------
 
-GATES = {
-    "contains_string_elements": lambda: CX.ArrayContains(col("sa"),
-                                                         lit("x")),
-    "sort_nested_elements": lambda: CX.SortArray(col("ll")),
-    "array_repeat_column_count": lambda: CX.ArrayRepeat(col("v"),
-                                                        col("n")),
-    "array_repeat_string": lambda: CX.ArrayRepeat(lit("x"), lit(2)),
-    "zip_with_string_elements": lambda: CX.zip_with(
-        col("sa"), col("a"), lambda p, q: q),
-    "zip_with_string_result": lambda: CX.zip_with(
-        col("a"), col("b"), lambda p, q: lit("s")),
-    "map_concat": lambda: CX.MapConcat(
-        HO.create_map(lit(1), col("x")), HO.create_map(lit(2), col("x"))),
-}
+GATES = list(J.gate_exprs(CX, HO, col, lit))
 
 
-@pytest.mark.parametrize("gate", list(GATES))
+@pytest.mark.parametrize("gate", GATES)
 def test_gates_raise_at_planning(gate, port_df):
-    df = port_df.select(Alias(GATES[gate](), "r"))
-    with pytest.raises(NotImplementedError, match="A8"):
-        df.explain()
+    """Each gate sends its expression to the CPU engine (the name is
+    kept from when the port refused them): the node is marked ``!``
+    and its rows equal the JAX package's."""
+    df = port_df.select(Alias(J.gate_exprs(CX, HO, col, lit)[gate], "r"))
+    marks = df.explain("NOT_ON_TPU").splitlines()
+    assert marks[0].startswith("! Project"), marks
+    got = [r["r"] for r in df.collect()]
+    want = J.result("collections")["gates"][gate]
+    assert len(got) == len(want) == N
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert _same(g, w), (gate, i, g, w)
+
+
+def _frozen(v):
+    if isinstance(v, list):
+        return tuple(_frozen(x) for x in v)
+    if isinstance(v, dict):
+        return tuple((k, _frozen(x)) for k, x in v.items())
+    return v
+
+
+def _spark_order(v):
+    """Spark's ascending order, NULLs first, for the test's structs."""
+    return (0,) if v is None else (1, v["p"] is not None, v["p"] or 0,
+                                   v["q"] is not None, v["q"] or "")
 
 
 @pytest.mark.parametrize("what", ["group_by", "sort", "join", "explode_map"])
-def test_nested_keys_raise_at_planning(what, port_df):
-    with pytest.raises(NotImplementedError, match="A8"):
-        if what == "group_by":
-            port_df.group_by(col("a")).agg().explain()
-        elif what == "sort":
-            port_df.sort(col("st")).explain()
-        elif what == "join":
-            port_df.join(port_df, on="a").explain()
-        else:
+def test_nested_keys_raise_at_planning(what, data, port_df):
+    """A nested GROUP BY, ORDER BY or join key runs on the CPU engine
+    (the name is kept from when the port refused them), against plain
+    Python. explode of a map still raises: Spark gives a key and a value
+    column, the port's Generate has one element column, and the JAX CPU
+    engine explodes a map into its keys alone."""
+    if what == "explode_map":
+        with pytest.raises(NotImplementedError, match="not in this port"):
             port_df.select(CX.explode(HO.create_map(lit(1), col("x"))))
+        return
+    if what == "group_by":
+        df = port_df.group_by(col("a")).agg()
+        got = sorted((_frozen(r["a"]) for r in df.collect()), key=repr)
+        want = sorted({_frozen(a) for a in data["a"]}, key=repr)
+    elif what == "sort":
+        df = port_df.sort(col("st"))
+        got = [r["st"] for r in df.collect()]
+        want = sorted(data["st"], key=_spark_order)
+    else:
+        df = port_df.join(port_df.select(col("a"), Alias(col("x"), "y")),
+                          on="a")
+        got = sorted(((_frozen(r["a"]), r["x"], r["y"])
+                      for r in df.collect()), key=repr)
+        rows = list(zip(data["a"], data["x"]))
+        want = sorted(((_frozen(a), x, y) for a, x in rows for b, y in rows
+                       if a is not None and a == b), key=repr)
+    assert any(line.lstrip().startswith("!")
+               for line in df.explain("NOT_ON_TPU").splitlines())
+    assert got == want
 
 
 # --- the slice as a whole ----------------------------------------------------

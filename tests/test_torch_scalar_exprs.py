@@ -862,9 +862,6 @@ def test_sql_matches_jax(i, port_session, jax_values):
     ("SELECT get_json_object(s, '$.*') FROM t", "get_json_object"),
     ("SELECT from_json(s, 'a INT') FROM t", "from_json"),
     ("SELECT to_json(s) FROM t", "to_json"),
-    ("SELECT s RLIKE 'a(?=b)' FROM t", "lookaround"),
-    ("SELECT regexp_extract(s, 'a|b', 0) FROM t", "alternation"),
-    ("SELECT regexp_replace(s, 'a', '$1') FROM t", "group references"),
     ("SELECT from_utc_timestamp(ts, 'Mars/Olympus_Mons') FROM t",
      "from_utc_timestamp"),
     ("SELECT CAST(s AS TIMESTAMP) FROM t", "cast string -> timestamp"),
@@ -875,6 +872,28 @@ def test_what_the_port_cannot_run_raises(port_session, text, what):
     with pytest.raises(SqlError) as e:
         port_session.sql(text)
     assert what in str(e.value)
+
+
+@pytest.mark.parametrize("text, pattern, fn", [
+    ("SELECT s, s RLIKE 'a(?=b)' AS r FROM t", "a(?=b)",
+     lambda m, v: m is not None),
+    ("SELECT s, regexp_extract(s, 'a|b', 0) AS r FROM t", "a|b",
+     lambda m, v: m.group(0) if m else ""),
+    ("SELECT s, regexp_replace(s, '(a)', '<$1>') AS r FROM t", None,
+     lambda m, v: re.sub("(a)", r"<\g<1>>", v, flags=re.ASCII)),
+])
+def test_regex_the_device_refuses_runs_on_the_cpu_engine(port_session, text,
+                                                         pattern, fn):
+    """A pattern the device's transpiler refuses (lookaround,
+    alternation under extract) and group references in a replacement
+    run on the CPU engine through Python's ``re``."""
+    df = port_session.sql(text)
+    assert df.explain("NOT_ON_TPU").splitlines()[0].startswith("! Project")
+    for r in df.collect():
+        v = r["s"]
+        want = None if v is None else fn(
+            re.search(pattern, v, re.ASCII) if pattern else None, v)
+        assert r["r"] == want, (text, v, r["r"], want)
 
 
 if __name__ == "__main__":

@@ -11,8 +11,11 @@ arguments, this jax passes five); the JAX package is imported under that
 patch.
 
 Where the port departs from the JAX package, the case says how:
-- string min/max over a window raises NotImplementedError in the port
-  (the JAX planner sends it to its CPU fallback; the port has none);
+- string min/max over a window and a min/max sliding frame with an
+  unbounded side run on the CPU engine in both packages (``!`` nodes),
+  held against the JAX package's rows; a RANGE frame with value offsets
+  over two order keys raises while planning (Spark refuses it; the JAX
+  engine reads the first key alone);
 - the decimal RANGE key case runs both packages over DECIMAL(10,2);
 - a ``Lag`` string default longer than both string buffers is held
   against plain Python (the JAX string select cuts it: condition C4 in
@@ -319,7 +322,24 @@ def jax_side():
              "v": [1, 10, 100, 1000]},
             [("o", jdt.DecimalType(10, 2)), ("v", jdt.INT64)])
         out["decimal_key"] = _decimal_key_query(m, df).collect()
+        for name, (table, build) in CPU_ENGINE_CASES.items():
+            session = JSession(JConf({"srt.shuffle.partitions": 1}))
+            out[name] = build(m, _jax_frame(session, jdt,
+                                            TABLES[table])).collect()
         yield out
+
+
+#: window cases the planner sends to the CPU engine: name -> (table,
+#: query builder)
+CPU_ENGINE_CASES = {
+    "string_min": ("strings", lambda m, df: df.select(
+        "k", "s", m.Min(m.col("s")).over(
+            m.Window.partition_by("k").order_by("s")).alias("ms"))),
+    "sliding_unbounded_max": ("base", lambda m, df: df.select(
+        "k", "o", "v", m.Max(m.col("v")).over(
+            m.Window.partition_by("k").order_by("o", "v").with_frame(
+                _frame(m, None, 2))).alias("w"))),
+}
 
 
 def _decimal_key_query(m, df):
@@ -387,15 +407,21 @@ def test_windows_on_the_device_path_have_no_fallback():
     assert ctx.device == torch.device("cpu")
 
 
-def test_window_over_strings_raises():
-    """String min/max over a window: the JAX planner falls back to its
-    CPU engine, the port has no fallback and refuses it while planning."""
-    session, df = _port_df(TABLES["strings"])
-    w = PORT.Window.partition_by("k").order_by("s")
-    q = df.select("k", PORT.Min(PORT.col("s")).over(w).alias("ms"))
-    with pytest.raises(NotImplementedError,
-                       match="string min/max is not in this port yet"):
-        q.collect()
+def _on_the_cpu_engine(name, jax_side):
+    table, build = CPU_ENGINE_CASES[name]
+    _, df = _port_df(TABLES[table])
+    q = build(PORT, df)
+    marks = q.explain("NOT_ON_TPU").splitlines()
+    assert any(line.lstrip().startswith("! Window") for line in marks)
+    rows = q.collect()
+    diff = compare_rows(rows, jax_side[name], [], None, RTOL)
+    assert diff is None, f"{name}: {diff}"
+
+
+def test_window_over_strings_raises(jax_side):
+    """String min/max over a window runs on the CPU engine, as in the
+    JAX package (the name is kept from when the port refused it)."""
+    _on_the_cpu_engine("string_min", jax_side)
 
 
 @pytest.mark.parametrize("build, what", [
@@ -406,8 +432,16 @@ def test_window_over_strings_raises():
         m.Window.partition_by("k").order_by("o", "v").with_frame(
             _frame(m, -2, 2, rows=False))), "RANGE frame needs one"),
 ])
-def test_unported_window_shapes_raise(build, what):
+def test_unported_window_shapes_raise(build, what, jax_side):
+    """A min/max sliding frame with an unbounded side runs on the CPU
+    engine, against the JAX package (the name is kept from when the
+    port refused it). A RANGE frame with value offsets over two order
+    keys still raises: Spark refuses such a query, and the JAX engine
+    would read its first key alone."""
     _, df = _port_df(TABLES["base"])
+    if what == "min/max sliding frames":
+        _on_the_cpu_engine("sliding_unbounded_max", jax_side)
+        return
     with pytest.raises(NotImplementedError, match=what):
         df.select("k", build(PORT).alias("w")).collect()
 

@@ -120,6 +120,52 @@ def collection_exprs(X, c, lt):
     }
 
 
+def gate_exprs(X, H, c, lt):
+    """What the planners' nested gates send to the CPU engine, over the
+    collection data, built with either package's modules."""
+    return {
+        "contains_string_elements": X.ArrayContains(c("sa"), lt("x")),
+        "sort_nested_elements": X.SortArray(c("ll")),
+        "array_repeat_column_count": X.ArrayRepeat(c("v"), c("n")),
+        "array_repeat_string": X.ArrayRepeat(lt("x"), lt(2)),
+        "zip_with_string_elements": X.zip_with(c("sa"), c("a"),
+                                               lambda p, q: q),
+        "zip_with_string_result": X.zip_with(c("a"), c("b"),
+                                             lambda p, q: lt("s")),
+        "map_concat": X.MapConcat(H.create_map(lt(1), c("x")),
+                                  H.create_map(lt(2), c("x"))),
+    }
+
+
+def hof_gate_exprs(X, H, c, lt):
+    """The lambda gates, over the higher-order data."""
+    return {
+        "transform_string_elements": H.transform(
+            X.array(lt("a"), lt("b")), lambda v: lt(1)),
+        "transform_string_result": H.transform(c("a"), lambda v: lt("s")),
+        "exists_nested_elements": H.exists(
+            X.array(c("a"), c("a")), lambda v: X.Size(v) > lt(1)),
+        "aggregate_outer_column": H.aggregate(
+            c("a"), lt(0), lambda acc, v: acc + v + c("x")),
+        "map_string_keys": H.map_contains_key(
+            H.create_map(lt("k"), c("x")), lt("k")),
+        "filter_map_values_string": H.map_filter(
+            H.create_map(c("x"), lt("v")), lambda k, v: k > lt(1)),
+    }
+
+
+def _each(api, df, exprs):
+    """Each case in a query of its own: its rows, or the error it
+    raised."""
+    out = {}
+    for k, e in exprs.items():
+        try:
+            out[k] = [r["r"] for r in df.select(api.Alias(e, "r")).collect()]
+        except Exception as err:  # noqa: BLE001 - recorded for the test
+            out[k] = err
+    return out
+
+
 def hof_data():
     rng = np.random.default_rng(11)
     a = lists(rng, N, -40, 40, 8)
@@ -307,6 +353,8 @@ def _job_collections(api, session):
         gen = getattr(api.CX, name)
         out[name] = df.select(api.col("x"),
                               api.Alias(gen(api.col("a")), "e")).collect()
+    out["gates"] = _each(api, df, gate_exprs(api.CX, api.HO, api.col,
+                                             api.lit))
     return out
 
 
@@ -322,6 +370,8 @@ def _job_hof(api, session):
          ("vs", api.dt.ArrayType(api.dt.INT64))])
     out["mismatch"] = two.select(api.Alias(api.HO.map_from_arrays(
         api.col("ks"), api.col("vs")), "m")).collect()
+    out["gates"] = _each(api, df, hof_gate_exprs(api.CX, api.HO, api.col,
+                                                 api.lit))
     return out
 
 
