@@ -88,6 +88,23 @@ Needs one NVIDIA GPU (built for an H100: sm_90a), nvcc and triton. It
    segment reductions over the sorted host lanes on a host thread and
    Python's json in ``host_worker``; walls, elements/s, peak and
    transient memory, the fold's steps;
+5f. runs ANSI mode, the DataFrame surface and the rest of the expression
+   library (``surface_phase``) over the same tables: E1 q6 / q1 under
+   ``srt.sql.ansi.enabled`` (B1 / B3 launched as without it), E2 the
+   errors of models/surface.py at scale (the JAX package's type and
+   first message line under ANSI, numpy's rows without), E3
+   ``range(0, 2^28)`` through B1, ``sample``, the ``GroupedData``
+   shorthands (B3), ``count`` / ``sort_desc`` / ``to_pydict`` and
+   ``explain(metrics=True)``, E4 bitwise over the keys, E5
+   ``approx_percentile`` by (flag, status) within its rank bound and the
+   exact ``percentile`` (its one CPU Aggregate), E6 a bloom filter built
+   on the card (bits equal numpy's), ``might_contain`` over 60M rows,
+   4,194,304 uuids, ``spark_partition_id`` / ``version`` and
+   ``raise_error`` under IF, E7 a decimal UNION over 120M rows, the byte
+   hashes of DECIMAL(24,4), explode of N4's maps and ``from_json`` /
+   ``to_json`` in SQL over N6's first documents (CPU engine); a first
+   run each with every B1 / B3 launch held and one warm run, against
+   numpy / Python (``surface_references`` in ``host_worker``);
 6. runs the NDS slice (``NDS_SLICE``, 20 star-join queries) as SQL
    text through ``session.sql`` over NDS tables generated in memory at
    ``scale_rows`` 28,800,000 (TPC-DS SF10's store_sales; q82 at
@@ -4757,7 +4774,669 @@ def nested_phase(torch, np, dev, session, li_df, host, worker, read_counts):
         | {"b1": r["launches"]["tile_reduce"],
            "b3": r["launches"]["tile_group_reduce"]}
         for q, r in report.items()}))
-    return report, runs["N2"], refs["N2"], (on_batches, json_batches)
+    return report, runs["N2"], refs["N2"], (on_batches, json_batches,
+                                            refs["N4_explode"])
+
+
+#: phase 5f (ANSI mode, the DataFrame surface, the rest of the
+#: expression library): E3's range, E3's sample, E5's sketch, E6's uuid
+#: rows and E7's hashed rows and JSON documents
+SURFACE_RANGE = 1 << 28
+SURFACE_SAMPLE = (0.01, 11)
+SURFACE_PCTS = (0.25, 0.5, 0.9, 0.99)
+#: ApproxPercentile's centroids at its default accuracy (10000 // 64)
+SURFACE_SKETCH_K = 156
+SURFACE_UUID_ROWS = 1 << 22
+SURFACE_HASH_BATCHES = 4          # lineitem's first 4,194,304 rows
+#: from_json / to_json run on the CPU engine (the planner tags them
+#: there, as the JAX planner does): over N6's first batch of documents
+SURFACE_JSON_BATCHES = 1
+SURFACE_BLOOM_DAYS = (days(1995, 1, 1), days(1995, 4, 1))
+SURFACE_JUNE_1995 = (days(1995, 6, 1), days(1995, 7, 1))
+
+
+def numpy_murmur3_long(np, v, seed):
+    """Spark's Murmur3 hashLong of int64 lanes: the low word, then the
+    high, then fmix with length 8 (uint32 lanes)."""
+    u = v.astype(np.uint64)
+    h = np.full(len(v), np.uint32(seed), np.uint32)
+    h = numpy_murmur3_step(np, (u & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+                           h)
+    h = numpy_murmur3_step(np, (u >> np.uint64(32)).astype(np.uint32), h)
+    return numpy_murmur3_fmix(np, h, 8)
+
+
+def numpy_bytes_of(np, v):
+    """BigInteger.toByteArray of int64 unscaled values, left-aligned in
+    (n, 8) uint8 rows, and each row's length (1 to 8)."""
+    mag = np.where(v < 0, ~v, v).astype(np.uint64)
+    bits = np.zeros(len(v), np.int64)
+    for s in range(63, -1, -1):
+        bits = np.where((bits == 0) & ((mag >> np.uint64(s)) != 0), s + 1,
+                        bits)
+    n = bits // 8 + 1
+    full = v.astype(">i8").view(np.uint8).reshape(-1, 8)   # big-endian
+    at = (8 - n)[:, None] + np.arange(8)[None, :]
+    out = np.where(at < 8, np.take_along_axis(full, np.minimum(at, 7), 1), 0)
+    return out.astype(np.uint64), n
+
+
+def numpy_murmur3_bytes(np, raw, n, seed):
+    """Spark's Murmur3 hashUnsafeBytes of rows of at most 8 bytes:
+    4-byte little-endian blocks, then the tail bytes sign-extended."""
+    h = np.full(len(n), np.uint32(seed), np.uint32)
+    for blk in range(2):
+        word = sum((raw[:, 4 * blk + k] << np.uint64(8 * k))
+                   for k in range(4)).astype(np.uint32)
+        h = np.where(n >= 4 * (blk + 1), numpy_murmur3_step(np, word, h), h)
+    tail = (n // 4) * 4
+    for k in range(3):
+        pos = np.minimum(tail + k, 7)
+        byte = np.take_along_axis(raw, pos[:, None], 1)[:, 0].astype(np.int64)
+        byte = np.where(byte >= 128, byte - 256, byte).astype(np.uint32)
+        h = np.where(tail + k < n, numpy_murmur3_step(np, byte, h), h)
+    return numpy_murmur3_fmix(np, h, n.astype(np.uint32))
+
+
+def numpy_xxhash64_bytes(np, raw, n, seed):
+    """Spark's XXH64 hashUnsafeBytes of rows of at most 8 bytes."""
+    p1, p2 = np.uint64(0x9E3779B185EBCA87), np.uint64(0xC2B2AE3D27D4EB4F)
+    p3, p4 = np.uint64(0x165667B19E3779F9), np.uint64(0x85EBCA77C2B2AE63)
+    p5 = np.uint64(0x27D4EB2F165667C5)
+
+    def rotl(x, r):
+        return (x << np.uint64(r)) | (x >> np.uint64(64 - r))
+    with np.errstate(over="ignore"):
+        h = np.uint64(seed) + p5 + n.astype(np.uint64)
+        word8 = sum(raw[:, k] << np.uint64(8 * k) for k in range(8))
+        h = np.where(n >= 8, rotl(h ^ (rotl(word8 * p2, 31) * p1), 27) * p1
+                     + p4, h)
+        at = (n // 8) * 8
+        rows = np.arange(len(n))
+        word4 = sum(raw[rows, np.minimum(at + k, 7)] << np.uint64(8 * k)
+                    for k in range(4))
+        has4 = at + 4 <= n
+        h = np.where(has4, rotl(h ^ (word4 * p1), 23) * p2 + p3, h)
+        at = np.where(has4, at + 4, at)
+        for k in range(3):
+            byte = raw[rows, np.minimum(at + k, 7)]
+            h = np.where(at + k < n, rotl(h ^ (byte * p5), 11) * p1, h)
+        h = h ^ (h >> np.uint64(33))
+        h = h * p2
+        h = h ^ (h >> np.uint64(29))
+        h = h * p3
+        return (h ^ (h >> np.uint64(32))).view(np.int64)
+
+
+def python_byte_hashes(v: int):
+    """Plain-Python ports of Spark's Murmur3 and XXH64 hashUnsafeBytes of
+    BigInteger.toByteArray(v) (seed 42): what the numpy lanes above are
+    held against on their first rows."""
+    m32, m64 = 0xFFFFFFFF, (1 << 64) - 1
+    bits = v.bit_length() if v >= 0 else (~v).bit_length()
+    b = v.to_bytes(bits // 8 + 1, "big", signed=True)
+
+    def rotl(x, r, w):
+        return ((x << r) | (x >> (w - r))) & ((1 << w) - 1)
+    h = 42
+    for i in range(0, len(b) - len(b) % 4, 4):
+        k = (rotl((int.from_bytes(b[i:i + 4], "little") * 0xCC9E2D51) & m32,
+                  15, 32) * 0x1B873593) & m32
+        h = (rotl(h ^ k, 13, 32) * 5 + 0xE6546B64) & m32
+    for i in range(len(b) - len(b) % 4, len(b)):
+        k = (rotl(((b[i] - 256 if b[i] >= 128 else b[i]) & m32) * 0xCC9E2D51
+                  & m32, 15, 32) * 0x1B873593) & m32
+        h = (rotl(h ^ k, 13, 32) * 5 + 0xE6546B64) & m32
+    h ^= len(b)
+    h ^= h >> 16
+    h = (h * 0x85EBCA6B) & m32
+    h ^= h >> 13
+    h = (h * 0xC2B2AE35) & m32
+    mm = h ^ (h >> 16)
+    p1, p2, p3, p4, p5 = (0x9E3779B185EBCA87, 0xC2B2AE3D27D4EB4F,
+                          0x165667B19E3779F9, 0x85EBCA77C2B2AE63,
+                          0x27D4EB2F165667C5)
+    x, at = (42 + p5 + len(b)) & m64, 0
+    while at + 8 <= len(b):
+        k = (rotl((int.from_bytes(b[at:at + 8], "little") * p2) & m64, 31,
+                  64) * p1) & m64
+        x = (rotl(x ^ k, 27, 64) * p1 + p4) & m64
+        at += 8
+    if at + 4 <= len(b):
+        x = (rotl(x ^ (int.from_bytes(b[at:at + 4], "little") * p1 & m64),
+                  23, 64) * p2 + p3) & m64
+        at += 4
+    for i in range(at, len(b)):
+        x = (rotl(x ^ (b[i] * p5 & m64), 11, 64) * p1) & m64
+    x ^= x >> 33
+    x = (x * p2) & m64
+    x ^= x >> 29
+    x = (x * p3) & m64
+    x ^= x >> 32
+    return (mm - (1 << 32) if mm >= 1 << 31 else mm,
+            x - (1 << 64) if x >= 1 << 63 else x)
+
+
+def half_up_unscaled(np, x, scale):
+    """The port's float -> DECIMAL(p, scale) unscaled values (x >= 0):
+    HALF_UP on the value's shortest decimal (expr/cast.py)."""
+    p = 10.0 ** scale
+    q = np.floor(x * p)
+    return (q + (x >= (q + 0.5) / p)).astype(np.int64)
+
+
+def numpy_interleave2(np, a, b):
+    """interleave_bits(a, b) of two BIGINT lanes: the top 31 bits of each
+    (in unsigned order: the sign bit flipped), a's bit i at 2i, b's at
+    2i + 1; the bits spread by masks."""
+    def top31(v):
+        u = v.view(np.uint64) ^ np.uint64(1 << 63)
+        return (u >> np.uint64(33)) & np.uint64((1 << 31) - 1)
+
+    def spread(x):
+        for s, m in ((16, 0x0000FFFF0000FFFF), (8, 0x00FF00FF00FF00FF),
+                     (4, 0x0F0F0F0F0F0F0F0F), (2, 0x3333333333333333),
+                     (1, 0x5555555555555555)):
+            x = (x | (x << np.uint64(s))) & np.uint64(m)
+        return x
+    return (spread(top31(a)) | (spread(top31(b)) << np.uint64(1))) \
+        .view(np.int64)
+
+
+def numpy_popcount64(np, v):
+    """Set bits of int64 lanes (the SWAR popcount; uint64 wraps)."""
+    x = v.view(np.uint64)
+    with np.errstate(over="ignore"):
+        x = x - ((x >> np.uint64(1)) & np.uint64(0x5555555555555555))
+        x = (x & np.uint64(0x3333333333333333)) + \
+            ((x >> np.uint64(2)) & np.uint64(0x3333333333333333))
+        x = (x + (x >> np.uint64(4))) & np.uint64(0x0F0F0F0F0F0F0F0F)
+        return ((x * np.uint64(0x0101010101010101)) >> np.uint64(56)) \
+            .astype(np.int64)
+
+
+def surface_references(np, li, od):
+    """Phase 5f's numpy references over the TPC-H host lanes: E2's rows
+    without ANSI, E3's sample and shorthands, E4's bitwise sums (int64
+    sums wrap, as a BIGINT SUM without ANSI does), E5's rank windows,
+    E7's union sum and its hashed rows."""
+    import decimal
+    pk, ok, price, disc = li["pkey"], li["okey"], li["price"], li["disc"]
+    ship = li["ship"]
+    # each flag is one byte: its code
+    rf = li["rf"].chars[li["rf"].offsets[:-1]]
+    ls = li["ls"].chars[li["ls"].offsets[:-1]]
+    out = {}
+
+    def wrap(v):
+        return (int(v) + 2 ** 63) % 2 ** 64 - 2 ** 63
+    with np.errstate(over="ignore"):
+        # E2 without ANSI: wrapped, null or saturated rows
+        d = np.trunc(disc * 100.0).astype(np.int64)
+        nz = d != 0
+        r = pk[nz] % d[nz]                     # both positive
+        cents = half_up_unscaled(np, price, 2)
+        keep = cents < 10 ** 7
+        out["e2"] = {
+            "sum_overflow": [{"v": wrap(int(pk.sum()) * 10 ** 12)}],
+            "row_overflow": [{"v": int((pk * np.int64(10 ** 14)).sum())}],
+            "divide_by_zero": [{"v": int(r.sum()), "n": int(nz.sum())}],
+            "string_cast": [{"v": None, "n": 0}],
+            "int_cast": [{"v": int(np.clip(np.trunc(price * 100000.0),
+                                           -2 ** 31, 2 ** 31 - 1)
+                                   .astype(np.int64).sum())}],
+            "decimal_cast": [{"v": decimal.Decimal(int(cents[keep].sum()))
+                              .scaleb(-2), "n": int(keep.sum())}],
+            "guarded": [{"v": int(r.sum()), "n": int(nz.sum())}]}
+        # E3: sample's keep mask and the shorthands by l_returnflag
+        frac, seed = SURFACE_SAMPLE
+        h = numpy_murmur3_long(np, np.arange(len(pk), dtype=np.int64), seed)
+        kept = h < np.uint32(min(int(frac * (1 << 32)), (1 << 32) - 1))
+        out["sample"] = [{"n": int(kept.sum()),
+                          "s": int(ok[kept].sum())}]
+        groups = {}
+        for code in np.flatnonzero(np.bincount(rf)):
+            m = rf == code
+            p = price[m]
+            groups[chr(code)] = {
+                "count": int(m.sum()), "sum": float(p.sum()),
+                "min": float(p.min()), "max": float(p.max()),
+                "avg": float(p.sum() / m.sum())}
+        out["shorthands"] = groups
+        # E4
+        neg = -pk
+        out["bitwise"] = [{
+            "and_": wrap((ok & pk).sum()), "or_": wrap((ok | pk).sum()),
+            "xor_": wrap((ok ^ pk).sum()), "not_": wrap((~ok).sum()),
+            "shl": wrap((ok << np.int64(3)).sum()),
+            "shr": wrap((neg >> np.int64(5)).sum()),
+            "shru": wrap((neg.view(np.uint64) >> np.uint64(5))
+                         .view(np.int64).sum()),
+            "pc": int(numpy_popcount64(np, ok ^ pk).sum()),
+            "z": wrap(numpy_interleave2(np, pk, ok).sum())}]
+    # E5: each group's rank window of p * N, 2N / K wide on each side
+    windows, june = {}, {}
+    lo_d, hi_d = SURFACE_JUNE_1995
+    in_june = (ship >= lo_d) & (ship < hi_d)
+    for a in np.flatnonzero(np.bincount(rf)):
+        for b in np.flatnonzero(np.bincount(ls)):
+            m = (rf == a) & (ls == b)
+            key = (chr(a), chr(b))
+            v = np.sort(price[m])
+            n = len(v)
+            bound = 2 * n / SURFACE_SKETCH_K
+            windows[key] = [(float(v[max(int(np.floor(p * n - bound)) - 1,
+                                         0)]),
+                             float(v[min(int(np.ceil(p * n + bound)),
+                                         n - 1)]), bound)
+                            for p in SURFACE_PCTS]
+            june[key] = float(np.percentile(price[m & in_june], 50))
+    out["approx"], out["june"] = windows, june
+    # E7: the UNION's exact sum at scale 4, and the hashed rows
+    out["union"] = [{"v": decimal.Decimal(100 * (
+        int(np.trunc(price * 100.0).astype(np.int64).sum())
+        + int(np.trunc(disc * 100.0).astype(np.int64).sum()))).scaleb(-4),
+        "n": 2 * len(price)}]
+    hn = SURFACE_HASH_BATCHES * BATCH_ROWS
+    u = half_up_unscaled(np, price[:hn], 4)
+    raw, nb = numpy_bytes_of(np, u)
+    mm = numpy_murmur3_bytes(np, raw, nb, 42).view(np.int32)
+    xx = numpy_xxhash64_bytes(np, raw, nb, 42)
+    for i in range(2000):
+        check(python_byte_hashes(int(u[i])) == (int(mm[i]), int(xx[i])),
+              f"numpy byte hash of {u[i]} differs from the Python port")
+    out["hashes"] = (mm, xx)
+    return out
+
+
+def surface_run(torch, dev, name, run, read_counts, rows_in):
+    """One phase 5f query: a first run with every B1 / B3 launch held
+    against the plain version, then a warm run that must launch the
+    same; logs both walls, rows/s and the transient peak. Returns
+    (first run's result, warm run's result, its numbers)."""
+    from spark_rapids_tpu_torch.ops import device_kernels as DK
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    DK.reset_counts()
+    with holding_launches(torch, DK) as hold:
+        t = time.perf_counter()
+        got = run()
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t
+    counts = read_counts()
+    check_held(hold, counts, f"surface {name}")
+    DK.reset_counts()
+    t = time.perf_counter()
+    again = run()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t
+    check(read_counts() == counts, f"surface {name}: the warm run launched "
+          f"{read_counts()}, the first {counts}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    out = {"first_s": first, "warm_s": warm, "rows_per_s": rows_in / warm,
+           "transient_gb": (peak - resident) / 1e9, "launches": counts,
+           "held": dict(hold.held), "max_abs_err": dict(hold.err)}
+    log(f"surface {name}: first {first:.4f} s (B1 / B3 held), warm "
+        f"{warm:.4f} s, {rows_in / warm:.4e} rows/s; launches {counts}; "
+        f"transient {(peak - resident) / 1e9:.3f} GB")
+    return got, again, out
+
+
+def surface_raises(torch, name, run, exc, first_line):
+    """An ANSI query that must raise ``exc`` (by class name) whose message
+    begins with ``first_line``; returns the seconds to the raise."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    try:
+        run()
+    except Exception as e:  # the raised error is the result checked
+        took = time.perf_counter() - t
+        check(type(e).__name__ == exc and
+              str(e).splitlines()[0] == first_line,
+              f"surface {name}: raised {type(e).__name__}: {e}, expected "
+              f"{exc}: {first_line}")
+        log(f"surface {name}: raised {exc} ({first_line}) in {took:.4f} s")
+        return took
+    check(False, f"surface {name}: did not raise {exc}")
+
+
+def surface_phase(torch, np, dev, session, batches, host, dec_session,
+                  nested, worker, read_counts, tpch_refs, tpch_launches,
+                  plan_guard):
+    """Phase 5f over the resident SF10 tables: E1 TPC-H q1 / q6 under
+    ANSI, E2 ANSI's errors at scale, E3 the DataFrame surface, E4
+    bitwise, E5 percentiles, E6 bloom / uuid / misc, E7 Spark's
+    widenings (decimal UNION, DECIMAL(p>18) hashes, map explode,
+    from_json / to_json in SQL). Each held against numpy / Python
+    (``surface_references`` from ``worker``, the rest here). Returns
+    the report: per query its walls, launches and holds."""
+    import decimal
+    import json as pyjson
+
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.conf import SrtConf
+    from spark_rapids_tpu_torch.expr import aggregates as Agg
+    from spark_rapids_tpu_torch.expr import bitwise as B
+    from spark_rapids_tpu_torch.expr import hashing as H
+    from spark_rapids_tpu_torch.expr import misc as MX
+    from spark_rapids_tpu_torch.expr.cast import Cast
+    from spark_rapids_tpu_torch.expr.conditional import If
+    from spark_rapids_tpu_torch.expr.core import Alias, col, lit
+    from spark_rapids_tpu_torch.models import nested as NM
+    from spark_rapids_tpu_torch.models import surface as SF
+    from spark_rapids_tpu_torch.models import tpch
+    from spark_rapids_tpu_torch.ops import bloom as BL
+    from spark_rapids_tpu_torch.plan.host_table import batch_to_table
+    from spark_rapids_tpu_torch.plan.session import TpuSession
+    t_phase = time.perf_counter()
+    report = {}
+    li_b = batches["lineitem"]
+    ansi = TpuSession(SrtConf({"srt.sql.batchSizeRows": BATCH_ROWS,
+                               "srt.sql.ansi.enabled": True}), device=dev)
+    for s in (ansi, session):
+        s.create_or_replace_temp_view("lineitem", s.from_batches(li_b))
+    a_li, li = ansi.table("lineitem"), session.table("lineitem")
+    ref6, ref1 = tpch_refs
+
+    def same(got, want):
+        if isinstance(want, dict):
+            return isinstance(got, dict) and got.keys() == want.keys() and \
+                all(same(got[k], want[k]) for k in want)
+        if isinstance(want, (list, tuple)):
+            return len(got) == len(want) and all(
+                same(g, w) for g, w in zip(got, want))
+        if isinstance(want, float):
+            return isinstance(got, float) and abs(got - want) <= \
+                RTOL * abs(want)
+        return got == want
+
+    def held(name, run, want, rows_in, must=(), equal=None):
+        got, again, r = surface_run(torch, dev, name, run, read_counts,
+                                    rows_in)
+        for g in (got, again):
+            check(same(g, want), f"surface {name}: {g} != {want}")
+        for k in must:
+            check(r["launches"][k] > 0, f"surface {name}: {k} did not run")
+        for k, n in (equal or {}).items():
+            check(r["launches"][k] == n, f"surface {name}: {k} launched "
+                  f"{r['launches'][k]} times, without ANSI {n}")
+        report[name] = r
+        return got
+
+    # --- E1: q6 and q1 under ANSI, as without it -------------------------
+    held("e1_q6_ansi", lambda: tpch.q6(a_li).collect(), ref6, ROWS,
+         equal={"tile_reduce": tpch_launches["q6"]["tile_reduce"]})
+    held("e1_q1_ansi", lambda: tpch.q1(a_li).collect(), ref1, ROWS,
+         equal={"tile_group_reduce": tpch_launches["q1"]["tile_group_reduce"]})
+    refs, _, refs_s, _ = worker.get("surface")
+    log(f"surface: numpy references in {refs_s:.1f} s in a second process")
+
+    # --- E2: ANSI's errors at scale; without ANSI, numpy's rows ----------
+    for name, (text, exc, first_line) in SF.E2.items():
+        took = surface_raises(torch, f"e2_{name}",
+                              lambda: ansi.sql(text).collect(), exc,
+                              first_line)
+        held(f"e2_{name}", lambda: session.sql(text).collect(),
+             refs["e2"][name], ROWS)
+        report[f"e2_{name}"]["raise_s"] = took
+    held("e2_guarded_ansi", lambda: ansi.sql(SF.E2_GUARDED).collect(),
+         refs["e2"]["guarded"], ROWS)
+
+    # --- E3: the DataFrame surface ------------------------------------------
+    n = SURFACE_RANGE
+    lo_x, hi_x = 1000, n // 2
+    rng_q = session.range(0, n).select(
+        Alias(Cast(col("id"), dt.FLOAT64), "x")).filter(
+        (col("x") >= lit(float(lo_x))) & (col("x") < lit(float(hi_x)))).agg(
+        Agg.Sum(col("x")).alias("s"), Agg.CountStar().alias("n"))
+    held("e3_range", rng_q.collect,
+         [{"s": float((hi_x - 1) * hi_x // 2 - (lo_x - 1) * lo_x // 2),
+           "n": hi_x - lo_x}], n, equal={"tile_reduce": n // BATCH_ROWS})
+    frac, seed = SURFACE_SAMPLE
+    smp = li.sample(frac, seed=seed).agg(Agg.CountStar().alias("n"),
+                                          Agg.Sum(col("l_orderkey"))
+                                          .alias("s"))
+    held("e3_sample", smp.collect, refs["sample"], ROWS)
+    metrics_text = smp.explain(metrics=True)
+    physical, _ = session._last_execution
+    stack, ops = [physical], []
+    while stack:
+        node = stack.pop()
+        ops.append(node.node_description())
+        stack.extend(node.children)
+    for op in ops:
+        check(any(op in ln and "opTime=" in ln
+                  for ln in metrics_text.splitlines()),
+              f"surface explain(metrics=True) lacks {op}:\n{metrics_text}")
+    log(f"surface e3_explain_metrics: names {len(ops)} operators, each with "
+        "its opTime")
+    g = li.group_by("l_returnflag")
+    sh = refs["shorthands"]
+    for how, make, key in (
+            ("count", lambda: g.count(), "count"),
+            ("sum", lambda: g.sum("l_extendedprice"), "sum"),
+            ("min", lambda: g.min("l_extendedprice"), "min"),
+            ("max", lambda: g.max("l_extendedprice"), "max"),
+            ("avg", lambda: g.avg("l_extendedprice"), "avg")):
+        out_col = "count" if how == "count" else f"{how}(l_extendedprice)"
+        held(f"e3_grouped_{how}", lambda make=make, out_col=out_col: {
+            r["l_returnflag"]: r[out_col] for r in make().collect()},
+            {k: v[key] for k, v in sh.items()}, ROWS,
+            must=() if how in ("min", "max") else ("tile_group_reduce",))
+    okey, price = host["lineitem"]["okey"], host["lineitem"]["price"]
+    small = host["lineitem"]["pkey"] < 3      # about 600 rows at SF10
+    order = np.argsort(-price[small], kind="stable")
+    want = {"l_orderkey": [int(v) for v in okey[small][order]],
+            "l_extendedprice": [float(v) for v in price[small][order]]}
+    tiny = li.filter(col("l_partkey") < lit(3))
+    held("e3_count", tiny.count, int(small.sum()), ROWS)
+    held("e3_sort_desc_to_pydict", lambda: tiny.select(
+        "l_orderkey", "l_extendedprice").sort_desc("l_extendedprice")
+        .to_pydict(), want, ROWS)
+
+    # --- E4: bitwise over l_orderkey, l_partkey ---------------------------
+    ok_c, pk_c = col("l_orderkey"), col("l_partkey")
+    neg = -pk_c
+    bits = li.agg(*[Alias(Agg.Sum(e), k) for k, e in (
+        ("and_", B.BitwiseAnd(ok_c, pk_c)), ("or_", B.BitwiseOr(ok_c, pk_c)),
+        ("xor_", B.BitwiseXor(ok_c, pk_c)), ("not_", B.BitwiseNot(ok_c)),
+        ("shl", B.ShiftLeft(ok_c, lit(3))), ("shr", B.ShiftRight(neg, lit(5))),
+        ("shru", B.ShiftRightUnsigned(neg, lit(5))),
+        ("pc", B.BitCount(B.BitwiseXor(ok_c, pk_c))),
+        ("z", B.InterleaveBits(pk_c, ok_c)))])
+    held("e4_bitwise", bits.collect, refs["bitwise"], ROWS)
+
+    # --- E5: percentiles --------------------------------------------------
+    approx = li.group_by("l_returnflag", "l_linestatus").agg(
+        Agg.ApproxPercentile(col("l_extendedprice"), list(SURFACE_PCTS))
+        .alias("p"))
+    got, again, r = surface_run(torch, dev, "e5_approx_percentile", lambda: {
+        (x["l_returnflag"], x["l_linestatus"]): x["p"]
+        for x in approx.collect()}, read_counts, ROWS)
+    for g in (got, again):
+        check(g.keys() == refs["approx"].keys(), f"approx groups {g.keys()}")
+        for key, ps in g.items():
+            for p, v, (lo, hi, bound) in zip(SURFACE_PCTS, ps,
+                                             refs["approx"][key]):
+                check(lo <= v <= hi, f"approx_percentile {key} p={p}: {v} "
+                      f"outside [{lo}, {hi}], the values within {bound:.0f} "
+                      "ranks of p * N")
+    report["e5_approx_percentile"] = r
+    log(f"surface e5_approx_percentile: each answer's rank within 2N / K "
+        f"(K = {SURFACE_SKETCH_K}) of p * N in its group's sorted prices")
+    lo_d, hi_d = SURFACE_JUNE_1995
+    june = li.filter((col("l_shipdate") >= lit(datetime.date(1995, 6, 1))) &
+                     (col("l_shipdate") < lit(datetime.date(1995, 7, 1)))) \
+        .group_by("l_returnflag", "l_linestatus").agg(
+            Agg.Percentile(col("l_extendedprice"), 0.5).alias("p50"))
+    plan_guard["allow"] = True
+    try:
+        marks = [ln for ln in june.explain("NOT_ON_TPU").splitlines()
+                 if ln.lstrip().startswith("!")]
+        check([ln.split("[")[0] for ln in marks] ==
+              ["! Aggregate", "! CpuAggregate"],
+              f"exact percentile: CPU-engine marks {marks}")
+        held("e5_percentile_june_1995", lambda: {
+            (x["l_returnflag"], x["l_linestatus"]): x["p50"]
+            for x in june.collect()}, refs["june"], ROWS)
+    finally:
+        plan_guard["allow"] = False
+
+    # --- E6: bloom filter, uuid, partition id, version, raise_error --------
+    od = host["orders"]
+    q1_95 = (od["odate"] >= SURFACE_BLOOM_DAYS[0]) & \
+        (od["odate"] < SURFACE_BLOOM_DAYS[1])
+    keys = od["okey"][q1_95]
+    nbits = BL.choose_num_bits(len(keys))
+    want_bits = np.zeros(nbits, bool)
+    h1 = numpy_murmur3_long(np, keys, 0x9E3779B9).astype(np.int64)
+    h2 = numpy_murmur3_long(np, keys, 0x85EBCA6B).astype(np.int64) | 1
+    for i in range(BL.NUM_HASHES):
+        want_bits[(h1 + i * h2) & (nbits - 1)] = True
+    t = time.perf_counter()
+    dev_bits = torch.zeros(nbits, dtype=torch.bool, device=dev)
+    for b in batches["orders"]:
+        d = b.column("o_orderdate").data
+        live = b.live_mask() & (d >= SURFACE_BLOOM_DAYS[0]) & \
+            (d < SURFACE_BLOOM_DAYS[1])
+        dev_bits |= BL.build_bloom([b.column("o_orderkey")], live, nbits)
+    torch.cuda.synchronize()
+    check(np.array_equal(dev_bits.cpu().numpy(), want_bits),
+          "bloom: the card's bits differ from numpy's double hash")
+    log(f"surface e6_bloom_build: {len(keys)} keys of 1995's first quarter, "
+        f"{nbits} bits built on the card in {time.perf_counter() - t:.3f} "
+        "s, equal to numpy's")
+    member = np.zeros(int(od["okey"].max()) + 2, bool)
+    member[keys] = True
+    in_set = member[np.minimum(okey, len(member) - 1)] & (okey < len(member))
+    probe = li.select(Alias(H.BloomFilterMightContain(col("l_orderkey"),
+                                                      dev_bits), "m"))
+
+    def hits():
+        return probe.to_table().columns[0].values
+    got, again, r = surface_run(torch, dev, "e6_might_contain", hits,
+                                read_counts, ROWS)
+    for g in (got, again):
+        check(bool(np.all(g[in_set])), "might_contain: a false negative")
+    fp = float(got[~in_set].mean())
+    target = (1 - np.exp(-BL.NUM_HASHES * len(keys) / nbits)) ** \
+        BL.NUM_HASHES
+    check(fp <= 1.5 * target + 1e-4, f"might_contain: false-positive rate "
+          f"{fp:.5f}, target {target:.5f}")
+    r |= {"fp_rate": fp, "fp_target": target}
+    report["e6_might_contain"] = r
+    log(f"surface e6_might_contain: no false negative over "
+        f"{int(in_set.sum())} member rows; false-positive rate {fp:.5f} "
+        f"against {target:.5f} (choose_num_bits' {nbits} bits, "
+        f"{BL.NUM_HASHES} hashes)")
+    uq = session.range(0, SURFACE_UUID_ROWS).select(
+        Alias(MX.uuid_expr(), "u"))
+
+    def uuids():
+        lane = uq.to_table().columns[0].values
+        return lane.offsets, lane.chars
+    (offs, chars), _, r = surface_run(torch, dev, "e6_uuid", uuids,
+                                      read_counts, SURFACE_UUID_ROWS)
+    nu = SURFACE_UUID_ROWS
+    check(bool(np.all(np.diff(offs) == 36)), "uuid: a string not 36 long")
+    text = chars[:nu * 36].reshape(nu, 36)
+    hexd = np.frombuffer(b"0123456789abcdef", np.uint8)
+    digits = np.isin(text, hexd)
+    dash = np.array([8, 13, 18, 23])
+    check(bool(np.all(text[:, dash] == ord("-"))) and
+          bool(np.all(np.delete(digits, dash, axis=1))) and
+          bool(np.all(text[:, 14] == ord("4"))) and
+          bool(np.all(np.isin(text[:, 19], np.frombuffer(b"89ab",
+                                                         np.uint8)))),
+          "uuid: not the v4 form")
+    check(len(np.unique(text.view("S36"))) == nu, "uuid: repeated values")
+    report["e6_uuid"] = r
+    log(f"surface e6_uuid: {nu} distinct v4 strings")
+    ctx_q = li.agg(Alias(Agg.Sum(MX.spark_partition_id()), "pid"),
+                   Alias(Agg.Count(MX.version()), "nv"))
+    held("e6_partition_id_version", ctx_q.collect,
+         [{"pid": 0, "nv": ROWS}], ROWS)
+    held("e6_version_rows", lambda: li.limit(2).select(
+        Alias(MX.version(), "v")).collect(),
+        [{"v": MX.version_string()}] * 2, 2)
+    quiet = li.agg(Alias(Agg.Count(If(col("l_quantity") > lit(100.0),
+                                      MX.raise_error("boom"), lit("ok"))),
+                         "n"))
+    held("e6_raise_error_unselected", quiet.collect, [{"n": ROWS}], ROWS)
+    loud = li.agg(Alias(Agg.Count(If(col("l_quantity") > lit(49.0),
+                                     MX.raise_error("boom"), lit("ok"))),
+                        "n"))
+    report["e6_raise_error_selected"] = {"raise_s": surface_raises(
+        torch, "e6_raise_error_selected", loud.collect,
+        "RaiseErrorException", "boom")}
+
+    # --- E7: Spark's widenings ----------------------------------------------
+    dl = dec_session.table("lineitem")
+    u = dl.select(Alias(col("l_extendedprice"), "v")).union(dl.select(
+        Alias(Cast(col("l_discount"), dt.DecimalType(15, 4)), "v")))
+    check(u.schema == [("v", dt.DecimalType(15, 4))],
+          f"decimal UNION type {u.schema}")
+    held("e7_decimal_union", u.agg(Alias(Agg.Sum(col("v")), "v"),
+                                   Alias(Agg.CountStar(), "n")).collect,
+         refs["union"], 2 * ROWS)
+    hb = session.from_batches(li_b[:SURFACE_HASH_BATCHES])
+    w = Cast(col("l_extendedprice"), dt.DecimalType(24, 4))
+    hq = hb.select(Alias(H.Murmur3Hash(w), "m"), Alias(H.XxHash64(w), "x"))
+
+    def hashed():
+        t = hq.to_table()
+        return t.columns[0].values, t.columns[1].values
+    (m_got, x_got), (m2, x2), r = surface_run(
+        torch, dev, "e7_decimal_hashes", hashed, read_counts,
+        SURFACE_HASH_BATCHES * BATCH_ROWS)
+    mm, xx = refs["hashes"]
+    for a_, b_ in ((m_got, mm), (x_got, xx), (m2, mm), (x2, xx)):
+        check(np.array_equal(a_, b_), "DECIMAL(24,4) hash differs from "
+              "Spark's byte hash")
+    report["e7_decimal_hashes"] = r
+    log(f"surface e7_decimal_hashes: murmur3 and xxhash64 of "
+        f"{len(mm)} DECIMAL(24,4) rows equal Spark's byte hashes (numpy, "
+        "its first 2000 rows held against the plain-Python port)")
+    on_batches, json_batches, n4x_ref = nested
+    on = session.from_batches(on_batches)
+    held("e7_map_explode", lambda: NM.n4_explode(NM.port_api(), on)
+         .collect(), [n4x_ref], sum(b.num_rows for b in on_batches))
+    head = json_batches[:SURFACE_JSON_BATCHES]
+    session.create_or_replace_temp_view("orders_json_head",
+                                        session.from_batches(head))
+    docs = [d for b in head
+            for d in batch_to_table(b).columns[0].values.to_objects()]
+    def json_row(doc):
+        """Python's json: a document cut short (one in MALFORMED_EVERY)
+        is a NULL struct, and its to_json NULL."""
+        try:
+            d = pyjson.loads(doc)
+        except ValueError:
+            return {"s": None, "j": None}
+        return {"s": {"o_orderpriority": d["o_orderpriority"],
+                      "o_totalprice": float(d["o_totalprice"])},
+                "j": pyjson.dumps({"o_orderpriority": d["o_orderpriority"]},
+                                  separators=(",", ":"))}
+    want = [json_row(d) for d in docs]
+    plan_guard["allow"] = True
+    try:
+        held("e7_json_sql", lambda: session.sql(
+            "SELECT from_json(doc, 'o_orderpriority STRING, o_totalprice "
+            "DOUBLE') AS s, to_json(from_json(doc, 'o_orderpriority "
+            "STRING')) AS j FROM orders_json_head").collect(), want,
+            len(docs))
+    finally:
+        plan_guard["allow"] = False
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"surface: phase 5f in {report['seconds']:.1f} s; summary " +
+        json.dumps({q: {k: v[k] for k in ("first_s", "warm_s", "rows_per_s",
+                                          "transient_gb") if k in v}
+                    | ({"b1": v["launches"]["tile_reduce"],
+                        "b3": v["launches"]["tile_group_reduce"]}
+                       if "launches" in v else {})
+                    for q, v in report.items() if isinstance(v, dict)}))
+    return report
 
 
 def tpch_references(np, li, od, cu):
@@ -4901,6 +5580,8 @@ def host_worker(conn, jobs, zone, n_docs):
                 out = scalar_references(np, li, od, cu, zone)
             elif job == "fallback":
                 out = fallback_references(np, li, od)
+            elif job == "surface":
+                out = surface_references(np, li, od)
             elif job == "orders_json":
                 li_t, od_t = nested_host_tables(np, host)
                 no = NM.NestedOrders(li_t)
@@ -4951,8 +5632,10 @@ def main():
     from spark_rapids_tpu_torch.plan.transitions import (CpuPhysical,
                                                          HostToDeviceExec)
 
-    # every query outside phase 5e must plan wholly on the device: no
-    # CPU-engine node, no seam (the planner as the sessions call it)
+    # every query outside phase 5e (and phase 5f's exact percentile and
+    # from_json / to_json, which the planner sends to the CPU engine)
+    # must plan wholly on the device: no CPU-engine node, no seam (the
+    # planner as the sessions call it)
     plan_guard = {"allow": False, "plans": 0}
     planner = session_module.apply_overrides
 
@@ -4963,8 +5646,8 @@ def main():
     def guarded_planner(plan, conf):
         physical = planner(plan, conf)
         if not plan_guard["allow"]:
-            check(not on_host(physical), "a query outside phase 5e planned "
-                  f"a CPU-engine node:\n{physical.tree_string()}")
+            check(not on_host(physical), "a device-only query planned a "
+                  f"CPU-engine node:\n{physical.tree_string()}")
             plan_guard["plans"] += 1
         return physical
     session_module.apply_overrides = guarded_planner
@@ -4978,8 +5661,8 @@ def main():
     # scalar references, and orders_json's documents with N6's
     # reference, ahead of the phases that read them
     zone, zone_why = scalar_zone()
-    refs_worker = HostWorker(("tpch", "scalar", "fallback"), zone,
-                             NESTED_JSON_ROWS)
+    refs_worker = HostWorker(("tpch", "scalar", "surface", "fallback"),
+                             zone, NESTED_JSON_ROWS)
     json_worker = HostWorker(("orders_json", "n6"), zone, NESTED_JSON_ROWS)
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5393,6 +6076,14 @@ def main():
         torch, np, dev, session, df, host, json_worker, read_counts)
     json_worker.close()
 
+    # --- phase 5f: ANSI mode, the DataFrame surface, the rest of the
+    # expression library --------------------------------------------------
+    surface = surface_phase(torch, np, dev, session, batches, host,
+                            dec_session, nested_batches, refs_worker,
+                            read_counts, (ref6, ref1), launches, plan_guard)
+    surface_runs = {q: r for q, r in surface.items()
+                    if isinstance(r, dict) and "launches" in r}
+
     # --- NDS: the star-join slice through session.sql -------------------------
     nds, nds_session, nds_ref, nds_widest, joins_ahead = nds_phase(
         torch, np, dev, read_counts)
@@ -5490,7 +6181,8 @@ def main():
                  "window a_running (profiled)")
     del nds_session, nds_ref, window_runs, window_want, table
 
-    log(f"planner: {plan_guard['plans']} plans outside phase 5e, each "
+    log(f"planner: {plan_guard['plans']} plans outside phase 5e and phase "
+        "5f's exact percentile and JSON queries, each "
         "wholly on the device")
     b2_launches = launches["strings_lineitem"]["tile_reduce_str"] + \
         launches["strings_orders"]["tile_reduce_str"]
@@ -5506,9 +6198,12 @@ def main():
          + sum(r["launches"]["tile_reduce"]
                for r in (*nds.values(), *joins.values(), *subq.values(),
                          *scalar.values(), *nested.values(),
-                         *fallback.values()))
+                         *fallback.values(), *surface_runs.values()))
          + memory_launches["tile_reduce"]
          - memory_launches["tile_reduce_str"],
+         "surface_launches": {q: r["launches"]["tile_reduce"]
+                              for q, r in surface_runs.items()
+                              if r["launches"]["tile_reduce"]},
          "scalar_launches": {q: r["launches"]["tile_reduce"]
                              for q, r in scalar.items()
                              if r["launches"]["tile_reduce"]},
@@ -5533,7 +6228,8 @@ def main():
          "source": "spark_rapids_tpu_torch/ops/device_kernels.py",
          "replaces": "spark_rapids_tpu/exec/pallas_agg.py:60",
          "launches": b2_launches + memory_launches["tile_reduce_str"]
-         + sum(r["launches"]["tile_reduce_str"] for r in nested.values()),
+         + sum(r["launches"]["tile_reduce_str"]
+               for r in (*nested.values(), *surface_runs.values())),
          "memory_launches": memory_launches["tile_reduce_str"],
          **{k: b2[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                "bound_by", "cold_ms", "bit_equal")},
@@ -5548,8 +6244,11 @@ def main():
          + sum(r["launches"]["tile_group_reduce"]
                for r in (*nds.values(), *joins.values(), *subq.values(),
                          *scalar.values(), *nested.values(),
-                         *fallback.values()))
+                         *fallback.values(), *surface_runs.values()))
          + memory_launches["tile_group_reduce"],
+         "surface_launches": {q: r["launches"]["tile_group_reduce"]
+                              for q, r in surface_runs.items()
+                              if r["launches"]["tile_group_reduce"]},
          "scalar_launches": {q: r["launches"]["tile_group_reduce"]
                              for q, r in scalar.items()
                              if r["launches"]["tile_group_reduce"]},
@@ -5583,7 +6282,8 @@ def main():
     held_err = [r["max_abs_err"] for r in (*memory["injected"].values(),
                                             *scalar.values(),
                                             *nested.values(),
-                                            *fallback.values())]
+                                            *fallback.values(),
+                                            *surface_runs.values())]
     kernels[0]["max_abs_err"] = max(
         kernels[0]["max_abs_err"],
         *(r["b1_max_abs_err"] for r in (*nds.values(), *joins.values(),

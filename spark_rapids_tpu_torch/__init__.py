@@ -8,3 +8,6 @@ imports ``torch`` and numpy only, and never imports the JAX package.
 
 Entry point: ``spark_rapids_tpu_torch.plan.session.TpuSession``.
 """
+
+#: the JAX package's version, which the port keeps (expr/misc.py version())
+__version__ = "0.1.0"

@@ -206,6 +206,12 @@ AGG_MERGE_PARTITION_ROWS = _register(ConfEntry(
     "Aggregate merges whose concatenated partial rows exceed this are "
     "re-partitioned by group-key hash and merged bucket by bucket."))
 
+ANSI_ENABLED = _register(ConfEntry(
+    "srt.sql.ansi.enabled", _bool, False,
+    "ANSI mode: arithmetic overflow, division by zero and invalid casts "
+    "raise instead of returning null or wrapping "
+    "(spark.sql.ansi.enabled semantics; GpuCast.scala AnsiCast paths)."))
+
 SESSION_TIMEZONE = _register(ConfEntry(
     "srt.sql.session.timeZone", str, "UTC",
     "Session time zone (spark.sql.session.timeZone): the field "
@@ -231,3 +237,7 @@ class SrtConf:
     @property
     def batch_size_rows(self) -> int:
         return self.get(BATCH_SIZE_ROWS)
+
+    @property
+    def ansi(self) -> bool:
+        return self.get(ANSI_ENABLED)

@@ -2,7 +2,8 @@
 device semaphore.
 
 Counterpart of spark_rapids_tpu/exec/base.py, without the profiler
-spans and fault-injection hooks (not ported yet).
+spans and fault-injection hooks (not ported yet). ``execute`` reads the
+ANSI guards of each batch an operator makes with one host sync.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from ..columnar.vector import ColumnarBatch
 from ..conf import CONCURRENT_TASKS, SrtConf
+from ..expr.ansi import deferred
 from ..memory.budget import task_context
 from ..memory.spill import spill_catalog
 
@@ -167,7 +169,10 @@ class TpuExec:
         it = iter(self.do_execute(ctx))
         while True:
             t0 = time.perf_counter_ns()
-            batch = next(it, None)
+            # the ANSI guards this batch raised are read with one host
+            # sync when it is done (expr/ansi.py)
+            with deferred():
+                batch = next(it, None)
             # inclusive of the children's pull time (host clock, no sync)
             optime.add(time.perf_counter_ns() - t0)
             if batch is None:

@@ -2,7 +2,7 @@
 
 Counterpart of spark_rapids_tpu/exec/basic.py (BatchScanExec,
 ProjectExec, FilterExec, LocalLimitExec, UnionExec, ExpandExec,
-CoalesceBatchesExec).
+RangeExec, SampleExec, CoalesceBatchesExec).
 """
 
 from __future__ import annotations
@@ -10,7 +10,11 @@ from __future__ import annotations
 import time
 from typing import Iterator, List, Optional, Sequence
 
-from ..columnar.vector import ColumnarBatch, choose_capacity
+import torch
+
+from ..columnar import dtypes as dt
+from ..columnar.vector import (ColumnVector, ColumnarBatch, choose_capacity,
+                               live_mask)
 from ..conf import BATCH_SIZE_ROWS
 from ..expr.cast import Cast
 from ..expr.core import Expression, output_name
@@ -243,3 +247,78 @@ class CoalesceBatchesExec(TpuExec):
 
     def node_description(self) -> str:
         return f"CoalesceBatches[target={self.target_rows or 'conf'}]"
+
+
+class RangeExec(TpuExec):
+    """``SELECT id FROM range(start, end, step)`` (GpuRangeExec), in
+    batches of ``srt.sql.batchSizeRows`` rows made on the device."""
+
+    def __init__(self, start: int, end: int, step: int = 1,
+                 batch_rows: Optional[int] = None):
+        super().__init__()
+        self.start, self.end, self.step = start, end, step
+        self.batch_rows = batch_rows
+
+    @property
+    def output_schema(self) -> Schema:
+        return [("id", dt.INT64)]
+
+    def do_execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
+        per = self.batch_rows or ctx.conf.get(BATCH_SIZE_ROWS)
+        total = max(0, -(-(self.end - self.start) // self.step))
+        done = 0
+        while done < total:
+            n = min(per, total - done)
+            cap = choose_capacity(n)
+            live = live_mask(cap, n, ctx.device)
+            ids = torch.arange(cap, dtype=torch.int64, device=ctx.device) \
+                * self.step + (self.start + done * self.step)
+            col = ColumnVector(torch.where(live, ids, 0), live, dt.INT64)
+            yield ColumnarBatch([col], ["id"], n, ctx.device)
+            done += n
+
+    def node_description(self) -> str:
+        return f"Range[{self.start}, {self.end}, step={self.step}]"
+
+
+def sample_keep_mask(row_offset: int, capacity: int, fraction: float,
+                     seed: int, device) -> torch.Tensor:
+    """The Bernoulli keep mask of a batch whose row 0 is the stream's row
+    ``row_offset``: murmur3 of each row's stream position under ``seed``
+    below ``fraction * 2^32`` (the JAX package's rule, so both keep the
+    same rows whatever the batch sizes). The CPU engine runs it too."""
+    if fraction >= 1.0:
+        return torch.ones(capacity, dtype=torch.bool, device=device)
+    from ..expr.hashing import murmur3_column
+    pos = torch.arange(capacity, dtype=torch.int64, device=device) + \
+        row_offset
+    h = murmur3_column(ColumnVector(pos, torch.ones(
+        capacity, dtype=torch.bool, device=device), dt.INT64), seed)
+    return h < min(int(fraction * (1 << 32)), (1 << 32) - 1)
+
+
+class SampleExec(TpuExec):
+    """DataFrame.sample: a filter by ``sample_keep_mask`` over the stream
+    position (GpuSampleExec, basicPhysicalOperators.scala)."""
+
+    def __init__(self, child: TpuExec, fraction: float, seed: int):
+        super().__init__(child)
+        self.fraction = fraction
+        self.seed = seed
+
+    @property
+    def output_schema(self) -> Schema:
+        return self.children[0].output_schema
+
+    def do_execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
+        offset = 0
+        for batch in self.children[0].execute(ctx):
+            keep = sample_keep_mask(offset, batch.capacity, self.fraction,
+                                    self.seed, batch.device)
+            live = batch.live_mask()
+            offset += batch.num_rows
+            yield K.filter_batch(batch, ColumnVector(keep & live, live,
+                                                     dt.BOOL))
+
+    def node_description(self) -> str:
+        return f"Sample[{self.fraction}, seed={self.seed}]"

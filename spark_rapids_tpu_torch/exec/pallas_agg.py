@@ -107,9 +107,28 @@ def _expr_safe(expr: E.Expression, schema) -> bool:
     try:
         if expr.data_type(schema) not in _SAFE_DTYPES:
             return False
+        if ansi_checked(expr, schema):
+            return False
     except (KeyError, TypeError):
         return False
     return all(_expr_safe(c, schema) for c in expr.children)
+
+
+def ansi_checked(expr: E.Expression, schema) -> bool:
+    """Whether an ansi-marked node runs a check at its types, which the
+    kernel cannot raise: integral arithmetic (its overflow), a divide
+    by anything but a non-zero literal, the minus or abs of an integral
+    and a cast that can fail. Double arithmetic has no ANSI check in
+    Spark, so such a tree keeps the kernel lane."""
+    if not getattr(expr, "ansi", False):
+        return False
+    if isinstance(expr, Cast):
+        return expr.can_fail(schema)
+    out_t = expr.data_type(schema)
+    if isinstance(expr, A.Divide):
+        d = expr.children[1]
+        return not (isinstance(d, E.Literal) and d.value not in (None, 0))
+    return out_t.is_integral or dt.is_decimal(out_t)
 
 
 def _collect_refs(exprs, names: set) -> None:

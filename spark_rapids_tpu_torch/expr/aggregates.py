@@ -148,6 +148,8 @@ class AggregateFunction(Expression):
     #: key-sorted order (the collects' offset relabelling); grouping
     #: then takes the sort path, never the hash-claim one
     needs_sorted_groups = False
+    #: ANSI mode (expr/ansi.py); SUM and AVG raise on overflow
+    ansi = False
 
     def over(self, spec):
         """Use as a window aggregate: sum(x).over(spec)."""
@@ -175,20 +177,42 @@ def _sum_type(t: dt.DType) -> dt.DType:
     return dt.INT64 if t.is_integral or t == dt.BOOL else dt.FLOAT64
 
 
+def _ansi_overflow(ansi: bool, had, ok, what: str) -> None:
+    """ANSI: a group with values whose result overflowed raises."""
+    if ansi:
+        from . import errors as ERR
+        from .ansi import guard
+        guard(had & ~ok, ERR.SparkArithmeticException(what))
+
+
 class Sum(AggregateFunction):
     """Spark sum: long for integrals, double for floats, DECIMAL(p + 10,
     s) for decimals (see the module note); an empty or all-null group is
-    null."""
+    null.
+
+    ANSI mode: a long sum that wraps, or a decimal sum past its bound,
+    raises. A long sum then carries a float64 shadow sum, as in the JAX
+    package: a wrapped sum differs from it by about k * 2^64, far past
+    the shadow's rounding (at most the rows' total times 2^-52, under
+    2^42 for 2^31 rows of any long), so a difference past 2^62 is
+    decisive."""
 
     name = "sum"
 
     def data_type(self, schema: Schema) -> dt.DType:
         return _sum_type(self.children[0].data_type(schema))
 
+    def _ansi_long(self, out_t) -> bool:
+        return self.ansi and out_t == dt.INT64
+
     def state_schema(self, schema: Schema) -> List:
         out_t = self.data_type(schema)
         if dt.is_wide_decimal(out_t):
+            self._sum_prec = out_t.precision
             return list(_WIDE_SUM_STATE)
+        if self._ansi_long(out_t):
+            return [("sum", out_t), ("count", dt.INT64),
+                    ("approx", dt.FLOAT64)]
         return [("sum", out_t), ("count", dt.INT64)]
 
     def update(self, gid, col, num_groups, live) -> State:
@@ -198,22 +222,40 @@ class Sum(AggregateFunction):
         vals = torch.where(col.validity, col.data.to(out_t.physical),
                            torch.zeros((), dtype=out_t.physical,
                                        device=col.data.device))
-        return {"sum": _seg_sum(vals, gid, num_groups),
-                "count": _seg_sum(col.validity.to(torch.int64), gid,
-                                  num_groups)}
+        out = {"sum": _seg_sum(vals, gid, num_groups),
+               "count": _seg_sum(col.validity.to(torch.int64), gid,
+                                 num_groups)}
+        if self._ansi_long(out_t):
+            out["approx"] = _seg_sum(vals, gid, num_groups, torch.float64)
+        return out
 
     def merge(self, gid, states, num_groups) -> State:
         if "sum_hi" in states:
             return _dec_merge(gid, states, num_groups)
-        return {"sum": _seg_sum(states["sum"], gid, num_groups),
-                "count": _seg_sum(states["count"], gid, num_groups)}
+        out = {"sum": _seg_sum(states["sum"], gid, num_groups),
+               "count": _seg_sum(states["count"], gid, num_groups)}
+        if "approx" in states:
+            out["approx"] = _seg_sum(states["approx"], gid, num_groups)
+        return out
 
     def finalize(self, states):
+        had = states["count"] > 0
         if "sum_hi" in states:
-            return (states["sum_hi"], states["sum_lo"]), _no_wrap(states)
+            ok = _no_wrap(states)
+            if self.ansi:
+                # the exec's precision check (make_agg_result) nulls
+                # the rest; under ANSI they raise here
+                _ansi_overflow(True, had, ok & d128.d128_fits_precision(
+                    states["sum_hi"], states["sum_lo"], self._sum_prec),
+                    "Decimal sum overflow")
+            return (states["sum_hi"], states["sum_lo"]), ok
+        if "approx" in states:
+            diff = (states["approx"] - states["sum"].to(torch.float64)).abs()
+            _ansi_overflow(self.ansi, had, diff <= float(2 ** 62),
+                           "long overflow")
         # a long-backed decimal sum (p <= 8) stays inside DECIMAL(p + 10)
         # below 2^31 rows: no bound to check
-        return states["sum"], states["count"] > 0
+        return states["sum"], had
 
 
 class Count(AggregateFunction):
@@ -420,6 +462,7 @@ class Average(AggregateFunction):
             qh, ql, ovf = d128.d128_div_exact(hi, lo, nh, nl, self._avg_up)
             ok = _no_wrap(states) & ~ovf & \
                 d128.d128_fits_precision(hi, lo, self._sum_prec)
+            _ansi_overflow(self.ansi, n > 0, ok, "Decimal average overflow")
             return (qh, ql), ok
         return states["sum"] / torch.where(ok, n, 1).to(torch.float64), ok
 
@@ -659,3 +702,188 @@ class Last(First):
 
     name = "last"
     largest = True
+
+
+def _offsets_of(counts) -> torch.Tensor:
+    offsets = torch.zeros(counts.shape[0] + 1, dtype=torch.int32,
+                          device=counts.device)
+    offsets[1:] = torch.cumsum(counts, 0).to(torch.int32)
+    return offsets
+
+
+class Percentile(AggregateFunction):
+    """percentile(col, p): exact, linear interpolation (Spark's). Its
+    state is not of a bounded size, so it runs on the CPU engine, as in
+    the JAX package (plan/overrides.py tags it there; plan/cpu_exec.py
+    computes it)."""
+
+    name = "percentile"
+    needs_sorted_groups = True
+
+    def __init__(self, child: Expression, percentage: float):
+        super().__init__(child)
+        if not 0.0 <= percentage <= 1.0:
+            raise ValueError("percentage must be in [0, 1]")
+        self.percentage = percentage
+
+    def data_type(self, schema: Schema) -> dt.DType:
+        return dt.FLOAT64
+
+
+class ApproxPercentile(AggregateFunction):
+    """approx_percentile(col, p[, accuracy]) on the device through the
+    JAX package's centroid sketch (GpuApproximatePercentile's role).
+
+    State per group: up to K (mean, weight) centroids as two list
+    states, K = clamp(accuracy // 64, 32, 512). The update buckets each
+    group's value-sorted rows into K equal-count ranges (bucket =
+    rank * K // n); the merge concatenates a group's centroids, sorts
+    them by mean and re-buckets them by the midpoint of their weight
+    (``(prefix + w / 2) / W * K``); finalize takes the first centroid
+    whose cumulative weight reaches p * W. Where a group has at most K
+    values every value is its own centroid and the answer is the exact
+    nearest rank. Each merge level can move a rank by at most the
+    weight of one centroid, W / K, so after one update and one merge
+    (a partial and a final over one partition) an answer's rank lies
+    within 2 * W / K of p * W.
+    """
+
+    name = "approx_percentile"
+    needs_sorted_groups = True
+
+    def __init__(self, child: Expression, percentage, accuracy: int = 10000):
+        super().__init__(child)
+        self.is_array = isinstance(percentage, (list, tuple))
+        pcts = list(percentage) if self.is_array else [percentage]
+        for p in pcts:
+            if not 0.0 <= p <= 1.0:
+                raise ValueError("percentage must be in [0, 1]")
+        self.percentages = pcts
+        self.accuracy = accuracy
+        self.K = int(min(512, max(32, accuracy // 64)))
+
+    def data_type(self, schema: Schema) -> dt.DType:
+        return dt.ArrayType(dt.FLOAT64) if self.is_array else dt.FLOAT64
+
+    def state_schema(self, schema: Schema) -> List:
+        return [("means", dt.ArrayType(dt.FLOAT64)),
+                ("weights", dt.ArrayType(dt.FLOAT64))]
+
+    @staticmethod
+    def _centroid_lists(g_s, e_s, v_s, w_s, bucket, num_groups):
+        """Rows sorted by (group, value), the eligible first: each
+        (group, bucket) run collapses into one centroid, packed as
+        per-group lists (means, weights)."""
+        cap, dev = g_s.shape[0], g_s.device
+        boundary = e_s.clone()
+        if cap:
+            boundary[1:] = e_s[1:] & ((g_s[1:] != g_s[:-1]) |
+                                      (bucket[1:] != bucket[:-1]))
+        cid = (torch.cumsum(boundary.to(torch.int64), 0) - 1).clamp(min=0)
+        zero = torch.zeros((), dtype=torch.float64, device=dev)
+        wsum = _seg_sum(torch.where(e_s, w_s, zero), cid, cap)
+        mwsum = _seg_sum(torch.where(e_s, v_s * w_s, zero), cid, cap)
+        mean = mwsum / torch.clamp(wsum, min=1e-300)
+        n_cent = int(boundary.sum())
+        child_live = live_mask(cap, n_cent, dev)
+        means = ColumnVector(torch.where(child_live, mean, zero), child_live,
+                             dt.FLOAT64)
+        weights = ColumnVector(torch.where(child_live, wsum, zero),
+                               child_live, dt.FLOAT64)
+        offsets = _offsets_of(_seg_sum(boundary.to(torch.int64),
+                                       g_s.clamp(0, num_groups - 1),
+                                       num_groups))
+        ones = torch.ones(num_groups, dtype=torch.bool, device=dev)
+        return (ListColumn(offsets, means, ones, dt.FLOAT64),
+                ListColumn(offsets, weights, ones, dt.FLOAT64))
+
+    def update(self, gid, col, num_groups, live) -> State:
+        from ..ops import kernels as K
+        elig = col.validity & live
+        v64 = col.data.to(torch.float64)
+        perm = K.sort_indices([ColumnVector(gid, elig, dt.INT64),
+                               ColumnVector(v64, elig, dt.FLOAT64)],
+                              [True, True], [True, True], elig)
+        g_s, e_s, v_s = gid[perm], elig[perm], v64[perm]
+        counts = _seg_sum(e_s.to(torch.int64), g_s.clamp(0, num_groups - 1),
+                          num_groups)
+        offsets = _offsets_of(counts)
+        g_c = g_s.clamp(0, num_groups - 1)
+        rank = torch.arange(g_s.shape[0], device=gid.device) - \
+            offsets[g_c].to(torch.int64)
+        n_g = counts[g_c].clamp(min=1)
+        bucket = torch.div(rank * self.K, n_g, rounding_mode="floor")
+        means, weights = self._centroid_lists(
+            g_s, e_s, v_s, torch.ones_like(v_s), bucket, num_groups)
+        return {"means": means, "weights": weights}
+
+    def merge(self, gid, states, num_groups) -> State:
+        from ..ops import kernels as K
+        means, weights = states["means"], states["weights"]
+        lens = torch.where(means.validity, means.lengths(), 0)
+        offsets = _offsets_of(_seg_sum(lens.to(torch.int64), gid,
+                                       num_groups))
+        m_child, w_child = means.child, weights.child
+        ccap, dev = m_child.capacity, gid.device
+        pos = torch.arange(ccap, device=dev)
+        alive = pos < offsets[num_groups].to(torch.int64)
+        egid = torch.searchsorted(offsets[1:].to(torch.int64), pos,
+                                  right=True).clamp(0, num_groups - 1)
+        permc = K.sort_indices([ColumnVector(egid, alive, dt.INT64),
+                                ColumnVector(m_child.data, alive,
+                                             dt.FLOAT64)],
+                               [True, True], [True, True], alive)
+        g_c, a_c, m_c = egid[permc], alive[permc], m_child.data[permc]
+        zero = torch.zeros((), dtype=torch.float64, device=dev)
+        w_c = torch.where(a_c, w_child.data[permc], zero)
+        w_g = _seg_sum(w_c, g_c, num_groups)
+        offs2 = _offsets_of(_seg_sum(a_c.to(torch.int64), g_c, num_groups))
+        cum = torch.cumsum(w_c, 0)
+        start = offs2[g_c].to(torch.int64)
+        base = torch.cat([torch.zeros(1, dtype=torch.float64, device=dev),
+                          cum])[start]
+        mid = (cum - w_c - base) + w_c * 0.5
+        bucket = (mid / torch.clamp(w_g[g_c], min=1e-300) * self.K).to(
+            torch.int64).clamp(0, self.K - 1)
+        means2, weights2 = self._centroid_lists(g_c, a_c, m_c, w_c, bucket,
+                                                num_groups)
+        return {"means": means2, "weights": weights2}
+
+    def finalize(self, states):
+        means, weights = states["means"], states["weights"]
+        cap = means.capacity
+        m_child, w_child = means.child, weights.child
+        ccap, dev = m_child.capacity, means.device
+        pos = torch.arange(ccap, device=dev)
+        offsets = means.offsets.to(torch.int64)
+        alive = pos < offsets[cap]
+        egid = torch.searchsorted(offsets[1:], pos, right=True).clamp(
+            0, max(cap - 1, 0))
+        zero = torch.zeros((), dtype=torch.float64, device=dev)
+        w = torch.where(alive, w_child.data, zero)
+        w_g = _seg_sum(w, egid, cap)
+        cum = torch.cumsum(w, 0)
+        base = torch.cat([torch.zeros(1, dtype=torch.float64, device=dev),
+                          torch.cumsum(w_g, 0)[:-1]])[egid]
+        cw_in = cum - base
+        outs = []
+        for p in self.percentages:
+            cand = alive & (cw_in >= w_g[egid] * p - 1e-9)
+            sel = _seg_reduce(torch.where(cand, pos, ccap), egid, cap, ccap,
+                              "amin")
+            val = m_child.data[sel.clamp(0, max(ccap - 1, 0))]
+            outs.append(torch.where(sel < ccap, val, zero))
+        ok = w_g > 0
+        if not self.is_array:
+            return outs[0], ok
+        # a null group has a zero-length extent: the ok groups' values
+        # compact to the front of the child
+        n_p = len(self.percentages)
+        stacked = torch.stack(outs, dim=1)
+        idx, n_ok = compaction_indices(ok)
+        child_live = live_mask(cap * n_p, n_ok * n_p, dev)
+        child = ColumnVector(torch.where(
+            child_live, stacked[idx].reshape(cap * n_p), zero), child_live,
+            dt.FLOAT64)
+        lens = torch.where(ok, n_p, 0).to(torch.int64)
+        return ListColumn(_offsets_of(lens), child, ok, dt.FLOAT64), ok

@@ -1,4 +1,4 @@
-"""Arithmetic expressions with Spark semantics (non-ANSI).
+"""Arithmetic expressions with Spark semantics.
 
 Counterpart of spark_rapids_tpu/expr/arithmetic.py: + - * follow numeric
 promotion, Divide returns double on non-decimals and x / 0 is null, Abs
@@ -19,6 +19,12 @@ planner). ``div``, ``%`` and ``pmod`` take Java's truncating division
 (x div 0, x % 0 and pmod(x, 0) are null); ``least`` / ``greatest`` skip
 NULLs and order NaN above every number.
 
+Under ANSI mode (``ansi=True``, set by expr/ansi.py's plan rewrite)
+the lanes that give NULL or wrap raise instead: integral overflow of +,
+-, *, unary minus and abs (Math.addExact and its kin), a zero divisor of
+/, div, % and pmod, and a decimal result past its precision; each
+guard reads only the rows that reach the node.
+
 ``pmod`` follows Spark's ``Pmod``: r = a % n, and (r + n) % n where r is
 negative, so a negative divisor gives a result of its sign
 (``pmod(-7, -3)`` is -1); the JAX package adds |n| and gives 2
@@ -33,6 +39,8 @@ from ..columnar import decimal128 as d128
 from ..columnar import dtypes as dt
 from ..columnar.decimal128 import Decimal128Column
 from ..columnar.vector import ColumnVector, ColumnarBatch, StringColumn
+from . import errors as ERR
+from .ansi import guard
 from .core import (Expression, Literal, Schema, cpu_fallback, make_result,
                    merged_validity)
 
@@ -108,10 +116,25 @@ def decimal_coerced_children(expr: Expression, schema: Schema):
                     "only)")
 
 
+def _overflow_guard(ovf, validity, out_t, batch) -> None:
+    guard(ovf & validity, ERR.SparkArithmeticException(
+        ERR.overflow_message(str(out_t))), batch)
+
+
+def _decimal_guard(op_name, validity, res, batch) -> None:
+    """ANSI: a decimal row the op made null (past the precision, or a
+    zero divisor) raises."""
+    guard(validity & ~res.validity, ERR.SparkArithmeticException(
+        f"{op_name}: decimal overflow or division by zero (ANSI mode)"),
+        batch)
+
+
 class BinaryArithmetic(Expression):
     op_name = "?"
     #: the decimal op's name in dtypes.decimal_result_type
     decimal_op = None
+    #: ANSI mode (expr/ansi.py): the guards below raise
+    ansi = False
 
     def coerced_children(self, schema: Schema):
         """The children the op computes on, after implicit coercion."""
@@ -138,14 +161,24 @@ class BinaryArithmetic(Expression):
         out_t = self._out_type(left.dtype, right.dtype)
         validity = merged_validity(left, right)
         if dt.is_decimal(left.dtype):
-            return self._eval_decimal(left, right, out_t, validity)
+            res = self._eval_decimal(left, right, out_t, validity)
+            if self.ansi:
+                _decimal_guard(self.op_name, validity, res, batch)
+            return res
         a = left.data.to(out_t.physical)
         b = right.data.to(out_t.physical)
-        data, validity = self._compute(a, b, validity)
-        return make_result(data, validity, out_t)
+        data, validity2 = self._compute(a, b, validity)
+        if self.ansi:
+            self._ansi_post(a, b, data, validity, validity2, out_t, batch)
+        return make_result(data, validity2, out_t)
 
     def _compute(self, a, b, validity):
         raise NotImplementedError
+
+    def _ansi_post(self, a, b, data, validity, validity2, out_t, batch):
+        """ANSI: a null the op brought in (x / 0, x % 0) raises."""
+        guard(validity & ~validity2,
+              ERR.SparkArithmeticException(ERR.DIVIDE_BY_ZERO), batch)
 
     def _eval_decimal(self, left, right, out_t, validity):
         raise TypeError(f"{self.op_name} does not take decimals")
@@ -176,6 +209,12 @@ class Add(_AddSubBase):
     def _compute(self, a, b, validity):
         return a + b, validity
 
+    def _ansi_post(self, a, b, data, validity, validity2, out_t, batch):
+        if out_t.is_integral:
+            # Math.addExact: operands of one sign, a result of the other
+            _overflow_guard(((a >= 0) == (b >= 0)) & ((data >= 0) != (a >= 0)),
+                            validity, out_t, batch)
+
 
 class Subtract(_AddSubBase):
     op_name = "-"
@@ -185,6 +224,13 @@ class Subtract(_AddSubBase):
     def _compute(self, a, b, validity):
         return a - b, validity
 
+    def _ansi_post(self, a, b, data, validity, validity2, out_t, batch):
+        if out_t.is_integral:
+            # Math.subtractExact: operands of differing signs, a result
+            # whose sign is not a's
+            _overflow_guard(((a >= 0) != (b >= 0)) & ((data >= 0) != (a >= 0)),
+                            validity, out_t, batch)
+
 
 class Multiply(BinaryArithmetic):
     op_name = "*"
@@ -192,6 +238,15 @@ class Multiply(BinaryArithmetic):
 
     def _compute(self, a, b, validity):
         return a * b, validity
+
+    def _ansi_post(self, a, b, data, validity, validity2, out_t, batch):
+        if out_t.is_integral:
+            # Math.multiplyExact: a wrapped product fails the division
+            # round trip; MIN * -1 wraps to MIN and is checked apart
+            lo = dt.min_value(out_t)
+            ovf = (b != 0) & (trunc_div(data, b) != a)
+            ovf = ovf | ((a == lo) & (b == -1)) | ((b == lo) & (a == -1))
+            _overflow_guard(ovf, validity, out_t, batch)
 
     def _eval_decimal(self, left, right, out_t, validity):
         raw_scale = left.dtype.scale + right.dtype.scale
@@ -232,7 +287,16 @@ class Divide(BinaryArithmetic):
         return data, validity & nonzero
 
 
+def _min_guard(c, batch) -> None:
+    """ANSI: -x and abs(x) of an integral minimum overflow."""
+    if c.dtype.is_integral:
+        _overflow_guard(c.data == dt.min_value(c.dtype), c.validity,
+                        c.dtype, batch)
+
+
 class UnaryMinus(Expression):
+    ansi = False
+
     def data_type(self, schema: Schema) -> dt.DType:
         return self.children[0].data_type(schema)
 
@@ -241,13 +305,17 @@ class UnaryMinus(Expression):
         if isinstance(c, Decimal128Column):
             nh, nl = d128.d128_neg(c.hi, c.lo)
             return d128.build_decimal_column(nh, nl, c.validity, c.dtype)
+        if self.ansi:
+            _min_guard(c, batch)
         return make_result(-c.data, c.validity, c.dtype)
 
 
 class Abs(Expression):
-    """abs(x): the input's type; a null input gives null. Non-ANSI, as
-    the JAX package's default: abs of an integral minimum wraps to
-    itself."""
+    """abs(x): the input's type; a null input gives null. Outside ANSI
+    mode, as the JAX package's default, abs of an integral minimum wraps
+    to itself; under it, it raises."""
+
+    ansi = False
 
     def data_type(self, schema: Schema) -> dt.DType:
         return self.children[0].data_type(schema)
@@ -257,6 +325,8 @@ class Abs(Expression):
         if isinstance(c, Decimal128Column):
             ah, al = d128.d128_abs(c.hi, c.lo)
             return d128.build_decimal_column(ah, al, c.validity, c.dtype)
+        if self.ansi:
+            _min_guard(c, batch)
         return make_result(torch.abs(c.data), c.validity, c.dtype)
 
 
@@ -324,15 +394,24 @@ class IntegralDivide(BinaryArithmetic):
         from .cast import cast_column
         lc, rc = self.coerced_children(batch.schema())
         left, right = lc.eval(batch), rc.eval(batch)
+        base = merged_validity(left, right)
         if dt.is_decimal(left.dtype) and dt.is_decimal(right.dtype):
             qh, ql, _, _, _, _, validity, _ = _decimal_divmod_aligned(
-                self.op_name, left, right, merged_validity(left, right))
-            return make_result(ql, validity & (qh == (ql >> 63)), dt.INT64)
+                self.op_name, left, right, base)
+            validity = validity & (qh == (ql >> 63))
+            if self.ansi:
+                guard(base & ~validity, ERR.SparkArithmeticException(
+                    "div: division by zero or overflow (ANSI mode)"), batch)
+            return make_result(ql, validity, dt.INT64)
         left = cast_column(left, dt.INT64)
         right = cast_column(right, dt.INT64)
-        validity = merged_validity(left, right) & (right.data != 0)
-        return make_result(trunc_div(left.data, right.data), validity,
-                           dt.INT64)
+        a, b = left.data, right.data
+        if self.ansi:
+            guard(base & (b == 0),
+                  ERR.SparkArithmeticException(ERR.DIVIDE_BY_ZERO), batch)
+            _overflow_guard((a == dt.min_value(dt.INT64)) & (b == -1), base,
+                            dt.INT64, batch)
+        return make_result(trunc_div(a, b), base & (b != 0), dt.INT64)
 
 
 class Remainder(BinaryArithmetic):

@@ -21,6 +21,12 @@ non-ANSI semantics:
   as Spark's ``Decimal.toLong`` does, wraps to the target's width (the
   JAX package makes an out-of-range row null; ROADMAP.md C15).
 
+Under ANSI mode (``ansi=True``) a row that would be null or wrap
+raises (GpuCast.scala:212-252 ansiMode, JAX ``Cast._ansi_check``): a
+string that does not parse (SparkNumberFormatException, or
+SparkDateTimeException to a DATE), a value past the target's range or
+precision (SparkCastOverflowException), NaN to an integral included.
+
 ``check_supported`` refuses, when the plan is made, what the port
 cannot cast (STRING -> TIMESTAMP, TIMESTAMP -> float). A DECIMAL(p>18)
 to or from STRING runs on the CPU engine: the planner's ``_tag_cast``
@@ -35,13 +41,14 @@ from ..columnar import decimal128 as d128
 from ..columnar import dtypes as dt
 from ..columnar.decimal128 import Decimal128Column
 from ..columnar.vector import Column, ColumnarBatch, StringColumn
-from .core import Expression, Schema, make_result
+from .core import Expression, Schema, make_result, true_div
 
 
 class Cast(Expression):
-    def __init__(self, child: Expression, to: dt.DType):
+    def __init__(self, child: Expression, to: dt.DType, ansi: bool = False):
         super().__init__(child)
         self.to = to
+        self.ansi = ansi
 
     def data_type(self, schema: Schema) -> dt.DType:
         return self.to
@@ -54,10 +61,72 @@ class Cast(Expression):
                             "yet")
 
     def eval(self, batch: ColumnarBatch) -> Column:
-        return cast_column(self.children[0].eval(batch), self.to)
+        c = self.children[0].eval(batch)
+        res = cast_column(c, self.to)
+        if self.ansi and c.dtype != self.to:
+            ansi_check(c, res, self.to, batch)
+        return res
 
     def __repr__(self):
         return f"Cast({self.children[0]!r}, {self.to!r})"
+
+    def can_fail(self, schema: Schema) -> bool:
+        """Whether an ANSI check of this cast can raise at its types: a
+        parse, a narrowing to an integral or a decimal target."""
+        src = self.children[0].data_type(schema)
+        if src == self.to or src == dt.NULL:
+            return False
+        if src == dt.STRING:
+            return self.to != dt.STRING
+        if dt.is_decimal(self.to):
+            return True
+        if self.to.is_integral and self.to != dt.DATE:
+            if src.is_floating or dt.is_decimal(src):
+                return True
+            if src.is_integral and src != dt.DATE:
+                return src.physical.itemsize > self.to.physical.itemsize
+        return False
+
+
+def ansi_check(src: Column, res: Column, to: dt.DType, key=None) -> None:
+    """ANSI cast errors: a row the cast made null, or one whose source
+    value lies past an integral target's range (the lanes that wrap or
+    saturate), raises."""
+    from . import errors as ERR
+    from .ansi import guard
+    if isinstance(src, StringColumn):
+        exc_t = ERR.SparkDateTimeException if to in (dt.DATE, dt.TIMESTAMP) \
+            else ERR.SparkNumberFormatException
+        guard(src.validity & ~res.validity,
+              exc_t(f"invalid input syntax for type {to} (ANSI mode cast)"),
+              key)
+        return
+    # the JAX package's messages, a decimal target by its repr there
+    target = f"DecimalType(precision={to.precision}, scale={to.scale})" \
+        if dt.is_decimal(to) else str(to)
+    guard(src.validity & ~res.validity, ERR.SparkCastOverflowException(
+        f"cast to {target} causes overflow (ANSI mode)"), key)
+    if not to.is_integral or to == dt.DATE:
+        return
+    exc = ERR.SparkCastOverflowException(
+        f"casting {src.dtype} to {to} causes overflow (ANSI mode)")
+    if dt.is_decimal(src.dtype):
+        # Decimal.toLong wraps (C15): range-check the truncated value
+        hi, lo = d128.limbs_of(src)
+        th, tl = d128.d128_div_pow10_trunc(hi, lo, src.dtype.scale)
+        bad = (th != (tl >> 63)) | (tl < dt.min_value(to)) | \
+            (tl > dt.max_value(to))
+    elif src.dtype.is_floating:
+        x = src.data.to(torch.float64)
+        bad = torch.isnan(x) | (x < float(dt.min_value(to))) | \
+            (x >= float(dt.max_value(to)) + 1.0)
+    elif src.dtype.is_integral and \
+            src.data.element_size() > torch.empty((), dtype=to.physical
+                                                  ).element_size():
+        bad = (src.data < dt.min_value(to)) | (src.data > dt.max_value(to))
+    else:
+        return
+    guard(src.validity & bad, exc, key)
 
 
 def _numeric(t: dt.DType) -> bool:
@@ -162,7 +231,7 @@ def _from_decimal(c, to: dt.DType) -> Column:
         return rescale_decimal(c, to)
     hi, lo = d128.limbs_of(c)
     if to.is_floating:
-        out = d128.d128_to_f64(hi, lo) / (10.0 ** src.scale)
+        out = true_div(d128.d128_to_f64(hi, lo), 10.0 ** src.scale)
         return make_result(out.to(to.physical), c.validity, to)
     if to == dt.BOOL:
         return make_result((hi != 0) | (lo != 0), c.validity, to)
@@ -188,7 +257,8 @@ def _to_decimal(c, to: dt.DecimalType) -> Column:
     # midpoint exactly when x is at or past the double nearest it
     # (expr/mathfns.py); from 2^52 up y has no fraction to round
     exact = y < float(1 << 52)
-    q = torch.where(exact, q + (ax >= (q + 0.5) / p).to(torch.float64), y)
+    q = torch.where(exact, q + (ax >= true_div(q + 0.5, p)).to(
+        torch.float64), y)
     finite = torch.isfinite(x) & (q < 10.0 ** to.precision)
     q = torch.where(finite, torch.where(x < 0, -q, q), 0.0)
     small = q.abs() < float(1 << 62)

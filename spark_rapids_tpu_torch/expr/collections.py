@@ -879,13 +879,13 @@ class Explode(Expression):
         self.with_position = with_position
 
     def data_type(self, schema: Schema) -> dt.DType:
+        """The element type; a map's is its (key, value) entry struct,
+        which Generate gives as Spark's ``key`` and ``value`` columns
+        (the JAX engine explodes a map into its keys alone, ROADMAP
+        C19)."""
         t = self.children[0].data_type(schema)
         if isinstance(t, dt.MapType):
-            # Spark gives a key and a value column; the port's Generate
-            # has one element column (the JAX CPU engine explodes a map
-            # into its keys alone)
-            raise NotImplementedError(f"explode of {t} is not in this "
-                                      "port yet")
+            return t.element_type
         return _element_type(self.children[0], schema)
 
     def eval(self, batch: ColumnarBatch):

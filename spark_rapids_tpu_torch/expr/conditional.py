@@ -101,6 +101,13 @@ def _select_strings(cond: torch.Tensor, a: StringColumn,
                         pad_bucket=max(a.pad_bucket, b.pad_bucket))
 
 
+def _eval_reached(e: Expression, batch: ColumnarBatch, rows) -> Column:
+    """``e`` over the batch; a guard in it fires only on ``rows``, the
+    rows the conditional selects it for (expr/ansi.py)."""
+    from .ansi import evaluate_reached
+    return evaluate_reached(e, batch, rows, lambda x: x.eval(batch))
+
+
 def _as_type(result: Column, out_t: dt.DType) -> Column:
     """A lone branch's column at the expression's type."""
     if isinstance(result, StringColumn) or result.dtype == out_t:
@@ -121,10 +128,10 @@ class If(Expression):
 
     def eval(self, batch: ColumnarBatch) -> Column:
         cond = self.children[0].eval(batch)
-        a = self.children[1].eval(batch)
-        b = self.children[2].eval(batch)
-        return _select(cond.data & cond.validity, a, b,
-                       self.data_type(batch.schema()))
+        take = cond.data & cond.validity
+        a = _eval_reached(self.children[1], batch, take)
+        b = _eval_reached(self.children[2], batch, ~take)
+        return _select(take, a, b, self.data_type(batch.schema()))
 
 
 class CaseWhen(Expression):
@@ -147,12 +154,20 @@ class CaseWhen(Expression):
 
     def eval(self, batch: ColumnarBatch) -> Column:
         out_t = self.data_type(batch.schema())
-        result = self.otherwise.eval(batch)
+        # a WHEN is reached by the rows no earlier WHEN took, its THEN by
+        # those it takes
+        open_rows = batch.live_mask()
+        picked = []
+        for cond_e, val_e in self.branches:
+            cond = _eval_reached(cond_e, batch, open_rows)
+            take = cond.data & cond.validity
+            picked.append((take, _eval_reached(val_e, batch,
+                                               open_rows & take)))
+            open_rows = open_rows & ~take
+        result = _eval_reached(self.otherwise, batch, open_rows)
         # from the last branch backwards, so the first matching WHEN wins
-        for cond_e, val_e in reversed(self.branches):
-            cond = cond_e.eval(batch)
-            val = val_e.eval(batch)
-            result = _select(cond.data & cond.validity, val, result, out_t)
+        for take, val in reversed(picked):
+            result = _select(take, val, result, out_t)
         return _as_type(result, out_t)
 
 
@@ -164,9 +179,15 @@ class Coalesce(Expression):
 
     def eval(self, batch: ColumnarBatch) -> Column:
         out_t = self.data_type(batch.schema())
-        result = self.children[-1].eval(batch)
-        for e in reversed(self.children[:-1]):
-            c = e.eval(batch)
+        # an argument is reached by the rows every earlier one left null
+        open_rows = batch.live_mask()
+        cols = []
+        for e in self.children:
+            c = _eval_reached(e, batch, open_rows)
+            cols.append(c)
+            open_rows = open_rows & ~c.validity
+        result = cols[-1]
+        for c in reversed(cols[:-1]):
             result = _select(c.validity, c, result, out_t)
         return _as_type(result, out_t)
 
@@ -198,6 +219,6 @@ class Nvl2(Expression):
 
     def eval(self, batch: ColumnarBatch) -> Column:
         a = self.children[0].eval(batch)
-        b = self.children[1].eval(batch)
-        c = self.children[2].eval(batch)
+        b = _eval_reached(self.children[1], batch, a.validity)
+        c = _eval_reached(self.children[2], batch, ~a.validity)
         return _select(a.validity, b, c, self.data_type(batch.schema()))

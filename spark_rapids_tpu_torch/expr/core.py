@@ -69,6 +69,10 @@ class Expression:
         from .arithmetic import Divide
         return Divide(self, _lit(other))
 
+    def __mod__(self, other):
+        from .arithmetic import Remainder
+        return Remainder(self, _lit(other))
+
     def __neg__(self):
         from .arithmetic import UnaryMinus
         return UnaryMinus(self)
@@ -296,6 +300,14 @@ def cpu_fallback(what: str, rule: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} runs on the CPU engine: the planner's {rule} "
         "should have tagged it off the device (a planner fault)")
+
+
+def true_div(x: torch.Tensor, p: float) -> torch.Tensor:
+    """``x / p`` correctly rounded on every device. On CUDA, PyTorch
+    divides a tensor by a Python number as a multiply by its reciprocal,
+    which can be one unit in the last place off (a decimal rounding's
+    midpoint test then flips); dividing by a tensor divides."""
+    return x / torch.tensor(p, dtype=x.dtype, device=x.device)
 
 
 def merged_validity(*cols: Column) -> torch.Tensor:

@@ -21,15 +21,20 @@ which is uint64 arithmetic on the same bits; a logical right shift is an
 arithmetic one masked to the low bits. It takes what the JAX package's
 takes: booleans, integers, dates, timestamps and floats (strings raise,
 as there). A long-backed decimal hashes as its unscaled long (Spark's
-``hashLong`` of ``toUnscaledLong``) in both; a DECIMAL(p>18) hashes its
-BigDecimal's bytes in Spark; the planner tags it off the device (as the
-JAX planner does) and the port's CPU engine refuses it (not in this
-port yet).
+``hashLong`` of ``toUnscaledLong``) in both. A DECIMAL(p>18) hashes as
+Spark hashes it: the bytes of its unscaled value's minimal big-endian
+two's complement (``BigInteger.toByteArray``, 1 to 16 bytes) through
+``hashUnsafeBytes``, Murmur3's the byte hash the string lane runs, XXH64's
+its byte path below 32 bytes. The JAX package hashes it as a long
+(ROADMAP C20).
+
+``BloomFilterMightContain`` probes a bloom filter built by
+ops/bloom.py (Spark's ``might_contain``).
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Union
+from typing import Sequence, Tuple, Union
 
 import torch
 
@@ -102,20 +107,46 @@ def _seed_lane(seed: Seed, cap: int, device) -> torch.Tensor:
                       device=device)
 
 
-def _no_wide(col: Column) -> None:
-    if dt.is_wide_decimal(col.dtype):
-        from .core import cpu_fallback
-        raise cpu_fallback(f"a hash of {col.dtype}",
-                           "type signature of hash / xxhash64")
+def _bit_length64(x: torch.Tensor) -> torch.Tensor:
+    """Bits of int64 lanes read as unsigned (64 where the top bit is
+    set), by a binary search over shifts."""
+    n = torch.zeros_like(x)
+    for s in (32, 16, 8, 4, 2, 1):
+        n = n + s * (((x >> (n + s)) != 0) & (n + s < 64)).to(x.dtype)
+    return torch.where(x < 0, 64, torch.where(x != 0, n + 1, 0))
+
+
+def decimal_bytes(col) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A DECIMAL(p>18)'s unscaled values as BigInteger.toByteArray gives
+    them: (bytes int64[cap, 16], left-aligned, zero past the end; the
+    byte counts int64[cap], 1 to 16)."""
+    from ..columnar import decimal128 as d128
+    hi, lo = d128.limbs_of(col)
+    neg = hi < 0
+    uh, ul = torch.where(neg, ~hi, hi), torch.where(neg, ~lo, lo)
+    bits = torch.where(uh != 0, 64 + _bit_length64(uh), _bit_length64(ul))
+    n = bits // 8 + 1
+    shifts = torch.arange(7, -1, -1, device=hi.device) * 8
+    full = torch.cat([(hi[:, None] >> shifts) & 0xFF,
+                      (lo[:, None] >> shifts) & 0xFF], dim=1)
+    at = (16 - n)[:, None] + torch.arange(16, device=hi.device)
+    inside = at < 16
+    out = torch.where(inside, full.gather(1, at.clamp(max=15)), 0)
+    return out, n
 
 
 def murmur3_column(col: Column, seed: Seed) -> torch.Tensor:
     """Per-row Murmur3 of one column as int64 in [0, 2^32); null rows
     return the seed unchanged. ``seed`` is an int or a per-row lane."""
     h0 = _seed_lane(seed, col.capacity, col.device)
-    _no_wide(col)
     if isinstance(col, StringColumn):
         h = _murmur3_string(col, h0)
+    elif dt.is_wide_decimal(col.dtype):
+        raw, n = decimal_bytes(col)
+        flat = raw.reshape(-1)
+        h = _murmur3_bytes(lambda pos: flat[pos],
+                           torch.arange(col.capacity, device=col.device) * 16,
+                           n, 16, h0)
     else:
         d, t = col.data, col.dtype
         if dt.is_decimal(t):
@@ -138,10 +169,7 @@ def murmur3_column(col: Column, seed: Seed) -> torch.Tensor:
 
 
 def _murmur3_string(col: StringColumn, h1: torch.Tensor) -> torch.Tensor:
-    """Spark's string Murmur3 straight over the Arrow offsets/chars: one
-    pass per 4-byte block up to the longest string, each row mixing the
-    blocks it has, then its <= 3 tail bytes one at a time, sign-extended
-    (Spark's hashUnsafeBytes), then fmix with the byte length."""
+    """Spark's string Murmur3 straight over the Arrow offsets/chars."""
     starts = col.offsets[:-1].to(torch.int64)
     lens = col.lengths().to(torch.int64)
     last = max(col.char_capacity - 1, 0)
@@ -149,10 +177,17 @@ def _murmur3_string(col: StringColumn, h1: torch.Tensor) -> torch.Tensor:
     if col.char_capacity == 0:
         chars = torch.zeros(1, dtype=torch.int64, device=col.device)
     max_len = int(lens.max()) if lens.numel() else 0
+    return _murmur3_bytes(lambda pos: chars[pos.clamp(0, last)], starts,
+                          lens, max_len, h1)
 
-    def byte_at(pos):
-        return chars[pos.clamp(0, last)]
 
+def _murmur3_bytes(byte_at, starts, lens, max_len: int,
+                   h1: torch.Tensor) -> torch.Tensor:
+    """Spark's Murmur3 hashUnsafeBytes of each row's ``lens`` bytes at
+    ``starts`` (``byte_at`` reads unsigned bytes): one pass per 4-byte
+    little-endian block up to the longest row, each row mixing the
+    blocks it has, then its <= 3 tail bytes one at a time,
+    sign-extended, then fmix with the byte length."""
     for b in range(max_len // 4):
         base = starts + 4 * b
         word = (byte_at(base) | (byte_at(base + 1) << 8)
@@ -248,12 +283,50 @@ def _xx_hash_int(v: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
     return _xx_fmix(_rotl64(h, 23) * _P2 + _P3)
 
 
+def _le_word(raw: torch.Tensor, at: int, width: int) -> torch.Tensor:
+    """The little-endian ``width``-byte word of each row at byte ``at``
+    (int64 bits)."""
+    w = torch.zeros_like(raw[:, 0])
+    for k in range(width):
+        w = w | (raw[:, at + k] << (8 * k))
+    return w
+
+
+def _xx_hash_bytes16(raw: torch.Tensor, n: torch.Tensor,
+                     seed: torch.Tensor) -> torch.Tensor:
+    """Spark's XXH64 hashUnsafeBytes of rows of at most 16 bytes
+    (``raw`` left-aligned, ``n`` bytes each): the 8-byte words, a
+    4-byte word, then single bytes, then fmix."""
+    h = seed + _P5 + n
+    for w in range(2):
+        k1 = _le_word(raw, 8 * w, 8)
+        step = _rotl64(h ^ (_rotl64(k1 * _P2, 31) * _P1), 27) * _P1 + _P4
+        h = torch.where(n >= 8 * (w + 1), step, h)
+    at = (n // 8) * 8
+    idx = torch.arange(raw.shape[0], device=raw.device)
+    word4 = torch.zeros_like(h)
+    for k in range(4):
+        word4 = word4 | (raw[idx, (at + k).clamp(max=15)] << (8 * k))
+    step = _rotl64(h ^ (word4 * _P1), 23) * _P2 + _P3
+    has4 = at + 4 <= n
+    h = torch.where(has4, step, h)
+    at = torch.where(has4, at + 4, at)
+    for k in range(3):
+        byte = raw[idx, (at + k).clamp(max=15)]
+        step = _rotl64(h ^ (byte * _P5), 11) * _P1
+        h = torch.where(at + k < n, step, h)
+    return _xx_fmix(h)
+
+
 def xxhash64_column(col: Column, seed: torch.Tensor) -> torch.Tensor:
     """Per-row XXH64 of one column, int64 bits; null rows keep the
     seed."""
     if isinstance(col, StringColumn):
         raise TypeError("xxhash64 of a string is not in this port")
-    _no_wide(col)
+    if dt.is_wide_decimal(col.dtype):
+        raw, n = decimal_bytes(col)
+        return torch.where(col.validity, _xx_hash_bytes16(raw, n, seed),
+                           seed)
     d, t = col.data, col.dtype
     if dt.is_decimal(t):
         t = dt.INT64
@@ -289,3 +362,36 @@ class XxHash64(Expression):
         for c in self.children:
             h = xxhash64_column(c.eval(batch), h)
         return make_result(h, batch.live_mask(), dt.INT64)
+
+
+class BloomFilterMightContain(Expression):
+    """might_contain(bloom_filter, expr) over a filter built by
+    ops/bloom.py ``build_bloom`` (GpuBloomFilterMightContain.scala):
+    ``bits`` is its bool[num_bits] lane (numpy or torch); a null input
+    gives null (Spark's contract), a non-null one the probe. The bits
+    move to a device once and are kept there."""
+
+    def __init__(self, child: Expression, bits):
+        super().__init__(child)
+        if isinstance(bits, torch.Tensor):
+            bits = bits.cpu().numpy()
+        import numpy as np
+        self.bits = np.asarray(bits, dtype=bool)
+        self._on = {}
+
+    def data_type(self, schema: Schema) -> dt.DType:
+        return dt.BOOL
+
+    def eval(self, batch: ColumnarBatch) -> ColumnVector:
+        from ..ops import bloom as B
+        bits = self._on.get(batch.device)
+        if bits is None:
+            bits = self._on[batch.device] = torch.from_numpy(
+                self.bits).to(batch.device)
+        c = self.children[0].eval(batch)
+        return make_result(B.might_contain(bits, [c]),
+                           c.validity & batch.live_mask(), dt.BOOL)
+
+    def __repr__(self):
+        return f"might_contain(<{self.bits.shape[0]} bits>, " \
+               f"{self.children[0]!r})"

@@ -41,7 +41,8 @@ import torch
 from ..columnar import decimal128 as d128
 from ..columnar import dtypes as dt
 from ..columnar.vector import ColumnVector, ColumnarBatch
-from .core import Expression, Schema, make_result, merged_validity
+from .core import (Expression, Schema, make_result, merged_validity,
+                   true_div)
 
 _EXACT = float(1 << 52)
 
@@ -54,10 +55,10 @@ def _round_float(x: torch.Tensor, scale: int, half_even: bool
         p = 10.0 ** scale
         y = ax * p
         q = torch.floor(y)
-        mid = (q + 0.5) / p
+        mid = true_div(q + 0.5, p)
     else:
         p = 10.0 ** -scale
-        y = ax / p
+        y = true_div(ax, p)
         q = torch.floor(y)
         mid = (q + 0.5) * p
     if half_even:
@@ -65,7 +66,7 @@ def _round_float(x: torch.Tensor, scale: int, half_even: bool
     else:
         up = ax >= mid
     q = q + up.to(torch.float64)
-    r = q / p if scale >= 0 else q * p
+    r = true_div(q, p) if scale >= 0 else q * p
     r = torch.where(r == 0, 0.0, torch.where(xd < 0, -r, r))
     keep = ~torch.isfinite(xd) | (y >= _EXACT)
     return torch.where(keep, xd, r).to(x.dtype)

@@ -23,7 +23,7 @@ from ..columnar.decimal128 import Decimal128Column
 from ..columnar.vector import ColumnVector, ColumnarBatch, StringColumn
 from . import strings as S
 from .core import (Expression, Literal, Schema, literal_physical,
-                   make_result, merged_validity)
+                   make_result, merged_validity, true_div)
 
 
 def _aligned(left: ColumnVector, right: ColumnVector):
@@ -39,7 +39,7 @@ def _aligned(left: ColumnVector, right: ColumnVector):
 def _as_f64(c) -> torch.Tensor:
     if dt.is_decimal(c.dtype):
         hi, lo = d128.limbs_of(c)
-        return d128.d128_to_f64(hi, lo) / (10.0 ** c.dtype.scale)
+        return true_div(d128.d128_to_f64(hi, lo), 10.0 ** c.dtype.scale)
     return c.data.to(torch.float64)
 
 
@@ -194,6 +194,13 @@ class EqualNullSafe(Expression):
         return make_result(data, batch.live_mask(), dt.BOOL)
 
 
+def _right_side(right: Expression, batch: ColumnarBatch, reached):
+    """The right side of AND / OR; a guard in it fires only for the rows
+    Spark's short circuit evaluates it on (``reached``)."""
+    from .ansi import evaluate_reached
+    return evaluate_reached(right, batch, reached, lambda x: x.eval(batch))
+
+
 class And(Expression):
     """Kleene AND: false & null = false; true & null = null."""
 
@@ -202,7 +209,7 @@ class And(Expression):
 
     def eval(self, batch: ColumnarBatch) -> ColumnVector:
         l = self.children[0].eval(batch)
-        r = self.children[1].eval(batch)
+        r = _right_side(self.children[1], batch, ~(l.validity & ~l.data))
         lv, rv = l.validity, r.validity
         known_false = (lv & ~l.data) | (rv & ~r.data)
         validity = (lv & rv) | known_false
@@ -217,7 +224,7 @@ class Or(Expression):
 
     def eval(self, batch: ColumnarBatch) -> ColumnVector:
         l = self.children[0].eval(batch)
-        r = self.children[1].eval(batch)
+        r = _right_side(self.children[1], batch, ~(l.validity & l.data))
         lv, rv = l.validity, r.validity
         known_true = (lv & l.data) | (rv & r.data)
         validity = (lv & rv) | known_true

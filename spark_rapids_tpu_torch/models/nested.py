@@ -178,6 +178,23 @@ ORDER BY prio
 """
 
 
+def n4_maps(a, on):
+    """N4's maps: keys 1..n over each order's prices."""
+    col, Alias, HO = a.col, a.Alias, a.HO
+    m = HO.map_from_arrays(HO.transform(col("price"), lambda x, i: i + 1),
+                           col("price"))
+    return on.select(col("o_orderkey"), Alias(m, "m"))
+
+
+def n4_explode(a, on):
+    """explode of N4's maps into Spark's ``key`` and ``value`` columns,
+    summed (the port's; the JAX package's DataFrame refuses a map)."""
+    col, Alias, Agg = a.col, a.Alias, a.Agg
+    return n4_maps(a, on).select(a.CX.explode(col("m"))).agg(
+        Alias(Agg.CountStar(), "n"), Alias(Agg.Sum(col("key")), "ks"),
+        Alias(Agg.Sum(col("value")), "vs"))
+
+
 def queries(a, on, li) -> Dict[str, object]:
     """N1-N5 and N7 as DataFrames of the package whose API ``a`` is,
     over its ``orders_nested`` (``on``) and lineitem (``li``)."""
@@ -242,9 +259,7 @@ def queries(a, on, li) -> Dict[str, object]:
         Alias(CX.ArrayExcept(col("disc"), grid), "exc"),
         Alias(CX.ArrayJoin(col("flags"), ","), "joined")).sort(
         "o_orderkey")
-    m = HO.map_from_arrays(HO.transform(col("price"), lambda x, i: i + 1),
-                           col("price"))
-    maps = on.select(col("o_orderkey"), Alias(m, "m"))
+    maps = n4_maps(a, on)
     n4 = {
         "v2": HO.get_map_value(col("m"), lit(2)),
         "nkeys": CX.Size(HO.map_keys(col("m"))),
@@ -359,6 +374,10 @@ def references(no: NestedOrders, lineitem: HostTable) -> Dict[str, dict]:
                  "tv": float(price[pv & has, 0].sum()),
                  "nfilt": int((ok & (price > 50000.0))[pv].sum()),
                  "nent": n_pv, "cm": n_pv}
+    # N4's maps exploded: Spark's key (1..n) and value columns
+    out["N4_explode"] = {"n": n_pv,
+                         "ks": int((lens * (lens + 1) // 2)[pv].sum()),
+                         "vs": float(price[ok & pv[:, None]].sum())}
     out["N5_struct"] = {"p": out["N3"]["amax"],
                         "k": int(no.orderkey.sum())}
     big = ok & (price > 100000.0) & pv[:, None]

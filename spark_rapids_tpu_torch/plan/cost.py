@@ -32,7 +32,7 @@ from ..columnar import dtypes as dt
 from ..conf import OPTIMIZER_ENABLED, SrtConf
 from .logical import (Aggregate, DeviceRelation, Expand, Filter, Generate,
                       Join, Limit, LocalRelation, LogicalPlan, Project,
-                      Sort, Union, Window)
+                      Range, Sample, Sort, Union, Window)
 
 
 def _generated_rows(plan: Generate) -> float:
@@ -55,7 +55,11 @@ def estimate_rows(plan: LogicalPlan) -> float:
         return float(sum(b.num_rows for b in plan.batches))
     if isinstance(plan, LocalRelation):
         return float(len(next(iter(plan.data.values()), [])))
+    if isinstance(plan, Range):
+        return float(plan.num_rows)
     child_rows = [estimate_rows(c) for c in plan.children]
+    if isinstance(plan, Sample):
+        return child_rows[0] * plan.fraction
     if isinstance(plan, Filter):
         return child_rows[0] * 0.5  # default selectivity
     if isinstance(plan, Limit):

@@ -10,10 +10,13 @@ reference.
 Semantics mirror the port's expr/ modules (which cite Spark):
 divide-by-zero -> null, Java trunc-mod sign rules, Kleene AND/OR,
 NaN-greatest ordering, null-iff-any-input-null for scalar functions,
-decimal lanes as scaled int64 (Python ints above precision 18). The
-port has no ANSI mode, so the JAX evaluators' ANSI raises are left
-out. Where the port follows Spark and the JAX package does not, the
-evaluator follows the port. Every evaluator returns (values, mask).
+decimal lanes as scaled int64 (Python ints above precision 18). Under
+ANSI mode the evaluators raise the device's error types
+(``_ansi_raise_if``, the JAX evaluators' raises), for the rows that
+reach the node: a conditional and the right side of AND / OR bind them
+as the device does (expr/ansi.py ``reach``). Where the port follows
+Spark and the JAX package does not, the evaluator follows the port.
+Every evaluator returns (values, mask).
 """
 
 from __future__ import annotations
@@ -64,6 +67,19 @@ def _reg(cls):
 def _ev(expr, table) -> Result:
     c = evaluate(expr, table)
     return c.values, c.mask
+
+
+def _ansi_raise_if(mask, exc, table) -> None:
+    """The CPU engine's ANSI guard: raise ``exc`` if a row of ``mask``
+    that reaches the node is set."""
+    from ..expr.ansi import guard
+    guard(np.asarray(mask, bool), exc, table)
+
+
+def _ev_reached(expr, table, rows) -> Result:
+    """``_ev`` with the rows that reach ``expr`` bound (expr/ansi.py)."""
+    from ..expr.ansi import evaluate_reached
+    return evaluate_reached(expr, table, rows, lambda x: _ev(x, table))
 
 
 def _zero_nulls(values, mask):
@@ -234,6 +250,8 @@ def _binary_arith(expr, table, op):
         wide = out_t.is_wide or lt.is_wide or rt.is_wide
         if wide:
             out, omask = _decimal_arith_obj(a, b, mask, op, lt, rt, out_t)
+            if expr.ansi:
+                _ansi_raise_if(mask & ~omask, _decimal_exc(op), table)
             return out, omask
         a = _rescale_np(a.astype(np.int64), lt.scale, out_t.scale) \
             if op != "mul" else a.astype(np.int64)
@@ -256,7 +274,23 @@ def _binary_arith(expr, table, op):
             out = a - b
         else:
             out = a * b
+    if expr.ansi and out_t.is_integral:
+        from ..expr import errors as ERR
+        ao, bo = a.astype(object), b.astype(object)
+        exact = ao + bo if op == "add" else ao - bo if op == "sub" \
+            else ao * bo
+        info = np.iinfo(phys)
+        bad = mask & np.array([not info.min <= int(v) <= info.max
+                               for v in exact], bool)
+        _ansi_raise_if(bad, ERR.SparkArithmeticException(
+            ERR.overflow_message(str(out_t))), table)
     return _zero_nulls(out, mask), mask
+
+
+def _decimal_exc(op_name: str):
+    from ..expr import errors as ERR
+    return ERR.SparkArithmeticException(
+        f"{op_name}: decimal overflow or division by zero (ANSI mode)")
 
 
 @_reg(A.Add)
@@ -305,13 +339,22 @@ def _div(expr, table):
             out[i] = q
         if not out_t.is_wide:
             out = np.array([int(v) for v in out], dtype=np.int64)
+        if expr.ansi:
+            _ansi_raise_if(am & bm & ~mask, _decimal_exc("/"), table)
         return out, mask
     a = a.astype(np.float64)
     b = b.astype(np.float64)
+    if expr.ansi:
+        _ansi_raise_if(am & bm & (b == 0.0), _div_zero(), table)
     mask = am & bm & (b != 0.0)
     with np.errstate(divide="ignore", invalid="ignore"):
         out = np.where(b != 0.0, a / np.where(b == 0.0, 1.0, b), 0.0)
     return _zero_nulls(out, mask), mask
+
+
+def _div_zero():
+    from ..expr import errors as ERR
+    return ERR.SparkArithmeticException(ERR.DIVIDE_BY_ZERO)
 
 
 def _trunc_div_np(a, b):
@@ -363,9 +406,21 @@ def _idiv(expr, table):
         mask = mask & fits
         out = np.array([int(v) if f else 0 for v, f in zip(q, fits)],
                        dtype=np.int64)
+        if expr.ansi:
+            from ..expr import errors as ERR
+            _ansi_raise_if(base_mask & ~mask, ERR.SparkArithmeticException(
+                "div: division by zero or overflow (ANSI mode)"), table)
         return _zero_nulls(out, mask), mask
     a, am = _ev(lc, table)
     b, bm = _ev(rc, table)
+    if expr.ansi:
+        from ..expr import errors as ERR
+        _ansi_raise_if(am & bm & (b == 0), _div_zero(), table)
+        if not np.issubdtype(a.dtype, np.floating):
+            _ansi_raise_if(am & bm & (a.astype(np.int64) == -(2 ** 63))
+                           & (b.astype(np.int64) == -1),
+                           ERR.SparkArithmeticException(
+                               ERR.overflow_message("bigint")), table)
     mask = am & bm & (b != 0)
     safe = np.where(b == 0, np.ones(1, b.dtype), b)
     if np.issubdtype(a.dtype, np.floating):
@@ -386,6 +441,8 @@ def _decimal_mod_result(expr, table, positive: bool):
     bound = 10 ** out_t.precision
     fits = np.array([abs(int(v)) < bound for v in r], bool)
     mask = mask & fits
+    if expr.ansi:
+        _ansi_raise_if(base_mask & ~mask, _decimal_exc(expr.op_name), table)
     r = np.where(mask, r, 0)
     if not out_t.is_wide:
         r = np.array([int(v) for v in r], dtype=np.int64)
@@ -403,6 +460,8 @@ def _rem(expr, table):
     b, bm = _ev(rc, table)
     a = a.astype(phys)
     b = b.astype(phys)
+    if expr.ansi:
+        _ansi_raise_if(am & bm & (b == 0), _div_zero(), table)
     mask = am & bm & (b != 0)
     safe = np.where(b == 0, np.ones(1, b.dtype), b)
     if np.issubdtype(a.dtype, np.floating):
@@ -423,6 +482,8 @@ def _pmod(expr, table):
     b, bm = _ev(rc, table)
     a = a.astype(phys)
     b = b.astype(phys)
+    if expr.ansi:
+        _ansi_raise_if(am & bm & (b == 0), _div_zero(), table)
     mask = am & bm & (b != 0)
     safe = np.where(b == 0, np.ones(1, b.dtype), b)
     mod = np.fmod if np.issubdtype(a.dtype, np.floating) else _trunc_mod_np
@@ -437,8 +498,18 @@ def _pmod(expr, table):
 def _neg(expr, table):
     a, m = _ev(expr.children[0], table)
     t = expr.children[0].data_type(table.schema())
+    _ansi_min_raise(expr, a, m, t, table)
     with np.errstate(over="ignore"):
         return _zero_nulls(-a, m), m
+
+
+def _ansi_min_raise(expr, a, m, t, table) -> None:
+    """ANSI: -x and abs(x) of an integral minimum overflow."""
+    if expr.ansi and t.is_integral:
+        from ..expr import errors as ERR
+        _ansi_raise_if(m & (a == np.iinfo(a.dtype).min),
+                       ERR.SparkArithmeticException(
+                           ERR.overflow_message(str(t))), table)
 
 
 @_reg(A.UnaryPositive)
@@ -450,6 +521,7 @@ def _pos(expr, table):
 def _abs(expr, table):
     a, m = _ev(expr.children[0], table)
     t = expr.children[0].data_type(table.schema())
+    _ansi_min_raise(expr, a, m, t, table)
     with np.errstate(over="ignore"):
         return _zero_nulls(np.abs(a), m), m
 
@@ -668,7 +740,7 @@ def _eqns(expr, table):
 @_reg(P.And)
 def _and(expr, table):
     a, am = _ev(expr.children[0], table)
-    b, bm = _ev(expr.children[1], table)
+    b, bm = _ev_reached(expr.children[1], table, ~(am & ~a))
     known_false = (am & ~a) | (bm & ~b)
     mask = (am & bm) | known_false
     return (a & b) & ~known_false & mask, mask
@@ -677,7 +749,7 @@ def _and(expr, table):
 @_reg(P.Or)
 def _or(expr, table):
     a, am = _ev(expr.children[0], table)
-    b, bm = _ev(expr.children[1], table)
+    b, bm = _ev_reached(expr.children[1], table, ~(am & a))
     known_true = (am & a) | (bm & b)
     mask = (am & bm) | known_true
     return (known_true | (a & b)) & mask, mask
@@ -767,15 +839,15 @@ def _select_eval(expr, table, branches, default):
     out_mask = np.zeros(n, bool)
     decided = np.zeros(n, bool)
     for cond_e, val_e in branches:
-        cv, cm = _ev(cond_e, table)
+        cv, cm = _ev_reached(cond_e, table, ~decided)
         take = (~decided) & cm & cv
-        v, m = _ev(val_e, table)
+        v, m = _ev_reached(val_e, table, take)
         v, m = _coerce_to(v, m, val_e.data_type(schema), out_t, n)
         out = np.where(take, v, out)
         out_mask = np.where(take, m, out_mask)
         decided |= take
     if default is not None:
-        v, m = _ev(default, table)
+        v, m = _ev_reached(default, table, ~decided)
         v, m = _coerce_to(v, m, default.data_type(schema), out_t, n)
         out = np.where(~decided, v, out)
         out_mask = np.where(~decided, m, out_mask)
@@ -806,7 +878,7 @@ def _coalesce(expr, table):
         out = np.zeros(n, np.dtype(out_t.np_physical))
     out_mask = np.zeros(n, bool)
     for c in expr.children:
-        v, m = _ev(c, table)
+        v, m = _ev_reached(c, table, ~out_mask)
         v, m = _coerce_to(v, m, c.data_type(schema), out_t, n)
         take = (~out_mask) & m
         out = np.where(take, v, out)
@@ -1594,10 +1666,59 @@ def _makedate(expr, table):
 
 @_reg(C.Cast)
 def _cast(expr, table):
+    a, m = _ev(expr.children[0], table)
+    out, om = _cast_values(expr, table, a, m)
+    if expr.ansi:
+        _ansi_cast_raise(expr, table, a, m, om)
+    return out, om
+
+
+def _ansi_cast_raise(expr, table, a, m, om) -> None:
+    """ANSI cast errors, as the device's ``ansi_check``: a row the cast
+    made null raises, and so does a source value past an integral
+    target's range (the lanes that wrap or saturate)."""
+    from ..expr import errors as ERR
+    from_t = expr.children[0].data_type(table.schema())
+    to_t = expr.to
+    if from_t == to_t:
+        return
+    if from_t == dt.STRING:
+        exc_t = ERR.SparkDateTimeException if to_t in (dt.DATE,
+                                                       dt.TIMESTAMP) \
+            else ERR.SparkNumberFormatException
+        _ansi_raise_if(m & ~om, exc_t(f"invalid input syntax for type "
+                                      f"{to_t} (ANSI mode cast)"), table)
+        return
+    target = f"DecimalType(precision={to_t.precision}, " \
+        f"scale={to_t.scale})" if dt.is_decimal(to_t) else str(to_t)
+    _ansi_raise_if(m & ~om, ERR.SparkCastOverflowException(
+        f"cast to {target} causes overflow (ANSI mode)"), table)
+    if not to_t.is_integral:
+        return
+    exc = ERR.SparkCastOverflowException(
+        f"casting {from_t} to {to_t} causes overflow (ANSI mode)")
+    lo, hi = dt.min_value(to_t), dt.max_value(to_t)
+    if isinstance(from_t, dt.DecimalType):
+        p = 10 ** from_t.scale
+        bad = np.array([not lo <= (abs(int(v)) // p) * (1 if int(v) >= 0
+                                                        else -1) <= hi
+                        for v in a], bool)
+    elif from_t.is_floating:
+        x = a.astype(np.float64)
+        with np.errstate(invalid="ignore"):
+            bad = np.isnan(x) | (x < float(lo)) | (x >= float(hi) + 1.0)
+    elif from_t.is_integral:
+        x = a.astype(np.int64)
+        bad = (x < lo) | (x > hi)
+    else:
+        return
+    _ansi_raise_if(m & bad, exc, table)
+
+
+def _cast_values(expr, table, a, m):
     schema = table.schema()
     from_t = expr.children[0].data_type(schema)
     to_t = expr.to
-    a, m = _ev(expr.children[0], table)
     n = table.num_rows
     if from_t == to_t:
         return a, m
@@ -2001,6 +2122,59 @@ def _register_misc_exprs():
         n = table.num_rows
         return np.arange(n, dtype=np.int64), np.ones(n, bool)
 
+    @_reg(MX.SparkPartitionID)
+    def _part_id(expr, table):
+        n = table.num_rows
+        return np.zeros(n, np.int32), np.ones(n, bool)
+
+    @_reg(MX.Uuid)
+    def _uuid(expr, table):
+        # the device's generator and formatting on CPU tensors: the same
+        # strings as a CPU device for the expression's seed
+        import torch
+
+        from ..columnar.vector import ColumnarBatch
+        n = table.num_rows
+        out = expr.eval(ColumnarBatch([], [], n, torch.device("cpu"),
+                                      capacity=max(n, 1)))
+        vals, mask = out.to_numpy(n)
+        return np.where(mask, vals.to_objects(), ""), mask
+
+    @_reg(MX.RaiseError)
+    def _raise(expr, table):
+        n = table.num_rows
+        _ansi_raise_if(np.ones(n, bool),
+                       MX.RaiseErrorException(expr.message), table)
+        return np.full(n, "", dtype=object), np.zeros(n, bool)
+
+    @_reg(MX.Version)
+    def _version(expr, table):
+        n = table.num_rows
+        return np.full(n, MX.version_string(), dtype=object), \
+            np.ones(n, bool)
+
+    from ..expr.hashing import BloomFilterMightContain
+
+    @_reg(BloomFilterMightContain)
+    def _might_contain(expr, table):
+        # the probe is the device's hash chain, run on CPU tensors over a
+        # host-built column, so the two engines agree bit for bit
+        import torch
+
+        from ..columnar.nested import column_from_host_lane
+        from ..ops import bloom as B
+        v, m = _ev(expr.children[0], table)
+        t = expr.children[0].data_type(table.schema())
+        if t == dt.STRING:
+            from ..columnar.vector import HostStrings
+            v = HostStrings.from_objects(
+                [s if ok else None for s, ok in zip(v, m)])
+        n = table.num_rows
+        c = column_from_host_lane(v, m, t, max(n, 1),
+                                  device=torch.device("cpu"))
+        hit = B.might_contain(torch.from_numpy(expr.bits), [c])
+        return hit.numpy()[:n].copy(), m.copy()
+
 
 _register_misc_exprs()
 
@@ -2074,17 +2248,74 @@ def _bitwise_binary(np_op):
 
 
 _EVALUATORS[B.BitwiseAnd] = _bitwise_binary(np.bitwise_and)
+_EVALUATORS[B.BitwiseOr] = _bitwise_binary(np.bitwise_or)
+_EVALUATORS[B.BitwiseXor] = _bitwise_binary(np.bitwise_xor)
 
 
-@_reg(B.ShiftRight)
-def _shift_right(expr, table):
-    a, am = _ev(expr.children[0], table)
-    b, bm = _ev(expr.children[1], table)
-    m = am & bm
-    width = 64 if a.dtype == np.int64 else 32
-    n = b.astype(np.int64) & (width - 1)
-    x = a.astype(np.int64) if width == 64 else a.astype(np.int32)
-    return _zero_nulls(x >> n.astype(x.dtype), m), m
+@_reg(B.BitwiseNot)
+def _bitwise_not(expr, table):
+    a, m = _ev(expr.children[0], table)
+    return _zero_nulls(~a, m), m
+
+
+def _shift_eval(kind):
+    def ev(expr, table):
+        a, am = _ev(expr.children[0], table)
+        b, bm = _ev(expr.children[1], table)
+        m = am & bm
+        width = 64 if expr.data_type(table.schema()) == dt.INT64 else 32
+        n = b.astype(np.int64) & (width - 1)
+        x = a.astype(np.int64) if width == 64 else a.astype(np.int32)
+        if kind == "left":
+            out = x << n.astype(x.dtype)
+        elif kind == "right":
+            out = x >> n.astype(x.dtype)
+        else:  # unsigned right
+            ux = x.astype(np.uint64 if width == 64 else np.uint32)
+            out = (ux >> n.astype(ux.dtype)).astype(x.dtype)
+        return _zero_nulls(out, m), m
+    return ev
+
+
+_EVALUATORS[B.ShiftLeft] = _shift_eval("left")
+_EVALUATORS[B.ShiftRight] = _shift_eval("right")
+_EVALUATORS[B.ShiftRightUnsigned] = _shift_eval("uright")
+
+
+@_reg(B.BitCount)
+def _bitcount(expr, table):
+    a, m = _ev(expr.children[0], table)
+    if a.dtype == np.bool_:
+        return _zero_nulls(a.astype(np.int32), m), m
+    u = a.astype(np.uint64 if a.dtype == np.int64 else np.uint32)
+    out = np.array([bin(int(v)).count("1") for v in u], np.int32) \
+        if len(u) else np.empty(0, np.int32)
+    return _zero_nulls(out, m), m
+
+
+@_reg(B.InterleaveBits)
+def _interleave(expr, table):
+    k = len(expr.children)
+    bits_per = 63 // k
+    parts = []
+    mask = np.ones(table.num_rows, bool)
+    schema = table.schema()
+    for c in expr.children:
+        v, m = _ev(c, table)
+        mask &= m
+        width = 64 if c.data_type(schema) == dt.INT64 else 32
+        x = v.astype(np.int64)
+        if width == 64:
+            u = (x.astype(np.uint64) ^ np.uint64(1 << 63)).astype(np.int64)
+        else:
+            u = x + np.int64(1 << 31)
+        parts.append((u >> (width - bits_per)) &
+                     np.int64((1 << bits_per) - 1))
+    out = np.zeros(table.num_rows, np.int64)
+    for bit in range(bits_per):
+        for ci, p in enumerate(parts):
+            out |= ((p >> bit) & 1) << (bit * k + ci)
+    return _zero_nulls(out, mask), mask
 
 
 # ---------------------------------------------------------------------------

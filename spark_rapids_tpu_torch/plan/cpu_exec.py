@@ -5,8 +5,9 @@ imports re-pointed: the engine that runs a plan subtree the planner
 tagged off the device (the role CPU Spark plays for the reference),
 columnar over numpy in the CPU engine's layout (host_table.py
 ``to_engine``). A ``DeviceRelation`` leaf is read through
-``batch_to_table``; FileScan, CachedRelation, Sample and Range are not
-in the port.
+``batch_to_table``; ``Range`` and ``Sample`` make the device's rows
+(``Sample`` through its keep mask on CPU tensors); FileScan and
+CachedRelation are not in the port.
 
 Aggregation/join/sort semantics mirror the device execs:
 - group nulls form their own group (Spark GROUP BY semantics),
@@ -28,7 +29,7 @@ from .host_table import (HostColumn, HostTable, concat_tables, empty_like,
                          from_pydict)
 from .logical import (Aggregate, DeviceRelation, Expand, Filter, Generate,
                       Join, Limit, LocalRelation, LogicalPlan, Project,
-                      Sort, Union, Window)
+                      Range, Sample, Sort, Union, Window)
 
 
 def execute_cpu(plan: LogicalPlan) -> HostTable:
@@ -61,8 +62,28 @@ def apply_cpu_node(plan: LogicalPlan,
         child = children[0]
         return child.take(np.arange(min(plan.n, child.num_rows)))
     if isinstance(plan, Union):
-        return concat_tables([_normalize(c, [n for n, _ in plan.schema])
-                              for c in children])
+        names = [n for n, _ in plan.schema]
+        parts = []
+        for i, c in enumerate(children):
+            exprs = plan.child_casts(i)
+            if exprs is not None:
+                c = HostTable([cpu_eval.evaluate(e, c) for e in exprs],
+                              [n for n, _ in c.schema()])
+            parts.append(_normalize(c, names))
+        return concat_tables(parts)
+    if isinstance(plan, Range):
+        ids = plan.start + np.arange(plan.num_rows, dtype=np.int64) * \
+            plan.step
+        return HostTable([HostColumn(ids, np.ones(len(ids), bool),
+                                     dt.INT64)], ["id"])
+    if isinstance(plan, Sample):
+        import torch
+
+        from ..exec.basic import sample_keep_mask
+        child = children[0]
+        keep = sample_keep_mask(0, child.num_rows, plan.fraction, plan.seed,
+                                torch.device("cpu"))
+        return child.select_rows(keep.numpy())
     if isinstance(plan, Expand):
         child = children[0]
         parts = []
@@ -106,14 +127,16 @@ def _coerce_col(c: HostColumn, t: dt.DType) -> HostColumn:
 # ---------------------------------------------------------------------------
 
 def _generate_table(child: HostTable, plan) -> HostTable:
-    """Explode/posexplode oracle (GpuGenerateExec semantics)."""
-    from ..expr.core import literal_physical as _to_physical
+    """Explode/posexplode oracle (GpuGenerateExec semantics); a map
+    gives its key and value columns."""
     gen = plan.generator
     lists = cpu_eval.evaluate(gen.children[0], child)
     et = gen.data_type(child.schema())
     rows, positions, elems = [], [], []
     for i in range(child.num_rows):
         lst = lists.values[i] if lists.mask[i] else None
+        if plan.value_name and lst:
+            lst = list(lst.items())   # a map's (key, value) entries
         if not lst:
             if gen.outer:
                 rows.append(i)
@@ -133,18 +156,34 @@ def _generate_table(child: HostTable, plan) -> HostTable:
                          dtype=np.int32)
         cols.append(HostColumn(pvals, pmask, dt.INT32))
         names.append(plan.pos_name)
+    if plan.value_name:
+        (_, kt), (_, vt) = et.fields
+        cols += [_element_column([None if e is None else e[0]
+                                  for e in elems], kt),
+                 _element_column([None if e is None else e[1]
+                                  for e in elems], vt)]
+        names += [plan.element_name, plan.value_name]
+    else:
+        cols.append(_element_column(elems, et))
+        names.append(plan.element_name)
+    return HostTable(cols, names)
+
+
+def _element_column(elems, et: dt.DType) -> HostColumn:
+    """Logical values (None for null) as a column of ``et``."""
+    from ..expr.core import literal_physical as _to_physical
     emask = np.array([e is not None for e in elems], dtype=bool)
-    if et == dt.STRING or et.is_nested:
+    if et == dt.STRING or et.is_nested or dt.is_wide_decimal(et):
         evals = np.empty(len(elems), dtype=object)
         for i, e in enumerate(elems):
-            evals[i] = e if e is not None else ("" if et == dt.STRING
-                                                else None)
+            evals[i] = _to_physical(e, et) if e is not None and \
+                dt.is_wide_decimal(et) else e if e is not None else \
+                ("" if et == dt.STRING else 0 if dt.is_wide_decimal(et)
+                 else None)
     else:
         evals = np.array([_to_physical(e, et) if e is not None else 0
                           for e in elems], dtype=np.dtype(et.np_physical))
-    cols.append(HostColumn(evals, emask, et))
-    names.append(plan.element_name)
-    return HostTable(cols, names)
+    return HostColumn(evals, emask, et)
 
 
 # ---------------------------------------------------------------------------
@@ -333,6 +372,13 @@ def _group_ids_sorted(key_cols: List[HostColumn], n: int):
     return renumber[inv.reshape(-1)], first[order].astype(np.int64)
 
 
+def _ansi_raise(fn: Agg.AggregateFunction, what: str) -> None:
+    """ANSI: SUM / AVG overflow raises, as the device's finalize does."""
+    if fn.ansi:
+        from ..expr import errors as ERR
+        raise ERR.SparkArithmeticException(what)
+
+
 def _agg_cpu(fn: Agg.AggregateFunction, values: Optional[np.ndarray],
              mask: Optional[np.ndarray], rows: np.ndarray,
              in_dtype: Optional[dt.DType], out_t: dt.DType):
@@ -365,15 +411,35 @@ def _agg_cpu(fn: Agg.AggregateFunction, values: Optional[np.ndarray],
         return vals, True  # collect of empty group = empty array
     if len(valid_v) == 0:
         return 0, False
+    if isinstance(fn, Agg.ApproxPercentile):
+        # exact nearest rank (the smallest value whose cumulative count
+        # reaches ceil(p * N)): the limit the device sketch approaches
+        x = np.sort(valid_v.astype(np.float64))
+        if isinstance(in_dtype, dt.DecimalType):
+            x = x / (10.0 ** in_dtype.scale)
+        outs = [float(x[min(max(int(np.ceil(p * len(x))) - 1, 0),
+                            len(x) - 1)]) for p in fn.percentages]
+        return (outs if fn.is_array else outs[0]), True
+    if isinstance(fn, Agg.Percentile):
+        x = valid_v.astype(np.float64)
+        if isinstance(in_dtype, dt.DecimalType):
+            x = x / (10.0 ** in_dtype.scale)
+        return float(np.percentile(x, fn.percentage * 100)), True
     if isinstance(fn, Agg.Sum):
         if isinstance(out_t, dt.DecimalType):
             # exact arbitrary-precision oracle; overflow -> null like
             # the device 128-bit accumulator
             total = sum(int(x) for x in valid_v)
             if abs(total) >= 10 ** out_t.precision:
+                _ansi_raise(fn, "Decimal sum overflow")
                 return 0, False
             return total, True
         if out_t == dt.INT64:
+            if fn.ansi:
+                exact = sum(int(x) for x in valid_v)
+                if not -(2 ** 63) <= exact < 2 ** 63:
+                    _ansi_raise(fn, "long overflow")
+                return exact, True
             return int(valid_v.astype(np.int64).sum()), True
         return float(valid_v.astype(np.float64).sum()), True
     if isinstance(fn, Agg.Min) or isinstance(fn, Agg.Max):
@@ -399,6 +465,7 @@ def _agg_cpu(fn: Agg.AggregateFunction, values: Optional[np.ndarray],
             sum_prec = min(in_dtype.precision + 10,
                            dt.DecimalType.MAX_PRECISION)
             if abs(total) >= 10 ** sum_prec:
+                _ansi_raise(fn, "Decimal average overflow")
                 return 0, False
             n_v = len(valid_v)
             num = abs(total) * 10 ** (out_t.scale - in_dtype.scale)
@@ -408,6 +475,7 @@ def _agg_cpu(fn: Agg.AggregateFunction, values: Optional[np.ndarray],
             if total < 0:
                 q = -q
             if abs(q) >= 10 ** out_t.precision:
+                _ansi_raise(fn, "Decimal average overflow")
                 return 0, False
             return q, True
         x = valid_v.astype(np.float64)

@@ -2,8 +2,9 @@
 
 Counterpart of spark_rapids_tpu/plan/logical.py for the nodes the ported
 queries build (q6/q1/q3, the NDS queries: joins of every type, set
-operations, windows, grouping sets; explode as ``Generate``), plus ``DeviceRelation``: a leaf over batches
-already on the device (the JAX package reaches the same leaf through
+operations, windows, grouping sets; explode as ``Generate``; ``Range``
+and ``Sample``), plus ``DeviceRelation``: a leaf over batches already
+on the device (the JAX package reaches the same leaf through
 CachedRelation).
 """
 
@@ -93,6 +94,48 @@ class LocalRelation(LogicalPlan):
 
     def node_description(self) -> str:
         return f"LocalRelation[{', '.join(n for n, _ in self._schema)}]"
+
+
+class Range(LogicalPlan):
+    """``id`` BIGINT from ``start`` to ``end`` (exclusive) by ``step``
+    (Spark's Range; TpuSession.range)."""
+
+    def __init__(self, start: int, end: int, step: int = 1):
+        super().__init__()
+        if step == 0:
+            raise ValueError("range step must not be 0")
+        self.start, self.end, self.step = start, end, step
+
+    @property
+    def num_rows(self) -> int:
+        return max(0, -(-(self.end - self.start) // self.step))
+
+    @property
+    def schema(self) -> Schema:
+        return [("id", dt.INT64)]
+
+    def node_description(self) -> str:
+        return f"Range[{self.start}, {self.end}, {self.step}]"
+
+
+class Sample(LogicalPlan):
+    """Bernoulli sample by a hash of each row's stream position
+    (GpuSampleExec's role): the same rows on the device, on the CPU
+    engine and in the JAX package, whatever the batch sizes."""
+
+    def __init__(self, child: LogicalPlan, fraction: float, seed: int = 42):
+        super().__init__(child)
+        if not 0.0 <= fraction <= 1.0:
+            raise ValueError("sample fraction must be in [0, 1]")
+        self.fraction = fraction
+        self.seed = seed
+
+    @property
+    def schema(self) -> Schema:
+        return self.children[0].schema
+
+    def node_description(self) -> str:
+        return f"Sample[{self.fraction}, seed={self.seed}]"
 
 
 class Project(LogicalPlan):
@@ -300,26 +343,51 @@ class Window(LogicalPlan):
 
 
 class Union(LogicalPlan):
-    """UNION ALL of children with equal column counts; the schema is the
-    first child's. As in the JAX package no column is cast; a string
-    column facing a non-string one (which the JAX package passes on as
-    a mixed column) is refused."""
+    """UNION ALL of children with equal column counts, named as the
+    first child. A column where a decimal meets another type takes
+    Spark's widening (``DecimalPrecision.widerDecimalType``: the larger
+    scale and the larger integral digits, at most 38; an integral meets
+    as its exact decimal, a float makes it DOUBLE), and each child is
+    cast to it before the union (the JAX package raises). Other columns
+    keep the first child's type and are not cast, as in the JAX
+    package; a string column facing a non-string one (which the JAX
+    package passes on as a mixed column) is refused."""
 
     def __init__(self, *children: LogicalPlan):
         super().__init__(*children)
+        from ..expr.arithmetic import _least_greatest_type
         first = children[0].schema
+        self._schema = list(first)
+        self._widened = set()
         for c in children[1:]:
             if len(c.schema) != len(first):
                 raise ValueError("UNION children column counts differ")
-            for (name, a), (_, b) in zip(first, c.schema):
+            for i, ((name, a), (_, b)) in enumerate(zip(self._schema,
+                                                        c.schema)):
                 if (a == dt.STRING) != (b == dt.STRING):
                     raise NotImplementedError(
                         f"a UNION of {a} and {b} in column {name!r} is "
                         "not in this port yet")
+                if a != b and dt.NULL not in (a, b) and (
+                        dt.is_decimal(a) or dt.is_decimal(b)):
+                    self._schema[i] = (name, _least_greatest_type([a, b]))
+                    self._widened.add(i)
 
     @property
     def schema(self) -> Schema:
-        return self.children[0].schema
+        return self._schema
+
+    def child_casts(self, index: int):
+        """The projection that brings child ``index`` to the union's
+        types, or None where it has them."""
+        from ..expr.cast import Cast
+        from ..expr.core import Alias, col
+        child = self.children[index].schema
+        cast = [i for i in self._widened if child[i][1] != self._schema[i][1]]
+        if not cast:
+            return None
+        return [Alias(Cast(col(n), self._schema[i][1]), n) if i in cast
+                else col(n) for i, (n, _) in enumerate(child)]
 
 
 class Expand(LogicalPlan):
@@ -353,7 +421,9 @@ class Expand(LogicalPlan):
 class Generate(LogicalPlan):
     """explode / explode_outer / posexplode (JAX logical.py:323): the
     child's columns (+ the position) + the element column, one row per
-    list element."""
+    list element. A map gives two element columns, its entry's key
+    (``element_name``) and value (``value_name``, the element name with
+    ``_value``), as Spark's ``key`` and ``value``."""
 
     def __init__(self, child: LogicalPlan, generator, element_name: str,
                  pos_name: Optional[str] = None):
@@ -364,11 +434,18 @@ class Generate(LogicalPlan):
         self.generator = generator
         self.element_name = element_name
         self.pos_name = pos_name if generator.with_position else None
+        in_t = generator.children[0].data_type(child.schema)
+        self.value_name = f"{element_name}_value" \
+            if isinstance(in_t, dt.MapType) else None
         self._schema = list(child.schema)
         if self.pos_name:
             self._schema.append((self.pos_name, dt.INT32))
-        self._schema.append((element_name,
-                             generator.data_type(child.schema)))
+        if self.value_name:
+            self._schema += [(element_name, in_t.key_type),
+                             (self.value_name, in_t.value_type)]
+        else:
+            self._schema.append((element_name,
+                                 generator.data_type(child.schema)))
 
     @property
     def schema(self) -> Schema:

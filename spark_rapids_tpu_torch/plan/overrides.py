@@ -19,8 +19,9 @@ engine and ``srt.sql.explain`` / ``DataFrame.explain`` print why:
 
 - a DECIMAL(p>18) as a group-by or join key (a join key's common type
   included), a window partition or order key, under ``div`` / ``%`` /
-  ``pmod`` / ``least`` / ``greatest`` / a hash, a window aggregate over
-  or into one, or cast to or from STRING;
+  ``pmod`` / ``least`` / ``greatest``, a window aggregate over or into
+  one, or cast to or from STRING; an ``approx_percentile`` of a decimal,
+  and the exact ``percentile``;
 - a nested group-by, join or sort key and the nested gates (string or
   nested elements under the list kernels and lambdas, a column
   ``array_repeat`` count, an ``aggregate`` lambda reading outer
@@ -55,7 +56,8 @@ from ..conf import (BROADCAST_THRESHOLD_ROWS, EXPLAIN, SQL_ENABLED,
 from ..exec.aggregate import FINAL, PARTIAL, HashAggregateExec
 from ..exec.base import TpuExec
 from ..exec.basic import (BatchScanExec, ExpandExec, FilterExec,
-                          LocalLimitExec, ProjectExec, UnionExec)
+                          LocalLimitExec, ProjectExec, RangeExec, SampleExec,
+                          UnionExec)
 from ..exec.generate import GenerateExec
 from ..exec.join import BroadcastHashJoinExec, ShuffledHashJoinExec
 from ..exec.nested_loop_join import (BroadcastNestedLoopJoinExec,
@@ -71,7 +73,7 @@ from . import typechecks as ts
 from .cost import apply_cost_model, estimate_rows
 from .logical import (Aggregate, DeviceRelation, Expand, Filter, Generate,
                       Join, Limit, LocalRelation, LogicalPlan, Project,
-                      Sort, Union, Window)
+                      Range, Sample, Sort, Union, Window)
 from .meta import ExprMeta, PlanMeta
 from .transitions import CpuPhysical, DeviceToHostBridge, HostToDeviceExec
 
@@ -217,7 +219,7 @@ def _tag_aggregate_lambda(meta: ExprMeta) -> None:
 
 def _tag_explode(meta: ExprMeta) -> None:
     t = meta.expr.children[0].data_type(meta.schema)
-    if not isinstance(t, dt.ArrayType):
+    if not isinstance(t, (dt.ArrayType, dt.MapType)):
         meta.will_not_work_on_tpu(f"explode of {t} runs on the CPU engine")
 
 
@@ -248,6 +250,7 @@ def _concrete_expression_classes():
 
 def _register_expr_rules() -> None:
     from ..expr import arithmetic as A
+    from ..expr import bitwise as BW
     from ..expr import collections as CX
     from ..expr import hashing as H
     from ..expr import higher_order as HO
@@ -260,9 +263,20 @@ def _register_expr_rules() -> None:
         rules[cls] = ExprRule(cls, sig, extra)
 
     # mod / div on a DECIMAL(p>18) needs wider than 128-bit alignment
-    for cls in (A.IntegralDivide, A.Remainder, A.Pmod, H.Murmur3Hash,
-                H.XxHash64):
+    for cls in (A.IntegralDivide, A.Remainder, A.Pmod):
         rule(cls, NO_WIDE)
+    for cls in (BW.BitwiseAnd, BW.BitwiseOr, BW.BitwiseXor, BW.BitwiseNot,
+                BW.BitCount):
+        rule(cls, ts.integral + ts.TypeSig(ts.BOOLEAN))
+    for cls in (BW.ShiftLeft, BW.ShiftRight, BW.ShiftRightUnsigned,
+                BW.InterleaveBits):
+        rule(cls, ts.integral)
+    rule(H.BloomFilterMightContain,
+         ts.integral + ts.TypeSig(ts.DATE, ts.TIMESTAMP, ts.STRING))
+    # the sketch reads its values as doubles; exact percentile keeps no
+    # bounded state and runs on the CPU engine, as in the JAX planner
+    rule(Agg.ApproxPercentile, ts.numeric_no_decimal)
+    rule(Agg.Percentile, extra=_tag_cpu_only)
     # strings fold on the device (the JAX package sends them to its CPU
     # engine); a DECIMAL(p>18) does not
     for cls in (A.Least, A.Greatest):
@@ -390,6 +404,8 @@ _EXEC_RULES.update({
     Filter: ExecRule(Filter),
     Limit: ExecRule(Limit),
     Union: ExecRule(Union),
+    Range: ExecRule(Range),
+    Sample: ExecRule(Sample),
     Expand: ExecRule(Expand),
     Generate: ExecRule(Generate),
     Sort: ExecRule(Sort, _tag_sort),
@@ -484,23 +500,21 @@ def _build_device_exec(plan: LogicalPlan, children: List[TpuExec],
     if isinstance(plan, Join):
         return _build_join(plan, children, conf)
     if isinstance(plan, Union):
-        first = plan.children[0].schema
-        for c in plan.children[1:]:
-            for (name, a), (_, b) in zip(first, c.schema):
-                if (dt.is_decimal(a) or dt.is_decimal(b)) and a != b:
-                    # Spark widens the column to a common decimal; the
-                    # port's Union keeps its first child's types
-                    raise NotImplementedError(
-                        f"a UNION of {a} and {b} in column {name} is not in "
-                        "this port yet")
-        return UnionExec(*children)
+        # each child cast to the union's widened types
+        casts = [plan.child_casts(i) for i in range(len(children))]
+        return UnionExec(*[c if e is None else ProjectExec(c, e)
+                           for c, e in zip(children, casts)])
+    if isinstance(plan, Range):
+        return RangeExec(plan.start, plan.end, plan.step)
+    if isinstance(plan, Sample):
+        return SampleExec(children[0], plan.fraction, plan.seed)
     if isinstance(plan, Expand):
         return ExpandExec(children[0], plan.projections, plan.schema)
     if isinstance(plan, Window):
         return _build_window(plan, children[0], conf)
     if isinstance(plan, Generate):
         return GenerateExec(children[0], plan.generator, plan.element_name,
-                            plan.pos_name)
+                            plan.pos_name, plan.value_name)
     if isinstance(plan, Aggregate):
         partial = HashAggregateExec(children[0], plan.group_exprs,
                                     plan.agg_exprs, mode=PARTIAL)

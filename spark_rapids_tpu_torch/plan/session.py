@@ -1,8 +1,11 @@
 """Session and DataFrame API.
 
 Counterpart of spark_rapids_tpu/plan/session.py (TpuSession, DataFrame,
-GroupedData) for filter / select / with_column / group_by / agg /
-distinct / join / sort / limit / collect, window functions and explode
+GroupedData) for filter / select / with_column / group_by / agg (and
+the ``count`` / ``sum`` / ``min`` / ``max`` / ``avg`` shorthands) /
+distinct / join / sort / sort_desc / limit / sample / collect /
+to_pydict / to_pandas / count, ``TpuSession.range``, window functions
+and explode
 generators in select and with_column, nested columns (arrays, structs,
 maps) in ``create_dataframe``, the temp-view catalog and ``sql``, joins of every type
 (``join(how=...)``, ``cross_join``) and ``union``. The session runs on
@@ -14,7 +17,9 @@ Planning tags each node for the device or the CPU engine
 that engine's table, and with ``srt.sql.enabled=false`` the whole plan
 runs there. ``DataFrame.explain(mode)`` prints the marks (``*`` on the
 device, ``!`` on the CPU engine with the reasons) and the physical tree
-with its seams.
+with its seams; ``explain(metrics=True)`` runs the query and prints
+each operator with its metrics. Under ``srt.sql.ansi.enabled`` the plan
+runs with ANSI semantics (expr/ansi.py).
 
 Each query registers with the device budget for its run (a budget
 slice, and the owner its spillables are charged to), starts its
@@ -28,6 +33,7 @@ from __future__ import annotations
 
 import itertools
 import os
+import time
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -37,6 +43,7 @@ from ..columnar import dtypes as dt
 from ..conf import OOM_INJECTION_MODE, SrtConf
 from ..exec.base import ExecContext, TpuExec
 from ..memory.budget import device_budget, query_scope, task_context
+from ..expr.aggregates import Average, CountStar, Max, Min, Sum
 from ..expr.core import Alias, Expression, col, output_name
 from . import logical as L
 from .host_table import (HostTable, batch_to_table, concat_tables,
@@ -119,7 +126,7 @@ def _extract_generators(plan: L.LogicalPlan, exprs):
     (the analyzer step Spark performs for explode() in select; JAX
     session.py:493): at most one generator a projection. The element
     column takes the alias (``col`` without one), posexplode's position
-    ``pos``."""
+    ``pos``, a map's entries Spark's ``key`` and ``value``."""
     from ..expr.collections import Explode
     out_exprs = []
     gen_count = 0
@@ -136,7 +143,12 @@ def _extract_generators(plan: L.LogicalPlan, exprs):
         plan = L.Generate(plan, inner, f"__gen{i}", pos_name)
         if pos_name:
             out_exprs.append(Alias(col(pos_name), "pos"))
-        out_exprs.append(Alias(col(f"__gen{i}"), user))
+        if plan.value_name:
+            # a map's entries: Spark's key and value columns
+            out_exprs += [Alias(col(f"__gen{i}"), "key"),
+                          Alias(col(plan.value_name), "value")]
+        else:
+            out_exprs.append(Alias(col(f"__gen{i}"), user))
     return plan, out_exprs
 
 
@@ -182,6 +194,15 @@ class TpuSession:
                    for s in range(0, table.num_rows, per)]
         return self.from_batches(batches, table.schema())
 
+    def range(self, start: int, end: Optional[int] = None,
+              step: int = 1) -> "DataFrame":
+        """``id`` BIGINT from ``start`` to ``end`` (exclusive) by
+        ``step``; ``range(n)`` is ``range(0, n)``. The ids are made on
+        the device, batch by batch."""
+        if end is None:
+            start, end = 0, start
+        return DataFrame(self, L.Range(start, end, step))
+
     # --- SQL frontend (sql/parser.py) ---
     def create_or_replace_temp_view(self, name: str, df: "DataFrame"
                                     ) -> None:
@@ -203,7 +224,12 @@ class TpuSession:
 
     def execute(self, plan: L.LogicalPlan) -> HostTable:
         """Run a logical plan to a host table, as one query of the
-        device budget."""
+        device budget. Under ``srt.sql.ansi.enabled`` the plan is first
+        cloned with every Cast / arithmetic / SUM / AVG node ansi-marked
+        (expr/ansi.py), so overflow and invalid casts raise."""
+        if self.conf.ansi:
+            from ..expr.ansi import rewrite_plan
+            plan = rewrite_plan(plan)
         physical = apply_overrides(plan, self.conf)
         ctx = ExecContext(self.conf, self.device)
         self._last_execution = (physical, ctx)
@@ -308,6 +334,12 @@ class DataFrame:
     def limit(self, n: int) -> "DataFrame":
         return DataFrame(self.session, L.Limit(self.plan, n))
 
+    def sample(self, fraction: float, seed: int = 42) -> "DataFrame":
+        """A Bernoulli sample: a row is kept where murmur3 of its stream
+        position under ``seed`` falls below ``fraction * 2^32``, so the
+        same rows whatever the batch sizes (and the JAX package's)."""
+        return DataFrame(self.session, L.Sample(self.plan, fraction, seed))
+
     def distinct(self) -> "DataFrame":
         """Distinct rows: a grouping on every column with no aggregate
         (Spark's rewrite of Distinct)."""
@@ -320,6 +352,9 @@ class DataFrame:
             ascending = [ascending] * len(exprs)
         return DataFrame(self.session, L.Sort(
             self.plan, [L.SortField(e, a) for e, a in zip(exprs, ascending)]))
+
+    def sort_desc(self, *cols) -> "DataFrame":
+        return self.sort(*cols, ascending=False)
 
     @property
     def schema(self) -> List:
@@ -338,11 +373,31 @@ class DataFrame:
         data = to_pydict(table)
         return [{k: data[k][i] for k in data} for i in range(table.num_rows)]
 
-    def explain(self, mode: Optional[str] = None) -> str:
+    def to_pydict(self) -> dict:
+        """Run the query: {column: [values]}."""
+        return to_pydict(self.to_table())
+
+    def to_pandas(self):
+        """Run the query into a pandas DataFrame (pandas is imported
+        here, not by the package)."""
+        import pandas as pd
+        return pd.DataFrame(self.to_pydict())
+
+    def count(self) -> int:
+        """Run the query and count its rows."""
+        return self.to_table().num_rows
+
+    def explain(self, mode: Optional[str] = None,
+                metrics: bool = False) -> str:
         """The physical plan this DataFrame runs as; with ``mode``
         (``ALL`` or ``NOT_ON_TPU``, as ``srt.sql.explain``) first the
         tagging's marks: every node (``ALL``) or only those that run on
-        the CPU engine, with the reasons."""
+        the CPU engine, with the reasons. With ``metrics`` the query
+        runs first and each device operator is printed with its metrics
+        (``opTime`` and the other times in ms) and a footer with the
+        query's wall time and totals."""
+        if metrics:
+            return self._explain_metrics()
         out = apply_overrides(self.plan, self.session.conf).tree_string()
         if mode is not None:
             if mode not in ("ALL", "NOT_ON_TPU"):
@@ -353,9 +408,45 @@ class DataFrame:
         print(out)
         return out
 
+    def _explain_metrics(self) -> str:
+        t0 = time.perf_counter_ns()
+        self.to_table()
+        wall_ns = time.perf_counter_ns() - t0
+        physical, ctx = self.session._last_execution
+        body = _metrics_tree_lines(physical, ctx.metrics) \
+            if isinstance(physical, TpuExec) else \
+            [f"* {physical.node_description()} (CPU engine)"]
+        totals = ctx.metric_totals()
+        footer = (f"query: wall={wall_ns / 1e6:.1f}ms "
+                  f"opTime={totals.get('opTime', 0) / 1e6:.1f}ms "
+                  f"rows={totals.get('numOutputRows', 0)} "
+                  f"spilledBytes={ctx.memory.get('spilledBytes', 0)} "
+                  f"retries={ctx.memory.get('retryCount', 0)}")
+        out = "\n".join(body + [footer])
+        print(out)
+        return out
+
     def __repr__(self):
         cols = ", ".join(f"{n}: {t}" for n, t in self.plan.schema)
         return f"DataFrame[{cols}]"
+
+
+def _metrics_tree_lines(node, metrics, indent: int = 0) -> List[str]:
+    """The physical tree, each device operator with its metrics (the
+    reference's SQL-UI annotations); a CPU-engine node under a seam is
+    printed with its own children."""
+    line = "  " * indent + "* " + node.node_description()
+    parts = []
+    for name, met in sorted(metrics.get(getattr(node, "exec_id", None),
+                                        {}).items()):
+        parts.append(f"{name}={met.value / 1e6:.1f}ms" if met.unit == "ns"
+                     else f"{name}={met.value}{met.unit}")
+    if parts:
+        line += "  [" + ", ".join(parts) + "]"
+    lines = [line]
+    for c in getattr(node, "children", []):
+        lines.extend(_metrics_tree_lines(c, metrics, indent + 1))
+    return lines
 
 
 class GroupedData:
@@ -372,3 +463,24 @@ class GroupedData:
                 pairs.append((a, output_name(a, len(self.keys) + i)))
         return DataFrame(self.df.session,
                          L.Aggregate(self.df.plan, self.keys, pairs))
+
+    def count(self) -> DataFrame:
+        return self.agg(Alias(CountStar(), "count"))
+
+    def _simple(self, fn_cls, cols) -> DataFrame:
+        return self.agg(*[Alias(fn_cls(_to_expr(c)), f"{fn_cls.name}({c})")
+                          for c in cols])
+
+    def sum(self, *cols) -> DataFrame:
+        return self._simple(Sum, cols)
+
+    def min(self, *cols) -> DataFrame:
+        return self._simple(Min, cols)
+
+    def max(self, *cols) -> DataFrame:
+        return self._simple(Max, cols)
+
+    def avg(self, *cols) -> DataFrame:
+        return self._simple(Average, cols)
+
+    mean = avg

@@ -25,13 +25,15 @@ LIKE, ``date +/- INTERVAL n DAY|WEEK|MONTH|YEAR``, ``div``, ``%``,
 ``last``, and the DECIMAL(p, s) / NUMERIC(p, s) type in CAST (numeric
 literals keep the JAX parser's typing: ``0.05`` is DOUBLE, where Spark
 types it DECIMAL(2,2); ROADMAP.md C14). A function, clause or type the
-JAX package's analyzer lowers but this port does not have yet
-(INTERSECT / EXCEPT ALL as in the JAX package, and ``from_json`` /
-``to_json`` in ``_NOT_PORTED``) raises ``SqlError`` saying so, before any plan is
-built; so does a time zone or cast the port cannot run. What the
-planner sends to the CPU engine (a regex the device refuses, a
-DECIMAL(p>18) to or from STRING, stddev / variance over a window) is
-lowered as the JAX analyzer lowers it.
+JAX package's analyzer refuses (INTERSECT / EXCEPT ALL) raises
+``SqlError`` saying so, before any plan is built; so does a time zone
+or cast the port cannot run. What the planner sends to the CPU engine
+(a regex the device refuses, a DECIMAL(p>18) to or from STRING, stddev
+/ variance over a window, ``from_json`` / ``to_json``) is lowered as
+the JAX analyzer lowers it. The bitwise operators and functions, the
+percentiles, ``uuid``, ``raise_error``, ``version`` and
+``spark_partition_id`` are not in the JAX analyzer, so they stay in
+the DataFrame API here too.
 """
 
 from __future__ import annotations
@@ -62,10 +64,6 @@ from .lexer import Token, tokenize
 
 class SqlError(ValueError):
     pass
-
-
-def _not_ported(what: str) -> SqlError:
-    return SqlError(f"{what} is not in this port yet")
 
 
 # ---------------------------------------------------------------------------
@@ -943,11 +941,6 @@ _VARARG_FNS = {
 _TS_FIELD_FNS = frozenset({"hour", "minute", "second", "year", "month",
                            "day", "dayofmonth", "quarter", "dayofweek",
                            "dayofyear", "weekday", "last_day"})
-
-#: functions the JAX package's analyzer lowers that this port has not
-#: got yet
-_NOT_PORTED = frozenset({"from_json", "to_json"})
-
 
 class _Scope:
     """FROM-clause name resolution.
@@ -2185,8 +2178,6 @@ class Analyzer:
             # not run (stddev / variance, first / last, a string min /
             # max) to the CPU engine
             func = self._lower_fn(fn, scope)
-        elif name in _NOT_PORTED:
-            raise _not_ported(f"function {name!r}")
         else:
             raise SqlError(f"unsupported window function {name!r}")
         spec = W.WindowSpec(
@@ -2202,8 +2193,6 @@ class Analyzer:
 
     def _lower_fn(self, ast: FnA, scope) -> Expression:
         name = ast.name
-        if name in _NOT_PORTED:
-            raise _not_ported(f"function {name!r}")
         if name == "grouping":
             if len(ast.args) != 1:
                 raise SqlError("GROUPING takes one argument")
@@ -2262,7 +2251,37 @@ class Analyzer:
                     args[0], self._lit_value(ast.args[1], "JSON path"))
             except TypeError as e:
                 raise SqlError(f"get_json_object: {e}") from None
+        if name == "from_json":
+            from ..expr import json as JX
+            self._arity(ast, 2)
+            return JX.JsonToStructs(args[0], self._struct_schema(
+                self._lit_value(ast.args[1], "schema")))
+        if name == "to_json":
+            from ..expr import json as JX
+            self._arity(ast, 1)
+            return JX.StructsToJson(args[0])
         return self._lower_scalar_fn(ast, args)
+
+    @staticmethod
+    def _struct_schema(text: str) -> dt.StructType:
+        """A from_json schema, ``'a INT, b DECIMAL(10,2)'``, as the JAX
+        analyzer reads it: fields split on the commas outside
+        parentheses, each ``name type``."""
+        parts, depth, cur = [], 0, []
+        for ch in text:
+            depth += (ch == "(") - (ch == ")")
+            if ch == "," and depth == 0:
+                parts.append("".join(cur))
+                cur = []
+            else:
+                cur.append(ch)
+        if cur:
+            parts.append("".join(cur))
+        fields = []
+        for part in parts:
+            fname, _, ftype = part.strip().partition(" ")
+            fields.append((fname, Parser(ftype.strip()).parse_type()))
+        return dt.StructType(tuple(fields))
 
     def _session_wall_clock(self, arg: Expression, scope) -> Expression:
         """A timestamp argument of a field function moved to the session

@@ -689,11 +689,15 @@ def test_cpu_fallback_cases_run(port, jax_side, text):
 
 
 def test_union_of_two_decimal_types_raises(port):
-    """Spark widens a UNION column of two decimal types; the port's
-    Union keeps its first child's types, so it refuses rather than meet
-    two scales' unscaled lanes as they are."""
-    with pytest.raises(NotImplementedError, match="UNION of decimal"):
-        port.sql("SELECT a FROM t UNION ALL SELECT b FROM t").collect()
+    """Spark widens a UNION column of two decimal types (the name is kept
+    from when the port refused it): DECIMAL(7,2) and DECIMAL(12,4) meet
+    at DECIMAL(12,4), each side cast before the union, against Python's
+    decimal."""
+    df = port.sql("SELECT a FROM t UNION ALL SELECT b FROM t")
+    assert dict(df.schema)["a"] == dt.DecimalType(12, 4)
+    data = _table()
+    assert [r["a"] for r in df.collect()] == [
+        _py(v, 4) for v in data["a"] + data["b"]]
     rows = port.sql("SELECT a FROM t UNION ALL SELECT a FROM t").collect()
     assert [r["a"] for r in rows] == _table()["a"] * 2
 

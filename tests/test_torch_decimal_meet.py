@@ -221,3 +221,62 @@ def test_c16_left_anti_join(port, jax_session):
         jax_session.table("t").join(
             jax_session.table("u"), on=([jcol("k72")], [jcol("k103")]),
             how="anti").collect()
+
+
+UNIONS = {
+    # DECIMAL(7,2) and DECIMAL(10,3) meet at DECIMAL(10,3)
+    "union_all": ("SELECT k72 AS v FROM t UNION ALL SELECT k103 FROM u",
+                  dt.DecimalType(10, 3),
+                  lambda: [r["k72"] for r in _rows("t")] +
+                  [r["k103"] for r in _rows("u")]),
+    # DECIMAL(18,0) (64-bit lane) and DECIMAL(10,3) meet at DECIMAL(21,3)
+    # (two limbs)
+    "union_all_wide": ("SELECT x AS v FROM t UNION ALL SELECT k103 FROM u",
+                       dt.DecimalType(21, 3),
+                       lambda: [r["x"] for r in _rows("t")] +
+                       [r["k103"] for r in _rows("u")]),
+    "union": ("SELECT k72 AS v FROM t UNION SELECT k103 FROM u",
+              dt.DecimalType(10, 3),
+              lambda: list({_norm(v) for v in [r["k72"] for r in _rows("t")]
+                            + [r["k103"] for r in _rows("u")]})),
+    "intersect": ("SELECT k72 AS v FROM t INTERSECT SELECT k103 FROM u",
+                  dt.DecimalType(10, 3),
+                  lambda: list({_norm(r["k72"]) for r in _rows("t")} &
+                               {_norm(r["k103"]) for r in _rows("u")})),
+    "except": ("SELECT k72 AS v FROM t EXCEPT SELECT k103 FROM u",
+               dt.DecimalType(10, 3),
+               lambda: list({_norm(r["k72"]) for r in _rows("t")} -
+                            {_norm(r["k103"]) for r in _rows("u")})),
+    "int_and_decimal": ("SELECT i AS v FROM t UNION ALL SELECT k103 FROM u",
+                        dt.DecimalType(13, 3),
+                        lambda: [r["i"] for r in _rows("t")] +
+                        [r["k103"] for r in _rows("u")]),
+}
+
+
+def _norm(v):
+    return None if v is None else D(v).normalize(CTX)
+
+
+@pytest.mark.parametrize("case", list(UNIONS))
+def test_decimal_union_widens(port, jax_session, case):
+    """A UNION of two decimal types widens to Spark's wider decimal
+    (the larger scale and integral digits, at most 38), each side cast
+    before the union; INTERSECT and EXCEPT meet at that type too. The
+    port's rows equal plain Python; the JAX package keeps the first
+    side's type and reads the second side's unscaled values at it."""
+    text, typ, want = UNIONS[case]
+    df = port.sql(text)
+    assert dict(df.schema)["v"] == typ
+    got = sorted((_norm(r["v"]) for r in df.collect()),
+                 key=lambda v: (v is not None, v or 0))
+    assert got == sorted((_norm(v) for v in want()),
+                         key=lambda v: (v is not None, v or 0))
+    if case == "union_all":
+        with decimal.localcontext() as c:
+            c.prec = 80
+            jdf = jax_session.sql(text)
+            assert str(dict(jdf.schema)["v"]) == \
+                "DecimalType(precision=7, scale=2)"
+            # u's 3.105 (unscaled 3105) read at scale 2
+            assert D("31.05") in [r["v"] for r in jdf.collect()]

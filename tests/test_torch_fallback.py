@@ -47,6 +47,7 @@ from spark_rapids_tpu_torch.expr import hashing as H
 from spark_rapids_tpu_torch.expr import higher_order as HO
 from spark_rapids_tpu_torch.expr import json as JX
 from spark_rapids_tpu_torch.expr import mathfns as M
+from spark_rapids_tpu_torch.expr import misc as MX
 from spark_rapids_tpu_torch.expr import predicates as P
 from spark_rapids_tpu_torch.expr import regex as RX
 from spark_rapids_tpu_torch.expr import strings as S
@@ -163,6 +164,25 @@ def _map_lambda(cls, child, fn):
 
 
 _M = HO.create_map(col("k"), col("f"), lit(70), col("i"))
+
+
+def _ansi(expr):
+    from spark_rapids_tpu_torch.expr.ansi import enable_ansi
+    return enable_ansi(expr)
+
+
+def _bloom_bits():
+    """A filter over the even ``l`` values, built by ops/bloom.py."""
+    from spark_rapids_tpu_torch.columnar.vector import ColumnVector
+    from spark_rapids_tpu_torch.ops import bloom as B
+    keys = torch.tensor([v for v in _table_data()["l"][::2] if v is not None],
+                        dtype=torch.int64)
+    ones = torch.ones(len(keys), dtype=torch.bool)
+    return B.build_bloom([ColumnVector(keys, ones, dt.INT64)], ones,
+                         B.choose_num_bits(len(keys)))
+
+
+_BLOOM = _bloom_bits()
 _UNARY_MATH = ["Acos", "Acosh", "Asin", "Asinh", "Atan", "Atanh", "Cbrt",
                "Cos", "Cosh", "Exp", "Expm1", "Log", "Log10", "Log1p",
                "Log2", "Rint", "Signum", "Sin", "Sinh", "Sqrt", "Tan",
@@ -196,6 +216,41 @@ EVAL_CASES = {
     "least_decimal": lambda: A.Least(col("n"), lit(2)),
     "bitwise_and": lambda: BW.BitwiseAnd(col("l"), lit(255)),
     "shift_right": lambda: BW.ShiftRight(col("i"), col("pos")),
+    "bitwise_or": lambda: BW.BitwiseOr(col("l"), col("i")),
+    "bitwise_xor": lambda: BW.BitwiseXor(col("i"), col("pos")),
+    "bitwise_not": lambda: BW.BitwiseNot(col("l")),
+    "shift_left": lambda: BW.ShiftLeft(col("l"), col("pos")),
+    "shift_right_unsigned": lambda: BW.ShiftRightUnsigned(col("i"),
+                                                          col("pos")),
+    "bit_count": lambda: BW.BitCount(col("l")),
+    "bit_count_bool": lambda: BW.BitCount(col("b")),
+    "interleave_bits": lambda: BW.InterleaveBits(col("i"), col("l"),
+                                                 col("pos")),
+    # ANSI lanes on rows that do not raise, and guards a conditional
+    # keeps from the rows that would
+    "ansi_add": lambda: _ansi(A.Add(col("k"), col("pos"))),
+    "ansi_divide_guarded": lambda: _ansi(Cond.If(
+        P.Not(P.EqualTo(col("pos"), lit(0))),
+        A.IntegralDivide(col("k"), col("pos")), lit(-1))),
+    "ansi_case_cast": lambda: _ansi(Cond.CaseWhen(
+        [(P.EqualTo(col("s"), lit("12")), Cast(col("s"), dt.INT32))],
+        lit(0))),
+    "ansi_and": lambda: _ansi(P.And(
+        P.GreaterThan(col("pos"), lit(0)),
+        P.GreaterThan(A.Remainder(col("i"), col("pos")), lit(1)))),
+    "ansi_coalesce": lambda: _ansi(Cond.Coalesce(
+        col("pos"), A.IntegralDivide(col("l"), lit(0)))),
+    "ansi_decimal_cast": lambda: _ansi(Cast(col("n"),
+                                            dt.DecimalType(20, 1))),
+    # misc
+    "spark_partition_id": lambda: MX.SparkPartitionID(),
+    "uuid": lambda: MX.Uuid(seed=7),
+    "version": lambda: MX.Version(),
+    "raise_error_unreached": lambda: Cond.If(
+        P.GreaterThan(col("k"), lit(100)), MX.RaiseError("boom"), col("s")),
+    "might_contain": lambda: H.BloomFilterMightContain(col("l"), _BLOOM),
+    "hash_wide_decimal": lambda: H.Murmur3Hash(col("w"), col("i")),
+    "xxhash64_wide_decimal": lambda: H.XxHash64(col("w")),
     # casts
     "cast_int_string": lambda: Cast(col("i"), dt.STRING),
     "cast_float_string": lambda: Cast(col("f"), dt.STRING),

@@ -10,9 +10,9 @@ tests/torch_nested_jax.py), exactly: the port keeps the JAX envelope
 (a nested result is the raw span, ``\\uXXXX`` undecoded; ROADMAP C17).
 Long documents, past the JAX pad widths, are held against Python's
 ``json``. ``get_json_object`` runs through ``session.sql``; a wildcard
-path raises ``SqlError``. ``from_json`` / ``to_json`` are not in the
-port's SQL yet; through the DataFrame API they run on the CPU engine,
-against the JAX package's.
+path raises ``SqlError``. ``from_json`` / ``to_json`` run on the CPU
+engine through the DataFrame API and in SQL, against the JAX
+package's.
 """
 
 import json
@@ -117,15 +117,11 @@ def test_unsupported_paths_raise(session, path):
 
 @pytest.mark.parametrize("fn", ["from_json", "to_json"])
 def test_json_functions_wait_for_the_cpu_fallback(session, fn):
-    """Not in the port's SQL yet; through the DataFrame API the planner
-    sends them to the CPU engine (the name is kept from when the port
-    refused them), against the JAX package's rows."""
+    """Through the DataFrame API and in SQL the planner sends them to
+    the CPU engine (the name is kept from when the port refused them),
+    against the JAX package's rows."""
     df = session.create_dataframe({"s": ['{"a": 1}']}, [("s", dt.STRING)])
     session.create_or_replace_temp_view("one", df)
-    text = {"from_json": "SELECT from_json(s, 'a INT') FROM one",
-            "to_json": "SELECT to_json(s) FROM one"}[fn]
-    with pytest.raises(SqlError, match="not in this port yet"):
-        session.sql(text)
     docs = ['{"a": 1}', '{"a": "x"}', 'not json', None, '{"b": 2}',
             '{"a": 2147483648}', '[1]', '{"a": -7, "a2": [1]}']
     rows = _json_fn_rows(session, fn, docs, dt, JsonToStructs,
@@ -140,6 +136,14 @@ def test_json_functions_wait_for_the_cpu_fallback(session, fn):
         from spark_rapids_tpu.plan.session import TpuSession as JSession
         want = _json_fn_rows(None, fn, docs, jdt, JTS, JSJ, JSession)
     assert [r["r"] for r in rows] == [r["r"] for r in want]
+    # in SQL, lowered as the JAX analyzer lowers them
+    session.create_or_replace_temp_view("docs", session.create_dataframe(
+        {"s": docs}, [("s", dt.STRING)]))
+    text = {"from_json": "SELECT from_json(s, 'a INT') AS r FROM docs",
+            "to_json": "SELECT to_json(from_json(s, 'a INT')) AS r "
+                       "FROM docs"}[fn]
+    assert [r["r"] for r in session.sql(text).collect()] == \
+        [r["r"] for r in want]
     if fn == "from_json":
         assert [r["r"] for r in rows][:3] == [{"a": 1}, {"a": None}, None]
 

@@ -336,12 +336,12 @@ def _spark_order(v):
 def test_nested_keys_raise_at_planning(what, data, port_df):
     """A nested GROUP BY, ORDER BY or join key runs on the CPU engine
     (the name is kept from when the port refused them), against plain
-    Python. explode of a map still raises: Spark gives a key and a value
-    column, the port's Generate has one element column, and the JAX CPU
-    engine explodes a map into its keys alone."""
+    Python. explode of a map (refused here until it gave Spark's key and
+    value columns) runs on the device, against plain Python."""
     if what == "explode_map":
-        with pytest.raises(NotImplementedError, match="not in this port"):
-            port_df.select(CX.explode(HO.create_map(lit(1), col("x"))))
+        got = port_df.select(CX.explode(HO.create_map(lit(1), col("x")))) \
+            .collect()
+        assert got == [{"key": 1, "value": x} for x in data["x"]]
         return
     if what == "group_by":
         df = port_df.group_by(col("a")).agg()
@@ -362,6 +362,49 @@ def test_nested_keys_raise_at_planning(what, data, port_df):
     assert any(line.lstrip().startswith("!")
                for line in df.explain("NOT_ON_TPU").splitlines())
     assert got == want
+
+
+MAPS = [{"a": 1, "b": None}, {}, None, {"z": 9, "y": -2, "x": 0},
+        {"q": 7}]
+
+
+@pytest.mark.parametrize("kind", ["explode", "posexplode", "explode_outer"])
+@pytest.mark.parametrize("sql_enabled", [True, False])
+def test_explode_of_a_map(kind, sql_enabled):
+    """Spark's ``key`` and ``value`` columns (and ``pos``), on the device
+    and on the CPU engine, against plain Python; NULL and empty maps
+    give a row of NULLs under ``explode_outer``. The JAX package's
+    DataFrame refuses a map (its CPU engine explodes the keys alone,
+    ROADMAP C19)."""
+    s = TpuSession(SrtConf({"srt.sql.enabled": sql_enabled,
+                            "srt.sql.batchSizeRows": 2}), device="cpu")
+    df = s.create_dataframe({"id": list(range(len(MAPS))), "m": MAPS},
+                            [("id", dt.INT64),
+                             ("m", dt.MapType(dt.STRING, dt.INT64))])
+    got = df.select(col("id"), getattr(CX, kind)(col("m"))).collect()
+    want = []
+    for i, m in enumerate(MAPS):
+        if not m:
+            if kind == "explode_outer":
+                want.append({"id": i, "key": None, "value": None})
+            continue
+        for p, (k, v) in enumerate(m.items()):
+            row = {"id": i}
+            if kind == "posexplode":
+                row["pos"] = p
+            want.append({**row, "key": k, "value": v})
+    assert got == want
+    with pytest.MonkeyPatch.context() as mp:
+        from jax_reference import patch_jax_compiles
+        patch_jax_compiles(mp)
+        from spark_rapids_tpu.columnar import dtypes as jdt
+        from spark_rapids_tpu.expr import col as jcol
+        from spark_rapids_tpu.expr import explode as jexplode
+        from spark_rapids_tpu.plan.session import TpuSession as JSession
+        jdf = JSession().create_dataframe(
+            {"m": MAPS}, [("m", jdt.MapType(jdt.STRING, jdt.INT64))])
+        with pytest.raises(TypeError, match="expected array input"):
+            jdf.select(jexplode(jcol("m")))
 
 
 # --- the slice as a whole ----------------------------------------------------
