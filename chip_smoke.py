@@ -35,6 +35,32 @@ Needs one NVIDIA GPU (built for an H100: sm_90a), nvcc and triton. It
    computation over the same host data (``tpch_references``, in a
    ``host_worker`` process); for q3 it also logs each
    operator's self time;
+5g. runs the Parquet scan and writer without the Arrow library (``scan_phase``,
+   after q3, before the scalar phase; the host library built with g++ on
+   a host thread since the smoke began): G1 writes the resident TPC-H
+   tables' host lanes as tpch_tables' files (262,144 rows, snappy: 229
+   lineitem, 58 orders, 6 customer files) on 8 writer threads into a
+   fresh directory under the temporary directory or chiprun_out/,
+   whichever has more free space, after checking it holds twice the
+   lanes' bytes; G2 runs q6, q1 and q3 through ``tpch_tables`` under the
+   COALESCING and the MULTITHREADED reader (a first run with every B1 /
+   B3 launch held and a warm run; walls, the scan's share, upload and
+   decode numbers) and the two string aggregates (B2) under COALESCING,
+   each equal to numpy and to the resident tables' rows; G3 writes
+   4,194,304 rows of every flat type (about 10% NULL; NaN, +-inf, -0.0,
+   empty and multi-byte strings, dates and timestamps before 1582,
+   DECIMAL(12,2) and DECIMAL(24,4)) under each codec the build has and
+   reads them back bit-equal by the host decode (``types_worker``, a
+   process of its own started with the smoke), and 1,048,576 rows of
+   the same types through the card, and dates / timestamps under LEGACY;
+   G4 writes orders
+   partitioned by o_orderpriority and reads '1-URGENT' (partitionsPruned
+   4) against numpy, and counts rows per file with input_file_name()
+   against each footer; G5 reads the same files through the CPU
+   engine's FileScan; G6 truncates and deletes a lineitem file: each
+   raises naming it, and is skipped under ignoreCorruptFiles /
+   ignoreMissingFiles, the counts equal numpy over the files left; the
+   directory is removed at the end;
 5b. runs the scalar expression library (``scalar_queries``: string
    functions, LIKE and regexes, date fields and date arithmetic, a time
    zone (America/Los_Angeles, or +08:00 where the machine has no tz
@@ -127,7 +153,7 @@ Needs one NVIDIA GPU (built for an H100: sm_90a), nvcc and triton. It
    F1-F5 of models/fallback.py, each sending one operator to the CPU
    engine for a reason its ``explain("NOT_ON_TPU")`` states (checked
    against ``CPU_NODES``), and F6, TPC-H q6 and q1 with
-   ``srt.sql.enabled=false`` over lineitem's first 6,000,000 rows; a
+   ``srt.sql.enabled=false`` over lineitem's first 3,000,000 rows; a
    first run with every B1 / B3 launch held (B1 under F2, B3 under F1
    and F4, above a HostToDevice seam) and one warm run, against numpy,
    ``re`` and ``decimal`` references from a ``host_worker`` process
@@ -140,8 +166,8 @@ Needs one NVIDIA GPU (built for an H100: sm_90a), nvcc and triton. It
    without the JOIN that no row passes): q93, q97, q90, q28, q38, q87,
    q71, q33 and ``Q93_OUTER`` a first and one warm run each held
    against ``NdsNumpy``,
-   the other ten a first and one warm run, held against their first run
-   and, at
+   the other ten a first run (no warm run since phase 5g came: the
+   smoke's time), and, at
    ``scale_rows`` 100,000, the card's rows against the port's own CPU
    run (the plain versions, which the CPU tests hold against the JAX
    package: this checks the CUDA path, not the semantics); B1 held
@@ -155,8 +181,8 @@ Needs one NVIDIA GPU (built for an H100: sm_90a), nvcc and triton. It
    q10, q69, q45, q27, q36, q17, q2 and ``Q10_OR`` a first and one
    warm run each held against ``NdsNumpy`` (q17 on its own tables at
    ``NDS_Q17_ROWS``, as its join grows with the cube of the scale), the
-   others a first and one warm run, held against their first run and,
-   at 100,000 rows, the card's rows
+   others a first run (no warm run, as in 6b) and, at 100,000 rows,
+   the card's rows
    against the port's CPU run (q67 against the CPU's ROLLUP sums
    ``Q67_ROLLUP`` with ties left open, as B3 rounds a sum in another
    order than its plain version, and its RANK breaks exact ties of
@@ -186,7 +212,7 @@ Needs one NVIDIA GPU (built for an H100: sm_90a), nvcc and triton. It
    the uncapped run's, spill, retry or split counted, the peak at or
    under the cap; (c) TPC-H q1 (B3), q6 (B1), the lineitem string
    aggregate (B1 with B2) and NDS q3 with a RetryOOM and then a
-   SplitAndRetryOOM injected at four allocation attempts spread over the
+   SplitAndRetryOOM injected at two allocation attempts spread over the
    clean run's: each run equal to the clean one, each injection reaching
    a retry or a split, every B1 / B3 launch held against its plain
    version on the same inputs, one more launch per split; (d) the rate
@@ -241,14 +267,18 @@ NDS_FACTS = ("store_sales", "store_returns", "catalog_sales", "web_sales",
              "inventory")
 #: warm runs of each NDS query that numpy holds, and of each query of
 #: phases 6b and 6c held against its own first run: each warm run is
-#: held against the rows and launch counts of the first
+#: held against the rows and launch counts of the first. The 34 of 6b
+#: and 6c take none: their warm runs were 135 s of a smoke that has to
+#: fit phase 5g in its time (their first runs are still held, and
+#: checked against the CPU at JOINS_CROSS_ROWS)
 WARM_RUNS = 1
-JOINS_WARM_RUNS = 1
+JOINS_WARM_RUNS = 0
 #: the NDS_JOINS_SETOPS queries held against NdsNumpy at SF10, one or
 #: more per new operator; the other ten are held, at JOINS_CROSS_ROWS,
-#: against the port's own run with device="cpu"
+#: against the port's own run with device="cpu" (at 100,000 rows: the
+#: CPU engine's runs of q4, q11, q74 and q14 took 39 s at 200,000)
 JOINS_NUMPY = ("q93", "q97", "q90", "q28", "q38", "q87", "q71", "q33")
-JOINS_CROSS_ROWS = 200_000
+JOINS_CROSS_ROWS = 100_000
 #: the phase-6c queries held against NdsNumpy, one per mechanism: a
 #: correlated scalar subquery (q6), EXISTS / NOT EXISTS with a residual
 #: and COUNT(DISTINCT) (q94), EXISTS under OR (q10, and Q10_OR below),
@@ -2003,6 +2033,22 @@ class NdsNumpy:
         return out[:100]
 
 
+def same_rows(got, ref):
+    """Rows equal, floats within RTOL."""
+    if len(got) != len(ref):
+        return False
+    for g, r in zip(got, ref):
+        if g.keys() != r.keys():
+            return False
+        for k, v in r.items():
+            if isinstance(v, float):
+                if not abs(g[k] - v) <= RTOL * abs(v):
+                    return False
+            elif g[k] != v:
+                return False
+    return True
+
+
 def check_held(hold, counts, label):
     """Every B1 / B3 launch the counters saw went through ``hold``
     (``holding_launches``): held against the plain version on its own
@@ -2065,17 +2111,18 @@ class references_ahead:
 
 
 class HostWorker:
-    """``host_worker(conn, *args)`` in a second process, spawned (it
-    shares no CUDA state and no interpreter lock with the smoke): it
-    sends its results one by one, and ``get(key)`` waits for one. A daemon, so that the
-    interpreter's exit stops it if ``close`` is never reached."""
+    """``target(conn, *args)`` (``host_worker`` unless named) in a second
+    process, spawned (it shares no CUDA state and no interpreter lock
+    with the smoke): it sends its results one by one, and ``get(key)``
+    waits for one. A daemon, so that the interpreter's exit stops it if
+    ``close`` is never reached."""
 
-    def __init__(self, *args):
+    def __init__(self, *args, target=None):
         import multiprocessing
         ctx = multiprocessing.get_context("spawn")
         self.conn, child = ctx.Pipe(duplex=False)
-        self.proc = ctx.Process(target=host_worker, args=(child, *args),
-                                daemon=True)
+        self.proc = ctx.Process(target=target or host_worker,
+                                args=(child, *args), daemon=True)
         self.proc.start()
         child.close()
         self.got = {}
@@ -2785,7 +2832,8 @@ IN_CORE_ROW_BUDGET = 1 << 30
 CAPPED_QUERIES = ("window_a", "q6", "q82")
 CAP_SHARE = 0.75
 #: injected OOMs per query and mode, spread over its allocation attempts
-INJECTIONS = 4
+#: (two: each is a whole run of the query)
+INJECTIONS = 2
 SPILL_TEST_BYTES = 1 << 30
 
 
@@ -4314,9 +4362,9 @@ def profiled(torch, label, run):
 # --- phase 5e: mixed device / CPU-engine plans ----------------------------
 
 #: F6: TPC-H q6 and q1 with srt.sql.enabled=false over lineitem's first
-#: 6,000,000 rows (SF1's count; the CPU engine's Python loops would take
-#: minutes over all 60M)
-FALLBACK_F6_ROWS = 6_000_000
+#: 3,000,000 rows (half SF1's count; the CPU engine's Python loops would
+#: take minutes over all 60M)
+FALLBACK_F6_ROWS = 3_000_000
 
 
 def _f6_reference(np, li, n):
@@ -4489,7 +4537,7 @@ def fallback_phase(torch, np, dev, sessions, li_batches, read_counts,
     from spark_rapids_tpu_torch.ops import device_kernels as DK
     from spark_rapids_tpu_torch.plan.session import TpuSession
     from spark_rapids_tpu_torch.testing import compare_rows
-    # F6: a session with the device turned off over the first 6M rows
+    # F6: a session with the device turned off over the first 3M rows
     per = BATCH_ROWS
     cut = []
     for b in li_batches:
@@ -5439,6 +5487,638 @@ def surface_phase(torch, np, dev, session, batches, host, dec_session,
     return report
 
 
+#: phase 5g: the TPC-H tables as Parquet files of tpch_tables' chunk
+#: (262,144 rows: 229 lineitem files), written by a pool of writers;
+#: G3's every-type table; G6's files
+SCAN_FILE_ROWS = 1 << 18
+SCAN_WRITERS = 8
+SCAN_TYPES_ROWS = 1 << 22
+SCAN_READERS = ("COALESCING", "MULTITHREADED")
+#: the ten proleptic days before 1582-10-15 that the Julian calendar
+#: skips: a LEGACY write and read does not bring them back (Spark's
+#: rebase), so G3's LEGACY table leaves them out
+JULIAN_GAP = (-141437, -141427)
+
+
+def scan_root(np):
+    """A fresh directory for phase 5g's files: under the temporary
+    directory or the repo's chiprun_out/, whichever has more free
+    space. Returns (path, its free bytes)."""
+    import shutil
+    import tempfile
+    here = os.path.dirname(os.path.abspath(__file__))
+    free = {}
+    for base in (tempfile.gettempdir(), os.path.join(here, "chiprun_out")):
+        os.makedirs(base, exist_ok=True)
+        free[base] = shutil.disk_usage(base).free
+    base = max(free, key=free.get)
+    root = os.path.join(base, f"srt_scan_{os.getpid()}")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    return root, free[base]
+
+
+def tpch_file_tables(np, host):
+    """The resident TPC-H tables' host lanes cut into files of
+    SCAN_FILE_ROWS rows, in tpch_tables' layout: {table: [(file name,
+    HostTable)]}, the tables views of the lanes (o_shippriority, the
+    spec's one-choice 0, made here)."""
+    from spark_rapids_tpu_torch.columnar.vector import HostStrings
+    from spark_rapids_tpu_torch.models import tpch
+    from spark_rapids_tpu_torch.plan.host_table import HostColumn, HostTable
+    out = {}
+    for spec in tpch.tpch_table_specs(ROWS):
+        lanes = host[spec.name]
+        by_col = {c: k for k, c in {**HOST_COLS[spec.name],
+                                    **HOST_STRS[spec.name]}.items()}
+        files = []
+        for i, start in enumerate(range(0, spec.num_rows, SCAN_FILE_ROWS)):
+            stop = min(start + SCAN_FILE_ROWS, spec.num_rows)
+            cols = []
+            for c in spec.columns:
+                if c.name in by_col:
+                    v = lanes[by_col[c.name]]
+                    v = HostStrings(v.offsets[start:stop + 1], v.chars) \
+                        if isinstance(v, HostStrings) else v[start:stop]
+                else:
+                    v = np.zeros(stop - start, c.dtype.np_physical)
+                cols.append(HostColumn(v, np.ones(stop - start, bool),
+                                       c.dtype))
+            files.append((f"{spec.name}-{i:05d}.parquet",
+                          HostTable(cols, [c.name for c in spec.columns])))
+        out[spec.name] = files
+    return out
+
+
+def raw_bytes(table):
+    """A host table's lane bytes as PLAIN pages hold them (a string's
+    4-byte length included)."""
+    from spark_rapids_tpu_torch.columnar.vector import HostStrings
+    total = 0
+    for c in table.columns:
+        v = c.values
+        if isinstance(v, HostStrings):
+            total += int(v.offsets[-1] - v.offsets[0]) + 4 * len(v)
+        elif v.dtype == object:
+            total += 16 * len(v)
+        else:
+            total += v.nbytes
+    return total
+
+
+def write_files(jobs, options):
+    """[(path, HostTable)] written by SCAN_WRITERS threads: (bytes, wall
+    s, thread s summed)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from spark_rapids_tpu_torch.io.writer import write_file
+
+    def one(job):
+        t = time.perf_counter()
+        n = write_file(job[1], job[0], options)
+        return n, time.perf_counter() - t
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(SCAN_WRITERS) as pool:
+        done = list(pool.map(one, jobs))
+    return (sum(n for n, _ in done), time.perf_counter() - t0,
+            sum(s for _, s in done))
+
+
+def scan_metrics(session):
+    """The last query's scan numbers: its metric totals and the scan
+    nodes' inclusive host time (opTime), in s."""
+    physical, ctx = session._last_execution
+    totals = ctx.metric_totals()
+    op = sum(m["opTime"].value for k, m in ctx.metrics.items()
+             if k.startswith("FileSourceScanExec"))
+    return totals, op / 1e9
+
+
+def types_table(np, n, seed=14):
+    """G3's table: every flat type, about 10% NULL in each column; NaN,
+    +-inf and -0.0 in the floats, empty and multi-byte strings, dates
+    and timestamps before 1582 (outside JULIAN_GAP), DECIMAL(12,2) and
+    DECIMAL(24,4) to their extremes."""
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.datagen import ColumnSpec, _choice_strings
+    from spark_rapids_tpu_torch.plan.host_table import HostColumn, HostTable
+    rng = np.random.default_rng(seed)
+    f64 = rng.standard_normal(n) * 1e6
+    f64[rng.integers(0, n, n // 50)] = np.nan
+    f64[:5] = [np.inf, -np.inf, -0.0, 0.0, 5e-324]
+    f32 = (rng.standard_normal(n) * 1e3).astype(np.float32)
+    f32[rng.integers(0, n, n // 50)] = np.nan
+    f32[:4] = [np.inf, -np.inf, -0.0, 1e-45]
+    words = ["", "a", "héllo", "日本語テキスト", "emoji \U0001F600", "x" * 200,
+             "tab\tand\nnewline", "URGENT", "1-URGENT"]
+    masks = [rng.random(n) >= 0.1 for _ in range(12)]
+    # a NULL string's slot holds no bytes, as the decoder gives it back
+    strs = _choice_strings(ColumnSpec("s", dt.STRING, "choice",
+                                      choices=words),
+                           np.where(masks[7], rng.integers(0, len(words), n),
+                                    0))
+    day = rng.integers(-250_000, 40_000, n)
+    gap = (day >= JULIAN_GAP[0]) & (day < JULIAN_GAP[1])
+    day = np.where(gap, JULIAN_GAP[1], day).astype(np.int32)
+    us = day.astype(np.int64) * 86_400_000_000 + rng.integers(
+        0, 86_400_000_000, n)
+    wide = (rng.integers(-10 ** 12 + 1, 10 ** 12, n).astype(object)
+            * 10 ** 12 + rng.integers(0, 10 ** 12, n).astype(object))
+    wide[:2] = [10 ** 24 - 1, -(10 ** 24 - 1)]
+    lanes = [("b", dt.BOOL, rng.random(n) < 0.5),
+             ("i8", dt.INT8, rng.integers(-128, 128, n).astype(np.int8)),
+             ("i16", dt.INT16,
+              rng.integers(-2 ** 15, 2 ** 15, n).astype(np.int16)),
+             ("i32", dt.INT32,
+              rng.integers(-2 ** 31, 2 ** 31, n).astype(np.int32)),
+             ("i64", dt.INT64, rng.integers(-2 ** 63, 2 ** 63 - 1, n)),
+             ("f32", dt.FLOAT32, f32), ("f64", dt.FLOAT64, f64),
+             ("s", dt.STRING, strs), ("d", dt.DATE, day),
+             ("ts", dt.TIMESTAMP, us),
+             ("m", dt.DecimalType(12, 2),
+              rng.integers(-10 ** 12 + 1, 10 ** 12, n)),
+             ("w", dt.DecimalType(24, 4), wide)]
+    cols = []
+    for (name, t, v), mask in zip(lanes, masks):
+        if not isinstance(v, np.ndarray) or v.dtype == object:
+            cols.append(HostColumn(v, mask, t))   # strings, wide decimals
+        else:
+            cols.append(HostColumn(np.where(mask, v, np.zeros(1, v.dtype)),
+                                   mask, t))
+    return HostTable(cols, [n for n, _, _ in lanes])
+
+
+def same_bits(np, got, want, label):
+    """Two host tables equal bit for bit where valid (floats by their
+    bits, strings by their bytes), with equal null masks."""
+    from spark_rapids_tpu_torch.columnar.vector import HostStrings
+    check(got.names == want.names, f"{label}: columns {got.names}")
+    for name, g, w in zip(want.names, got.columns, want.columns):
+        check(g.dtype == w.dtype and np.array_equal(g.mask, w.mask),
+              f"{label}: {name}'s type or nulls differ")
+        live = np.nonzero(w.mask)[0]
+        if isinstance(w.values, HostStrings):
+            # both hold no bytes under a NULL: offsets and bytes compare
+            # whole
+            a, b = g.values, w.values
+            ok = np.array_equal(a.offsets - a.offsets[0],
+                                b.offsets - b.offsets[0]) and \
+                np.array_equal(a.chars[a.offsets[0]:a.offsets[-1]],
+                               b.chars[b.offsets[0]:b.offsets[-1]])
+        elif w.dtype.is_floating:
+            width = np.int32 if w.values.dtype == np.float32 else np.int64
+            ok = np.array_equal(g.values[live].view(width),
+                                w.values[live].view(width))
+        else:
+            ok = np.array_equal(g.values[live], w.values[live])
+        check(ok, f"{label}: column {name} differs")
+
+
+def build_host_lib():
+    """The Parquet host library built (g++) and loaded: its seconds."""
+    from spark_rapids_tpu_torch.io import host_lib as HL
+    t = time.perf_counter()
+    HL.lib()
+    return time.perf_counter() - t
+
+
+def types_worker(conn, root, n):
+    """G3's host half in a process of its own: ``types_table(np, n)``
+    written under each codec the build has (SCAN_FILE_ROWS-row files on
+    SCAN_WRITERS threads) into ``root``/types/, read back by the host
+    decode and held bit-equal to it; sends ("types", {codec: numbers})
+    or ("error", traceback). It hides the card."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    try:
+        import shutil
+
+        import numpy as np
+
+        from spark_rapids_tpu_torch.io import host_lib as HL
+        from spark_rapids_tpu_torch.io.native_parquet import (
+            iter_row_group_tables_native)
+        from spark_rapids_tpu_torch.plan.host_table import concat_tables
+        t0 = time.perf_counter()
+        types = types_table(np, n)
+        out = {"build_s": time.perf_counter() - t0,
+               "raw_bytes": raw_bytes(types)}
+        for codec in ("none", "snappy", "gzip", "zstd"):
+            if {"none": "UNCOMPRESSED"}.get(codec, codec.upper()) not in \
+                    HL.codecs():
+                continue
+            d = os.path.join(root, "types", codec)
+            os.makedirs(d)
+            nbytes, wall, _ = write_files(
+                [(os.path.join(d, f"part-{i:05d}.parquet"),
+                  types.slice(a, a + SCAN_FILE_ROWS))
+                 for i, a in enumerate(range(0, n, SCAN_FILE_ROWS))],
+                {"compression": codec})
+            t = time.perf_counter()
+            back = concat_tables([x for f in sorted(os.listdir(d)) for x in
+                                  iter_row_group_tables_native(
+                                      os.path.join(d, f), types.schema(),
+                                      {}, 1 << 30, None)])
+            read_s = time.perf_counter() - t
+            same_bits(np, back, types, f"scan G3 {codec}")
+            out[codec] = {"bytes": nbytes, "write_s": wall, "read_s": read_s}
+            shutil.rmtree(d)
+        out["s"] = time.perf_counter() - t0
+        conn.send(("types", out))
+    except BaseException:
+        import traceback
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+def scan_phase(torch, np, dev, host, dfs, queries, resident, read_counts,
+               plan_guard, host_lib, scan_dir, types_w):
+    """Phase 5g: the Parquet scan and writer on the card. G1 writes the
+    resident TPC-H tables as tpch_tables' files; G2 runs ``queries``
+    (name -> (query over tpch_tables' DataFrames, numpy rows, fact rows,
+    {reader: (launches it must give, launches it must reach)})) through
+    tpch_tables under each of SCAN_READERS: a first run with every B1 /
+    B3 launch held and (but for the string aggregates) a warm run, each
+    equal to numpy and to the resident tables' rows (``resident``); G3
+    every flat type under each codec; G4 orders by priority and
+    input_file_name(); G5 the CPU engine's FileScan; G6 a truncated and
+    a deleted file. ``host_lib`` (a references_ahead) builds the host
+    library since the smoke began. Returns the report: per query its
+    walls, launches and scan numbers."""
+    import shutil
+
+    from spark_rapids_tpu_torch.conf import SrtConf
+    from spark_rapids_tpu_torch.expr import aggregates as Agg
+    from spark_rapids_tpu_torch.expr import misc as MX
+    from spark_rapids_tpu_torch.expr.core import Alias, col
+    from spark_rapids_tpu_torch.io import host_lib as HL
+    from spark_rapids_tpu_torch.io.native_parquet import (
+        iter_row_group_tables_native, read_metadata)
+    from spark_rapids_tpu_torch.io.scan import FileSourceScanExec
+    from spark_rapids_tpu_torch.models import tpch
+    from spark_rapids_tpu_torch.ops import device_kernels as DK
+    from spark_rapids_tpu_torch.plan import overrides
+    from spark_rapids_tpu_torch.plan.session import TpuSession
+    t_phase = time.perf_counter()
+    report = {}
+    li, od = host["lineitem"], host["orders"]
+
+    def session(**conf):
+        return TpuSession(SrtConf({"srt.sql.batchSizeRows": BATCH_ROWS,
+                                   "srt.sql.reader.batchSizeRows": BATCH_ROWS,
+                                   **conf}), device=dev)
+
+    # --- G1: write -----------------------------------------------------------
+    t = time.perf_counter()
+    build_s = host_lib.get("host_lib")
+    host_lib.close()
+    log(f"scan G1: host library {os.path.basename(HL.library_path())} "
+        f"built with g++ in {build_s:.1f} s on a host thread since the "
+        f"smoke began (waited {time.perf_counter() - t:.1f} s), codecs "
+        f"{HL.codecs()}")
+    root, free, types_raw = scan_dir
+    files = tpch_file_tables(np, host)
+    raw = sum(raw_bytes(t) for fs in files.values() for _, t in fs)
+    log(f"scan G1: {root}: {free} bytes free when the smoke began; the "
+        f"TPC-H files hold at most {raw} bytes and G3's {types_raw} at a "
+        "time (their PLAIN pages, uncompressed)")
+    check(free >= 2 * (raw + types_raw), f"scan G1: {free} bytes free in "
+          f"{root}, under twice the {raw + types_raw} bytes the phase "
+          "writes")
+    jobs = []
+    for name, fs in files.items():
+        os.makedirs(os.path.join(root, "tpch", name))
+        jobs += [(os.path.join(root, "tpch", name, f), t) for f, t in fs]
+    nbytes, wall, thread_s = write_files(jobs, {"compression": "snappy"})
+    report["G1_write"] = {"files": len(jobs), "bytes": nbytes,
+                          "raw_bytes": raw, "s": wall, "thread_s": thread_s}
+    log(f"scan G1: wrote {len(jobs)} files "
+        f"({[len(f) for f in files.values()]} lineitem / orders / "
+        f"customer) of {SCAN_FILE_ROWS} rows, snappy, {nbytes} bytes "
+        f"({nbytes / raw:.3f} of their {raw} raw) in {wall:.2f} s on "
+        f"{SCAN_WRITERS} threads ({thread_s:.2f} thread-s): "
+        f"{nbytes / wall / 1e9:.3f} GB/s written, {raw / wall / 1e9:.3f} "
+        f"GB/s of lanes encoded")
+    del files, jobs
+
+    # --- G2: q6, q1, q3 and the string aggregates from the files -------------
+    for reader in SCAN_READERS:
+        s = session(**{"srt.sql.format.parquet.reader.type": reader})
+        tables = tpch.tpch_tables(s, os.path.join(root, "tpch"), ROWS)
+        for name, (make, ref, rows_in, expect) in queries.items():
+            if reader not in expect:
+                continue
+            label = f"scan {reader} {name}"
+            walls = []
+            # the string aggregates (B2's path) take a held first run
+            runs = ("first",) if name.startswith("strings") else \
+                ("first", "warm")
+            for run in runs:
+                DK.reset_counts()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                if run == "first":
+                    with holding_launches(torch, DK) as hold:
+                        rows = make(tables).collect()
+                    torch.cuda.synchronize()
+                else:
+                    rows = make(tables).collect()
+                    torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t)
+                counts = read_counts()
+                if run == "first":
+                    check_held(hold, counts, label)
+                    first = counts
+                check(same_rows(rows, ref), f"{label} ({run}): {rows} != "
+                      f"numpy {ref}")
+                check(same_rows(rows, resident[name]), f"{label} ({run}): "
+                      f"{rows} != the resident tables' {resident[name]}")
+                check(counts == first, f"{label}: the warm run launched "
+                      f"{counts}, the first {first}")
+                exact, at_least = expect[reader]
+                for key, n in exact.items():
+                    check(counts[key] == n, f"{label}: {key} launched "
+                          f"{counts[key]} times, expected {n}")
+                for key, n in at_least.items():
+                    check(counts[key] >= n, f"{label}: {key} launched "
+                          f"{counts[key]} times, expected at least {n}")
+                totals, scan_s = scan_metrics(s)
+            dec_s = totals.get("scanDecodeTime", 0) / 1e9
+            dec_b = totals.get("scanDecodedBytes", 0)
+            warm = walls[-1]
+            report[f"{reader}_{name}"] = {
+                "first_s": walls[0], "warm_s": warm, "launches": first,
+                "max_abs_err": dict(hold.err), "rows_in": rows_in,
+                "scan_s": scan_s, "scan_share": scan_s / warm,
+                "upload_s": totals.get("scanTime", 0) / 1e9,
+                "decode_thread_s": dec_s, "decoded_bytes": dec_b,
+                "bytes_read": totals.get("scanBytesRead", 0),
+                "files": totals.get("scanFiles", 0)}
+            log(f"{label}: matches numpy and the resident tables; first "
+                f"{walls[0]:.4f} s"
+                + (f", warm {warm:.4f} s" if len(walls) > 1 else "")
+                + f" ({rows_in / warm:.4e} rows/s, the last run's); launches "
+                f"{first}; the scan {scan_s:.4f} s of the last run's wall "
+                f"({scan_s / warm:.3f}): upload (scanTime) "
+                f"{totals.get('scanTime', 0) / 1e9:.4f} s, decode "
+                f"{dec_s:.4f} thread-s for {dec_b} bytes "
+                f"({dec_b / max(dec_s, 1e-9) / 1e9:.3f} GB/s a thread, "
+                f"{dec_b / max(scan_s, 1e-9) / 1e9:.3f} GB/s through the "
+                f"scan), {totals.get('scanBytesRead', 0)} bytes read "
+                f"from {totals.get('scanFiles', 0)} files (warm: the "
+                "page cache's)")
+        del tables, s
+    shutil.rmtree(os.path.join(root, "tpch"))
+
+    # --- G3: every flat type under each codec --------------------------------
+    # the host half (SCAN_TYPES_ROWS rows under each codec, read back by
+    # the host decode) runs in ``types_w`` since the smoke began; here a
+    # batch of the same types through the card, and LEGACY dates
+    from spark_rapids_tpu_torch.io.writer import write_host_table
+    from spark_rapids_tpu_torch.plan.host_table import HostTable
+    types = types_table(np, BATCH_ROWS)
+    d = os.path.join(root, "types_card")
+    os.makedirs(d)
+    write_files([(os.path.join(d, f"part-{i:05d}.parquet"),
+                  types.slice(a, a + SCAN_FILE_ROWS))
+                 for i, a in enumerate(range(0, BATCH_ROWS, SCAN_FILE_ROWS))],
+                {"compression": "snappy"})
+    s = session()
+    t = time.perf_counter()
+    back = s.execute(s.read.parquet(d).plan)
+    card_s = time.perf_counter() - t
+    same_bits(np, back, types, "scan G3 (card)")
+    log(f"scan G3: {BATCH_ROWS} rows x {len(types.names)} flat types "
+        f"through the card (snappy) bit-equal, nulls included, {card_s:.2f} "
+        "s")
+    # dates and timestamps before 1582 under LEGACY: written and read back
+    # on the hybrid Julian calendar, equal to the proleptic values
+    dt_table = HostTable([types.column("d"), types.column("ts")], ["d", "ts"])
+    d = os.path.join(root, "types_legacy")
+    write_host_table(dt_table, d, options={"datetimeRebaseMode": "LEGACY"})
+    old = int((types.column("d").values < JULIAN_GAP[1]).sum())
+    for mode, same in (("LEGACY", True), ("CORRECTED", False)):
+        s = session(**{"srt.sql.parquet.datetimeRebaseModeInRead": mode})
+        back = s.execute(s.read.parquet(d).plan)
+        equal = all(np.array_equal(b.values[b.mask], w.values[w.mask])
+                    for b, w in zip(back.columns, dt_table.columns))
+        check(equal == same, f"scan G3: a LEGACY write read {mode} "
+              f"{'differs from' if same else 'equals'} the dates")
+    log(f"scan G3: dates and timestamps ({old} dates before 1582) written "
+        "LEGACY read back LEGACY equal through the card, CORRECTED not")
+    del types, dt_table, back
+
+    # --- G4: orders by priority, and input_file_name() -----------------------
+    d = os.path.join(root, "orders_by_priority")
+    t = time.perf_counter()
+    st = dfs["orders"].write.partition_by("o_orderpriority").parquet(d)
+    write_s = time.perf_counter() - t
+    check(st.num_files == 5 and st.num_rows == ROWS // 4,
+          f"scan G4: wrote {st}")
+    log(f"scan G4: orders written by o_orderpriority: {st.num_files} files, "
+        f"{st.num_rows} rows, {st.num_bytes} bytes in {write_s:.2f} s "
+        f"({st.partitions})")
+    urgent = host_match(np, od["prio"], b"1-URGENT")
+    want = [{"total": float(od["total"][urgent].sum()),
+             "n": int(urgent.sum())}]
+
+    def urgent_query(s):
+        return (s.read.parquet(d)
+                .filter(col("o_orderpriority") == "1-URGENT")
+                .agg(Alias(Agg.Sum(col("o_totalprice")), "total"),
+                     Alias(Agg.CountStar(), "n")))
+    s = session()
+    DK.reset_counts()
+    t = time.perf_counter()
+    with holding_launches(torch, DK) as hold:
+        device_rows = urgent_query(s).collect()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = read_counts()
+    check_held(hold, counts, "scan G4 urgent")
+    totals, _ = scan_metrics(s)
+    check(totals.get("partitionsPruned") == 4,
+          f"scan G4: {totals.get('partitionsPruned')} partitions pruned")
+    check(same_rows(device_rows, want), f"scan G4: {device_rows} != numpy "
+          f"{want}")
+    report["G4_urgent"] = {"s": wall, "launches": counts,
+                           "max_abs_err": dict(hold.err)}
+    log(f"scan G4: o_orderpriority = '1-URGENT' read 1 of 5 files "
+        f"(partitionsPruned 4), {device_rows} equal numpy, {wall:.4f} s, "
+        f"launches {counts}")
+    files_df = s.read.parquet(d).select(Alias(MX.input_file_name(), "f")) \
+        .group_by("f").agg(Alias(Agg.CountStar(), "n"))
+    physical = overrides.apply_overrides(files_df.plan, s.conf)
+
+    def scans(node):
+        return ([node] if isinstance(node, FileSourceScanExec) else []) + \
+            [x for c in node.children for x in scans(c)]
+    check([x.reader_type(s.conf) for x in scans(physical)] == ["PERFILE"],
+          "scan G4: input_file_name() did not force the per-file reader")
+    DK.reset_counts()
+    with holding_launches(torch, DK) as hold:
+        per_file = {r["f"]: r["n"] for r in files_df.collect()}
+    counts = read_counts()
+    check_held(hold, counts, "scan G4 input_file_name")
+    footers = {p: read_metadata(p).num_rows for p in per_file}
+    check(per_file == footers and len(per_file) == 5,
+          f"scan G4: rows per file {per_file} != the footers' {footers}")
+    report["G4_input_file_name"] = {"launches": counts,
+                                    "max_abs_err": dict(hold.err)}
+    log(f"scan G4: input_file_name() under PERFILE: rows per file equal "
+        f"each footer's num_rows ({sorted(footers.values())}); launches "
+        f"{counts}")
+
+    # --- G5: the CPU engine's FileScan over the same files -------------------
+    plan_guard["allow"] = True
+    t = time.perf_counter()
+    cpu_rows = urgent_query(session(**{"srt.sql.enabled": False})).collect()
+    plan_guard["allow"] = False
+    check(same_rows(cpu_rows, device_rows), f"scan G5: the CPU engine's "
+          f"{cpu_rows} != the card's {device_rows}")
+    log(f"scan G5: the CPU engine's FileScan (srt.sql.enabled=false) gives "
+        f"G4's rows in {time.perf_counter() - t:.2f} s")
+    shutil.rmtree(d)
+
+    # --- G6: a truncated and a deleted lineitem file -------------------------
+    qty = li["qty"]
+    per = SCAN_FILE_ROWS
+    for fault in ("corrupt", "missing"):
+        d = os.path.join(root, "faults", fault)
+        os.makedirs(d)
+        write_files([(os.path.join(d, name), t) for name, t in
+                     tpch_file_tables(np, host)["lineitem"][:4]],
+                    {"compression": "snappy"})
+        bad = os.path.join(d, "lineitem-00001.parquet")
+        key = "srt.sql.ignoreCorruptFiles" if fault == "corrupt" else \
+            "srt.sql.ignoreMissingFiles"
+
+        def count_query(s):
+            return s.read.parquet(d).agg(
+                Alias(Agg.CountStar(), "n"),
+                Alias(Agg.Sum(col("l_quantity")), "qty"))
+        strict, lenient = count_query(session()), \
+            count_query(session(**{key: True}))
+        if fault == "corrupt":
+            data = open(bad, "rb").read()
+            with open(bad, "wb") as f:
+                f.write(data[:len(data) // 2])
+        else:
+            os.remove(bad)
+        try:
+            strict.collect()
+            raised = None
+        except (ValueError, EOFError, OSError) as e:
+            raised = e
+        check(raised is not None and bad in str(raised),
+              f"scan G6 {fault}: the default did not raise naming {bad}: "
+              f"{raised!r}")
+        kept = np.concatenate([qty[i * per:(i + 1) * per] for i in (0, 2, 3)])
+        want = [{"n": len(kept), "qty": float(kept.sum())}]
+        DK.reset_counts()
+        with holding_launches(torch, DK) as hold:
+            got = lenient.collect()
+        counts = read_counts()
+        check_held(hold, counts, f"scan G6 {fault}")
+        check(same_rows(got, want), f"scan G6 {fault}: {key} gave {got}, "
+              f"numpy over the other files {want}")
+        report[f"G6_{fault}"] = {"launches": counts,
+                                 "max_abs_err": dict(hold.err)}
+        log(f"scan G6 {fault}: raises by default ({type(raised).__name__}, "
+            f"naming the file); under {key} skipped, {got} equal numpy over "
+            "the three files left")
+    t = time.perf_counter()
+    g3 = types_w.get("types")
+    types_w.close()
+    for codec in ("none", "snappy", "gzip", "zstd"):
+        if codec in g3:
+            r = g3[codec]
+            report[f"G3_{codec}"] = r
+            log(f"scan G3 {codec}: {SCAN_TYPES_ROWS} rows x 12 flat types "
+                f"written ({r['bytes']} bytes, {r['write_s']:.2f} s) and read "
+                f"back by the host decode ({r['read_s']:.2f} s) bit-equal, "
+                "nulls included")
+    log(f"scan G3: the {SCAN_TYPES_ROWS}-row table ({g3['raw_bytes']} raw "
+        f"bytes, built in {g3['build_s']:.1f} s) under each codec in "
+        f"{g3['s']:.1f} s in its own process (waited "
+        f"{time.perf_counter() - t:.1f} s)")
+    shutil.rmtree(root)
+    # the scan's cached blocks back to the card before the later phases
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"scan phase 5g: {report['phase_s']:.1f} s; host RSS "
+        f"{host_rss_gb():.2f} GB, the card's reserved "
+        f"{torch.cuda.memory_reserved(dev) / 1e9:.2f} GB")
+    return report
+
+
+def host_rss_gb():
+    """This process's resident host memory, GB (/proc/self/status)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 1e6
+    return float("nan")
+
+
+def li_str(lineitem):
+    """The string-filtered global aggregate over lineitem (B1 with its
+    string lane B2)."""
+    from spark_rapids_tpu_torch.expr import aggregates as Agg
+    from spark_rapids_tpu_torch.expr.core import Alias, col, lit
+    from spark_rapids_tpu_torch.expr.predicates import InSet
+    return (lineitem
+            .filter(InSet(col("l_returnflag"), ["A", "R"])
+                    & (col("l_linestatus") == "F")
+                    & (col("l_shipdate") >= lit(datetime.date(1994, 1, 1)))
+                    & (col("l_shipdate") < lit(datetime.date(1995, 1, 1))))
+            .agg(Alias(Agg.Sum(col("l_extendedprice") * col("l_discount")),
+                       "revenue"),
+                 Alias(Agg.CountStar(), "n")))
+
+
+def ord_str(orders):
+    """The string-filtered global aggregate over orders (B2)."""
+    from spark_rapids_tpu_torch.expr import aggregates as Agg
+    from spark_rapids_tpu_torch.expr.core import Alias, col, lit
+    from spark_rapids_tpu_torch.expr.predicates import IsNotNull
+    from spark_rapids_tpu_torch.expr.strings import StartsWith
+    return (orders
+            .filter((StartsWith(col("o_orderpriority"), "1-")
+                     | (col("o_orderpriority") == "2-HIGH"))
+                    & IsNotNull(col("o_orderpriority"))
+                    & (col("o_orderdate") < lit(datetime.date(1995, 3, 15))))
+            .agg(Alias(Agg.Sum(col("o_totalprice")), "total"),
+                 Alias(Agg.CountStar(), "n")))
+
+
+def scan_queries(refs, n_li, n_od):
+    """Phase 5g's G2 queries: name -> (query over tpch_tables'
+    DataFrames, numpy rows, fact rows, {reader: (launches it must give,
+    launches it must reach)}); under COALESCING the resident tables'
+    batch counts ``n_li`` / ``n_od``, under MULTITHREADED one a file."""
+    from spark_rapids_tpu_torch.models import tpch
+    ref6, ref1, ref_li, ref_od, ref3 = refs
+    li_files = -(-ROWS // SCAN_FILE_ROWS)
+    return {
+        "q6": (lambda t: tpch.q6(t["lineitem"]), ref6, ROWS, {
+            "COALESCING": ({"tile_reduce": n_li, "tile_reduce_str": 0}, {}),
+            "MULTITHREADED": ({"tile_reduce": li_files,
+                               "tile_reduce_str": 0}, {})}),
+        "q1": (lambda t: tpch.q1(t["lineitem"]), ref1, ROWS, {
+            "COALESCING": ({"tile_group_reduce": n_li}, {}),
+            "MULTITHREADED": ({"tile_group_reduce": li_files}, {})}),
+        "q3": (lambda t: tpch.q3(t["customer"], t["orders"], t["lineitem"]),
+               ref3, ROWS, {r: ({"tile_reduce": 0}, {"tile_group_reduce": 1})
+                            for r in SCAN_READERS}),
+        "strings_lineitem": (lambda t: li_str(t["lineitem"]), ref_li, ROWS, {
+            "COALESCING": ({"tile_reduce_str": n_li}, {})}),
+        "strings_orders": (lambda t: ord_str(t["orders"]), ref_od, ROWS // 4,
+                           {"COALESCING": ({"tile_reduce_str": n_od}, {})}),
+    }
+
+
 def tpch_references(np, li, od, cu):
     """numpy over the TPC-H host lanes: (q6, q1, the lineitem and orders
     string aggregates, q3's top 10, the lineitem rows q3 joins)."""
@@ -5621,8 +6301,6 @@ def main():
     from spark_rapids_tpu_torch.expr import aggregates as Agg
     from spark_rapids_tpu_torch.expr import hashing as H
     from spark_rapids_tpu_torch.expr.core import Alias, col, lit
-    from spark_rapids_tpu_torch.expr.predicates import InSet, IsNotNull
-    from spark_rapids_tpu_torch.expr.strings import StartsWith
     from spark_rapids_tpu_torch.models import tpch
     from spark_rapids_tpu_torch.ops import device_kernels as DK
     from spark_rapids_tpu_torch.ops import kernels as K
@@ -5664,6 +6342,11 @@ def main():
     refs_worker = HostWorker(("tpch", "scalar", "surface", "fallback"),
                              zone, NESTED_JSON_ROWS)
     json_worker = HostWorker(("orders_json", "n6"), zone, NESTED_JSON_ROWS)
+    # phase 5g's host library, built with g++ on a host thread meanwhile,
+    # and its G3 host half in a process of its own
+    host_lib = references_ahead([("host_lib", build_host_lib)])
+    scan_dir = (*scan_root(np), int(1.3 * SCAN_TYPES_ROWS * 97))
+    types_w = HostWorker(scan_dir[0], SCAN_TYPES_ROWS, target=types_worker)
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5712,27 +6395,6 @@ def main():
     dfs = {n: session.from_batches(b) for n, b in batches.items()}
     df = dfs["lineitem"]
     b0 = batches["lineitem"][0]
-
-    # --- the string-filtered global aggregates (B2's main path) --------------
-    def li_str(lineitem):
-        return (lineitem
-                .filter(InSet(col("l_returnflag"), ["A", "R"])
-                        & (col("l_linestatus") == "F")
-                        & (col("l_shipdate") >= lit(datetime.date(1994, 1, 1)))
-                        & (col("l_shipdate") < lit(datetime.date(1995, 1, 1))))
-                .agg(Alias(Agg.Sum(col("l_extendedprice")
-                                   * col("l_discount")), "revenue"),
-                     Alias(Agg.CountStar(), "n")))
-
-    def ord_str(orders):
-        return (orders
-                .filter((StartsWith(col("o_orderpriority"), "1-")
-                         | (col("o_orderpriority") == "2-HIGH"))
-                        & IsNotNull(col("o_orderpriority"))
-                        & (col("o_orderdate")
-                           < lit(datetime.date(1995, 3, 15))))
-                .agg(Alias(Agg.Sum(col("o_totalprice")), "total"),
-                     Alias(Agg.CountStar(), "n")))
 
     # --- kernel phase: B1 tile_reduce and its string lane B2 -----------------
     # the read rate one torch reduction reaches with a cold L2: what a
@@ -5952,20 +6614,6 @@ def main():
         f" resolved {ok_gpu}) on the card equal the CPU's")
     del cpu_b0, cpu_cols, cpu_ob0, pre_gpu, pre_cpu
 
-    def same_rows(got, ref):
-        if len(got) != len(ref):
-            return False
-        for g, r in zip(got, ref):
-            if g.keys() != r.keys():
-                return False
-            for k, v in r.items():
-                if isinstance(v, float):
-                    if not abs(g[k] - v) <= RTOL * abs(v):
-                        return False
-                elif g[k] != v:
-                    return False
-        return True
-
     t = time.perf_counter()
     (ref6, ref1, ref_li, ref_od, ref3, q3_pairs), _, ref_s, _ = \
         refs_worker.get("tpch")
@@ -5981,6 +6629,7 @@ def main():
                 "tile_group_reduce": DK.tile_group_reduce.launches}
 
     launches = {}
+    resident_rows = {}
 
     def run_query(name, make, ref, rows_in, expect, at_least=None):
         """A checked run (counts reset just before, read just after;
@@ -6004,6 +6653,7 @@ def main():
             check(counts[key] >= n, f"{name}: {key} launched {counts[key]} "
                   f"times, expected at least {n}")
         launches[name] = counts
+        resident_rows[name] = rows
         torch.cuda.reset_peak_memory_stats(dev)
         walls = []
         for _ in range(3):
@@ -6055,6 +6705,13 @@ def main():
     b3_widest = hold_b3(f"q3 widest, {rows3} rows", gid3, lanes3, groups3,
                         library=True)
     del q3_hold, gid3, lanes3
+
+    # --- phase 5g: the Parquet scan and writer --------------------------------
+    scan = scan_phase(torch, np, dev, host, dfs, scan_queries(
+        (ref6, ref1, ref_li, ref_od, ref3), n_li, n_od), resident_rows,
+        read_counts, plan_guard, host_lib, scan_dir, types_w)
+    scan_runs = {q: r for q, r in scan.items()
+                 if isinstance(r, dict) and "launches" in r}
 
     # --- the scalar expression library on the same tables ------------------
     # the decimal phase's exact references start on their own host thread
@@ -6184,6 +6841,7 @@ def main():
     log(f"planner: {plan_guard['plans']} plans outside phase 5e and phase "
         "5f's exact percentile and JSON queries, each "
         "wholly on the device")
+    scan_vals = list(scan_runs.values())
     b2_launches = launches["strings_lineitem"]["tile_reduce_str"] + \
         launches["strings_orders"]["tile_reduce_str"]
     def b3_extra(r):
@@ -6199,8 +6857,15 @@ def main():
                for r in (*nds.values(), *joins.values(), *subq.values(),
                          *scalar.values(), *nested.values(),
                          *fallback.values(), *surface_runs.values()))
+         + sum(r["launches"]["tile_reduce"] - r["launches"]["tile_reduce_str"]
+               for r in scan_vals)
          + memory_launches["tile_reduce"]
          - memory_launches["tile_reduce_str"],
+         "scan_launches": {q: r["launches"]["tile_reduce"]
+                           - r["launches"]["tile_reduce_str"]
+                           for q, r in scan_runs.items()
+                           if r["launches"]["tile_reduce"]
+                           - r["launches"]["tile_reduce_str"]},
          "surface_launches": {q: r["launches"]["tile_reduce"]
                               for q, r in surface_runs.items()
                               if r["launches"]["tile_reduce"]},
@@ -6229,8 +6894,12 @@ def main():
          "replaces": "spark_rapids_tpu/exec/pallas_agg.py:60",
          "launches": b2_launches + memory_launches["tile_reduce_str"]
          + sum(r["launches"]["tile_reduce_str"]
-               for r in (*nested.values(), *surface_runs.values())),
+               for r in (*nested.values(), *surface_runs.values(),
+                         *scan_vals)),
          "memory_launches": memory_launches["tile_reduce_str"],
+         "scan_launches": {q: r["launches"]["tile_reduce_str"]
+                           for q, r in scan_runs.items()
+                           if r["launches"]["tile_reduce_str"]},
          **{k: b2[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                "bound_by", "cold_ms", "bit_equal")},
          "library_ms": None,
@@ -6244,8 +6913,12 @@ def main():
          + sum(r["launches"]["tile_group_reduce"]
                for r in (*nds.values(), *joins.values(), *subq.values(),
                          *scalar.values(), *nested.values(),
-                         *fallback.values(), *surface_runs.values()))
+                         *fallback.values(), *surface_runs.values(),
+                         *scan_vals))
          + memory_launches["tile_group_reduce"],
+         "scan_launches": {q: r["launches"]["tile_group_reduce"]
+                           for q, r in scan_runs.items()
+                           if r["launches"]["tile_group_reduce"]},
          "surface_launches": {q: r["launches"]["tile_group_reduce"]
                               for q, r in surface_runs.items()
                               if r["launches"]["tile_group_reduce"]},
@@ -6283,7 +6956,8 @@ def main():
                                             *scalar.values(),
                                             *nested.values(),
                                             *fallback.values(),
-                                            *surface_runs.values())]
+                                            *surface_runs.values(),
+                                            *scan_vals)]
     kernels[0]["max_abs_err"] = max(
         kernels[0]["max_abs_err"],
         *(r["b1_max_abs_err"] for r in (*nds.values(), *joins.values(),

@@ -122,14 +122,11 @@ def ints_of_limbs(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
 
 def limbs_of_ints(values) -> Tuple[np.ndarray, np.ndarray]:
     """(hi, lo) int64 arrays of Python ints in the signed 128-bit
-    range."""
-    n = len(values)
-    hi = np.zeros(n, np.int64)
-    lo = np.zeros(n, np.int64)
-    for i, v in enumerate(values):
-        v = int(v)
-        hi[i] = v >> 64               # Python's >> keeps the sign
-        lo[i] = _signed(v)
+    range (numpy's object loops: no Python statement per value)."""
+    ints = np.empty(len(values), dtype=object)
+    ints[:] = [int(v) for v in values]
+    hi = (ints >> 64).astype(np.int64)          # Python's >> keeps the sign
+    lo = (ints & ((1 << 64) - 1)).astype(np.uint64).view(np.int64)
     return hi, lo
 
 
@@ -639,8 +636,8 @@ def from_unscaled_ints(values, capacity: int, dtype: dt.DecimalType,
         if mask is None else np.asarray(mask, dtype=bool)
     hi = np.zeros(capacity, np.int64)
     lo = np.zeros(capacity, np.int64)
-    live = [0 if (not valid[i] or values[i] is None) else values[i]
-            for i in range(n)]
+    live = [0 if (not ok or v is None) else v
+            for v, ok in zip(values, valid)]
     hi[:n], lo[:n] = limbs_of_ints(live)
     validity = np.zeros(capacity, bool)
     validity[:n] = valid

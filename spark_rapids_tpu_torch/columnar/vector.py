@@ -398,6 +398,18 @@ def column_from_numpy(values, capacity: int, dtype: Optional[dt.DType] = None,
     if dtype == dt.STRING:
         hs = values if isinstance(values, HostStrings) else \
             HostStrings.from_objects(values)
+        if n == capacity and n and hs.offsets[0] == 0 and valid.all():
+            # a full batch without nulls: its offsets move as they are
+            total = int(hs.offsets[n])
+            offsets = torch.from_numpy(hs.offsets)
+            chars = torch.zeros(max(_round_up(total, 128), 128),
+                                dtype=torch.uint8, device=device)
+            chars[:total] = torch.from_numpy(hs.chars[:total]).to(device)
+            return StringColumn(
+                offsets.to(device) if torch.device(device).type != "cpu"
+                else offsets.clone(), chars,
+                torch.from_numpy(validity).to(device),
+                pad_bucket=round_pow2(int(np.diff(hs.offsets).max())))
         lens = np.where(valid, hs.lengths(), 0).astype(np.int64)
         offsets = np.zeros(capacity + 1, dtype=np.int32)
         offsets[1:n + 1] = np.cumsum(lens)
@@ -425,11 +437,18 @@ def column_from_numpy(values, capacity: int, dtype: Optional[dt.DType] = None,
                                       mask=valid, device=device)
         values = np.where(valid, values, 0).astype(np.int64)
     phys = dtype.np_physical
-    data = np.zeros(capacity, dtype=phys)
-    data[:n] = np.where(valid, np.asarray(values).astype(phys, copy=False),
-                        np.zeros(1, dtype=phys))
-    return ColumnVector(torch.from_numpy(data).to(device),
-                        torch.from_numpy(validity).to(device), dtype)
+    values = np.asarray(values).astype(phys, copy=False)
+    if n == capacity and valid.all():
+        # a full batch without nulls moves as it is (a copy on the CPU,
+        # so the column never aliases the host lane)
+        data = torch.from_numpy(np.ascontiguousarray(values))
+        data = data.to(device) if torch.device(device).type != "cpu" \
+            else data.clone()
+    else:
+        host = np.zeros(capacity, dtype=phys)
+        host[:n] = np.where(valid, values, np.zeros(1, dtype=phys))
+        data = torch.from_numpy(host).to(device)
+    return ColumnVector(data, torch.from_numpy(validity).to(device), dtype)
 
 
 #: exact decimal arithmetic for host conversions (38 digits and more)

@@ -7,7 +7,9 @@ path reads, with the same names and defaults. The device pool
 ``torch.cuda.mem_get_info`` reports on the session's device when the
 budget is first used. Two TPU-only keys are not carried: ``srt.sql.pallas.tileRows`` (the Pallas grid tile) and
 ``srt.exec.pallas.groupAgg.maxCapacity`` (a float32 count ceiling; the
-port counts in float64).
+port counts in float64). Nor is
+``srt.sql.format.parquet.nativeDecode.enabled``: the port's Parquet
+scan has only the native lane (io/native_parquet.py), no Arrow one.
 """
 
 from __future__ import annotations
@@ -218,6 +220,56 @@ SESSION_TIMEZONE = _register(ConfEntry(
     "functions of a timestamp (hour, year, ...) read its wall clock "
     "there. A zone id is a fixed offset ('+08:00', 'GMT-3') or a name "
     "that zoneinfo resolves; an unknown name raises."))
+
+
+READER_TYPE = _register(ConfEntry(
+    "srt.sql.format.parquet.reader.type",
+    _one_of("PERFILE", "COALESCING", "MULTITHREADED"), "COALESCING",
+    "Parquet reader strategy: PERFILE, COALESCING, or MULTITHREADED "
+    "(cloud). (spark.rapids.sql.format.parquet.reader.type, "
+    "GpuParquetScan.scala:1862,2057)"))
+
+READER_THREADS = _register(ConfEntry(
+    "srt.sql.multiThreadedRead.numThreads", _positive_int, 8,
+    "Host threads for the reader pool of the COALESCING and "
+    "MULTITHREADED readers. "
+    "(spark.rapids.sql.multiThreadedRead.numThreads)"))
+
+MAX_READER_BATCH_SIZE_ROWS = _register(ConfEntry(
+    "srt.sql.reader.batchSizeRows", _positive_int, 1 << 20,
+    "Soft cap on rows per scan batch. "
+    "(spark.rapids.sql.reader.batchSizeRows)"))
+
+PARQUET_REBASE_READ = _register(ConfEntry(
+    "srt.sql.parquet.datetimeRebaseModeInRead",
+    _one_of("CORRECTED", "LEGACY", "EXCEPTION"), "CORRECTED",
+    "How to treat pre-1582-10-15 dates/timestamps in parquet "
+    "reads: CORRECTED (as written, proleptic Gregorian), LEGACY "
+    "(rebase from the hybrid Julian calendar), EXCEPTION (fail). "
+    "(spark.sql.parquet.datetimeRebaseModeInRead, "
+    "datetimeRebaseUtils.scala)"))
+
+PARQUET_REBASE_WRITE = _register(ConfEntry(
+    "srt.sql.parquet.datetimeRebaseModeInWrite",
+    _one_of("CORRECTED", "LEGACY", "EXCEPTION"), "CORRECTED",
+    "Calendar for pre-1582-10-15 dates/timestamps in parquet "
+    "writes: CORRECTED, LEGACY (rebase to hybrid Julian), or "
+    "EXCEPTION. (spark.sql.parquet.datetimeRebaseModeInWrite)"))
+
+IGNORE_CORRUPT_FILES = _register(ConfEntry(
+    "srt.sql.ignoreCorruptFiles", _bool, False,
+    "Skip-and-warn instead of failing when a file is corrupt "
+    "(unreadable, truncated, bad checksum) during a scan: "
+    "Spark's spark.sql.files.ignoreCorruptFiles semantics: rows "
+    "already decoded from the broken file are kept, the rest of "
+    "the file is dropped with a warning. Default FAILFAST "
+    "(raise)."))
+
+IGNORE_MISSING_FILES = _register(ConfEntry(
+    "srt.sql.ignoreMissingFiles", _bool, False,
+    "Skip-and-warn instead of failing when a scan file has been "
+    "deleted between planning and execution: Spark's "
+    "spark.sql.files.ignoreMissingFiles semantics."))
 
 
 class SrtConf:

@@ -8,12 +8,14 @@ columns are built vectorised, offsets and bytes taken straight from the
 drawn indices, so a 60M-row table generates without a Python object per
 row; a string column of any other distribution formats each drawn value
 through ``fmt`` as the JAX package does (floats too: a ``uniform``
-string column draws floats). No parquet writer: the generated chunks go
-straight to the device.
+string column draws floats). ``generate_table`` writes a table as one
+Parquet file per chunk through the port's writer
+(io/parquet_writer.py), named as the JAX package names them.
 """
 
 from __future__ import annotations
 
+import os
 import zlib
 from dataclasses import dataclass
 from typing import List, Optional
@@ -125,6 +127,26 @@ def generate_chunk(spec: TableSpec, chunk: int,
     cols = [_gen_column(c, spec.name, chunk, start, n)
             for c in spec.columns]
     return HostTable(cols, [c.name for c in spec.columns])
+
+
+def chunk_path(out_dir: str, spec: TableSpec, chunk: int) -> str:
+    return os.path.join(out_dir, f"{spec.name}-{chunk:05d}.parquet")
+
+
+def generate_table(session, spec: TableSpec, out_dir: str,
+                   chunk_rows: int = 1 << 20,
+                   compression: str = "snappy") -> List[str]:
+    """Write the table as chunked Parquet; returns the file paths.
+    ``session`` is unused (the JAX package's signature)."""
+    from .io.writer import write_file
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for c in range(-(-spec.num_rows // chunk_rows)):
+        path = chunk_path(out_dir, spec, c)
+        write_file(generate_chunk(spec, c, chunk_rows), path,
+                   {"compression": compression})
+        paths.append(path)
+    return paths
 
 
 def lineitem_spec(scale_rows: int) -> TableSpec:

@@ -1,8 +1,7 @@
 """Execution-context expressions: monotonically_increasing_id,
 spark_partition_id, uuid, raise_error, version.
 
-Counterpart of spark_rapids_tpu/expr/misc.py (the ``input_file_*``
-family waits for the Parquet scan). The projection that evaluates a
+Counterpart of spark_rapids_tpu/expr/misc.py. The projection that evaluates a
 positional expression (``uses_row_position``) binds the stream
 position of its batch's first row (``row_offset``): monotonically
 increasing ids are that offset plus the row's index, so they are unique
@@ -16,6 +15,16 @@ are 0.
 query is built, Spark's ``Uuid(randomSeed)``) and the batch's row
 offset, and formats the v4 strings there: no Python loop per row (the
 JAX package calls ``uuid.uuid4()`` for each).
+
+``input_file_name()``, ``input_file_block_start()`` and
+``input_file_block_length()`` read the file the scan's current batch
+came from (``set_input_file``, called by io/scan.py's
+FileSourceScanExec before it yields each batch): the path, 0 and the
+file's size, as whole-file reads report them; "" / 0 / 0 outside a
+file or for a batch the coalescing reader made of several files. The
+planner forces the per-file reader below them
+(plan/overrides.py ``_force_perfile_for_input_file``). They are
+DataFrame-only, as in the JAX parser.
 
 ``raise_error(msg)`` raises for the rows that reach it, as Spark's
 lazy ``If`` / ``CASE`` evaluate it (expr/ansi.py ``reach``): under a
@@ -63,6 +72,66 @@ class MonotonicallyIncreasingID(Expression):
 
     def __repr__(self):
         return "monotonically_increasing_id()"
+
+
+# --- the scan's per-batch file context -------------------------------------
+
+def set_input_file(name: Optional[str], block_start: int = 0,
+                   block_length: int = 0) -> None:
+    """The file of the batch the scan yields next (None: no single
+    file)."""
+    _CTX.input_file = (name or "", block_start, block_length)
+
+
+def current_input_file():
+    return getattr(_CTX, "input_file", None) or ("", 0, 0)
+
+
+class InputFileName(Expression):
+    """The current scan file's path; "" (never null) where there is
+    none (Spark's input_file_name)."""
+
+    def data_type(self, schema: Schema) -> dt.DType:
+        return dt.STRING
+
+    def eval(self, batch: ColumnarBatch) -> StringColumn:
+        return Literal(current_input_file()[0], dt.STRING).eval(batch)
+
+    def __repr__(self):
+        return "input_file_name()"
+
+
+class _InputFileBlock(Expression):
+    slot = 1
+
+    def data_type(self, schema: Schema) -> dt.DType:
+        return dt.INT64
+
+    def eval(self, batch: ColumnarBatch) -> ColumnVector:
+        return Literal(current_input_file()[self.slot],
+                       dt.INT64).eval(batch)
+
+
+class InputFileBlockStart(_InputFileBlock):
+    slot = 1
+
+    def __repr__(self):
+        return "input_file_block_start()"
+
+
+class InputFileBlockLength(_InputFileBlock):
+    slot = 2
+
+    def __repr__(self):
+        return "input_file_block_length()"
+
+
+def contains_input_file(exprs) -> bool:
+    """Whether any tree reads the scan's file context."""
+    def walk(e):
+        return isinstance(e, (InputFileName, _InputFileBlock)) or \
+            any(walk(c) for c in e.children)
+    return any(walk(e) for e in exprs)
 
 
 class SparkPartitionID(Expression):
@@ -193,3 +262,15 @@ def raise_error(message: str) -> RaiseError:
 
 def version() -> Version:
     return Version()
+
+
+def input_file_name() -> InputFileName:
+    return InputFileName()
+
+
+def input_file_block_start() -> InputFileBlockStart:
+    return InputFileBlockStart()
+
+
+def input_file_block_length() -> InputFileBlockLength:
+    return InputFileBlockLength()

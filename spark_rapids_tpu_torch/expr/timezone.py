@@ -1,8 +1,8 @@
 """Time zones: each zone's offsets as a transition table on the device.
 
 Counterpart of spark_rapids_tpu/expr/timezone.py (``zone_transitions``,
-``FromUTCTimestamp``, ``ToUTCTimestamp``; the Julian-calendar rebase of
-the parquet / ORC readers is not here). A zone's UTC-offset history is
+``FromUTCTimestamp``, ``ToUTCTimestamp``, and the Julian-calendar rebase
+of the Parquet reader and writer over flat lanes). A zone's UTC-offset history is
 read from the system tz database (zoneinfo) once, into two sorted int64
 arrays: the transition instants (UTC microseconds) and the offset in
 force from each one. A conversion is then a ``torch.searchsorted`` and
@@ -158,3 +158,117 @@ class ToUTCTimestamp(_TzConvertBase):
         o1 = offset_at(us, trans, offs)
         o2 = offset_at(us - o1, trans, offs)
         return make_result(us - o2, c.validity, dt.TIMESTAMP)
+
+
+# ---------------------------------------------------------------------------
+# Julian <-> proleptic Gregorian rebase (datetimeRebaseUtils.scala).
+#
+# Parquet files written by Spark 2.x / Hive store pre-1582-10-15 dates
+# and timestamps on the hybrid Julian calendar; Spark 3 stores proleptic
+# Gregorian. LEGACY rebase mode converts at the IO boundary. These run
+# host-side at scan / write time (io/scan.py, io/writer.py), as
+# vectorized numpy over the physical day / micros lanes.
+# ---------------------------------------------------------------------------
+
+# days since epoch of 1582-10-15, the Gregorian adoption instant
+_GREGORIAN_CUTOVER_DAYS = -141427
+_CUTOVER_US = _GREGORIAN_CUTOVER_DAYS * 86_400 * _US
+
+
+def _days_to_ymd_julian(jdays):
+    """Julian-calendar (y, m, d) from days since 1970-01-01."""
+    j = np.asarray(jdays, np.int64) + 2440588  # julian day number
+    b = 0
+    c = j + 32082
+    d = (4 * c + 3) // 1461
+    e = c - (1461 * d) // 4
+    m = (5 * e + 2) // 153
+    day = e - (153 * m + 2) // 5 + 1
+    month = m + 3 - 12 * (m // 10)
+    year = d - 4800 + m // 10 + b
+    return year, month, day
+
+
+def _ymd_to_days_gregorian(y, m, d):
+    """Proleptic-Gregorian days since 1970-01-01 from (y, m, d)."""
+    y = np.asarray(y, np.int64)
+    m = np.asarray(m, np.int64)
+    a = (14 - m) // 12
+    yy = y + 4800 - a
+    mm = m + 12 * a - 3
+    jdn = d + (153 * mm + 2) // 5 + 365 * yy + yy // 4 - yy // 100 + \
+        yy // 400 - 32045
+    return jdn - 2440588
+
+
+def _days_to_ymd_gregorian(days):
+    j = np.asarray(days, np.int64) + 2440588
+    a = j + 32044
+    b = (4 * a + 3) // 146097
+    c = a - (146097 * b) // 4
+    d = (4 * c + 3) // 1461
+    e = c - (1461 * d) // 4
+    m = (5 * e + 2) // 153
+    day = e - (153 * m + 2) // 5 + 1
+    month = m + 3 - 12 * (m // 10)
+    year = 100 * b + d - 4800 + m // 10
+    return year, month, day
+
+
+def _ymd_to_days_julian(y, m, d):
+    y = np.asarray(y, np.int64)
+    m = np.asarray(m, np.int64)
+    a = (14 - m) // 12
+    yy = y + 4800 - a
+    mm = m + 12 * a - 3
+    jdn = d + (153 * mm + 2) // 5 + 365 * yy + yy // 4 - 32083
+    return jdn - 2440588
+
+
+def rebase_julian_to_gregorian_days(days: np.ndarray) -> np.ndarray:
+    """LEGACY-read rebase: hybrid-Julian day lanes -> proleptic
+    Gregorian. Identity at/after the 1582 cutover."""
+    days = np.asarray(days, np.int64)
+    old = days < _GREGORIAN_CUTOVER_DAYS
+    if not old.any():
+        return days
+    y, m, d = _days_to_ymd_julian(days[old])
+    out = days.copy()
+    out[old] = _ymd_to_days_gregorian(y, m, d)
+    return out
+
+
+def rebase_gregorian_to_julian_days(days: np.ndarray) -> np.ndarray:
+    """LEGACY-write rebase: proleptic Gregorian -> hybrid Julian."""
+    days = np.asarray(days, np.int64)
+    old = days < _GREGORIAN_CUTOVER_DAYS
+    if not old.any():
+        return days
+    y, m, d = _days_to_ymd_gregorian(days[old])
+    out = days.copy()
+    out[old] = _ymd_to_days_julian(y, m, d)
+    return out
+
+
+def rebase_julian_to_gregorian_micros(us: np.ndarray) -> np.ndarray:
+    us = np.asarray(us, np.int64)
+    old = us < _CUTOVER_US
+    if not old.any():
+        return us
+    days = np.floor_divide(us[old], 86_400 * _US)
+    within = us[old] - days * 86_400 * _US
+    out = us.copy()
+    out[old] = rebase_julian_to_gregorian_days(days) * 86_400 * _US + within
+    return out
+
+
+def rebase_gregorian_to_julian_micros(us: np.ndarray) -> np.ndarray:
+    us = np.asarray(us, np.int64)
+    old = us < _CUTOVER_US
+    if not old.any():
+        return us
+    days = np.floor_divide(us[old], 86_400 * _US)
+    within = us[old] - days * 86_400 * _US
+    out = us.copy()
+    out[old] = rebase_gregorian_to_julian_days(days) * 86_400 * _US + within
+    return out

@@ -2,17 +2,20 @@
 from spark_rapids_tpu/models/tpch.py).
 
 Dates are physical int32 days (1994-01-01 = 8766). ``tpch_table_specs``
-sizes the three-table subset as the JAX package's ``tpch_tables`` does.
+sizes the three-table subset as the JAX package's ``tpch_tables`` does;
+``tpch_tables`` writes it as chunked Parquet once and opens it with
+``session.read.parquet`` (JAX models/tpch.py:32).
 """
 
 from __future__ import annotations
 
 import datetime
-
-from typing import List
+import os
+from typing import Dict, List
 
 from ..columnar import dtypes as dt
-from ..datagen import ColumnSpec, TableSpec, lineitem_spec, orders_spec
+from ..datagen import (ColumnSpec, TableSpec, generate_table, lineitem_spec,
+                       orders_spec)
 from ..expr.aggregates import Average, CountStar, Sum
 from ..expr.core import col, lit
 
@@ -31,6 +34,20 @@ def tpch_table_specs(scale_rows: int) -> List[TableSpec]:
     customer a fortieth of lineitem's rows."""
     return [lineitem_spec(scale_rows), orders_spec(max(scale_rows // 4, 1)),
             customer_spec(max(scale_rows // 40, 1))]
+
+
+def tpch_tables(session, data_dir: str, scale_rows: int = 100_000,
+                chunk_rows: int = 1 << 18) -> Dict[str, object]:
+    """Generate (once: a table whose directory holds files is not
+    written again) and open the three-table subset, one DataFrame a
+    table over ``data_dir/<table>/``."""
+    tables = {}
+    for spec in tpch_table_specs(scale_rows):
+        out = os.path.join(data_dir, spec.name)
+        if not os.path.isdir(out) or not os.listdir(out):
+            generate_table(session, spec, out, chunk_rows)
+        tables[spec.name] = session.read.parquet(out)
+    return tables
 
 
 def q6(lineitem):

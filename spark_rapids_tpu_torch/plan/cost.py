@@ -2,7 +2,8 @@
 
 Counterpart of spark_rapids_tpu/plan/cost.py (CostBasedOptimizer's
 role). ``estimate_rows`` reads in-memory relations: a relation counts
-its rows, a filter keeps half, an aggregate a tenth, a limit at
+its rows, a file scan guesses 64 bytes a Parquet row from the files'
+sizes (the JAX package's guess), a filter keeps half, an aggregate a tenth, a limit at
 most its n, a join (keyless ones too) as many rows as its larger side,
 a union the sum of its children and an expand its child's rows once per
 projection. A Generate over a column of a relation counts the elements
@@ -21,6 +22,8 @@ through a projection on the CPU engine, not measurements of the H100.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -57,6 +60,12 @@ def estimate_rows(plan: LogicalPlan) -> float:
         return float(len(next(iter(plan.data.values()), [])))
     if isinstance(plan, Range):
         return float(plan.num_rows)
+    from ..io.scan import FileScan
+    if isinstance(plan, FileScan):
+        # bytes-based guess: ~64 B a parquet row
+        total = sum(os.path.getsize(p) for p in plan.paths
+                    if os.path.exists(p))
+        return max(total / 64, 1.0)
     child_rows = [estimate_rows(c) for c in plan.children]
     if isinstance(plan, Sample):
         return child_rows[0] * plan.fraction
@@ -138,7 +147,8 @@ def _subtree_costs(plan: LogicalPlan) -> Tuple[float, float, float]:
 def _leaf_input_bytes(plan: LogicalPlan) -> float:
     """Bytes entering the subtree from host data (the upload a device
     placement pays)."""
-    if isinstance(plan, LocalRelation):
+    from ..io.scan import FileScan
+    if isinstance(plan, (LocalRelation, FileScan)):
         return estimate_rows(plan) * row_width_bytes(plan.schema)
     return sum(_leaf_input_bytes(c) for c in plan.children)
 

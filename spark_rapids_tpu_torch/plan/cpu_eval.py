@@ -2147,6 +2147,24 @@ def _register_misc_exprs():
                        MX.RaiseErrorException(expr.message), table)
         return np.full(n, "", dtype=object), np.zeros(n, bool)
 
+    @_reg(MX.InputFileName)
+    def _input_file(expr, table):
+        n = table.num_rows
+        return np.full(n, MX.current_input_file()[0], dtype=object), \
+            np.ones(n, bool)
+
+    @_reg(MX.InputFileBlockStart)
+    def _block_start(expr, table):
+        n = table.num_rows
+        return np.full(n, MX.current_input_file()[1], np.int64), \
+            np.ones(n, bool)
+
+    @_reg(MX.InputFileBlockLength)
+    def _block_len(expr, table):
+        n = table.num_rows
+        return np.full(n, MX.current_input_file()[2], np.int64), \
+            np.ones(n, bool)
+
     @_reg(MX.Version)
     def _version(expr, table):
         n = table.num_rows

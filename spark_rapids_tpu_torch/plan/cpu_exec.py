@@ -6,8 +6,9 @@ tagged off the device (the role CPU Spark plays for the reference),
 columnar over numpy in the CPU engine's layout (host_table.py
 ``to_engine``). A ``DeviceRelation`` leaf is read through
 ``batch_to_table``; ``Range`` and ``Sample`` make the device's rows
-(``Sample`` through its keep mask on CPU tensors); FileScan and
-CachedRelation are not in the port.
+(``Sample`` through its keep mask on CPU tensors); a ``FileScan``
+(io/scan.py) reads its files whole through the same host decode as the
+device's scan; CachedRelation is not in the port.
 
 Aggregation/join/sort semantics mirror the device execs:
 - group nulls form their own group (Spark GROUP BY semantics),
@@ -37,14 +38,31 @@ def execute_cpu(plan: LogicalPlan) -> HostTable:
     return apply_cpu_node(plan, [execute_cpu(c) for c in plan.children])
 
 
-def apply_cpu_node(plan: LogicalPlan,
-                   children: List[HostTable]) -> HostTable:
+def apply_cpu_node(plan: LogicalPlan, children: List[HostTable],
+                   conf=None) -> HostTable:
     """Apply ONE logical node to already-evaluated child tables. The seam
     that lets mixed CPU / device physical trees reuse the CPU engine
     (transitions.py wraps device subtrees so they appear as child
-    tables)."""
+    tables). ``conf`` (the query's) sets a file scan's rebase mode and
+    its missing / corrupt file rules."""
     if isinstance(plan, LocalRelation):
         return from_pydict(plan.data, plan.schema)
+    from ..io.scan import FileScan
+    if isinstance(plan, FileScan):
+        from ..conf import PARQUET_REBASE_READ, SrtConf
+        from ..io.scan import read_file_to_tables
+        from .host_table import to_engine
+        conf = conf or SrtConf()
+        options = dict(plan.options)
+        options.setdefault("datetimeRebaseMode",
+                           conf.get(PARQUET_REBASE_READ))
+        tables = []
+        for p in plan.pruned_paths():
+            tables.extend(read_file_to_tables(
+                p, plan.fmt, plan.schema, options, 1 << 30, conf,
+                plan.partition_values_for(p))[0])
+        tables = [to_engine(t) for t in tables if t.num_rows]
+        return concat_tables(tables) if tables else empty_like(plan.schema)
     if isinstance(plan, DeviceRelation):
         from .host_table import batch_to_table, to_engine
         tables = [to_engine(batch_to_table(b)) for b in plan.batches

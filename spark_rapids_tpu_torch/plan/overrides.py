@@ -36,6 +36,16 @@ engine and ``srt.sql.explain`` / ``DataFrame.explain`` print why:
 - a condition on an outer, semi or anti join, and a keyless one that
   is not inner (ROADMAP C10).
 
+Before tagging, the plan's file scans are rewritten (JAX
+overrides.py:984-1076), into a new tree so that a DataFrame's own plan
+stays as it was built: a Filter over a FileScan is pushed into it
+(``push_down_filters``: its partition conjuncts prune files, the Filter
+stays), each FileScan keeps only the columns the plan above reads
+(``prune_scan_columns``: q6 decodes the four lineitem columns it
+names), and scans below an ``input_file_*`` expression use the per-file
+reader (``_force_perfile_for_input_file``). A FileScan becomes a
+FileSourceScanExec (io/scan.py).
+
 An Aggregate becomes PARTIAL -> FINAL HashAggregateExec; an equi-Join a
 BroadcastHashJoinExec when its build side's estimated rows are at most
 ``srt.sql.broadcastRowThreshold`` and a ShuffledHashJoinExec otherwise,
@@ -69,6 +79,7 @@ from ..expr import aggregates as Agg
 from ..expr import window as W
 from ..expr.cast import Cast, cpu_only
 from ..expr.core import Alias, Expression, Literal, col
+from ..io.scan import FileScan, FileSourceScanExec
 from . import typechecks as ts
 from .cost import apply_cost_model, estimate_rows
 from .logical import (Aggregate, DeviceRelation, Expand, Filter, Generate,
@@ -397,7 +408,17 @@ def _tag_window(meta: PlanMeta) -> None:
                 "offsets runs on the CPU engine")
 
 
+def _tag_file_scan(meta: PlanMeta) -> None:
+    """A scan column the device's batches do not carry (the port reads
+    only flat columns, so none today: the JAX rule kept)."""
+    for name, t in meta.plan.schema:
+        if t.is_nested:
+            meta.will_not_work_on_tpu(f"scan column {name}: {t} is not "
+                                      "uploaded by the scan")
+
+
 _EXEC_RULES.update({
+    FileScan: ExecRule(FileScan, _tag_file_scan),
     DeviceRelation: ExecRule(DeviceRelation),
     LocalRelation: ExecRule(LocalRelation),
     Project: ExecRule(Project),
@@ -486,6 +507,8 @@ def _build_device_exec(plan: LogicalPlan, children: List[TpuExec],
                        conf: SrtConf) -> TpuExec:
     if isinstance(plan, DeviceRelation):
         return BatchScanExec(plan.batches, plan.schema)
+    if isinstance(plan, FileScan):
+        return FileSourceScanExec(plan)
     if isinstance(plan, LocalRelation):
         # host data enters the device through the transition
         return HostToDeviceExec(CpuPhysical(plan, []))
@@ -627,11 +650,92 @@ def _to_physical(meta: PlanMeta, conf: SrtConf, needed=None):
     return CpuPhysical(plan, children)
 
 
+# --- file scan rewrites ------------------------------------------------------
+
+def _rebuilt(node: LogicalPlan, children) -> LogicalPlan:
+    """``node`` over ``children``: itself where none changed."""
+    if all(a is b for a, b in zip(children, node.children)):
+        return node
+    return node.with_children(children)
+
+
+def push_down_filters(plan: LogicalPlan) -> LogicalPlan:
+    """Filter-over-scan pushdown (ParquetFilters' role): the scan gets
+    the Filter's condition, which prunes partitions; the Filter node
+    stays, so the rows it keeps are unchanged."""
+    children = [push_down_filters(c) for c in plan.children]
+    if isinstance(plan, Filter) and isinstance(children[0], FileScan) \
+            and children[0].pushed_filter is None:
+        children[0] = children[0].with_pushed_filter(plan.condition)
+    return _rebuilt(plan, children)
+
+
+def prune_scan_columns(plan: LogicalPlan) -> LogicalPlan:
+    """ColumnPruning (Spark's rule of the same name): narrow each
+    FileScan to the columns read between it and the nearest
+    column-replacing ancestor (Project / Aggregate / Expand); with none
+    above it, it keeps all. A scan that gives no column the plan reads
+    (a count(*)) keeps its narrowest one."""
+    def walk(node: LogicalPlan, required) -> LogicalPlan:
+        children = []
+        for c in node.children:
+            creq = _scan_required(node, c, required)
+            if isinstance(c, FileScan):
+                if creq is not None:
+                    keep = [(n, t) for n, t in c.schema if n in creq] or \
+                        [min(c.schema, key=lambda nt:
+                             4 if nt[1] == dt.STRING else 1)]
+                    if len(keep) < len(c.schema):
+                        c = c.with_schema(keep)
+                children.append(c)
+            else:
+                children.append(walk(c, creq))
+        return _rebuilt(node, children)
+    return walk(plan, None)
+
+
+def _scan_required(node: LogicalPlan, child: LogicalPlan, required):
+    """The columns ``child`` must give when the plan above ``node``
+    reads ``required`` of its output (None: all)."""
+    if isinstance(node, (Project, Aggregate, Expand)):
+        return _refs(node)
+    if isinstance(node, Union) or required is None:
+        return None
+    if isinstance(node, (Window, Generate)):
+        made = {n for n, _ in node.schema} - {n for n, _ in child.schema}
+        return (required - made) | _refs(node)
+    return required | _refs(node)
+
+
+def _force_perfile_for_input_file(plan: LogicalPlan) -> LogicalPlan:
+    """InputFileBlockRule: ``input_file_name()`` / ``input_file_block_*``
+    need one source file per batch, so every FileScan below a node that
+    reads them uses the per-file reader."""
+    from ..expr.misc import contains_input_file
+
+    def mark(node: LogicalPlan) -> LogicalPlan:
+        if isinstance(node, FileScan):
+            return node.with_options(_reader_override="PERFILE")
+        return _rebuilt(node, [mark(c) for c in node.children])
+
+    def walk(node: LogicalPlan) -> LogicalPlan:
+        if contains_input_file([e for e, _ in
+                                node.expressions_with_schemas()]):
+            return mark(node)
+        return _rebuilt(node, [walk(c) for c in node.children])
+    return walk(plan)
+
+
+def rewrite_scans(plan: LogicalPlan) -> LogicalPlan:
+    return _force_perfile_for_input_file(
+        prune_scan_columns(push_down_filters(plan)))
+
+
 def tag_only(plan: LogicalPlan, conf: Optional[SrtConf] = None) -> PlanMeta:
-    """The tagging pass without conversion (explain), with the cost
-    model where the conf enables it, so the marks are those
-    ``apply_overrides`` plans by."""
-    meta = PlanMeta(plan)
+    """The tagging pass without conversion (explain), over the plan with
+    its scans rewritten, with the cost model where the conf enables it,
+    so the marks are those ``apply_overrides`` plans by."""
+    meta = PlanMeta(rewrite_scans(plan))
     meta.tag_for_tpu()
     apply_cost_model(meta, conf or SrtConf())
     return meta

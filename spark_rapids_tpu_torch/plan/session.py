@@ -8,7 +8,8 @@ to_pydict / to_pandas / count, ``TpuSession.range``, window functions
 and explode
 generators in select and with_column, nested columns (arrays, structs,
 maps) in ``create_dataframe``, the temp-view catalog and ``sql``, joins of every type
-(``join(how=...)``, ``cross_join``) and ``union``. The session runs on
+(``join(how=...)``, ``cross_join``) and ``union``, Parquet through
+``session.read.parquet`` and ``df.write.parquet``. The session runs on
 one torch device, ``cuda`` unless the caller asks for the CPU; a session
 asked for CUDA where there is none raises.
 
@@ -220,6 +221,12 @@ class TpuSession:
         from ..sql import parse_sql
         return parse_sql(self, text)
 
+    @property
+    def read(self):
+        """``session.read.parquet(path)`` (io/reader.py)."""
+        from ..io.reader import DataFrameReader
+        return DataFrameReader(self)
+
     _query_seq = itertools.count(1)
 
     def execute(self, plan: L.LogicalPlan) -> HostTable:
@@ -386,6 +393,13 @@ class DataFrame:
     def count(self) -> int:
         """Run the query and count its rows."""
         return self.to_table().num_rows
+
+    @property
+    def write(self):
+        """``df.write.mode(...).partition_by(...).parquet(path)``
+        (io/writer.py)."""
+        from ..io.writer import DataFrameWriter
+        return DataFrameWriter(self)
 
     def explain(self, mode: Optional[str] = None,
                 metrics: bool = False) -> str:

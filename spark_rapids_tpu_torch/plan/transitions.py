@@ -86,7 +86,7 @@ class CpuPhysical:
     def evaluate(self, ctx: ExecContext) -> HostTable:
         tables = [c.evaluate(ctx) for c in self.children]
         t0 = time.perf_counter_ns()
-        out = apply_cpu_node(self.plan, tables)
+        out = apply_cpu_node(self.plan, tables, ctx.conf)
         ctx.metric(self.exec_id, "cpuTimeNs", Metric.ESSENTIAL, "ns").add(
             time.perf_counter_ns() - t0)
         ctx.metric(self.exec_id, "numOutputRows", Metric.ESSENTIAL).add(

@@ -246,6 +246,9 @@ EVAL_CASES = {
     "spark_partition_id": lambda: MX.SparkPartitionID(),
     "uuid": lambda: MX.Uuid(seed=7),
     "version": lambda: MX.Version(),
+    "input_file_name": lambda: MX.InputFileName(),
+    "input_file_block_start": lambda: MX.InputFileBlockStart(),
+    "input_file_block_length": lambda: MX.InputFileBlockLength(),
     "raise_error_unreached": lambda: Cond.If(
         P.GreaterThan(col("k"), lit(100)), MX.RaiseError("boom"), col("s")),
     "might_contain": lambda: H.BloomFilterMightContain(col("l"), _BLOOM),
