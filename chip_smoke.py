@@ -7,8 +7,9 @@ Needs one NVIDIA GPU (built for an H100: sm_90a), nvcc and triton. It
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the port's kernels from the sources in this checkout into
-   spark_rapids_tpu_torch/build/ (nvcc for tile_group_reduce; Triton
-   compiles each tile_reduce program at its first launch);
+   spark_rapids_tpu_torch/build/ (nvcc for tile_group_reduce, on a host
+   thread while step 3 makes the data; Triton compiles each tile_reduce
+   program at its first launch);
 3. generates TPC-H lineitem at 60,000,000 rows (SF10 size), orders at
    15,000,000 and customer at 1,500,000 (the JAX package's tpch_tables
    ratios) in 1,048,576-row chunks and moves each chunk to the card once;
@@ -61,12 +62,41 @@ Needs one NVIDIA GPU (built for an H100: sm_90a), nvcc and triton. It
    raises naming it, and is skipped under ignoreCorruptFiles /
    ignoreMissingFiles, the counts equal numpy over the files left; the
    directory is removed at the end;
+5h. runs BASELINE configs 4 and 5 through the port's Delta layer and
+   ML hand-off (``delta_phase``, after 5g, before the scalar phase; the
+   files under a fresh directory of the temporary directory or the
+   repo's output directory, after checking it holds twice their bytes
+   and that os.link works there): H1 the config 4 upsert (bench.py's shapes:
+   k BIGINT, amount DOUBLE, flag INT; 8,388,608 target rows appended
+   as version 1, a MERGE of 8,388,608 source rows, half matched, then
+   an UPDATE), on table A with every version held against numpy (floats
+   bit for bit) and ``history()``, then on table B for warm walls; each
+   step's wall split into execute / encode / promote / log commit, rows/s,
+   Parquet bytes written and read, transient peak; H2 a filtered SUM
+   (B1) and a GROUP BY flag (B3, 4 groups) over B's scanned batches; H3
+   on A: DELETE, OPTIMIZE ZORDER BY (k, flag) (rows in the numpy
+   interleave's order), VACUUM (exactly the tombstoned files), two
+   1,048,576-row appends whose commits meet (one lands through the OCC
+   retry), a duplicate-key MERGE that raises; H4 16 micro-batches of
+   262,144 rows exactly once, durable and relaxed (rows/s, ms a commit,
+   the fsync overhead), a crash child of delta/streaming.py
+   (``delta.commit.fsync:crash@3``, started by subprocess at the phase's
+   start) that must exit 137, and its resume in this process, held
+   against ``demo_expected`` with no .tmp and no unreferenced file after
+   VACUUM; H5 B written in the standard Delta format partitioned by
+   flag, then overwritten, read back at the head and at
+   ``version_as_of=0``; H6 ``mortgage_etl(...).to_device_arrays()`` over
+   1,048,576 loans (12,582,912 performance rows, the files and numpy's
+   features made on a host thread since the phase began), first and
+   warm, every feature column against numpy on the card, and
+   SUM(orig_amount) WHERE state = 'CA' (B1 with B2); every B1 / B3
+   launch of a first run held;
 5b. runs the scalar expression library (``scalar_queries``: string
    functions, LIKE and regexes, date fields and date arithmetic, a time
    zone (America/Los_Angeles, or +08:00 where the machine has no tz
    database, which it logs), integral arithmetic, math, hashes, casts
    and FIRST / LAST) through ``session.sql`` over the same TPC-H tables:
-   per query a first run and one warm run, each held against numpy and
+   per query a first run and WARM_RUNS warm runs, each held against numpy and
    Python references over the host columns (``scalar_references``,
    computed in a ``host_worker`` process: started with the smoke, it
    generates the same host lanes from the same seeds and never touches
@@ -77,13 +107,13 @@ Needs one NVIDIA GPU (built for an H100: sm_90a), nvcc and triton. It
    l_extendedprice, l_discount and l_tax and orders' o_totalprice as
    DECIMAL(12,2), made on the card from the float lanes already there
    (x 100, truncated toward zero, as the JAX datagen makes a decimal);
-   through ``session.sql`` a first and one warm run each of D1 TPC-H q1
+   through ``session.sql`` a first run and WARM_RUNS warm runs each of D1 TPC-H q1
    (DECIMAL(22,2) / (36,4) / (38,6) sums, DECIMAL(16,6) AVGs: the
    two-limb multiply, segmented sum and overflow check over 60M rows),
    D2 q6 and D3 q3 (its DECIMAL(36,4) revenue the ORDER BY key: two sort
    words on the card), each held exactly against Python ints over the
-   host lanes (``decimal_references``, on a host thread beside the
-   queries), with Spark's result types checked; D4 the exact 256-bit
+   host lanes (``decimal_references``, in the references'
+   ``host_worker`` process), with Spark's result types checked; D4 the exact 256-bit
    divide (DECIMAL(27,15)), round, casts to DOUBLE, BIGINT,
    DECIMAL(38,10) and STRING and a product chain NULL past 38 digits,
    row by row over lineitem's first 4,194,304 rows (cut so that its
@@ -97,11 +127,32 @@ Needs one NVIDIA GPU (built for an H100: sm_90a), nvcc and triton. It
    store_sales rows, a ROWS running SUM (DECIMAL(17,2)) and a
    whole-partition AVG (DECIMAL(11,6)) per customer through two
    WindowExecs, held against numpy int64 scans on every row;
+6. runs the NDS slice (``NDS_SLICE``, 20 star-join queries) as SQL
+   text through ``session.sql`` over NDS tables generated in memory at
+   ``scale_rows`` 28,800,000 (TPC-DS SF10's store_sales; q82 at
+   2,880,000, SF1, because its join grows with the square of the scale;
+   both generated on a host thread from phase 5h's end on,
+   ``nds_batches_ahead``) and moved to the card, after phase 5c and
+   before 5d (whose orders_json documents a second process builds
+   meanwhile), then the ten window queries (``NDS_WINDOW``) on the
+   same tables: per query a first run and WARM_RUNS warm runs, each held
+   against a numpy reference written from the query text
+   (``NdsNumpy``) and checked to be in ORDER BY order, a warm run
+   launching what the first did, and B3 held
+   against its plain version on every batch it took; it logs wall
+   times, fact rows/s, result rows, launches and ``pallasBatches`` per
+   kernel and peak device memory, and checks that B3 carried q3, q42,
+   q43, q52 and q55; then, on the inputs of the widest float group sum
+   that q12 and q98 each make, it times the float group sums
+   (``_seg_sum``) against one ``index_add_`` call and the hash-claim
+   path's sort of the group ids, and checks that five runs of each give
+   the same bits;
 5d. runs the nested types (``nested_phase``) over the same tables:
    ``orders_nested`` (models/nested.py: lineitem stably sorted on
    l_orderkey and cut into orders of 1-7 lines, five arrays of 60M
-   elements over about 15M orders) built on the host and moved to the
-   card through the flat host lanes in 1,048,576-row batches, and
+   elements over about 15M orders) built on a host thread from phase
+   5b on and moved to the card through the flat host lanes in
+   1,048,576-row batches, and
    ``orders_json`` (NESTED_JSON_ROWS documents of the first orders,
    built in a second ``host_worker`` process);
    N1-N7: posexplode of arrays_zip grouped by position (B3), the
@@ -110,7 +161,7 @@ Needs one NVIDIA GPU (built for an H100: sm_90a), nvcc and triton. It
    row, the map functions, structs and explode_outer (B1 under its
    global aggregate), get_json_object through ``session.sql`` grouped
    by priority (B3), collect_list by the skewed l_orderkey; a first run
-   each with every B1 / B3 launch held and one warm run, against numpy
+   each with every B1 / B3 launch held and WARM_RUNS warm runs, against numpy
    segment reductions over the sorted host lanes on a host thread and
    Python's json in ``host_worker``; walls, elements/s, peak and
    transient memory, the fold's steps;
@@ -129,25 +180,8 @@ Needs one NVIDIA GPU (built for an H100: sm_90a), nvcc and triton. It
    ``raise_error`` under IF, E7 a decimal UNION over 120M rows, the byte
    hashes of DECIMAL(24,4), explode of N4's maps and ``from_json`` /
    ``to_json`` in SQL over N6's first documents (CPU engine); a first
-   run each with every B1 / B3 launch held and one warm run, against
+   run each with every B1 / B3 launch held and WARM_RUNS warm runs, against
    numpy / Python (``surface_references`` in ``host_worker``);
-6. runs the NDS slice (``NDS_SLICE``, 20 star-join queries) as SQL
-   text through ``session.sql`` over NDS tables generated in memory at
-   ``scale_rows`` 28,800,000 (TPC-DS SF10's store_sales; q82 at
-   2,880,000, SF1, because its join grows with the square of the scale)
-   and moved to the card, then the ten window queries (``NDS_WINDOW``)
-   on the same tables: per query a first and one warm run, each held
-   against a numpy reference written from the query text
-   (``NdsNumpy``) and checked to be in ORDER BY order, the warm run
-   launching what the first did, and B3 held
-   against its plain version on every batch it took; it logs wall
-   times, fact rows/s, result rows, launches and ``pallasBatches`` per
-   kernel and peak device memory, and checks that B3 carried q3, q42,
-   q43, q52 and q55; then, on the inputs of the widest float group sum
-   that q12 and q98 each make, it times the float group sums
-   (``_seg_sum``) against one ``index_add_`` call and the hash-claim
-   path's sort of the group ids, and checks that five runs of each give
-   the same bits;
 5e. runs the mixed device / CPU-engine plans (``fallback_phase``,
    after the NDS slice, on the resident TPC-H, DECIMAL and NDS tables):
    F1-F5 of models/fallback.py, each sending one operator to the CPU
@@ -155,7 +189,7 @@ Needs one NVIDIA GPU (built for an H100: sm_90a), nvcc and triton. It
    against ``CPU_NODES``), and F6, TPC-H q6 and q1 with
    ``srt.sql.enabled=false`` over lineitem's first 3,000,000 rows; a
    first run with every B1 / B3 launch held (B1 under F2, B3 under F1
-   and F4, above a HostToDevice seam) and one warm run, against numpy,
+   and F4, above a HostToDevice seam) and WARM_RUNS warm runs, against numpy,
    ``re`` and ``decimal`` references from a ``host_worker`` process
    (F5's from NdsNumpy); walls, rows and bytes across the seams, the
    CPU engine's seconds. Every plan outside this phase must have no
@@ -164,10 +198,9 @@ Needs one NVIDIA GPU (built for an H100: sm_90a), nvcc and triton. It
    and full outer joins, cross products, UNION ALL, INTERSECT, EXCEPT)
    on the same tables, plus ``Q93_OUTER`` (q93's left outer join
    without the JOIN that no row passes): q93, q97, q90, q28, q38, q87,
-   q71, q33 and ``Q93_OUTER`` a first and one warm run each held
-   against ``NdsNumpy``,
-   the other ten a first run (no warm run since phase 5g came: the
-   smoke's time), and, at
+   q71, q33 and ``Q93_OUTER`` a first run and WARM_RUNS warm runs each
+   held against ``NdsNumpy``,
+   the other ten a first run (JOINS_WARM_RUNS warm runs), and, at
    ``scale_rows`` 100,000, the card's rows against the port's own CPU
    run (the plain versions, which the CPU tests hold against the JAX
    package: this checks the CUDA path, not the semantics); B1 held
@@ -178,10 +211,10 @@ Needs one NVIDIA GPU (built for an H100: sm_90a), nvcc and triton. It
    ``NDS_FUNCS`` (round, stddev_samp, q49, q75) on the same tables, plus
    ``Q10_OR`` (q10 without the county filter no address meets), with
    the plan-time subqueries' share of the first run logged; q6, q94,
-   q10, q69, q45, q27, q36, q17, q2 and ``Q10_OR`` a first and one
-   warm run each held against ``NdsNumpy`` (q17 on its own tables at
-   ``NDS_Q17_ROWS``, as its join grows with the cube of the scale), the
-   others a first run (no warm run, as in 6b) and, at 100,000 rows,
+   q10, q69, q45, q27, q36, q17, q2 and ``Q10_OR`` a first run and
+   WARM_RUNS warm runs each held against ``NdsNumpy`` (q17 on its own
+   tables at ``NDS_Q17_ROWS``, as its join grows with the cube of the
+   scale), the others a first run (as in 6b) and, at 100,000 rows,
    the card's rows
    against the port's CPU run (q67 against the CPU's ROLLUP sums
    ``Q67_ROLLUP`` with ties left open, as B3 rounds a sum in another
@@ -195,7 +228,7 @@ Needs one NVIDIA GPU (built for an H100: sm_90a), nvcc and triton. It
    included): (a) ROW_NUMBER, RANK and a ROWS running SUM, which the
    planner must give to BatchedRunningWindowExec over 28 sorted
    1,048,576-row batches, and (b) a whole-partition SUM and a LAG,
-   through two WindowExecs; each first run and one warm run is held
+   through two WindowExecs; each first run and WARM_RUNS warm runs are held
    against numpy (a stable sort and segment scans) on every row, with
    wall times, rows/s, peak device memory and operator self times;
    window (a)'s sort runs out of core (28.8M rows above the default
@@ -206,7 +239,7 @@ Needs one NVIDIA GPU (built for an H100: sm_90a), nvcc and triton. It
    against numpy's stable sort on every row and against each other, with
    each path's transient peak (``max_memory_allocated`` minus what was
    resident) and spilled bytes; (b) the queries of ``CAPPED_QUERIES``
-   uncapped and then under a cap of what is resident plus 75% of their
+   (window (a) and q82) uncapped and then under a cap of what is resident plus 75% of their
    uncapped transient peak (``torch.cuda.set_per_process_memory_fraction``
    and ``srt.memory.tpu.poolSize``), logged before the run: rows equal to
    the uncapped run's, spill, retry or split counted, the peak at or
@@ -231,7 +264,10 @@ Needs one NVIDIA GPU (built for an H100: sm_90a), nvcc and triton. It
 
 Every query's first run holds each B1 / B3 launch against the kernel's
 plain version on the same inputs (``holding_launches``); warm runs are
-timed outside the hold.
+timed outside the hold. WARM_RUNS is 0, so that the smoke stays inside
+its 1200 s on slower hosts: the queries of phases 5b-5f and 6-7 run
+once, their walls the held first run's; steps 5, 5g and 5h keep their
+warm runs.
 
 Any mismatch or error exits non-zero before the last line is printed.
 """
@@ -265,13 +301,17 @@ NDS_Q82_ROWS = 2_880_000
 NDS_B3_QUERIES = ("q3", "q42", "q43", "q52", "q55")
 NDS_FACTS = ("store_sales", "store_returns", "catalog_sales", "web_sales",
              "inventory")
-#: warm runs of each NDS query that numpy holds, and of each query of
-#: phases 6b and 6c held against its own first run: each warm run is
-#: held against the rows and launch counts of the first. The 34 of 6b
-#: and 6c take none: their warm runs were 135 s of a smoke that has to
-#: fit phase 5g in its time (their first runs are still held, and
-#: checked against the CPU at JOINS_CROSS_ROWS)
-WARM_RUNS = 1
+#: warm runs after each query's held first run in phases 5b-5f (but
+#: 5g and 5h, which time their readers and commits warm), 6, 6b, 6c
+#: and 7: each is held against the rows and launch counts of the first,
+#: and the query's wall is their median (the first run's without one).
+#: None: on slower hosts the smoke ran past its 1200 s with them (about
+#: 160 s of a 905 s run on a fast host, PERF.md section 6); every query
+#: still runs once, held against its reference with every B1 / B3
+#: launch held against the plain version
+WARM_RUNS = 0
+#: the same for the 34 queries of 6b and 6c held against their own
+#: first run (and checked against the CPU at JOINS_CROSS_ROWS)
 JOINS_WARM_RUNS = 0
 #: the NDS_JOINS_SETOPS queries held against NdsNumpy at SF10, one or
 #: more per new operator; the other ten are held, at JOINS_CROSS_ROWS,
@@ -412,6 +452,14 @@ def bound_ms(nbytes, flops):
     t_ops = flops / PEAK_FP64_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def warm_note(walls):
+    """The warm runs' walls (s) for a log line."""
+    if not walls:
+        return "no warm run"
+    return (f"warm median {statistics.median(walls):.4f} of "
+            f"{[round(w, 4) for w in walls]} s")
 
 
 def untimed(ms):
@@ -2216,10 +2264,8 @@ def run_nds(torch, dev, read_counts, session, q, text, ref, want_fn, warm,
            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
            "reference_s": ref_s}
     log(f"nds {q}: matches {held} ({len(rows)} rows); first (B1 / B3 "
-        f"held on every launch) {first:.4f} s, " + (f"warm median {wall:.4f} of "
-                              f"{[round(w, 4) for w in walls]} s"
-                              if walls else "no warm run") +
-        f"; {facts} fact rows, "
+        f"held on every launch) {first:.4f} s, {warm_note(walls)}; "
+        f"{facts} fact rows, "
         f"{facts / wall:.4e} rows/s; launches {counts}, pallasBatches "
         f"{pb}; max_memory_allocated {out['peak_gb']:.3f} GB; numpy "
         f"{ref_s:.1f} s")
@@ -2231,12 +2277,26 @@ def run_nds(torch, dev, read_counts, session, q, text, ref, want_fn, warm,
     return out
 
 
-def nds_phase(torch, np, dev, read_counts):
+def nds_batches_ahead():
+    """The NDS tables' host batches at NDS_Q82_ROWS and NDS_ROWS
+    (``nds_host_batches``), made on a host thread from the call on:
+    ``get(scale)`` waits for a scale's, in that order."""
+    from spark_rapids_tpu_torch.models.nds import nds_host_batches
+
+    def make(scale):
+        t = time.perf_counter()
+        return nds_host_batches(scale, BATCH_ROWS), time.perf_counter() - t
+    return references_ahead([(scale, lambda scale=scale: make(scale))
+                             for scale in (NDS_Q82_ROWS, NDS_ROWS)])
+
+
+def nds_phase(torch, np, dev, read_counts, tables_ahead):
     """The NDS slice through ``session.sql`` on the card, each run held
-    against NdsNumpy; returns ({query: numbers}, the SF10 session, its
-    reference, the widest batch B3 took, and the joins phase's numpy
-    references, started on a host thread of their own once the SF10
-    tables exist)."""
+    against NdsNumpy, over the tables ``tables_ahead``
+    (``nds_batches_ahead``) made; returns ({query: numbers}, the SF10
+    session, its reference, the widest batch B3 took, and the joins
+    phase's numpy references, started on a host thread of their own once
+    the SF10 tables exist)."""
     from spark_rapids_tpu_torch.conf import SrtConf
     from spark_rapids_tpu_torch.models.nds import (NDS_QUERIES, NDS_SLICE,
                                                    NDS_WINDOW, register_nds)
@@ -2246,10 +2306,13 @@ def nds_phase(torch, np, dev, read_counts):
         session = TpuSession(SrtConf({"srt.sql.batchSizeRows": BATCH_ROWS}),
                              device=dev)
         host = {}
+        t = time.perf_counter()
+        batches, gen_s = tables_ahead.get(scale)
+        waited = time.perf_counter() - t
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated(dev)
         t = time.perf_counter()
-        register_nds(session, scale, host_tables=host)
+        register_nds(session, scale, host_tables=host, batches=batches)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
         nbytes = torch.cuda.memory_allocated(dev) - before
@@ -2257,7 +2320,8 @@ def nds_phase(torch, np, dev, read_counts):
             f"{n} {t.num_rows}" for n, t in host.items()
             if n in NDS_FACTS) + f"; {sum(t.num_rows for t in host.values())}"
             f" rows in {len(host)} tables, {nbytes / 1e9:.3f} GB on the "
-            f"card, generated and moved in {secs:.1f} s")
+            f"card; generated in {gen_s:.1f} s on a host thread (waited "
+            f"{waited:.1f} s), moved in {secs:.1f} s")
         return session, NdsNumpy(np, host)
 
     def run(q, session, ref, ahead=None):
@@ -2620,9 +2684,6 @@ def subquery_rollup_phase(torch, np, dev, session, ref, read_counts):
 #: the store_sales-scale window phase: (a) streams through
 #: BatchedRunningWindowExec, (b) runs through two WindowExecs
 WINDOW_KEYS = "ss_sold_date_sk, ss_ticket_number, ss_item_sk"
-#: warm runs of each store_sales window (window (a) runs through the
-#: out-of-core sort)
-WINDOW_WARM_RUNS = 1
 WINDOW_QUERIES = {
     "a_running": f"""
         SELECT ss_customer_sk, ss_sold_date_sk, ss_ticket_number,
@@ -2782,7 +2843,7 @@ def window_phase(torch, np, dev, session, ref, ahead):
                   f"window {name}: ran {[type(x).__name__ for x in nodes]}")
             out_batches = None
         walls = []
-        for _ in range(WINDOW_WARM_RUNS):
+        for _ in range(WARM_RUNS):
             torch.cuda.synchronize()
             t = time.perf_counter()
             table = run()
@@ -2790,7 +2851,7 @@ def window_phase(torch, np, dev, session, ref, ahead):
             walls.append(time.perf_counter() - t)
             same_columns(np, table, want[name], f"window {name} warm")
             del table
-        wall = statistics.median(walls)
+        wall = statistics.median(walls) if walls else first
         physical, ctx = session._last_execution
         self_ms = sorted(operator_self_ms(physical, ctx.metrics, {}).items(),
                          key=lambda kv: -kv[1])
@@ -2802,12 +2863,12 @@ def window_phase(torch, np, dev, session, ref, ahead):
                                          if "Window" in type(x).__name__}),
                         "window_batches": out_batches}
         log(f"window {name}: matches numpy on {rows} rows; first "
-            f"{first:.4f} s, warm median {wall:.4f} of "
-            f"{[round(w, 4) for w in walls]} s; {rows / wall:.4e} rows/s; "
+            f"{first:.4f} s, {warm_note(walls)}; {rows / wall:.4e} rows/s "
+            f"(the {'warm median' if walls else 'first run'}); "
             f"execs {report[name]['execs']} ({out_batches} batches "
             f"streamed); max_memory_allocated {report[name]['peak_gb']:.3f}"
             " GB")
-        log(f"window {name} operator self time (host clock, ms, last warm "
+        log(f"window {name} operator self time (host clock, ms, last "
             "run): " + ", ".join(f"{k} {v:.1f}" for k, v in self_ms[:6]))
         runs[name] = run
     log("window summary " + json.dumps(report))
@@ -2828,8 +2889,10 @@ IN_CORE_ROW_BUDGET = 1 << 30
 #: the queries run under a cap of the resident bytes plus CAP_SHARE of
 #: their uncapped transient peak, chosen on the H100 (PERF.md section 4:
 #: q4 and q47 finish under theirs too, in 156 s and 76 s; TPC-H q3 and
-#: q67 die under theirs)
-CAPPED_QUERIES = ("window_a", "q6", "q82")
+#: q67 die under theirs): window (a) spills, q82 retries and splits. NDS
+#: q6 (spills too) is left out to keep the smoke inside its time: its
+#: capped run took 25.8 s on the H100
+CAPPED_QUERIES = ("window_a", "q82")
 CAP_SHARE = 0.75
 #: injected OOMs per query and mode, spread over its allocation attempts
 #: (two: each is a whole run of the query)
@@ -3759,10 +3822,10 @@ def fused_filter(physical, ctx, nodes, label):
 
 def run_scalar(torch, dev, session, read_counts, name, text, must):
     """One scalar query through session.sql: a first run with every
-    B1 / B3 launch held against the plain version, and a warm run
-    outside the hold with the same launch counts; each kernel in
+    B1 / B3 launch held against the plain version, and WARM_RUNS warm
+    runs outside the hold with the same launch counts; each kernel in
     ``must`` launched. Returns (its numbers, (text, columns, first
-    run's rows, warm run's rows))."""
+    run's rows, [each warm run's rows]))."""
     from spark_rapids_tpu_torch.ops import device_kernels as DK
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3781,20 +3844,23 @@ def run_scalar(torch, dev, session, read_counts, name, text, must):
     if name == "s7_fused":
         out["fused_filter"] = sorted(fused_filter(
             *session._last_execution, S7_FUSED_NODES, f"scalar {name}"))
-    DK.reset_counts()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    again = session.sql(text).collect()
-    torch.cuda.synchronize()
-    warm = time.perf_counter() - t
-    check(read_counts() == counts, f"scalar {name}: the warm run launched "
-          f"{read_counts()}, the first {counts}")
+    again, walls = [], []
+    for _ in range(WARM_RUNS):
+        DK.reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        again.append(session.sql(text).collect())
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        check(read_counts() == counts, f"scalar {name}: the warm run "
+              f"launched {read_counts()}, the first {counts}")
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
-    out |= {"first_s": first, "warm_s": warm, "peak_gb": peak,
-            "result_rows": len(rows), "launches": counts,
+    out |= {"first_s": first,
+            "warm_s": statistics.median(walls) if walls else None,
+            "peak_gb": peak, "result_rows": len(rows), "launches": counts,
             "held": dict(hold.held), "max_abs_err": dict(hold.err)}
     log(f"scalar {name}: first {first:.4f} s (B1 / B3 held on every "
-        f"launch), warm {warm:.4f} s; launches {counts}; held B1 "
+        f"launch), {warm_note(walls)}; launches {counts}; held B1 "
         f"{hold.held['tile_reduce']} / B3 {hold.held['tile_group_reduce']} "
         f"batches (max_abs_err {hold.err}); max_memory_allocated "
         f"{peak:.3f} GB" + (f"; B1's fused filter holds "
@@ -3822,8 +3888,8 @@ def scalar_phase(torch, np, dev, session, dfs, zone, worker, read_counts):
     """Phase 5b: scalar_queries through session.sql on the TPC-H tables
     already on the card (60M lineitem, 15M orders, 1.5M customer rows):
     a first run, with every B1 / B3 launch held against the plain
-    version (``holding_launches``), and one warm run outside the hold,
-    each held against scalar_references (from ``worker``, a
+    version (``holding_launches``), and WARM_RUNS warm runs outside the
+    hold, each held against scalar_references (from ``worker``, a
     ``host_worker`` process); logs walls, the device memory peak, each query's launches
     and its held B1 / B3 batches."""
     from spark_rapids_tpu_torch.ops import device_kernels as DK
@@ -3844,10 +3910,11 @@ def scalar_phase(torch, np, dev, session, dfs, zone, worker, read_counts):
         keys, limit = order_keys(text, columns)
         diff = compare_rows(rows, refs[name], keys, limit, RTOL)
         check(diff is None, f"scalar {name}: {diff} (reference)")
-        check(compare_rows(again, refs[name], keys, limit, RTOL) is None,
-              f"scalar {name}: the warm run disagrees with the reference")
-        log(f"scalar {name}: the first and the warm run match the reference "
-            f"({len(rows)} rows)")
+        for warm in again:
+            check(compare_rows(warm, refs[name], keys, limit, RTOL) is None,
+                  f"scalar {name}: a warm run disagrees with the reference")
+        log(f"scalar {name}: the first run and {len(again)} warm runs match "
+            f"the reference ({len(rows)} rows)")
     n_li = -(-ROWS // BATCH_ROWS)
     check(report["s7_fused"]["launches"]["tile_reduce"] == n_li,
           f"scalar s7_fused: B1 ran on "
@@ -3868,7 +3935,7 @@ def scalar_phase(torch, np, dev, session, dfs, zone, worker, read_counts):
 DECIMAL_MONEY = ("l_quantity", "l_extendedprice", "l_discount", "l_tax",
                  "o_totalprice")
 #: D4 runs over lineitem's first rows only, so that its Python reference
-#: (per-row Python ints) stays inside half a minute on the host thread
+#: (per-row Python ints) stays inside half a minute in its process
 DECIMAL_D4_ROWS = 1 << 22
 #: D6: one RetryOOM and one SplitAndRetryOOM, at the middle allocation
 #: attempt of the clean run
@@ -4101,14 +4168,15 @@ def same_decimal_rows(got, want):
 
 def run_decimal(torch, dev, session, read_counts, name, text, rows_in,
                 collect=True):
-    """A first and one warm run of ``text`` through session.sql: walls,
-    fact rows/s, the device memory peak and the transient part of it
-    (peak minus what was resident before), the top operators' self
-    times; no B1 / B3 launch may happen (their gates refuse decimal
-    lanes). Returns (numbers, first result, warm result)."""
+    """A first run and WARM_RUNS warm runs of ``text`` through
+    session.sql: walls, fact rows/s, the device memory peak and the
+    transient part of it (peak minus what was resident before), the top
+    operators' self times; no B1 / B3 launch may happen (their gates
+    refuse decimal lanes). Returns (numbers, [each run's result, the
+    first run's first])."""
     from spark_rapids_tpu_torch.ops import device_kernels as DK
     results, walls = [], []
-    for _ in range(2):
+    for _ in range(1 + WARM_RUNS):
         gc.collect()
         torch.cuda.synchronize()
         resident = torch.cuda.memory_allocated(dev)
@@ -4126,25 +4194,26 @@ def run_decimal(torch, dev, session, read_counts, name, text, rows_in,
     physical, ctx = session._last_execution
     self_ms = sorted(operator_self_ms(physical, ctx.metrics, {}).items(),
                      key=lambda kv: -kv[1])
-    out = {"first_s": walls[0], "warm_s": walls[1], "rows": rows_in,
-           "rows_per_s": rows_in / walls[1], "peak_gb": peak / 1e9,
-           "transient_gb": (peak - resident) / 1e9,
+    wall = statistics.median(walls[1:]) if WARM_RUNS else walls[0]
+    out = {"first_s": walls[0], "warm_s": wall if WARM_RUNS else None,
+           "rows": rows_in, "rows_per_s": rows_in / wall,
+           "peak_gb": peak / 1e9, "transient_gb": (peak - resident) / 1e9,
            "schema": [(n, repr(t)) for n, t in df.schema]}
-    log(f"decimal {name}: first {walls[0]:.4f} s, warm {walls[1]:.4f} s, "
-        f"{rows_in / walls[1]:.4e} fact rows/s; max_memory_allocated "
-        f"{peak / 1e9:.3f} GB, transient {(peak - resident) / 1e9:.3f} GB; "
-        "operator self time (host clock, ms, warm run): "
+    log(f"decimal {name}: first {walls[0]:.4f} s, {warm_note(walls[1:])}, "
+        f"{rows_in / wall:.4e} fact rows/s; max_memory_allocated "
+        f"{peak / 1e9:.3f} GB, transient {(peak - resident) / 1e9:.3f} GB "
+        "(the last run's); operator self time (host clock, ms, last run): "
         + ", ".join(f"{k} {v:.1f}" for k, v in self_ms[:6]))
-    return out, results[0], results[1]
+    return out, results
 
 
-def decimal_phase(torch, np, dev, batches, host, read_counts, ahead):
+def decimal_phase(torch, np, dev, batches, host, read_counts, worker):
     """Phase 5c: TPC-H over DECIMAL(12,2) money on the card (D1 q1, D2 q6,
     D3 q3 at 60M / 15M / 1.5M rows; D4 the casts and the exact divide
     over lineitem's first DECIMAL_D4_ROWS rows; D6 D1 under an injected
     RetryOOM and SplitAndRetryOOM, and a Decimal128Column's spill round
-    trip), each held against ``decimal_references`` (``ahead``'s
-    "decimal" entry). Returns (report, the session, a function that runs
+    trip), each held against ``decimal_references`` (from ``worker``, a
+    ``host_worker`` process). Returns (report, the session, a function that runs
     D1, D1's reference)."""
     from spark_rapids_tpu_torch.columnar import dtypes as dt
     from spark_rapids_tpu_torch.columnar.decimal128 import Decimal128Column
@@ -4171,9 +4240,8 @@ def decimal_phase(torch, np, dev, batches, host, read_counts, ahead):
     for name, text, rows_in in (("d1_q1", DECIMAL_Q1, ROWS),
                                 ("d2_q6", DECIMAL_Q6, ROWS),
                                 ("d3_q3", DECIMAL_Q3, ROWS)):
-        report[name], first, warm = run_decimal(
+        report[name], results[name] = run_decimal(
             torch, dev, session, read_counts, name, text, rows_in)
-        results[name] = (first, warm)
     types = dict(report["d1_q1"]["schema"])
     for col_name, (p, sc) in DECIMAL_Q1_TYPES.items():
         check(types[col_name] == f"decimal({p},{sc})",
@@ -4187,7 +4255,7 @@ def decimal_phase(torch, np, dev, batches, host, read_counts, ahead):
     d4_session.create_or_replace_temp_view(
         "lineitem", d4_session.from_batches(
             dec["lineitem"][:DECIMAL_D4_ROWS // BATCH_ROWS]))
-    report["d4_casts"], d4_first, d4_warm = run_decimal(
+    report["d4_casts"], d4_results = run_decimal(
         torch, dev, d4_session, read_counts, "d4_casts", DECIMAL_D4,
         DECIMAL_D4_ROWS, collect=False)
     d4_types = dict(report["d4_casts"]["schema"])
@@ -4247,32 +4315,33 @@ def decimal_phase(torch, np, dev, batches, host, read_counts, ahead):
         f"({injected}); a {batch.num_rows}-row DECIMAL(38,6) batch spilled "
         f"to host and disk ({moved} bytes) came back bit-equal")
     t = time.perf_counter()
-    refs = ahead.get("decimal")
-    log(f"decimal: references ready after {time.perf_counter() - t:.1f} s "
-        "more")
+    refs, _, ref_s, _ = worker.get("decimal")
+    log(f"decimal: references in {ref_s:.1f} s in a second process "
+        f"(waited {time.perf_counter() - t:.1f} s)")
     for name, key in (("d1_q1", "d1"), ("d2_q6", "d2")):
-        for label, rows in zip(("first", "warm"), results[name]):
+        for run, rows in enumerate(results[name]):
             check(same_decimal_rows(rows, refs[key]),
-                  f"decimal {name} {label}: {rows} != {refs[key]}")
-        log(f"decimal {name}: first and warm run equal the exact reference "
+                  f"decimal {name} run {run}: {rows} != {refs[key]}")
+        log(f"decimal {name}: the first run and {len(results[name]) - 1} "
+            f"warm runs equal the exact reference "
             f"{refs[key] if key == 'd2' else len(refs[key])}")
     check(same_decimal_rows(clean, refs["d1"]), "decimal d6: clean run")
-    for label, rows in zip(("first", "warm"), results["d3_q3"]):
+    for label, rows in enumerate(results["d3_q3"]):
         got = [(r["revenue"], r["o_orderdate"]) for r in rows]
         want = [(r["revenue"], r["o_orderdate"]) for r in refs["d3"]]
-        check(got == want, f"decimal d3_q3 {label}: {got} != {want}")
+        check(got == want, f"decimal d3_q3 run {label}: {got} != {want}")
         tail = [(r["revenue"], r["o_orderdate"]) for r in refs["d3"]]
         unique = [i for i, v in enumerate(tail) if tail.count(v) == 1
                   and not (i == 9 and refs["d3_ties"] > 1)]
         check(all(rows[i]["l_orderkey"] == refs["d3"][i]["l_orderkey"]
-                  for i in unique), f"decimal d3_q3 {label}: order keys")
+                  for i in unique), f"decimal d3_q3 run {label}: order keys")
     log(f"decimal d3_q3: revenue DECIMAL(36,4) top 10 sorted on the card "
         f"equals the exact reference ({refs['d3'][0]['revenue']} first)")
-    for label, table in (("first", d4_first), ("warm", d4_warm)):
+    for label, table in enumerate(d4_results):
         for c in table.columns:
             if c.dtype == dt.STRING:
                 c.values = c.values.to_objects()
-        same_columns(np, table, refs["d4"], f"decimal d4_casts {label}")
+        same_columns(np, table, refs["d4"], f"decimal d4_casts run {label}")
     nulls = int((~refs["d4"]["ovf"][1]).sum())
     check(0 < nulls < DECIMAL_D4_ROWS, f"decimal d4: {nulls} overflow rows")
     report["d4_casts"]["overflow_nulls"] = nulls
@@ -4304,9 +4373,9 @@ def decimal_window_phase(torch, np, dev, session, read_counts, ahead):
     finally:
         ahead.close()
     ref_s = time.perf_counter() - t
-    report, first, warm = run_decimal(torch, dev, session, read_counts,
-                                      "d5_window", DECIMAL_D5, rows,
-                                      collect=False)
+    report, tables = run_decimal(torch, dev, session, read_counts,
+                                 "d5_window", DECIMAL_D5, rows,
+                                 collect=False)
     types = dict(report["schema"])
     check(types["run_paid"] == "decimal(17,2)" and
           types["avg_paid"] == "decimal(11,6)", f"decimal d5: {types}")
@@ -4317,10 +4386,11 @@ def decimal_window_phase(torch, np, dev, session, read_counts, ahead):
         todo.extend(nodes[-1].children)
     check(sum(isinstance(x, WindowExec) for x in nodes) == 2,
           f"decimal d5: ran {[type(x).__name__ for x in nodes]}")
-    for label, table in (("first", first), ("warm", warm)):
-        same_columns(np, table, want, f"decimal d5_window {label}")
-    log(f"decimal d5_window: both runs equal numpy's int64 scans on all "
-        f"{rows} rows (waited {ref_s:.1f} s for the reference)")
+    for run, table in enumerate(tables):
+        same_columns(np, table, want, f"decimal d5_window run {run}")
+    log(f"decimal d5_window: the first run and {len(tables) - 1} warm runs "
+        f"equal numpy's int64 scans on all {rows} rows (waited "
+        f"{ref_s:.1f} s for the reference)")
     return report
 
 
@@ -4526,7 +4596,7 @@ def fallback_phase(torch, np, dev, sessions, li_batches, read_counts,
     """Phase 5e: F1-F6 (models/fallback.py) on the resident SF10 tables:
     each plan's CPU-engine nodes against the ones the query names, a
     first run with every B1 / B3 launch held against the plain version,
-    one warm run, both against ``fallback_references`` (from
+    WARM_RUNS warm runs, each against ``fallback_references`` (from
     ``worker``, a ``host_worker`` process) and ``f5_reference``; logs
     walls, the rows and bytes across each seam and the seconds in the
     CPU engine against the rest (the device, host clock)."""
@@ -4578,7 +4648,7 @@ def fallback_phase(torch, np, dev, sessions, li_batches, read_counts,
         check(marks == expect, f"fallback {name}: CPU-engine nodes {marks}, "
               f"expected {expect}")
         walls, outs = [], []
-        for run in range(2):
+        for run in range(1 + WARM_RUNS):
             DK.reset_counts()
             torch.cuda.synchronize()
             hold = holding_launches(torch, DK) if run == 0 else None
@@ -4612,16 +4682,18 @@ def fallback_phase(torch, np, dev, sessions, li_batches, read_counts,
         cpu_s = totals.get("cpuTimeNs", 0) / 1e9
         seam_s = totals.get("transitionTimeNs", 0) / 1e9
         report[name] = {
-            "first_s": walls[0], "warm_s": walls[1],
+            "first_s": walls[0],
+            "warm_s": statistics.median(walls[1:]) if WARM_RUNS else None,
             "seam_rows": totals.get("transitionRows", 0),
             "seam_bytes": totals.get("transitionBytes", 0),
             "seam_s": seam_s, "cpu_engine_s": cpu_s,
-            "rest_s": walls[1] - cpu_s - seam_s,
+            "rest_s": walls[-1] - cpu_s - seam_s,
             "launches": first_counts, "max_abs_err": first_err,
             "cpu_nodes": marks}
         log(f"fallback {name}: CPU-engine nodes {marks}; matches the "
-            f"reference; walls first {walls[0]:.3f} s, warm {walls[1]:.3f} "
-            f"s; seams {report[name]['seam_rows']} rows, "
+            f"reference; walls first {walls[0]:.3f} s, "
+            f"{warm_note(walls[1:])}; seams (last run) "
+            f"{report[name]['seam_rows']} rows, "
             f"{report[name]['seam_bytes']} B, {seam_s:.3f} s; CPU engine "
             f"{cpu_s:.3f} s, the rest (device and planning, host clock) "
             f"{report[name]['rest_s']:.3f} s; launches {first_counts}")
@@ -4674,14 +4746,27 @@ def nested_same(got, want):
     return got == want
 
 
-def nested_phase(torch, np, dev, session, li_df, host, worker, read_counts):
+def nested_host_build(np, host):
+    """orders_nested on the host: (lineitem's host table, the
+    NestedOrders, its host table, the seconds the build took)."""
+    from spark_rapids_tpu_torch.models import nested as NM
+    t = time.perf_counter()
+    li_t, _ = nested_host_tables(np, host)
+    no = NM.NestedOrders(li_t)
+    return li_t, no, no.table(), time.perf_counter() - t
+
+
+def nested_phase(torch, np, dev, session, li_df, built, worker,
+                 read_counts):
     """Phase 5d: ``orders_nested`` (lineitem stably sorted on l_orderkey
     and cut into orders of 1-7 lines: 60M elements in each of five
-    arrays over about 15M orders) built on the host and moved to the card
+    arrays over about 15M orders) built on the host (``built``'s
+    "nested_host" entry, ``nested_host_build`` on a host thread during
+    the phases before) and moved to the card
     through the flat host lanes in 1,048,576-row batches, and
     ``orders_json`` (NESTED_JSON_ROWS documents, from ``worker``); N1-N7
     of models/nested.py, each a first run with every B1 / B3 launch held
-    and one warm run, held against numpy segment reductions over the
+    and WARM_RUNS warm runs, held against numpy segment reductions over the
     sorted host lanes, computed on a host thread beside the queries (N6
     against Python's json, in ``worker``). Returns (report, N2's run, N2's
     reference, the resident DataFrames' batches) for phase 8's profile."""
@@ -4689,11 +4774,12 @@ def nested_phase(torch, np, dev, session, li_df, host, worker, read_counts):
     from spark_rapids_tpu_torch.models import nested as NM
     from spark_rapids_tpu_torch.ops import device_kernels as DK
     from spark_rapids_tpu_torch.plan.host_table import table_to_batch
-    t0 = time.perf_counter()
-    li_t, _ = nested_host_tables(np, host)
-    no = NM.NestedOrders(li_t)
-    nt = no.table()
-    build_s = time.perf_counter() - t0
+    t = time.perf_counter()
+    try:
+        li_t, no, nt, build_s = built.get("nested_host")
+    finally:
+        built.close()
+    build_wait = time.perf_counter() - t
     # the numpy references on one host thread from here
     ahead = references_ahead([
         ("nested", lambda: NM.references(no, li_t)),
@@ -4711,7 +4797,8 @@ def nested_phase(torch, np, dev, session, li_df, host, worker, read_counts):
         log(f"nested: orders_nested {no.n} orders, {len(no.row)} elements "
             f"in each of price / disc / qty / ship / flags (longest "
             f"{int(no.lens.max())}, one price array in "
-            f"{NM.NULL_PRICE_EVERY} NULL); host build {build_s:.1f} s, "
+            f"{NM.NULL_PRICE_EVERY} NULL); host build {build_s:.1f} s on "
+            f"a host thread (waited {build_wait:.1f} s), "
             f"moved in {move_s:.1f} s as {len(on_batches)} batches, "
             f"{nested_gb:.3f} GB on the card")
         t = time.perf_counter()
@@ -4760,26 +4847,30 @@ def nested_phase(torch, np, dev, session, li_df, host, worker, read_counts):
             if name in ("N1", "N6"):
                 check(counts["tile_group_reduce"] > 0,
                       f"nested {name}: B3 did not run ({counts})")
-            DK.reset_counts()
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            again = run()
-            torch.cuda.synchronize()
-            warm = time.perf_counter() - t
-            check(read_counts() == counts, f"nested {name}: the warm run "
-                  f"launched {read_counts()}, the first {counts}")
+            again, walls = [], []
+            for _ in range(WARM_RUNS):
+                DK.reset_counts()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                again.append(run())
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t)
+                check(read_counts() == counts, f"nested {name}: the warm "
+                      f"run launched {read_counts()}, the first {counts}")
+            wall = statistics.median(walls) if walls else first
             peak = torch.cuda.max_memory_allocated(dev)
             n_el = elements.get(name, len(no.row))
             report[name] = {
-                "first_s": first, "warm_s": warm,
-                "elements_per_s": n_el / warm, "peak_gb": peak / 1e9,
+                "first_s": first, "warm_s": wall if walls else None,
+                "elements_per_s": n_el / wall, "peak_gb": peak / 1e9,
                 "transient_gb": (peak - resident) / 1e9,
                 "launches": counts, "fold_steps": steps,
                 "held": dict(hold.held), "max_abs_err": dict(hold.err)}
             results[name] = (rows, again)
-            log(f"nested {name}: first {first:.4f} s (B1 / B3 held), warm "
-                f"{warm:.4f} s, {n_el / warm:.4e} "
-                f"{'documents' if name == 'N6' else 'elements'}/s; launches "
+            log(f"nested {name}: first {first:.4f} s (B1 / B3 held), "
+                f"{warm_note(walls)}, {n_el / wall:.4e} "
+                f"{'documents' if name == 'N6' else 'elements'}/s (the "
+                f"{'warm median' if walls else 'first run'}); launches "
                 f"{counts}" + (f"; aggregate fold steps {steps}" if steps
                                else "") + f"; peak {peak / 1e9:.3f} GB, "
                 f"transient {(peak - resident) / 1e9:.3f} GB")
@@ -4795,27 +4886,27 @@ def nested_phase(torch, np, dev, session, li_df, host, worker, read_counts):
     for name, (rows, again) in results.items():
         if name == "N6":
             want = n6
-            for r in (rows, again):
+            for r in (rows, *again):
                 got = {x["prio"]: (x["total"], x["p1"], x["notes"], x["n"])
                        for x in r}
                 check(got.keys() == want.keys() and all(
                     nested_same(list(got[k]), list(want[k])) for k in want),
                     f"nested N6: {got} != json {want}")
         elif name == "N3_rows":
-            check(rows == n3_rows and again == n3_rows,
+            check(all(r == n3_rows for r in (rows, *again)),
                   f"nested N3_rows: {rows[:2]} != {n3_rows[:2]}")
         elif name == "N1":
-            for r in (rows, again):
+            for r in (rows, *again):
                 got = {x["pos"]: (x["rev"], x["n"]) for x in r}
                 check(nested_same(got, {k: v for k, v in
                                         refs["N1"].items()}),
                       f"nested N1: {got} != numpy {refs['N1']}")
         else:
-            for r in (rows, again):
+            for r in (rows, *again):
                 check(len(r) == 1 and nested_same(r[0], refs[name]),
                       f"nested {name}: {r} != numpy {refs[name]}")
-        log(f"nested {name}: first and warm runs match the "
-            f"{'json' if name == 'N6' else 'numpy'} reference")
+        log(f"nested {name}: the first run and {len(again)} warm runs "
+            f"match the {'json' if name == 'N6' else 'numpy'} reference")
     log("nested summary " + json.dumps({q: {
         k: r[k] for k in ("first_s", "warm_s", "elements_per_s", "peak_gb",
                           "transient_gb", "fold_steps")}
@@ -4974,10 +5065,14 @@ def half_up_unscaled(np, x, scale):
 
 
 def numpy_interleave2(np, a, b):
-    """interleave_bits(a, b) of two BIGINT lanes: the top 31 bits of each
-    (in unsigned order: the sign bit flipped), a's bit i at 2i, b's at
-    2i + 1; the bits spread by masks."""
+    """interleave_bits(a, b) of two BIGINT or INT lanes: the top 31 bits
+    of each (in unsigned order: a BIGINT's sign bit flipped, 2^31 added
+    to an INT), a's bit i at 2i, b's at 2i + 1; the bits spread by
+    masks."""
     def top31(v):
+        if v.dtype == np.int32:
+            u = (v.astype(np.int64) + (1 << 31)).view(np.uint64)
+            return (u >> np.uint64(1)) & np.uint64((1 << 31) - 1)
         u = v.view(np.uint64) ^ np.uint64(1 << 63)
         return (u >> np.uint64(33)) & np.uint64((1 << 31) - 1)
 
@@ -5099,9 +5194,9 @@ def surface_references(np, li, od):
 
 def surface_run(torch, dev, name, run, read_counts, rows_in):
     """One phase 5f query: a first run with every B1 / B3 launch held
-    against the plain version, then a warm run that must launch the
-    same; logs both walls, rows/s and the transient peak. Returns
-    (first run's result, warm run's result, its numbers)."""
+    against the plain version, then WARM_RUNS warm runs that must launch
+    the same; logs the walls, rows/s and the transient peak. Returns
+    (first run's result, [each warm run's result], its numbers)."""
     from spark_rapids_tpu_torch.ops import device_kernels as DK
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated(dev)
@@ -5114,19 +5209,24 @@ def surface_run(torch, dev, name, run, read_counts, rows_in):
         first = time.perf_counter() - t
     counts = read_counts()
     check_held(hold, counts, f"surface {name}")
-    DK.reset_counts()
-    t = time.perf_counter()
-    again = run()
-    torch.cuda.synchronize()
-    warm = time.perf_counter() - t
-    check(read_counts() == counts, f"surface {name}: the warm run launched "
-          f"{read_counts()}, the first {counts}")
+    again, walls = [], []
+    for _ in range(WARM_RUNS):
+        DK.reset_counts()
+        t = time.perf_counter()
+        again.append(run())
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        check(read_counts() == counts, f"surface {name}: the warm run "
+              f"launched {read_counts()}, the first {counts}")
+    wall = statistics.median(walls) if walls else first
     peak = torch.cuda.max_memory_allocated(dev)
-    out = {"first_s": first, "warm_s": warm, "rows_per_s": rows_in / warm,
+    out = {"first_s": first, "warm_s": wall if walls else None,
+           "rows_per_s": rows_in / wall,
            "transient_gb": (peak - resident) / 1e9, "launches": counts,
            "held": dict(hold.held), "max_abs_err": dict(hold.err)}
-    log(f"surface {name}: first {first:.4f} s (B1 / B3 held), warm "
-        f"{warm:.4f} s, {rows_in / warm:.4e} rows/s; launches {counts}; "
+    log(f"surface {name}: first {first:.4f} s (B1 / B3 held), "
+        f"{warm_note(walls)}, {rows_in / wall:.4e} rows/s (the "
+        f"{'warm median' if walls else 'first run'}); launches {counts}; "
         f"transient {(peak - resident) / 1e9:.3f} GB")
     return got, again, out
 
@@ -5202,7 +5302,7 @@ def surface_phase(torch, np, dev, session, batches, host, dec_session,
     def held(name, run, want, rows_in, must=(), equal=None):
         got, again, r = surface_run(torch, dev, name, run, read_counts,
                                     rows_in)
-        for g in (got, again):
+        for g in (got, *again):
             check(same(g, want), f"surface {name}: {g} != {want}")
         for k in must:
             check(r["launches"][k] > 0, f"surface {name}: {k} did not run")
@@ -5302,7 +5402,7 @@ def surface_phase(torch, np, dev, session, batches, host, dec_session,
     got, again, r = surface_run(torch, dev, "e5_approx_percentile", lambda: {
         (x["l_returnflag"], x["l_linestatus"]): x["p"]
         for x in approx.collect()}, read_counts, ROWS)
-    for g in (got, again):
+    for g in (got, *again):
         check(g.keys() == refs["approx"].keys(), f"approx groups {g.keys()}")
         for key, ps in g.items():
             for p, v, (lo, hi, bound) in zip(SURFACE_PCTS, ps,
@@ -5365,7 +5465,7 @@ def surface_phase(torch, np, dev, session, batches, host, dec_session,
         return probe.to_table().columns[0].values
     got, again, r = surface_run(torch, dev, "e6_might_contain", hits,
                                 read_counts, ROWS)
-    for g in (got, again):
+    for g in (got, *again):
         check(bool(np.all(g[in_set])), "might_contain: a false negative")
     fp = float(got[~in_set].mean())
     target = (1 - np.exp(-BL.NUM_HASHES * len(keys) / nbits)) ** \
@@ -5435,13 +5535,13 @@ def surface_phase(torch, np, dev, session, batches, host, dec_session,
     def hashed():
         t = hq.to_table()
         return t.columns[0].values, t.columns[1].values
-    (m_got, x_got), (m2, x2), r = surface_run(
+    (m_got, x_got), again, r = surface_run(
         torch, dev, "e7_decimal_hashes", hashed, read_counts,
         SURFACE_HASH_BATCHES * BATCH_ROWS)
     mm, xx = refs["hashes"]
-    for a_, b_ in ((m_got, mm), (x_got, xx), (m2, mm), (x2, xx)):
-        check(np.array_equal(a_, b_), "DECIMAL(24,4) hash differs from "
-              "Spark's byte hash")
+    for m_, x_ in ((m_got, x_got), *again):
+        check(np.array_equal(m_, mm) and np.array_equal(x_, xx),
+              "DECIMAL(24,4) hash differs from Spark's byte hash")
     report["e7_decimal_hashes"] = r
     log(f"surface e7_decimal_hashes: murmur3 and xxhash64 of "
         f"{len(mm)} DECIMAL(24,4) rows equal Spark's byte hashes (numpy, "
@@ -5500,10 +5600,10 @@ SCAN_READERS = ("COALESCING", "MULTITHREADED")
 JULIAN_GAP = (-141437, -141427)
 
 
-def scan_root(np):
-    """A fresh directory for phase 5g's files: under the temporary
-    directory or the repo's chiprun_out/, whichever has more free
-    space. Returns (path, its free bytes)."""
+def scan_root(np, prefix="srt_scan"):
+    """A fresh directory for phase 5g's (or 5h's) files: under the
+    temporary directory or the repo's output directory, whichever has
+    more free space. Returns (path, its free bytes)."""
     import shutil
     import tempfile
     here = os.path.dirname(os.path.abspath(__file__))
@@ -5512,7 +5612,7 @@ def scan_root(np):
         os.makedirs(base, exist_ok=True)
         free[base] = shutil.disk_usage(base).free
     base = max(free, key=free.get)
-    root = os.path.join(base, f"srt_scan_{os.getpid()}")
+    root = os.path.join(base, f"{prefix}_{os.getpid()}")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
     return root, free[base]
@@ -6053,6 +6153,715 @@ def scan_phase(torch, np, dev, host, dfs, queries, resident, read_counts,
     return report
 
 
+# --- phase 5h: Delta Lake tables and the mortgage ETL ------------------------
+
+#: H1's target rows and source rows (bench.py's config 4 shapes)
+DELTA_ROWS = 1 << 23
+#: rows each of H3's two racing appends writes
+DELTA_RACE_ROWS = 1 << 20
+#: H4's stream (bench.py's exactly-once lane): micro-batches, rows each
+INGEST_BATCHES = 16
+INGEST_ROWS = 1 << 18
+#: the crash child's plan: the third durable commit's fsync (CREATE and
+#: the epoch are the first two) kills it with 137
+INGEST_CRASH = "seed=13|delta.commit.fsync:crash@3"
+#: H6's loans; the performance table holds 12 a loan
+MORTGAGE_LOANS = 1 << 20
+
+
+def delta_bytes():
+    """An upper bound of the PLAIN bytes phase 5h writes: H1 twice (the
+    base, the MERGE's and the UPDATE's rewrites, 20 bytes a row), H3's
+    DELETE, OPTIMIZE and racing appends, H4's three streams, H5's two
+    commits and H6's two tables."""
+    n = DELTA_ROWS
+    h1 = 2 * 20 * (n + 3 * n // 2 + 3 * n // 2)
+    h3 = 20 * (2 * n + 2 * DELTA_RACE_ROWS)
+    h4 = 16 * 3 * INGEST_BATCHES * INGEST_ROWS
+    h5 = 16 * 2 * n
+    h6 = 24 * 12 * MORTGAGE_LOANS + 40 * MORTGAGE_LOANS
+    return h1 + h3 + h4 + h5 + h6
+
+
+class timed_calls:
+    """Seconds spent inside the calls of each (owner, attribute, label)
+    during the block: the wrappers replace the attributes and are taken
+    out after it."""
+
+    def __init__(self, targets):
+        self.targets = targets
+        self.s = {label: 0.0 for _, _, label in targets}
+
+    def __enter__(self):
+        self.saved = []
+        for owner, attr, label in self.targets:
+            own = attr in vars(owner)
+            orig = vars(owner)[attr] if own else getattr(owner, attr)
+            self.saved.append((owner, attr, own, orig))
+
+            def wrapped(*a, _orig=orig, _label=label, **k):
+                t = time.perf_counter()
+                try:
+                    return _orig(*a, **k)
+                finally:
+                    self.s[_label] += time.perf_counter() - t
+            setattr(owner, attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, own, orig in reversed(self.saved):
+            if own:
+                setattr(owner, attr, orig)
+            else:
+                delattr(owner, attr)
+        return False
+
+
+def delta_table(np, n, seed):
+    """H1's target and source host tables (bench.py's shapes): the
+    target k = 0..n-1, amount uniform in [0, 1e4), flag 0; the source k
+    = n/2..3n/2-1, amount uniform, flag 1."""
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.plan.host_table import HostColumn, HostTable
+    rng = np.random.default_rng(seed)
+    ok = np.ones(n, bool)
+
+    def table(k, flag):
+        return HostTable([HostColumn(k, ok, dt.INT64),
+                          HostColumn(rng.uniform(0, 1e4, n), ok, dt.FLOAT64),
+                          HostColumn(np.full(n, flag, np.int32), ok,
+                                     dt.INT32)], ["k", "amount", "flag"])
+    return (table(np.arange(n, dtype=np.int64), 0),
+            table(np.arange(n // 2, n + n // 2, dtype=np.int64), 1))
+
+
+def delta_want(np, base, src):
+    """numpy's H1 versions over the dense key range 0..3n/2-1: {version:
+    (present, {column: values})}, version 0 empty."""
+    n = base.num_rows
+    size = n + n // 2
+    amount = np.concatenate([base.column("amount").values[:n // 2],
+                             src.column("amount").values])
+    flag = np.concatenate([np.zeros(n // 2, np.int32),
+                           np.ones(n, np.int32)])
+    present = np.zeros(size, bool)
+    present[:n] = True
+    v1 = {"amount": np.concatenate([base.column("amount").values,
+                                    np.zeros(n // 2)]),
+          "flag": np.zeros(size, np.int32)}
+    v3 = {"amount": amount,
+          "flag": flag + 2 * (amount > 5e3).astype(np.int32)}
+    return {0: (np.zeros(size, bool), v1), 1: (present, v1),
+            2: (np.ones(size, bool), {"amount": amount, "flag": flag}),
+            3: (np.ones(size, bool), v3)}
+
+
+def same_by_key(np, table, want, label, key="k"):
+    """The host table's rows are numpy's ``want`` = (present, {column:
+    values}) over a dense key range: each present key once and no
+    other, and each column's value at its key (floats bit for bit: rows
+    only copied); no NULL anywhere."""
+    present, cols = want
+    k = table.column(key).values
+    check(len(k) == int(present.sum()), f"{label}: {len(k)} rows, numpy "
+          f"{int(present.sum())}")
+    check(all(bool(c.mask.all()) for c in table.columns),
+          f"{label}: a NULL where numpy has none")
+    check(len(k) == 0 or (k.min() >= 0 and k.max() < len(present)),
+          f"{label}: a key outside numpy's")
+    counts = np.bincount(k, minlength=len(present))
+    check(np.array_equal(counts, present.astype(np.int64)),
+          f"{label}: the keys differ from numpy's (each present key once)")
+    for name, values in cols.items():
+        got = np.empty(len(present), values.dtype)
+        got[k] = table.column(name).values
+        a, b = got[present], values[present]
+        if a.dtype.kind == "f":
+            a, b = a.view(np.int64), b.view(np.int64)
+        check(np.array_equal(a, b), f"{label}: column {name} differs from "
+              "numpy")
+
+
+def stream_same(np, table, num_batches, rows, label):
+    """H4's table holds the demo stream exactly once: ids 0..N-1 each
+    once, v = id * 0.5, sum(v) as ``demo_expected`` (the sum is exact:
+    every partial sum is a multiple of 0.5 below 2^53)."""
+    from spark_rapids_tpu_torch.delta.streaming import demo_expected
+    exp = demo_expected(num_batches, rows)
+    ids = table.column("id").values
+    v = table.column("v").values
+    check(len(ids) == exp["rows"], f"{label}: {len(ids)} rows, expected "
+          f"{exp['rows']}")
+    check(np.array_equal(np.bincount(ids, minlength=exp["rows"]),
+                         np.ones(exp["rows"], np.int64)),
+          f"{label}: ids not each of 0..{exp['rows'] - 1} once")
+    check(np.array_equal(v, ids * 0.5), f"{label}: v != id * 0.5")
+    check(float(v.sum()) == exp["sum_v"], f"{label}: sum(v) {v.sum()} != "
+          f"{exp['sum_v']}")
+
+
+def mortgage_ahead(np, session, out_dir):
+    """H6's tables (``mortgage_tables``: 262,144-row files through the
+    port's writer) and numpy's features per loan over the same chunks
+    regenerated (``generate_chunk``): (tables, reference, seconds to
+    write, seconds for the reference)."""
+    from spark_rapids_tpu_torch.columnar.vector import HostStrings
+    from spark_rapids_tpu_torch.datagen import generate_chunk
+    from spark_rapids_tpu_torch.models import mortgage as M
+    t = time.perf_counter()
+    tables = M.mortgage_tables(session, out_dir, MORTGAGE_LOANS)
+    write_s = time.perf_counter() - t
+    t = time.perf_counter()
+    acq_spec = M.acquisitions_spec(MORTGAGE_LOANS)
+    perf_spec = M.performance_spec(MORTGAGE_LOANS)
+    chunk = 1 << 18
+
+    def lanes(spec, names):
+        parts = [generate_chunk(spec, c, chunk)
+                 for c in range(-(-spec.num_rows // chunk))]
+        return {n: [p.column(n).values for p in parts] for n in names}
+    perf = {k: np.concatenate(v) for k, v in lanes(
+        perf_spec, ("loan_id", "days_delinquent", "current_upb")).items()}
+    acq = lanes(acq_spec, ("loan_id", "orig_rate", "orig_amount",
+                           "credit_score", "state"))
+    loan = perf["loan_id"]
+    dd = perf["days_delinquent"]
+    cnt = np.bincount(loan, minlength=MORTGAGE_LOANS)
+    has = cnt > 0
+    order = np.argsort(loan, kind="stable")
+    starts = np.concatenate([[0], np.cumsum(cnt)[:-1]])[has]
+    max_d = np.maximum.reduceat(dd[order], starts)
+    d90 = np.bincount(loan, weights=(dd >= 90),
+                      minlength=MORTGAGE_LOANS).astype(np.int64)
+    upb = np.bincount(loan, weights=perf["current_upb"],
+                      minlength=MORTGAGE_LOANS)
+    # acquisitions are loan_id 0..n-1 in order (a seq column)
+    state = HostStrings.concat(acq["state"])
+    offsets, chars = state.offsets[:-1].astype(np.int64), state.chars
+    check(bool(np.all(np.diff(state.offsets) == 2)),
+          "the mortgage states are two bytes")
+    ref = {
+        "loan_id": np.nonzero(has)[0].astype(np.int64),
+        "n_reports": cnt[has].astype(np.int64),
+        "n_delinq_90": d90[has],
+        "max_delinq": max_d.astype(np.int32),
+        "avg_upb": upb[has] / cnt[has],
+        "orig_rate": np.concatenate(acq["orig_rate"])[has],
+        "orig_amount": np.concatenate(acq["orig_amount"])[has],
+        "credit_score": np.concatenate(acq["credit_score"])[has],
+        "state": ((chars[offsets].astype(np.int32) << 8)
+                  | chars[offsets + 1])[has],
+        "ever_90": (d90[has] > 0).astype(np.int32),
+    }
+    ca = (chars[offsets] == ord("C")) & (chars[offsets + 1] == ord("A"))
+    amounts = np.concatenate(acq["orig_amount"])
+    ref["ca"] = (float(amounts[ca].sum()), int(ca.sum()))
+    return tables, ref, write_s, time.perf_counter() - t
+
+
+def mortgage_same(torch, np, arrs, ref):
+    """``to_device_arrays``' columns, ordered by loan on the card, equal
+    numpy's features: the counts, maxima, flags and the acquisition
+    columns exactly (floats bit for bit), avg_upb within RTOL."""
+    n = arrs.num_rows
+    check(n == len(ref["loan_id"]), f"mortgage: {n} loans, numpy "
+          f"{len(ref['loan_id'])}")
+    order = torch.argsort(arrs["loan_id"][0][:n])
+    for name, want in ref.items():
+        if name == "ca":
+            continue
+        data, valid = arrs[name]
+        check(bool(valid[:n].all()), f"mortgage {name}: a NULL")
+        if name == "state":
+            offsets, chars = data
+            o = offsets[:n][order].to(torch.int64)
+            check(bool(((offsets[1:n + 1] - offsets[:n]) == 2).all()),
+                  "mortgage state: not two bytes")
+            got = ((chars[o].to(torch.int32) << 8) | chars[o + 1]).cpu() \
+                .numpy()
+        else:
+            got = data[:n][order].cpu().numpy()
+        check(got.dtype == want.dtype or name == "state",
+              f"mortgage {name}: {got.dtype}, numpy {want.dtype}")
+        if name == "avg_upb":
+            ok = np.allclose(got, want, rtol=RTOL, atol=0.0)
+        elif got.dtype.kind == "f":
+            ok = np.array_equal(got.view(np.int64), want.view(np.int64))
+        else:
+            ok = np.array_equal(got, want)
+        check(ok, f"mortgage {name}: differs from numpy")
+
+
+def start_crash_child(root, device):
+    """H4's crash child: the ingester of delta/streaming.py on
+    ``device`` with ``INGEST_CRASH`` armed, started with subprocess
+    (this process holds a CUDA context and must not fork); its output
+    goes to a file under ``root``. Returns (Popen, table path, log
+    path)."""
+    table = os.path.join(root, "crash")
+    out = os.path.join(root, "crash_child.log")
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(out, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "spark_rapids_tpu_torch.delta.streaming",
+             table, "chaos", str(INGEST_BATCHES), str(INGEST_ROWS),
+             "--fault-plan", INGEST_CRASH, "--create",
+             "--checkpoint-interval", "8", "--device", device],
+            cwd=here, stdout=f, stderr=subprocess.STDOUT)
+    return proc, table, out
+
+
+def delta_phase(torch, np, dev, read_counts):
+    """Phase 5h: BASELINE configs 4 and 5 on the card. H1 the config 4
+    upsert (CREATE, append, MERGE, UPDATE over DELTA_ROWS target and
+    source rows), first on table A with every version held against
+    numpy, then again on table B for warm walls; H2 B1 and B3 over B's
+    scanned batches; H3 DELETE, OPTIMIZE ZORDER, VACUUM, two racing
+    appends and a duplicate-key MERGE on A; H4 the exactly-once stream
+    durable and relaxed, a crash child (started at the phase's start)
+    and its resume; H5 the standard format; H6 the mortgage ETL to
+    device arrays (its tables and numpy reference on a host thread since
+    the phase began) and a B1 / B2 query over its acquisitions. Every B1
+    / B3 launch of a first run held against its plain version. Returns
+    the report (per held query its launches)."""
+    import contextlib
+    import shutil
+    import threading
+
+    from spark_rapids_tpu_torch.conf import SrtConf
+    from spark_rapids_tpu_torch.delta import AcidTable, CommitConflict
+    from spark_rapids_tpu_torch.delta import streaming as ST
+    from spark_rapids_tpu_torch.delta.table import _StagedWrite
+    from spark_rapids_tpu_torch.expr import aggregates as Agg
+    from spark_rapids_tpu_torch.expr.core import Alias, col, lit
+    from spark_rapids_tpu_torch.models import mortgage as M
+    from spark_rapids_tpu_torch.ops import device_kernels as DK
+    from spark_rapids_tpu_torch.plan.session import TpuSession
+    t_phase = time.perf_counter()
+    report = {}
+    n = DELTA_ROWS
+
+    def session(**conf):
+        return TpuSession(SrtConf({"srt.sql.batchSizeRows": BATCH_ROWS,
+                                   "srt.sql.reader.batchSizeRows": BATCH_ROWS,
+                                   **conf}), device=dev)
+
+    root, free = scan_root(np, "srt_delta")
+    need = delta_bytes()
+    check(free >= 2 * need, f"delta: {free} bytes free in {root}, under "
+          f"twice the {need} bytes the phase writes")
+    probe = os.path.join(root, "probe")
+    with open(probe, "w") as f:
+        f.write("x")
+    os.link(probe, probe + ".link")      # the commit's O_EXCL arbiter
+    check(os.path.samefile(probe, probe + ".link"), "delta: os.link")
+    os.unlink(probe)
+    os.unlink(probe + ".link")
+    log(f"delta: {root}: {free} bytes free, the phase writes at most {need}"
+        " (PLAIN); os.link works there")
+    child, child_table, child_log = start_crash_child(root, dev.type)
+    s = session()
+    ahead = references_ahead([("mortgage", lambda: mortgage_ahead(
+        np, s, os.path.join(root, "mortgage")))])
+    try:
+        base, src = delta_table(np, n, seed=15)
+        want = delta_want(np, base, src)
+        schema = base.schema()
+
+        # --- H1: the config 4 upsert, first on A (held), then on B ----------
+        def upsert(label, path, held):
+            t = AcidTable.create(s, path, schema)
+            base_df, src_df = s.create_dataframe(base), \
+                s.create_dataframe(src)
+            torch.cuda.synchronize()
+            steps = {}
+            DK.reset_counts()
+            hold = holding_launches(torch, DK) if held else None
+            for name, run, rows_in in (
+                    ("append", lambda: t.append(base_df), n),
+                    ("merge", lambda: t.merge(src_df, on=["k"],
+                                              when_matched_update={
+                                                  "amount": col("src_amount"),
+                                                  "flag": col("src_flag")}),
+                     2 * n),
+                    ("update", lambda: t.update(
+                        {"flag": col("flag") + lit(2)},
+                        col("amount") > lit(5e3)), n + n // 2)):
+                resident = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                if hold is not None:
+                    hold.__enter__()
+                try:
+                    with executions_of(s, read_counts) as runs, timed_calls([
+                            (s, "execute", "execute_s"),
+                            (t, "_write_files", "encode_s"),
+                            (_StagedWrite, "promote", "promote_s"),
+                            (t.log, "commit", "commit_s")]) as tc:
+                        t0 = time.perf_counter()
+                        version = run()
+                        torch.cuda.synchronize()
+                        wall = time.perf_counter() - t0
+                finally:
+                    if hold is not None:
+                        hold.__exit__(None, None, None)
+                adds = [a["add"] for a in t.log.read_actions(version)
+                        if "add" in a]
+                steps[name] = {
+                    "s": wall, **tc.s, "version": version,
+                    "rows_in": rows_in, "rows_per_s": rows_in / wall,
+                    "files": len(adds),
+                    "written_bytes": sum(os.path.getsize(
+                        os.path.join(path, a["path"])) for a in adds),
+                    "read_bytes": sum(c.metric_totals().get(
+                        "scanBytesRead", 0) for _, c, _ in runs),
+                    "transient_gb": (torch.cuda.max_memory_allocated(dev)
+                                     - resident) / 1e9}
+                st = steps[name]
+                log(f"delta H1 {label} {name}: version {version} in "
+                    f"{wall:.3f} s (execute {st['execute_s']:.3f}, encode "
+                    f"{st['encode_s']:.3f}, promote {st['promote_s']:.3f}, "
+                    f"log commit {st['commit_s']:.3f}); {rows_in} rows in, "
+                    f"{st['rows_per_s']:.4e} rows/s; {len(adds)} files, "
+                    f"{st['written_bytes'] / 1e9:.3f} GB written, "
+                    f"{st['read_bytes'] / 1e9:.3f} GB read; transient peak "
+                    f"{st['transient_gb']:.3f} GB")
+            counts = read_counts()
+            if hold is not None:
+                check_held(hold, counts, f"delta H1 {label}")
+                steps["max_abs_err"] = dict(hold.err)
+            upsert_s = steps["merge"]["s"] + steps["update"]["s"]
+            steps["merge_update_s"] = upsert_s
+            steps["merge_update_rows_per_s"] = 2 * n / upsert_s
+            steps["launches" if held else "warm_launches"] = counts
+            log(f"delta H1 {label}: MERGE + UPDATE {upsert_s:.3f} s, "
+                f"target + source {2 * n / upsert_s:.4e} rows/s (bench.py's "
+                "delta_merge_rows_s)")
+            return t, steps
+
+        ta, report["H1_first"] = upsert("A (first)", os.path.join(root, "a"),
+                                        True)
+        for v in range(ta.version() + 1):
+            same_by_key(np, ta.to_df(version=v).to_table(), want[v],
+                        f"delta H1 version {v}")
+        ops = [h["operation"] for h in ta.history()]
+        check(ops == ["CREATE TABLE", "WRITE (append)", "MERGE", "UPDATE"],
+              f"delta H1 history {ops}")
+        log(f"delta H1: versions 0-3 equal numpy (to_df(version=1) the "
+            f"base, floats bit for bit); history {ops}")
+        tb, report["H1_warm"] = upsert("B (warm)", os.path.join(root, "b"),
+                                       False)
+        check(tb.version() == 3, "delta H1 B: four versions")
+
+        # --- H2: B1 and B3 on B's scanned batches ---------------------------
+        present3, cols3 = want[3]
+        amount3, flag3 = cols3["amount"], cols3["flag"]
+        # the COALESCING scan's batches of BATCH_ROWS rows
+        n_batches = -(-len(amount3) // BATCH_ROWS)
+        where = amount3[flag3 == 3]
+        queries = {
+            "H2_where": (lambda: tb.to_df().filter(col("flag") == 3).agg(
+                Alias(Agg.Sum(col("amount")), "s"),
+                Alias(Agg.CountStar(), "n")),
+                [{"s": float(where.sum()), "n": len(where)}],
+                {"tile_reduce": n_batches, "tile_reduce_str": 0}),
+            "H2_group": (lambda: tb.to_df().group_by("flag").agg(
+                Alias(Agg.Sum(col("amount")), "s"),
+                Alias(Agg.CountStar(), "n")).sort("flag"),
+                [{"flag": f, "s": float(amount3[flag3 == f].sum()),
+                  "n": int((flag3 == f).sum())} for f in range(4)],
+                {"tile_group_reduce": n_batches})}
+        for name, (make, ref, expect) in queries.items():
+            report[name] = held_run(torch, s, read_counts, name, make, ref,
+                                    expect, len(amount3))
+
+        # --- H5: the standard Delta format, from B --------------------------
+        std = os.path.join(root, "standard")
+        t0 = time.perf_counter()
+        v0 = tb.to_df().write.partition_by("flag").delta(std)
+        w0 = time.perf_counter() - t0
+        check(v0 == 0, f"delta H5: first commit {v0}")
+        t0 = time.perf_counter()
+        same_by_key(np, s.read.delta(std).to_table(), want[3],
+                    "delta H5 head")
+        r0 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        v1 = tb.to_df().filter(col("flag") == 3).write.mode("overwrite") \
+            .partition_by("flag").delta(std)
+        w1 = time.perf_counter() - t0
+        check(v1 == 1, f"delta H5: overwrite commit {v1}")
+        same_by_key(np, s.read.delta(std).to_table(),
+                    (present3 & (flag3 == 3), cols3), "delta H5 overwrite")
+        same_by_key(np, s.read.delta(std, version_as_of=0).to_table(),
+                    want[3], "delta H5 version_as_of=0")
+        parts = sorted(d for d in os.listdir(std) if d.startswith("flag="))
+        report["H5"] = {"write_s": w0, "read_s": r0, "overwrite_s": w1,
+                        "partitions": parts}
+        log(f"delta H5: standard format partitioned by flag ({parts}): "
+            f"{len(present3)} rows written in {w0:.3f} s, read back in "
+            f"{r0:.3f} s equal numpy; the overwrite ({int((flag3 == 3).sum())}"
+            f" rows) in {w1:.3f} s; read.delta at the head and at "
+            "version_as_of=0 equal numpy")
+
+        # --- H3: the rest of the DML, on A ---------------------------------
+        h3 = {}
+        t0 = time.perf_counter()
+        ta.delete(col("flag") == 1)
+        h3["delete_s"] = time.perf_counter() - t0
+        kept = present3 & (flag3 != 1)
+        same_by_key(np, ta.to_df().to_table(), (kept, cols3),
+                    "delta H3 delete")
+        t0 = time.perf_counter()
+        ta.optimize(zorder_by=["k", "flag"])
+        h3["optimize_s"] = time.perf_counter() - t0
+        opt = ta.to_df().to_table()
+        same_by_key(np, opt, (kept, cols3), "delta H3 optimize")
+        z = numpy_interleave2(np, opt.column("k").values,
+                              opt.column("flag").values)
+        check(bool(np.all(z[1:] >= z[:-1])), "delta H3: OPTIMIZE's rows are "
+              "not in the numpy interleave's order")
+        live = set(ta.log.snapshot()[1])
+        added = {a["add"]["path"] for v in ta.log.versions()
+                 for a in ta.log.read_actions(v) if "add" in a}
+        t0 = time.perf_counter()
+        removed = ta.vacuum()
+        h3["vacuum_s"] = time.perf_counter() - t0
+        check(set(removed) == added - live, f"delta H3: VACUUM removed "
+              f"{len(removed)} files, the tombstoned are {len(added - live)}")
+        check(sorted(f for f in os.listdir(ta.path)
+                     if f.endswith(".parquet")) == sorted(live),
+              "delta H3: VACUUM left a file the head does not name")
+        # two appends at once: each commit waits for the other's, so one
+        # loses the O_EXCL race and lands through the retry
+        barrier = threading.Barrier(2, timeout=300)
+        conflicts, done, errors = [], {}, []
+        race_rows = DELTA_RACE_ROWS
+        lo = n + n // 2
+        race = [delta_race_table(np, lo + i * race_rows, race_rows, 16 + i)
+                for i in range(2)]
+
+        def racer(i):
+            try:
+                t = AcidTable.for_path(s, ta.path)
+                commit, first = t.log.commit, [True]
+
+                def commit_at_once(read_v, actions, op):
+                    if first[0]:
+                        first[0] = False
+                        barrier.wait()
+                    try:
+                        return commit(read_v, actions, op)
+                    except CommitConflict:
+                        conflicts.append(i)
+                        raise
+                t.log.commit = commit_at_once
+                done[i] = t.append(s.create_dataframe(race[i]))
+            except Exception as e:  # noqa: BLE001  (raised below)
+                errors.append(e)
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=racer, args=(i,))
+                   for i in range(2)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        h3["race_s"] = time.perf_counter() - t0
+        check(not errors, f"delta H3 race: {errors}")
+        check(conflicts and sorted(done.values()) ==
+              [ta.version() - 1, ta.version()], f"delta H3 race: versions "
+              f"{done}, conflicts {conflicts}")
+        check(ta.log.versions() == list(range(ta.version() + 1)),
+              "delta H3 race: versions not contiguous")
+        size = lo + 2 * race_rows
+        grown = np.zeros(size, bool)
+        grown[:lo] = kept
+        grown[lo:] = True
+        race_cols = {c: np.concatenate([cols3[c]] + [
+            r.column(c).values for r in race]) for c in ("amount", "flag")}
+        same_by_key(np, ta.to_df().to_table(), (grown, race_cols),
+                    "delta H3 race")
+        dup = s.create_dataframe(delta_race_table(np, 0, 2, 18).take(
+            np.array([0, 0])))
+        try:
+            ta.merge(dup, on=["k"], when_matched_update={
+                "amount": col("src_amount")})
+            raise RuntimeError("chip_smoke: delta H3: a MERGE with a "
+                               "duplicate source key did not raise")
+        except ValueError as e:
+            check("multiple source rows" in str(e), f"delta H3 dup: {e}")
+        report["H3"] = {**h3, "tombstoned": len(removed),
+                        "conflicts": len(conflicts)}
+        log(f"delta H3: DELETE {h3['delete_s']:.3f} s, OPTIMIZE ZORDER BY "
+            f"(k, flag) {h3['optimize_s']:.3f} s (rows equal numpy, in the "
+            f"numpy interleave's order), VACUUM {h3['vacuum_s']:.3f} s removed"
+            f" exactly the {len(removed)} tombstoned files; two {race_rows}-"
+            f"row appends at once landed as versions {sorted(done.values())}"
+            f" through {len(conflicts)} OCC conflict(s) in {h3['race_s']:.3f}"
+            " s; a duplicate-key MERGE raised")
+
+        # --- H4: exactly-once ingest, durable and relaxed; crash, resume -----
+        h4 = {}
+        total = INGEST_BATCHES * INGEST_ROWS
+        for durable in (True, False):
+            si = session(**{"srt.delta.durableCommits": durable,
+                            "srt.delta.checkpointInterval": 8})
+            path = os.path.join(root, f"ingest_{durable}")
+            tab = AcidTable.create(si, path, ST.demo_schema())
+            t0 = time.perf_counter()
+            stats = ST.DeltaIngestor(tab, "bench").ingest(
+                lambda b: si.create_dataframe(ST.demo_batch_table(
+                    b, INGEST_ROWS)), INGEST_BATCHES)
+            wall = time.perf_counter() - t0
+            check(stats == {"committed": INGEST_BATCHES, "skipped": 0},
+                  f"delta H4: {stats}")
+            stream_same(np, tab.to_df().to_table(), INGEST_BATCHES,
+                        INGEST_ROWS, f"delta H4 durable={durable}")
+            h4["durable_s" if durable else "relaxed_s"] = wall
+        h4["rows_per_s"] = total / h4["durable_s"]
+        h4["relaxed_rows_per_s"] = total / h4["relaxed_s"]
+        h4["commit_ms"] = h4["durable_s"] / INGEST_BATCHES * 1e3
+        h4["fsync_overhead_pct"] = (h4["durable_s"] / h4["relaxed_s"] - 1) \
+            * 100
+        t0 = time.perf_counter()
+        rc = child.wait(timeout=240)
+        with open(child_log) as f:
+            child_out = f.read()
+        check(rc == 137, f"delta H4: the crash child exited {rc}, not 137:"
+              f"\n{child_out[-2000:]}")
+        sr = session(**{"srt.delta.checkpointInterval": 8})
+        tab = AcidTable.for_path(sr, child_table)
+        stats = ST.DeltaIngestor(tab, "chaos").ingest(
+            lambda b: sr.create_dataframe(ST.demo_batch_table(
+                b, INGEST_ROWS)), INGEST_BATCHES)
+        h4["resume_s"] = time.perf_counter() - t0
+        check(stats["committed"] + stats["skipped"] == INGEST_BATCHES,
+              f"delta H4 resume: {stats}")
+        stream_same(np, tab.to_df().to_table(), INGEST_BATCHES,
+                    INGEST_ROWS, "delta H4 resume")
+        tab.vacuum(retention_sec=0.0)
+        on_disk = {f for f in os.listdir(child_table)
+                   if f.endswith(".parquet")}
+        check(on_disk == set(tab.log.snapshot()[1]),
+              "delta H4: an unreferenced file after VACUUM")
+        check(not [f for d in (child_table, tab.log.log_dir)
+                   for f in os.listdir(d) if f.endswith(".tmp")],
+              "delta H4: a .tmp file after VACUUM")
+        h4["resumed"] = stats
+        report["H4"] = h4
+        log(f"delta H4: {INGEST_BATCHES} x {INGEST_ROWS} rows exactly once:"
+            f" durable {h4['durable_s']:.3f} s ({h4['rows_per_s']:.4e} rows/s,"
+            f" {h4['commit_ms']:.2f} ms a commit), relaxed "
+            f"{h4['relaxed_s']:.3f} s ({h4['relaxed_rows_per_s']:.4e} rows/s)"
+            f": fsync overhead {h4['fsync_overhead_pct']:.1f}%; the crash "
+            f"child ({INGEST_CRASH}) exited 137, the resume {stats} in "
+            f"{h4['resume_s']:.3f} s (waited for the child included): rows, "
+            "ids and sum(v) as demo_expected, no .tmp and no unreferenced "
+            "file after VACUUM")
+
+        # --- H6: config 5, the mortgage ETL to device arrays ------------------
+        t0 = time.perf_counter()
+        tables, ref, write_s, ref_s = ahead.get("mortgage")
+        log(f"delta H6: {MORTGAGE_LOANS} loans' tables written in "
+            f"{write_s:.1f} s and numpy's features in {ref_s:.1f} s on a "
+            f"host thread since the phase began (waited "
+            f"{time.perf_counter() - t0:.1f} s)")
+        perf_rows = 12 * MORTGAGE_LOANS
+        h6 = {}
+        for run in ("first", "warm"):
+            resident = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            DK.reset_counts()
+            torch.cuda.synchronize()
+            with (holding_launches(torch, DK) if run == "first"
+                  else contextlib.nullcontext()) as hold:
+                t0 = time.perf_counter()
+                arrs = M.mortgage_etl(tables["acquisitions"],
+                                      tables["performance"]) \
+                    .to_device_arrays()
+                torch.cuda.synchronize()
+                h6[f"{run}_s"] = time.perf_counter() - t0
+            h6[f"{run}_transient_gb"] = (torch.cuda.max_memory_allocated(dev)
+                                         - resident) / 1e9
+            if run == "first":
+                h6["launches"] = read_counts()
+                check_held(hold, h6["launches"], "delta H6")
+                h6["max_abs_err"] = dict(hold.err)
+                mortgage_same(torch, np, arrs, ref)
+            del arrs
+        h6["rows_per_s"] = perf_rows / h6["warm_s"]
+        report["H6"] = h6
+        log(f"delta H6: mortgage_etl(...).to_device_arrays() over "
+            f"{perf_rows} performance rows: first {h6['first_s']:.3f} s, "
+            f"warm {h6['warm_s']:.3f} s ({h6['rows_per_s']:.4e} rows/s), "
+            f"transient peak {h6['warm_transient_gb']:.3f} GB; "
+            f"{len(ref['loan_id'])} loans' features equal numpy on the card "
+            f"(avg_upb within {RTOL}); launches {h6['launches']}")
+        ca_sum, ca_n = ref["ca"]
+        report["H6_ca"] = held_run(
+            torch, s, read_counts, "H6_ca",
+            lambda: tables["acquisitions"].filter(col("state") == "CA").agg(
+                Alias(Agg.Sum(col("orig_amount")), "s"),
+                Alias(Agg.CountStar(), "n")),
+            [{"s": ca_sum, "n": ca_n}], {}, MORTGAGE_LOANS)
+        c = report["H6_ca"]["launches"]
+        check(c["tile_reduce"] >= 1 and c["tile_reduce_str"] ==
+              c["tile_reduce"], f"delta H6_ca: B1 with its string lane, "
+              f"launched {c}")
+    finally:
+        ahead.close()
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"delta phase 5h: {report['phase_s']:.1f} s; host RSS "
+        f"{host_rss_gb():.2f} GB, the card's reserved "
+        f"{torch.cuda.memory_reserved(dev) / 1e9:.3f} GB")
+    return report
+
+
+def delta_race_table(np, lo, rows, seed):
+    """Rows of H1's schema with k = lo..lo+rows-1, flag 5."""
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.plan.host_table import HostColumn, HostTable
+    rng = np.random.default_rng(seed)
+    ok = np.ones(rows, bool)
+    return HostTable([HostColumn(np.arange(lo, lo + rows, dtype=np.int64),
+                                 ok, dt.INT64),
+                      HostColumn(rng.uniform(0, 1e4, rows), ok, dt.FLOAT64),
+                      HostColumn(np.full(rows, 5, np.int32), ok, dt.INT32)],
+                     ["k", "amount", "flag"])
+
+
+def held_run(torch, session, read_counts, name, make, ref, expect, rows_in):
+    """A query's first run with every B1 / B3 launch held (the counts
+    set to 0 just before, read just after; ``expect`` maps counters to
+    the counts it must give) and a warm run, each equal to ``ref``
+    (same_rows). Returns its walls and launches."""
+    from spark_rapids_tpu_torch.ops import device_kernels as DK
+    DK.reset_counts()
+    torch.cuda.synchronize()
+    with holding_launches(torch, DK) as hold:
+        t0 = time.perf_counter()
+        rows = make().collect()
+        first = time.perf_counter() - t0
+    counts = read_counts()
+    check_held(hold, counts, f"delta {name}")
+    check(same_rows(rows, ref), f"delta {name}: {rows} != numpy {ref}")
+    for key, want in expect.items():
+        check(counts[key] == want, f"delta {name}: {key} launched "
+              f"{counts[key]} times, expected {want}")
+    t0 = time.perf_counter()
+    rows = make().collect()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    check(same_rows(rows, ref), f"delta {name}: the warm run disagrees")
+    log(f"delta {name}: matches numpy over {rows_in} rows; launches "
+        f"{counts}; first {first:.3f} s, warm {warm:.3f} s "
+        f"({rows_in / warm:.4e} rows/s)")
+    return {"first_s": first, "warm_s": warm, "launches": counts,
+            "max_abs_err": dict(hold.err)}
+
+
 def host_rss_gb():
     """This process's resident host memory, GB (/proc/self/status)."""
     with open("/proc/self/status") as f:
@@ -6239,7 +7048,10 @@ def host_worker(conn, jobs, zone, n_docs):
     seeds main uses, then ``jobs`` in order, each sent as (job, (result,
     the lanes' seconds, the job's seconds, seconds since the process
     began)): "tpch" (``tpch_references``), "scalar"
-    (``scalar_references``), "orders_json" (``orders_json``'s first
+    (``scalar_references``), "decimal" (``decimal_references``: D4's
+    Python-int arrays hold the interpreter lock for seconds at a time,
+    so a host thread of the smoke's would stall its launches),
+    "surface", "fallback", "orders_json" (``orders_json``'s first
     ``n_docs`` documents as a host table, and the number of orders) and
     "n6" (N6's json reference over them). It hides the card, and sends
     ("error", traceback) if it fails."""
@@ -6258,6 +7070,8 @@ def host_worker(conn, jobs, zone, n_docs):
                 out = tpch_references(np, li, od, cu)
             elif job == "scalar":
                 out = scalar_references(np, li, od, cu, zone)
+            elif job == "decimal":
+                out = decimal_references(np, li, od, cu)
             elif job == "fallback":
                 out = fallback_references(np, li, od)
             elif job == "surface":
@@ -6339,7 +7153,8 @@ def main():
     # scalar references, and orders_json's documents with N6's
     # reference, ahead of the phases that read them
     zone, zone_why = scalar_zone()
-    refs_worker = HostWorker(("tpch", "scalar", "surface", "fallback"),
+    refs_worker = HostWorker(("tpch", "scalar", "decimal", "surface",
+                              "fallback"),
                              zone, NESTED_JSON_ROWS)
     json_worker = HostWorker(("orders_json", "n6"), zone, NESTED_JSON_ROWS)
     # phase 5g's host library, built with g++ on a host thread meanwhile,
@@ -6351,27 +7166,33 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # --- build --------------------------------------------------------------
-    t0 = time.perf_counter()
-    DK.build_group_kernel()
-    log(f"build: nvcc tile_group_reduce {time.perf_counter() - t0:.1f} s -> "
-        f"{os.path.relpath(DK.group_library_path())}")
-    from torch.utils.cpp_extension import CUDA_HOME
-    cuobjdump = os.path.join(CUDA_HOME or "", "bin", "cuobjdump")
-    if CUDA_HOME and os.path.exists(cuobjdump):
-        so = DK.group_library_path()
-        sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True,
-                              text=True).stdout
-        ops = {}
-        for op in re.findall(r"\b(ATOMS\.[A-Z0-9.]+|ATOM\.[A-Z0-9.]+|"
-                             r"RED\.[A-Z0-9.]+|SHFL\.[A-Z]+|MATCH\.[A-Z.]+)",
-                             sass):
-            ops[op] = ops.get(op, 0) + 1
-        res = subprocess.run([cuobjdump, "-res-usage", so],
-                             capture_output=True, text=True).stdout
-        log(f"build: tile_group_reduce SASS atomics/shuffles {ops}; "
-            + " | ".join(" ".join(line.split()) for line in res.splitlines()
-                         if "REG" in line or "Function" in line))
+    # --- build, on a host thread while the data is made ----------------------
+    def build():
+        t0 = time.perf_counter()
+        DK.build_group_kernel()
+        lines = [f"build: nvcc tile_group_reduce {time.perf_counter() - t0:.1f}"
+                 f" s on a host thread beside the data -> "
+                 f"{os.path.relpath(DK.group_library_path())}"]
+        from torch.utils.cpp_extension import CUDA_HOME
+        cuobjdump = os.path.join(CUDA_HOME or "", "bin", "cuobjdump")
+        if CUDA_HOME and os.path.exists(cuobjdump):
+            so = DK.group_library_path()
+            sass = subprocess.run([cuobjdump, "-sass", so],
+                                  capture_output=True, text=True).stdout
+            ops = {}
+            for op in re.findall(r"\b(ATOMS\.[A-Z0-9.]+|ATOM\.[A-Z0-9.]+|"
+                                 r"RED\.[A-Z0-9.]+|SHFL\.[A-Z]+|MATCH\.[A-Z.]+)",
+                                 sass):
+                ops[op] = ops.get(op, 0) + 1
+            res = subprocess.run([cuobjdump, "-res-usage", so],
+                                 capture_output=True, text=True).stdout
+            lines.append(
+                f"build: tile_group_reduce SASS atomics/shuffles {ops}; "
+                + " | ".join(" ".join(line.split())
+                             for line in res.splitlines()
+                             if "REG" in line or "Function" in line))
+        return lines
+    kernel_build = references_ahead([("nvcc", build)])
 
     # --- data: three tables, chunk by chunk onto the card --------------------
     t0 = time.perf_counter()
@@ -6385,6 +7206,13 @@ def main():
         f"rows in {[len(b) for b in batches.values()]} batches on {dev}, "
         f"{resident / 1e9:.3f} GB resident, generated+moved in "
         f"{gen_s:.1f} s")
+    t = time.perf_counter()
+    try:
+        for line in kernel_build.get("nvcc"):
+            log(line)
+    finally:
+        kernel_build.close()
+    log(f"build: waited {time.perf_counter() - t:.1f} s after the data")
     li, od, cu = host["lineitem"], host["orders"], host["customer"]
     for key in ("rf", "ls"):
         hs = li[key]
@@ -6713,37 +7541,34 @@ def main():
     scan_runs = {q: r for q, r in scan.items()
                  if isinstance(r, dict) and "launches" in r}
 
+    # --- phase 5h: Delta Lake tables and the mortgage ETL ---------------------
+    delta = delta_phase(torch, np, dev, read_counts)
+    # the NDS tables' host batches, on a host thread from here to the NDS
+    # phase
+    nds_ahead = nds_batches_ahead()
+    delta_runs = {q: r for q, r in delta.items()
+                  if isinstance(r, dict) and "launches" in r}
+
     # --- the scalar expression library on the same tables ------------------
-    # the decimal phase's exact references start on their own host thread
-    decimal_ahead = references_ahead([("decimal", lambda: decimal_references(
-        np, li, od, cu))])
+    # the nested phase's orders_nested on a host thread from here
+    nested_ahead = references_ahead([("nested_host", lambda:
+                                      nested_host_build(np, host))])
     log(f"scalar: {zone_why}")
     scalar = scalar_phase(torch, np, dev, session, dfs, zone, refs_worker,
                           read_counts)
 
     # --- phase 5c: TPC-H over DECIMAL(12,2) money -----------------------------
+    dec_report, dec_session, run_d1, ref_d1 = decimal_phase(
+        torch, np, dev, batches, host, read_counts, refs_worker)
+
+    # --- NDS: the star-join slice through session.sql (before phases 5d
+    # and 5f, whose orders_json documents a second process builds
+    # meanwhile) ---------------------------------------------------------------
     try:
-        dec_report, dec_session, run_d1, ref_d1 = decimal_phase(
-            torch, np, dev, batches, host, read_counts, decimal_ahead)
+        nds, nds_session, nds_ref, nds_widest, joins_ahead = nds_phase(
+            torch, np, dev, read_counts, nds_ahead)
     finally:
-        decimal_ahead.close()
-
-    # --- phase 5d: nested types, higher-order functions, JSON ---------------
-    nested, run_n2, ref_n2, nested_batches = nested_phase(
-        torch, np, dev, session, df, host, json_worker, read_counts)
-    json_worker.close()
-
-    # --- phase 5f: ANSI mode, the DataFrame surface, the rest of the
-    # expression library --------------------------------------------------
-    surface = surface_phase(torch, np, dev, session, batches, host,
-                            dec_session, nested_batches, refs_worker,
-                            read_counts, (ref6, ref1), launches, plan_guard)
-    surface_runs = {q: r for q, r in surface.items()
-                    if isinstance(r, dict) and "launches" in r}
-
-    # --- NDS: the star-join slice through session.sql -------------------------
-    nds, nds_session, nds_ref, nds_widest, joins_ahead = nds_phase(
-        torch, np, dev, read_counts)
+        nds_ahead.close()
     rows_n, groups_n, gid_n, lanes_n, q_n = nds_widest
     b3_nds = hold_b3(f"nds {q_n} widest, {rows_n} rows", gid_n, lanes_n,
                      groups_n, library=True)
@@ -6762,6 +7587,19 @@ def main():
 
     # --- the float group sums alone, at q12's and q98's widest batch --------
     seg_sum_timing(torch, dev, nds_session)
+
+    # --- phase 5d: nested types, higher-order functions, JSON ---------------
+    nested, run_n2, ref_n2, nested_batches = nested_phase(
+        torch, np, dev, session, df, nested_ahead, json_worker, read_counts)
+    json_worker.close()
+
+    # --- phase 5f: ANSI mode, the DataFrame surface, the rest of the
+    # expression library --------------------------------------------------
+    surface = surface_phase(torch, np, dev, session, batches, host,
+                            dec_session, nested_batches, refs_worker,
+                            read_counts, (ref6, ref1), launches, plan_guard)
+    surface_runs = {q: r for q, r in surface.items()
+                    if isinstance(r, dict) and "launches" in r}
 
     # --- phase 5e: mixed device / CPU-engine plans --------------------------
     plan_guard["allow"] = True
@@ -6841,7 +7679,7 @@ def main():
     log(f"planner: {plan_guard['plans']} plans outside phase 5e and phase "
         "5f's exact percentile and JSON queries, each "
         "wholly on the device")
-    scan_vals = list(scan_runs.values())
+    scan_vals = list(scan_runs.values()) + list(delta_runs.values())
     b2_launches = launches["strings_lineitem"]["tile_reduce_str"] + \
         launches["strings_orders"]["tile_reduce_str"]
     def b3_extra(r):
@@ -6866,6 +7704,11 @@ def main():
                            for q, r in scan_runs.items()
                            if r["launches"]["tile_reduce"]
                            - r["launches"]["tile_reduce_str"]},
+         "delta_launches": {q: r["launches"]["tile_reduce"]
+                            - r["launches"]["tile_reduce_str"]
+                            for q, r in delta_runs.items()
+                            if r["launches"]["tile_reduce"]
+                            - r["launches"]["tile_reduce_str"]},
          "surface_launches": {q: r["launches"]["tile_reduce"]
                               for q, r in surface_runs.items()
                               if r["launches"]["tile_reduce"]},
@@ -6900,6 +7743,9 @@ def main():
          "scan_launches": {q: r["launches"]["tile_reduce_str"]
                            for q, r in scan_runs.items()
                            if r["launches"]["tile_reduce_str"]},
+         "delta_launches": {q: r["launches"]["tile_reduce_str"]
+                            for q, r in delta_runs.items()
+                            if r["launches"]["tile_reduce_str"]},
          **{k: b2[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                "bound_by", "cold_ms", "bit_equal")},
          "library_ms": None,
@@ -6919,6 +7765,9 @@ def main():
          "scan_launches": {q: r["launches"]["tile_group_reduce"]
                            for q, r in scan_runs.items()
                            if r["launches"]["tile_group_reduce"]},
+         "delta_launches": {q: r["launches"]["tile_group_reduce"]
+                            for q, r in delta_runs.items()
+                            if r["launches"]["tile_group_reduce"]},
          "surface_launches": {q: r["launches"]["tile_group_reduce"]
                               for q, r in surface_runs.items()
                               if r["launches"]["tile_group_reduce"]},

@@ -70,6 +70,29 @@ def _positive_int(v) -> int:
     return n
 
 
+def _non_negative_float(v) -> float:
+    f = float(v)
+    if f < 0:
+        raise ValueError(f"expected a number >= 0, got {v!r}")
+    return f
+
+
+def _bytes(v) -> int:
+    """'512m', '2g', '1024' -> bytes (>= 0), as the JAX package parses
+    a byte size."""
+    if isinstance(v, str):
+        s = v.strip().lower()
+        units = {"k": 1 << 10, "m": 1 << 20, "g": 1 << 30, "t": 1 << 40,
+                 "b": 1}
+        n = (int(float(s[:-1]) * units[s[-1]]) if s and s[-1] in units
+             else int(s))
+    else:
+        n = int(v)
+    if n < 0:
+        raise ValueError(f"expected a byte size >= 0, got {v!r}")
+    return n
+
+
 _REGISTRY: Dict[str, ConfEntry] = {}
 
 
@@ -270,6 +293,77 @@ IGNORE_MISSING_FILES = _register(ConfEntry(
     "Skip-and-warn instead of failing when a scan file has been "
     "deleted between planning and execution: Spark's "
     "spark.sql.files.ignoreMissingFiles semantics."))
+
+
+DELTA_DURABLE_COMMITS = _register(ConfEntry(
+    "srt.delta.durableCommits", _bool, True,
+    "Crash-durable Delta commits: every transaction-log commit "
+    "fsyncs the commit file and its parent directory (and every "
+    "staged data file before its rename promotes it), so a "
+    "machine crash immediately after commit() returns can never "
+    "lose or tear the version. Disable only to A/B the fsync "
+    "overhead (the ingest_rows_per_s bench lane measures it)."))
+
+DELTA_COMMIT_MAX_RETRIES = _register(ConfEntry(
+    "srt.delta.commit.maxRetries", _non_negative_int, 10,
+    "How many times an optimistic Delta committer re-validates "
+    "and retries after losing the O_EXCL race for its target "
+    "version before surfacing CommitConflict."))
+
+DELTA_COMMIT_BACKOFF_MS = _register(ConfEntry(
+    "srt.delta.commit.backoffMs", _non_negative_int, 15,
+    "Base backoff in milliseconds between Delta commit-conflict "
+    "retries; grows exponentially per attempt with +-50% jitter, "
+    "capped at 32x the base. 0 retries immediately."))
+
+DELTA_CHECKPOINT_INTERVAL = _register(ConfEntry(
+    "srt.delta.checkpointInterval", _non_negative_int, 10,
+    "Write a compacted log checkpoint (NNN.checkpoint.json + "
+    "_last_checkpoint pointer) every this many commits, bounding "
+    "snapshot replay to the commits after the checkpoint. The "
+    "checkpoint carries a crc32 — a torn/corrupt checkpoint is "
+    "detected and replay falls back to the full JSON log. "
+    "0 disables checkpointing."))
+
+DELTA_VACUUM_RETENTION_SEC = _register(ConfEntry(
+    "srt.delta.vacuum.retentionSec", _non_negative_float, 600.0,
+    "VACUUM's retention guard for files the log has never "
+    "referenced (crash orphans: staged .tmp files and promoted-"
+    "but-uncommitted data files): younger files survive the "
+    "sweep because they may belong to a commit in flight. "
+    "Staging files whose owning pid is provably dead are swept "
+    "regardless of age. Files tombstoned by a committed remove "
+    "action are always reclaimable."))
+
+EVENT_LOG_ENABLED = _register(ConfEntry(
+    "srt.eventLog.enabled", _bool, False,
+    "Write a structured JSONL event log (in this port: the Delta "
+    "commits, checkpoints, orphan sweeps and stream batches, "
+    "FaultInjected, CorruptionDetected) to srt.eventLog.dir, one "
+    "events-<pid>.jsonl per process, Spark history-server role. Off by "
+    "default: when disabled no event sink is instantiated and every "
+    "emit site is a single None check (obs/events.py)."))
+
+EVENT_LOG_DIR = _register(ConfEntry(
+    "srt.eventLog.dir", str, "",
+    "Directory for event-log files. Created on first emit; defaults to "
+    "./srt-events when enabled without a dir (spark.eventLog.dir "
+    "role)."))
+
+EVENT_LOG_MAX_BYTES = _register(ConfEntry(
+    "srt.eventLog.maxBytes", _bytes, 0,
+    "Rotate events-<pid>.jsonl when it exceeds this many bytes: "
+    "the live file rolls to .1 (and .1 to .2, which is dropped "
+    "on the next roll), bounding a long-running process to about "
+    "three segments of this size. 0 disables rotation. The reader "
+    "(obs/events.py read_all_events) stitches rolled segments back in "
+    "order (spark.eventLog.rolling role)."))
+
+FAULT_PLAN_SPEC = _register(ConfEntry(
+    "srt.test.faultPlan", str, "",
+    "Fault-injection plan spec (robustness/faults.py grammar), armed in "
+    "a process that calls faults.arm_from_conf with this conf (the "
+    "Delta ingester child does). Empty disables injection."))
 
 
 class SrtConf:

@@ -1,11 +1,11 @@
-"""DataFrameReader: ``session.read.parquet``.
+"""DataFrameReader: ``session.read.parquet`` and ``session.read.delta``.
 
 Counterpart of spark_rapids_tpu/io/reader.py (the role Spark's
-DataFrameReader plays) for Parquet: a DataFrame over a FileScan
-(io/scan.py). The schema is the first file's unless given, with the
-hive partition columns of a directory layout after it. The other
-formats of the JAX package's reader raise NotImplementedError naming
-the ROADMAP item that holds them.
+DataFrameReader plays) for Parquet and standard-format Delta tables: a
+DataFrame over a FileScan (io/scan.py). The schema is the first file's
+unless given, with the hive partition columns of a directory layout
+after it. The other formats of the JAX package's reader raise
+NotImplementedError naming the ROADMAP item that holds them.
 """
 
 from __future__ import annotations
@@ -52,8 +52,11 @@ class DataFrameReader:
     def avro(self, *paths, schema=None):
         self._not_ported("avro", "A9")
 
-    def delta(self, path, version_as_of=None):
-        self._not_ported("delta", "A9")
+    def delta(self, path: str, version_as_of: Optional[int] = None):
+        """Standard-format Delta Lake table (io/delta_format.py):
+        _delta_log JSON replay with time travel."""
+        from .delta_format import read_delta
+        return read_delta(self.session, path, version_as_of)
 
     def iceberg(self, path, snapshot_id=None, as_of_timestamp_ms=None):
         self._not_ported("iceberg", "A9")

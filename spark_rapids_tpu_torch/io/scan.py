@@ -58,10 +58,11 @@ from ..conf import (IGNORE_CORRUPT_FILES, IGNORE_MISSING_FILES,
 from ..exec.base import ExecContext, Metric, Schema, TpuExec
 from ..expr import core as E
 from ..expr import timezone as TZ
-from ..memory.spill import DataCorruption
 from ..plan.host_table import (HostColumn, HostTable, concat_tables,
                                table_to_batch)
 from ..plan.logical import LogicalPlan
+from ..robustness.faults import fault_point
+from ..robustness.integrity import DataCorruption
 from .native_parquet import (ReadStats, file_schema,
                              iter_row_group_tables_native)
 
@@ -158,12 +159,17 @@ def discover_partitions(roots: List[str], files: List[str]):
 class FileScan(LogicalPlan):
     """Logical scan of Parquet files (GpuFileSourceScanExec meta). The
     schema is the first file's unless given, with the partition columns
-    after it."""
+    after it. ``partition_info`` = (partition schema, {path: {column:
+    value}}) takes the place of the directory layout's partitions where
+    a table format carries them in its metadata (Delta's
+    ``partitionValues``). ``delta_table`` is (root, version) on a scan
+    of a Delta snapshot, else None."""
 
     def __init__(self, paths, fmt: str = "parquet",
                  schema: Optional[List] = None,
                  options: Optional[dict] = None,
-                 pushed_filter: Optional[E.Expression] = None):
+                 pushed_filter: Optional[E.Expression] = None,
+                 partition_info=None):
         super().__init__()
         if fmt not in FORMATS:
             raise NotImplementedError(f"the {fmt} format is not read by "
@@ -174,8 +180,15 @@ class FileScan(LogicalPlan):
         self.fmt = fmt
         self.options = dict(options or {})
         self.pushed_filter = pushed_filter
-        self.partition_schema, self._part_values = \
-            discover_partitions(_roots(paths), self.paths)
+        self.delta_table = None
+        if partition_info is not None:
+            pschema, by_path = partition_info
+            self.partition_schema = list(pschema)
+            self._part_values = [dict(by_path.get(p, {}))
+                                 for p in self.paths]
+        else:
+            self.partition_schema, self._part_values = \
+                discover_partitions(_roots(paths), self.paths)
         if schema is None:
             schema = file_schema(self.paths[0])
             names = [n for n, _ in schema]
@@ -250,6 +263,7 @@ class FileScan(LogicalPlan):
         out._schema = list(self._schema)
         out.partition_schema = self.partition_schema
         out._part_values = self._part_values
+        out.delta_table = self.delta_table
         return out
 
     def with_pushed_filter(self, f: Optional[E.Expression]) -> "FileScan":
@@ -317,6 +331,7 @@ def iter_file_tables(path: str, fmt: str, schema: Schema, options: dict,
     fail fast. ``conf`` is passed explicitly from pool threads."""
     cnf = conf or SrtConf()
     try:
+        fault_point("scan.file", detail=path)
         yield from _named_file_tables(path, fmt, schema, options, max_rows,
                                       partition_values, stats)
     except Exception as e:

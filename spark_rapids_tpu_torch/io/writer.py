@@ -158,7 +158,7 @@ def write_host_table(table: HostTable, path: str, fmt: str = "parquet",
     return stats
 
 
-def _key_codes(c: HostColumn):
+def key_codes(c: HostColumn):
     """(codes, k): integer codes in [0, k) equal where the column's
     values are equal, -1 for a null; no Python object per row. Strings
     group by a 64-bit hash of their bytes and length, checked against
@@ -199,7 +199,7 @@ def _partition_groups(table: HostTable, part_names: List[str]):
     key = np.zeros(table.num_rows, np.int64)
     span = 1
     for name in part_names:
-        codes, k = _key_codes(table.column(name))
+        codes, k = key_codes(table.column(name))
         span *= k + 1
         if span >= 1 << 62:
             raise ValueError(f"partition_by {part_names}: more than 2^62 "
@@ -264,8 +264,13 @@ class DataFrameWriter:
     def avro(self, path):
         self._not_ported("avro")
 
-    def delta(self, path):
-        self._not_ported("delta")
+    def delta(self, path: str) -> int:
+        """Standard-format Delta Lake commit (io/delta_format.py);
+        returns the committed version."""
+        from .delta_format import write_delta_table
+        table = self.df.session.execute(self.df.plan)
+        return write_delta_table(table, path, self._partition_by,
+                                 self._mode)
 
     def hive_text(self, path):
         self._not_ported("hive_text")

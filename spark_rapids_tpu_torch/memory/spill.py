@@ -40,7 +40,6 @@ import tempfile
 import threading
 import time
 import traceback
-import zlib
 from enum import IntEnum
 from typing import Dict, List, Optional, Tuple
 
@@ -51,50 +50,9 @@ from ..columnar import dtypes as dt
 from ..columnar.decimal128 import Decimal128Column
 from ..columnar.nested import ListColumn, StructColumn
 from ..columnar.vector import ColumnVector, ColumnarBatch, StringColumn
+from ..robustness.integrity import DataCorruption, array_checksum
 from .budget import MemoryBudget, current_query_id, device_budget, \
     task_context
-
-# ---------------------------------------------------------------------------
-# integrity (the port's copy of what spark_rapids_tpu/robustness/
-# integrity.py gives the spill tiers)
-# ---------------------------------------------------------------------------
-
-# snappy/LevelDB CRC mask constant: storing crc(data) next to data makes
-# crc(data || crc) degenerate; the rotation + offset mask breaks that
-_MASK_DELTA = 0xA282EAD8
-
-
-def _mask_crc(crc: int) -> int:
-    return (((crc >> 15) | (crc << 17)) + _MASK_DELTA) & 0xFFFFFFFF
-
-
-def array_checksum(arr) -> int:
-    """Masked crc32 of a numpy array's bytes (C order; a view checksums
-    as its copy does). The JAX package's ``array_checksum``."""
-    a = np.ascontiguousarray(arr)
-    return _mask_crc(zlib.crc32(a.view(np.uint8).reshape(-1)) & 0xFFFFFFFF)
-
-
-class DataCorruption(RuntimeError):
-    """Off-device bytes failed verification (checksum or a short read)."""
-
-    def __init__(self, what: str, expected: Optional[int] = None,
-                 actual: Optional[int] = None, detail: str = ""):
-        msg = f"DataCorruption: {what}"
-        if expected is not None or actual is not None:
-            msg += f" (expected={_hex(expected)} actual={_hex(actual)})"
-        if detail:
-            msg += f" [{detail}]"
-        super().__init__(msg)
-        self.what = what
-        self.expected = expected
-        self.actual = actual
-        self.detail = detail
-
-
-def _hex(v: Optional[int]) -> str:
-    return "?" if v is None else f"0x{v:08x}"
-
 
 # ---------------------------------------------------------------------------
 # batches as flat buffer lists

@@ -19,7 +19,7 @@ registers it as a temp view; there is no parquet step.
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, List, Optional
 
 from ..columnar import dtypes as dt
 from ..datagen import ColumnSpec, TableSpec, generate_chunk
@@ -491,18 +491,32 @@ def _batch_tables(spec: TableSpec, per: int) -> Iterator[HostTable]:
         yield pending[0] if len(pending) == 1 else concat_tables(pending)
 
 
+def nds_host_batches(scale_rows: int, per: int) -> Dict[str, List[HostTable]]:
+    """Every table's host tables of ``per`` rows, as ``register_nds``
+    moves them: made ahead (on a host thread) and passed to it as
+    ``batches``."""
+    return {spec.name: list(_batch_tables(spec, per))
+            for spec in nds_specs(scale_rows)}
+
+
 def register_nds(session, scale_rows: int = 20_000,
-                 host_tables: Optional[Dict[str, HostTable]] = None) -> None:
-    """Generate every table in memory, move it to the session's device
-    in ``srt.sql.batchSizeRows``-row batches and register it as a temp
-    view. ``host_tables``, when given, receives each table's host copy
-    (for references computed outside the engine)."""
+                 host_tables: Optional[Dict[str, HostTable]] = None,
+                 batches: Optional[Dict[str, List[HostTable]]] = None
+                 ) -> None:
+    """Generate every table in memory (or take ``batches``, made by
+    ``nds_host_batches`` at the session's ``srt.sql.batchSizeRows``),
+    move it to the session's device in ``srt.sql.batchSizeRows``-row
+    batches and register it as a temp view. ``host_tables``, when given,
+    receives each table's host copy (for references computed outside
+    the engine)."""
     per = session.conf.batch_size_rows
     for spec in nds_specs(scale_rows):
-        parts = list(_batch_tables(spec, per))
-        batches = [table_to_batch(t, device=session.device) for t in parts]
+        parts = batches.pop(spec.name) if batches is not None else \
+            list(_batch_tables(spec, per))
+        on_device = [table_to_batch(t, device=session.device)
+                     for t in parts]
         session.create_or_replace_temp_view(
-            spec.name, session.from_batches(batches, parts[0].schema()))
+            spec.name, session.from_batches(on_device, parts[0].schema()))
         if host_tables is not None:
             host_tables[spec.name] = parts[0] if len(parts) == 1 else \
                 concat_tables(parts)

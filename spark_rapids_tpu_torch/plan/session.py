@@ -8,8 +8,9 @@ to_pydict / to_pandas / count, ``TpuSession.range``, window functions
 and explode
 generators in select and with_column, nested columns (arrays, structs,
 maps) in ``create_dataframe``, the temp-view catalog and ``sql``, joins of every type
-(``join(how=...)``, ``cross_join``) and ``union``, Parquet through
-``session.read.parquet`` and ``df.write.parquet``. The session runs on
+(``join(how=...)``, ``cross_join``) and ``union``, Parquet and
+standard-format Delta tables through ``session.read`` and ``df.write``,
+and the ML hand-off ``to_device_arrays``. The session runs on
 one torch device, ``cuda`` unless the caller asks for the CPU; a session
 asked for CUDA where there is none raises.
 
@@ -32,6 +33,7 @@ thread's task counters from zero, and leaves its task metrics
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import os
 import time
@@ -229,10 +231,12 @@ class TpuSession:
 
     _query_seq = itertools.count(1)
 
-    def execute(self, plan: L.LogicalPlan) -> HostTable:
-        """Run a logical plan to a host table, as one query of the
-        device budget. Under ``srt.sql.ansi.enabled`` the plan is first
-        cloned with every Cast / arithmetic / SUM / AVG node ansi-marked
+    @contextlib.contextmanager
+    def _query(self, plan: L.LogicalPlan):
+        """Plan ``plan`` and hold it as one query of the device budget
+        while the block runs it: yields (physical plan, ExecContext).
+        Under ``srt.sql.ansi.enabled`` the plan is first cloned with
+        every Cast / arithmetic / SUM / AVG node ansi-marked
         (expr/ansi.py), so overflow and invalid casts raise."""
         if self.conf.ansi:
             from ..expr.ansi import rewrite_plan
@@ -252,16 +256,34 @@ class TpuSession:
         budget.register_query(qid)
         try:
             with query_scope(qid):
-                if isinstance(physical, TpuExec):
-                    tables = [batch_to_table(b)
-                              for b in physical.execute(ctx) if b.num_rows]
-                else:  # the root runs on the CPU engine
-                    tables = [from_engine(physical.evaluate(ctx))]
+                yield physical, ctx
         finally:
             budget.unregister_query(qid)
             ctx.memory = task.metrics()
+
+    def execute(self, plan: L.LogicalPlan) -> HostTable:
+        """Run a logical plan to a host table, as one query of the
+        device budget."""
+        with self._query(plan) as (physical, ctx):
+            if isinstance(physical, TpuExec):
+                tables = [batch_to_table(b)
+                          for b in physical.execute(ctx) if b.num_rows]
+            else:  # the root runs on the CPU engine
+                tables = [from_engine(physical.evaluate(ctx))]
         return concat_tables(tables) if tables else \
             from_engine(empty_like(plan.schema))
+
+
+class DeviceColumns(dict):
+    """{name: (data, validity)} device tensors with the live row count:
+    a string column's data is (offsets, chars). The tensors are
+    capacity-padded past ``num_rows``, so a consumer slices to it
+    (padding rows are indistinguishable from nulls by validity
+    alone)."""
+
+    def __init__(self, cols: dict, num_rows: int):
+        super().__init__(cols)
+        self.num_rows = num_rows
 
 
 class DataFrame:
@@ -393,6 +415,34 @@ class DataFrame:
     def count(self) -> int:
         """Run the query and count its rows."""
         return self.to_table().num_rows
+
+    def to_device_arrays(self) -> DeviceColumns:
+        """The ML hand-off (ColumnarRdd.scala:42 role: the reference
+        hands cuDF tables to XGBoost): the query's columns on the
+        session's device, the batches joined by one concat and no other
+        copy; a plan whose root runs on the CPU engine comes back
+        through the host-to-device seam. A DECIMAL above precision 18
+        or a nested column has no flat tensor and raises TypeError."""
+        from ..columnar.vector import ColumnVector, StringColumn
+        from ..ops.kernels import concat_stream
+        from .transitions import HostToDeviceExec
+        session = self.session
+        with session._query(self.plan) as (physical, ctx):
+            if not isinstance(physical, TpuExec):
+                physical = HostToDeviceExec(physical)
+            merged = concat_stream(physical.execute(ctx))
+        if merged is None:
+            return DeviceColumns({}, 0)
+        cols = {}
+        for name, c in zip(merged.names, merged.columns):
+            if isinstance(c, StringColumn):
+                cols[name] = ((c.offsets, c.chars), c.validity)
+            elif isinstance(c, ColumnVector):
+                cols[name] = (c.data, c.validity)
+            else:
+                raise TypeError(f"to_device_arrays: column {name!r} "
+                                f"({c.dtype}) has no flat device array")
+        return DeviceColumns(cols, merged.num_rows)
 
     @property
     def write(self):
