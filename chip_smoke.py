@@ -91,6 +91,22 @@ Needs one NVIDIA GPU (built for an H100: sm_90a), nvcc and triton. It
    warm, every feature column against numpy on the card, and
    SUM(orig_amount) WHERE state = 'CA' (B1 with B2); every B1 / B3
    launch of a first run held;
+5i. runs the rest of the file scan (``files_phase``, after phase 5d):
+   its files are written since phase 5g's end by a process of their own
+   (``files_worker``): I1 lineitem sorted by l_shipdate (the sort on the
+   card, downloaded) in row groups of 131,072 rows, and q6 over it
+   (``rowGroupsPruned``, ``scanBytesRead``, first and warm walls beside
+   5g's unpruned q6); I2 NDS store_sales partitioned by
+   ss_sold_date_sk, and NDS q3 over it with runtime partition pruning
+   (DPP) on and off (``dppPrunedFiles``, files read, walls; rows equal
+   the resident run's, which equals numpy); I3 phase 5d's
+   ``orders_nested`` as nested Parquet, N1 and N2 over it against numpy
+   and the resident runs; I4 lineitem written as ORC by the port's
+   writer, q6 (B1) and q1 (B3) over it; I5 a standard Delta table with a
+   Parquet checkpoint written by the port's nested writer, its replay
+   and time travel on both sides of it against the JSON replay and
+   numpy (a B3 GROUP BY each version); every B1 / B3 launch of a first
+   run held;
 5b. runs the scalar expression library (``scalar_queries``: string
    functions, LIKE and regexes, date fields and date arithmetic, a time
    zone (America/Los_Angeles, or +08:00 where the machine has no tz
@@ -4769,7 +4785,9 @@ def nested_phase(torch, np, dev, session, li_df, built, worker,
     and WARM_RUNS warm runs, held against numpy segment reductions over the
     sorted host lanes, computed on a host thread beside the queries (N6
     against Python's json, in ``worker``). Returns (report, N2's run, N2's
-    reference, the resident DataFrames' batches) for phase 8's profile."""
+    reference, the resident DataFrames' batches) for phase 8's profile,
+    and {query: (numpy reference, resident rows)} of FILES_NESTED_QUERIES
+    for phase 5i."""
     from spark_rapids_tpu_torch.expr import higher_order as HO
     from spark_rapids_tpu_torch.models import nested as NM
     from spark_rapids_tpu_torch.ops import device_kernels as DK
@@ -4914,7 +4932,8 @@ def nested_phase(torch, np, dev, session, li_df, built, worker,
            "b3": r["launches"]["tile_group_reduce"]}
         for q, r in report.items()}))
     return report, runs["N2"], refs["N2"], (on_batches, json_batches,
-                                            refs["N4_explode"])
+                                            refs["N4_explode"]), {
+        q: (refs[q], results[q][0]) for q in FILES_NESTED_QUERIES}
 
 
 #: phase 5f (ANSI mode, the DataFrame surface, the rest of the
@@ -5652,21 +5671,22 @@ def tpch_file_tables(np, host):
 
 def raw_bytes(table):
     """A host table's lane bytes as PLAIN pages hold them (a string's
-    4-byte length included)."""
+    4-byte length included, a list's levels a byte an element)."""
+    from spark_rapids_tpu_torch.columnar.nested import HostList, HostStruct
     from spark_rapids_tpu_torch.columnar.vector import HostStrings
-    total = 0
-    for c in table.columns:
-        v = c.values
+
+    def lane(v):
         if isinstance(v, HostStrings):
-            total += int(v.offsets[-1] - v.offsets[0]) + 4 * len(v)
-        elif v.dtype == object:
-            total += 16 * len(v)
-        else:
-            total += v.nbytes
-    return total
+            return int(v.offsets[-1] - v.offsets[0]) + 4 * len(v)
+        if isinstance(v, HostList):   # its levels, a byte an element
+            return len(v.mask) + lane(v.values)
+        if isinstance(v, HostStruct):
+            return sum(lane(f) for f, _ in v.fields)
+        return 16 * len(v) if v.dtype == object else v.nbytes
+    return sum(lane(c.values) for c in table.columns)
 
 
-def write_files(jobs, options):
+def write_files(jobs, options, fmt="parquet"):
     """[(path, HostTable)] written by SCAN_WRITERS threads: (bytes, wall
     s, thread s summed)."""
     from concurrent.futures import ThreadPoolExecutor
@@ -5675,7 +5695,7 @@ def write_files(jobs, options):
 
     def one(job):
         t = time.perf_counter()
-        n = write_file(job[1], job[0], options)
+        n = write_file(job[1], job[0], options, fmt)
         return n, time.perf_counter() - t
     t0 = time.perf_counter()
     with ThreadPoolExecutor(SCAN_WRITERS) as pool:
@@ -6558,12 +6578,26 @@ def delta_phase(torch, np, dev, read_counts):
         # the COALESCING scan's batches of BATCH_ROWS rows
         n_batches = -(-len(amount3) // BATCH_ROWS)
         where = amount3[flag3 == 3]
+
+        def where_batches(session):
+            # flag = 3 prunes the row groups whose statistics hold no 3:
+            # B1 runs on each batch the scan still gives
+            totals, _ = scan_metrics(session)
+            batches = sum(m["numOutputBatches"].value for k, m in
+                          session._last_execution[1].metrics.items()
+                          if k.startswith("FileSourceScanExec"))
+            check(1 <= batches <= n_batches, f"delta H2_where: the scan "
+                  f"gave {batches} batches of at most {n_batches}")
+            log(f"delta H2_where: rowGroupsPruned "
+                f"{totals.get('rowGroupsPruned', 0)}, {batches} batches of "
+                f"{n_batches} unpruned")
+            return batches
         queries = {
             "H2_where": (lambda: tb.to_df().filter(col("flag") == 3).agg(
                 Alias(Agg.Sum(col("amount")), "s"),
                 Alias(Agg.CountStar(), "n")),
                 [{"s": float(where.sum()), "n": len(where)}],
-                {"tile_reduce": n_batches, "tile_reduce_str": 0}),
+                {"tile_reduce": where_batches, "tile_reduce_str": 0}),
             "H2_group": (lambda: tb.to_df().group_by("flag").agg(
                 Alias(Agg.Sum(col("amount")), "s"),
                 Alias(Agg.CountStar(), "n")).sort("flag"),
@@ -6571,8 +6605,8 @@ def delta_phase(torch, np, dev, read_counts):
                   "n": int((flag3 == f).sum())} for f in range(4)],
                 {"tile_group_reduce": n_batches})}
         for name, (make, ref, expect) in queries.items():
-            report[name] = held_run(torch, s, read_counts, name, make, ref,
-                                    expect, len(amount3))
+            report[name] = delta_held_run(torch, s, read_counts, name, make,
+                                          ref, expect, len(amount3))
 
         # --- H5: the standard Delta format, from B --------------------------
         std = os.path.join(root, "standard")
@@ -6796,7 +6830,7 @@ def delta_phase(torch, np, dev, read_counts):
             f"{len(ref['loan_id'])} loans' features equal numpy on the card "
             f"(avg_upb within {RTOL}); launches {h6['launches']}")
         ca_sum, ca_n = ref["ca"]
-        report["H6_ca"] = held_run(
+        report["H6_ca"] = delta_held_run(
             torch, s, read_counts, "H6_ca",
             lambda: tables["acquisitions"].filter(col("state") == "CA").agg(
                 Alias(Agg.Sum(col("orig_amount")), "s"),
@@ -6832,34 +6866,74 @@ def delta_race_table(np, lo, rows, seed):
                      ["k", "amount", "flag"])
 
 
-def held_run(torch, session, read_counts, name, make, ref, expect, rows_in):
+def held_run(torch, session, read_counts, label, run, check_rows,
+             expect=None, warm=True):
     """A query's first run with every B1 / B3 launch held (the counts
     set to 0 just before, read just after; ``expect`` maps counters to
-    the counts it must give) and a warm run, each equal to ``ref``
-    (same_rows). Returns its walls and launches."""
+    the counts it must give, or to a function of the session that gives
+    them after the run) and, with ``warm``, a warm run that launches as
+    many; ``check_rows(rows, "first" or "warm")`` holds each run's rows.
+    Returns first_s, warm_s (None without a warm run), launches,
+    max_abs_err, and of the last run its rows, its metric totals and its
+    scans' time in s (scan_s), summed over every plan ``session`` ran in
+    it."""
     from spark_rapids_tpu_torch.ops import device_kernels as DK
-    DK.reset_counts()
-    torch.cuda.synchronize()
-    with holding_launches(torch, DK) as hold:
-        t0 = time.perf_counter()
-        rows = make().collect()
-        first = time.perf_counter() - t0
+
+    def once(hold=None):
+        DK.reset_counts()
+        torch.cuda.synchronize()
+        with executions_of(session, read_counts) as plans:
+            t = time.perf_counter()
+            if hold is None:
+                rows = run()
+            else:
+                with hold:
+                    rows = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        totals, scan_ns = {}, 0
+        for _, ctx, _ in plans:
+            for k, v in ctx.metric_totals().items():
+                totals[k] = totals.get(k, 0) + v
+            scan_ns += sum(m["opTime"].value for k, m in ctx.metrics.items()
+                           if k.startswith("FileSourceScanExec"))
+        return rows, wall, totals, scan_ns / 1e9
+    hold = holding_launches(torch, DK)
+    rows, first, totals, scan_s = once(hold)
     counts = read_counts()
-    check_held(hold, counts, f"delta {name}")
-    check(same_rows(rows, ref), f"delta {name}: {rows} != numpy {ref}")
-    for key, want in expect.items():
-        check(counts[key] == want, f"delta {name}: {key} launched "
+    check_held(hold, counts, label)
+    check_rows(rows, "first")
+    for key, want in (expect or {}).items():
+        want = want(session) if callable(want) else want
+        check(counts[key] == want, f"{label}: {key} launched "
               f"{counts[key]} times, expected {want}")
-    t0 = time.perf_counter()
-    rows = make().collect()
-    torch.cuda.synchronize()
-    warm = time.perf_counter() - t0
-    check(same_rows(rows, ref), f"delta {name}: the warm run disagrees")
-    log(f"delta {name}: matches numpy over {rows_in} rows; launches "
-        f"{counts}; first {first:.3f} s, warm {warm:.3f} s "
-        f"({rows_in / warm:.4e} rows/s)")
-    return {"first_s": first, "warm_s": warm, "launches": counts,
-            "max_abs_err": dict(hold.err)}
+    warm_s = None
+    if warm:
+        rows, warm_s, totals, scan_s = once()
+        check_rows(rows, "warm")
+        check(read_counts() == counts, f"{label}: the warm run launched "
+              f"{read_counts()}, the first {counts}")
+    return {"first_s": first, "warm_s": warm_s, "launches": counts,
+            "max_abs_err": dict(hold.err), "rows": rows, "totals": totals,
+            "scan_s": scan_s}
+
+
+def delta_held_run(torch, session, read_counts, name, make, ref, expect,
+                   rows_in):
+    """held_run of a phase 5h query against numpy's ``ref``, logged;
+    returns its walls, launches and errors."""
+    label = f"delta {name}"
+
+    def check_rows(rows, run):
+        check(same_rows(rows, ref), f"{label} ({run}): {rows} != numpy "
+              f"{ref}")
+    r = held_run(torch, session, read_counts, label,
+                 lambda: make().collect(), check_rows, expect)
+    log(f"{label}: matches numpy over {rows_in} rows; launches "
+        f"{r['launches']}; first {r['first_s']:.3f} s, warm "
+        f"{r['warm_s']:.3f} s ({rows_in / r['warm_s']:.4e} rows/s)")
+    return {k: r[k] for k in ("first_s", "warm_s", "launches",
+                              "max_abs_err")}
 
 
 def host_rss_gb():
@@ -6885,6 +6959,527 @@ def li_str(lineitem):
             .agg(Alias(Agg.Sum(col("l_extendedprice") * col("l_discount")),
                        "revenue"),
                  Alias(Agg.CountStar(), "n")))
+
+
+# --- phase 5i: the rest of the file scan ------------------------------------
+#: I1: lineitem sorted by l_shipdate, in row groups of FILES_GROUP_ROWS
+#: rows, FILES_SORTED_FILE_ROWS rows a file
+FILES_GROUP_ROWS = 1 << 17
+FILES_SORTED_FILE_ROWS = 1 << 22
+#: I4: lineitem as ORC, FILES_ORC_ROWS rows a file and a stripe
+FILES_ORC_ROWS = 1 << 20
+#: I3: orders_nested as Parquet, FILES_NESTED_ORDERS orders a file
+FILES_NESTED_ORDERS = 1 << 20
+#: I2's NDS text: its store_sales side joins the filtered date_dim through
+#: a broadcast join whose build side is date_dim, the shape DPP takes
+FILES_DPP_QUERY = "q3"
+#: I3's queries over orders_nested from files
+FILES_NESTED_QUERIES = ("N1", "N2")
+#: I5: a standard Delta table of FILES_CKPT_COMMITS appends of
+#: FILES_CKPT_ROWS rows, each over FILES_CKPT_PARTS partitions, so that
+#: the checkpoint at version FILES_CKPT_COMMITS - 1 (10, where Delta's
+#: default checkpointInterval puts the first) holds 2,816 add actions;
+#: two appends follow it
+FILES_CKPT_ROWS = 1 << 14
+FILES_CKPT_PARTS = 256
+FILES_CKPT_COMMITS = 11
+#: I5's queries read the partitions below this (the replay lists all)
+FILES_CKPT_QUERY_PARTS = 16
+
+
+def lineitem_table(np, host, start=0, stop=None):
+    """Rows [start, stop) of lineitem's spec columns over the host lanes
+    (zeros where the smoke keeps no lane), as tpch_tables writes them."""
+    from spark_rapids_tpu_torch.columnar.vector import HostStrings
+    from spark_rapids_tpu_torch.models import tpch
+    from spark_rapids_tpu_torch.plan.host_table import HostColumn, HostTable
+    spec = tpch.tpch_table_specs(ROWS)[0]
+    stop = spec.num_rows if stop is None else stop
+    lanes = host["lineitem"]
+    by_col = {c: k for k, c in {**HOST_COLS["lineitem"],
+                                **HOST_STRS["lineitem"]}.items()}
+    cols = []
+    for c in spec.columns:
+        if c.name in by_col:
+            v = lanes[by_col[c.name]]
+            v = HostStrings(v.offsets[start:stop + 1], v.chars) \
+                if isinstance(v, HostStrings) else v[start:stop]
+        else:
+            v = np.zeros(stop - start, c.dtype.np_physical)
+        cols.append(HostColumn(v, np.ones(stop - start, bool), c.dtype))
+    return HostTable(cols, [c.name for c in spec.columns])
+
+
+def shipdate_order(torch, np, batches):
+    """I1's row order: lineitem's rows stably sorted by l_shipdate on the
+    card, over the resident batches' lanes, and downloaded."""
+    ship = torch.cat([b.column("l_shipdate").data[:b.num_rows]
+                      for b in batches])
+    order = torch.argsort(ship, stable=True)
+    torch.cuda.synchronize()
+    out = order.cpu().numpy()
+    del ship, order
+    return out
+
+
+def ckpt_append(np, v):
+    """I5's append at version ``v``, from its seed: k, amount, flag
+    (k % 4) and the partition column part (k % FILES_CKPT_PARTS)."""
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.plan.host_table import HostColumn, HostTable
+    n = FILES_CKPT_ROWS
+    k = np.arange(v * n, (v + 1) * n, dtype=np.int64)
+    ok = np.ones(n, bool)
+    amount = np.random.default_rng(15 + v).uniform(0, 1e4, n)
+    return HostTable([HostColumn(k, ok, dt.INT64),
+                      HostColumn(amount, ok, dt.FLOAT64),
+                      HostColumn((k % 4).astype(np.int32), ok, dt.INT32),
+                      HostColumn((k % FILES_CKPT_PARTS).astype(np.int32), ok,
+                                 dt.INT32)],
+                     ["k", "amount", "flag", "part"])
+
+
+def files_worker(conn, root, nds_rows, order_path):
+    """Phase 5i's files, written in a process of its own (spawned after
+    phase 5g; it hides the card): the TPC-H host lanes from the seeds main
+    uses, then, each sent as (job, numbers) once written: "sorted" (I1:
+    lineitem in the order ``order_path`` holds, the card's sort),
+    "orc" (I4: lineitem as ORC), "nested" (I3: orders_nested as Parquet)
+    "store_sales" (I2: NDS store_sales at ``nds_rows`` rows,
+    partitioned by ss_sold_date_sk as the NDS kit lays out its fact
+    tables), each on SCAN_WRITERS threads, and "delta_ckpt" (I5: the
+    Delta table's first FILES_CKPT_COMMITS commits); ("error",
+    traceback) if it fails."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    try:
+        import numpy as np
+
+        from spark_rapids_tpu_torch.io.delta_format import write_delta_table
+        from spark_rapids_tpu_torch.io.writer import write_host_table
+        from spark_rapids_tpu_torch.models import nested as NM
+        from spark_rapids_tpu_torch.models.nds import _batch_tables, nds_specs
+        from spark_rapids_tpu_torch.plan.host_table import concat_tables
+        t0 = time.perf_counter()
+        host = tpch_host_lanes(np)
+        lanes_s = time.perf_counter() - t0
+
+        def files(name, table, per, options, fmt="parquet"):
+            d = os.path.join(root, name)
+            os.makedirs(d)
+            jobs = [(os.path.join(d, f"part-{i:05d}.{fmt}"),
+                     table.slice(a, a + per))
+                    for i, a in enumerate(range(0, table.num_rows, per))]
+            t = time.perf_counter()
+            nbytes, wall, thread_s = write_files(jobs, options, fmt)
+            conn.send((name, {"dir": d, "files": len(jobs), "bytes": nbytes,
+                              "raw_bytes": raw_bytes(table),
+                              "rows": table.num_rows,
+                              "write_s": wall, "thread_s": thread_s,
+                              "prepare_s": t - t_job,
+                              "since_start_s": time.perf_counter() - t0,
+                              "lanes_s": lanes_s}))
+        t_job = time.perf_counter()
+        li = lineitem_table(np, host)
+        order = np.load(order_path)
+        files("sorted", li.take(order), FILES_SORTED_FILE_ROWS,
+              {"compression": "snappy", "rowGroupRows": FILES_GROUP_ROWS})
+        del order
+        t_job = time.perf_counter()
+        files("orc", li, FILES_ORC_ROWS,
+              {"compression": "snappy", "stripeRows": FILES_ORC_ROWS}, "orc")
+        del li
+        t_job = time.perf_counter()
+        li_t, _ = nested_host_tables(np, host)
+        files("nested", NM.NestedOrders(li_t).table(), FILES_NESTED_ORDERS,
+              {"compression": "snappy"})
+        del li_t, host
+        t_job = time.perf_counter()
+        spec = next(x for x in nds_specs(nds_rows) if x.name == "store_sales")
+        ss = concat_tables(list(_batch_tables(spec, BATCH_ROWS)))
+        d = os.path.join(root, "store_sales")
+        t = time.perf_counter()
+        st = write_host_table(ss, d, "parquet", ["ss_sold_date_sk"], "error",
+                              {"compression": "snappy"})
+        conn.send(("store_sales", {
+            "dir": d, "files": st.num_files, "bytes": st.num_bytes,
+            "raw_bytes": raw_bytes(ss), "rows": ss.num_rows,
+            "write_s": time.perf_counter() - t, "prepare_s": t - t_job,
+            "since_start_s": time.perf_counter() - t0, "lanes_s": lanes_s}))
+        del ss
+        d = os.path.join(root, "delta_ckpt")
+        t = time.perf_counter()
+        for v in range(FILES_CKPT_COMMITS):
+            write_delta_table(ckpt_append(np, v), d, ["part"], "append")
+        conn.send(("delta_ckpt", {
+            "dir": d, "write_s": time.perf_counter() - t,
+            "since_start_s": time.perf_counter() - t0}))
+    except BaseException:
+        import traceback
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+def start_files_worker(torch, np, batches):
+    """I1's sort on the card, its order saved for the files worker, and
+    the worker started: (worker, root, the sort's seconds)."""
+    root, free = scan_root(np, "srt_files")
+    t = time.perf_counter()
+    order = shipdate_order(torch, np, batches)
+    sort_s = time.perf_counter() - t
+    path = os.path.join(root, "shipdate_order.npy")
+    np.save(path, order)
+    log(f"files I1: lineitem's {len(order)} rows sorted by l_shipdate on "
+        f"the card and downloaded in {sort_s:.2f} s; the files worker "
+        f"starts ({root}, {free} bytes free)")
+    del order
+    return HostWorker(root, NDS_ROWS, path, target=files_worker), root, \
+        sort_s
+
+
+def files_wait(worker, job):
+    t = time.perf_counter()
+    got = worker.get(job)
+    return got, time.perf_counter() - t
+
+
+def run_fields(r):
+    """A held_run's first and warm walls, launches, errors, metric totals
+    and scan time, in that order."""
+    return (r["first_s"], r["warm_s"], r["launches"], r["max_abs_err"],
+            r["totals"], r["scan_s"])
+
+
+def files_checkpoint(torch, np, dev, read_counts, s, made, waited):
+    """I5: the standard Delta table ``files_worker`` began (``made``) gets
+    its Parquet checkpoint at version FILES_CKPT_COMMITS - 1, by the
+    port's nested writer in Delta's checkpoint schema, and two appends
+    from the card after it. The checkpoint's replay equals the JSON
+    replay (protocol, schema, every add's path, size and partition
+    values), as time travel on both sides of it does; a B3 GROUP BY of
+    each version, its first run held, equals numpy. Returns the report
+    (the replays' and the checkpoint's times)."""
+    from spark_rapids_tpu_torch.expr import aggregates as Agg
+    from spark_rapids_tpu_torch.expr.core import col
+    from spark_rapids_tpu_torch.io import delta_format as DF
+    from spark_rapids_tpu_torch.plan.host_table import table_to_batch
+    root = made["dir"]
+    at = FILES_CKPT_COMMITS - 1
+    head = at + 2
+
+    def files_of(adds):
+        return sorted((a["path"], a["size"], tuple(sorted(
+            (a.get("partitionValues") or {}).items()))) for a in adds)
+
+    def commit_adds(v):
+        path = os.path.join(root, "_delta_log", f"{v:020d}.json")
+        with open(path) as f:
+            acts = [json.loads(line) for line in f if line.strip()]
+        return files_of(a["add"] for a in acts if "add" in a)
+
+    def state(table):
+        p = table.protocol
+        return (table.version, table.schema, table.partition_columns,
+                p["minReaderVersion"], p["minWriterVersion"],
+                files_of(table.adds))
+    t = time.perf_counter()
+    by_json = DF.DeltaFormatTable(root, at)
+    json_s = time.perf_counter() - t
+    before = DF.DeltaFormatTable(root, at - 1)
+    t = time.perf_counter()
+    DF.write_checkpoint(root, at)
+    ckpt_s = time.perf_counter() - t
+    t = time.perf_counter()
+    by_ckpt = DF.DeltaFormatTable(root, at)
+    replay_s = time.perf_counter() - t
+    n_adds = len(by_ckpt.adds)
+    check(state(by_ckpt) == state(by_json), "files I5: the checkpoint's "
+          f"replay of version {at} differs from the JSON replay")
+    check(state(DF.DeltaFormatTable(root, at - 1)) == state(before),
+          f"files I5: version {at - 1} (before the checkpoint) changed")
+    t = time.perf_counter()
+    for v in range(at + 1, head + 1):
+        s.from_batches([table_to_batch(ckpt_append(np, v), device=dev)]) \
+            .write.mode("append").partition_by("part").delta(root)
+    append_s = time.perf_counter() - t
+    want_files = {at - 1: files_of(before.adds), at: files_of(by_json.adds)}
+    for v in range(at + 1, head + 1):
+        want_files[v] = sorted(want_files[v - 1] + commit_adds(v))
+
+    def by_flag(version):
+        return s.read.delta(root, version_as_of=version) \
+            .filter(col("part") < FILES_CKPT_QUERY_PARTS).group_by("flag") \
+            .agg(Agg.Sum(col("amount")).alias("total"),
+                 Agg.Count(col("k")).alias("n")).sort("flag").collect()
+
+    def numpy_by_flag(version):
+        parts = [ckpt_append(np, i) for i in range(version + 1)]
+        cols = {c: np.concatenate([p.column(c).values for p in parts])
+                for c in ("amount", "flag", "part")}
+        keep = cols["part"] < FILES_CKPT_QUERY_PARTS
+        f, a = cols["flag"][keep], cols["amount"][keep]
+        return [{"flag": g, "total": float(a[f == g].sum()),
+                 "n": int((f == g).sum())} for g in range(4)]
+    launches = {"tile_reduce": 0, "tile_reduce_str": 0,
+                "tile_group_reduce": 0}
+    errs = {"tile_reduce": 0.0, "tile_group_reduce": 0.0}
+    reads_s = 0.0
+    for v in (at - 1, at, at + 1, None):
+        label = f"files I5 version {v if v is not None else 'head'}"
+        got = DF.DeltaFormatTable(root, v)
+        check(got.version == (head if v is None else v) and
+              files_of(got.adds) == want_files[got.version], f"{label}: the "
+              "replay's files differ from the JSON replay's")
+        want_rows = numpy_by_flag(got.version)
+        r = held_run(torch, s, read_counts, label, lambda v=v: by_flag(v),
+                     lambda rows, run, w=want_rows, lb=label: check(
+                         same_rows(rows, w), f"{lb}: {rows} != numpy {w}"),
+                     warm=False)
+        reads_s += r["first_s"]
+        for k in launches:
+            launches[k] += r["launches"][k]
+        for k in errs:
+            errs[k] = max(errs[k], r["max_abs_err"][k])
+    check(launches["tile_group_reduce"] > 0, f"files I5: B3 did not run "
+          f"({launches})")
+    out = {
+        "launches": launches, "max_abs_err": errs, "adds": n_adds,
+        "json_replay_s": json_s, "checkpoint_s": ckpt_s,
+        "checkpoint_replay_s": replay_s, "appends_s": append_s,
+        "reads_s": reads_s, "write": made, "waited_s": waited}
+    log(f"files I5: a standard Delta table of {FILES_CKPT_COMMITS} commits "
+        f"of {FILES_CKPT_ROWS} rows over {FILES_CKPT_PARTS} partitions "
+        f"written in {made['write_s']:.2f} s by the files worker (waited "
+        f"{waited:.1f} s); version {at}: {n_adds} add actions, the JSON "
+        f"replay {json_s:.4f} s, the Parquet checkpoint written by the "
+        f"nested writer in {ckpt_s:.4f} s and replayed in {replay_s:.4f} s, "
+        f"equal; two appends from the card {append_s:.2f} s; versions "
+        f"{at - 1}, {at}, {at + 1} and the head ({head}) equal the JSON "
+        f"replay's files, and their GROUP BY over part < "
+        f"{FILES_CKPT_QUERY_PARTS} numpy, in {reads_s:.2f} s; launches "
+        f"{launches}")
+    return out
+
+
+def files_phase(torch, np, dev, read_counts, worker, tpch_refs, resident,
+                n_li, nds, nested, scan_q6=None):
+    """Phase 5i: the rest of the file scan on the card, over the files
+    ``worker`` (``files_worker``) wrote.
+
+    - I1 pruning: TPC-H q6 over lineitem sorted by l_shipdate (the
+      card's sort) in FILES_GROUP_ROWS-row row groups: rowGroupsPruned,
+      scanBytesRead, first and warm walls beside 5g's unpruned q6
+      (``scan_q6``);
+    - I2 DPP: NDS FILES_DPP_QUERY over store_sales partitioned by
+      ss_sold_date_sk (``nds`` = (session, NdsNumpy)) with
+      srt.sql.dpp.enabled on and off: dppPrunedFiles, files read, walls;
+      rows equal the resident tables';
+    - I3 nested: orders_nested from Parquet, FILES_NESTED_QUERIES (``nested``
+      = (lineitem DataFrame, {query: (numpy reference, resident rows)}));
+    - I4 ORC: q6 (B1) and q1 (B3) over lineitem written as ORC by the
+      port's writer;
+    - I5 checkpoint: a standard Delta table with a Parquet checkpoint
+      written by the port's nested writer; its replay and time travel on
+      both sides of it equal the JSON replay, and a B3 GROUP BY over
+      each version equals numpy.
+
+    ``tpch_refs`` = (q6, q1) numpy rows, ``resident`` the same queries'
+    resident rows, ``n_li`` lineitem's resident batches. Every B1 / B3
+    launch of a first run is held. Returns the report."""
+    import shutil
+
+    from spark_rapids_tpu_torch.conf import SrtConf
+    from spark_rapids_tpu_torch.models import nested as NM
+    from spark_rapids_tpu_torch.models import tpch
+    from spark_rapids_tpu_torch.models.nds import NDS_QUERIES
+    from spark_rapids_tpu_torch.plan.session import TpuSession
+    from spark_rapids_tpu_torch.testing import compare_rows, order_keys
+    t_phase = time.perf_counter()
+    report = {}
+    ref6, ref1 = tpch_refs
+
+    def session(**conf):
+        return TpuSession(SrtConf({"srt.sql.batchSizeRows": BATCH_ROWS,
+                                   "srt.sql.reader.batchSizeRows": BATCH_ROWS,
+                                   **conf}), device=dev)
+
+    def same_as(ref, res, label):
+        def check_rows(rows, run):
+            check(same_rows(rows, ref), f"{label} ({run}): {rows} != numpy "
+                  f"{ref}")
+            check(same_rows(rows, res), f"{label} ({run}): {rows} != the "
+                  f"resident tables' {res}")
+        return check_rows
+
+    # --- I1: row-group pruning -------------------------------------------
+    made, waited = files_wait(worker, "sorted")
+    s = session()
+    df = s.read.parquet(made["dir"])
+    first, warm, counts, err, totals, scan_s = run_fields(held_run(
+        torch, s, read_counts, "files I1 q6", lambda: tpch.q6(df).collect(),
+        same_as(ref6, resident["q6"], "files I1 q6")))
+    groups = -(-ROWS // FILES_GROUP_ROWS)
+    pruned = totals.get("rowGroupsPruned", 0)
+    check(pruned > 0, f"files I1: no row group pruned ({totals})")
+    check(counts["tile_reduce"] >= 1, f"files I1: B1 did not run {counts}")
+    report["I1_q6"] = {
+        "first_s": first, "warm_s": warm, "launches": counts,
+        "max_abs_err": err, "row_groups": groups,
+        "row_groups_pruned": pruned,
+        "bytes_read": totals.get("scanBytesRead", 0),
+        "files": totals.get("scanFiles", 0), "scan_s": scan_s,
+        "write": made, "waited_s": waited}
+    unpruned = "" if scan_q6 is None else (
+        f"; 5g's unpruned q6 (COALESCING, 229 files): first "
+        f"{scan_q6['first_s']:.4f} s, warm {scan_q6['warm_s']:.4f} s, "
+        f"{scan_q6['bytes_read']} bytes read")
+    log(f"files I1: lineitem sorted by l_shipdate, {made['files']} files "
+        f"of {groups} row groups of {FILES_GROUP_ROWS} rows ({made['bytes']} "
+        f"bytes) written in {made['write_s']:.2f} s by the files worker "
+        f"(waited {waited:.1f} s); q6 matches numpy and the resident "
+        f"tables: first {first:.4f} s, warm {warm:.4f} s, rowGroupsPruned "
+        f"{pruned} of {groups} ({pruned / groups:.3f}), scanBytesRead "
+        f"{totals.get('scanBytesRead', 0)}, the scan {scan_s:.4f} s of the "
+        f"warm wall; launches {counts}{unpruned}")
+    del df, s
+
+    # --- I4: ORC ----------------------------------------------------------
+    made, waited = files_wait(worker, "orc")
+    s = session()
+    df = s.read.orc(made["dir"])
+    for name, make, ref, key in (("q6", tpch.q6, ref6, "tile_reduce"),
+                                 ("q1", tpch.q1, ref1, "tile_group_reduce")):
+        label = f"files I4 ORC {name}"
+        first, warm, counts, err, totals, scan_s = run_fields(held_run(
+            torch, s, read_counts, label, lambda: make(df).collect(),
+            same_as(ref, resident[name], label), warm=name == "q6"))
+        check(counts[key] == n_li, f"{label}: {key} launched "
+              f"{counts[key]} times, expected {n_li}")
+        report[f"I4_orc_{name}"] = {
+            "first_s": first, "warm_s": warm, "launches": counts,
+            "max_abs_err": err, "bytes_read": totals.get("scanBytesRead", 0),
+            "decode_thread_s": totals.get("scanDecodeTime", 0) / 1e9,
+            "files": totals.get("scanFiles", 0), "scan_s": scan_s}
+        log(f"{label}: matches numpy and the resident tables; first "
+            f"{first:.4f} s" + (f", warm {warm:.4f} s" if warm else "")
+            + f"; the scan {scan_s:.4f} s of the last wall, decode "
+            f"{totals.get('scanDecodeTime', 0) / 1e9:.4f} thread-s, "
+            f"{totals.get('scanBytesRead', 0)} bytes read from "
+            f"{totals.get('scanFiles', 0)} files; launches {counts}")
+    report["I4_write"] = made
+    log(f"files I4: lineitem as ORC, {made['files']} files (snappy, "
+        f"stripes of {FILES_ORC_ROWS} rows), {made['bytes']} bytes of "
+        f"{made['raw_bytes']} raw, written in {made['write_s']:.2f} s "
+        f"(waited {waited:.1f} s)")
+    del df, s
+
+    # --- I3: nested Parquet ------------------------------------------------
+    li_df, nested_refs = nested
+    made, waited = files_wait(worker, "nested")
+    s = session()
+    on = s.read.parquet(made["dir"])
+    queries = NM.queries(NM.port_api(), on, li_df)
+    for name in FILES_NESTED_QUERIES:
+        ref, res = nested_refs[name]
+        label = f"files I3 {name}"
+
+        def check_rows(rows, run, name=name, ref=ref, res=res, label=label):
+            check(nested_same(rows, res), f"{label} ({run}): {rows} != the "
+                  f"resident orders_nested's {res}")
+            if name == "N1":
+                got = {x["pos"]: (x["rev"], x["n"]) for x in rows}
+                check(nested_same(got, dict(ref)), f"{label} ({run}): "
+                      f"{got} != numpy {ref}")
+            else:
+                check(len(rows) == 1 and nested_same(rows[0], ref),
+                      f"{label} ({run}): {rows} != numpy {ref}")
+        first, _, counts, err, totals, scan_s = run_fields(held_run(
+            torch, s, read_counts, label, lambda q=queries[name]: q.collect(),
+            check_rows, warm=False))
+        report[f"I3_{name}"] = {
+            "first_s": first, "launches": counts, "max_abs_err": err,
+            "bytes_read": totals.get("scanBytesRead", 0), "scan_s": scan_s,
+            "decode_thread_s": totals.get("scanDecodeTime", 0) / 1e9}
+        log(f"{label}: orders_nested from {made['files']} Parquet files "
+            f"matches numpy and the resident run; first {first:.4f} s, the "
+            f"scan {scan_s:.4f} s, decode "
+            f"{totals.get('scanDecodeTime', 0) / 1e9:.4f} thread-s for "
+            f"{totals.get('scanBytesRead', 0)} bytes read; launches {counts}")
+    report["I3_write"] = made
+    log(f"files I3: orders_nested ({made['rows']} orders) as "
+        f"{made['files']} nested Parquet files, {made['bytes']} bytes, "
+        f"written in {made['write_s']:.2f} s (waited {waited:.1f} s)")
+    del on, queries, s
+
+    # --- I2: runtime partition pruning ------------------------------------
+    nds_session, nds_ref = nds
+    made, waited = files_wait(worker, "store_sales")
+    text = NDS_QUERIES[FILES_DPP_QUERY]
+    label = f"files I2 {FILES_DPP_QUERY}"
+    t = time.perf_counter()
+    resident_rows = nds_session.sql(text).collect()
+    resident_s = time.perf_counter() - t
+    keys, limit = order_keys(text, list(resident_rows[0]) if resident_rows
+                             else [])
+    want = getattr(nds_ref, FILES_DPP_QUERY)()
+    check(resident_rows and compare_rows(resident_rows, want, keys, limit,
+                                         RTOL) is None,
+          f"{label}: the resident run disagrees with numpy")
+    held = nds_session.table("store_sales")
+    dpp = {}
+    try:
+        for on_off in (True, False):
+            s = session(**{"srt.sql.dpp.enabled": on_off})
+            # the resident dimensions, store_sales from its files
+            for view in ("date_dim", "item"):
+                s.create_or_replace_temp_view(view, nds_session.table(view))
+            s.create_or_replace_temp_view("store_sales",
+                                          s.read.parquet(made["dir"]))
+
+            def check_rows(rows, run, on_off=on_off):
+                diff = compare_rows(rows, resident_rows, keys, limit, RTOL)
+                check(diff is None, f"{label} (DPP {on_off}, {run}): {diff}")
+            first, warm, counts, err, totals, scan_s = run_fields(held_run(
+                torch, s, read_counts, f"{label} DPP {on_off}",
+                lambda s=s: s.sql(text).collect(), check_rows, warm=on_off))
+            dpp[on_off] = {
+                "first_s": first, "warm_s": warm, "launches": counts,
+                "max_abs_err": err, "scan_s": scan_s,
+                "dpp_pruned_files": totals.get("dppPrunedFiles", 0),
+                "dpp_filters": totals.get("dppFilters", 0),
+                "files": totals.get("scanFiles", 0),
+                "bytes_read": totals.get("scanBytesRead", 0)}
+    finally:
+        nds_session.create_or_replace_temp_view("store_sales", held)
+    check(dpp[True]["dpp_pruned_files"] > 0 and
+          dpp[False]["dpp_pruned_files"] == 0,
+          f"{label}: dppPrunedFiles on {dpp[True]['dpp_pruned_files']}, off "
+          f"{dpp[False]['dpp_pruned_files']}")
+    report["I2_dpp_on"], report["I2_dpp_off"] = dpp[True], dpp[False]
+    report["I2_write"] = made
+    log(f"files I2: store_sales ({made['rows']} rows) partitioned by "
+        f"ss_sold_date_sk into {made['files']} files, {made['bytes']} "
+        f"bytes, written in {made['write_s']:.2f} s (waited {waited:.1f} "
+        f"s); {FILES_DPP_QUERY} equals the resident run "
+        f"({resident_s:.4f} s, numpy-held): DPP on first "
+        f"{dpp[True]['first_s']:.4f} s, warm {dpp[True]['warm_s']:.4f} s, "
+        f"{dpp[True]['files']} files read, dppPrunedFiles "
+        f"{dpp[True]['dpp_pruned_files']}, dppFilters "
+        f"{dpp[True]['dpp_filters']}; DPP off {dpp[False]['first_s']:.4f} "
+        f"s over {dpp[False]['files']} files; launches on "
+        f"{dpp[True]['launches']}, off {dpp[False]['launches']}")
+    del s
+
+    # --- I5: a Delta table with a Parquet checkpoint -----------------------
+    made, waited = files_wait(worker, "delta_ckpt")
+    report["I5_checkpoint"] = files_checkpoint(
+        torch, np, dev, read_counts, session(), made, waited)
+    shutil.rmtree(os.path.dirname(made["dir"]), ignore_errors=True)
+    report["s"] = time.perf_counter() - t_phase
+    log(f"files phase 5i: {report['s']:.1f} s; host RSS "
+        f"{host_rss_gb():.2f} GB, the card's reserved "
+        f"{torch.cuda.memory_reserved(dev) / 1e9:.2f} GB")
+    return report
 
 
 def ord_str(orders):
@@ -7540,6 +8135,9 @@ def main():
         read_counts, plan_guard, host_lib, scan_dir, types_w)
     scan_runs = {q: r for q, r in scan.items()
                  if isinstance(r, dict) and "launches" in r}
+    # phase 5i's files: I1's sort on the card, then a process of their own
+    # writes them while the phases up to 5d run
+    files_w, _, _ = start_files_worker(torch, np, batches["lineitem"])
 
     # --- phase 5h: Delta Lake tables and the mortgage ETL ---------------------
     delta = delta_phase(torch, np, dev, read_counts)
@@ -7589,9 +8187,21 @@ def main():
     seg_sum_timing(torch, dev, nds_session)
 
     # --- phase 5d: nested types, higher-order functions, JSON ---------------
-    nested, run_n2, ref_n2, nested_batches = nested_phase(
+    nested, run_n2, ref_n2, nested_batches, nested_refs = nested_phase(
         torch, np, dev, session, df, nested_ahead, json_worker, read_counts)
     json_worker.close()
+
+    # --- phase 5i: the rest of the file scan (the files written since 5g
+    # by a process of their own) ------------------------------------------
+    try:
+        files = files_phase(torch, np, dev, read_counts, files_w,
+                            (ref6, ref1), resident_rows, n_li,
+                            (nds_session, nds_ref), (df, nested_refs),
+                            scan.get("COALESCING_q6"))
+    finally:
+        files_w.close()
+    files_runs = {q: r for q, r in files.items()
+                  if isinstance(r, dict) and "launches" in r}
 
     # --- phase 5f: ANSI mode, the DataFrame surface, the rest of the
     # expression library --------------------------------------------------
@@ -7679,7 +8289,8 @@ def main():
     log(f"planner: {plan_guard['plans']} plans outside phase 5e and phase "
         "5f's exact percentile and JSON queries, each "
         "wholly on the device")
-    scan_vals = list(scan_runs.values()) + list(delta_runs.values())
+    scan_vals = list(scan_runs.values()) + list(delta_runs.values()) + \
+        list(files_runs.values())
     b2_launches = launches["strings_lineitem"]["tile_reduce_str"] + \
         launches["strings_orders"]["tile_reduce_str"]
     def b3_extra(r):
@@ -7707,6 +8318,11 @@ def main():
          "delta_launches": {q: r["launches"]["tile_reduce"]
                             - r["launches"]["tile_reduce_str"]
                             for q, r in delta_runs.items()
+                            if r["launches"]["tile_reduce"]
+                            - r["launches"]["tile_reduce_str"]},
+         "files_launches": {q: r["launches"]["tile_reduce"]
+                            - r["launches"]["tile_reduce_str"]
+                            for q, r in files_runs.items()
                             if r["launches"]["tile_reduce"]
                             - r["launches"]["tile_reduce_str"]},
          "surface_launches": {q: r["launches"]["tile_reduce"]
@@ -7767,6 +8383,9 @@ def main():
                            if r["launches"]["tile_group_reduce"]},
          "delta_launches": {q: r["launches"]["tile_group_reduce"]
                             for q, r in delta_runs.items()
+                            if r["launches"]["tile_group_reduce"]},
+         "files_launches": {q: r["launches"]["tile_group_reduce"]
+                            for q, r in files_runs.items()
                             if r["launches"]["tile_group_reduce"]},
          "surface_launches": {q: r["launches"]["tile_group_reduce"]
                               for q, r in surface_runs.items()

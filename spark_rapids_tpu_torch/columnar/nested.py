@@ -432,6 +432,30 @@ class HostStruct:
                          for i in range(len(self))])
 
 
+def concat_host_lanes(parts: Sequence):
+    """Flat host lanes (HostList, HostStruct, HostStrings or numpy) of
+    one kind, end to end, without a Python object per row."""
+    first = parts[0]
+    if isinstance(first, HostList):
+        offs, kids, masks, base = [np.zeros(1, np.int64)], [], [], 0
+        for p in parts:
+            lo, hi = int(p.offsets[0]), int(p.offsets[-1])
+            offs.append(p.offsets[1:] - lo + base)
+            kids.append(lane_range(p.values, lo, hi))
+            masks.append(p.mask[lo:hi])
+            base += hi - lo
+        return HostList(np.concatenate(offs), concat_host_lanes(kids),
+                        np.concatenate(masks))
+    if isinstance(first, HostStruct):
+        return HostStruct([
+            (concat_host_lanes([p.fields[i][0] for p in parts]),
+             np.concatenate([p.fields[i][1] for p in parts]))
+            for i in range(len(first.fields))])
+    if isinstance(first, HostStrings):
+        return HostStrings.concat(parts)
+    return np.concatenate(parts)
+
+
 def host_python(values, mask, dtype: dt.DType) -> list:
     """A host lane (flat lanes, an object array of Python values or a
     primitive numpy lane) as Python values, None where ``mask`` is

@@ -263,6 +263,21 @@ MAX_READER_BATCH_SIZE_ROWS = _register(ConfEntry(
     "Soft cap on rows per scan batch. "
     "(spark.rapids.sql.reader.batchSizeRows)"))
 
+PARQUET_FILTER_PUSHDOWN = _register(ConfEntry(
+    "srt.sql.parquet.filterPushdown", _bool, True,
+    "Skip a Parquet row group whose footer statistics prove that no "
+    "row passes the filter pushed into the scan (io/pruning.py; "
+    "spark.sql.parquet.filterPushdown). The Filter above the scan "
+    "still runs."))
+
+DPP_ENABLED = _register(ConfEntry(
+    "srt.sql.dpp.enabled", _bool, True,
+    "Runtime dynamic partition pruning: when a broadcast join's probe "
+    "side scans a partitioned table on a partition column, the "
+    "materialized build side's distinct keys prune the scan's file "
+    "list before any probe file opens (GpuSubqueryBroadcastExec / "
+    "DynamicPruningExpression role; JAX conf.py:912)."))
+
 PARQUET_REBASE_READ = _register(ConfEntry(
     "srt.sql.parquet.datetimeRebaseModeInRead",
     _one_of("CORRECTED", "LEGACY", "EXCEPTION"), "CORRECTED",

@@ -9,7 +9,8 @@
 // `ldconfig -p` lists and defines SRT_HAVE_ZLIB / SRT_HAVE_ZSTD for it.
 //
 // Codec ids (the decoder's own, not parquet.thrift's):
-//   0 = UNCOMPRESSED, 1 = SNAPPY, 2 = GZIP, 3 = ZSTD.
+//   0 = UNCOMPRESSED, 1 = SNAPPY, 2 = GZIP, 3 = ZSTD, 4 = DEFLATE (raw,
+//   no wrapper: ORC's ZLIB).
 
 #pragma once
 
@@ -65,7 +66,7 @@ inline bool available(int32_t codec) {
   switch (codec) {
     case 0: case 1: return true;
 #ifdef SRT_HAVE_ZLIB
-    case 2: return true;
+    case 2: case 4: return true;
 #endif
 #ifdef SRT_HAVE_ZSTD
     case 3: return true;
@@ -285,6 +286,48 @@ inline int64_t gzip_deflate(const uint8_t* src, int64_t n, uint8_t* dst,
 #endif
 }
 
+// raw deflate streams (window bits -15), ORC's ZLIB codec
+inline bool raw_inflate(const uint8_t* src, int64_t n, uint8_t* dst,
+                        int64_t dst_cap, int64_t* out_len) {
+#ifdef SRT_HAVE_ZLIB
+  srt_z_stream zs;
+  std::memset(&zs, 0, sizeof(zs));
+  if (inflateInit2_(&zs, -15, "1", (int)sizeof(zs)) != 0) return false;
+  zs.next_in = src;
+  zs.avail_in = (unsigned)n;
+  zs.next_out = dst;
+  zs.avail_out = (unsigned)dst_cap;
+  int rc = inflate(&zs, 4 /* Z_FINISH */);
+  *out_len = (int64_t)zs.total_out;
+  inflateEnd(&zs);
+  return rc == 1 /* Z_STREAM_END */;
+#else
+  (void)src; (void)n; (void)dst; (void)dst_cap; (void)out_len;
+  return false;
+#endif
+}
+
+inline int64_t raw_deflate(const uint8_t* src, int64_t n, uint8_t* dst,
+                           int64_t dst_cap) {
+#ifdef SRT_HAVE_ZLIB
+  srt_z_stream zs;
+  std::memset(&zs, 0, sizeof(zs));
+  if (deflateInit2_(&zs, 6, 8, -15, 8, 0, "1", (int)sizeof(zs)) != 0)
+    return -1;
+  zs.next_in = src;
+  zs.avail_in = (unsigned)n;
+  zs.next_out = dst;
+  zs.avail_out = (unsigned)dst_cap;
+  int rc = deflate(&zs, 4 /* Z_FINISH */);
+  int64_t out = (int64_t)zs.total_out;
+  deflateEnd(&zs);
+  return rc == 1 ? out : -3;
+#else
+  (void)src; (void)n; (void)dst; (void)dst_cap;
+  return -4;
+#endif
+}
+
 inline bool zstd_inflate(const uint8_t* src, int64_t n, uint8_t* dst,
                          int64_t dst_cap, int64_t* out_len) {
 #ifdef SRT_HAVE_ZSTD
@@ -316,6 +359,7 @@ inline bool decompress_codec(int32_t codec, const uint8_t* src, int64_t n,
     case 1: return snappy_decompress(src, n, dst, dst_cap, out_len);
     case 2: return gzip_inflate(src, n, dst, dst_cap, out_len);
     case 3: return zstd_inflate(src, n, dst, dst_cap, out_len);
+    case 4: return raw_inflate(src, n, dst, dst_cap, out_len);
     default: return false;
   }
 }
@@ -338,6 +382,7 @@ inline int64_t compress_codec(int32_t codec, const uint8_t* src, int64_t n,
       return snappy_compress(src, n, dst);
     case 2: return gzip_deflate(src, n, dst, dst_cap);
     case 3: return zstd_deflate(src, n, dst, dst_cap);
+    case 4: return raw_deflate(src, n, dst, dst_cap);
     default: return -4;
   }
 }

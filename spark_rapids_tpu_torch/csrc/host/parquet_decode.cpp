@@ -6,8 +6,11 @@
 // caller-provided values and byte-validity buffers, without the GIL
 // (ctypes releases it). Beyond the JAX package's copy it decodes
 // BOOLEAN (bit-packed PLAIN, and RLE in v2 pages) and
-// FIXED_LEN_BYTE_ARRAY of any width. The footer is parsed in Python
-// (io/thrift.py); only PAGE headers are parsed here.
+// FIXED_LEN_BYTE_ARRAY of any width, and the repetition and
+// definition levels of nested columns (page_levels), which
+// io/parquet_nested.py assembles into list / struct / map lanes. The
+// footer is parsed in Python (io/thrift.py); only PAGE headers are
+// parsed here.
 //
 // Page header thrift-compact subset:
 //   PageHeader{1:type 2:uncompressed_size 3:compressed_size
@@ -441,6 +444,65 @@ int bit_width_for(int max_level) {
   return w;  // levels in [0, max_level] need ceil(log2(max+1)) bits
 }
 
+// Decodes one data page's levels: for a v1 page the repetition, then
+// the definition levels, each an RLE hybrid run behind a 4-byte length;
+// for a v2 page the two sections whose lengths its header gives.
+// valid[k] = (def == max_def); where def / rep are given they get the
+// levels, one byte each. *used gets the bytes the levels took and
+// *non_null the values present. Returns false for malformed data.
+bool page_levels(const uint8_t* p, int64_t n, bool v2, int32_t rep_len,
+                 int32_t def_len, int max_def, int max_rep, int64_t nvals,
+                 uint8_t* valid, uint8_t* def, uint8_t* rep, int64_t* used,
+                 int64_t* non_null) {
+  uint32_t* lv = new uint32_t[nvals > 0 ? nvals : 1];
+  int64_t i = 0;
+  *non_null = nvals;
+  auto section = [&](int max_level, int64_t v2_len, bool is_def) -> bool {
+    if (max_level == 0) {
+      if (is_def) {
+        std::memset(valid, 1, nvals);
+        if (def != nullptr) std::memset(def, 0, nvals);
+      } else if (rep != nullptr) {
+        std::memset(rep, 0, nvals);
+      }
+      return !v2 || v2_len == 0;
+    }
+    int64_t len = v2_len;
+    if (!v2) {
+      if (i + 4 > n) return false;
+      len = p[i] | (int64_t(p[i + 1]) << 8) | (int64_t(p[i + 2]) << 16) |
+            (int64_t(p[i + 3]) << 24);
+      i += 4;
+    }
+    if (len < 0 || len > n - i) return false;
+    if (!rle_decode_all(p + i, len, bit_width_for(max_level), lv, nvals))
+      return false;
+    i += len;
+    if (is_def) {
+      int64_t nn = 0;
+      for (int64_t k = 0; k < nvals; k++) {
+        if (lv[k] > (uint32_t)max_level) return false;
+        uint8_t v = lv[k] == (uint32_t)max_level;
+        valid[k] = v;
+        nn += v;
+        if (def != nullptr) def[k] = (uint8_t)lv[k];
+      }
+      *non_null = nn;
+    } else if (rep != nullptr) {
+      for (int64_t k = 0; k < nvals; k++) {
+        if (lv[k] > (uint32_t)max_level) return false;
+        rep[k] = (uint8_t)lv[k];
+      }
+    }
+    return true;
+  };
+  bool ok = section(max_rep, rep_len, false) &&
+            section(max_def, def_len, true);
+  delete[] lv;
+  *used = i;
+  return ok;
+}
+
 // typed inner loops (elem size known at compile time -> plain movs);
 // E == 0 takes the width at run time (FIXED_LEN_BYTE_ARRAY)
 template <int E>
@@ -538,30 +600,40 @@ bool decode_bools(int32_t encoding, const uint8_t* body, int64_t body_len,
 
 }  // namespace
 
+// the level outputs of the page that starts at value `row`
+#define LEVEL_OUT(p) ((p) == nullptr ? nullptr : (p) + row)
+
 // ---------------------------------------------------------------------------
 // entry point
 // ---------------------------------------------------------------------------
-// phys_type: 0=BOOLEAN 1=INT32 2=INT64 4=FLOAT 5=DOUBLE
+// phys_type: 0=BOOLEAN 1=INT32 2=INT64 3=INT96 4=FLOAT 5=DOUBLE
 //            7=FIXED_LEN_BYTE_ARRAY (type_length bytes)  (parquet Type ids)
 // codec: 0=UNCOMPRESSED 1=SNAPPY 2=GZIP 3=ZSTD
 // Writes num_rows values of the physical width (one byte for BOOLEAN)
-// into out_values. Returns the number of ROWS decoded, or a negative
+// into out_values. A nested column (max_def_level > 1 or
+// max_rep_level > 0) passes out_def / out_rep (one byte per value): its
+// num_rows is then the chunk's level count (ColumnMetaData.num_values),
+// each level entry gets a value slot, and out_valid marks the entries
+// whose definition level is the maximum (a value present). Returns the number of ROWS decoded, or a negative
 // error:
 //   -1 malformed  -2 unsupported feature  -3 buffer overflow
 //   -4 the codec is not in this build
 extern "C" int64_t parquet_decode_chunk(
     const uint8_t* chunk, int64_t chunk_len, int32_t codec,
     int32_t phys_type, int32_t type_length, int64_t num_rows,
-    int32_t max_def_level,
+    int32_t max_def_level, int32_t max_rep_level,
     uint8_t* out_values, int64_t out_values_cap,
     uint8_t* out_valid,          // one byte per row (1=non-null)
+    uint8_t* out_def, uint8_t* out_rep,
     uint8_t* scratch, int64_t scratch_cap) {
   const int elem =
       phys_type == 0 ? 1 : phys_type == 1 ? 4 : phys_type == 2 ? 8 :
-      phys_type == 4 ? 4 : phys_type == 5 ? 8 :
+      phys_type == 3 ? 12 : phys_type == 4 ? 4 : phys_type == 5 ? 8 :
       phys_type == 7 ? type_length : 0;
   if (elem <= 0) return -2;
-  if (max_def_level > 1) return -2;  // flat schema only
+  // nested columns (max_def > 1 or any repetition) need the levels out
+  if ((max_def_level > 1 || max_rep_level > 0) && out_def == nullptr)
+    return -2;
   if (!srt_codecs::available(codec)) return -4;
 
   // decoded dictionary (values array), if a dictionary page appears;
@@ -599,30 +671,19 @@ extern "C" int64_t parquet_decode_chunk(
     uint8_t* dst = nullptr;
 
     if (h.type == 3) {  // v2 data page
-      if (h.rep_len != 0) return -2;  // flat schema only
-      if (h.def_len < 0 || (int64_t)h.def_len > page_len) return -1;
+      if (h.def_len < 0 || h.rep_len < 0 ||
+          (int64_t)h.def_len + h.rep_len > page_len)
+        return -1;
       if (row + nvals > num_rows) return -1;
       // levels first (always uncompressed)
-      if (max_def_level > 0) {
-        uint32_t* lvls = new uint32_t[nvals > 0 ? nvals : 1];
-        if (!rle_decode_all(page, h.def_len,
-                            bit_width_for(max_def_level), lvls,
-                            nvals)) {
-          delete[] lvls;
-          return -1;
-        }
-        non_null = 0;
-        for (int64_t k = 0; k < nvals; k++) {
-          uint8_t v = lvls[k] == (uint32_t)max_def_level;
-          out_valid[row + k] = v;
-          non_null += v;
-        }
-        delete[] lvls;
-      } else {
-        std::memset(out_valid + row, 1, nvals);
-      }
-      body = page + h.def_len;
-      body_len = page_len - h.def_len;
+      int64_t used = 0;
+      if (!page_levels(page, page_len, true, h.rep_len, h.def_len,
+                       max_def_level, max_rep_level, nvals,
+                       out_valid + row, LEVEL_OUT(out_def),
+                       LEVEL_OUT(out_rep), &used, &non_null))
+        return -1;
+      body = page + used;
+      body_len = page_len - used;
       if (codec != 0 && h.v2_compressed) {
         int64_t got = 0;
         int64_t want = h.uncompressed_size - h.def_len - h.rep_len;
@@ -665,32 +726,15 @@ extern "C" int64_t parquet_decode_chunk(
       body = page;
       body_len = page_len;
       if (row + nvals > num_rows) return -1;
-      if (max_def_level > 0) {
-        if (h.def_encoding != 3) return -2;  // RLE only
-        if (body_len < 4) return -1;
-        uint32_t dl_len = body[0] | (uint32_t(body[1]) << 8) |
-                          (uint32_t(body[2]) << 16) |
-                          (uint32_t(body[3]) << 24);
-        if (4 + (int64_t)dl_len > body_len) return -1;
-        uint32_t* lvls = new uint32_t[nvals > 0 ? nvals : 1];
-        if (!rle_decode_all(body + 4, (int64_t)dl_len,
-                            bit_width_for(max_def_level), lvls,
-                            nvals)) {
-          delete[] lvls;
-          return -1;
-        }
-        non_null = 0;
-        for (int64_t k = 0; k < nvals; k++) {
-          uint8_t v = lvls[k] == (uint32_t)max_def_level;
-          out_valid[row + k] = v;
-          non_null += v;
-        }
-        delete[] lvls;
-        body += 4 + dl_len;
-        body_len -= 4 + (int64_t)dl_len;
-      } else {
-        std::memset(out_valid + row, 1, nvals);
-      }
+      if (max_def_level > 0 && h.def_encoding != 3) return -2;  // RLE only
+      int64_t used = 0;
+      if (!page_levels(body, body_len, false, 0, 0, max_def_level,
+                       max_rep_level, nvals, out_valid + row,
+                       LEVEL_OUT(out_def), LEVEL_OUT(out_rep), &used,
+                       &non_null))
+        return -1;
+      body += used;
+      body_len -= used;
     }
 
     // values: PLAIN(0), RLE_DICTIONARY(8)/PLAIN_DICTIONARY(2),
@@ -777,10 +821,12 @@ extern "C" int64_t parquet_decode_chunk(
 // can retry with a bigger buffer).
 extern "C" int64_t parquet_decode_chunk_binary(
     const uint8_t* chunk, int64_t chunk_len, int32_t codec,
-    int64_t num_rows, int32_t max_def_level,
+    int64_t num_rows, int32_t max_def_level, int32_t max_rep_level,
     int32_t* out_offsets, uint8_t* out_bytes, int64_t out_bytes_cap,
-    uint8_t* out_valid, uint8_t* scratch, int64_t scratch_cap) {
-  if (max_def_level > 1) return -2;
+    uint8_t* out_valid, uint8_t* out_def, uint8_t* out_rep,
+    uint8_t* scratch, int64_t scratch_cap) {
+  if ((max_def_level > 1 || max_rep_level > 0) && out_def == nullptr)
+    return -2;
   if (!srt_codecs::available(codec)) return -4;
 
   // decoded dictionary parked at the TAIL of scratch:
@@ -814,28 +860,19 @@ extern "C" int64_t parquet_decode_chunk_binary(
     int64_t non_null = nvals;
 
     if (h.type == 3) {  // v2 data page
-      if (h.rep_len != 0) return -2;
-      if (h.def_len < 0 || (int64_t)h.def_len > page_len) return -1;
+      if (h.def_len < 0 || h.rep_len < 0 ||
+          (int64_t)h.def_len + h.rep_len > page_len)
+        return -1;
       if (row + nvals > num_rows) return -1;
-      if (max_def_level > 0) {
-        uint32_t* lvls = new uint32_t[nvals > 0 ? nvals : 1];
-        if (!rle_decode_all(page, h.def_len,
-                            bit_width_for(max_def_level), lvls, nvals)) {
-          delete[] lvls;
-          return -1;
-        }
-        non_null = 0;
-        for (int64_t k = 0; k < nvals; k++) {
-          uint8_t v = lvls[k] == (uint32_t)max_def_level;
-          out_valid[row + k] = v;
-          non_null += v;
-        }
-        delete[] lvls;
-      } else {
-        std::memset(out_valid + row, 1, nvals);
-      }
-      body = page + h.def_len;
-      body_len = page_len - h.def_len;
+      // levels first (always uncompressed)
+      int64_t used = 0;
+      if (!page_levels(page, page_len, true, h.rep_len, h.def_len,
+                       max_def_level, max_rep_level, nvals,
+                       out_valid + row, LEVEL_OUT(out_def),
+                       LEVEL_OUT(out_rep), &used, &non_null))
+        return -1;
+      body = page + used;
+      body_len = page_len - used;
       if (codec != 0 && h.v2_compressed) {
         int64_t got = 0;
         int64_t want = h.uncompressed_size - h.def_len - h.rep_len;
@@ -907,31 +944,15 @@ extern "C" int64_t parquet_decode_chunk_binary(
       body = page;
       body_len = page_len;
       if (row + nvals > num_rows) return -1;
-      if (max_def_level > 0) {
-        if (h.def_encoding != 3) return -2;
-        if (body_len < 4) return -1;
-        uint32_t dl_len = body[0] | (uint32_t(body[1]) << 8) |
-                          (uint32_t(body[2]) << 16) |
-                          (uint32_t(body[3]) << 24);
-        if (4 + (int64_t)dl_len > body_len) return -1;
-        uint32_t* lvls = new uint32_t[nvals > 0 ? nvals : 1];
-        if (!rle_decode_all(body + 4, (int64_t)dl_len,
-                            bit_width_for(max_def_level), lvls, nvals)) {
-          delete[] lvls;
-          return -1;
-        }
-        non_null = 0;
-        for (int64_t k = 0; k < nvals; k++) {
-          uint8_t v = lvls[k] == (uint32_t)max_def_level;
-          out_valid[row + k] = v;
-          non_null += v;
-        }
-        delete[] lvls;
-        body += 4 + dl_len;
-        body_len -= 4 + (int64_t)dl_len;
-      } else {
-        std::memset(out_valid + row, 1, nvals);
-      }
+      if (max_def_level > 0 && h.def_encoding != 3) return -2;  // RLE only
+      int64_t used = 0;
+      if (!page_levels(body, body_len, false, 0, 0, max_def_level,
+                       max_rep_level, nvals, out_valid + row,
+                       LEVEL_OUT(out_def), LEVEL_OUT(out_rep), &used,
+                       &non_null))
+        return -1;
+      body += used;
+      body_len -= used;
     }
 
     // emit one value's bytes; returns false on overflow

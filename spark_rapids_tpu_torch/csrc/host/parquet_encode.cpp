@@ -104,13 +104,59 @@ void encode_levels(const uint8_t* lv, int64_t n, Buf& out) {
   }
 }
 
+// The RLE / bit-packed hybrid of levels at bit width w (nested
+// columns): runs of 16 or more equal levels as RLE runs, the rest as
+// literal groups of 8 values packed LSB first.
+void encode_levels_w(const uint8_t* lv, int64_t n, int w, Buf& out) {
+  const int vbytes = (w + 7) / 8;
+  int64_t i = 0;
+  while (i < n) {
+    int64_t j = i;
+    while (j < n && lv[j] == lv[i]) j++;
+    if (j - i >= 16) {
+      out.varint(uint64_t(j - i) << 1);
+      for (int k = 0; k < vbytes; k++) out.byte(uint8_t(lv[i] >> (8 * k)));
+      i = j;
+      continue;
+    }
+    int64_t start = i;
+    int64_t groups = 0;
+    while (i < n) {
+      int64_t k = i;
+      while (k < n && lv[k] == lv[i] && k - i < 16) k++;
+      if (k - i >= 16 && groups > 0) break;
+      i += 8;
+      groups++;
+    }
+    out.varint((uint64_t(groups) << 1) | 1);
+    uint64_t acc = 0;
+    int bits = 0;
+    for (int64_t at = start; at < start + groups * 8; at++) {
+      acc |= uint64_t(at < n ? lv[at] : 0) << bits;
+      bits += w;
+      while (bits >= 8) {
+        out.byte(uint8_t(acc));
+        acc >>= 8;
+        bits -= 8;
+      }
+    }
+    if (i > n) i = n;
+  }
+}
+
+int level_width(int max_level) {
+  int w = 0;
+  while ((1 << w) <= max_level) w++;
+  return w;
+}
+
 }  // namespace
 
-// bit c is set when codec c (0 none, 1 snappy, 2 gzip, 3 zstd) is in
-// this build
+// bit c is set when codec c (0 none, 1 snappy, 2 gzip, 3 zstd, 4 raw
+// deflate) is in this build
 extern "C" int32_t srt_codec_mask() {
   int32_t m = 0;
-  for (int c = 0; c < 4; c++)
+  for (int c = 0; c < 5; c++)
     if (srt_codecs::available(c)) m |= 1 << c;
   return m;
 }
@@ -162,7 +208,10 @@ extern "C" void srt_string_minmax(const int32_t* offsets,
 }
 
 // Encodes one column chunk as v1 DATA_PAGEs of about `page_bytes`
-// uncompressed bytes each. info[0] gets the chunk's uncompressed size
+// uncompressed bytes each. A nested leaf passes its definition and
+// repetition levels (one byte per level entry; num_rows is then the
+// entry count and `valid` marks the entries at max_def_level); its pages
+// start at a record (repetition level 0). info[0] gets the chunk's uncompressed size
 // (page headers included, as ColumnMetaData counts it), info[1] the
 // number of pages. Returns the bytes written to out, or
 //   -2 bad arguments  -3 out too small  -4 the codec is not in the build
@@ -170,11 +219,16 @@ extern "C" int64_t parquet_encode_chunk(
     int32_t kind, const uint8_t* values, int32_t elem,
     const int32_t* offsets, const uint8_t* valid, int64_t num_rows,
     int32_t max_def_level, int32_t codec, int64_t page_bytes,
-    uint8_t* out, int64_t out_cap, int64_t* info) {
+    uint8_t* out, int64_t out_cap, int64_t* info,
+    const uint8_t* def_levels, const uint8_t* rep_levels,
+    int32_t max_rep_level) {
   if (kind < 0 || kind > 2 || (kind == 1 && elem <= 0) || page_bytes <= 0)
     return -2;
   if (!srt_codecs::available(codec)) return -4;
   if (valid != nullptr && max_def_level == 0) return -2;
+  if ((max_def_level > 1 || max_rep_level > 0) && def_levels == nullptr)
+    return -2;
+  if (max_rep_level > 0 && rep_levels == nullptr) return -2;
   int64_t o = 0;
   int64_t uncompressed = 0;
   int64_t pages = 0;
@@ -194,9 +248,30 @@ extern "C" int64_t parquet_encode_chunk(
       }
       r1++;
     }
+    // a record does not straddle two pages
+    while (rep_levels != nullptr && r1 < num_rows && rep_levels[r1] != 0) {
+      if (valid == nullptr || valid[r1]) {
+        vbytes += kind == 0 ? 1 : kind == 1
+            ? elem : 4 + (int64_t)(offsets[r1 + 1] - offsets[r1]);
+      }
+      r1++;
+    }
     const int64_t nvals = r1 - r0;
     raw.b.clear();
-    if (max_def_level > 0) {
+    if (max_rep_level > 0) {
+      Buf lv;
+      encode_levels_w(rep_levels + r0, nvals, level_width(max_rep_level),
+                      lv);
+      raw.le32((uint32_t)lv.b.size());
+      raw.bytes(lv.b.data(), (int64_t)lv.b.size());
+    }
+    if (def_levels != nullptr) {
+      Buf lv;
+      encode_levels_w(def_levels + r0, nvals, level_width(max_def_level),
+                      lv);
+      raw.le32((uint32_t)lv.b.size());
+      raw.bytes(lv.b.data(), (int64_t)lv.b.size());
+    } else if (max_def_level > 0) {
       Buf lv;
       if (valid == nullptr) {
         if (nvals > 0) {

@@ -6,12 +6,15 @@ copy-on-write: affected files are rewritten through the session (scan
 -> filter / project / join on the device -> the port's Parquet writer)
 and the log commits the add / remove pairs in one atomic version.
 
-Two departures from the JAX package, neither visible in the log's
-format: a commit's rows are split over files of at most
-``ROWS_PER_FILE`` rows, encoded on a pool of writer threads, as adds of
-the same commit (the JAX package writes one file a commit); and MERGE's
-duplicate-key check runs in numpy over each key's value and validity
-lanes (the JAX package asks pandas).
+Departures from the JAX package: a commit's rows are split over files
+of at most ``ROWS_PER_FILE`` rows, encoded on a pool of writer threads,
+as adds of the same commit (the JAX package writes one file a commit);
+DELETE keeps a row whose condition is NULL (Delta's DeleteCommand keeps
+``NOT (cond <=> true)``; the JAX package drops it, ROADMAP C23); and a
+MERGE with a matched clause fails only when a target row meets several
+source rows, checked in numpy over a semi join's key lanes, NULL keys
+matching nothing (the JAX package refuses any repeated source key,
+C24).
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from ..columnar import dtypes as dt
 from ..expr.cast import Cast
 from ..expr.conditional import If
 from ..expr.core import Alias, Expression, col, lit
-from ..expr.predicates import Not
+from ..expr.predicates import EqualNullSafe, Not
 from ..io.scan import FileScan
 from ..io.writer import key_codes, write_file
 from ..plan import logical as L
@@ -442,10 +445,14 @@ class AcidTable:
         return self._commit_rewrite(build, "WRITE (overwrite)")
 
     def delete(self, condition: Expression) -> int:
-        """DELETE WHERE cond (GpuDeleteCommand): rewrite surviving rows."""
+        """DELETE WHERE cond (GpuDeleteCommand): rewrite surviving rows.
+        A row survives unless its condition is true, so a row whose
+        condition is NULL stays (DeleteCommand keeps ``NOT (cond <=>
+        true)``)."""
 
         def build(read_v: int):
-            keep = self.to_df(version=read_v).filter(Not(condition))
+            keep = self.to_df(version=read_v).filter(
+                Not(EqualNullSafe(condition, lit(True))))
             table = self.session.execute(keep.plan)
             return (self._remove_all_current(read_v),
                     self._write_files(table))
@@ -498,16 +505,6 @@ class AcidTable:
         lk = [col(n) for n in on]
         rk = [col(f"src_{n}") for n in on]
 
-        # Delta contract: a target row may match at most one source
-        # row. Checked on the host over the keys' value and validity
-        # lanes, so NULL stays distinct from NaN and from zero (Spark's
-        # grouping of keys), without a group-by plan
-        key_ht = self.session.execute(
-            source.select(*[col(n) for n in on]).plan)
-        if has_duplicate_rows(key_ht):
-            raise ValueError(
-                "MERGE: multiple source rows matched the same key")
-
         def build(read_v: int):
             target_df = self.to_df(version=read_v)
             schema = self.schema(read_v)
@@ -530,6 +527,11 @@ class AcidTable:
                         f"MERGE source columns {extra} not in the "
                         "target schema (pass schema_evolution=True)")
             target_names = {n for n, _ in self.schema(read_v)}
+            if when_matched_update:
+                # an unconditional delete is the one matched clause
+                # several source rows may meet (MergeIntoCommand's
+                # isOnlyOneUnconditionalDelete): the row goes either way
+                self._check_single_match(target_df, source, on)
             if when_matched_update and not when_matched_delete:
                 joined = L.Join(target_df.plan, src_renamed.plan, lk, rk,
                                 "inner")
@@ -579,6 +581,22 @@ class AcidTable:
             return (meta_actions + self._remove_all_current(read_v),
                     self._write_files(table))
         return self._commit_rewrite(build, "MERGE")
+
+    def _check_single_match(self, target_df, source, on) -> None:
+        """Delta's contract for a MERGE that updates matched rows: no
+        target row may match more than one source row. The source keys
+        that meet a target row (a semi join over the MERGE's own key
+        equality, so NULL keys never match) must all differ; a
+        duplicate key that no target row holds, a MERGE with no matched
+        clause, or one whose only matched clause is an unconditional
+        delete, is allowed."""
+        keys = source.select(*[col(n) for n in on])
+        held = target_df.select(*[Alias(col(n), f"_t_{n}") for n in on])
+        met = L.Join(keys.plan, held.plan, [col(n) for n in on],
+                     [col(f"_t_{n}") for n in on], "left_semi")
+        if has_duplicate_rows(self.session.execute(met)):
+            raise ValueError(
+                "MERGE: multiple source rows matched the same target row")
 
     def optimize(self, zorder_by: Optional[Sequence[str]] = None) -> int:
         """OPTIMIZE [ZORDER BY cols]: rewrite the table in one commit,

@@ -48,7 +48,9 @@ from __future__ import annotations
 
 from typing import Iterator, List, Sequence
 
-from ..columnar.vector import ColumnarBatch, choose_capacity, null_column
+from ..columnar import dtypes as dt
+from ..columnar.vector import (ColumnarBatch, HostStrings, choose_capacity,
+                               null_column)
 from ..conf import (JOIN_BLOOM_BITS_PER_KEY, JOIN_BLOOM_ENABLED,
                     JOIN_BLOOM_MIN_PROBE_ROWS, JOIN_GROWTH_STEPS,
                     JOIN_SUB_PARTITION_ROWS)
@@ -312,12 +314,79 @@ class _HashJoinBase(TpuExec):
                 yield out
         return filtered()
 
+    #: a broadcast join's build side is whole before the probe side's
+    #: first scan file opens, so its keys can prune partitioned probe
+    #: scans (the JAX package's ``_dpp_capable``, exec/join.py:729)
+    _dpp_capable = False
+
+    def _dpp_scans(self, node, name: str):
+        """Partitioned FileSourceScanExecs below ``node`` that column
+        ``name`` reaches unchanged: the JAX package's conservative walk
+        through a Project of the plain column, Filter, CoalesceBatches
+        and LocalLimit; anything else stops it."""
+        from ..expr.core import Alias, ColumnRef
+        from ..io.scan import FileSourceScanExec
+        from .basic import (CoalesceBatchesExec, FilterExec, LocalLimitExec,
+                            ProjectExec)
+        if isinstance(node, FileSourceScanExec):
+            if any(k == name for k, _ in node.scan.partition_schema):
+                yield node
+            return
+        if isinstance(node, ProjectExec):
+            for e, (out_name, _) in zip(node.exprs, node.output_schema):
+                if out_name != name:
+                    continue
+                inner = e.children[0] if isinstance(e, Alias) else e
+                if isinstance(inner, ColumnRef) and inner.name == name:
+                    yield from self._dpp_scans(node.children[0], name)
+                return
+            return
+        if isinstance(node, (FilterExec, CoalesceBatchesExec,
+                             LocalLimitExec)):
+            yield from self._dpp_scans(node.children[0], name)
+
+    def _runtime_partition_prune(self, ctx: ExecContext,
+                                 build: ColumnarBatch) -> None:
+        """Runtime DPP (GpuSubqueryBroadcastExec +
+        GpuDynamicPruningExpression role, JAX exec/join.py:476-549): the
+        whole build side's distinct join-key values become a partition
+        filter on the probe side's partitioned scans. Inner and left
+        semi joins only: an outer or anti join keeps unmatched probe
+        rows, which a pruned file would lose."""
+        from ..conf import DPP_ENABLED
+        from ..expr.core import ColumnRef
+        if not self._dpp_capable or not ctx.conf.get(DPP_ENABLED) or \
+                self.join_type not in (INNER, LEFT_SEMI):
+            return
+        probe_child = self.children[0 if self.build_side == "right" else 1]
+        for pk, bk in zip(self._probe_key_exprs, self._build_key_exprs):
+            if not isinstance(pk, ColumnRef):
+                continue
+            kt = bk.data_type(self._build_schema)
+            scans = [s for s in self._dpp_scans(probe_child, pk.name)
+                     if _same_domain(dict(s.scan.partition_schema)[pk.name],
+                                     kt)]
+            if not scans:
+                continue
+            vals, mask = bk.eval(build).to_numpy(build.num_rows)
+            if isinstance(vals, HostStrings):
+                vals = vals.to_objects()
+            keys = {v.item() if hasattr(v, "item") else v
+                    for v, ok in zip(vals, mask) if ok}
+            ctx.metric(self.exec_id, "dppFilters").add(len(scans))
+            for scan in scans:
+                f = dict(scan.runtime_part_filter or {})
+                f[pk.name] = keys
+                scan.runtime_part_filter = f
+
     def _join_partition(self, ctx: ExecContext, probe_stream,
                         build_stream) -> Iterator[ColumnarBatch]:
         build = K.concat_stream(build_stream)
         if build is None:
             yield from self._empty_build(probe_stream)
             return
+        # before the first pull of the probe side opens a file
+        self._runtime_partition_prune(ctx, build)
         probe_stream = self._bloom_prefilter(ctx, probe_stream, build)
         threshold = ctx.conf.get(JOIN_SUB_PARTITION_ROWS)
         if build.num_rows > threshold:
@@ -335,6 +404,17 @@ class _HashJoinBase(TpuExec):
                                         build_stream)
 
 
+def _same_domain(part_t, key_t) -> bool:
+    """Whether a partition column's inferred type (INT64, FLOAT64 or
+    STRING, io/scan.py::discover_partitions) holds values equal to the
+    build key's host values: strings with strings, numbers with
+    integral or floating keys."""
+    if part_t == dt.STRING:
+        return key_t == dt.STRING
+    return (part_t.is_integral or part_t.is_floating) and \
+        (key_t.is_integral or key_t.is_floating)
+
+
 class ShuffledHashJoinExec(_HashJoinBase):
     """Hash join of two co-partitioned sides (one partition here)."""
 
@@ -344,7 +424,10 @@ class ShuffledHashJoinExec(_HashJoinBase):
 
 
 class BroadcastHashJoinExec(_HashJoinBase):
-    """Hash join with a broadcast (small) build side."""
+    """Hash join with a broadcast (small) build side; it prunes the
+    probe side's partitioned scans at run time (DPP)."""
+
+    _dpp_capable = True
 
     def node_description(self) -> str:
         return (f"BroadcastHashJoin[{self.join_type}, "

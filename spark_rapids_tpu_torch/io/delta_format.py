@@ -14,22 +14,28 @@ tables; THIS module speaks the interchange format other engines write:
 - time travel by ``version_as_of``.
 
 A ``_last_checkpoint`` names a ``NNN.checkpoint.parquet`` state
-snapshot, whose columns are nested structs and maps: the port's Parquet
-reader does not decode those (ROADMAP A7.3), so a replay that needs the
-checkpoint raises NotImplementedError, and a ``version_as_of`` before it
-replays the JSON commits as the JAX package does.
+snapshot (or its parts), whose nested struct / map / list columns the
+port's Parquet reader decodes (io/parquet_nested.py): the replay reads
+its protocol, metaData, add and remove rows, then the later JSON
+commits; a ``version_as_of`` before it replays the JSON commits, as the
+JAX package does. ``write_checkpoint`` writes one through the port's
+nested writer.
 
 ``write_delta_table`` emits the same format (protocol 1/2, metaData,
-add actions with partitionValues) so engine-written tables are readable
-by Spark/delta-rs (no OPTIMIZE/vacuum writer parity).
+add actions with partitionValues), committed through the transaction
+log's put-if-absent protocol (delta/log.py), so engine-written tables
+are readable by Spark/delta-rs (no OPTIMIZE/vacuum writer parity).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import random
+import time
 import uuid as _uuid
 from typing import Dict, List, Optional, Tuple
+from urllib.parse import quote
 
 from ..columnar import dtypes as dt
 
@@ -116,9 +122,25 @@ def _commit_files(log_dir: str) -> List[Tuple[int, str]]:
     return sorted(out)
 
 
+def _checkpoint_paths(log_dir: str, version: int, meta: dict) -> List[str]:
+    """The files of the checkpoint at ``version``: one, or the ``parts``
+    of a multi-part checkpoint."""
+    parts = int(meta.get("parts") or 0)
+    if parts > 1:
+        return [os.path.join(log_dir, f"{version:020d}.checkpoint."
+                             f"{i:010d}.{parts:010d}.parquet")
+                for i in range(1, parts + 1)]
+    return [os.path.join(log_dir, f"{version:020d}.checkpoint.parquet")]
+
+
 def _read_checkpoint(log_dir: str, version_limit: Optional[int]):
-    """(checkpoint_version, actions) from _last_checkpoint, if usable;
-    a checkpoint the replay needs raises (ROADMAP A7.3)."""
+    """(checkpoint_version, actions) from _last_checkpoint, if usable
+    (the JAX package's reading, io/delta_format.py:116-135): the
+    ``metaData``, ``add``, ``remove`` and ``protocol`` rows of the
+    Parquet checkpoint, whose nested columns the port's reader decodes.
+    A ``version_as_of`` before the checkpoint replays the JSON."""
+    from .native_parquet import file_schema, iter_row_group_tables_native
+    from ..plan.host_table import to_pydict
     lc = os.path.join(log_dir, "_last_checkpoint")
     if not os.path.exists(lc):
         return -1, []
@@ -127,13 +149,75 @@ def _read_checkpoint(log_dir: str, version_limit: Optional[int]):
     v = int(meta["version"])
     if version_limit is not None and v > version_limit:
         return -1, []  # time travel before the checkpoint: replay json
-    path = os.path.join(log_dir, f"{v:020d}.checkpoint.parquet")
-    if not os.path.exists(path):
+    paths = _checkpoint_paths(log_dir, v, meta)
+    if not all(os.path.exists(p) for p in paths):
         return -1, []
-    raise NotImplementedError(
-        f"delta table {os.path.dirname(log_dir)!r}: replay needs the "
-        f"Parquet checkpoint {os.path.basename(path)}, whose nested "
-        "columns this port does not read yet (ROADMAP A7.3)")
+    actions = []
+    for path in paths:
+        schema = [(n, t) for n, t in file_schema(path)
+                  if n in CHECKPOINT_ACTIONS]
+        for table in iter_row_group_tables_native(path, schema, {}, 1 << 20,
+                                                  None):
+            cols = to_pydict(table)
+            for i in range(table.num_rows):
+                for key in CHECKPOINT_ACTIONS:
+                    if key in cols and cols[key][i] is not None:
+                        actions.append({key: cols[key][i]})
+    return v, actions
+
+
+#: the actions a checkpoint's rows carry that the replay reads
+CHECKPOINT_ACTIONS = ("protocol", "metaData", "add", "remove")
+_S, _L, _B = dt.STRING, dt.INT64, dt.BOOL
+_SMAP = dt.MapType(dt.STRING, dt.STRING)
+#: Delta's checkpoint schema (PROTOCOL.md "Checkpoint Schema"), for the
+#: actions ``write_checkpoint`` writes
+CHECKPOINT_SCHEMA = [
+    ("protocol", dt.StructType([("minReaderVersion", dt.INT32),
+                                ("minWriterVersion", dt.INT32)])),
+    ("metaData", dt.StructType([
+        ("id", _S), ("name", _S), ("description", _S),
+        ("format", dt.StructType([("provider", _S), ("options", _SMAP)])),
+        ("schemaString", _S), ("partitionColumns", dt.ArrayType(_S)),
+        ("configuration", _SMAP), ("createdTime", _L)])),
+    ("add", dt.StructType([
+        ("path", _S), ("partitionValues", _SMAP), ("size", _L),
+        ("modificationTime", _L), ("dataChange", _B), ("stats", _S),
+        ("tags", _SMAP)])),
+    ("remove", dt.StructType([
+        ("path", _S), ("deletionTimestamp", _L), ("dataChange", _B),
+        ("extendedFileMetadata", _B), ("partitionValues", _SMAP),
+        ("size", _L)])),
+]
+
+
+def write_checkpoint(root: str, version: Optional[int] = None) -> int:
+    """Write the table's state at ``version`` (the head by default) as
+    ``NNN.checkpoint.parquet`` in Delta's checkpoint schema, through the
+    port's nested Parquet writer, and point ``_last_checkpoint`` at it;
+    returns the version. One row per action: the protocol, the metaData
+    and each live add file."""
+    from ..plan.host_table import from_engine, from_pydict
+    from .parquet_writer import write_parquet_file
+    table = DeltaFormatTable(root, version)
+    log_dir = os.path.join(root, LOG_DIR)
+    rows = [{"protocol": table.protocol}, {"metaData": table.metadata}]
+    rows += [{"add": a} for a in table.adds]
+    data = {}
+    for name, t in CHECKPOINT_SCHEMA:
+        fields = t.field_names()
+        data[name] = [None if r.get(name) is None else
+                      {f: r[name].get(f) for f in fields} for r in rows]
+    ht = from_engine(from_pydict(data, CHECKPOINT_SCHEMA))
+    path = os.path.join(log_dir, f"{table.version:020d}.checkpoint.parquet")
+    tmp = f"{path}.{os.getpid()}.tmp"
+    write_parquet_file(ht, tmp)
+    os.replace(tmp, path)
+    last = os.path.join(log_dir, "_last_checkpoint")
+    with open(f"{last}.{os.getpid()}.tmp", "w") as f:
+        json.dump({"version": table.version, "size": len(rows)}, f)
+    os.replace(f"{last}.{os.getpid()}.tmp", last)
+    return table.version
 
 
 class DeltaFormatTable:
@@ -160,6 +244,7 @@ class DeltaFormatTable:
                     if line:
                         actions.append(json.loads(line))
         self.metadata: Optional[dict] = None
+        self.protocol = {"minReaderVersion": 1, "minWriterVersion": 2}
         live: Dict[str, dict] = {}
         for a in actions:
             if "metaData" in a:
@@ -169,6 +254,7 @@ class DeltaFormatTable:
             elif "remove" in a:
                 live.pop(a["remove"]["path"], None)
             elif "protocol" in a:
+                self.protocol = a["protocol"]
                 mrv = a["protocol"].get("minReaderVersion", 1)
                 if mrv > 2:
                     raise DeltaFormatError(
@@ -195,9 +281,10 @@ class DeltaFormatTable:
         pschema = [(c, by_name[c]) for c in self.partition_columns]
 
         def typed(v, t):
+            # partitionValues hold the values themselves (the path,
+            # not they, is URI-encoded)
             if v is None:
                 return None
-            v = unquote(v)
             if t in (dt.INT8, dt.INT16, dt.INT32, dt.INT64):
                 return int(v)
             if t in (dt.FLOAT32, dt.FLOAT64):
@@ -235,74 +322,73 @@ def read_delta(session, path: str,
 
 def write_delta_table(table, root: str,
                       partition_by: Optional[List[str]] = None,
-                      mode: str = "error") -> int:
+                      mode: str = "error", conf=None) -> int:
     """HostTable -> a standard Delta commit (parquet files + JSON log
     actions). Returns the committed version. ``mode``: error | append |
-    overwrite (overwrite emits remove actions for the previous live
-    set)."""
+    overwrite (overwrite emits remove actions for the live set it read).
+
+    The files are written first; the commit then goes through the
+    transaction log's put-if-absent protocol (delta/log.py: the commit
+    file fsynced, linked with O_EXCL, the directory fsynced), and a
+    writer that loses the race for a version rebuilds its actions over
+    the new head and tries the next one. The commit adds only the files
+    this write produced, each with the partition values its directory
+    names (``scan.partition_dir``, read back exactly)."""
+    from ..conf import (DELTA_CHECKPOINT_INTERVAL, DELTA_COMMIT_BACKOFF_MS,
+                        DELTA_COMMIT_MAX_RETRIES, SrtConf)
+    from ..delta.log import CommitConflict, TransactionLog
+    from .scan import HIVE_NULL_PART, unescape_path_name
     from .writer import write_host_table
     if mode not in ("error", "append", "overwrite"):
         raise ValueError(f"delta save mode {mode!r}: error, append or "
                          "overwrite")
-    log_dir = os.path.join(root, LOG_DIR)
-    exists = os.path.isdir(log_dir) and _commit_files(log_dir)
-    if exists and mode == "error":
+    base = conf if conf is not None else SrtConf()
+    # the standard format keeps no engine checkpoint beside its commits
+    log = TransactionLog(root, SrtConf(
+        {**base._settings, DELTA_CHECKPOINT_INTERVAL.key: 0}))
+    if mode == "error" and log.latest_version() >= 0:
         raise FileExistsError(f"delta table exists at {root!r}")
-    os.makedirs(log_dir, exist_ok=True)
-    version = (max(v for v, _ in _commit_files(log_dir)) + 1
-               if exists else 0)
-    prev_adds = (DeltaFormatTable(root).adds
-                 if exists and mode == "overwrite" else [])
-
-    before = set()
-    for dirpath, _dirs, files in os.walk(root):
-        if LOG_DIR in dirpath:
-            continue
-        for f in files:
-            before.add(os.path.join(dirpath, f))
-    write_host_table(table, root, "parquet",
-                     partition_by=partition_by, mode="append")
-    actions = []
-    import time as _time
-    ts = int(_time.time() * 1000)
-    if version == 0:
-        actions.append({"protocol": {"minReaderVersion": 1,
-                                     "minWriterVersion": 2}})
-        actions.append({"metaData": {
-            "id": str(_uuid.uuid4()),
-            "format": {"provider": "parquet", "options": {}},
-            "schemaString": schema_to_string(table.schema()),
-            "partitionColumns": list(partition_by or []),
-            "configuration": {}, "createdTime": ts}})
-    for rm in prev_adds:
-        actions.append({"remove": {"path": rm["path"],
-                                   "deletionTimestamp": ts,
-                                   "dataChange": True}})
-    for dirpath, _dirs, files in os.walk(root):
-        if LOG_DIR in dirpath:
-            continue
-        for f in sorted(files):
-            full = os.path.join(dirpath, f)
-            if full in before:
-                continue
-            rel = os.path.relpath(full, root)
-            pvals = {}
-            for seg in rel.split(os.sep)[:-1]:
-                if "=" in seg:
-                    k, _, v = seg.partition("=")
-                    pvals[k] = (None if v == "__HIVE_DEFAULT_PARTITION__"
-                                else v)
-            actions.append({"add": {
-                "path": rel.replace(os.sep, "/"),
-                "partitionValues": pvals,
-                "size": os.path.getsize(full),
-                "modificationTime": ts, "dataChange": True}})
-    commit = os.path.join(log_dir, f"{version:020d}.json")
-    with open(commit, "w") as f:
-        for a in actions:
-            f.write(json.dumps(a) + "\n")
-    # standard-format writes bypass TransactionLog.commit, so feed the
-    # commit listeners here too
-    from ..delta.log import _notify_commit
-    _notify_commit(root, version)
-    return version
+    written = write_host_table(table, root, "parquet",
+                               partition_by=partition_by, mode="append")
+    ts = int(time.time() * 1000)
+    adds = []
+    for full in sorted(written.files):
+        rel = os.path.relpath(full, root)
+        pvals = {}
+        for seg in rel.split(os.sep)[:-1]:
+            k, _, v = seg.partition("=")
+            pvals[unescape_path_name(k)] = (
+                None if v == HIVE_NULL_PART else unescape_path_name(v))
+        adds.append({"add": {
+            "path": quote(rel.replace(os.sep, "/"), safe="/="),
+            "partitionValues": pvals, "size": os.path.getsize(full),
+            "modificationTime": ts, "dataChange": True}})
+    retries = int(base.get(DELTA_COMMIT_MAX_RETRIES))
+    backoff_s = float(base.get(DELTA_COMMIT_BACKOFF_MS)) / 1e3
+    for attempt in range(retries + 1):
+        read_v = log.latest_version()
+        if read_v >= 0 and mode == "error":
+            raise FileExistsError(f"delta table exists at {root!r}")
+        actions = []
+        if read_v < 0:
+            actions.append({"protocol": {"minReaderVersion": 1,
+                                         "minWriterVersion": 2}})
+            actions.append({"metaData": {
+                "id": str(_uuid.uuid4()),
+                "format": {"provider": "parquet", "options": {}},
+                "schemaString": schema_to_string(table.schema()),
+                "partitionColumns": list(partition_by or []),
+                "configuration": {}, "createdTime": ts}})
+        elif mode == "overwrite":
+            actions.extend({"remove": {"path": rm["path"],
+                                       "deletionTimestamp": ts,
+                                       "dataChange": True}}
+                           for rm in DeltaFormatTable(root, read_v).adds)
+        try:
+            return log.commit(read_v, actions + adds, "WRITE")
+        except CommitConflict:
+            if attempt == retries:
+                raise
+            time.sleep(backoff_s * min(2 ** attempt, 32) *
+                       (0.5 + random.random()))
+    raise AssertionError("unreachable")

@@ -1,8 +1,9 @@
-"""The Parquet host library: build and ctypes bindings.
+"""The host library (Parquet and ORC): build and ctypes bindings.
 
 ``csrc/host/parquet_decode.cpp`` (the port's copy of the JAX package's
 ``native/parquet_decode.cpp``, plus BOOLEAN and FIXED_LEN_BYTE_ARRAY
-lanes) and ``csrc/host/parquet_encode.cpp`` (the writer's pages) are
+lanes) and ``csrc/host/parquet_encode.cpp`` (the writer's pages) and
+``csrc/host/orc.cpp`` (ORC's framing, RLEs and decimals, both ways) are
 compiled with ``g++ -O3 -shared`` at first use into
 ``spark_rapids_tpu_torch/build/host/``, under a name that hashes the
 sources, the compiler and the codec flags, so a changed source or
@@ -35,12 +36,14 @@ logger = logging.getLogger("spark_rapids_tpu_torch.io")
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE_DIR = os.path.join(_PKG, "csrc", "host")
 SOURCES = [os.path.join(SOURCE_DIR, "parquet_decode.cpp"),
-           os.path.join(SOURCE_DIR, "parquet_encode.cpp")]
+           os.path.join(SOURCE_DIR, "parquet_encode.cpp"),
+           os.path.join(SOURCE_DIR, "orc.cpp")]
 HEADERS = [os.path.join(SOURCE_DIR, "codecs.h")]
 BUILD_DIR = os.path.join(_PKG, "build", "host")
 
-#: the library's codec ids (csrc/host/codecs.h)
-CODEC_IDS = {"UNCOMPRESSED": 0, "SNAPPY": 1, "GZIP": 2, "ZSTD": 3}
+#: the library's codec ids (csrc/host/codecs.h; DEFLATE is ORC's ZLIB)
+CODEC_IDS = {"UNCOMPRESSED": 0, "SNAPPY": 1, "GZIP": 2, "ZSTD": 3,
+             "DEFLATE": 4}
 CODEC_NAMES = {v: k for k, v in CODEC_IDS.items()}
 
 _LIB: Dict[str, ctypes.CDLL] = {}
@@ -120,13 +123,15 @@ def lib() -> ctypes.CDLL:
         p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
         got.parquet_decode_chunk.restype = i64
         got.parquet_decode_chunk.argtypes = [p, i64, i32, i32, i32, i64,
-                                             i32, p, i64, p, p, i64]
+                                             i32, i32, p, i64, p, p, p, p,
+                                             i64]
         got.parquet_decode_chunk_binary.restype = i64
         got.parquet_decode_chunk_binary.argtypes = [p, i64, i32, i64, i32,
-                                                    p, p, i64, p, p, i64]
+                                                    i32, p, p, i64, p, p, p,
+                                                    p, i64]
         got.parquet_encode_chunk.restype = i64
         got.parquet_encode_chunk.argtypes = [i32, p, i32, p, p, i64, i32,
-                                             i32, i64, p, i64, p]
+                                             i32, i64, p, i64, p, p, p, i32]
         got.srt_codec_mask.restype = i32
         got.srt_codec_mask.argtypes = []
         got.srt_compress_bound.restype = i64
@@ -137,6 +142,18 @@ def lib() -> ctypes.CDLL:
         got.srt_decompress.argtypes = [i32, p, i64, p, i64, p]
         got.srt_string_minmax.restype = None
         got.srt_string_minmax.argtypes = [p, p, p, i64, p]
+        for name, args in (
+                ("orc_deframe", [p, i64, i32, p, i64]),
+                ("orc_frame", [p, i64, i32, i64, p, i64]),
+                ("orc_bool_rle", [p, i64, p, i64]),
+                ("orc_byte_rle", [p, i64, p, i64]),
+                ("orc_int_rle", [p, i64, i32, i32, p, i64]),
+                ("orc_decimal", [p, i64, p, p, i64]),
+                ("orc_byte_rle_encode", [p, i64, p, i64]),
+                ("orc_int_rle_v1_encode", [p, i64, i32, p, i64]),
+                ("orc_decimal_encode", [p, p, i64, p, i64])):
+            fn = getattr(got, name)
+            fn.restype, fn.argtypes = i64, args
         _LIB["lib"] = got
         logger.info("parquet host library %s, codecs %s",
                     os.path.basename(so), codecs())

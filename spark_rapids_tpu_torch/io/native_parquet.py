@@ -30,19 +30,22 @@ from . import thrift as T
 #: parquet.thrift CompressionCodec -> the host library's codec id
 _CODECS = {0: 0, 1: 1, 2: 2, 6: 3}
 #: the physical width of a fixed-width type (FLBA: its type_length)
-_WIDTH = {T.BOOLEAN: 1, T.INT32: 4, T.INT64: 8, T.FLOAT: 4, T.DOUBLE: 8}
+_WIDTH = {T.BOOLEAN: 1, T.INT32: 4, T.INT64: 8, T.INT96: 12, T.FLOAT: 4,
+          T.DOUBLE: 8}
 _NP = {T.BOOLEAN: np.uint8, T.INT32: np.int32, T.INT64: np.int64,
        T.FLOAT: np.float32, T.DOUBLE: np.float64}
 
 
 class ReadStats:
     """What one file's decode read and made (summed by the scan)."""
-    __slots__ = ("bytes_read", "decoded_bytes", "decode_ns")
+    __slots__ = ("bytes_read", "decoded_bytes", "decode_ns",
+                 "row_groups_pruned")
 
     def __init__(self):
         self.bytes_read = 0
         self.decoded_bytes = 0
         self.decode_ns = 0
+        self.row_groups_pruned = 0
 
 
 #: parsed footers by (path, size, mtime): a scan of 229 files reads
@@ -100,40 +103,57 @@ def _codec(md: T.ColumnMetaData, name: str) -> int:
 def decode_column(fh, cc: T.ColumnChunk, info: PS.ColumnInfo, rows: int,
                   stats: Optional[ReadStats] = None
                   ) -> Tuple[object, np.ndarray]:
-    """One column chunk -> (host lane, mask) of ``rows`` rows."""
+    """One flat column chunk -> (host lane, mask) of ``rows`` rows."""
+    values, valid, _, _ = decode_leaf(fh, cc, info.element, info.require(),
+                                      info.name, rows, info.max_def, 0,
+                                      stats)
+    return values, valid
+
+
+def decode_leaf(fh, cc: T.ColumnChunk, el: T.SchemaElement, t: dt.DType,
+                name: str, count: int, max_def: int, max_rep: int,
+                stats: Optional[ReadStats] = None, levels: bool = False):
+    """One leaf column chunk -> (host lane, valid, def levels, rep
+    levels) of ``count`` level entries (rows, for a flat column). The
+    levels come back for a nested column's leaf (``levels``, or any leaf
+    with repetition or more than one definition level), else None. The
+    lane has a slot per entry, zero where no value is present."""
     md = cc.meta_data
-    el, t = info.element, info.require()
-    codec = _codec(md, info.name)
+    codec = _codec(md, name)
     offset, length = _chunk_range(md)
     fh.seek(offset)
     raw = fh.read(length)
     if len(raw) != length:
-        raise EOFError(f"parquet column {info.name!r}: chunk of {length} "
+        raise EOFError(f"parquet column {name!r}: chunk of {length} "
                        f"bytes at {offset} ends after {len(raw)}")
     chunk = np.frombuffer(raw, np.uint8)
-    valid = np.empty(rows, np.uint8)
+    valid = np.empty(count, np.uint8)
+    nested = levels or max_def > 1 or max_rep > 0
+    dl = np.empty(count, np.uint8) if nested else None
+    rl = np.empty(count, np.uint8) if nested else None
     scratch_len = max(2 * (md.total_uncompressed_size or 0), 1 << 16)
-    what = f"parquet column {info.name!r}"
+    what = f"parquet column {name!r}"
     if el.type == T.BYTE_ARRAY:
-        offsets = np.zeros(rows + 1, np.int32)
-        cap = max(md.total_uncompressed_size or 0, 4 * rows, 1 << 16)
+        offsets = np.zeros(count + 1, np.int32)
+        cap = max(md.total_uncompressed_size or 0, 4 * count, 1 << 16)
         for _ in range(8):
             scratch = np.empty(scratch_len, np.uint8)
             out = np.empty(cap, np.uint8)
             got = HL.lib().parquet_decode_chunk_binary(
-                HL.ptr(chunk), len(chunk), codec, rows, info.max_def,
+                HL.ptr(chunk), len(chunk), codec, count, max_def, max_rep,
                 HL.ptr(offsets), HL.ptr(out), cap, HL.ptr(valid),
-                HL.ptr(scratch), scratch_len)
+                HL.ptr(dl), HL.ptr(rl), HL.ptr(scratch), scratch_len)
             if got != -3 or cap >= 1 << 31:
                 break
             # too little room for the strings or the dictionary
             cap = min(cap * 4, 1 << 31)
             scratch_len *= 2
-        if HL.check_rc(got, what, codec) != rows:
-            raise ValueError(f"{what}: decoded {got} of {rows} rows")
-        used = int(offsets[rows])
+        if HL.check_rc(got, what, codec) != count:
+            raise ValueError(f"{what}: decoded {got} of {count} values")
+        used = int(offsets[count])
         chars = out[:used].copy() if used * 5 < cap * 4 else out[:used]
-        values = HostStrings(offsets, chars)
+        values = PS.var_decimal_lane(offsets, chars, t) \
+            if isinstance(t, dt.DecimalType) else HostStrings(offsets, chars)
         nbytes = offsets.nbytes + used
     else:
         width = el.type_length if el.type == T.FIXED_LEN_BYTE_ARRAY \
@@ -141,26 +161,46 @@ def decode_column(fh, cc: T.ColumnChunk, info: PS.ColumnInfo, rows: int,
         if not width:
             raise NotImplementedError(f"{what}: physical type "
                                       f"{T.TYPE_NAMES[el.type]}")
-        lane = np.empty(rows * width, np.uint8) \
-            if el.type == T.FIXED_LEN_BYTE_ARRAY \
-            else np.empty(rows, _NP[el.type])
+        lane = np.empty(count * width, np.uint8) \
+            if el.type in (T.FIXED_LEN_BYTE_ARRAY, T.INT96) \
+            else np.empty(count, _NP[el.type])
         for _ in range(4):
             scratch = np.empty(scratch_len, np.uint8)
             got = HL.lib().parquet_decode_chunk(
-                HL.ptr(chunk), len(chunk), codec, el.type, width, rows,
-                info.max_def, HL.ptr(lane), lane.nbytes, HL.ptr(valid),
-                HL.ptr(scratch), scratch_len)
+                HL.ptr(chunk), len(chunk), codec, el.type, width, count,
+                max_def, max_rep, HL.ptr(lane), lane.nbytes, HL.ptr(valid),
+                HL.ptr(dl), HL.ptr(rl), HL.ptr(scratch), scratch_len)
             if got != -3:
                 break
             scratch_len *= 4   # a dictionary larger than the pages
-        if HL.check_rc(got, what, codec) != rows:
-            raise ValueError(f"{what}: decoded {got} of {rows} rows")
+        if HL.check_rc(got, what, codec) != count:
+            raise ValueError(f"{what}: decoded {got} of {count} values")
         values = PS.to_host_lane(lane, el, t)
         nbytes = lane.nbytes
     if stats is not None:
         stats.bytes_read += length
-        stats.decoded_bytes += nbytes + rows
-    return values, valid.view(np.bool_)
+        stats.decoded_bytes += nbytes + count
+    return values, valid.view(np.bool_), dl, rl
+
+
+def decode_nested(fh, rg: T.RowGroup, info: PS.ColumnInfo,
+                  stats: Optional[ReadStats] = None):
+    """A nested column's leaf chunks of one row group -> (host lane,
+    mask) of its rows (io/parquet_nested.py assembles the levels)."""
+    from .parquet_nested import assemble
+    decoded = {}
+    for leaf in info.node.leaves():
+        cc = rg.columns[leaf.chunk]
+        vals, _, dl, rl = decode_leaf(
+            fh, cc, leaf.element, leaf.dtype, f"{info.name}.{leaf.name}",
+            cc.meta_data.num_values, leaf.max_def, leaf.max_rep, stats,
+            levels=True)
+        decoded[leaf.chunk] = (vals, dl, rl)
+    lane, mask = assemble(info.node, decoded)
+    if len(mask) != rg.num_rows:
+        raise ValueError(f"parquet column {info.name!r}: {len(mask)} rows "
+                         f"assembled of {rg.num_rows}")
+    return lane, mask
 
 
 def _cast_lane(values, mask, file_t: dt.DType, want: dt.DType, name: str):
@@ -203,7 +243,15 @@ def iter_row_group_tables_native(
         if not groups:
             yield _empty(schema)
             return
-        for rg in groups:
+        keep = _row_group_filter(groups, plan, options)
+        if not any(keep):
+            stats.row_groups_pruned += len(groups)
+            yield _empty(schema)
+            return
+        for rg, kept in zip(groups, keep):
+            if not kept:
+                stats.row_groups_pruned += 1
+                continue
             rows = rg.num_rows
             t0 = time.perf_counter_ns()
             cols = []
@@ -212,18 +260,50 @@ def iter_row_group_tables_native(
                     cols.append(partition_column(part_values.get(name),
                                                  want, rows))
                     continue
-                cc = rg.columns[info.chunk]
-                values, mask = decode_column(fh, cc, info, rows, stats)
-                values = _cast_lane(values, mask, info.dtype, want, name)
+                if info.node is not None:
+                    values, mask = decode_nested(fh, rg, info, stats)
+                    if info.dtype != want:
+                        raise ValueError(f"column {name}: file type "
+                                         f"{info.dtype} != declared {want}")
+                else:
+                    values, mask = decode_column(fh, rg.columns[info.chunk],
+                                                 info, rows, stats)
+                    values = _cast_lane(values, mask, info.dtype, want,
+                                        name)
                 cols.append(HostColumn(values, mask, want))
             stats.decode_ns += time.perf_counter_ns() - t0
             ht = HostTable(cols, [n for n, _ in schema])
             _apply_read_rebase(ht, options)
-            if rows <= max_rows:
-                yield ht
-                continue
-            for start in range(0, rows, max_rows):
-                yield ht.slice(start, start + max_rows)
+            yield from split_rows(ht, max_rows)
+
+
+def split_rows(ht: HostTable, max_rows: int) -> Iterator[HostTable]:
+    """``ht`` in slices of at most ``max_rows`` rows."""
+    if ht.num_rows <= max_rows:
+        yield ht
+        return
+    for start in range(0, ht.num_rows, max_rows):
+        yield ht.slice(start, start + max_rows)
+
+
+def _row_group_filter(groups, plan, options) -> List[bool]:
+    """Per row group, whether its statistics let a row pass the scan's
+    translated filter (``options["_row_group_filter"]``,
+    io/pruning.py)."""
+    node = options.get("_row_group_filter")
+    if node is None:
+        return [True] * len(groups)
+    from .pruning import column_stats, might_match
+    infos = {name: info for name, _, info in plan if info is not None}
+    types = {name: want for name, want, info in plan if info is not None}
+    calendar_ok = options.get("datetimeRebaseMode",
+                              "CORRECTED") == "CORRECTED"
+    out = []
+    for rg in groups:
+        stats = {n: column_stats(rg.columns[i.chunk], i, rg.num_rows)
+                 for n, i in infos.items()}
+        out.append(might_match(node, stats, types, calendar_ok))
+    return out
 
 
 def _empty(schema) -> HostTable:

@@ -19,9 +19,16 @@ physical lanes the device uses, plan/host_table.py):
   into the two-limb lane's host form (unscaled Python ints,
   columnar/decimal128.py).
 
-Nested groups (LIST, MAP, STRUCT), INT96, unsigned and TIME columns,
-BINARY without a string annotation and other annotations raise
-NotImplementedError naming the column.
+- INT96 -> TIMESTAMP (nanoseconds of the day and a Julian day, as
+  Spark's ``fromJulianDay``), under the same read rebase as the other
+  timestamps;
+- BYTE_ARRAY as DECIMAL: big-endian two's complement of any length;
+- nested groups (LIST, MAP, STRUCT, and the legacy repeated forms) ->
+  ArrayType / MapType / StructType, whose levels io/parquet_nested.py
+  assembles.
+
+Unsigned and TIME columns, BINARY without a string annotation and other
+annotations raise NotImplementedError naming the column.
 
 The writer's side (``schema_element``) writes what Arrow reads back as
 the arrow type ``dtype_to_arrow_type`` gives (JAX arrow_convert.py:61):
@@ -56,6 +63,9 @@ class ColumnInfo:
     max_def: int
     dtype: Optional[dt.DType]
     unsupported: Optional[str] = None
+    #: a nested column's schema tree (io/parquet_nested.py), else None
+    node: Optional[object] = None
+    max_rep: int = 0
 
     def require(self) -> dt.DType:
         if self.dtype is None:
@@ -76,18 +86,13 @@ def file_columns(meta: T.FileMetaData) -> List[ColumnInfo]:
         el = schema[i]
         end = T.subtree_end(schema, i)
         leaves = sum(1 for e in schema[i:end] if not e.num_children)
-        if el.num_children:
-            kind = el.converted_type
-            what = ("LIST" if kind == T.LIST or _logical(el) == "LIST" else
-                    "MAP" if kind in (T.MAP, T.MAP_KEY_VALUE)
-                    or _logical(el) == "MAP" else "STRUCT")
-            out.append(ColumnInfo(el.name, leaf, el, 0, None,
-                                  f"nested {what} columns are not read by "
-                                  "this port"))
-        elif el.repetition_type == T.REPEATED:
-            out.append(ColumnInfo(el.name, leaf, el, 0, None,
-                                  "a repeated (legacy LIST) column is not "
-                                  "read by this port"))
+        if el.num_children or el.repetition_type == T.REPEATED:
+            from .parquet_nested import field_node
+            node, _ = field_node(schema, i, 0, 0, [leaf], _dtype_of)
+            out.append(ColumnInfo(
+                el.name, leaf, el, 0, node.dtype,
+                None if node.dtype is not None else node.why, node,
+                max(x.max_rep for x in node.leaves())))
         else:
             max_def = 1 if el.repetition_type == T.OPTIONAL else 0
             t, why = _dtype_of(el)
@@ -110,7 +115,8 @@ def _dtype_of(el: T.SchemaElement) -> Tuple[Optional[dt.DType],
             p, s = lt.DECIMAL.precision, lt.DECIMAL.scale
         else:
             p, s = el.precision, el.scale or 0
-        if phys not in (T.INT32, T.INT64, T.FIXED_LEN_BYTE_ARRAY):
+        if phys not in (T.INT32, T.INT64, T.FIXED_LEN_BYTE_ARRAY,
+                        T.BYTE_ARRAY):
             return None, f"a {T.TYPE_NAMES[phys]} DECIMAL is not read by " \
                 "this port"
         if p is None or not 0 < p <= dt.DecimalType.MAX_PRECISION:
@@ -153,7 +159,7 @@ def _dtype_of(el: T.SchemaElement) -> Tuple[Optional[dt.DType],
         return None, f"INT64 as {logical or T.CONVERTED_NAMES[conv]} is " \
             "not read by this port"
     if phys == T.INT96:
-        return None, "INT96 timestamps are not read by this port"
+        return dt.TIMESTAMP, None
     if phys == T.FLOAT:
         return dt.FLOAT32, None
     if phys == T.DOUBLE:
@@ -182,6 +188,12 @@ def to_host_lane(raw: np.ndarray, el: T.SchemaElement,
     dtype's host lane."""
     if t == dt.BOOL:
         return raw.view(np.bool_)
+    if t == dt.TIMESTAMP and el.type == T.INT96:
+        # 8 bytes of nanoseconds within the day, then the Julian day
+        rows = raw.reshape(-1, 12)
+        nanos = rows[:, :8].copy().view("<i8").reshape(-1)
+        day = rows[:, 8:].copy().view("<i4").reshape(-1).astype(np.int64)
+        return (day - JULIAN_DAY_OF_EPOCH) * MICROS_PER_DAY + nanos // 1000
     if t == dt.TIMESTAMP:
         mul, div = timestamp_scale(el)
         if mul != 1:
@@ -199,6 +211,31 @@ def to_host_lane(raw: np.ndarray, el: T.SchemaElement,
     if raw.dtype != t.np_physical:
         return raw.astype(t.np_physical)
     return raw
+
+
+JULIAN_DAY_OF_EPOCH = 2440588
+MICROS_PER_DAY = 86_400_000_000
+
+
+def var_decimal_lane(offsets: np.ndarray, chars: np.ndarray,
+                     t: dt.DecimalType) -> np.ndarray:
+    """BYTE_ARRAY decimals (big-endian two's complement of up to 16
+    bytes each) as the dtype's unscaled lane."""
+    offsets = np.asarray(offsets, np.int64)
+    lens = np.diff(offsets)
+    if len(lens) and lens.max() > 16:
+        raise ValueError(f"a BYTE_ARRAY DECIMAL of {int(lens.max())} bytes")
+    n = len(lens)
+    full = np.zeros((n, 16), np.uint8)
+    first = chars[np.minimum(offsets[:-1], max(len(chars) - 1, 0))] \
+        if len(chars) else np.zeros(n, np.uint8)
+    full[(lens > 0) & (first >= 0x80)] = 0xFF
+    col = np.arange(16)[None, :]
+    fill = col >= (16 - lens)[:, None]
+    src = offsets[:-1][:, None] + col - (16 - lens)[:, None]
+    full[fill] = chars[src[fill]]
+    hi, lo = _be_limbs(full)
+    return lo if not t.is_wide else ints_of_limbs(hi, lo)
 
 
 def _be_limbs(b: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:

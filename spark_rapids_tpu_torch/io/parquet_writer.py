@@ -12,8 +12,12 @@ and converted types of io/parquet_schema.py, its length and ``PAR1``.
 
 ``compression``: ``none`` / ``uncompressed``, ``snappy`` (the default,
 as in the JAX package), and ``gzip`` / ``zstd`` where the build links
-zlib / libzstd (io/host_lib.py). Nested columns raise
-NotImplementedError.
+zlib / libzstd (io/host_lib.py). A nested column (LIST, STRUCT, MAP)
+is written in Arrow's and Spark's layout (io/parquet_nested.py's
+``writer_elements``: every field OPTIONAL, three-level lists, a MAP's
+``key_value`` group with a REQUIRED key), each leaf's repetition and
+definition levels as RLE hybrid runs, a page never splitting a record;
+its leaves carry no statistics.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import numpy as np
 from .. import __version__
 from ..columnar import dtypes as dt
 from ..columnar.decimal128 import limbs_of_ints
+from ..columnar.nested import HostList, HostStruct, lane_range
 from ..columnar.vector import HostStrings
 from ..plan.host_table import HostColumn, HostTable
 from . import host_lib as HL
@@ -134,13 +139,17 @@ def _statistics(c: HostColumn, el: T.SchemaElement, kind, values,
 
 
 def _encode_chunk(c: HostColumn, el: T.SchemaElement, codec: int,
-                  page_bytes: int):
-    """(page bytes, uncompressed size, statistics) of one column
-    chunk."""
+                  page_bytes: int, levels=None):
+    """(page bytes, uncompressed size, statistics) of one column chunk;
+    ``levels`` = (def, rep, max_def, max_rep) for a nested leaf, whose
+    ``c`` has a slot per level entry (statistics are not written for
+    it)."""
     kind, values, elem, offsets = _lane(c, el)
     n = len(c.mask)
     valid = None if c.mask.all() else np.ascontiguousarray(
         c.mask).view(np.uint8)
+    dl, rl, max_def, max_rep = levels if levels is not None else \
+        (None, None, 1, 0)
     if kind == 2:
         raw = 4 * n + int(offsets[-1] - offsets[0])
     else:
@@ -152,13 +161,58 @@ def _encode_chunk(c: HostColumn, el: T.SchemaElement, codec: int,
         out = np.empty(cap, np.uint8)
         got = HL.lib().parquet_encode_chunk(
             kind, HL.ptr(values), elem, HL.ptr(offsets), HL.ptr(valid), n,
-            1, codec, page_bytes, HL.ptr(out), cap, HL.ptr(info))
+            max_def, codec, page_bytes, HL.ptr(out), cap, HL.ptr(info),
+            HL.ptr(dl), HL.ptr(rl), max_rep)
         if got != -3:
             break
         cap *= 2
     HL.check_rc(got, f"parquet writer, column {el.name!r}", codec)
-    return out[:got], int(info[0]), _statistics(c, el, kind, values,
-                                                offsets)
+    stats = None if levels is not None else \
+        _statistics(c, el, kind, values, offsets)
+    return out[:got], int(info[0]), stats
+
+
+def _slot_column(vals, present: np.ndarray, t: dt.DType) -> HostColumn:
+    """A leaf's present values spread over its level entries (zero or
+    empty where no value is present): the encoder's layout."""
+    n = len(present)
+    at = np.flatnonzero(present)
+    if t == dt.STRING:
+        s = vals if isinstance(vals, HostStrings) else \
+            HostStrings.from_objects(list(vals))
+        lens = np.zeros(n, np.int64)
+        lens[at] = s.lengths()
+        offsets = np.zeros(n + 1, np.int64)
+        np.cumsum(lens, out=offsets[1:])
+        lo = int(s.offsets[0]) if len(s.offsets) else 0
+        chars = s.chars[lo:lo + int(offsets[-1])]
+        return HostColumn(HostStrings(offsets.astype(np.int32), chars),
+                          present, t)
+    lane = np.zeros(n, dtype=object if dt.is_wide_decimal(t) else
+                    np.asarray(vals).dtype)
+    lane[at] = vals
+    return HostColumn(lane, present, t)
+
+
+def _nested_chunks(c: HostColumn, info: PS.ColumnInfo, paths, codec: int,
+                   pq_codec: int, page_bytes: int):
+    """[(data, ColumnMetaData without its offset)] for each leaf of a
+    nested column, in leaf order."""
+    from .parquet_nested import flat_lane, shred
+    got = shred(info.node, flat_lane(c.values, c.mask, c.dtype), c.mask)
+    out = []
+    for leaf, path in zip(info.node.leaves(), paths):
+        vals, dl, rl = got[leaf.chunk]
+        present = dl == leaf.max_def
+        col = _slot_column(vals, present, leaf.dtype)
+        data, usize, _ = _encode_chunk(
+            col, leaf.element, codec, page_bytes,
+            (dl, rl if leaf.max_rep else None, leaf.max_def, leaf.max_rep))
+        out.append((data, T.ColumnMetaData(
+            type=leaf.element.type, encodings=[0, 3], path_in_schema=path,
+            codec=pq_codec, num_values=len(dl),
+            total_uncompressed_size=usize, total_compressed_size=len(data))))
+    return out
 
 
 def write_parquet_file(table: HostTable, path: str,
@@ -166,15 +220,13 @@ def write_parquet_file(table: HostTable, path: str,
                        row_group_rows: int = ROW_GROUP_ROWS,
                        page_bytes: int = PAGE_BYTES) -> int:
     """Write ``table`` to ``path``; returns the file's bytes."""
-    for name, c in zip(table.names, table.columns):
-        if c.dtype.is_nested:
-            raise NotImplementedError(
-                f"parquet writer: column {name!r} ({c.dtype}): nested "
-                "columns are not written by this port")
+    from .parquet_nested import writer_elements
     codec, pq_codec = codec_of(compression)
-    elements = [PS.schema_element(n, c.dtype)
-                for n, c in zip(table.names, table.columns)]
-    root = T.SchemaElement(name="schema", num_children=len(elements))
+    per_column = [writer_elements(n, c.dtype)
+                  for n, c in zip(table.names, table.columns)]
+    elements = [e for els, _ in per_column for e in els]
+    root = T.SchemaElement(name="schema", num_children=len(per_column))
+    infos = PS.file_columns(T.FileMetaData(schema=[root] + elements))
     groups: List[T.RowGroup] = []
     n = table.num_rows
     with open(path, "wb") as fh:
@@ -185,19 +237,27 @@ def write_parquet_file(table: HostTable, path: str,
                 _rows(table, start, min(start + row_group_rows, n))
             rows = part.num_rows
             chunks, total_u, total_c, first = [], 0, 0, pos
-            for el, c in zip(elements, part.columns):
-                data, usize, stats = _encode_chunk(c, el, codec, page_bytes)
-                fh.write(memoryview(data))
-                md = T.ColumnMetaData(
-                    type=el.type, encodings=[0, 3], path_in_schema=[el.name],
-                    codec=pq_codec, num_values=rows,
-                    total_uncompressed_size=usize,
-                    total_compressed_size=len(data), data_page_offset=pos,
-                    statistics=stats)
-                chunks.append(T.ColumnChunk(file_offset=pos, meta_data=md))
-                pos += len(data)
-                total_u += usize
-                total_c += len(data)
+            for (els, paths), info, c in zip(per_column, infos,
+                                             part.columns):
+                if info.node is not None:
+                    encoded = _nested_chunks(c, info, paths, codec,
+                                             pq_codec, page_bytes)
+                else:
+                    data, usize, stats = _encode_chunk(c, els[0], codec,
+                                                       page_bytes)
+                    encoded = [(data, T.ColumnMetaData(
+                        type=els[0].type, encodings=[0, 3],
+                        path_in_schema=paths[0], codec=pq_codec,
+                        num_values=rows, total_uncompressed_size=usize,
+                        total_compressed_size=len(data), statistics=stats))]
+                for data, md in encoded:
+                    fh.write(memoryview(data))
+                    md.data_page_offset = pos
+                    chunks.append(T.ColumnChunk(file_offset=pos,
+                                                meta_data=md))
+                    pos += len(data)
+                    total_u += md.total_uncompressed_size
+                    total_c += len(data)
             groups.append(T.RowGroup(columns=chunks, total_byte_size=total_u,
                                      num_rows=rows, file_offset=first,
                                      total_compressed_size=total_c,
@@ -206,7 +266,7 @@ def write_parquet_file(table: HostTable, path: str,
             version=2, schema=[root] + elements, num_rows=n,
             row_groups=groups, created_by=CREATED_BY,
             column_orders=[T.ColumnOrder(TYPE_ORDER=T.Empty())
-                           for _ in elements])
+                           for _, paths in per_column for _ in paths])
         tail = T.footer_bytes(meta)
         fh.write(tail)
         return pos + len(tail)
@@ -219,6 +279,8 @@ def _rows(table: HostTable, start: int, stop: int) -> HostTable:
         v = c.values
         if isinstance(v, HostStrings):
             v = HostStrings(v.offsets[start:stop + 1], v.chars)
+        elif isinstance(v, (HostList, HostStruct)):
+            v = lane_range(v, start, stop)
         else:
             v = v[start:stop]
         cols.append(HostColumn(v, c.mask[start:stop], c.dtype))

@@ -1,7 +1,7 @@
-"""DataFrameReader: ``session.read.parquet`` and ``session.read.delta``.
+"""DataFrameReader: ``session.read.parquet`` / ``orc`` / ``delta``.
 
 Counterpart of spark_rapids_tpu/io/reader.py (the role Spark's
-DataFrameReader plays) for Parquet and standard-format Delta tables: a
+DataFrameReader plays) for Parquet, ORC and standard-format Delta tables: a
 DataFrame over a FileScan (io/scan.py). The schema is the first file's
 unless given, with the hive partition columns of a directory layout
 after it. The other formats of the JAX package's reader raise
@@ -40,8 +40,14 @@ class DataFrameReader:
         raise NotImplementedError(f"session.read.{fmt}: the {fmt} reader is "
                                   f"not in this port yet (ROADMAP {item})")
 
-    def orc(self, *paths, schema=None):
-        self._not_ported("orc", "A7")
+    def orc(self, *paths, schema: Optional[List] = None):
+        """ORC files, directories (hive partitions included) or globs,
+        through the same reader pool and reader types as Parquet
+        (io/native_orc.py)."""
+        from ..plan.session import DataFrame
+        return DataFrame(self.session, FileScan(
+            list(paths) if len(paths) > 1 else paths[0], "orc", schema,
+            dict(self._options)))
 
     def csv(self, *paths, schema=None, **kw):
         self._not_ported("csv", "A9")

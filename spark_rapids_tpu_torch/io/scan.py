@@ -1,8 +1,9 @@
 """File scans: the FileScan logical node and FileSourceScanExec.
 
 Counterpart of spark_rapids_tpu/io/scan.py (GpuParquetScan.scala /
-GpuMultiFileReader.scala / GpuFileSourceScanExec.scala) for Parquet:
-host threads decode files (io/native_parquet.py, the host library)
+GpuOrcScan.scala / GpuMultiFileReader.scala / GpuFileSourceScanExec.scala)
+for Parquet and ORC: host threads decode files (io/native_parquet.py,
+io/native_orc.py, the host library)
 without holding the device semaphore, and decoded tables upload to the
 card as batches, the semaphore held for the upload alone. The
 reference's three reader types (``srt.sql.format.parquet.reader.type``)
@@ -21,17 +22,20 @@ are kept:
 
 A Filter above a scan is pushed into it (``pushed_filter``): its
 conjuncts over partition columns prune files (``pruned_paths``,
-``partitionsPruned``). Beyond that the pushed filter is advisory, as on
-the JAX package's native lane: the Filter above the scan still runs,
-and no row group is pruned from statistics (ROADMAP A7).
+``partitionsPruned``), and the rest prune row groups whose footer
+statistics prove that no row passes (io/pruning.py,
+``rowGroupsPruned``, under ``srt.sql.parquet.filterPushdown``). A
+broadcast join installs a runtime partition filter
+(``runtime_part_filter``, DPP: ``dppPrunedFiles``) before the scan's
+first file opens. The Filter above the scan still runs.
 
 A producer thread uploads the decoded tables, up to ``UPLOAD_AHEAD``
 batches ahead of the operators above (the JAX package uploads in the
 consumer). Metrics: ``scanTime`` (the uploads, as in the JAX package),
 ``scanDecodeTime`` (the decode, summed over the reader threads),
 ``scanBytesRead`` (column chunk bytes read from the files),
-``scanDecodedBytes`` (the host lanes made), ``scanFiles`` and
-``partitionsPruned``.
+``scanDecodedBytes`` (the host lanes made), ``scanFiles``,
+``partitionsPruned``, ``rowGroupsPruned`` and ``dppPrunedFiles``.
 """
 
 from __future__ import annotations
@@ -53,8 +57,9 @@ import numpy as np
 from ..columnar import dtypes as dt
 from ..columnar.vector import ColumnarBatch, HostStrings
 from ..conf import (IGNORE_CORRUPT_FILES, IGNORE_MISSING_FILES,
-                    MAX_READER_BATCH_SIZE_ROWS, PARQUET_REBASE_READ,
-                    READER_THREADS, READER_TYPE, SrtConf)
+                    MAX_READER_BATCH_SIZE_ROWS, PARQUET_FILTER_PUSHDOWN,
+                    PARQUET_REBASE_READ, READER_THREADS, READER_TYPE,
+                    SrtConf)
 from ..exec.base import ExecContext, Metric, Schema, TpuExec
 from ..expr import core as E
 from ..expr import timezone as TZ
@@ -68,7 +73,7 @@ from .native_parquet import (ReadStats, file_schema,
 
 logger = logging.getLogger("spark_rapids_tpu_torch.scan")
 
-FORMATS = ("parquet",)
+FORMATS = ("parquet", "orc")
 #: batches the scan's producer thread uploads ahead of its consumer
 UPLOAD_AHEAD = 2
 _DONE = object()
@@ -102,6 +107,43 @@ def expand_paths(path_or_paths) -> List[str]:
 
 
 HIVE_NULL_PART = "__HIVE_DEFAULT_PARTITION__"
+#: the characters Spark escapes in a partition directory's name as %XX
+#: (ExternalCatalogUtils.charToEscape, less the Windows-only ones)
+_PATH_ESCAPED = frozenset([chr(c) for c in range(1, 0x20)] +
+                          list('"#%\'*/:=?\\\x7f{[]^'))
+
+
+def escape_path_name(s: str) -> str:
+    """ExternalCatalogUtils.escapePathName."""
+    return "".join(f"%{ord(c):02X}" if c in _PATH_ESCAPED else c for c in s)
+
+
+def unescape_path_name(s: str) -> str:
+    """ExternalCatalogUtils.unescapePathName: each %XX of two hex
+    digits back to its character, anything else kept."""
+    if "%" not in s:
+        return s
+    out, i = [], 0
+    while i < len(s):
+        c = s[i]
+        if c == "%" and i + 3 <= len(s) and \
+                all(h in "0123456789abcdefABCDEF" for h in s[i + 1:i + 3]):
+            out.append(chr(int(s[i + 1:i + 3], 16)))
+            i += 3
+        else:
+            out.append(c)
+            i += 1
+    return "".join(out)
+
+
+def partition_dir(name: str, value) -> str:
+    """The ``name=value`` directory Spark writes for a partition value:
+    NULL and '' as __HIVE_DEFAULT_PARTITION__, the rest escaped."""
+    if isinstance(value, bool):
+        value = "true" if value else "false"   # Spark's cast to string
+    v = HIVE_NULL_PART if value is None or value == "" else \
+        escape_path_name(str(value))
+    return f"{escape_path_name(name)}={v}"
 
 
 def discover_partitions(roots: List[str], files: List[str]):
@@ -110,8 +152,9 @@ def discover_partitions(roots: List[str], files: List[str]):
     surface as constant columns per file).
 
     Returns (partition_schema, per-file value dicts) with types inferred
-    int64 -> float64 -> string like Spark's partition inference."""
-    from urllib.parse import unquote
+    int64 -> float64 -> string like Spark's partition inference. Names
+    and values are unescaped as Spark writes them (``partition_dir``).
+    """
     values: List[dict] = []
     key_order: List[str] = []
     for f in files:
@@ -123,8 +166,9 @@ def discover_partitions(roots: List[str], files: List[str]):
             for seg in rel.split(os.sep)[:-1]:
                 if "=" in seg:
                     k, _, v = seg.partition("=")
-                    v = unquote(v)
-                    vals[k] = None if v == HIVE_NULL_PART else v
+                    k = unescape_path_name(k)
+                    vals[k] = None if v == HIVE_NULL_PART else \
+                        unescape_path_name(v)
                     if k not in key_order:
                         key_order.append(k)
         values.append(vals)
@@ -157,12 +201,12 @@ def discover_partitions(roots: List[str], files: List[str]):
 
 
 class FileScan(LogicalPlan):
-    """Logical scan of Parquet files (GpuFileSourceScanExec meta). The
-    schema is the first file's unless given, with the partition columns
-    after it. ``partition_info`` = (partition schema, {path: {column:
-    value}}) takes the place of the directory layout's partitions where
-    a table format carries them in its metadata (Delta's
-    ``partitionValues``). ``delta_table`` is (root, version) on a scan
+    """Logical scan of Parquet or ORC files (GpuFileSourceScanExec
+    meta). The schema is the first file's unless given, with the
+    partition columns after it. ``partition_info`` = (partition schema,
+    {path: {column: value}}) takes the place of the directory layout's
+    partitions where a table format carries them in its metadata
+    (Delta's ``partitionValues``). ``delta_table`` is (root, version) on a scan
     of a Delta snapshot, else None."""
 
     def __init__(self, paths, fmt: str = "parquet",
@@ -190,7 +234,7 @@ class FileScan(LogicalPlan):
             self.partition_schema, self._part_values = \
                 discover_partitions(_roots(paths), self.paths)
         if schema is None:
-            schema = file_schema(self.paths[0])
+            schema = schema_of(self.paths[0], fmt)
             names = [n for n, _ in schema]
             schema = list(schema) + [(k, t) for k, t in
                                      self.partition_schema
@@ -350,12 +394,24 @@ def iter_file_tables(path: str, fmt: str, schema: Schema, options: dict,
         raise
 
 
+def schema_of(path: str, fmt: str) -> List:
+    """[(name, DType)] of a Parquet or ORC file's top-level columns."""
+    if fmt == "orc":
+        from .native_orc import file_schema as orc_schema
+        return orc_schema(path)
+    return file_schema(path)
+
+
 def _named_file_tables(path: str, fmt: str, schema: Schema, options: dict,
                        max_rows: int, partition_values: Optional[dict],
                        stats: Optional[ReadStats]) -> Iterator[HostTable]:
+    if fmt == "orc":
+        from .native_orc import iter_stripe_tables as tables
+    else:
+        tables = iter_row_group_tables_native
     try:
-        yield from iter_row_group_tables_native(
-            path, schema, options, max_rows, partition_values, stats)
+        yield from tables(path, schema, options, max_rows, partition_values,
+                          stats)
     except Exception as e:
         if path not in str(e):
             if isinstance(e, OSError):
@@ -434,8 +490,9 @@ def _apply_read_rebase(ht: HostTable, options: dict) -> None:
 
 def _conform(columns, schema: Schema, part_names) -> List[Tuple]:
     """The read-schema projection the reference's scans apply: each
-    declared column as (name, declared type, the file's ColumnInfo), or
-    (name, type, None) for a partition column. Declared names all in
+    declared column as (name, declared type, the file's column: a
+    Parquet ColumnInfo or an ORC OrcColumn), or (name, type, None) for
+    a partition column. Declared names all in
     the file select by name; otherwise (a user schema renaming columns)
     the file's first columns map by position."""
     by_name = {c.name: c for c in columns}
@@ -480,6 +537,11 @@ class FileSourceScanExec(TpuExec):
         super().__init__()
         self.scan = scan
         self._schema = scan.schema
+        #: runtime dynamic partition pruning (GpuDynamicPruningExpression
+        #: role): {partition column -> allowed values}, installed by a
+        #: broadcast join after its build side materializes and before
+        #: this scan's first file opens (exec/join.py)
+        self.runtime_part_filter: Optional[dict] = None
 
     @property
     def output_schema(self) -> Schema:
@@ -498,11 +560,25 @@ class FileSourceScanExec(TpuExec):
         options = dict(self.scan.options)
         options.setdefault("datetimeRebaseMode",
                            conf.get(PARQUET_REBASE_READ))
+        if self.scan.pushed_filter is not None and \
+                conf.get(PARQUET_FILTER_PUSHDOWN):
+            from .pruning import translate
+            options["_row_group_filter"] = translate(
+                self.scan.pushed_filter,
+                frozenset(k for k, _ in self.scan.partition_schema))
         args = (self.scan.fmt, self._schema, options, max_rows, conf)
         scan_paths = self.scan.pruned_paths()
         pruned = len(self.scan.paths) - len(scan_paths)
         if pruned:
             ctx.metric(self.exec_id, "partitionsPruned").add(pruned)
+        if self.runtime_part_filter:
+            before = len(scan_paths)
+            scan_paths = [
+                p for p in scan_paths
+                if all(self.scan.partition_values_for(p).get(k) in vals
+                       for k, vals in self.runtime_part_filter.items())]
+            ctx.metric(self.exec_id, "dppPrunedFiles").add(
+                before - len(scan_paths))
 
         def pv(p):
             return self.scan.partition_values_for(p)
@@ -621,7 +697,8 @@ class FileSourceScanExec(TpuExec):
                     ("scanFiles", totals.files, ""),
                     ("scanDecodeTime", s.decode_ns, "ns"),
                     ("scanBytesRead", s.bytes_read, ""),
-                    ("scanDecodedBytes", s.decoded_bytes, "")):
+                    ("scanDecodedBytes", s.decoded_bytes, ""),
+                    ("rowGroupsPruned", s.row_groups_pruned, "")):
                 ctx.metric(self.exec_id, name, Metric.MODERATE,
                            unit).add(value)
 

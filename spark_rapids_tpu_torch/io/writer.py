@@ -2,9 +2,10 @@
 
 Counterpart of spark_rapids_tpu/io/writer.py (ColumnarOutputWriter.scala
 + GpuFileFormatDataWriter.scala + BasicColumnarWriteStatsTracker.scala)
-for its Parquet lane, written by the port's own encoder
-(io/parquet_writer.py): a single directory or a hive-style partitioned
-layout (``k=v`` subdirectories), the save modes error / overwrite /
+for its Parquet and ORC lanes, written by the port's own encoders
+(io/parquet_writer.py, io/orc_writer.py): a single directory or a
+hive-style partitioned layout (``k=v`` subdirectories, names and values
+escaped as Spark escapes them), the save modes error / overwrite /
 append / ignore, and per-job statistics (files, rows, bytes,
 partitions). Each file is written to a ``.tmp`` name and renamed, so a
 writer killed mid-file leaves no truncated file under a final name. The
@@ -27,7 +28,8 @@ from ..columnar import dtypes as dt
 from ..columnar.vector import HostStrings
 from ..expr import timezone as TZ
 from ..plan.host_table import HostColumn, HostTable, to_pydict
-from .parquet_writer import write_parquet_file
+from .parquet_writer import ROW_GROUP_ROWS, write_parquet_file
+from .scan import partition_dir
 
 
 @dataclass
@@ -37,6 +39,8 @@ class WriteStats:
     num_rows: int = 0
     num_bytes: int = 0
     partitions: List[str] = field(default_factory=list)
+    #: the files this write produced, full paths
+    files: List[str] = field(default_factory=list)
 
 
 MODES = ("error", "overwrite", "append", "ignore")
@@ -77,12 +81,22 @@ def _apply_write_rebase(table: HostTable, options: dict) -> HostTable:
     return HostTable(cols, list(table.names))
 
 
-def write_file(table: HostTable, full: str, options: dict) -> int:
-    """One Parquet file through a ``.tmp`` name; returns its bytes."""
+def write_file(table: HostTable, full: str, options: dict,
+               fmt: str = "parquet") -> int:
+    """One Parquet or ORC file through a ``.tmp`` name; returns its
+    bytes."""
     tmp = f"{full}.{os.getpid()}.tmp"
     try:
-        size = write_parquet_file(table, tmp,
-                                  options.get("compression", "snappy"))
+        if fmt == "orc":
+            from .orc_writer import STRIPE_ROWS, write_orc_file
+            size = write_orc_file(
+                table, tmp, options.get("compression", "snappy"),
+                stripe_rows=int(options.get("stripeRows", STRIPE_ROWS)))
+        else:
+            size = write_parquet_file(
+                table, tmp, options.get("compression", "snappy"),
+                row_group_rows=int(options.get("rowGroupRows",
+                                               ROW_GROUP_ROWS)))
     except BaseException:
         if os.path.exists(tmp):
             os.unlink(tmp)
@@ -96,7 +110,7 @@ def write_host_table(table: HostTable, path: str, fmt: str = "parquet",
                      mode: str = "error",
                      options: Optional[dict] = None) -> WriteStats:
     """Write ``table`` under the directory ``path``."""
-    if fmt != "parquet":
+    if fmt not in ("parquet", "orc"):
         raise NotImplementedError(f"the {fmt} writer is not in this port "
                                   "yet (ROADMAP A9)")
     if mode not in MODES:
@@ -122,8 +136,10 @@ def write_host_table(table: HostTable, path: str, fmt: str = "parquet",
 
     def emit(index: int, sub: HostTable, directory: str) -> int:
         os.makedirs(directory, exist_ok=True)
-        name = f"part-{index:05d}-{job_id}.parquet"
-        return write_file(sub, os.path.join(directory, name), options)
+        full = os.path.join(directory, f"part-{index:05d}-{job_id}.{fmt}")
+        size = write_file(sub, full, options, fmt)
+        stats.files.append(full)
+        return size
 
     def done(size: int, rows: int, label: str) -> None:
         stats.num_bytes += size
@@ -143,9 +159,8 @@ def write_host_table(table: HostTable, path: str, fmt: str = "parquet",
     part_names = [table.names[i] for i in part_idx]
 
     def one(index, key, rows):
-        label = "/".join(
-            f"{c}={'__HIVE_DEFAULT_PARTITION__' if v is None else v}"
-            for c, v in zip(part_names, key))
+        label = "/".join(partition_dir(c, v)
+                         for c, v in zip(part_names, key))
         sub = HostTable([table.columns[i].take(rows) for i in data_idx],
                         [table.names[i] for i in data_idx])
         return emit(index, sub, os.path.join(path, label)), len(rows), label
@@ -240,20 +255,26 @@ class DataFrameWriter:
         return self
 
     def parquet(self, path: str) -> WriteStats:
+        return self._write(path, "parquet")
+
+    def orc(self, path: str) -> WriteStats:
+        """ORC files (io/orc_writer.py), partitioned as ``parquet``; the
+        options ``compression`` (none / zlib / snappy / zstd) and
+        ``stripeRows``."""
+        return self._write(path, "orc")
+
+    def _write(self, path: str, fmt: str) -> WriteStats:
         from ..conf import PARQUET_REBASE_WRITE
         table = self.df.session.execute(self.df.plan)
         options = dict(self._options)
         options.setdefault("datetimeRebaseMode",
                            self.df.session.conf.get(PARQUET_REBASE_WRITE))
-        return write_host_table(table, path, "parquet", self._partition_by,
+        return write_host_table(table, path, fmt, self._partition_by,
                                 self._mode, options)
 
     def _not_ported(self, fmt: str):
         raise NotImplementedError(f"df.write.{fmt}: the {fmt} writer is not "
                                   "in this port yet (ROADMAP A9)")
-
-    def orc(self, path):
-        self._not_ported("orc")
 
     def csv(self, path):
         self._not_ported("csv")
@@ -270,7 +291,7 @@ class DataFrameWriter:
         from .delta_format import write_delta_table
         table = self.df.session.execute(self.df.plan)
         return write_delta_table(table, path, self._partition_by,
-                                 self._mode)
+                                 self._mode, self.df.session.conf)
 
     def hive_text(self, path):
         self._not_ported("hive_text")

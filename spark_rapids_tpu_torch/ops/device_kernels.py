@@ -186,6 +186,9 @@ class _KernelBatch(ColumnarBatch):
     def __init__(self, columns, names, num_rows, device, live):
         super().__init__(columns, names, num_rows, device)
         self._live = live
+        # a program that reads no column (COUNT(1)) still has the block's
+        # rows: a literal in it fills them
+        self._capacity = live.shape[0]
 
     def live_mask(self):
         return self._live

@@ -29,7 +29,7 @@ import numpy as np
 from ..columnar import dtypes as dt
 from ..columnar.decimal128 import from_unscaled_ints
 from ..columnar.nested import (HostList, HostStruct, column_from_host_lane,
-                               host_python)
+                               concat_host_lanes, host_python)
 from ..columnar.vector import (ColumnarBatch, HostStrings, choose_capacity,
                                column_from_numpy, from_physical)
 
@@ -116,6 +116,11 @@ def concat_tables(tables: Sequence[HostTable]) -> HostTable:
     for i, c0 in enumerate(first.columns):
         parts = [t.columns[i].values for t in tables]
         if isinstance(c0.values, (HostList, HostStruct)):
+            if all(type(p) is type(c0.values) for p in parts):
+                mask = np.concatenate([t.columns[i].mask for t in tables])
+                cols.append(HostColumn(concat_host_lanes(parts), mask,
+                                       c0.dtype))
+                continue
             parts = [p.to_objects(c0.dtype) for p in parts]
         values = HostStrings.concat(parts) if isinstance(
             c0.values, HostStrings) else np.concatenate(parts) \

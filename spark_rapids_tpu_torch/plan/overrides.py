@@ -13,8 +13,8 @@ least what the JAX rules admit; where the port runs more, its rule
 stays wider (``tests/test_torch_fallback.py`` lists each difference):
 string ``least`` / ``greatest``, multi-byte LIKE patterns, CASE / IF /
 COALESCE over two decimal types, map projections, nested payload
-columns through sort, join, union and expand, and an ORDER BY on a
-DECIMAL(p>18) run on the device. What a rule tags runs on the CPU
+columns through sort, join, union and expand, a nested column a file
+scan reads, and an ORDER BY on a DECIMAL(p>18) run on the device. What a rule tags runs on the CPU
 engine and ``srt.sql.explain`` / ``DataFrame.explain`` print why:
 
 - a DECIMAL(p>18) as a group-by or join key (a join key's common type
@@ -408,17 +408,10 @@ def _tag_window(meta: PlanMeta) -> None:
                 "offsets runs on the CPU engine")
 
 
-def _tag_file_scan(meta: PlanMeta) -> None:
-    """A scan column the device's batches do not carry (the port reads
-    only flat columns, so none today: the JAX rule kept)."""
-    for name, t in meta.plan.schema:
-        if t.is_nested:
-            meta.will_not_work_on_tpu(f"scan column {name}: {t} is not "
-                                      "uploaded by the scan")
-
-
 _EXEC_RULES.update({
-    FileScan: ExecRule(FileScan, _tag_file_scan),
+    # every column a scan reads uploads, nested ones through their flat
+    # lanes (the JAX package sends a nested scan column to the CPU)
+    FileScan: ExecRule(FileScan),
     DeviceRelation: ExecRule(DeviceRelation),
     LocalRelation: ExecRule(LocalRelation),
     Project: ExecRule(Project),

@@ -132,7 +132,13 @@ def _sequence(pkg, root):
         pkg.df(s, {"id": [7, 8], "v": [70.5, 80.25], "tag": ["é", "a"]}),
         txn_app_id="s", txn_version=0) == v == t.version()
     out["txn"] = (t.log.txn_version("s"), t.log.txn_version("other"))
-    t.delete(col("tag") == "a")
+    gone = col("tag") == "a"
+    if not pkg.port:
+        # the JAX package's DELETE also drops the rows whose condition
+        # is NULL (C23); a two-valued condition gives it Delta's rule
+        gone = importlib.import_module(
+            "spark_rapids_tpu.expr.conditional").Coalesce(gone, lit(False))
+    t.delete(gone)
     t.update({"v": col("v") * lit(2.0)}, col("id") >= 4)
     t.merge(pkg.df(s, {"id": [2, 7, 20], "v": [200.0, 700.0, 2000.0],
                        "tag": ["B", None, "NEW"]}), on=["id"],
@@ -236,9 +242,12 @@ DUP_CASES = {
 
 @pytest.mark.parametrize("case", list(DUP_CASES))
 def test_merge_duplicate_source_keys_as_jax(jax_pkg, tmp_path, case):
-    """A MERGE whose source repeats a key raises in both packages, and
-    only then: NULL equals NULL, NaN equals NaN, neither equals 0,
-    -0.0 equals 0.0, strings by their bytes."""
+    """A MERGE with a matched clause whose source repeats a key that a
+    target row holds raises in the port, and only then (Delta's rule,
+    C24): NaN equals NaN, -0.0 equals 0.0, neither equals 0, strings by
+    their bytes, and a NULL key matches no target row, so a repeated
+    NULL key is allowed. The target holds the source's rows. The JAX
+    package raises for every repeated source key, NULL included."""
     types, data = DUP_CASES[case]
     raised = {}
     for pkg in (PORT, jax_pkg):
@@ -248,6 +257,7 @@ def test_merge_duplicate_source_keys_as_jax(jax_pkg, tmp_path, case):
         rows = dict(data, w=list(range(len(data["id"]))))
         t = pkg.delta.AcidTable.create(s, str(tmp_path / str(pkg.port)),
                                        schema)
+        t.append(s.create_dataframe(rows, schema))
         try:
             t.merge(s.create_dataframe(rows, schema),
                     on=[n for n, _ in types],
@@ -255,8 +265,9 @@ def test_merge_duplicate_source_keys_as_jax(jax_pkg, tmp_path, case):
             raised[pkg.port] = None
         except ValueError as e:
             raised[pkg.port] = str(e)
-    assert raised[True] == raised[False]
-    assert (raised[True] is not None) == case.endswith("dup"), raised
+    expect = case.endswith("dup") and case != "null_dup"
+    assert (raised[True] is not None) == expect, raised
+    assert (raised[False] is not None) == case.endswith("dup"), raised
 
 
 # ------------------------------------------------ concurrency (OCC)
@@ -725,3 +736,76 @@ def test_crash_then_resume_exactly_once(tmp_path, clause):
     assert on_disk == set(t.log.snapshot()[1])
     assert not [f for d in (table, t.log.log_dir) for f in os.listdir(d)
                 if f.endswith(".tmp")]
+
+
+# ------------------------------------- C23 / C24: Delta's own DML rules
+
+def test_delete_keeps_rows_whose_condition_is_null(jax_pkg, tmp_path):
+    """C23. DELETE removes only the rows whose condition is true (Delta's
+    DeleteCommand keeps ``NOT (cond <=> true)``): over v = 1.0, NULL,
+    3.0, NaN, ``delete(v > 0.5)`` keeps the NULL row alone (NaN sorts
+    above every number, so NaN > 0.5). The JAX package drops it too."""
+    vs = [1.0, None, 3.0, float("nan")]
+    # plain Python, Spark's three-valued rule
+    want = [i for i, v in enumerate(vs, 1)
+            if v is None or not (math.isnan(v) or v > 0.5)]
+    got = {}
+    for pkg in (PORT, jax_pkg):
+        s = pkg.session()
+        t = pkg.delta.AcidTable.create(s, str(tmp_path / str(pkg.port)),
+                                       pkg.schema())
+        t.append(pkg.df(s, {"id": [1, 2, 3, 4], "v": vs}))
+        t.delete(pkg.col("v") > pkg.lit(0.5))
+        got[pkg.port] = ids_of(t)
+    assert got[True] == want == [2]
+    assert got[False] == []
+
+
+C24_CASES = {
+    # source ids, clause, plain Python's ids after the MERGE (None: it
+    # raises); the target holds ids 1 and 2
+    "insert_only_dup": ([99, 99], "insert", [1, 2, 99, 99]),
+    "dup_no_target_row": ([99, 99, 1], "update", [1, 2, 99, 99]),
+    "null_keys": ([None, None], "update", [None, None, 1, 2]),
+    "dup_matched_update": ([1, 1], "update", None),
+    # an unconditional delete may meet several source rows: the
+    # target row goes (MergeIntoCommand's isOnlyOneUnconditionalDelete)
+    "dup_matched_delete": ([2, 2], "delete", [1]),
+}
+
+
+@pytest.mark.parametrize("case", list(C24_CASES))
+def test_merge_fails_only_on_a_multiply_matched_target_row(jax_pkg,
+                                                           tmp_path, case):
+    """C24. MERGE fails only when a target row that a matched update
+    modifies meets several source rows; an unconditional delete may
+    meet several, and NULL keys never match. The JAX package refuses
+    every repeated source key."""
+    ids, clause, want = C24_CASES[case]
+    outcome = {}
+    for pkg in (PORT, jax_pkg):
+        s = pkg.session()
+        t = pkg.delta.AcidTable.create(s, str(tmp_path / str(pkg.port)),
+                                       pkg.schema())
+        t.append(pkg.df(s, {"id": [1, 2], "v": [1.0, 2.0]}))
+        src = pkg.df(s, {"id": ids, "v": [float(k or 0) + 0.5
+                                           for k in ids]})
+        kw = {"insert": {"when_not_matched_insert": True},
+              "update": {"when_matched_update": {"v": pkg.col("src_v")}},
+              "delete": {"when_matched_delete": True,
+                         "when_not_matched_insert": False}}[clause]
+        try:
+            t.merge(src, on=["id"], **kw)
+            outcome[pkg.port] = sorted(
+                (r["id"] for r in t.to_df().collect()),
+                key=lambda v: (v is not None, v or 0))
+        except ValueError as e:
+            assert "multiple source rows" in str(e)
+            outcome[pkg.port] = None
+    assert outcome[True] == want
+    assert outcome[False] is None
+    if case == "dup_no_target_row":
+        # the matched row took the source's value
+        s = PORT.session()
+        t = PORT.delta.AcidTable.for_path(s, str(tmp_path / "True"))
+        assert {r["id"]: r["v"] for r in t.to_df().collect()}[1] == 1.5

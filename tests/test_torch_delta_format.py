@@ -3,9 +3,10 @@ JAX package's: the cases of tests/test_delta_format.py through both
 packages (log replay, partition values from add actions, time travel,
 schema strings, the minReaderVersion check, writes in the standard
 layout), a table the port wrote read by the JAX package's reader and
-the reverse. The port reads no Parquet checkpoint (ROADMAP A7.3): a
-replay that needs one raises NotImplementedError, and a version before
-it still reads. pyarrow writes the hand-built tables' data files, as in
+the reverse. Parquet checkpoints (their nested columns decoded by the
+port's reader) replay equal to the JAX package's, a checkpoint the
+port's nested writer wrote reads in both packages, and a version
+before it still replays the JSON. pyarrow writes the hand-built tables' data files, as in
 the JAX package's tests; the JAX side runs its CPU engine under
 ``patch_jax_compiles`` (C1).
 """
@@ -132,9 +133,10 @@ def test_time_travel(pkg, tmp_path):
 
 
 def test_parquet_checkpoint(jax_pkg, tmp_path):
-    """A checkpoint at v1 and a later v2 that adds f2 back: the JAX
-    package replays from the checkpoint; the port raises naming A7.3,
-    and both read version 0 (before the checkpoint) from the JSON."""
+    """A checkpoint at v1 (written by pyarrow) and a later v2 that adds
+    f2 back: both packages replay from the checkpoint (the port decodes
+    its nested columns) with the same rows at v1 and v2, and both read
+    version 0 (before the checkpoint) from the JSON."""
     root = _external_table(str(tmp_path / "t"))
     log_dir = os.path.join(root, "_delta_log")
     t = jax_pkg.fmt.DeltaFormatTable(root)
@@ -153,8 +155,11 @@ def test_parquet_checkpoint(jax_pkg, tmp_path):
     assert sorted(r["v"] for r in jax_pkg.session.read.delta(root)
                   .collect()) == [1, 2, 3, 4, 5]
     for version in (None, 1, 2):
-        with pytest.raises(NotImplementedError, match="A7.3"):
-            PORT.session.read.delta(root, version_as_of=version)
+        got = {pkg.port: _kv(pkg.session.read.delta(
+            root, version_as_of=version)) for pkg in (PORT, jax_pkg)}
+        assert got[True] == got[False]
+    assert [v for _, v in _kv(PORT.session.read.delta(root))] == \
+        [1, 2, 3, 4, 5]
     for pkg in (PORT, jax_pkg):
         v0 = pkg.session.read.delta(root, version_as_of=0)
         assert sorted(r["v"] for r in v0.collect()) == [1, 2, 3]
@@ -230,3 +235,96 @@ def test_cross_read(jax_pkg, tmp_path, writer):
     assert [n for n, _ in r.session.read.delta(root).schema] == \
         ["p", "name", "x", "q"]
     assert len(first) == 5
+
+
+def test_racing_appends_commit_through_put_if_absent(tmp_path):
+    """C26. Two appends started together through a barrier commit as
+    versions 1 and 2 through the transaction log's O_EXCL protocol (the
+    loser retries on the new head), each adds only the files it wrote,
+    and both sets of rows read back."""
+    import threading
+    s = PORT.session
+    dt = PORT.dt
+    root = str(tmp_path / "race")
+    schema = [("k", dt.STRING), ("v", dt.INT64)]
+    s.create_dataframe({"k": ["a"], "v": [0]}, schema).write \
+        .partition_by("k").delta(root)
+    barrier = threading.Barrier(2)
+    got, errors = {}, []
+
+    def append(lo):
+        try:
+            df = s.create_dataframe({"k": ["x", "y", "x"],
+                                     "v": [lo, lo + 1, lo + 2]}, schema)
+            barrier.wait()
+            got[lo] = df.write.mode("append").partition_by("k").delta(root)
+        except Exception as e:  # noqa: BLE001  (raised below)
+            errors.append(e)
+    threads = [threading.Thread(target=append, args=(lo,))
+               for lo in (10, 20)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert not errors, errors
+    assert sorted(got.values()) == [1, 2]
+    log_dir = os.path.join(root, "_delta_log")
+    assert sorted(os.listdir(log_dir)) == [f"{v:020d}.json"
+                                           for v in range(3)]
+    added = {}
+    for v in range(3):
+        with open(os.path.join(log_dir, f"{v:020d}.json")) as f:
+            added[v] = [json.loads(x)["add"]["path"] for x in f
+                        if '"add"' in x]
+    # each append added its own two partition files, none twice
+    assert [len(added[v]) for v in (1, 2)] == [2, 2]
+    assert not set(added[1]) & set(added[2])
+    rows = sorted((r["k"], r["v"]) for r in s.read.delta(root).collect())
+    assert rows == sorted([("a", 0)] + [
+        (k, lo + i) for lo in (10, 20) for i, k in enumerate("xyx")])
+
+
+def _kvn(df):
+    return sorted(((r["k"], r["v"]) for r in df.collect()), key=repr)
+
+
+@pytest.mark.parametrize("partitioned", [False, True])
+def test_port_written_checkpoint(jax_pkg, tmp_path, partitioned):
+    """A checkpoint the port writes in Delta's checkpoint schema (its
+    nested writer: structs, maps, a list) replays equal to the JSON
+    replay, at the head and on both sides of it, and pyarrow reads its
+    rows back. The JAX package reads it too where the table has no
+    partitions; its checkpoint reader takes a map column's pyarrow rows
+    as a list of pairs, so a partitioned table's ``partitionValues``
+    fail there (ROADMAP C27)."""
+    s = PORT.session
+    dt = PORT.dt
+    root = str(tmp_path / "ck")
+    schema = [("k", dt.STRING), ("v", dt.INT64)]
+    for i in range(3):
+        w = s.create_dataframe({"k": ["a", "b/c", None][i:i + 1] * 2,
+                                "v": [i, 10 + i]}, schema).write \
+            .mode("append")
+        (w.partition_by("k") if partitioned else w).delta(root)
+    before = {v: _kvn(s.read.delta(root, version_as_of=v))
+              for v in range(3)}
+    assert PORT.fmt.write_checkpoint(root, 1) == 1
+    w = s.create_dataframe({"k": ["a"], "v": [99]}, schema).write \
+        .mode("append")
+    (w.partition_by("k") if partitioned else w).delta(root)
+    rows = pq.read_table(os.path.join(root, "_delta_log",
+                                      f"{1:020d}.checkpoint.parquet"))
+    assert rows.num_rows == 2 + 2
+    assert "add" in rows.column_names
+    want = dict(before)
+    want[3] = sorted(before[2] + [("a", 99)], key=repr)
+    for v in (0, 1, 2, 3, None):
+        got = _kvn(s.read.delta(root, version_as_of=v))
+        assert got == want[3 if v is None else v], v
+    if partitioned:
+        with pytest.raises(AttributeError):
+            jax_pkg.session.read.delta(root)
+        return
+    for v in (0, 1, 2, 3, None):
+        got = _kvn(jax_pkg.session.read.delta(root, version_as_of=v))
+        assert got == want[3 if v is None else v], v

@@ -618,36 +618,51 @@ def test_rebase_modes_against_the_jax_package(tmp_path, jax_io, mode):
 
 
 def test_nested_and_int96_raise_naming_the_column(tmp_path):
+    """Nested and INT96 columns read now (tests/test_torch_parquet_nested.py
+    holds them against the JAX package); a column still outside the
+    port, unsigned or TIME, raises naming itself, a declared schema that
+    leaves it out reads the rest, and ignoreCorruptFiles does not
+    swallow it."""
     from spark_rapids_tpu_torch.io.scan import FileScan
     p = str(tmp_path / "t.parquet")
     pq.write_table(pa.table({"a": pa.array([1, 2]),
                              "l": pa.array([[1], [2, 3]]),
-                             "st": pa.array([{"x": 1}, {"x": 2}])}), p)
-    with pytest.raises(NotImplementedError, match="'l'.*LIST"):
+                             "st": pa.array([{"x": 1}, {"x": 2}]),
+                             "u": pa.array([1, 2], pa.uint32())}), p)
+    with pytest.raises(NotImplementedError, match="'u'.*unsigned"):
         file_schema(p)
-    # a declared schema that leaves them out reads the rest
-    got = port_read(p, schema=[("a", dt.INT64)])
-    assert got.columns[0].values.tolist() == [1, 2]
-    with pytest.raises(NotImplementedError, match="'st'.*STRUCT"):
+    got = port_read(p, schema=[("a", dt.INT64), ("l", dt.ArrayType(
+        dt.INT64)), ("st", dt.StructType([("x", dt.INT64)]))])
+    from spark_rapids_tpu_torch.plan.host_table import to_pydict
+    assert to_pydict(got) == {"a": [1, 2], "l": [[1], [2, 3]],
+                              "st": [{"x": 1}, {"x": 2}]}
+    with pytest.raises(ValueError, match="declared"):
         port_read(p, schema=[("a", dt.INT64), ("st", dt.INT64)])
     q = str(tmp_path / "i96.parquet")
-    pq.write_table(pa.table({"t": pa.array([0, 1], pa.timestamp("ns"))}), q,
+    pq.write_table(pa.table({"t": pa.array([0, 1000], pa.timestamp("ns")),
+                             "tm": pa.array([1, 2], pa.time32("ms"))}), q,
                    use_deprecated_int96_timestamps=True)
-    with pytest.raises(NotImplementedError, match="'t'.*INT96"):
+    with pytest.raises(NotImplementedError, match="'tm'.*TIME"):
         FileScan(q)
+    assert port_read(q, schema=[("t", dt.TIMESTAMP)]).columns[0] \
+        .values.tolist() == [0, 1]
     # ignoreCorruptFiles does not swallow it
     from spark_rapids_tpu_torch.conf import SrtConf
     from spark_rapids_tpu_torch.io.scan import read_file_to_tables
-    with pytest.raises(NotImplementedError, match="INT96"):
-        read_file_to_tables(q, "parquet", [("t", dt.TIMESTAMP)], {}, 1 << 20,
+    with pytest.raises(NotImplementedError, match="TIME"):
+        read_file_to_tables(q, "parquet", [("tm", dt.INT32)], {}, 1 << 20,
                             SrtConf({"srt.sql.ignoreCorruptFiles": True}))
 
 
 def test_writer_refuses_nested_and_unknown_codecs(tmp_path):
-    ht = HostTable([HostColumn(np.array([None], object), np.ones(1, bool),
+    """Nested columns are written now (a NULL list row reads back NULL
+    through pyarrow; tests/test_torch_parquet_nested.py covers the
+    rest); an unknown codec is refused before the file exists."""
+    ht = HostTable([HostColumn(np.array([None], object), np.zeros(1, bool),
                                dt.ArrayType(dt.INT64))], ["a"])
-    with pytest.raises(NotImplementedError, match="nested"):
-        write_parquet_file(ht, str(tmp_path / "a.parquet"))
+    write_parquet_file(ht, str(tmp_path / "a.parquet"))
+    assert pq.read_table(str(tmp_path / "a.parquet")).to_pydict() == \
+        {"a": [None]}
     flat = _flat_table(n=10)
     with pytest.raises(ValueError, match="lz4"):
         write_parquet_file(flat, str(tmp_path / "b.parquet"), "lz4")

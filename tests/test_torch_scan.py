@@ -327,7 +327,8 @@ def test_writer_modes_and_stats(tmp_path):
     assert sorted(s.read.parquet(root).to_pydict()["a"]) == [1, 2, 3]
     with pytest.raises(ValueError):
         df.write.mode("upsert")
-    for fmt in ("orc", "csv", "json"):
+    # ORC reads and writes now (tests/test_torch_orc.py)
+    for fmt in ("csv", "json"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(s.read, fmt)(root)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -358,3 +359,49 @@ def test_generate_table_equals_the_jax_package_files(tmp_path, jax_side):
     for a, b in zip(ours, theirs):
         assert pq.read_table(a).equals(pq.read_table(b))
     shutil.rmtree(str(tmp_path / "port"))
+
+
+ESCAPED = ["a/b", "x=y", "50%", "", None, "plain", "é:1"]
+
+
+def test_partition_values_escape_and_round_trip(tmp_path, jax_side):
+    """C25. Partition values go into directory names as Spark's
+    ExternalCatalogUtils.escapePathName writes them (NULL and '' as
+    __HIVE_DEFAULT_PARTITION__, '/', '=', '%', ':' as %XX) and read
+    back exactly, '' as NULL (Spark's rule), through the hive layout and
+    through a standard Delta table's partitionValues. The JAX package
+    writes 'a/b' as two directory levels and reads it back as 'a'."""
+    types = [("p", dt.STRING), ("v", dt.INT64)]
+    data = {"p": ESCAPED, "v": list(range(len(ESCAPED)))}
+    s = port()
+    root = str(tmp_path / "hive")
+    s.create_dataframe(data, types).write.partition_by("p").parquet(root)
+    assert sorted(os.listdir(root)) == sorted(
+        ["p=a%2Fb", "p=x%3Dy", "p=50%25", "p=__HIVE_DEFAULT_PARTITION__",
+         "p=plain", "p=é%3A1"])
+    # plain Python: '' reads back as NULL, every other value exactly
+    want = [((None if p == "" else p), v)
+            for p, v in zip(ESCAPED, data["v"])]
+    got = s.read.parquet(root).to_pydict()
+    assert sorted(zip(got["p"], got["v"]), key=repr) == sorted(want,
+                                                               key=repr)
+    delta_root = str(tmp_path / "delta")
+    s.create_dataframe(data, types).write.partition_by("p").delta(delta_root)
+    got = s.read.delta(delta_root).to_pydict()
+    assert sorted(zip(got["p"], got["v"]), key=repr) == sorted(want,
+                                                               key=repr)
+    JConf, JSession = jax_side
+    js = JSession(JConf({"srt.sql.enabled": False}))
+    jroot = str(tmp_path / "jax")
+    js.create_dataframe(data, [("p", jax_dtype("STRING")),
+                               ("v", jax_dtype("INT64"))]) \
+        .write.partition_by("p").parquet(jroot)
+    assert os.path.isdir(os.path.join(jroot, "p=a", "b"))
+    jgot = JSession(JConf({"srt.sql.enabled": False})).read \
+        .parquet(jroot).to_pydict()
+    assert "a/b" not in jgot["p"]
+
+
+def jax_dtype(name):
+    from spark_rapids_tpu.columnar import dtypes as jdt
+    return getattr(jdt, name)
